@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
+then, each phase failing the run with a nonzero exit:
+
+  1. prints the card's name and power limit (nvidia-smi);
+  2. holds every kernel against its plain PyTorch version on the card, at
+     the shapes the serving path gives it, in bf16 and f32 (the plain
+     version runs on the inputs widened to f32), and times the
+     kernel, the plain version and, where one PyTorch call computes the
+     same function, that call;
+  3. holds a reduced llama3-8b ``generate`` on the card against the same
+     run on the CPU (plain versions, same weights);
+  4. serves llama3-8b at full width and depth (bf16, seeded random
+     weights): 2 prompts of 8192 tokens, 32 greedy tokens, hybrid sparse
+     attention, with the kernels' launch counts checked exactly; then the
+     same prompts with full attention, for token agreement.
+
+Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
+nonzero without a result when no CUDA device is available or the port's
+sources are missing.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+# tolerances of kernel against plain version, elementwise:
+# |kernel - plain| <= rtol * |plain| + atol. Each kernel computes in f32 and
+# rounds only its output to the storage dtype, so it is held against the
+# plain version run on the same inputs widened to f32. In f32 the two differ
+# by summation order alone; in bf16 also by the output's rounding, at most
+# half a bf16 step (2^-8 of the value), hence the relative term
+TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
+# page_score does its arithmetic in f32 on both sides whatever q's dtype,
+# and its scores reach ~1e3: its error is scaled by the largest score
+SCORE_RTOL = 1e-6
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+
+ARCH = "llama3-8b"
+BATCH, PROMPT, GEN = 2, 8192, 32
+FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+class Timer:
+    """Median device time of a call, with the L2 flushed before each run."""
+
+    def __init__(self, dev):
+        self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def ms(self, fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        return times[len(times) // 2]
+
+
+def serve_capacity(cfg) -> int:
+    """The serving CLI's rule: prompt + generated tokens + one page, so the
+    local section's last page stays inside the cache at the final step."""
+    return PROMPT + GEN + cfg.h2eal.page_size
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(byte_count: int, flops: float, dtype):
+    tb = byte_count / PEAK_BYTES * 1e3
+    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def widened(*ts):
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
+def excess(out, want, dtype) -> float:
+    """Largest |out - want| - (rtol |want| + atol): within tolerance at <= 0."""
+    rtol, atol = TOL[dtype]
+    want = want.float()
+    return ((out.float() - want).abs() - rtol * want.abs() - atol).max().item()
+
+
+def tol_text(dtype) -> str:
+    rtol, atol = TOL[dtype]
+    return f"{rtol:.4g}*|plain| + {atol:.0e}"
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_pairs(s: int, window: int, sink: int) -> int:
+    """Attended (query, key) pairs of one head, causal, q_offset 0."""
+    if window <= 0:
+        return s * (s + 1) // 2
+    total = 0
+    for i in range(s):
+        in_win = min(i + 1, window)
+        total += in_win + max(0, min(sink, i + 1 - in_win))
+    return total
+
+
+def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
+    h2 = cfg.h2eal
+    hkv = cfg.num_kv_heads
+    nr = hkv - round(hkv * h2.static_sparsity)
+    g = cfg.num_heads // hkv
+    d = cfg.resolved_head_dim
+    cases = []
+    for label, heads, window, sink in (("retrieval", nr, 0, 0),
+                                       ("streaming", hkv - nr, h2.local, h2.sink)):
+        q = torch.randn(BATCH, PROMPT, heads * g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(BATCH, PROMPT, heads, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(BATCH, PROMPT, heads, d, generator=gen, device=dev).to(dtype)
+        run = lambda: ops.flash_attention(q, k, v, causal=True, window=window, sink=sink)
+        plain = lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window, sink=sink)
+        out = run()
+        want = ref.flash_attention_ref(*widened(q, k, v), causal=True, window=window,
+                                       sink=sink)
+        torch.cuda.synchronize()
+        e, ex = err(out, want), excess(out, want, dtype)
+        del want
+        ms = timer.ms(run, 5)
+        plain_ms = timer.ms(plain, 2)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            i = torch.arange(PROMPT, device=dev)[:, None]
+            j = torch.arange(PROMPT, device=dev)[None, :]
+            mask = (j <= i) & ((j > i - window) | (j < sink))
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+        lib_ms = timer.ms(lib, 5)
+        flops = 4 * d * flash_pairs(PROMPT, window, sink) * BATCH * heads * g
+        b_ms, b_by = bound(nbytes(q, k, v, out), flops, dtype)
+        cases.append(dict(
+            case=f"{label} B={BATCH} S={PROMPT} Hq={heads * g} Hkv={heads} D={d}",
+            dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
+            tol=tol_text(dtype), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return cases
+
+
+def make_tau(gen, dev, b, h, c, filled, d):
+    keys = torch.randn(b, h, filled, 32, d, generator=gen, device=dev)
+    tau_min = torch.full((b, h, c, d), math.inf, device=dev)
+    tau_max = torch.full((b, h, c, d), -math.inf, device=dev)
+    tau_min[:, :, :filled] = keys.amin(dim=3)
+    tau_max[:, :, :filled] = keys.amax(dim=3)
+    return tau_min, tau_max
+
+
+def check_page_score(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    h2 = cfg.h2eal
+    hkv = cfg.num_kv_heads
+    nr = hkv - round(hkv * h2.static_sparsity)
+    g = cfg.num_heads // hkv
+    d = cfg.resolved_head_dim
+    c = -(-capacity // h2.page_size)
+    filled = PROMPT // h2.page_size
+    q = torch.randn(BATCH, nr * g, d, generator=gen, device=dev).to(dtype)
+    tau_min, tau_max = make_tau(gen, dev, BATCH, nr, c, filled, d)
+    run = lambda: ops.page_score(q, tau_min, tau_max)
+    plain = lambda: ref.page_score_ref(q, tau_min, tau_max)
+    out, want = run(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(out.isnan(), want.isnan()) or not torch.equal(
+            out.isinf(), want.isinf()):
+        fail("page_score: NaN/inf pattern differs from the plain version")
+    fin = want.isfinite()
+    e = err(out[fin], want[fin])
+    ex = e - SCORE_RTOL * want[fin].abs().max().item()
+    flops = 4 * d * g * c * BATCH * nr
+    b_ms, b_by = bound(nbytes(q, tau_min, tau_max, out), flops, torch.float32)
+    return [dict(
+        case=f"select B={BATCH} Hr={nr} g={g} C={c} D={d}",
+        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
+        tol=f"{SCORE_RTOL:.0e}*max|plain|", ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)]
+
+
+def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    from repro_torch.core.paging import page_counts
+
+    h2 = cfg.h2eal
+    hkv = cfg.num_kv_heads
+    nr = hkv - round(hkv * h2.static_sparsity)
+    g = cfg.num_heads // hkv
+    d = cfg.resolved_head_dim
+    n_sink, n_local = page_counts(sink=h2.sink, local=h2.local, page=h2.page_size)
+    t_ret = (n_sink + h2.top_k_pages + n_local) * h2.page_size
+    t_str = h2.sink + h2.local + h2.page_size
+    cases = []
+    for label, heads, t in (("retrieval", nr, t_ret), ("streaming", hkv - nr, t_str),
+                            ("full-attention baseline", hkv, capacity)):
+        q = torch.randn(BATCH, heads * g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(BATCH, heads, t, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(BATCH, heads, t, d, generator=gen, device=dev).to(dtype)
+        valid = torch.rand(BATCH, heads, t, generator=gen, device=dev) < 0.9
+        valid[0, 0] = False  # one all-invalid row: its output must be 0
+        run = lambda: ops.paged_attention(q, k, v, valid)
+        plain = lambda: ref.paged_attention_ref(q, k, v, valid)
+        out, want = run(), ref.paged_attention_ref(*widened(q, k, v), valid)
+        torch.cuda.synchronize()
+        if out[0, :g].abs().max().item() != 0.0:
+            fail(f"paged_attention ({label}): an all-invalid row is not 0")
+        e, ex = err(out, want), excess(out, want, dtype)
+        mask = valid.repeat_interleave(g, dim=1)[:, :, None, :]
+        lib_mask = mask.clone()
+        lib_mask[0, :g] = True  # SDPA gives NaN for an all-masked row
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=lib_mask, enable_gqa=True)
+        flops = 4 * d * g * int(valid.sum().item())
+        b_ms, b_by = bound(nbytes(q, k, v, valid, out), flops, dtype)
+        cases.append(dict(
+            case=f"{label} B={BATCH} Hq={heads * g} Hkv={heads} T={t} D={d}",
+            dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
+            tol=tol_text(dtype), ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
+            library_ms=timer.ms(lib, 20), bound_ms=b_ms, bound_by=b_by))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 4: the serving path
+# ---------------------------------------------------------------------------
+
+
+def check_reduced_against_cpu(dev):
+    """Reduced llama3-8b: card (kernels) against CPU (plain versions)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    cfg = reduced(get_arch(ARCH))
+    gen = torch.Generator().manual_seed(1)
+    params = M.init_params(cfg, generator=gen, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 45), generator=gen)
+    params_dev = _to(params, dev)
+    kw = dict(gen=12, capacity=45 + 12 + cfg.h2eal.page_size)
+    toks_cpu, st_cpu = generate(cfg, params, prompts, device="cpu", **kw)
+    toks_dev, st_dev = generate(cfg, params_dev, prompts, device=dev, **kw)
+    e = err(st_dev["last_logits"].cpu(), st_cpu["last_logits"])
+    log(f"reduced {cfg.name}: card vs CPU tokens equal="
+        f"{torch.equal(toks_dev.cpu(), toks_cpu)} last-logit max err={e:.3e}")
+    if not torch.equal(toks_dev.cpu(), toks_cpu) or e > 1e-3:
+        fail("reduced generate on the card disagrees with the CPU run "
+             "(tokens must match, logits within 1e-3)")
+
+
+def serve_full(dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    cfg = get_arch(ARCH)
+    capacity = serve_capacity(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=gen, device=dev, dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name}: {n_params / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f}s, capacity {capacity}")
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    toks, stats = generate(cfg, params, prompts, gen=GEN, capacity=capacity, device=dev)
+    launches = dict(ops.LAUNCHES)
+    n_sel = -(-GEN // cfg.h2eal.share_window)
+    expect = {"flash_attention": 2 * cfg.num_layers,
+              "page_score": cfg.num_layers * n_sel,
+              "paged_attention": 2 * cfg.num_layers * GEN}
+    log(f"sparse run launches {launches} (expected {expect})")
+    if launches != expect:
+        fail("the serving path did not launch the kernels as expected")
+    logits = stats["last_logits"]
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(torch.isfinite(logits).all()):
+        fail("sparse generate produced a wrong shape or non-finite logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("sparse generate produced out-of-range tokens")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"sparse: prefill {stats['prefill_s']:.3f}s, decode {stats['decode_s']:.3f}s "
+        f"({stats['tokens_per_s']:.1f} tok/s), peak memory {peak:.1f} GiB")
+
+    toks_full, stats_full = generate(cfg, params, prompts, gen=GEN, capacity=capacity,
+                                     h2eal=False, device=dev)
+    if not bool(torch.isfinite(stats_full["last_logits"]).all()):
+        fail("full-attention generate produced non-finite logits")
+    agree = (toks == toks_full).float().mean().item()
+    log(f"full attention: prefill {stats_full['prefill_s']:.3f}s, decode "
+        f"{stats_full['decode_s']:.3f}s ({stats_full['tokens_per_s']:.1f} tok/s); "
+        f"token agreement sparse vs full {agree:.3f}")
+    log(f"sample tokens: {toks[0, :16].tolist()}")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA device: nothing to run", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    log(f"kernels built in {time.perf_counter() - t0:.1f}s -> {lib.name}")
+
+    cfg = get_arch(ARCH)
+    capacity = serve_capacity(cfg)
+    timer = Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {"flash_attention": [], "page_score": [], "paged_attention": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        results["flash_attention"] += check_flash(ops, ref, timer, dev, cfg, dtype, gen)
+        results["page_score"] += check_page_score(ops, ref, timer, dev, cfg, dtype, gen,
+                                                  capacity)
+        results["paged_attention"] += check_paged(ops, ref, timer, dev, cfg, dtype, gen,
+                                                  capacity)
+    bad = []
+    for name, cases in results.items():
+        for c in cases:
+            lib_ms = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+            log(f"{name} [{c['case']} {c['dtype']}] kernel_ms={c['ms']:.4f} "
+                f"plain_ms={c['plain_ms']:.4f} library_ms={lib_ms} "
+                f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
+                f"max_err={c['max_abs_err']:.3e} excess={c['excess']:.3e} "
+                f"(tol {c['tol']})")
+            if not c["excess"] <= 0.0:
+                bad.append(f"{name} {c['case']} {c['dtype']}")
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad}")
+    del timer
+    torch.cuda.empty_cache()
+
+    check_reduced_against_cpu(dev)
+    launches = serve_full(dev)
+
+    sources = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "page_score": "src/repro_torch/kernels/csrc/page_score.cu",
+               "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu"}
+    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:97",
+                "page_score": "src/repro/kernels/page_score.py:46",
+                "paged_attention": "src/repro/kernels/paged_attention.py:89"}
+    kernels = []
+    for name, cases in results.items():
+        main_cases = [c for c in cases if c["dtype"] == "bfloat16"
+                      and not c["case"].startswith("full-attention")]
+        total = lambda key: sum(c[key] for c in main_cases)
+        lib_vals = [c["library_ms"] for c in main_cases]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in main_cases),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": max(main_cases, key=lambda c: c["bound_ms"])["bound_by"],
+            "library_ms": None if None in lib_vals else sum(lib_vals),
+            "cases": cases,
+        })
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

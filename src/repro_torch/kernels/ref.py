@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the ported kernels.
+
+Counterparts of ``repro/kernels/ref.py``, with its casts kept exactly: q is
+cast to the key dtype, logits are f32 (storage-dtype operands, f32
+accumulation: the product of two bf16 values is exact in f32, so the
+operands are widened before the matmul), probabilities are cast to the
+value dtype before the PV product, and the outputs are cast to q's dtype.
+
+  q  (prefill): (B, S, Hq, D)      q (decode): (B, Hq, D)
+  k/v (prefill): (B, S, Hkv, D)    gathered kv (decode): (B, Hkv, T, D)
+
+The CPU path of ``repro_torch/kernels/ops.py`` runs these; on the card they are what
+each CUDA kernel is held against.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _scale(d: int) -> torch.Tensor:
+    """1/sqrt(d) computed in f32, as the reference computes it."""
+    return torch.tensor(float(d), dtype=torch.float32).sqrt().reciprocal()
+
+
+def _mm_f32(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with storage-dtype operands and f32 accumulation."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        sink: int = 0, q_offset: int = 0):
+    """Prefill attention. q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D).
+
+    window>0 keeps keys j in (i-window, i]; sink>0 additionally keeps
+    j < sink (only together with a window). q_offset is the absolute
+    position of q[0]. A row with every key masked softmaxes over uniform
+    NEG_INF logits (the mean of v), as the reference does; the CUDA kernel
+    returns 0 there, like the TPU kernel. The serving path never builds
+    such a row: every causal query attends at least itself.
+    Returns (B, Sq, Hq, D) in q's dtype.
+    """
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    group = hq // k.shape[2]
+    kx = k.repeat_interleave(group, dim=2) if group > 1 else k
+    vx = v.repeat_interleave(group, dim=2) if group > 1 else v
+    logits = _mm_f32("bihd,bjhd->bhij", q.to(k.dtype), kx) * _scale(d).to(q.device)
+    i = torch.arange(sq, device=q.device)[:, None] + q_offset
+    j = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window > 0:
+        win = j > (i - window)
+        if sink > 0:
+            win |= j < sink
+        mask &= win
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = _mm_f32("bhij,bjhd->bihd", p.to(v.dtype), vx)
+    return out.to(q.dtype)
+
+
+def paged_attention_ref(q, k, v, valid):
+    """Decode attention. q: (B, Hq, D); k/v: (B, Hkv, T, D); valid:
+    (B, Hkv, T) bool. softmax(q·kᵀ)·v over valid positions; a row with no
+    valid position gives 0. Returns (B, Hq, D) in q's dtype."""
+    b, hq, d = q.shape
+    h_kv = k.shape[1]
+    group = hq // h_kv
+    qg = q.reshape(b, h_kv, group, d).to(k.dtype)
+    logits = _mm_f32("bhgd,bhtd->bhgt", qg, k) * _scale(d).to(q.device)
+    logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    any_valid = valid.any(dim=-1)[:, :, None, None]
+    p = torch.where(any_valid, p, 0.0)
+    out = _mm_f32("bhgt,bhtd->bhgd", p.to(v.dtype), v)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def page_score_ref(q, tau_min, tau_max):
+    """Quest page score. q: (B, Hq, D); tau_min/max: (B, Hkv, C, D) ->
+    (B, Hkv, C) f32 = Σ_g relu(q_g)·τmax + min(q_g, 0)·τmin, the upper
+    bound on any key's logit in the page. Masks nothing: an empty page
+    (τ = ±inf) scores NaN, and ``core/paging.score_pages`` masks it."""
+    b, hq, d = q.shape
+    h_kv = tau_min.shape[1]
+    group = hq // h_kv
+    qg = q.reshape(b, h_kv, group, d).to(tau_min.dtype)
+    qp = torch.clamp(qg, min=0)
+    qn = torch.clamp(qg, max=0)
+    hi = _mm_f32("bhgd,bhpd->bhgp", qp, tau_max)
+    lo = _mm_f32("bhgd,bhpd->bhgp", qn, tau_min)
+    return (hi + lo).sum(dim=2)

@@ -1,0 +1,167 @@
+"""PyTorch port, on a CUDA card: the hand-written kernels against their
+plain versions. Every test is marked ``cuda`` and skips without a card;
+this file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Each kernel computes in f32 and rounds only its output, so it is held
+against the plain version on the same inputs widened to f32, elementwise
+|kernel - plain| <= rtol * |plain| + atol: in f32 atol 1e-4 (summation
+order); in bf16 also half a bf16 step of the output, rtol 2^-8, atol 1e-5.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref as tref
+
+# (b, sq, sk, hq, hkv, causal, window, sink, q_offset); every row attends
+# at least one key
+FLASH_CASES = [
+    (2, 24, 24, 4, 4, True, 0, 0, 0),
+    (2, 24, 24, 4, 2, True, 0, 0, 0),
+    (1, 33, 33, 8, 2, True, 8, 2, 0),
+    (1, 16, 40, 4, 2, True, 0, 0, 24),
+    (1, 16, 40, 4, 1, True, 6, 3, 24),
+    (1, 12, 20, 2, 1, False, 0, 0, 0),
+    (2, 200, 200, 8, 2, True, 64, 4, 0),
+]
+
+CARD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
+
+
+def _widened(*ts):
+    return [t.float() for t in ts]
+
+
+def _within(got, want, dtype) -> bool:
+    rtol, atol = CARD_TOL[dtype]
+    return bool(((got.float() - want).abs() <= rtol * want.abs() + atol).all())
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rand(gen, dev, dtype, *shape):
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel(cuda_dev, dtype, d, case):
+    b, sq, sk, hq, hkv, causal, window, sink, off = case
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    q = _rand(gen, cuda_dev, dtype, b, sq + 70, hq, d)
+    k = _rand(gen, cuda_dev, dtype, b, sk + 70, hkv, d)
+    v = _rand(gen, cuda_dev, dtype, b, sk + 70, hkv, d)
+    kw = dict(causal=causal, window=window, sink=sink, q_offset=off)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = tref.flash_attention_ref(*_widened(q, k, v), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _within(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_fully_masked_row_is_zero(cuda_dev):
+    q = torch.randn(1, 8, 2, 32, device=cuda_dev)
+    k = torch.randn(1, 8, 1, 32, device=cuda_dev)
+    out = ops.flash_attention(q, k, k, causal=True, window=2, q_offset=20)
+    assert out.abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+def test_paged_attention_kernel(cuda_dev, dtype, d, group):
+    gen = torch.Generator(device=cuda_dev).manual_seed(group)
+    b, hkv, t = 2, 3, 301
+    q = _rand(gen, cuda_dev, dtype, b, hkv * group, d)
+    k = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    v = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    valid = torch.rand(b, hkv, t, generator=gen, device=cuda_dev) < 0.5
+    valid[1, 2] = False
+    got = ops.paged_attention(q, k, v, valid)
+    want = tref.paged_attention_ref(*_widened(q, k, v), valid)
+    torch.cuda.synchronize()
+    assert _within(got, want, dtype)
+    assert got[1, 2 * group:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+def test_page_score_kernel(cuda_dev, dtype, d, group):
+    gen = torch.Generator(device=cuda_dev).manual_seed(group)
+    b, hkv, c = 2, 3, 75
+    q = _rand(gen, cuda_dev, dtype, b, hkv * group, d)
+    lo = torch.randn(b, hkv, c, d, generator=gen, device=cuda_dev)
+    hi = torch.randn(b, hkv, c, d, generator=gen, device=cuda_dev)
+    tmin, tmax = torch.minimum(lo, hi), torch.maximum(lo, hi)
+    tmin[:, :, 60:], tmax[:, :, 60:] = float("inf"), float("-inf")
+    got = ops.page_score(q, tmin, tmax)
+    want = tref.page_score_ref(q, tmin, tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = want.isfinite()
+    assert (got[fin] - want[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_count_and_validate(cuda_dev):
+    ops.reset_launches()
+    q = torch.randn(1, 4, 64, device=cuda_dev)
+    k = torch.randn(1, 2, 10, 64, device=cuda_dev)
+    valid = torch.ones(1, 2, 10, dtype=torch.bool, device=cuda_dev)
+    ops.paged_attention(q, k, k, valid)
+    assert ops.LAUNCHES["paged_attention"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.paged_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), k, valid)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            k[..., :48].contiguous(), valid)
+    assert ops.LAUNCHES["paged_attention"] == 1
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_generate_on_the_card_matches_the_cpu_and_counts_launches(cuda_dev):
+    """A reduced llama3-8b served on the card (kernels) and on the CPU
+    (plain versions) from the same weights: same greedy tokens, close
+    logits, and exactly the kernel launches the lockstep path makes."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    cfg = reduced(get_arch("llama3-8b"))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                           device="cpu")
+    on_card = _to(params, cuda_dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 37),
+                            generator=torch.Generator().manual_seed(4))
+    gen, cap = 9, 37 + 9 + cfg.h2eal.page_size
+    toks_cpu, st_cpu = generate(cfg, params, prompts, gen=gen, capacity=cap,
+                                device="cpu")
+    ops.reset_launches()
+    toks, st = generate(cfg, on_card, prompts, gen=gen, capacity=cap,
+                        device=cuda_dev)
+    n_sel = -(-gen // cfg.h2eal.share_window)
+    assert ops.LAUNCHES == {"flash_attention": 2 * cfg.num_layers,
+                            "page_score": n_sel * cfg.num_layers,
+                            "paged_attention": 2 * gen * cfg.num_layers}
+    assert torch.equal(toks.cpu(), toks_cpu)
+    assert (st["last_logits"].cpu() - st_cpu["last_logits"]).abs().max().item() <= 1e-3
