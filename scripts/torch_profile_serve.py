@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's lockstep serving path.
+"""Where the time goes in the PyTorch port's serving paths.
 
-Runs llama3-8b (bf16, seeded random weights) on one CUDA card: one prefill
-and a few decode steps, hybrid sparse and full attention, under
-``torch.profiler``. For each it prints the wall time, the device's busy
-time and idle share, the number of kernels launched, and the kernels that
-take the most device time.
+Runs llama3-8b (bf16, seeded random weights) on one CUDA card under
+``torch.profiler`` and prints, for each window, the wall time, the
+device's busy time and idle share, the number of kernels launched, and the
+kernels that take the most device time:
 
-    PYTHONPATH=src python scripts/torch_profile_serve.py
+  * lockstep ``generate`` (default): one prefill and a few decode steps,
+    hybrid sparse and full attention;
+  * ``--engine``: the continuous-batching engine with chunked prefill on
+    chip_smoke.py's engine workload (6 ragged requests on 4 slots, chunks
+    of 512), a window of mixed steps (a prompt chunk beside decoding
+    slots) and a window of decode-only steps.
+
+    PYTHONPATH=src python scripts/torch_profile_serve.py [--engine]
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 import subprocess
+import sys
 import time
 from collections import defaultdict
 
@@ -23,6 +32,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_arch
 from repro_torch.models import model as M
 from repro_torch.runtime import serve as serve_rt
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ARCH = "llama3-8b"
 BATCH, PROMPT, STEPS = 2, 8192, 8  # chip_smoke.py's serving shapes
@@ -78,20 +89,74 @@ def run(cfg, params, prompts, capacity, steps, label):
         report(f"{label} decode", prof, wall, steps=steps)
 
 
+def engine_windows(cfg, params, windows):
+    """The chunked engine on chip_smoke.py's engine workload, profiled over
+    each (label, first engine step, steps) window, then one unprofiled run
+    of the whole workload."""
+    from chip_smoke import ENGINE_BATCH, ENGINE_CHUNK, engine_workload
+    from repro_torch.serving.engine import Engine
+
+    reqs, capacity = engine_workload(cfg)
+    make = lambda params: Engine(
+        cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
+        prompt_buckets=sorted({len(r.prompt) for r in reqs}),
+        prefill_chunk=ENGINE_CHUNK)
+    eng = make(params)
+    for r in reqs:
+        eng.submit(r)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        for label, first, n in windows:
+            while eng.busy() and eng.stats.engine_steps < first:
+                eng.poll()
+            torch.cuda.synchronize()
+            s0 = dataclasses.replace(eng.stats)
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                while eng.busy() and eng.stats.engine_steps < first + n:
+                    eng.poll()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            s1 = eng.stats
+            done = s1.engine_steps - s0.engine_steps
+            print(f"[engine {label}] engine steps {s0.engine_steps}..{s1.engine_steps}: "
+                  f"{s1.prefill_chunks - s0.prefill_chunks} chunk, "
+                  f"{s1.decode_steps - s0.decode_steps} decode "
+                  f"({s1.select_steps - s0.select_steps} select)")
+            report(f"engine {label}", prof, wall, steps=max(done, 1), top=10)
+        eng = make(params)
+        comps = eng.run(reqs)
+        s = eng.stats
+        print(f"[engine run] {s.tokens_out} tokens in {s.wall_s:.3f}s = "
+              f"{s.tokens_per_s:.2f} tok/s, {s.engine_steps} engine steps "
+              f"({s.prefill_chunks} chunk, {s.decode_steps} decode); tokens of "
+              f"uid 0: {comps[0].tokens}")
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", action="store_true",
+                    help="profile the chunked continuous-batching engine instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda")
     cfg = get_arch(ARCH)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(cfg, generator=gen, device=dev, dtype=torch.bfloat16)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip() or torch.cuda.get_device_name(0)
+    if args.engine:
+        print(f"{card}; {cfg.name} layers={cfg.num_layers} chunked engine")
+        # steps 20-27: slot 0 decodes while slot 1's prompt is fed; from
+        # step 62 every prompt is in and the slots only decode
+        engine_windows(cfg, params, [("mixed", 20, 8), ("decode-only", 62, 8)])
+        return
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
     capacity = PROMPT + 2 * STEPS + 2 * cfg.h2eal.share_window + cfg.h2eal.page_size
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"{smi.stdout.strip() or torch.cuda.get_device_name(0)}; {cfg.name} "
-          f"layers={cfg.num_layers} B={BATCH} S={PROMPT}")
+    print(f"{card}; {cfg.name} layers={cfg.num_layers} B={BATCH} S={PROMPT}")
     run(cfg, params, prompts, capacity, STEPS, "sparse")
     full = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
     run(full, params, prompts, capacity, STEPS, "full")

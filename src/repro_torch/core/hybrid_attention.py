@@ -1,6 +1,7 @@
 """H²EAL hybrid static-dynamic sparse attention (paper §IV-A).
 
-Counterpart of ``repro/core/hybrid_attention.py``, lockstep path only.
+Counterpart of ``repro/core/hybrid_attention.py``: the lockstep path, the
+ragged decode of the continuous-batching engine and its chunked prefill.
 Per attention layer the KV heads are reordered by a permutation so the
 first ``n_retrieval`` are retrieval heads and the rest streaming heads.
 ``perm=None`` is the identity and skips the reordering (and its index
@@ -12,6 +13,9 @@ Decode:   retrieval heads -> page score -> top-k -> paged attention over
           [sink pages | selected pages | local pages];
           streaming heads -> attention over the sink+local ring buffer.
 Selection is recomputed every ``share_window`` steps (``do_select``).
+Chunked prefill: a chunk of prompt tokens per slot attends the
+          pre-append caches plus the chunk itself (retrieval heads full
+          causal, streaming heads sink+local), then is appended.
 
 The caches are updated in place (see ``repro_torch/core/cache.py``).
 """
@@ -156,6 +160,82 @@ def init_decode_state(spec: AttnSpec, k, v, length: int, capacity: int,
     return paged, stream
 
 
+def empty_decode_state(spec: AttnSpec, batch: int, capacity: int, *, dtype,
+                       device):
+    """Empty (PagedCache, StreamCache) of ``batch`` slots, the batched
+    state the serving engine starts from."""
+    _check_ported(spec)
+    h2 = spec.h2
+    nr, d = spec.n_retrieval, spec.head_dim
+    paged = cachelib.make_paged_cache(batch, nr, -(-capacity // h2.page_size),
+                                      h2.page_size, d, h2.top_k_pages,
+                                      dtype=dtype, device=device)
+    stream = cachelib.make_stream_cache(batch, spec.n_streaming, h2.sink,
+                                        _local_cap(h2), d, dtype=dtype,
+                                        device=device)
+    return paged, stream
+
+
+def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
+                            paged: cachelib.PagedCache,
+                            stream: cachelib.StreamCache, start, chunk_len,
+                            active=None, *, perm=None):
+    """One chunked-prefill step. q: (B, C, Hq, D) roped at the chunk
+    positions; k_new/v_new: (B, C, Hkv, D); start: (B,) int32 context before
+    the chunk; chunk_len: (B,) valid tokens; active: (B,) bool, the slots
+    prefilling. Returns (out (B, C, Hq, D), paged, stream).
+
+    Each head kind attends BEFORE the chunk is appended: retrieval heads
+    the pre-append paged cache plus the chunk (``chunk_attention_paged``,
+    full causal, as a single-shot prefill); streaming heads the pre-append
+    ring followed by the chunk's keys (``chunk_attention``, sink+local),
+    since a chunk longer than the ring's slack overwrites ring slots that
+    an early chunk query still attends. No page is selected and the
+    selection state is left as it is. Rows past chunk_len and inactive
+    slots append nothing; their outputs are finite values the caller
+    ignores (an inactive slot attends only its own chunk, so the kernels
+    skip its cache). Chunked and single-shot prefill sum in different
+    orders, so they agree to float tolerance.
+    """
+    _check_ported(spec)
+    h2 = spec.h2
+    g = spec.group
+    nr = spec.n_retrieval
+    qp = _permute_q(q, perm, g)
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    b, cch = q.shape[:2]
+    if active is None:
+        active = torch.ones(b, dtype=torch.bool, device=q.device)
+    outs = []
+    if nr > 0:
+        k_r, v_r = kp[:, :, :nr].contiguous(), vp[:, :, :nr].contiguous()
+        # a slot that takes no chunk attends no cached key: its rows are
+        # ignored, and the kernel then skips its whole cache walk
+        outs.append(kops.chunk_attention_paged(
+            qp[:, :, : nr * g].contiguous(), paged.k_pages, paged.v_pages,
+            paged.page_start, torch.where(active, start, 0), k_r, v_r))
+        paged = cachelib.paged_cache_append_chunk(paged, k_r, v_r, start,
+                                                  chunk_len, active=active)
+    if spec.n_streaming > 0:
+        ns = spec.n_streaming
+        k_s, v_s = kp[:, :, nr:], vp[:, :, nr:]
+        kr = torch.cat([stream.k, k_s.transpose(1, 2).to(stream.k.dtype)], dim=2)
+        vr = torch.cat([stream.v, v_s.transpose(1, 2).to(stream.v.dtype)], dim=2)
+        pos_q = paging.chunk_positions(start, cch)
+        kpos = torch.cat([stream.pos, pos_q[:, None, :].expand(b, ns, cch)],
+                         dim=2)
+        valid_s = paging.chunk_stream_validity(kpos, pos_q, sink=h2.sink,
+                                               local=h2.local)
+        valid_s &= active[:, None, None, None]  # ignored rows: no key tile runs
+        outs.append(kops.chunk_attention(qp[:, :, nr * g:].contiguous(), kr, vr,
+                                         valid_s))
+        stream = cachelib.stream_cache_append_chunk(
+            stream, k_s, v_s, start, chunk_len, sink=h2.sink, active=active)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return _permute_q(out, _inverse_perm(perm), g), paged, stream
+
+
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -163,9 +243,16 @@ def init_decode_state(spec: AttnSpec, k, v, length: int, capacity: int,
 
 def decode_attention(spec: AttnSpec, q, k_new, v_new,
                      paged: cachelib.PagedCache, stream: cachelib.StreamCache,
-                     length: int, *, do_select: bool, perm=None):
-    """One lockstep decode step. q: (B,Hq,D) roped at position ``length``
-    (the context before this token); k_new/v_new: (B,Hkv,D).
+                     length, *, do_select: bool, perm=None, active=None,
+                     need_select=None):
+    """One decode step. q: (B,Hq,D) roped at position ``length`` (the
+    context before this token); k_new/v_new: (B,Hkv,D).
+
+    ``length`` is an int on the lockstep path and a (B,) tensor on the
+    continuous-batching path, which also passes ``active`` (B,) bool
+    (inactive slots append nothing, so their caches stay as they are) and,
+    on a select step, ``need_select`` (B,) bool: only those slots take the
+    fresh selection and importance, the others keep their cached ones.
     Returns (out (B,Hq,D), paged, stream)."""
     _check_ported(spec)
     h2 = spec.h2
@@ -178,9 +265,9 @@ def decode_attention(spec: AttnSpec, q, k_new, v_new,
     ctx = length + 1
     _, n_local = paging.page_counts(sink=h2.sink, local=h2.local,
                                     page=h2.page_size)
-    if nr > 0 and (paging.first_local_page(ctx, local=h2.local,
-                                            page=h2.page_size)
-                   + n_local > paged.k_pages.shape[2]):
+    if nr > 0 and not isinstance(ctx, torch.Tensor) and (
+            paging.first_local_page(ctx, local=h2.local, page=h2.page_size)
+            + n_local > paged.k_pages.shape[2]):
         raise ValueError(
             f"context {ctx} needs more pages than the cache's "
             f"{paged.k_pages.shape[2]}: serve with capacity >= context + "
@@ -189,14 +276,18 @@ def decode_attention(spec: AttnSpec, q, k_new, v_new,
     outs = []
     if nr > 0:
         paged = cachelib.paged_cache_append(paged, kp[:, :nr], vp[:, :nr],
-                                            length)
+                                            length, active)
         if do_select:
             scores = paging.score_pages(
                 q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx,
                 sink=h2.sink, local=h2.local, page=h2.page_size)
-            paged.sel_idx = paging.select_pages(scores, h2.top_k_pages)
-            paged.importance = paging.accumulate_importance(paged.importance,
-                                                            scores)
+            sel = paging.select_pages(scores, h2.top_k_pages)
+            imp = paging.accumulate_importance(paged.importance, scores)
+            if need_select is not None:
+                ns = need_select[:, None, None]
+                sel = torch.where(ns, sel, paged.sel_idx)
+                imp = torch.where(ns, imp, paged.importance)
+            paged.sel_idx, paged.importance = sel, imp
         slots = paging.attended_page_slots(
             paged.sel_idx, ctx, sink=h2.sink, local=h2.local,
             page=h2.page_size)
@@ -207,21 +298,25 @@ def decode_attention(spec: AttnSpec, q, k_new, v_new,
         outs.append(kops.paged_attention(q_r, gk, gv, valid))
     if spec.n_streaming > 0:
         stream = cachelib.stream_cache_append(stream, kp[:, nr:], vp[:, nr:],
-                                              length, sink=h2.sink)
+                                              length, sink=h2.sink,
+                                              active=active)
         # exact sink+local mask (the ring carries one page of slack)
+        ctx_b = ctx[:, None, None] if isinstance(ctx, torch.Tensor) else ctx
         valid_s = (stream.pos >= 0) & (
-            (stream.pos < h2.sink) | (stream.pos >= ctx - h2.local))
+            (stream.pos < h2.sink) | (stream.pos >= ctx_b - h2.local))
         outs.append(kops.paged_attention(q_s, stream.k, stream.v, valid_s))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return _permute_q(out, _inverse_perm(perm), g), paged, stream
 
 
 def full_decode_attention(spec: AttnSpec, q, k_new, v_new,
-                          cache: cachelib.FullCache, length: int):
-    """Full-attention baseline decode step (H²EAL disabled)."""
+                          cache: cachelib.FullCache, length, active=None):
+    """Full-attention baseline decode step (H²EAL disabled); ``length`` an
+    int or a (B,) tensor, as in ``decode_attention``."""
     _check_ported(spec)
-    cache = cachelib.full_cache_append(cache, k_new, v_new, length)
+    cache = cachelib.full_cache_append(cache, k_new, v_new, length, active)
     b, h, s, _ = cache.k.shape
     pos = torch.arange(s, device=q.device)
-    valid = (pos < length + 1).expand(b, h, s).contiguous()
+    lb = length[:, None, None] if isinstance(length, torch.Tensor) else length
+    valid = (pos < lb + 1).expand(b, h, s).contiguous()
     return kops.paged_attention(q.contiguous(), cache.k, cache.v, valid), cache

@@ -25,12 +25,23 @@ class DefaultLayout:
                                                 perm)
         return {"paged": paged, "stream": stream}
 
-    def decode(self, spec, state: Dict, q, k_new, v_new, length: int, *,
-               do_select: bool, perm=None):
-        """Lockstep decode step -> (out (B, Hq, D), state)."""
+    def prefill_chunk(self, spec, state: Dict, q, k_new, v_new, start,
+                      chunk_len, active, perm=None):
+        """Chunked prefill: attend one prompt chunk per slot and append it
+        into the slots' caches -> (out (B, C, Hq, D), state)."""
+        out, paged, stream = hattn.chunk_prefill_attention(
+            spec, q, k_new, v_new, state["paged"], state["stream"], start,
+            chunk_len, active, perm=perm)
+        return out, {"paged": paged, "stream": stream}
+
+    def decode(self, spec, state: Dict, q, k_new, v_new, length, *,
+               do_select: bool, perm=None, active=None, need_select=None):
+        """Decode step, lockstep (int ``length``) or ragged ((B,) lengths,
+        ``active``, ``need_select``) -> (out (B, Hq, D), state)."""
         out, paged, stream = hattn.decode_attention(
             spec, q, k_new, v_new, state["paged"], state["stream"], length,
-            do_select=do_select, perm=perm)
+            do_select=do_select, perm=perm, active=active,
+            need_select=need_select)
         return out, {"paged": paged, "stream": stream}
 
 

@@ -11,8 +11,13 @@ validity mask. The page partition, for context length ctx:
   selected section: top-k over pages in [n_sink, first_local)
 
 The sections never overlap, and they cover every resident token when
-top-k spans all selectable pages. ``ctx`` is a Python int: only the
-lockstep path is ported.
+top-k spans all selectable pages. ``ctx`` is a Python int on the lockstep
+path and a (B,) tensor on the continuous-batching path, where every slot
+has its own context and so its own first local page.
+
+Chunked prefill selects nothing: retrieval heads attend full causal and
+streaming heads sink+local, with validity computed from absolute
+positions (the chunk helpers at the end).
 """
 from __future__ import annotations
 
@@ -30,16 +35,25 @@ def page_counts(*, sink: int, local: int, page: int) -> tuple[int, int]:
     return n_sink, n_local
 
 
-def first_local_page(ctx: int, *, local: int, page: int) -> int:
+def first_local_page(ctx, *, local: int, page: int):
+    """The first page of the local section: an int for an int ``ctx``, a
+    (B,) tensor for a (B,) ``ctx``."""
+    if isinstance(ctx, torch.Tensor):
+        return torch.clamp(ctx - local, min=0) // page
     return max(ctx - local, 0) // page
 
 
-def score_pages(q, tau_min, tau_max, page_start, ctx: int, *, sink: int,
+def _per_row(x):
+    """A per-slot (B,) tensor broadcast over (B, H, N); an int as it is."""
+    return x[:, None, None] if isinstance(x, torch.Tensor) else x
+
+
+def score_pages(q, tau_min, tau_max, page_start, ctx, *, sink: int,
                 local: int, page: int):
     """Scores (B, Hkv, C); sink, local and empty pages forced to NEG_INF."""
     scores = kops.page_score(q, tau_min, tau_max)
     n_sink, _ = page_counts(sink=sink, local=local, page=page)
-    first_local = first_local_page(ctx, local=local, page=page)
+    first_local = _per_row(first_local_page(ctx, local=local, page=page))
     pidx = torch.where(page_start >= 0, page_start // page, -1)
     selectable = (page_start >= 0) & (pidx >= n_sink) & (pidx < first_local)
     return torch.where(selectable, scores, NEG_INF)
@@ -47,11 +61,14 @@ def score_pages(q, tau_min, tau_max, page_start, ctx: int, *, sink: int,
 
 def select_pages(scores, top_k: int):
     """Top-k page slots per (B, Hkv): (B, Hkv, K) int32, padded with -1
-    when fewer than ``top_k`` pages exist. Ties may break differently from
-    ``lax.top_k``; the tied pages are the masked ones, which
-    ``token_validity`` drops either way."""
+    when fewer than ``top_k`` pages exist. Equal scores keep the lower page
+    first, as ``lax.top_k`` does (``torch.topk`` leaves their order open).
+    The order matters: when fewer than k pages are selectable, masked pages
+    fill the selection, and one of them can become selectable at a later
+    reuse step of the same share window, as the local section moves on."""
     k_eff = min(top_k, scores.shape[-1])
-    idx = torch.topk(scores, k_eff, dim=-1).indices.to(torch.int32)
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    idx = order[..., :k_eff].to(torch.int32)
     if k_eff < top_k:
         pad = torch.full(idx.shape[:-1] + (top_k - k_eff,), -1,
                          dtype=torch.int32, device=idx.device)
@@ -59,52 +76,61 @@ def select_pages(scores, top_k: int):
     return idx
 
 
-def attended_page_slots(sel_idx, ctx: int, *, sink: int, local: int, page: int):
+def attended_page_slots(sel_idx, ctx, *, sink: int, local: int, page: int):
     """[sink pages | selected pages | local pages] slot indices,
     (B, Hkv, n_sink + K + n_local) int32 (slot == page index == pos // P)."""
     b, h, _ = sel_idx.shape
     n_sink, n_local = page_counts(sink=sink, local=local, page=page)
     dev = sel_idx.device
-    first_local = first_local_page(ctx, local=local, page=page)
+    first_local = _per_row(first_local_page(ctx, local=local, page=page))
     sink_pages = torch.arange(n_sink, dtype=torch.int32, device=dev)
-    local_pages = first_local + torch.arange(n_local, dtype=torch.int32,
-                                             device=dev)
+    local_pages = (first_local + torch.arange(n_local, dtype=torch.int32,
+                                              device=dev)).to(torch.int32)
     return torch.cat([sink_pages.expand(b, h, n_sink), sel_idx,
                       local_pages.expand(b, h, n_local)], dim=2)
 
 
 def gather_pages(k_pages, v_pages, slots):
-    """k/v_pages: (B, H, C, P, D); slots: (B, H, N) -> (B, H, N*P, D) each."""
-    b, h, _, p, d = k_pages.shape
+    """k/v_pages: (B, H, C, P, D); slots: (B, H, N) -> (B, H, N*P, D) each.
+    Slots are clamped into [0, C): a sentinel, or a local page past the
+    end, reads some page, and ``token_validity`` masks it."""
+    b, h, c, p, d = k_pages.shape
     n = slots.shape[2]
-    sc = slots.clamp(min=0).long()
+    sc = slots.clamp(0, c - 1).long()
     bi = torch.arange(b, device=slots.device)[:, None, None]
     hi = torch.arange(h, device=slots.device)[None, :, None]
     return (k_pages[bi, hi, sc].reshape(b, h, n * p, d),
             v_pages[bi, hi, sc].reshape(b, h, n * p, d))
 
 
-def token_validity(slots, page_start, ctx: int, *, sink: int, local: int,
+def token_validity(slots, page_start, ctx, *, sink: int, local: int,
                    page: int, top_k: int):
     """Validity mask (B, H, N*P) of the gathered token buffer, enforcing
-    the section partition of the module docstring."""
+    the section partition of the module docstring. A sentinel slot (-1)
+    and a local page past the end of the cache (at a context within one
+    local window of the capacity) are invalid: such a page holds no
+    position below the capacity, so clamping and masking it attends
+    exactly the in-context tokens."""
     b, h, n = slots.shape
     n_sink, n_local = page_counts(sink=sink, local=local, page=page)
     dev = slots.device
-    sentinel = (slots < 0)[..., None]
-    start = torch.gather(page_start, 2, slots.clamp(min=0).long())
+    c = page_start.shape[2]
+    sentinel = ((slots < 0) | (slots >= c))[..., None]
+    start = torch.gather(page_start, 2, slots.clamp(0, c - 1).long())
     pos = start[..., None] + torch.arange(page, dtype=torch.int32, device=dev)
     nonempty = (start >= 0)[..., None]
-    in_ctx = pos < ctx
+    in_ctx = pos < _per_row(ctx)[..., None] if isinstance(ctx, torch.Tensor) \
+        else pos < ctx
     sec = torch.cat([
         torch.zeros(n_sink, dtype=torch.int32, device=dev),
         torch.ones(top_k, dtype=torch.int32, device=dev),
         torch.full((n_local,), 2, dtype=torch.int32, device=dev),
     ])[None, None, :, None]
-    first_local = first_local_page(ctx, local=local, page=page)
+    first_local = _per_row(first_local_page(ctx, local=local, page=page))
+    low = (torch.clamp(first_local, min=n_sink)[..., None]
+           if isinstance(first_local, torch.Tensor) else max(first_local, n_sink))
     pidx = torch.div(start, page, rounding_mode="floor")
-    ok_local = ((pos >= max(first_local, n_sink) * page)
-                & (pidx >= first_local)[..., None])
+    ok_local = (pos >= low * page) & (pidx >= first_local)[..., None]
     ok_sel = ((pidx >= n_sink) & (pidx < first_local))[..., None]
     ok = torch.where(sec == 0, True, torch.where(sec == 2, ok_local, ok_sel))
     return (nonempty & in_ctx & ok & ~sentinel).reshape(b, h, n * page)
@@ -113,3 +139,39 @@ def token_validity(slots, page_start, ctx: int, *, sink: int, local: int,
 def accumulate_importance(importance, scores):
     """Add this step's scores; masked (NEG_INF) pages contribute 0."""
     return importance + torch.where(scores > NEG_INF / 2, scores, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill: validity from absolute positions
+# ---------------------------------------------------------------------------
+
+
+def chunk_positions(start, chunk: int):
+    """Absolute positions (B, C) of a left-aligned chunk starting at
+    ``start`` (B,). Rows are valid only below the caller's chunk_len."""
+    return start.reshape(-1, 1) + torch.arange(chunk, dtype=start.dtype,
+                                               device=start.device)
+
+
+def paged_key_positions(page_start, page: int):
+    """(key_pos, key_ok) (B, H, C*P) of the flattened page buffer, from the
+    absolute first-token position of each page (-1 empty)."""
+    b, h, c = page_start.shape
+    pos = page_start[..., None] + torch.arange(page, dtype=page_start.dtype,
+                                               device=page_start.device)
+    ok = (page_start >= 0)[..., None].expand(b, h, c, page)
+    return pos.reshape(b, h, c * page), ok.reshape(b, h, c * page)
+
+
+def chunk_causal_validity(key_pos, key_ok, pos_q):
+    """(B, H, Cq, T): a key is attended iff it exists and its position is
+    at most the query's. key_pos/key_ok: (B, H, T); pos_q: (B, Cq)."""
+    return key_ok[:, :, None, :] & (key_pos[:, :, None, :] <= pos_q[:, None, :, None])
+
+
+def chunk_stream_validity(key_pos, pos_q, *, sink: int, local: int):
+    """Sink+local mask (B, H, Cq, T), the streaming decode mask per query:
+    (pos < sink) | (pos > q - local), causal, -1 = empty slot."""
+    kp = key_pos[:, :, None, :]
+    pq = pos_q[:, None, :, None]
+    return (kp >= 0) & (kp <= pq) & ((kp < sink) | (kp > pq - local))

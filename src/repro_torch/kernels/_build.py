@@ -29,6 +29,10 @@ SIGNATURES = {
                               _I, _I, _F, _P),
     "h2eal_paged_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "h2eal_page_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P),
+    "h2eal_chunk_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None

@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"flash_attention": 0, "page_score": 0, "paged_attention": 0}
+LAUNCHES = {"flash_attention": 0, "page_score": 0, "paged_attention": 0,
+            "chunk_attention": 0, "chunk_attention_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -139,4 +140,74 @@ def page_score(q, tau_min, tau_max):
             _DTYPES[q.dtype], b, hkv, c, hq // hkv, d, _stream(q))
     _build.check(err, "page_score")
     LAUNCHES["page_score"] += 1
+    return out
+
+
+def chunk_attention(q, k, v, valid):
+    """q: (B, Cq, Hq, D); k/v: (B, Hkv, T, D); valid: (B, Hkv, Cq, T) bool
+    -> (B, Cq, Hq, D); a row with no valid key gives 0."""
+    if _on_cpu(q, k, v, valid):
+        return _ref.chunk_attention_ref(q, k, v, valid)
+    b, cq, hq, d = q.shape
+    _require(k.dim() == 4 and k.shape == v.shape and k.shape[0] == b
+             and k.shape[3] == d, "chunk_attention: k/v must be (B, Hkv, T, D)")
+    hkv, t = k.shape[1], k.shape[2]
+    _require(valid.shape == (b, hkv, cq, t) and valid.dtype == torch.bool,
+             "chunk_attention: valid must be (B, Hkv, Cq, T) bool")
+    _require(q.dtype in _DTYPES, f"chunk_attention: dtype {q.dtype} not supported")
+    _check_operands("chunk_attention", (q, k, v), q.dtype)
+    _check_operands("chunk_attention", (valid,))
+    _require(d in _HEAD_DIMS, f"chunk_attention: head_dim {d} not in {_HEAD_DIMS}")
+    _require(hq % hkv == 0, "chunk_attention: Hq must be a multiple of Hkv")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _build.library().h2eal_chunk_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), _DTYPES[q.dtype], b, cq, hkv, t, hq // hkv, d,
+            _scale(d), _stream(q))
+    _build.check(err, "chunk_attention")
+    LAUNCHES["chunk_attention"] += 1
+    return out
+
+
+def chunk_attention_paged(q, k_pages, v_pages, page_start, start, k_new, v_new):
+    """Chunked-prefill retrieval attention over the pre-append paged cache
+    with the page gather fused. q: (B, Cq, Hq, D); k/v_pages: (B, Hr, C, P,
+    D); page_start: (B, Hr, C) int32; start: (B,) int32; k/v_new: (B, Cq,
+    Hr, D) -> (B, Cq, Hq, D). The chunk KV is cast to the cache dtype first,
+    on both routes, so the chunk attends exactly what a post-append read
+    would return."""
+    k_new = k_new.to(k_pages.dtype)
+    v_new = v_new.to(v_pages.dtype)
+    if _on_cpu(q, k_pages, v_pages, page_start, start, k_new, v_new):
+        return _ref.chunk_attention_paged_ref(q, k_pages, v_pages, page_start,
+                                              start, k_new, v_new)
+    b, cq, hq, d = q.shape
+    _require(k_pages.dim() == 5 and k_pages.shape == v_pages.shape
+             and k_pages.shape[0] == b and k_pages.shape[4] == d,
+             "chunk_attention_paged: k/v_pages must be (B, Hr, C, P, D)")
+    hr, c, p = k_pages.shape[1:4]
+    _require(page_start.shape == (b, hr, c) and page_start.dtype == torch.int32,
+             "chunk_attention_paged: page_start must be (B, Hr, C) int32")
+    _require(start.shape == (b,) and start.dtype == torch.int32,
+             "chunk_attention_paged: start must be (B,) int32")
+    _require(k_new.shape == (b, cq, hr, d) and v_new.shape == k_new.shape,
+             "chunk_attention_paged: k/v_new must be (B, Cq, Hr, D)")
+    _require(q.dtype in _DTYPES,
+             f"chunk_attention_paged: dtype {q.dtype} not supported")
+    _check_operands("chunk_attention_paged", (q, k_pages, v_pages, k_new, v_new),
+                    q.dtype)
+    _check_operands("chunk_attention_paged", (page_start, start))
+    _require(d in _HEAD_DIMS,
+             f"chunk_attention_paged: head_dim {d} not in {_HEAD_DIMS}")
+    _require(hq % hr == 0, "chunk_attention_paged: Hq must be a multiple of Hr")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _build.library().h2eal_chunk_attention_paged(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_start.data_ptr(), start.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, cq, hr, c, p,
+            hq // hr, d, _scale(d), _stream(q))
+    _build.check(err, "chunk_attention_paged")
+    LAUNCHES["chunk_attention_paged"] += 1
     return out

@@ -8,6 +8,7 @@ value dtype before the PV product, and the outputs are cast to q's dtype.
 
   q  (prefill): (B, S, Hq, D)      q (decode): (B, Hq, D)
   k/v (prefill): (B, S, Hkv, D)    gathered kv (decode): (B, Hkv, T, D)
+  q  (chunk):   (B, Cq, Hq, D)     chunk kv (paged chunk): (B, Cq, Hr, D)
 
 The CPU path of ``repro_torch/kernels/ops.py`` runs these; on the card they are what
 each CUDA kernel is held against.
@@ -94,3 +95,61 @@ def page_score_ref(q, tau_min, tau_max):
     hi = _mm_f32("bhgd,bhpd->bhgp", qp, tau_max)
     lo = _mm_f32("bhgd,bhpd->bhgp", qn, tau_min)
     return (hi + lo).sum(dim=2)
+
+
+def chunk_attention_ref(q, k, v, valid):
+    """Multi-query attention over a gathered KV buffer (chunked prefill).
+
+    q: (B, Cq, Hq, D); k/v: (B, Hkv, T, D); valid: (B, Hkv, Cq, T) bool,
+    a mask per query (the caller derives it from absolute positions).
+    ``paged_attention_ref`` is the Cq == 1 case. A row with no valid key
+    gives 0. Returns (B, Cq, Hq, D) in q's dtype.
+    """
+    b, cq, hq, d = q.shape
+    h_kv = k.shape[1]
+    group = hq // h_kv
+    qg = q.reshape(b, cq, h_kv, group, d).to(k.dtype)
+    logits = _mm_f32("bchgd,bhtd->bhgct", qg, k) * _scale(d).to(q.device)
+    logits = torch.where(valid[:, :, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    any_valid = valid.any(dim=-1)[:, :, None, :, None]
+    p = torch.where(any_valid, p, 0.0)
+    out = _mm_f32("bhgct,bhtd->bchgd", p.to(v.dtype), v)
+    return out.reshape(b, cq, hq, d).to(q.dtype)
+
+
+def chunk_attention_paged_ref(q, k_pages, v_pages, page_start, start, k_new,
+                              v_new):
+    """Chunked-prefill retrieval attention over the pre-append paged cache.
+
+    q: (B, Cq, Hq, D); k/v_pages: (B, Hr, C, P, D), the cache BEFORE the
+    chunk is appended; page_start: (B, Hr, C) int, the absolute position of
+    each page's first token (-1 unwritten); start: (B,) tokens already in
+    each slot; k/v_new: (B, Cq, Hr, D), the chunk's own keys and values.
+    A cached key counts iff its page is written and its position is below
+    ``start`` (every cached key precedes every chunk query); chunk key j
+    counts for query c iff j <= c. Every query attends at least itself.
+    Returns (B, Cq, Hq, D) in q's dtype.
+    """
+    b, cq, hq, d = q.shape
+    hr, c, p = k_pages.shape[1:4]
+    group = hq // hr
+    scale = _scale(d).to(q.device)
+    kb = k_pages.reshape(b, hr, c * p, d)
+    vb = v_pages.reshape(b, hr, c * p, d)
+    offs = torch.arange(p, dtype=torch.int32, device=q.device)
+    pos = (page_start[..., None] + offs).reshape(b, hr, c * p)
+    written = (page_start >= 0)[..., None].expand(b, hr, c, p).reshape(b, hr, c * p)
+    cache_ok = written & (pos < start.reshape(b, 1, 1))
+    qg = q.reshape(b, cq, hr, group, d).to(kb.dtype)
+    lc = _mm_f32("bchgd,bhtd->bhgct", qg, kb) * scale
+    lc = torch.where(cache_ok[:, :, None, None, :], lc, NEG_INF)
+    kn = k_new.to(kb.dtype)
+    ln = _mm_f32("bchgd,bjhd->bhgcj", qg, kn) * scale
+    ar = torch.arange(cq, device=q.device)
+    ln = torch.where(ar[:, None] >= ar[None, :], ln, NEG_INF)
+    probs = torch.softmax(torch.cat([lc, ln], dim=-1), dim=-1)
+    out = _mm_f32("bhgct,bhtd->bchgd", probs[..., : c * p].to(vb.dtype), vb)
+    out = out + _mm_f32("bhgcj,bjhd->bchgd", probs[..., c * p:].to(v_new.dtype),
+                        v_new.to(vb.dtype))
+    return out.reshape(b, cq, hq, d).to(q.dtype)

@@ -1,8 +1,12 @@
-"""Lockstep serving entry point (counterpart of ``repro/launch/serve.py``).
+"""Serving entry points (counterpart of ``repro/launch/serve.py``).
 
-One fixed batch: every request shares one prompt length and one
-generation length. Page selection runs every ``share_window`` steps (the
-select step), cheaper reuse steps in between. Greedy sampling.
+``--workload uniform`` (``generate``): one fixed batch, every request
+sharing one prompt length and one generation length. ``--workload
+ragged`` (``run_ragged``): seeded requests of ragged prompt and generation
+lengths through the continuous-batching engine (``serving/engine.py``),
+packed admission or, with ``--prefill-chunk N``, chunked prefill. Page
+selection runs every ``share_window`` decode steps (the select step),
+cheaper reuse steps in between. Greedy sampling.
 
 It runs on the card unless ``--device cpu`` is given:
 
@@ -10,8 +14,9 @@ It runs on the card unless ``--device cpu`` is given:
       --batch 2 --prompt-len 8192 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --reduced --prompt-len 96 --gen 16 --device cpu
-
-The continuous-batching engine is not ported yet (ROADMAP Queue 1 item 4).
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --reduced --workload ragged --requests 5 --max-batch 2 \\
+      --prompt-buckets 16,24 --prefill-chunk 8 --device cpu
 """
 from __future__ import annotations
 
@@ -19,21 +24,14 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import model as M
 from repro_torch.runtime import serve as serve_rt
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names another device; no silent CPU run."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+from repro_torch.runtime.serve import resolve_device
+from repro_torch.serving.engine import Engine, Request
 
 
 def _sync(dev: torch.device) -> None:
@@ -90,15 +88,70 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     return torch.stack(outs, dim=1), stats
 
 
+def make_ragged_requests(cfg, *, n: int, prompt_buckets, gen_min: int,
+                         gen_max: int, seed: int = 0):
+    """Seeded ragged workload: bucketed prompt lengths, variable generation
+    lengths (the JAX package's generator, draw for draw)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for uid in range(n):
+        s = int(rng.choice(prompt_buckets))
+        g = int(rng.integers(gen_min, gen_max + 1))
+        prompt = rng.integers(0, cfg.vocab_size, size=(s,)).astype(np.int32)
+        reqs.append(Request(uid=uid, prompt=prompt, max_new=g))
+    return reqs
+
+
+def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
+               prompt_buckets, prefill_chunk=None, device=None):
+    """Serve ``requests`` with the continuous-batching engine (packed
+    admission, or chunked with ``prefill_chunk=N``). Returns (completions,
+    stats dict)."""
+    eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
+                 prompt_buckets=prompt_buckets, prefill_chunk=prefill_chunk,
+                 device=device)
+    completions = eng.run(requests)
+    s = eng.stats
+    stats = {
+        "wall_s": s.wall_s,
+        "tokens_per_s": s.tokens_per_s,
+        "decode_steps": s.decode_steps,
+        "engine_steps": s.engine_steps,
+        "select_steps": s.select_steps,
+        "reuse_steps": s.reuse_steps,
+        "admissions": s.admissions,
+        "prefill_chunks": s.prefill_chunks,
+        "occupancy": s.occupancy,
+        "tokens_out": s.tokens_out,
+    }
+    return completions, stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--workload", choices=["uniform", "ragged"],
+                    default="uniform")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=96)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--h2eal", choices=["on", "off"], default="on")
     ap.add_argument("--seed", type=int, default=0)
+    # ragged-workload knobs
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--prompt-buckets", default="32,64",
+                    help="comma-separated allowed prompt lengths")
+    ap.add_argument("--gen-min", type=int, default=4)
+    ap.add_argument("--gen-max", type=int, default=24)
+    ap.add_argument("--capacity", type=int, default=0,
+                    help="cache capacity in tokens (0 = longest prompt + "
+                         "gen-max + one page)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: at most N prompt tokens per "
+                         "engine step, beside the decode of the other slots "
+                         "(0 = prefill-then-pack admission)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions of the kernels)")
@@ -108,15 +161,42 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.h2eal == "off":
+        cfg = dataclasses.replace(
+            cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     params = M.init_params(cfg, generator=gen, device=dev, dtype=dtype)
+
+    if args.workload == "ragged":
+        buckets = [int(x) for x in args.prompt_buckets.split(",")]
+        capacity = args.capacity or (max(buckets) + args.gen_max
+                                     + cfg.h2eal.page_size)
+        reqs = make_ragged_requests(cfg, n=args.requests, prompt_buckets=buckets,
+                                    gen_min=args.gen_min, gen_max=args.gen_max,
+                                    seed=args.seed)
+        completions, stats = run_ragged(
+            cfg, params, reqs, max_batch=args.max_batch, capacity=capacity,
+            prompt_buckets=buckets, prefill_chunk=args.prefill_chunk or None,
+            device=dev)
+        print(f"[serve] arch={cfg.name} workload=ragged device={dev} "
+              f"prefill_chunk={args.prefill_chunk or 'packed'} "
+              f"requests={len(completions)} steps={stats['decode_steps']} "
+              f"occupancy={stats['occupancy']:.2f} "
+              f"({stats['tokens_per_s']:.1f} tok/s)")
+        print(f"[serve] select/reuse steps: {stats['select_steps']}/"
+              f"{stats['reuse_steps']}; admissions/chunks: "
+              f"{stats['admissions']}/{stats['prefill_chunks']}")
+        if completions:
+            some = completions[min(completions)]
+            print(f"[serve] sample tokens (uid {some.uid}): {some.tokens[:16]}")
+        return stats
+
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
     toks, stats = generate(
         cfg, params, prompts, gen=args.gen,
-        capacity=args.prompt_len + args.gen + cfg.h2eal.page_size,
-        h2eal=args.h2eal == "on", device=dev)
+        capacity=args.prompt_len + args.gen + cfg.h2eal.page_size, device=dev)
     print(f"[serve] arch={cfg.name} b={args.batch} device={dev} "
           f"prefill={stats['prefill_s']:.2f}s "
           f"decode={stats['decode_s']:.2f}s "

@@ -13,6 +13,8 @@ from repro_torch.configs.base import ArchConfig, MIXER_ATTENTION
 from repro_torch.core import cache as cachelib
 from repro_torch.core import hybrid_attention as hattn
 from repro_torch.core import layouts as layoutlib
+from repro_torch.core import paging
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (
     apply_rope,
     dense,
@@ -131,10 +133,9 @@ def block_prefill(cfg: ArchConfig, p, perm, x, rope, *, capacity: int,
         cache = layoutlib.get_layout(layout).prefill(spec, k, v, s, capacity,
                                                      perm)
     else:  # full-attention baseline
-        shape = (b, cfg.num_kv_heads, capacity, spec.head_dim)
-        full = cachelib.FullCache(
-            k=torch.zeros(shape, dtype=k.dtype, device=k.device),
-            v=torch.zeros(shape, dtype=v.dtype, device=v.device))
+        full = cachelib.make_full_cache(b, cfg.num_kv_heads, capacity,
+                                        spec.head_dim, dtype=k.dtype,
+                                        device=k.device)
         full.k[:, :, :s] = k.transpose(1, 2)
         full.v[:, :, :s] = v.transpose(1, 2)
         cache = {"full": full}
@@ -142,21 +143,70 @@ def block_prefill(cfg: ArchConfig, p, perm, x, rope, *, capacity: int,
     return _ffn_apply(cfg, p, x), cache
 
 
-def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length: int,
-                 do_select: bool, layout: str = "default"):
-    """Decode one token through one block. x: (B, d)."""
+def empty_block_cache(cfg: ArchConfig, batch: int, capacity: int, *, dtype,
+                      device):
+    """One block's empty serve cache for ``batch`` slots."""
+    spec = attn_spec(cfg)
+    if spec.h2.enabled:
+        paged, stream = hattn.empty_decode_state(spec, batch, capacity,
+                                                 dtype=dtype, device=device)
+        return {"paged": paged, "stream": stream}
+    return {"full": cachelib.make_full_cache(batch, cfg.num_kv_heads, capacity,
+                                             spec.head_dim, dtype=dtype,
+                                             device=device)}
+
+
+def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
+                        chunk_len, active, layout: str = "default"):
+    """One prompt chunk per slot through one block. x: (B, C, d); ``rope``
+    is (cos, sin) at each slot's chunk positions (B, C, half); ``cache`` is
+    the block's serve cache, grown in place; start/chunk_len/active: (B,)
+    context before the chunk, valid tokens, slots prefilling. Rows past
+    chunk_len and inactive slots append nothing and give values the
+    caller ignores."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     spec = attn_spec(cfg)
     q, k, v = _qkv(cfg, p, h)
-    cos1, sin1 = rope1  # (1, 1, half) at position `length`
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    b, cch = x.shape[:2]
+    if "full" not in cache:
+        o, cache = layoutlib.get_layout(layout).prefill_chunk(
+            spec, cache, q, k, v, start, chunk_len, active, perm=perm)
+    else:  # full-attention baseline: append, then attend causally
+        full = cachelib.full_cache_append_chunk(cache["full"], k, v, start,
+                                                chunk_len, active)
+        pos_q = paging.chunk_positions(start, cch)
+        key_pos = torch.arange(full.k.shape[2], device=x.device)
+        valid = (key_pos[None, None, None, :] <= pos_q[:, None, :, None]).expand(
+            b, full.k.shape[1], cch, full.k.shape[2])
+        o = kops.chunk_attention(q.contiguous(), full.k, full.v,
+                                 valid.contiguous())
+        cache = {"full": full}
+    x = x + dense(o.reshape(b, cch, -1), p["wo"])
+    return _ffn_apply(cfg, p, x), cache
+
+
+def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length,
+                 do_select: bool, layout: str = "default", active=None,
+                 need_select=None):
+    """Decode one token through one block. x: (B, d). ``length`` is an int
+    (lockstep) or (B,) tensor (continuous batching, with the per-slot
+    ``active`` and ``need_select`` masks of ``decode_attention``)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    spec = attn_spec(cfg)
+    q, k, v = _qkv(cfg, p, h)
+    cos1, sin1 = rope1  # (1 or B, 1, half) at each slot's position
     q = apply_rope(q[:, None], cos1, sin1)[:, 0]
     k = apply_rope(k[:, None], cos1, sin1)[:, 0]
     if "full" in cache:
         o, full = hattn.full_decode_attention(spec, q, k, v, cache["full"],
-                                              length)
+                                              length, active)
         cache = {"full": full}
     else:
         o, cache = layoutlib.get_layout(layout).decode(
-            spec, cache, q, k, v, length, do_select=do_select, perm=perm)
+            spec, cache, q, k, v, length, do_select=do_select, perm=perm,
+            active=active, need_select=need_select)
     x = x + dense(o.reshape(o.shape[0], -1), p["wo"])
     return _ffn_apply(cfg, p, x), cache

@@ -162,6 +162,132 @@ def test_generate_on_the_card_matches_the_cpu_and_counts_launches(cuda_dev):
     n_sel = -(-gen // cfg.h2eal.share_window)
     assert ops.LAUNCHES == {"flash_attention": 2 * cfg.num_layers,
                             "page_score": n_sel * cfg.num_layers,
-                            "paged_attention": 2 * gen * cfg.num_layers}
+                            "paged_attention": 2 * gen * cfg.num_layers,
+                            "chunk_attention": 0, "chunk_attention_paged": 0}
     assert torch.equal(toks.cpu(), toks_cpu)
     assert (st["last_logits"].cpu() - st_cpu["last_logits"]).abs().max().item() <= 1e-3
+
+
+# (b, cq, hkv, t, group): query tiles that straddle chunk positions (group
+# 3), a single-row group, and a T that is not a multiple of the key tile
+CHUNK_CASES = [(2, 7, 2, 29, 1), (1, 33, 2, 100, 3), (2, 64, 1, 301, 4),
+               (1, 20, 2, 64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_chunk_attention_kernel(cuda_dev, dtype, d, case):
+    b, cq, hkv, t, group = case
+    gen = torch.Generator(device=cuda_dev).manual_seed(t)
+    q = _rand(gen, cuda_dev, dtype, b, cq, hkv * group, d)
+    k = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    v = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    valid = torch.rand(b, hkv, cq, t, generator=gen, device=cuda_dev) < 0.3
+    valid[:, :, :, 64:] = False      # whole key tiles without a valid key
+    valid[0, 0, cq // 2] = False     # an all-invalid row gives 0
+    got = ops.chunk_attention(q, k, v, valid)
+    want = tref.chunk_attention_ref(*_widened(q, k, v), valid)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _within(got, want, dtype)
+    assert got[0, cq // 2, :group].abs().max().item() == 0.0
+
+
+def _paged_inputs(gen, dev, dtype, b, cq, hr, group, c, p, d, written, order):
+    q = _rand(gen, dev, dtype, b, cq, hr * group, d)
+    kp = _rand(gen, dev, dtype, b, hr, c, p, d)
+    vp = _rand(gen, dev, dtype, b, hr, c, p, d)
+    w = torch.tensor(written, device=dev)
+    first = torch.arange(c, device=dev) * p
+    ps = torch.where(first[None] < w[:, None], first[None], -1).to(torch.int32)
+    ps = ps[:, None, :].expand(b, hr, c)[..., order].contiguous()
+    kn = _rand(gen, dev, dtype, b, cq, hr, d)
+    vn = _rand(gen, dev, dtype, b, cq, hr, d)
+    return q, kp, vp, ps, kn, vn
+
+
+# (b, cq, hr, group, c, p, written per slot, start per slot)
+PAGED_CASES = [
+    (2, 6, 2, 2, 7, 8, (0, 0), (0, 0)),          # start 0: the chunk alone
+    (2, 64, 2, 4, 9, 32, (200, 77), (190, 77)),  # partial last page, keys >= start
+    (1, 40, 1, 3, 20, 8, (150,), (150,)),        # group 3 straddles chunk rows
+    (3, 100, 2, 1, 5, 16, (80, 0, 33), (80, 0, 33)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_chunk_attention_paged_kernel(cuda_dev, dtype, d, case):
+    b, cq, hr, group, c, p, written, start = case
+    gen = torch.Generator(device=cuda_dev).manual_seed(c * p)
+    ins = _paged_inputs(gen, cuda_dev, dtype, b, cq, hr, group, c, p, d, written,
+                        torch.arange(c))
+    st = torch.tensor(start, dtype=torch.int32, device=cuda_dev)
+    q, kp, vp, ps, kn, vn = ins
+    got = ops.chunk_attention_paged(q, kp, vp, ps, st, kn, vn)
+    want = tref.chunk_attention_paged_ref(*_widened(q, kp, vp), ps, st,
+                                          *_widened(kn, vn))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _within(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_chunk_attention_paged_kernel_takes_pages_in_any_order(cuda_dev):
+    """Validity comes from page_start, never from a page's index."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(5)
+    c = 12
+    order = torch.randperm(c, generator=torch.Generator().manual_seed(0))
+    q, kp, vp, ps, kn, vn = _paged_inputs(gen, cuda_dev, torch.float32, 2, 9, 2, 2,
+                                          c, 8, 64, (70, 41), order)
+    st = torch.tensor([70, 41], dtype=torch.int32, device=cuda_dev)
+    got = ops.chunk_attention_paged(q, kp, vp, ps, st, kn, vn)
+    want = tref.chunk_attention_paged_ref(q, kp, vp, ps, st, kn, vn)
+    torch.cuda.synchronize()
+    assert _within(got, want, torch.float32)
+    assert ops.LAUNCHES["chunk_attention_paged"] >= 1
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_dev):
+    """A reduced llama3-8b engine, chunked with churn, on the card (kernels)
+    and on the CPU (plain versions): same tokens; each kernel launched once
+    a layer per step of its kind; and neither chunked admission nor an
+    engine step synchronises with the card (CUDA sync debug mode set to
+    error, which catches the synchronising operations PyTorch flags)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = reduced(get_arch("llama3-8b"))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(3),
+                           device="cpu")
+    rng = torch.Generator().manual_seed(4)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=rng).numpy(),
+                    max_new=m)
+            for i, (n, m) in enumerate([(37, 9), (20, 4), (51, 6), (9, 7)])]
+    kw = dict(max_batch=2, capacity=80, prompt_buckets=[64], prefill_chunk=7)
+    cpu = Engine(cfg, params, device="cpu", **kw).run(reqs)
+    eng = Engine(cfg, _to(params, cuda_dev), device=cuda_dev, **kw)
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launches()
+    while eng.busy():  # chunked admission and every step
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.poll()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng.finalize()
+    s, n = eng.stats, cfg.num_layers
+    assert ops.LAUNCHES == {"flash_attention": 0, "page_score": s.select_steps * n,
+                            "paged_attention": 2 * s.decode_steps * n,
+                            "chunk_attention": s.prefill_chunks * n,
+                            "chunk_attention_paged": s.prefill_chunks * n}
+    assert {u: c.tokens for u, c in eng.completions.items()} == {
+        u: c.tokens for u, c in cpu.items()}
