@@ -26,7 +26,14 @@ then, each phase failing the run with a nonzero exit:
      prefill of 512 tokens a step, launch counts checked exactly against
      the engine's step counts and every engine step run with CUDA's sync
      debug mode set to error (a step that reads from the card fails the
-     run); then the same requests with prefill-then-pack admission.
+     run); then the same requests with prefill-then-pack admission;
+  6. the ``coplace_shmap`` layout over 8 page stripes (split-KV decode):
+     a reduced chunked engine with churn and balanced admission, card
+     against CPU; one decode step of one llama3-8b layer from the 8192-token
+     lockstep prefill, its retrieval-head outputs held against the default
+     layout's (and the full logits' difference printed); then the full-width
+     chunked engine of phase 5 with balanced admission, launch counts
+     checked exactly and every step under sync debug mode "error".
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -69,6 +76,10 @@ ENGINE_BATCH, ENGINE_CHUNK, N_REQUESTS = 4, 512, 6
 ENGINE_PROMPTS, ENGINE_GENS = (2048, 8192), (8, 32)
 # chunk-kernel phase: the context before the chunk of each of the 4 slots
 CHUNK_STARTS = (0, 2048, 5120, 7680)
+# coplace_shmap: page stripes, and the context of each of the 4 slots in the
+# partial-kernel phase
+SHARDS = 8
+STRIPE_CTX = (8200, 7000, 5000, 3000)
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
 
 
@@ -280,6 +291,104 @@ def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
     return cases
 
 
+def partial_excess(got, want) -> float:
+    """Largest excess of the partial over the f32 tolerance. Its outputs are
+    f32 whatever the operands' dtype (bf16 operands are exact in f32), so
+    they differ from the plain version by summation order alone; l and o
+    reach the attention output divided by l, so they are held in units of
+    max(l, 1), m in units of max(|m|, 1)."""
+    atol = TOL[torch.float32][1]
+    (m, l, o), (wm, wl, wo) = got, want
+    scale = wl.clamp(min=1.0)
+    return max(((m - wm).abs() - atol * wm.abs().clamp(min=1.0)).max().item(),
+               ((l - wl).abs() - atol * scale).max().item(),
+               ((o - wo).abs() - atol * scale[..., None]).max().item())
+
+
+def stripe_inputs(gen, dev, cfg, dtype):
+    """The retrieval heads' decode inputs of the coplace_shmap path at its
+    main shapes: 4 slots at contexts STRIPE_CTX in a cache of the engine
+    capacity rounded to whole pages of SHARDS stripes (264 pages of 32),
+    the striped page order, a random top-128 selection of each slot's
+    selectable pages (-1 padded where fewer), the [sink | selected |
+    local] slot list (138 slots, 4416 tokens) and its validity, split over
+    the stripes as the decode body splits them."""
+    from repro_torch.core import layouts, paging
+    from repro_torch.core.hybrid_attention import stripe_slots
+
+    h2 = cfg.h2eal
+    nr, _, g, d = head_split(cfg)
+    p, top_k = h2.page_size, h2.top_k_pages
+    cap = layouts.get_layout("coplace_shmap", SHARDS).plan(cfg).round_capacity(
+        engine_workload(cfg)[1])
+    c = cap // p
+    b = len(STRIPE_CTX)
+    ctx = torch.tensor(STRIPE_CTX, device=dev)
+    lop = paging.logical_pages(c, SHARDS, dev)                    # (C,)
+    start = torch.where(lop[None] * p < ctx[:, None], lop[None] * p, -1)
+    start = start[:, None, :].expand(b, nr, c).to(torch.int32).contiguous()
+    rng = np.random.default_rng(3)
+    sel = np.full((b, nr, top_k), -1, np.int64)
+    for bi, n_ctx in enumerate(STRIPE_CTX):
+        first_local = max(n_ctx - h2.local, 0) // p
+        pages = np.arange(-(-h2.sink // p), first_local)
+        for hi in range(nr):
+            pick = rng.permutation(pages)[:top_k]
+            sel[bi, hi, :len(pick)] = pick
+    sel = torch.from_numpy(sel).to(dev)
+    sel = torch.where(sel >= 0, paging.interleave_slot(sel, c, SHARDS), -1)
+    slots = paging.coplace_attended_slots(sel, ctx, sink=h2.sink, local=h2.local,
+                                          page=p, capacity=c, n_shards=SHARDS)
+    valid = paging.token_validity(slots, start, ctx, sink=h2.sink, local=h2.local,
+                                  page=p, top_k=top_k)
+    slots_s, valid_s = stripe_slots(slots, valid, shards=SHARDS, capacity=c)
+    q = torch.randn(b, nr * g, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(dtype)
+    return q, kp, vp, slots_s, valid_s
+
+
+def check_partial(ops, ref, timer, dev, cfg, dtype, gen):
+    """paged_attention_partial at the coplace_shmap path's shapes; then
+    combine_partials on the partials it produced."""
+    q, kp, vp, slots, valid = stripe_inputs(gen, dev, cfg, dtype)
+    s, b, hr, n = slots.shape
+    g, d, p = q.shape[1] // hr, q.shape[2], kp.shape[3]
+    run = lambda: ops.paged_attention_partial(q, kp, vp, slots, valid)
+    plain = lambda: ref.paged_attention_partial_pages_ref(q, kp, vp, slots, valid)
+    got = run()
+    want = ref.paged_attention_partial_pages_ref(*widened(q, kp, vp), slots, valid)
+    torch.cuda.synchronize()
+    e = max(err(a, w) for a, w in zip(got, want))
+    ex = partial_excess(got, want)
+    del want
+    n_valid = int(valid.sum().item())
+    outs = nbytes(*got)
+    b_ms, b_by = bound(nbytes(q, slots, valid) + outs + 2 * n_valid * d * kp.element_size(),
+                       4 * d * g * n_valid, dtype)
+    tag = str(dtype).split(".")[-1]
+    part = dict(
+        case=f"S={s} B={b} Hq={hr * g} Hr={hr} N={n} P={p} T={n * p} D={d} "
+             f"ctx={list(STRIPE_CTX)} valid={n_valid}",
+        dtype=tag, max_abs_err=e, excess=ex,
+        tol="1e-4*max(l,1) (f32 outputs; m: 1e-4*max(|m|,1))",
+        ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 5), library_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+    m, l, o = got
+    run_c = lambda: ops.combine_partials(m, l, o)
+    plain_c = lambda: ref.combine_partials_ref(m, l, o)
+    out, want_c = run_c(), plain_c()
+    torch.cuda.synchronize()
+    rows = b * hr * g
+    b_ms, b_by = bound(nbytes(m, l, o, out), s * rows * (2 * d + 4), torch.float32)
+    comb = dict(
+        case=f"N={s} B={b} Hq={hr * g} D={d} (f32 partials of the {tag} path)",
+        dtype=tag, max_abs_err=err(out, want_c), excess=excess(out, want_c, torch.float32),
+        tol=tol_text(torch.float32), ms=timer.ms(run_c, 50), plain_ms=timer.ms(plain_c, 50),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return [part], [comb]
+
+
 def engine_workload(cfg):
     """(requests, capacity) of the engine phase, from seeds. The longest
     prompt (8192) and generation (32) are pinned, so the capacity is
@@ -459,6 +568,41 @@ def check_reduced_engine_against_cpu(dev):
         fail("the reduced chunked engine on the card disagrees with the CPU run")
 
 
+def check_reduced_coplace_engine_against_cpu(dev):
+    """Reduced llama3-8b, the coplace_shmap chunked Engine over 4 stripes with
+    balanced admission and slot churn: card (kernels) against CPU (plain
+    versions), token for token, with the same admission reorders."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = reduced(get_arch(ARCH))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(6), device="cpu")
+    rng = np.random.default_rng(6)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=m)
+            for i, (n, m) in enumerate([(37, 9), (20, 4), (51, 6), (9, 7), (30, 5),
+                                        (44, 3)])]
+    kw = dict(max_batch=2, capacity=96, prompt_buckets=[64], prefill_chunk=7,
+              layout="coplace_shmap", shards=4, admission="balanced")
+    cpu_eng = Engine(cfg, params, device="cpu", **kw)
+    cpu = cpu_eng.run(reqs)
+    ops.reset_launches()
+    card_eng = Engine(cfg, _to(params, dev), device=dev, **kw)
+    card = card_eng.run(reqs)
+    same = all(card[u].tokens == cpu[u].tokens for u in cpu) and sorted(card) == sorted(cpu)
+    log(f"reduced {cfg.name} coplace_shmap S=4 balanced chunked engine: card vs CPU "
+        f"tokens equal={same} ({sum(len(c.tokens) for c in cpu.values())} tokens, "
+        f"{len(reqs)} requests), admission reorders card {card_eng.stats.admission_reorders}"
+        f" / CPU {cpu_eng.stats.admission_reorders}, partial launches "
+        f"{ops.LAUNCHES['paged_attention_partial']}")
+    if not same or card_eng.stats.admission_reorders != cpu_eng.stats.admission_reorders:
+        fail("the reduced coplace_shmap engine on the card disagrees with the CPU run")
+    if ops.LAUNCHES["paged_attention_partial"] == 0 or ops.LAUNCHES["combine_partials"] == 0:
+        fail("the reduced coplace_shmap engine did not launch the co-placed kernels")
+
+
 def full_params(dev, cfg):
     from repro_torch.models import model as M
 
@@ -488,7 +632,8 @@ def serve_full(dev, cfg, params):
     expect = {"flash_attention": 2 * cfg.num_layers,
               "page_score": cfg.num_layers * n_sel,
               "paged_attention": 2 * cfg.num_layers * GEN,
-              "chunk_attention": 0, "chunk_attention_paged": 0}
+              "chunk_attention": 0, "chunk_attention_paged": 0,
+              "paged_attention_partial": 0, "combine_partials": 0}
     log(f"generate: sparse run launches {launches} (expected {expect})")
     if launches != expect:
         fail("the serving path did not launch the kernels as expected")
@@ -514,10 +659,93 @@ def serve_full(dev, cfg, params):
     return launches
 
 
+def check_coplace_layer(dev, cfg, params):
+    """One decode step of one llama3-8b layer at full width from the 8192-token
+    lockstep prefill (every slot has 247 selectable pages, more than top-k):
+    the retrieval heads under coplace_shmap over SHARDS stripes (each stripe
+    returns its 33 best pages, so the global top-128 is the default layout's
+    selection) against the default layout, on the caches the two layouts'
+    prefills built; then the whole model's decode-step logits of the two."""
+    import copy
+
+    from repro_torch.core import hybrid_attention as hattn
+    from repro_torch.core import layouts, paging
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import apply_rope, rms_norm
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                            device=dev)
+    lay = {"default": layouts.get_layout("default"),
+           "coplace_shmap": layouts.get_layout("coplace_shmap", SHARDS)}
+    capacity = lay["coplace_shmap"].plan(cfg).round_capacity(serve_capacity(cfg))
+    states, logits = {}, {}
+    with torch.inference_mode():
+        for name, layout in lay.items():
+            lg, states[name] = M.prefill(cfg, params, prompts, capacity=capacity,
+                                         layout=layout)
+            logits[name] = lg
+        tok = logits["default"].argmax(dim=-1).to(torch.int32)
+        spec = T.attn_spec(cfg)
+        p0 = params["layers"][0]
+        h = rms_norm(M.embed_input(cfg, params, tok), p0["ln1"], cfg.norm_eps)
+        q, k, v = T._qkv(cfg, p0, h)
+        cos, sin = M._rope(cfg, torch.arange(PROMPT, PROMPT + 1, device=dev))
+        q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
+        outs, sels = {}, {}
+        for name, layout in lay.items():
+            cache = copy.deepcopy(states[name]["layers"][0])
+            outs[name], cache = layout.decode(spec, cache, q, k, v, PROMPT,
+                                              do_select=True)
+            sels[name] = cache["paged"].sel_idx
+        c = capacity // cfg.h2eal.page_size
+        logical = paging.logical_pages(c, SHARDS, dev)[sels["coplace_shmap"].long()]
+        same_sel = torch.equal(logical.sort(dim=-1).values,
+                               sels["default"].long().sort(dim=-1).values)
+        nq = spec.n_retrieval * spec.group
+        a, b = outs["coplace_shmap"][:, :nq].float(), outs["default"][:, :nq].float()
+        # each side rounds its f32 result to bf16 once: twice the kernel
+        # tolerance's half step
+        rtol, atol = TOL[torch.bfloat16]
+        ex = ((a - b).abs() - 2 * (rtol * b.abs() + atol)).max().item()
+        step = {}
+        for name, layout in lay.items():
+            step[name], _ = M.decode_step(cfg, params, states[name], tok,
+                                          do_select=True, layout=layout)
+    d_logits = err(step["coplace_shmap"], step["default"])
+    log(f"coplace_shmap S={SHARDS} vs default, layer 0 of {cfg.name} at context "
+        f"{PROMPT + 1} (capacity {capacity}): same selected pages={same_sel}, "
+        f"retrieval-head output max err={err(a, b):.3e} excess={ex:.3e} "
+        f"(tol 2*(2^-8*|default| + 1e-5)); whole-model decode-step logits max "
+        f"diff {d_logits:.3e}, prefill logits max diff "
+        f"{err(logits['coplace_shmap'], logits['default']):.3e}")
+    if not same_sel or not ex <= 0.0:
+        fail("coplace_shmap's retrieval heads disagree with the default layout's")
+    if not all(bool(torch.isfinite(x).all()) for x in step.values()):
+        fail("a decode step of the two layouts produced non-finite logits")
+    del states
+    torch.cuda.empty_cache()
+
+
+def page_load_imbalance(eng, page_size) -> float:
+    """Per-stripe page-load imbalance (max / mean) of the engine's occupied
+    slots' resident pages, under SHARDS-way round-robin striping."""
+    from repro_torch.sched import balance
+
+    b = eng.batch
+    ctx = [int(b.lengths[i]) for i in range(b.max_batch)
+           if b.active[i] or b.ready[i] or b.prefilling[i]]
+    return balance.load_imbalance(balance.device_page_loads(
+        ctx, n_shards=SHARDS, page_size=page_size))
+
+
 def serve_engine(dev, cfg, params):
     """The continuous-batching Engine at full width: chunked prefill, then
-    prefill-then-pack on the same requests. Returns the launch counts of
-    each run."""
+    prefill-then-pack on the same requests, then the chunked coplace_shmap
+    engine over SHARDS stripes with balanced admission. Returns the launch
+    counts of each run."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine
 
@@ -527,14 +755,18 @@ def serve_engine(dev, cfg, params):
     log(f"engine: {len(reqs)} requests on {ENGINE_BATCH} slots, prompts {lens}, "
         f"generations {[r.max_new for r in reqs]}, capacity {capacity}")
     out, launches = {}, {}
-    for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
+    coplace = dict(layout="coplace_shmap", shards=SHARDS, admission="balanced")
+    for mode, chunk, kw in (("chunked", ENGINE_CHUNK, {}), ("packed", None, {}),
+                            ("coplace", ENGINE_CHUNK, coplace)):
         eng = Engine(cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
-                     prompt_buckets=sorted(set(lens)), prefill_chunk=chunk, device=dev)
+                     prompt_buckets=sorted(set(lens)), prefill_chunk=chunk, device=dev,
+                     **kw)
         for r in reqs:
             eng.submit(r)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
+        imb = []
         t0 = time.perf_counter()
         while eng.busy():
             if chunk:  # admission and step: neither may read from the card
@@ -545,16 +777,20 @@ def serve_engine(dev, cfg, params):
                 fail(f"engine ({mode}) step failed: {exc}")
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+            imb.append(page_load_imbalance(eng, cfg.h2eal.page_size))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[mode] = got = dict(ops.LAUNCHES)
         eng.finalize()
         s = eng.stats
+        split = mode == "coplace"  # retrieval heads: partial + combine
         expect = {"flash_attention": 0 if chunk else 2 * n_l * len(reqs),
                   "page_score": s.select_steps * n_l,
-                  "paged_attention": 2 * s.decode_steps * n_l,
+                  "paged_attention": (1 if split else 2) * s.decode_steps * n_l,
                   "chunk_attention": s.prefill_chunks * n_l,
-                  "chunk_attention_paged": s.prefill_chunks * n_l}
+                  "chunk_attention_paged": s.prefill_chunks * n_l,
+                  "paged_attention_partial": s.decode_steps * n_l if split else 0,
+                  "combine_partials": s.decode_steps * n_l if split else 0}
         log(f"engine ({mode}) launches {got} (expected {expect})")
         if got != expect:
             fail(f"the engine ({mode}) did not launch the kernels as expected")
@@ -571,7 +807,9 @@ def serve_engine(dev, cfg, params):
             f"prefill-chunk steps {s.prefill_chunks}, decode steps {s.decode_steps} "
             f"(select {s.select_steps} / reuse {s.reuse_steps}), mean occupancy "
             f"{s.occupancy:.3f}, first-token step per request {first}, peak memory "
-            f"{peak:.1f} GiB")
+            f"{peak:.1f} GiB; admission reorders {s.admission_reorders}, per-stripe "
+            f"page-load imbalance over {SHARDS} stripes mean {np.mean(imb):.4f} max "
+            f"{np.max(imb):.4f} (cache capacity {eng.cache_capacity})")
         out[mode] = {u: c.tokens for u, c in comps.items()}
         del eng
         torch.cuda.empty_cache()
@@ -580,6 +818,10 @@ def serve_engine(dev, cfg, params):
     agree = sum(a == b for a, b in pairs) / len(pairs)
     log(f"engine: token agreement chunked vs packed {agree:.3f} (random weights: "
         f"near-flat logits, so a reassociated sum can flip a token)")
+    pairs = [(a, b) for u in out["chunked"] for a, b in zip(out["chunked"][u],
+                                                            out["coplace"][u])]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    log(f"engine: token agreement chunked default vs chunked coplace_shmap {agree:.3f}")
     return launches
 
 
@@ -636,7 +878,8 @@ def main() -> int:
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {"flash_attention": [], "page_score": [], "paged_attention": [],
-               "chunk_attention": [], "chunk_attention_paged": []}
+               "chunk_attention": [], "chunk_attention_paged": [],
+               "paged_attention_partial": [], "combine_partials": []}
     for dtype in (torch.bfloat16, torch.float32):
         results["flash_attention"] += check_flash(ops, ref, timer, dev, cfg, dtype, gen)
         results["page_score"] += check_page_score(ops, ref, timer, dev, cfg, dtype, gen,
@@ -646,6 +889,9 @@ def main() -> int:
         results["chunk_attention"] += check_chunk(ops, ref, timer, dev, cfg, dtype, gen)
         results["chunk_attention_paged"] += check_chunk_paged(
             ops, ref, timer, dev, cfg, dtype, gen, engine_capacity)
+        part, comb = check_partial(ops, ref, timer, dev, cfg, dtype, gen)
+        results["paged_attention_partial"] += part
+        results["combine_partials"] += comb
         torch.cuda.empty_cache()
     bad = []
     for name, cases in results.items():
@@ -665,14 +911,19 @@ def main() -> int:
 
     check_reduced_against_cpu(dev)
     check_reduced_engine_against_cpu(dev)
+    check_reduced_coplace_engine_against_cpu(dev)
     params = full_params(dev, cfg)
     by_path = {"generate": serve_full(dev, cfg, params)}
+    check_coplace_layer(dev, cfg, params)
     by_path.update({f"engine_{k}": v for k, v in serve_engine(dev, cfg, params).items()})
-    # the main paths: sparse lockstep generate and the chunked engine; every
-    # kernel of a path must have run in it
+    # the main paths: sparse lockstep generate, the chunked engine and the
+    # chunked coplace_shmap engine; every kernel of a path must have run in it
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
                   "engine_chunked": ("page_score", "paged_attention", "chunk_attention",
-                                     "chunk_attention_paged")}
+                                     "chunk_attention_paged"),
+                  "engine_coplace": ("page_score", "paged_attention", "chunk_attention",
+                                     "chunk_attention_paged", "paged_attention_partial",
+                                     "combine_partials")}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:
@@ -683,12 +934,16 @@ def main() -> int:
                "page_score": src + "page_score.cu",
                "paged_attention": src + "paged_attention.cu",
                "chunk_attention": src + "chunk_attention.cu",
-               "chunk_attention_paged": src + "chunk_attention.cu"}
+               "chunk_attention_paged": src + "chunk_attention.cu",
+               "paged_attention_partial": src + "paged_attention_partial.cu",
+               "combine_partials": src + "combine_partials.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:97",
                 "page_score": "src/repro/kernels/page_score.py:46",
                 "paged_attention": "src/repro/kernels/paged_attention.py:89",
                 "chunk_attention": "src/repro/kernels/chunk_attention.py:107",
-                "chunk_attention_paged": "src/repro/kernels/chunk_attention.py:213"}
+                "chunk_attention_paged": "src/repro/kernels/chunk_attention.py:213",
+                "paged_attention_partial": "src/repro/kernels/paged_attention.py:89",
+                "combine_partials": "src/repro/kernels/paged_attention.py:211"}
     kernels = []
     for name, cases in results.items():
         main_cases = [c for c in cases if c["dtype"] == "bfloat16"

@@ -11,9 +11,13 @@ kernels that take the most device time:
   * ``--engine``: the continuous-batching engine with chunked prefill on
     chip_smoke.py's engine workload (6 ragged requests on 4 slots, chunks
     of 512), a window of mixed steps (a prompt chunk beside decoding
-    slots) and a window of decode-only steps.
+    slots) and a window of decode-only steps; ``--layout coplace_shmap
+    --shards S`` serves it co-placed over S page stripes (split-KV decode,
+    FIFO admission, so the windows hold the same steps).
 
     PYTHONPATH=src python scripts/torch_profile_serve.py [--engine]
+    PYTHONPATH=src python scripts/torch_profile_serve.py --engine \\
+        --layout coplace_shmap --shards 8
 """
 from __future__ import annotations
 
@@ -89,7 +93,7 @@ def run(cfg, params, prompts, capacity, steps, label):
         report(f"{label} decode", prof, wall, steps=steps)
 
 
-def engine_windows(cfg, params, windows):
+def engine_windows(cfg, params, windows, layout="default", shards=1):
     """The chunked engine on chip_smoke.py's engine workload, profiled over
     each (label, first engine step, steps) window, then one unprofiled run
     of the whole workload."""
@@ -100,7 +104,7 @@ def engine_windows(cfg, params, windows):
     make = lambda params: Engine(
         cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
         prompt_buckets=sorted({len(r.prompt) for r in reqs}),
-        prefill_chunk=ENGINE_CHUNK)
+        prefill_chunk=ENGINE_CHUNK, layout=layout, shards=shards)
     eng = make(params)
     for r in reqs:
         eng.submit(r)
@@ -137,6 +141,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", action="store_true",
                     help="profile the chunked continuous-batching engine instead")
+    ap.add_argument("--layout", choices=["default", "coplace_shmap"], default="default",
+                    help="the engine's serve-cache layout")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="coplace_shmap's page stripes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -148,10 +156,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip() or torch.cuda.get_device_name(0)
     if args.engine:
-        print(f"{card}; {cfg.name} layers={cfg.num_layers} chunked engine")
+        print(f"{card}; {cfg.name} layers={cfg.num_layers} chunked engine, layout "
+              f"{args.layout} shards={args.shards}")
         # steps 20-27: slot 0 decodes while slot 1's prompt is fed; from
         # step 62 every prompt is in and the slots only decode
-        engine_windows(cfg, params, [("mixed", 20, 8), ("decode-only", 62, 8)])
+        engine_windows(cfg, params, [("mixed", 20, 8), ("decode-only", 62, 8)],
+                       layout=args.layout, shards=args.shards)
         return
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)

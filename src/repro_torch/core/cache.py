@@ -21,6 +21,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.paging import interleave_slot, logical_pages
+
 
 @dataclasses.dataclass
 class FullCache:
@@ -139,35 +141,43 @@ def stream_cache_append(cache: StreamCache, k_new, v_new, length, *,
     return cache
 
 
-def paged_cache_append(cache: PagedCache, k_new, v_new, length,
-                       active=None) -> PagedCache:
-    """Append one token at position ``length`` (page = length // P), in
-    place, updating the page's running τ min/max and its start."""
-    p = cache.k_pages.shape[3]
+def paged_cache_append(cache: PagedCache, k_new, v_new, length, active=None,
+                       *, phys_shards: int = 1) -> PagedCache:
+    """Append one token at position ``length`` (logical page length // P),
+    in place, updating the page's running τ min/max and its start.
+
+    ``phys_shards`` > 1 is the ``coplace_shmap`` owner-stripe append: the
+    token goes to the page's physical slot ``paging.interleave_slot``, which
+    is what the reference's per-shard append writes on the one shard owning
+    it (the others write nothing); the page start stays the logical one."""
+    b, _, c, p = cache.k_pages.shape[:4]
     if not isinstance(length, torch.Tensor):
         page, off = divmod(length, p)
-        cache.k_pages[:, :, page, off] = k_new.to(cache.k_pages.dtype)
-        cache.v_pages[:, :, page, off] = v_new.to(cache.v_pages.dtype)
+        if page >= c:
+            raise ValueError(f"position {length} lies past the cache's {c} pages")
+        slot = interleave_slot(page, c, phys_shards)
+        cache.k_pages[:, :, slot, off] = k_new.to(cache.k_pages.dtype)
+        cache.v_pages[:, :, slot, off] = v_new.to(cache.v_pages.dtype)
         kf = k_new.float()
-        cache.tau_min[:, :, page] = torch.minimum(cache.tau_min[:, :, page], kf)
-        cache.tau_max[:, :, page] = torch.maximum(cache.tau_max[:, :, page], kf)
-        cache.page_start[:, :, page] = page * p
+        cache.tau_min[:, :, slot] = torch.minimum(cache.tau_min[:, :, slot], kf)
+        cache.tau_max[:, :, slot] = torch.maximum(cache.tau_max[:, :, slot], kf)
+        cache.page_start[:, :, slot] = page * p
         return cache
-    b, _, c = cache.k_pages.shape[:3]
     lb, act = _rows(length, active, b, cache.k_pages.device)
     page = (lb // p).clamp(0, c - 1)
+    slot = interleave_slot(page, c, phys_shards)
     off = lb % p
     bi = torch.arange(b, device=lb.device)
     a3 = act[:, None, None]
     for buf, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
-        buf[bi, :, page, off] = torch.where(a3, new.to(buf.dtype),
-                                            buf[bi, :, page, off])
+        buf[bi, :, slot, off] = torch.where(a3, new.to(buf.dtype),
+                                            buf[bi, :, slot, off])
     kf = k_new.float()
-    old_min, old_max = cache.tau_min[bi, :, page], cache.tau_max[bi, :, page]
-    cache.tau_min[bi, :, page] = torch.where(a3, torch.minimum(old_min, kf), old_min)
-    cache.tau_max[bi, :, page] = torch.where(a3, torch.maximum(old_max, kf), old_max)
-    cache.page_start[bi, :, page] = torch.where(
-        act[:, None], (page * p)[:, None].int(), cache.page_start[bi, :, page])
+    old_min, old_max = cache.tau_min[bi, :, slot], cache.tau_max[bi, :, slot]
+    cache.tau_min[bi, :, slot] = torch.where(a3, torch.minimum(old_min, kf), old_min)
+    cache.tau_max[bi, :, slot] = torch.where(a3, torch.maximum(old_max, kf), old_max)
+    cache.page_start[bi, :, slot] = torch.where(
+        act[:, None], (page * p)[:, None].int(), cache.page_start[bi, :, slot])
     return cache
 
 
@@ -204,29 +214,36 @@ def _put_tokens(buf, loc, valid, new):
 
 
 def paged_cache_append_chunk(cache: PagedCache, k_new, v_new, start,
-                             chunk_len, *, active=None) -> PagedCache:
+                             chunk_len, *, active=None,
+                             phys_shards: int = 1) -> PagedCache:
     """k_new/v_new: (B, C, Hr, D). Page τ min/max merge by scatter-min/max
     (a masked token adds the identity ±inf), exact for chunks that open,
     fill or straddle pages, PROVIDED the touched pages start from the
-    empty values (the engine resets a slot's rows at admission)."""
+    empty values (the engine resets a slot's rows at admission).
+    ``phys_shards`` > 1 writes each logical page into its striped physical
+    slot (``paging.interleave_slot``, the ``coplace_shmap`` order); the page
+    starts stay logical positions."""
     b, cch, h, d = k_new.shape
     cap, p = cache.k_pages.shape[2:4]
     pos, valid = _chunk_rows(start, chunk_len, active, b, cch, k_new.device)
-    loc = pos % (cap * p)
+    # (pos mod cap*P) -> (page mod cap, offset) -> striped slot is one-to-one
+    slot = interleave_slot((pos // p) % cap, cap, phys_shards)
+    loc = slot * p + pos % p
     _put_tokens(cache.k_pages.view(b, h, cap * p, d), loc, valid, k_new)
     _put_tokens(cache.v_pages.view(b, h, cap * p, d), loc, valid, v_new)
-    idx = (loc // p)[:, None, :, None].expand(b, h, cch, d)
+    idx = slot[:, None, :, None].expand(b, h, cch, d)
     kf = k_new.float().transpose(1, 2)                     # (B, H, C, D)
     vmask = valid[:, None, :, None]
     cache.tau_min.scatter_reduce_(2, idx, torch.where(vmask, kf, float("inf")),
                                   "amin")
     cache.tau_max.scatter_reduce_(2, idx, torch.where(vmask, kf, float("-inf")),
                                   "amax")
-    # a page is opened iff a valid token falls in it: pages start // P ..
-    # (start + chunk_len - 1) // P of an active slot with chunk_len > 0
+    # a page is opened iff a valid token falls in it: logical pages
+    # start // P .. (start + chunk_len - 1) // P of an active slot with
+    # chunk_len > 0; each physical slot holds logical page pg
     last = pos.gather(1, (chunk_len.reshape(b, 1).long() - 1).clamp(min=0))
     n_valid = valid.any(dim=1, keepdim=True)
-    pg = torch.arange(cap, device=k_new.device)
+    pg = logical_pages(cap, phys_shards, k_new.device)
     opened = n_valid & (pg >= pos[:, :1] // p) & (pg <= last // p)   # (B, cap)
     cache.page_start.copy_(torch.where(opened[:, None, :], (pg * p).int(),
                                        cache.page_start))

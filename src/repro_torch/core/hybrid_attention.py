@@ -16,11 +16,18 @@ Selection is recomputed every ``share_window`` steps (``do_select``).
 Chunked prefill: a chunk of prompt tokens per slot attends the
           pre-append caches plus the chunk itself (retrieval heads full
           causal, streaming heads sink+local), then is appended.
+Co-placed decode (``decode_attention_coplace``, paper §IV-B): the
+          ``coplace_shmap`` layout's pages are striped round-robin over S
+          stripes, the single-card stand-in for the devices of the JAX
+          mesh's 'model' axis; each stripe scores, selects and attends the
+          pages it owns and emits flash partials (m, l, o), which a
+          log-sum-exp combine merges (a split-KV decode).
 
 The caches are updated in place (see ``repro_torch/core/cache.py``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -127,11 +134,13 @@ def prefill_attention(spec: AttnSpec, q, k, v, perm=None):
 
 
 def init_decode_state(spec: AttnSpec, k, v, length: int, capacity: int,
-                      perm=None):
+                      perm=None, interleave_shards: int = 1):
     """Build (PagedCache, StreamCache) from prefill K/V.
 
     k/v: (B, S, Hkv, D) post-rope; length == S. capacity: the most
-    context tokens the paged cache must hold.
+    context tokens the paged cache must hold. ``interleave_shards`` > 1
+    lays the pages out striped round-robin over that many stripes
+    (physical slot p holds logical page ``paging.logical_pages``[p]).
     """
     _check_ported(spec)
     h2 = spec.h2
@@ -154,6 +163,14 @@ def init_decode_state(spec: AttnSpec, k, v, length: int, capacity: int,
         kpp = paged.k_pages.float()
         paged.tau_min = torch.where(offs, kpp, float("inf")).amin(dim=3)
         paged.tau_max = torch.where(offs, kpp, float("-inf")).amax(dim=3)
+    if interleave_shards > 1:
+        if num_pages % interleave_shards:
+            raise ValueError(f"page capacity {num_pages} must divide by "
+                             f"{interleave_shards} stripes")
+        lop = paging.logical_pages(num_pages, interleave_shards, k.device)
+        for f in ("k_pages", "v_pages", "tau_min", "tau_max", "importance",
+                  "page_start"):
+            setattr(paged, f, getattr(paged, f).index_select(2, lop))
     stream = cachelib.stream_cache_from_prefill(
         kp[:, :, nr:], vp[:, :, nr:], sink=h2.sink, local_cap=_local_cap(h2),
         length=length)
@@ -179,7 +196,7 @@ def empty_decode_state(spec: AttnSpec, batch: int, capacity: int, *, dtype,
 def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
                             paged: cachelib.PagedCache,
                             stream: cachelib.StreamCache, start, chunk_len,
-                            active=None, *, perm=None):
+                            active=None, *, perm=None, phys_shards: int = 1):
     """One chunked-prefill step. q: (B, C, Hq, D) roped at the chunk
     positions; k_new/v_new: (B, C, Hkv, D); start: (B,) int32 context before
     the chunk; chunk_len: (B,) valid tokens; active: (B,) bool, the slots
@@ -195,7 +212,9 @@ def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
     slots append nothing; their outputs are finite values the caller
     ignores (an inactive slot attends only its own chunk, so the kernels
     skip its cache). Chunked and single-shot prefill sum in different
-    orders, so they agree to float tolerance.
+    orders, so they agree to float tolerance. ``phys_shards`` > 1 appends
+    in the ``coplace_shmap`` striped page order; the attention is the same,
+    its validity coming from the page starts.
     """
     _check_ported(spec)
     h2 = spec.h2
@@ -216,7 +235,8 @@ def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
             qp[:, :, : nr * g].contiguous(), paged.k_pages, paged.v_pages,
             paged.page_start, torch.where(active, start, 0), k_r, v_r))
         paged = cachelib.paged_cache_append_chunk(paged, k_r, v_r, start,
-                                                  chunk_len, active=active)
+                                                  chunk_len, active=active,
+                                                  phys_shards=phys_shards)
     if spec.n_streaming > 0:
         ns = spec.n_streaming
         k_s, v_s = kp[:, :, nr:], vp[:, :, nr:]
@@ -254,6 +274,30 @@ def decode_attention(spec: AttnSpec, q, k_new, v_new,
     on a select step, ``need_select`` (B,) bool: only those slots take the
     fresh selection and importance, the others keep their cached ones.
     Returns (out (B,Hq,D), paged, stream)."""
+    return _decode(spec, _paged_decode, q, k_new, v_new, paged, stream, length,
+                   do_select=do_select, perm=perm, active=active,
+                   need_select=need_select)
+
+
+def decode_attention_coplace(spec: AttnSpec, q, k_new, v_new,
+                             paged: cachelib.PagedCache,
+                             stream: cachelib.StreamCache, length, *,
+                             do_select: bool, shards: int, perm=None,
+                             active=None, need_select=None):
+    """``decode_attention`` with the retrieval heads co-placed over
+    ``shards`` page stripes (``_paged_decode_coplace``); the streaming heads
+    attend their ring as there. The arguments are those of
+    ``decode_attention``; the paged cache is in the striped page order."""
+    retrieval = functools.partial(_paged_decode_coplace, shards=shards)
+    return _decode(spec, retrieval, q, k_new, v_new, paged, stream, length,
+                   do_select=do_select, perm=perm, active=active,
+                   need_select=need_select)
+
+
+def _decode(spec: AttnSpec, retrieval, q, k_new, v_new, paged, stream, length,
+            *, do_select: bool, perm, active, need_select):
+    """The decode step around a retrieval-head body ``retrieval(spec, q_r,
+    k_r, v_r, paged, length, ...) -> (out_r, paged)``."""
     _check_ported(spec)
     h2 = spec.h2
     g = spec.group
@@ -262,51 +306,143 @@ def decode_attention(spec: AttnSpec, q, k_new, v_new,
     kp = _permute_kv(k_new, perm)
     vp = _permute_kv(v_new, perm)
     q_r, q_s = qp[:, : nr * g].contiguous(), qp[:, nr * g:].contiguous()
-    ctx = length + 1
-    _, n_local = paging.page_counts(sink=h2.sink, local=h2.local,
-                                    page=h2.page_size)
-    if nr > 0 and not isinstance(ctx, torch.Tensor) and (
-            paging.first_local_page(ctx, local=h2.local, page=h2.page_size)
-            + n_local > paged.k_pages.shape[2]):
-        raise ValueError(
-            f"context {ctx} needs more pages than the cache's "
-            f"{paged.k_pages.shape[2]}: serve with capacity >= context + "
-            f"page_size")
-
     outs = []
     if nr > 0:
-        paged = cachelib.paged_cache_append(paged, kp[:, :nr], vp[:, :nr],
-                                            length, active)
-        if do_select:
-            scores = paging.score_pages(
-                q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx,
-                sink=h2.sink, local=h2.local, page=h2.page_size)
-            sel = paging.select_pages(scores, h2.top_k_pages)
-            imp = paging.accumulate_importance(paged.importance, scores)
-            if need_select is not None:
-                ns = need_select[:, None, None]
-                sel = torch.where(ns, sel, paged.sel_idx)
-                imp = torch.where(ns, imp, paged.importance)
-            paged.sel_idx, paged.importance = sel, imp
-        slots = paging.attended_page_slots(
-            paged.sel_idx, ctx, sink=h2.sink, local=h2.local,
-            page=h2.page_size)
-        gk, gv = paging.gather_pages(paged.k_pages, paged.v_pages, slots)
-        valid = paging.token_validity(
-            slots, paged.page_start, ctx, sink=h2.sink, local=h2.local,
-            page=h2.page_size, top_k=h2.top_k_pages)
-        outs.append(kops.paged_attention(q_r, gk, gv, valid))
+        out_r, paged = retrieval(spec, q_r, kp[:, :nr], vp[:, :nr], paged,
+                                 length, do_select=do_select, active=active,
+                                 need_select=need_select)
+        outs.append(out_r)
     if spec.n_streaming > 0:
         stream = cachelib.stream_cache_append(stream, kp[:, nr:], vp[:, nr:],
                                               length, sink=h2.sink,
                                               active=active)
         # exact sink+local mask (the ring carries one page of slack)
+        ctx = length + 1
         ctx_b = ctx[:, None, None] if isinstance(ctx, torch.Tensor) else ctx
         valid_s = (stream.pos >= 0) & (
             (stream.pos < h2.sink) | (stream.pos >= ctx_b - h2.local))
         outs.append(kops.paged_attention(q_s, stream.k, stream.v, valid_s))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return _permute_q(out, _inverse_perm(perm), g), paged, stream
+
+
+def _paged_decode(spec: AttnSpec, q_r, k_r, v_r, paged: cachelib.PagedCache,
+                  length, *, do_select: bool, active, need_select):
+    """Retrieval heads, single program: append, (select), attend
+    [sink | selected | local] pages -> (out (B, HqR, D), paged)."""
+    h2 = spec.h2
+    ctx = length + 1
+    _, n_local = paging.page_counts(sink=h2.sink, local=h2.local,
+                                    page=h2.page_size)
+    if not isinstance(ctx, torch.Tensor) and (
+            paging.first_local_page(ctx, local=h2.local, page=h2.page_size)
+            + n_local > paged.k_pages.shape[2]):
+        raise ValueError(
+            f"context {ctx} needs more pages than the cache's "
+            f"{paged.k_pages.shape[2]}: serve with capacity >= context + "
+            f"page_size")
+    paged = cachelib.paged_cache_append(paged, k_r, v_r, length, active)
+    if do_select:
+        scores = paging.score_pages(
+            q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx,
+            sink=h2.sink, local=h2.local, page=h2.page_size)
+        sel = paging.select_pages(scores, h2.top_k_pages)
+        imp = paging.accumulate_importance(paged.importance, scores)
+        _keep_selection(paged, sel, imp, need_select)
+    slots = paging.attended_page_slots(
+        paged.sel_idx, ctx, sink=h2.sink, local=h2.local, page=h2.page_size)
+    gk, gv = paging.gather_pages(paged.k_pages, paged.v_pages, slots)
+    valid = paging.token_validity(
+        slots, paged.page_start, ctx, sink=h2.sink, local=h2.local,
+        page=h2.page_size, top_k=h2.top_k_pages)
+    return kops.paged_attention(q_r, gk, gv, valid), paged
+
+
+def _keep_selection(paged: cachelib.PagedCache, sel, imp, need_select):
+    """Store a select step's selection and importance; under the engine's
+    per-slot share window only the slots in ``need_select`` take them."""
+    if need_select is not None:
+        ns = need_select[:, None, None]
+        sel = torch.where(ns, sel, paged.sel_idx)
+        imp = torch.where(ns, imp, paged.importance)
+    paged.sel_idx, paged.importance = sel, imp
+
+
+NEG_INF_HALF = -5e29
+
+
+def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
+                          paged: cachelib.PagedCache, length, *,
+                          do_select: bool, shards: int, active, need_select):
+    """Retrieval heads under co-placement over ``shards`` page stripes: the
+    reference's per-device body (``_paged_decode_coplace``, one shard_map
+    program per device of the 'model' axis) batched over a stripe axis of
+    one tensor. Stripe s owns the physical page slots [s·C/S, (s+1)·C/S).
+
+      append      the token goes to its page's striped slot;
+      select      page_score over all C slots at once, viewed (B, Hr, S,
+                  C/S); the importance accumulates every score; each stripe
+                  keeps its top k_eff = min(K, C/S) (lower slot first among
+                  equal scores, as ``lax.top_k``), as physical ids; a global
+                  top-K over the stripe-major concatenation; -1 where the
+                  score is masked (<= NEG_INF_HALF) and as padding to K;
+      attend      the [sink | selected | local] slots, each kept only on the
+                  stripe that owns it (-1 elsewhere), with the validity of
+                  the unsplit buffer; one partial-attention launch over
+                  every stripe, one combine launch, cast to q's dtype.
+
+    No step reads from the card. Returns (out (B, HqR, D), paged).
+    """
+    h2 = spec.h2
+    p_sz, top_k = h2.page_size, h2.top_k_pages
+    b, hr, cap = paged.k_pages.shape[:3]
+    nsh = shards
+    if cap % nsh:
+        raise ValueError(f"page capacity {cap} must divide by {nsh} stripes: "
+                         f"round the capacity up to page_size * stripes")
+    c_loc = cap // nsh
+    ctx = length + 1
+    paged = cachelib.paged_cache_append(paged, k_r, v_r, length, active,
+                                        phys_shards=nsh)
+    if do_select:
+        scores = paging.score_pages(
+            q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx,
+            sink=h2.sink, local=h2.local, page=p_sz)      # (B, Hr, C)
+        imp = paging.accumulate_importance(paged.importance, scores)
+        k_eff = min(top_k, c_loc)
+        v_loc, i_loc = paging.top_k(scores.view(b, hr, nsh, c_loc), k_eff)
+        base = torch.arange(nsh, device=scores.device)[:, None] * c_loc
+        v_cat = v_loc.reshape(b, hr, nsh * k_eff)
+        i_cat = (i_loc + base).reshape(b, hr, nsh * k_eff)
+        sel_v, sel_pos = paging.top_k(v_cat, min(top_k, nsh * k_eff))
+        sel = torch.where(sel_v > NEG_INF_HALF, i_cat.gather(2, sel_pos), -1)
+        _keep_selection(paged, paging.pad_selection(sel, top_k), imp,
+                        need_select)
+    slots = paging.coplace_attended_slots(
+        paged.sel_idx, ctx, sink=h2.sink, local=h2.local, page=p_sz,
+        capacity=cap, n_shards=nsh)                       # (B, Hr, N)
+    valid = paging.token_validity(
+        slots, paged.page_start, ctx, sink=h2.sink, local=h2.local, page=p_sz,
+        top_k=top_k)                                      # (B, Hr, N*P)
+    slots_s, valid_s = stripe_slots(slots, valid, shards=nsh, capacity=cap)
+    m, l, o = kops.paged_attention_partial(q_r, paged.k_pages, paged.v_pages,
+                                           slots_s, valid_s)
+    return kops.combine_partials(m, l, o).to(q_r.dtype), paged
+
+
+def stripe_slots(slots, valid, *, shards: int, capacity: int):
+    """Each stripe's share of an attended slot list: slots (B, H, N) and the
+    validity (B, H, N*P) of their buffer -> (S, B, H, N) int32 with -1
+    where the stripe does not own the slot (it owns [s·C/S, (s+1)·C/S)),
+    and (S, B, H, N*P) bool. Masking a slot to -1 only clears its tokens,
+    so each stripe's validity is the buffer's restricted to its slots."""
+    n = slots.shape[2]
+    stripe = torch.arange(shards, device=slots.device)[:, None, None, None]
+    mine = (slots >= 0) & (torch.div(slots, capacity // shards,
+                                     rounding_mode="floor") == stripe)
+    slots_s = torch.where(mine, slots, -1).to(torch.int32)
+    valid_s = valid & mine.repeat_interleave(valid.shape[2] // n, dim=3)
+    return slots_s, valid_s
 
 
 def full_decode_attention(spec: AttnSpec, q, k_new, v_new,

@@ -18,6 +18,11 @@ has its own context and so its own first local page.
 Chunked prefill selects nothing: retrieval heads attend full causal and
 streaming heads sink+local, with validity computed from absolute
 positions (the chunk helpers at the end).
+
+Under the ``coplace_shmap`` layout the physical page slots are striped
+round-robin over S stripes (``interleave_slot``): logical page p lives in
+stripe p % S. ``coplace_attended_slots`` builds the attended slot list in
+that physical order.
 """
 from __future__ import annotations
 
@@ -59,21 +64,31 @@ def score_pages(q, tau_min, tau_max, page_start, ctx, *, sink: int,
     return torch.where(selectable, scores, NEG_INF)
 
 
-def select_pages(scores, top_k: int):
+def top_k(x, k: int):
+    """(values, indices) of the k largest entries along the last dim; equal
+    values keep the lower index first, as ``lax.top_k`` does
+    (``torch.topk`` leaves their order open)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return x.gather(-1, order), order
+
+
+def pad_selection(idx, k: int):
+    """(..., n) page slots -> (..., k) int32, padded with -1 (n <= k)."""
+    idx = idx.to(torch.int32)
+    if idx.shape[-1] < k:
+        idx = torch.cat([idx, idx.new_full(idx.shape[:-1] + (k - idx.shape[-1],),
+                                           -1)], dim=-1)
+    return idx
+
+
+def select_pages(scores, top_k_pages: int):
     """Top-k page slots per (B, Hkv): (B, Hkv, K) int32, padded with -1
-    when fewer than ``top_k`` pages exist. Equal scores keep the lower page
-    first, as ``lax.top_k`` does (``torch.topk`` leaves their order open).
-    The order matters: when fewer than k pages are selectable, masked pages
+    when fewer than ``top_k_pages`` pages exist, in ``top_k``'s order. The
+    order matters: when fewer than k pages are selectable, masked pages
     fill the selection, and one of them can become selectable at a later
     reuse step of the same share window, as the local section moves on."""
-    k_eff = min(top_k, scores.shape[-1])
-    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    idx = order[..., :k_eff].to(torch.int32)
-    if k_eff < top_k:
-        pad = torch.full(idx.shape[:-1] + (top_k - k_eff,), -1,
-                         dtype=torch.int32, device=idx.device)
-        idx = torch.cat([idx, pad], dim=-1)
-    return idx
+    _, idx = top_k(scores, min(top_k_pages, scores.shape[-1]))
+    return pad_selection(idx, top_k_pages)
 
 
 def attended_page_slots(sel_idx, ctx, *, sink: int, local: int, page: int):
@@ -88,6 +103,50 @@ def attended_page_slots(sel_idx, ctx, *, sink: int, local: int, page: int):
                                               device=dev)).to(torch.int32)
     return torch.cat([sink_pages.expand(b, h, n_sink), sel_idx,
                       local_pages.expand(b, h, n_local)], dim=2)
+
+
+def interleave_slot(page, capacity: int, n_shards: int):
+    """Physical slot of logical page ``page`` (an int or a tensor) when the
+    ``capacity`` pages are striped round-robin over ``n_shards`` stripes of
+    capacity / n_shards slots each: the owner stripe is page % n_shards.
+    The identity for one stripe."""
+    if n_shards == 1:
+        return page
+    return (page % n_shards) * (capacity // n_shards) + page // n_shards
+
+
+def logical_pages(capacity: int, n_shards: int, device):
+    """(capacity,) int64: the logical page each physical slot holds under
+    ``interleave_slot``, the inverse permutation."""
+    phys = torch.arange(capacity, device=device)
+    c_loc = capacity // n_shards
+    return (phys % c_loc) * n_shards + phys // c_loc
+
+
+def coplace_attended_slots(sel_phys, ctx, *, sink: int, local: int, page: int,
+                           capacity: int, n_shards: int):
+    """``attended_page_slots`` in the striped physical order.
+
+    ``sel_phys`` (B, H, K) holds physical slots already (-1 a sentinel); the
+    sink and local sections are logical pages, clipped to the last page
+    ``capacity - 1`` and mapped through ``interleave_slot``. Near the
+    capacity the clipped local pages repeat the last page, as the
+    reference's do. Returns (B, H, n_sink + K + n_local) int32.
+    """
+    b, h, _ = sel_phys.shape
+    n_sink, n_local = page_counts(sink=sink, local=local, page=page)
+    dev = sel_phys.device
+    first_local = first_local_page(ctx, local=local, page=page)
+    fl = first_local.reshape(-1, 1) if isinstance(first_local, torch.Tensor) \
+        else first_local
+    fixed = torch.cat([
+        torch.arange(n_sink, device=dev).expand(b, n_sink),
+        (fl + torch.arange(n_local, device=dev)).expand(b, n_local)], dim=1)
+    fixed = interleave_slot(fixed.clamp(0, capacity - 1), capacity,
+                            n_shards).to(torch.int32)[:, None, :].expand(
+        b, h, n_sink + n_local)
+    return torch.cat([fixed[:, :, :n_sink], sel_phys.to(torch.int32),
+                      fixed[:, :, n_sink:]], dim=2)
 
 
 def gather_pages(k_pages, v_pages, slots):

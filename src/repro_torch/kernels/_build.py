@@ -33,6 +33,9 @@ SIGNATURES = {
                               _P),
     "h2eal_chunk_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _P),
+    "h2eal_paged_attention_partial": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _F, _P),
+    "h2eal_combine_partials": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib = None

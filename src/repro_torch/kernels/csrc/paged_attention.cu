@@ -16,17 +16,18 @@
 // walks its own interleaved share of T, four keys at a time (one coalesced
 // row load per key, the 32 lanes splitting D), keeping its own f32 online
 // softmax state (running max, sum and accumulator); the eight partial
-// states are merged through shared memory at the end. Only B·Hkv blocks
-// run, so at decode batch sizes most SMs idle: a split-KV grid is the next
-// step for this kernel.
-#include "common.cuh"
+// states are merged through shared memory at the end (the stream is
+// decode_tile.cuh, shared with paged_attention_partial.cu). Only B·Hkv
+// blocks run, so at decode batch sizes most SMs idle: a split-KV grid is the
+// next step for this kernel.
+#include "decode_tile.cuh"
 
 namespace h2eal {
 namespace {
 
-constexpr int NW = 8;      // warps per block
-constexpr int MAXG = 8;    // largest GQA group the kernel takes
-constexpr int U = 4;       // keys per warp step
+using decode::MAXG;
+using decode::NW;
+using decode::U;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NW * 32) paged_kernel(
@@ -34,9 +35,7 @@ __global__ void __launch_bounds__(NW * 32) paged_kernel(
     const unsigned char* __restrict__ valid, T* __restrict__ o, int hkv, int t_len,
     int g, float scale) {
   constexpr int DL = D / 32;  // dims per lane
-  __shared__ float m_s[NW][MAXG];
-  __shared__ float l_s[NW][MAXG];
-  __shared__ float a_s[NW][MAXG][D];
+  __shared__ decode::WarpStates<D> st;
 
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
@@ -46,17 +45,7 @@ __global__ void __launch_bounds__(NW * 32) paged_kernel(
 
   float qr[MAXG][DL];
   float m[MAXG], l[MAXG], acc[MAXG][DL];
-  const T* qb = q + bh * g * D;
-#pragma unroll
-  for (int r = 0; r < MAXG; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DL; ++e) {
-      qr[r][e] = r < g ? to_f32(qb[(long)r * D + lane * DL + e]) : 0.f;
-      acc[r][e] = 0.f;
-    }
-  }
+  decode::init_rows<T, DL>(q + bh * g * D, g, lane, qr, m, l, acc);
 
   const T* kb = k + bh * t_len * D;
   const T* vb = v + bh * t_len * D;
@@ -75,61 +64,18 @@ __global__ void __launch_bounds__(NW * 32) paged_kernel(
         vx[u][e] = t < t_len ? to_f32(vb[(long)t * D + lane * DL + e]) : 0.f;
       }
     }
-#pragma unroll
-    for (int r = 0; r < MAXG; ++r) {
-      if (r >= g) break;
-      float s[U];
-      float mx = kNegInf;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < DL; ++e) part = fmaf(qr[r][e], kx[u][e], part);
-        part = warp_sum(part);
-        s[u] = ok[u] ? part * scale : kNegInf;
-        mx = fmaxf(mx, s[u]);
-      }
-      const float m_new = fmaxf(m[r], mx);
-      const float corr = expf(m[r] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int e = 0; e < DL; ++e) acc[r][e] *= corr;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = ok[u] ? expf(s[u] - m_new) : 0.f;
-        ps += p;
-#pragma unroll
-        for (int e = 0; e < DL; ++e) acc[r][e] = fmaf(p, vx[u][e], acc[r][e]);
-      }
-      l[r] = l[r] * corr + ps;
-      m[r] = m_new;
-    }
+    decode::online_step<DL>(qr, kx, vx, ok, m, l, acc, g, scale);
   }
 
-#pragma unroll
-  for (int r = 0; r < MAXG; ++r) {
-    if (r >= g) break;
-    if (lane == 0) {
-      m_s[warp][r] = m[r];
-      l_s[warp][r] = l[r];
-    }
-#pragma unroll
-    for (int e = 0; e < DL; ++e) a_s[warp][r][lane * DL + e] = acc[r][e];
-  }
+  decode::stash<D, DL>(st, warp, lane, g, m, l, acc);
   __syncthreads();
 
-  // merge the warps' partial states: global max, rescale, sum, divide
+  // merge the warps' partial states, then divide
   T* ob = o + bh * g * D;
   for (int idx = threadIdx.x; idx < g * D; idx += NW * 32) {
     const int r = idx / D, d = idx % D;
-    float mg = kNegInf;
-    for (int w = 0; w < NW; ++w) mg = fmaxf(mg, m_s[w][r]);
-    float lg = 0.f, og = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(m_s[w][r] - mg);
-      lg = fmaf(l_s[w][r], c, lg);
-      og = fmaf(a_s[w][r][d], c, og);
-    }
+    float mg, lg, og;
+    decode::merge<D>(st, r, d, mg, lg, og);
     store(&ob[(long)r * D + d], og / fmaxf(lg, 1e-30f));
   }
 }

@@ -20,11 +20,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"flash_attention": 0, "page_score": 0, "paged_attention": 0,
-            "chunk_attention": 0, "chunk_attention_paged": 0}
+            "chunk_attention": 0, "chunk_attention_paged": 0,
+            "paged_attention_partial": 0, "combine_partials": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 8
+_MAX_SLOTS = 2048  # paged_attention_partial's slot list lives in shared memory
 
 
 def reset_launches() -> None:
@@ -210,4 +212,71 @@ def chunk_attention_paged(q, k_pages, v_pages, page_start, start, k_new, v_new):
             hq // hr, d, _scale(d), _stream(q))
     _build.check(err, "chunk_attention_paged")
     LAUNCHES["chunk_attention_paged"] += 1
+    return out
+
+
+def paged_attention_partial(q, k_pages, v_pages, slots, valid):
+    """Partial decode attention of each page stripe, page gather fused.
+
+    q: (B, Hq, D); k/v_pages: (B, Hkv, C, P, D); slots: (S, B, Hkv, N)
+    int32 page slots of each stripe, -1 where the stripe attends none;
+    valid: (S, B, Hkv, N*P) bool. Returns (m (S, B, Hq), l (S, B, Hq),
+    o (S, B, Hq, D)), f32: ``paged_attention_partial_ref`` of each stripe's
+    gathered buffer; a row with no valid token gives (-1e30, 0, 0)."""
+    if _on_cpu(q, k_pages, v_pages, slots, valid):
+        return _ref.paged_attention_partial_pages_ref(q, k_pages, v_pages, slots,
+                                                      valid)
+    b, hq, d = q.shape
+    _require(k_pages.dim() == 5 and k_pages.shape == v_pages.shape
+             and k_pages.shape[0] == b and k_pages.shape[4] == d,
+             "paged_attention_partial: k/v_pages must be (B, Hkv, C, P, D)")
+    hkv, c, p = k_pages.shape[1:4]
+    _require(slots.dim() == 4 and slots.shape[1:3] == (b, hkv)
+             and slots.dtype == torch.int32,
+             "paged_attention_partial: slots must be (S, B, Hkv, N) int32")
+    s, n = slots.shape[0], slots.shape[3]
+    _require(valid.shape == (s, b, hkv, n * p) and valid.dtype == torch.bool,
+             "paged_attention_partial: valid must be (S, B, Hkv, N*P) bool")
+    _require(q.dtype in _DTYPES,
+             f"paged_attention_partial: dtype {q.dtype} not supported")
+    _check_operands("paged_attention_partial", (q, k_pages, v_pages), q.dtype)
+    _check_operands("paged_attention_partial", (slots, valid))
+    _require(d in _HEAD_DIMS,
+             f"paged_attention_partial: head_dim {d} not in {_HEAD_DIMS}")
+    _require(hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP,
+             f"paged_attention_partial: GQA group must divide Hq and be <= {_MAX_GROUP}")
+    _require(1 <= n <= _MAX_SLOTS,
+             f"paged_attention_partial: {n} slots, expected 1..{_MAX_SLOTS}")
+    m = torch.empty((s, b, hq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    o = torch.empty((s, b, hq, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.library().h2eal_paged_attention_partial(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), slots.data_ptr(),
+            valid.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+            _DTYPES[q.dtype], s, b, hkv, c, p, n, hq // hkv, d, _scale(d), _stream(q))
+    _build.check(err, "paged_attention_partial")
+    LAUNCHES["paged_attention_partial"] += 1
+    return m, l, o
+
+
+def combine_partials(m, l, o):
+    """m/l: (N, B, Hq) f32; o: (N, B, Hq, D) f32, stacked partials ->
+    (B, Hq, D) f32: the global max, rescale, sum, divide by max(l, 1e-30);
+    a row empty on every partial gives 0."""
+    if _on_cpu(m, l, o):
+        return _ref.combine_partials_ref(m, l, o)
+    _require(m.dim() == 3 and l.shape == m.shape and o.dim() == 4
+             and o.shape[:3] == m.shape,
+             "combine_partials: m/l must be (N, B, Hq) and o (N, B, Hq, D)")
+    _check_operands("combine_partials", (m, l, o), torch.float32)
+    n, b, hq = m.shape
+    d = o.shape[3]
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=m.device)
+    with torch.cuda.device(m.device):
+        err = _build.library().h2eal_combine_partials(
+            m.data_ptr(), l.data_ptr(), o.data_ptr(), out.data_ptr(), n, b * hq, d,
+            _stream(m))
+    _build.check(err, "combine_partials")
+    LAUNCHES["combine_partials"] += 1
     return out

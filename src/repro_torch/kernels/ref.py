@@ -9,6 +9,7 @@ value dtype before the PV product, and the outputs are cast to q's dtype.
   q  (prefill): (B, S, Hq, D)      q (decode): (B, Hq, D)
   k/v (prefill): (B, S, Hkv, D)    gathered kv (decode): (B, Hkv, T, D)
   q  (chunk):   (B, Cq, Hq, D)     chunk kv (paged chunk): (B, Cq, Hr, D)
+  stacked partials (combine): m/l (N, B, Hq), o (N, B, Hq, D), f32
 
 The CPU path of ``repro_torch/kernels/ops.py`` runs these; on the card they are what
 each CUDA kernel is held against.
@@ -153,3 +154,74 @@ def chunk_attention_paged_ref(q, k_pages, v_pages, page_start, start, k_new,
     out = out + _mm_f32("bhgcj,bjhd->bchgd", probs[..., c * p:].to(v_new.dtype),
                         v_new.to(vb.dtype))
     return out.reshape(b, cq, hq, d).to(q.dtype)
+
+
+def paged_attention_partial_ref(q, k, v, valid):
+    """Partial (unnormalised) decode attention, the contract of the
+    cross-stripe combine. q: (B, Hq, D); k/v: (B, Hkv, T, D); valid:
+    (B, Hkv, T) bool. Returns, in f32:
+
+      m (B, Hq): the largest valid logit; NEG_INF (a FINITE sentinel, never
+        -inf) when the row has no valid token;
+      l (B, Hq): the sum of exp(logit - m) over valid tokens, 0 for such a row;
+      o (B, Hq, D): the numerator sum(exp(logit - m) * v), 0 for such a row.
+
+    The unnormalised p is cast to v's dtype before the PV product, as the
+    reference does. (NEG_INF, 0, 0) is the identity of ``merge_partials_ref``.
+    """
+    b, hq, d = q.shape
+    h_kv = k.shape[1]
+    group = hq // h_kv
+    qg = q.reshape(b, h_kv, group, d).to(k.dtype)
+    logits = _mm_f32("bhgd,bhtd->bhgt", qg, k) * _scale(d).to(q.device)
+    logits = torch.where(valid[:, :, None, :], logits, float("-inf"))
+    m = logits.amax(dim=-1)
+    finite = torch.isfinite(m)
+    p = torch.exp(logits - torch.where(finite, m, 0.0)[..., None])
+    p = torch.where(valid[:, :, None, :], p, 0.0)
+    l = p.sum(dim=-1)
+    o = _mm_f32("bhgt,bhtd->bhgd", p.to(v.dtype), v)
+    m = torch.where(finite, m, NEG_INF)
+    return m.reshape(b, hq), l.reshape(b, hq), o.reshape(b, hq, d)
+
+
+def paged_attention_partial_pages_ref(q, k_pages, v_pages, slots, valid):
+    """``paged_attention_partial_ref`` of every page stripe at once, on the
+    pages each stripe attends: the plain version of the fused-gather kernel.
+
+    q: (B, Hq, D); k/v_pages: (B, Hkv, C, P, D); slots: (S, B, Hkv, N) int
+    page slots of each stripe, -1 where the stripe attends none (it reads
+    page 0 there, which ``valid`` masks); valid: (S, B, Hkv, N*P) bool.
+    Returns m, l (S, B, Hq) and o (S, B, Hq, D), f32.
+    """
+    s, b, h, n = slots.shape
+    c, p, d = k_pages.shape[2:]
+    sc = slots.clamp(0, c - 1).long()
+    bi = torch.arange(b, device=q.device)[None, :, None, None]
+    hi = torch.arange(h, device=q.device)[None, None, :, None]
+    k = k_pages[bi, hi, sc].reshape(s * b, h, n * p, d)
+    v = v_pages[bi, hi, sc].reshape(s * b, h, n * p, d)
+    m, l, o = paged_attention_partial_ref(q.repeat(s, 1, 1), k, v,
+                                          valid.reshape(s * b, h, n * p))
+    hq = q.shape[1]
+    return m.reshape(s, b, hq), l.reshape(s, b, hq), o.reshape(s, b, hq, d)
+
+
+def merge_partials_ref(m, l, o, axis: int = 0):
+    """Merge partials stacked on ``axis`` into one, still unnormalised: the
+    global max, each partial rescaled to it, summed. m/l: (N, ...); o:
+    (N, ..., D). Associative and commutative up to float reassociation,
+    with identity (NEG_INF, 0, 0)."""
+    m_g = m.amax(dim=axis)
+    corr = torch.exp(m - m_g.unsqueeze(axis))
+    l_g = (l * corr).sum(dim=axis)
+    o_g = (o * corr[..., None]).sum(dim=axis)
+    return m_g, l_g, o_g
+
+
+def combine_partials_ref(m, l, o, axis: int = 0):
+    """The attention output of partials stacked on ``axis``: the merge
+    divided by max(l, 1e-30), so a row empty on every partial gives 0.
+    m/l: (N, ...); o: (N, ..., D) -> (..., D)."""
+    _, l_g, o_g = merge_partials_ref(m, l, o, axis=axis)
+    return o_g / l_g.clamp(min=1e-30)[..., None]

@@ -6,7 +6,10 @@ ragged`` (``run_ragged``): seeded requests of ragged prompt and generation
 lengths through the continuous-batching engine (``serving/engine.py``),
 packed admission or, with ``--prefill-chunk N``, chunked prefill. Page
 selection runs every ``share_window`` decode steps (the select step),
-cheaper reuse steps in between. Greedy sampling.
+cheaper reuse steps in between. Greedy sampling. ``--layout coplace_shmap
+--shards S`` serves the co-placed layout over S page stripes (split-KV
+decode); with ``--admission balanced`` the engine admits and feeds prompts
+by per-stripe page load, and ``--report-balance`` prints those loads.
 
 It runs on the card unless ``--device cpu`` is given:
 
@@ -17,6 +20,10 @@ It runs on the card unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --reduced --workload ragged --requests 5 --max-batch 2 \\
       --prompt-buckets 16,24 --prefill-chunk 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --reduced --workload ragged --requests 5 --max-batch 2 \\
+      --prompt-buckets 16,24 --layout coplace_shmap --shards 4 \\
+      --admission balanced --report-balance --device cpu
 """
 from __future__ import annotations
 
@@ -28,9 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, reduced
+from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.runtime.serve import resolve_device
+from repro_torch.sched import balance
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -40,10 +49,11 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(cfg, params, prompts, *, gen: int, capacity: int,
-             layout: str = "default", h2eal: bool = True, greedy: bool = True,
-             device=None):
-    """Lockstep generation. prompts: (B, S) int tokens.
-    Returns (tokens (B, gen) int32 tensor, stats dict)."""
+             layout: str = "default", shards: int = 1, h2eal: bool = True,
+             greedy: bool = True, device=None):
+    """Lockstep generation. prompts: (B, S) int tokens. ``layout`` and
+    ``shards`` as in ``Engine``; the cache holds the layout plan's rounding
+    of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats dict)."""
     dev = resolve_device(device)
     if not greedy:
         raise NotImplementedError("sampling is not ported yet (ROADMAP "
@@ -54,7 +64,9 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     if not h2eal:
         cfg = dataclasses.replace(
             cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
-    scfg = serve_rt.ServeConfig(capacity=capacity, layout=layout)
+    plan = layoutlib.get_layout(layout, shards).plan(cfg)
+    scfg = serve_rt.ServeConfig(capacity=plan.round_capacity(capacity),
+                                layout=layout, shards=shards)
     prefill = serve_rt.make_prefill(cfg, scfg)
     dec_sel = serve_rt.make_decode_step(cfg, scfg, do_select=True)
     dec_reuse = serve_rt.make_decode_step(cfg, scfg, do_select=False)
@@ -103,12 +115,20 @@ def make_ragged_requests(cfg, *, n: int, prompt_buckets, gen_min: int,
 
 
 def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
-               prompt_buckets, prefill_chunk=None, device=None):
+               prompt_buckets, report_balance: bool = False,
+               layout: str = "default", shards: int = 1,
+               admission: str = "fifo", prefill_chunk=None, device=None):
     """Serve ``requests`` with the continuous-batching engine (packed
-    admission, or chunked with ``prefill_chunk=N``). Returns (completions,
-    stats dict)."""
+    admission, or chunked with ``prefill_chunk=N``; ``layout``, ``shards``
+    and ``admission`` as in ``Engine``). Returns (completions, stats
+    dict)."""
+    if admission == "balanced" and layout != layoutlib.LAYOUT_COPLACE_SHMAP:
+        raise ValueError(
+            "--admission balanced scores per-stripe page loads and only has "
+            "an effect for a layout that stripes pages (--layout coplace_shmap)")
     eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
-                 prompt_buckets=prompt_buckets, prefill_chunk=prefill_chunk,
+                 prompt_buckets=prompt_buckets, layout=layout, shards=shards,
+                 admission=admission, prefill_chunk=prefill_chunk,
                  device=device)
     completions = eng.run(requests)
     s = eng.stats
@@ -123,8 +143,28 @@ def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
         "prefill_chunks": s.prefill_chunks,
         "occupancy": s.occupancy,
         "tokens_out": s.tokens_out,
+        "admission_reorders": s.admission_reorders,
     }
+    if report_balance:
+        stats["balance"] = _balance_report(cfg, eng)
     return completions, stats
+
+
+def _balance_report(cfg, eng):
+    """Per-stripe page loads of the engine's last batch (the contexts its
+    slots hold at the end of the run) under round-robin page striping:
+    over the layout's stripes, or 4 where pages are not striped."""
+    ctx = [int(c) for c in eng.batch.lengths if c > 0]
+    s = eng.stats
+    base = {"admissions": s.admissions, "prefill_chunks": s.prefill_chunks}
+    if not ctx:
+        return base
+    n_sh = (eng.plan.page_stripe_shards
+            if eng.layout == layoutlib.LAYOUT_COPLACE_SHMAP else 4)
+    pages = balance.device_page_loads(ctx, n_shards=n_sh,
+                                      page_size=cfg.h2eal.page_size)
+    return dict(base, page_loads=pages,
+                page_load_imbalance=balance.load_imbalance(pages))
 
 
 def main(argv=None):
@@ -148,10 +188,22 @@ def main(argv=None):
     ap.add_argument("--capacity", type=int, default=0,
                     help="cache capacity in tokens (0 = longest prompt + "
                          "gen-max + one page)")
+    ap.add_argument("--report-balance", action="store_true")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill: at most N prompt tokens per "
                          "engine step, beside the decode of the other slots "
                          "(0 = prefill-then-pack admission)")
+    ap.add_argument("--layout", choices=[layoutlib.LAYOUT_DEFAULT,
+                                         layoutlib.LAYOUT_COPLACE_SHMAP],
+                    default=layoutlib.LAYOUT_DEFAULT,
+                    help="serve-cache layout: coplace_shmap = co-placement "
+                         "over --shards page stripes, split-KV decode")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="page stripes of coplace_shmap (the size of the JAX "
+                         "mesh's 'model' axis)")
+    ap.add_argument("--admission", choices=["fifo", "balanced"], default="fifo",
+                    help="ragged admission order (balanced = per-stripe "
+                         "page-load aware, sched/balance.py)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions of the kernels)")
@@ -177,16 +229,24 @@ def main(argv=None):
                                     seed=args.seed)
         completions, stats = run_ragged(
             cfg, params, reqs, max_batch=args.max_batch, capacity=capacity,
-            prompt_buckets=buckets, prefill_chunk=args.prefill_chunk or None,
-            device=dev)
+            prompt_buckets=buckets, report_balance=args.report_balance,
+            layout=args.layout, shards=args.shards, admission=args.admission,
+            prefill_chunk=args.prefill_chunk or None, device=dev)
         print(f"[serve] arch={cfg.name} workload=ragged device={dev} "
+              f"layout={args.layout} shards={args.shards} "
+              f"admission={args.admission} "
               f"prefill_chunk={args.prefill_chunk or 'packed'} "
               f"requests={len(completions)} steps={stats['decode_steps']} "
               f"occupancy={stats['occupancy']:.2f} "
               f"({stats['tokens_per_s']:.1f} tok/s)")
         print(f"[serve] select/reuse steps: {stats['select_steps']}/"
               f"{stats['reuse_steps']}; admissions/chunks: "
-              f"{stats['admissions']}/{stats['prefill_chunks']}")
+              f"{stats['admissions']}/{stats['prefill_chunks']}; admission "
+              f"reorders: {stats['admission_reorders']}")
+        if "page_loads" in stats.get("balance", {}):
+            bal = stats["balance"]
+            print(f"[serve] per-stripe page loads {bal['page_loads']} "
+                  f"(imbalance {bal['page_load_imbalance']:.2f})")
         if completions:
             some = completions[min(completions)]
             print(f"[serve] sample tokens (uid {some.uid}): {some.tokens[:16]}")
@@ -196,7 +256,8 @@ def main(argv=None):
                             generator=gen, device=dev)
     toks, stats = generate(
         cfg, params, prompts, gen=args.gen,
-        capacity=args.prompt_len + args.gen + cfg.h2eal.page_size, device=dev)
+        capacity=args.prompt_len + args.gen + cfg.h2eal.page_size,
+        layout=args.layout, shards=args.shards, device=dev)
     print(f"[serve] arch={cfg.name} b={args.batch} device={dev} "
           f"prefill={stats['prefill_s']:.2f}s "
           f"decode={stats['decode_s']:.2f}s "

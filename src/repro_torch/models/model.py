@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import layouts as layoutlib
 from repro_torch.core.paging import chunk_positions
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import rms_norm, rope_cos_sin
@@ -39,8 +40,10 @@ def _rope(cfg: ArchConfig, positions):
 
 
 def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
-            layout: str = "default"):
-    """Process the prompt (B, S); returns (last-token logits (B, V), state)."""
+            layout=layoutlib.DEFAULT):
+    """Process the prompt (B, S); returns (last-token logits (B, V), state).
+    ``layout`` (a ``core/layouts`` layout) builds the caches in its page
+    order, as it does in every step below."""
     T.check_ported(cfg)
     plan = plan if plan is not None else T.default_plan(cfg)
     x = embed_input(cfg, params, batch)
@@ -66,7 +69,7 @@ def empty_serve_state(cfg: ArchConfig, batch: int, *, capacity: int, dtype,
 
 
 def prefill_chunk(cfg: ArchConfig, params, state, tokens, *, chunk_len,
-                  active, plan=None, layout: str = "default"):
+                  active, plan=None, layout=layoutlib.DEFAULT):
     """Feed one prompt chunk per slot into the batched serve state.
 
     tokens: (B, C) int, left-aligned chunks padded past ``chunk_len``
@@ -94,7 +97,7 @@ def prefill_chunk(cfg: ArchConfig, params, state, tokens, *, chunk_len,
 
 
 def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
-                do_select: bool = True, layout: str = "default", active=None,
+                do_select: bool = True, layout=layoutlib.DEFAULT, active=None,
                 need_select=None):
     """One decode step. token: (B,) int. Returns (logits (B, V), state
     advanced by one token).

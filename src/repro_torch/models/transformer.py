@@ -119,7 +119,7 @@ def _qkv(cfg: ArchConfig, p, h):
 
 
 def block_prefill(cfg: ArchConfig, p, perm, x, rope, *, capacity: int,
-                  layout: str = "default"):
+                  layout=layoutlib.DEFAULT):
     """One block over the prompt. x: (B, S, d) -> (x, the layer's cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     spec = attn_spec(cfg)
@@ -130,8 +130,7 @@ def block_prefill(cfg: ArchConfig, p, perm, x, rope, *, capacity: int,
     b, s = q.shape[:2]
     o = hattn.prefill_attention(spec, q, k, v, perm)
     if spec.h2.enabled:
-        cache = layoutlib.get_layout(layout).prefill(spec, k, v, s, capacity,
-                                                     perm)
+        cache = layout.prefill(spec, k, v, s, capacity, perm)
     else:  # full-attention baseline
         full = cachelib.make_full_cache(b, cfg.num_kv_heads, capacity,
                                         spec.head_dim, dtype=k.dtype,
@@ -157,7 +156,7 @@ def empty_block_cache(cfg: ArchConfig, batch: int, capacity: int, *, dtype,
 
 
 def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
-                        chunk_len, active, layout: str = "default"):
+                        chunk_len, active, layout=layoutlib.DEFAULT):
     """One prompt chunk per slot through one block. x: (B, C, d); ``rope``
     is (cos, sin) at each slot's chunk positions (B, C, half); ``cache`` is
     the block's serve cache, grown in place; start/chunk_len/active: (B,)
@@ -172,8 +171,8 @@ def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
     k = apply_rope(k, cos, sin)
     b, cch = x.shape[:2]
     if "full" not in cache:
-        o, cache = layoutlib.get_layout(layout).prefill_chunk(
-            spec, cache, q, k, v, start, chunk_len, active, perm=perm)
+        o, cache = layout.prefill_chunk(spec, cache, q, k, v, start, chunk_len,
+                                        active, perm=perm)
     else:  # full-attention baseline: append, then attend causally
         full = cachelib.full_cache_append_chunk(cache["full"], k, v, start,
                                                 chunk_len, active)
@@ -189,7 +188,7 @@ def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
 
 
 def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length,
-                 do_select: bool, layout: str = "default", active=None,
+                 do_select: bool, layout=layoutlib.DEFAULT, active=None,
                  need_select=None):
     """Decode one token through one block. x: (B, d). ``length`` is an int
     (lockstep) or (B,) tensor (continuous batching, with the per-slot
@@ -205,8 +204,8 @@ def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length,
                                               length, active)
         cache = {"full": full}
     else:
-        o, cache = layoutlib.get_layout(layout).decode(
-            spec, cache, q, k, v, length, do_select=do_select, perm=perm,
-            active=active, need_select=need_select)
+        o, cache = layout.decode(spec, cache, q, k, v, length,
+                                 do_select=do_select, perm=perm, active=active,
+                                 need_select=need_select)
     x = x + dense(o.reshape(o.shape[0], -1), p["wo"])
     return _ffn_apply(cfg, p, x), cache

@@ -30,11 +30,16 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     capacity: int             # most context tokens the cache holds
-    layout: str = "default"   # core/layouts name; only "default" is ported
+    layout: str = "default"   # core/layouts name: "default" or "coplace_shmap"
+    shards: int = 1           # coplace_shmap's page stripes
+
+
+def _layout(scfg: ServeConfig):
+    return layoutlib.get_layout(scfg.layout, scfg.shards)
 
 
 def make_prefill(cfg: ArchConfig, scfg: ServeConfig):
-    layout = layoutlib.get_layout(scfg.layout).name
+    layout = _layout(scfg)
 
     def prefill(params, batch):
         return M.prefill(cfg, params, batch, capacity=scfg.capacity,
@@ -43,7 +48,7 @@ def make_prefill(cfg: ArchConfig, scfg: ServeConfig):
 
 
 def make_decode_step(cfg: ArchConfig, scfg: ServeConfig, *, do_select: bool):
-    layout = layoutlib.get_layout(scfg.layout).name
+    layout = _layout(scfg)
 
     def decode(params, state, token):
         return M.decode_step(cfg, params, state, token, do_select=do_select,
@@ -56,7 +61,7 @@ def make_ragged_decode_step(cfg: ArchConfig, scfg: ServeConfig, *,
     """Decode step of the continuous-batching engine: per-slot (B,) lengths
     in the state and an ``active`` mask; the select variant also takes
     ``need_select``, each slot's share-window phase."""
-    layout = layoutlib.get_layout(scfg.layout).name
+    layout = _layout(scfg)
     if do_select:
         def decode(params, state, token, active, need_select):
             return M.decode_step(cfg, params, state, token, do_select=True,
@@ -84,7 +89,7 @@ def make_prefill_chunk_step(cfg: ArchConfig, scfg: ServeConfig, *, chunk: int):
     """Chunked-prefill half of the engine's mixed step: each prefilling
     slot's next prompt chunk (at most ``chunk`` tokens, a fixed shape) goes
     straight into its rows of the batched state."""
-    layout = layoutlib.get_layout(scfg.layout).name
+    layout = _layout(scfg)
 
     def chunk_step(params, state, tokens, chunk_len, active):
         if tokens.shape[1] != chunk:

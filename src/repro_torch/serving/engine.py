@@ -9,13 +9,17 @@ a fixed batch of ``max_batch`` slots:
     (``prefilling``), which wait for the shared refresh boundary
     (``ready``), each slot's length, share-window phase, budget and prompt
     tokens still to feed.
-  * Admission, FIFO. **Chunked** (``prefill_chunk=N``): a request enters a
-    free slot at once as PREFILLING; its cache rows are reset to the empty
-    values and every engine step feeds at most N prompt tokens (split
-    page-granular over the prefilling slots, ``sched/balance.py``) straight
-    into the slots' rows, beside the ragged decode of the other slots.
-    **Prefill-then-pack** (``prefill_chunk=None``): a batch-1 prefill of
-    the whole prompt is written into a free slot's rows.
+  * Admission, FIFO or balanced. **Chunked** (``prefill_chunk=N``): a
+    request enters a free slot at once as PREFILLING; its cache rows are
+    reset to the empty values and every engine step feeds at most N prompt
+    tokens (split page-granular over the prefilling slots,
+    ``sched/balance.py``) straight into the slots' rows, beside the ragged
+    decode of the other slots. **Prefill-then-pack** (``prefill_chunk=None``):
+    a batch-1 prefill of the whole prompt is written into a free slot's
+    rows. **Balanced** (``admission="balanced"``, paper §IV-C): among the
+    first ``admit_lookahead`` queued requests, the one that leaves the
+    per-stripe page loads flattest is admitted, and the chunk budget goes
+    to the slot whose next page lands on the least-loaded stripe.
   * Retirement (budget spent, or the slot's length at ``capacity``) clears
     ``active``; the slot's rows stay as they are until the next admission
     rewrites them.
@@ -30,10 +34,12 @@ a fixed batch of ``max_batch`` slots:
     keeps each step's (B,) sampled tokens on the card. ``finalize()`` reads
     them once, at the end of ``run()``.
 
-Only the ``default`` layout, FIFO admission and greedy sampling are
-ported; every other option of the JAX engine raises and names its ROADMAP
-item. The engine runs on the card unless ``device`` names the CPU, where
-it runs the kernels' plain versions.
+The ``default`` and ``coplace_shmap`` layouts (``core/layouts.py``: the
+layout's plan rounds the cache capacity to whole pages per stripe), FIFO
+and balanced admission and greedy sampling are ported; every other option
+of the JAX engine raises and names its ROADMAP item. The engine runs on
+the card unless ``device`` names the CPU, where it runs the kernels' plain
+versions.
 """
 from __future__ import annotations
 
@@ -92,6 +98,7 @@ class EngineStats:
     reuse_steps: int = 0
     engine_steps: int = 0         # steps that dispatched any work
     admissions: int = 0
+    admission_reorders: int = 0   # balanced admission: non-FIFO picks
     prefill_chunks: int = 0       # chunked-prefill steps
     tokens_out: int = 0
     occupancy_sum: float = 0.0    # sum over decode steps of the live-slot share
@@ -166,10 +173,19 @@ class Engine:
 
     cfg, params     model config and parameters (on ``device``).
     max_batch       number of slots.
-    capacity        the most context tokens a slot may reach (cache size).
+    capacity        the most context tokens a slot may reach; the cache
+                    holds the layout plan's rounding of it.
     prompt_buckets  prompt lengths packed admission takes.
-    layout          serve-cache layout; only "default" is ported.
-    admission       "fifo"; "balanced" is not ported.
+    layout          serve-cache layout, "default" or "coplace_shmap".
+    shards          coplace_shmap's page stripes (the size of the JAX mesh's
+                    'model' axis; 1 as on one JAX device).
+    admission       "fifo" or "balanced": scores the first
+                    ``admit_lookahead`` queued requests by the per-stripe
+                    page-load imbalance they would leave
+                    (``sched/balance.admission_score``) and admits the best,
+                    FIFO on ties; it also steers the chunk budget.
+    balance_shards  the stripe count balanced admission scores against;
+                    default the layout plan's (1: FIFO).
     prefill_chunk   None: prefill-then-pack admission. N: chunked
                     admission, at most N prompt tokens per engine step.
     device          the card unless the caller names the CPU.
@@ -180,7 +196,9 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int,
                  capacity: int, prompt_buckets: Sequence[int],
-                 layout: str = "default", admission: str = "fifo",
+                 layout: str = "default", shards: int = 1,
+                 admission: str = "fifo", admit_lookahead: int = 4,
+                 balance_shards: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, device=None,
                  hot_pages: Optional[int] = None,
                  spec_tokens: Optional[int] = None, rebalance: str = "off",
@@ -196,11 +214,13 @@ class Engine:
         if decode_window is not None and decode_window != 1:
             raise _not_ported("fused decode windows (decode_window)",
                               "Queue 1 item 7")
-        if admission == "balanced":
-            raise _not_ported("balanced admission", "Queue 1 item 9")
-        if admission != "fifo":
+        if admission not in ("fifo", "balanced"):
             raise ValueError(f"unknown admission {admission!r}")
-        self.layout = layoutlib.get_layout(layout).name  # raises off "default"
+        lay = layoutlib.get_layout(layout, shards)
+        self.layout, self.shards, self.plan = lay.name, lay.shards, lay.plan(cfg)
+        self.admission = admission
+        self.admit_lookahead = max(int(admit_lookahead), 1)
+        self.balance_shards = balance_shards
         self.cfg = cfg
         self.params = params
         self.device = serve_rt.resolve_device(device)
@@ -208,6 +228,8 @@ class Engine:
             raise ValueError(f"params lie on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
         self.capacity = int(capacity)
+        # a whole number of pages per stripe; retirement stays at `capacity`
+        self.cache_capacity = self.plan.round_capacity(self.capacity)
         self.prompt_buckets = tuple(sorted(int(b) for b in prompt_buckets))
         if not self.prompt_buckets or self.prompt_buckets[-1] >= self.capacity:
             raise ValueError(f"prompt buckets {self.prompt_buckets} must be "
@@ -217,7 +239,8 @@ class Engine:
             raise ValueError(f"prefill_chunk {self.prefill_chunk} exceeds "
                              f"capacity {self.capacity}")
         self.share_window = max(cfg.h2eal.share_window, 1)
-        scfg = serve_rt.ServeConfig(capacity=self.capacity, layout=self.layout)
+        scfg = serve_rt.ServeConfig(capacity=self.cache_capacity,
+                                    layout=self.layout, shards=self.shards)
         self._prefill = serve_rt.make_prefill(cfg, scfg)
         self._dec_sel = serve_rt.make_ragged_decode_step(cfg, scfg, do_select=True)
         self._dec_reuse = serve_rt.make_ragged_decode_step(cfg, scfg,
@@ -228,7 +251,7 @@ class Engine:
                 cfg, scfg, chunk=self.prefill_chunk)
         b = int(max_batch)
         self.batch = BatchState(
-            serve=M.empty_serve_state(cfg, b, capacity=self.capacity,
+            serve=M.empty_serve_state(cfg, b, capacity=self.cache_capacity,
                                       dtype=params["embed"].dtype,
                                       device=self.device),
             active=np.zeros(b, bool), prefilling=np.zeros(b, bool),
@@ -354,13 +377,54 @@ class Engine:
         comp.finished_step = self.stats.decode_steps
         self.completions[comp.uid] = comp
 
+    def _pick_request(self) -> Request:
+        """The next request to admit: FIFO, or under balanced admission the
+        one of the first ``admit_lookahead`` queued whose admission leaves
+        the per-stripe page loads flattest (FIFO on ties). Live slots count
+        at the page span they will reach (fed + prompt still to come);
+        PREFILLING slots also as (fed, left) pairs, so the score sees the
+        chunk compute in flight. Host mirrors only."""
+        n_shards = self.balance_shards or self.plan.balance_shards
+        if (self.admission != "balanced" or n_shards <= 1
+                or len(self._queue) <= 1):
+            return self._queue.popleft()
+        b = self.batch
+        live, pre_done, pre_left = [], [], []
+        for i in range(b.max_batch):
+            if b.prefilling[i]:
+                pre_done.append(int(b.lengths[i]))
+                pre_left.append(int(b.prompt_left[i]))
+            elif b.active[i] or b.ready[i]:
+                live.append(int(b.lengths[i]) + int(b.prompt_left[i]))
+        best_i, best_s = 0, None
+        for i in range(min(self.admit_lookahead, len(self._queue))):
+            score = balance.admission_score(
+                live, len(self._queue[i].prompt), n_shards=n_shards,
+                page_size=self.cfg.h2eal.page_size, prefill_done=pre_done,
+                prefill_left=pre_left, chunk_budget=self.prefill_chunk)
+            if best_s is None or score < best_s - 1e-12:
+                best_i, best_s = i, score
+        if best_i == 0:
+            return self._queue.popleft()
+        self.stats.admission_reorders += 1
+        req = self._queue[best_i]
+        del self._queue[best_i]
+        return req
+
     def _admit(self):
         admit = (self._admit_one if self.prefill_chunk is None
                  else self._admit_one_chunked)
         for slot in self.batch.free_slots():
             if not self._queue:
                 break
-            admit(self._queue.popleft(), slot)
+            admit(self._pick_request(), slot)
+
+    def _chunk_shards(self) -> int:
+        """The stripe count the chunk allocator scores against (a FIFO
+        split under anything but balanced admission)."""
+        n = (self.balance_shards or self.plan.balance_shards
+             if self.admission == "balanced" else 1)
+        return max(n, 1)
 
     def _schedule_chunks(self):
         """This step's chunks: (tokens (B, C) int32, chunk_len (B,) int32),
@@ -373,7 +437,7 @@ class Engine:
         alloc = balance.chunk_allocation(
             [int(b.lengths[i]) for i in slots],
             [int(b.prompt_left[i]) for i in slots], self.prefill_chunk,
-            page_size=self.cfg.h2eal.page_size)
+            n_shards=self._chunk_shards(), page_size=self.cfg.h2eal.page_size)
         tokens = np.zeros((b.max_batch, self.prefill_chunk), np.int32)
         clens = np.zeros((b.max_batch,), np.int32)
         for i, n in zip(slots, alloc):

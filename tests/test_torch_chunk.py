@@ -311,7 +311,8 @@ def test_chunk_allocation_matches_jax_fifo():
         budget, page = int(rng.integers(1, 40)), int(rng.choice([4, 8, 32]))
         want = jbalance.chunk_allocation(done, left, budget, n_shards=1,
                                          page_size=page)
-        assert tbalance.chunk_allocation(done, left, budget, page_size=page) == want
+        assert tbalance.chunk_allocation(done, left, budget, n_shards=1,
+                                         page_size=page) == want
 
 
 # ---------------------------------------------------------------------------

@@ -271,10 +271,14 @@ def test_decode_refuses_a_cache_without_room_for_the_local_section():
         thattn.decode_attention(tspec, q, kn, kn, tp, ts, s, do_select=True)
 
 
-def test_only_the_default_layout_is_ported():
+def test_gspmd_layouts_raise():
+    """default and coplace_shmap are ported; the GSPMD placements, which
+    need more than one device, raise and name their ROADMAP item."""
     assert tlayouts.get_layout("default").name == "default"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayouts.get_layout("coplace_shmap")
+    assert tlayouts.get_layout("coplace_shmap").name == "coplace_shmap"
+    for name in ("head", "coplace", "interleave"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tlayouts.get_layout(name)
     with pytest.raises(ValueError, match="unknown"):
         tlayouts.get_layout("nope")
     _, tspec = _specs()

@@ -163,7 +163,8 @@ def test_generate_on_the_card_matches_the_cpu_and_counts_launches(cuda_dev):
     assert ops.LAUNCHES == {"flash_attention": 2 * cfg.num_layers,
                             "page_score": n_sel * cfg.num_layers,
                             "paged_attention": 2 * gen * cfg.num_layers,
-                            "chunk_attention": 0, "chunk_attention_paged": 0}
+                            "chunk_attention": 0, "chunk_attention_paged": 0,
+                            "paged_attention_partial": 0, "combine_partials": 0}
     assert torch.equal(toks.cpu(), toks_cpu)
     assert (st["last_logits"].cpu() - st_cpu["last_logits"]).abs().max().item() <= 1e-3
 
@@ -288,6 +289,137 @@ def test_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_dev):
     assert ops.LAUNCHES == {"flash_attention": 0, "page_score": s.select_steps * n,
                             "paged_attention": 2 * s.decode_steps * n,
                             "chunk_attention": s.prefill_chunks * n,
-                            "chunk_attention_paged": s.prefill_chunks * n}
+                            "chunk_attention_paged": s.prefill_chunks * n,
+                            "paged_attention_partial": 0, "combine_partials": 0}
+    assert {u: c.tokens for u, c in eng.completions.items()} == {
+        u: c.tokens for u, c in cpu.items()}
+
+
+def _partial_within(got, want) -> bool:
+    """The partial's outputs are f32 on both sides and differ by summation
+    order alone; they reach the attention output divided by l, so l and o
+    are held to the f32 tolerance in units of max(l, 1)."""
+    (m, l, o), (wm, wl, wo) = got, want
+    atol = CARD_TOL[torch.float32][1]
+    scale = wl.clamp(min=1.0)
+    return (bool(((m - wm).abs() <= atol * wm.abs().clamp(min=1.0)).all())
+            and bool(((l - wl).abs() <= atol * scale).all())
+            and bool(((o - wo).abs() <= atol * scale[..., None]).all()))
+
+
+def _stripe_inputs(gen, dev, dtype, s, b, hkv, group, c, p, n, d):
+    """Stripe slot lists as the coplace_shmap decode builds them: random
+    page slots, each kept only on the stripe that owns it (slot // (C/S)),
+    -1 elsewhere; validity random on owned slots."""
+    q = _rand(gen, dev, dtype, b, hkv * group, d)
+    kp = _rand(gen, dev, dtype, b, hkv, c, p, d)
+    vp = _rand(gen, dev, dtype, b, hkv, c, p, d)
+    slots = torch.randint(0, c, (b, hkv, n), generator=gen, device=dev)
+    stripe = torch.arange(s, device=dev)[:, None, None, None]
+    mine = slots[None] // (c // s) == stripe
+    slots = torch.where(mine, slots[None], -1).to(torch.int32)
+    valid = (torch.rand(s, b, hkv, n, p, generator=gen, device=dev) < 0.7) & mine[..., None]
+    return q, kp, vp, slots, valid.reshape(s, b, hkv, n * p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
+def test_paged_attention_partial_kernel(cuda_dev, dtype, d, group):
+    gen = torch.Generator(device=cuda_dev).manual_seed(group)
+    s, b, hkv, c, p, n = 4, 2, 3, 24, 8, 45
+    q, kp, vp, slots, valid = _stripe_inputs(gen, cuda_dev, dtype, s, b, hkv, group,
+                                             c, p, n, d)
+    valid[2, 1, 0] = False   # a row with no valid token on one stripe
+    valid[:, 0, 2] = False   # ... and on every stripe
+    got = ops.paged_attention_partial(q, kp, vp, slots, valid)
+    want = tref.paged_attention_partial_pages_ref(*_widened(q, kp, vp), slots, valid)
+    torch.cuda.synchronize()
+    assert all(t.dtype == torch.float32 for t in got)
+    assert _partial_within(got, want)
+    m, l, o = got
+    for empty in (m[2, 1, :group], m[:, 0, 2 * group:3 * group]):
+        assert bool((empty == -1e30).all())
+    assert l[2, 1, :group].abs().max().item() == 0.0
+    assert o[:, 0, 2 * group:3 * group].abs().max().item() == 0.0
+    out = ops.combine_partials(*got)
+    assert out[0, 2 * group:3 * group].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_paged_attention_partial_kernel_at_main_path_width(cuda_dev):
+    """S=8 stripes of a 264-page cache, 138 slots of 32 tokens (llama3-8b's
+    [sink | 128 selected | local] list), group 4, D=128, bf16."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(9)
+    args = _stripe_inputs(gen, cuda_dev, torch.bfloat16, 8, 4, 4, 4, 264, 32, 138, 128)
+    got = ops.paged_attention_partial(*args)
+    want = tref.paged_attention_partial_pages_ref(*_widened(*args[:3]), *args[3:])
+    torch.cuda.synchronize()
+    assert _partial_within(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_combine_partials_kernel(cuda_dev, n):
+    gen = torch.Generator(device=cuda_dev).manual_seed(n)
+    b, hq, d = 3, 8, 128
+    m = torch.randn(n, b, hq, generator=gen, device=cuda_dev) * 4
+    l = torch.rand(n, b, hq, generator=gen, device=cuda_dev) * 50
+    o = torch.randn(n, b, hq, d, generator=gen, device=cuda_dev) * 10
+    m[0, 1, 2], l[0, 1, 2], o[0, 1, 2] = -1e30, 0.0, 0.0   # an empty partial
+    m[:, 2, 5], l[:, 2, 5], o[:, 2, 5] = -1e30, 0.0, 0.0   # a row empty everywhere
+    ops.reset_launches()
+    got = ops.combine_partials(m, l, o)
+    want = tref.combine_partials_ref(m, l, o)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["combine_partials"] == 1
+    assert got.dtype == torch.float32 and _within(got, want, torch.float32)
+    assert got[2, 5].abs().max().item() == 0.0
+    with pytest.raises(ValueError, match="float32"):
+        ops.combine_partials(m, l, o.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_coplace_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_dev):
+    """The coplace_shmap engine over 4 stripes with balanced admission,
+    chunked with churn: the CPU's tokens and admission reorders; the
+    retrieval heads go through the partial and combine kernels once a layer
+    a decode step; no step synchronises with the card."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = reduced(get_arch("llama3-8b"))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(7),
+                           device="cpu")
+    rng = torch.Generator().manual_seed(8)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=rng).numpy(),
+                    max_new=m)
+            for i, (n, m) in enumerate([(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)])]
+    kw = dict(max_batch=2, capacity=96, prompt_buckets=[64], prefill_chunk=7,
+              layout="coplace_shmap", shards=4, admission="balanced")
+    cpu_eng = Engine(cfg, params, device="cpu", **kw)
+    cpu = cpu_eng.run(reqs)
+    eng = Engine(cfg, _to(params, cuda_dev), device=cuda_dev, **kw)
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launches()
+    while eng.busy():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.poll()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng.finalize()
+    s, n = eng.stats, cfg.num_layers
+    assert ops.LAUNCHES == {"flash_attention": 0, "page_score": s.select_steps * n,
+                            "paged_attention": s.decode_steps * n,
+                            "chunk_attention": s.prefill_chunks * n,
+                            "chunk_attention_paged": s.prefill_chunks * n,
+                            "paged_attention_partial": s.decode_steps * n,
+                            "combine_partials": s.decode_steps * n}
+    assert s.admission_reorders == cpu_eng.stats.admission_reorders
     assert {u: c.tokens for u, c in eng.completions.items()} == {
         u: c.tokens for u, c in cpu.items()}

@@ -310,7 +310,7 @@ def test_chunked_prefill_validation(smollm):
 @pytest.mark.parametrize("kw,what", [
     (dict(hot_pages=4), "hot_pages"), (dict(spec_tokens=2), "spec_tokens"),
     (dict(rebalance="retire"), "rebalance"), (dict(decode_window=2), "decode_window"),
-    (dict(admission="balanced"), "balanced"), (dict(layout="coplace_shmap"), "layout"),
+    (dict(layout="head"), "layout"), (dict(layout="interleave"), "layout"),
 ])
 def test_unsupported_engine_options_raise(smollm, kw, what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -119,7 +119,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                                tref.flash_attention_ref(q, k, k), rtol=0, atol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "page_score": 0,
                             "paged_attention": 0, "chunk_attention": 0,
-                            "chunk_attention_paged": 0}
+                            "chunk_attention_paged": 0,
+                            "paged_attention_partial": 0, "combine_partials": 0}
 
 
 def test_mixed_devices_raise():
