@@ -12,9 +12,10 @@ then, each phase failing the run with a nonzero exit:
      version runs on the inputs widened to f32), and times the
      kernel, the plain version and, where one PyTorch call computes the
      same function, that call;
-  3. holds a reduced llama3-8b ``generate`` and a reduced chunked
-     ``Engine`` run (with slot churn) on the card against the same runs on
-     the CPU (plain versions, same weights);
+  3. holds a reduced llama3-8b ``generate`` (f32; and bf16 at head_dim
+     128, so the tensor-core flash kernel runs at the serving head size) and
+     a reduced chunked ``Engine`` run (with slot churn) on the card against
+     the same runs on the CPU (plain versions, same weights);
   4. serves llama3-8b at full width and depth (bf16, seeded random
      weights) through lockstep ``generate``: 2 prompts of 8192 tokens, 32
      greedy tokens, hybrid sparse attention, with the kernels' launch
@@ -62,6 +63,16 @@ import torch  # noqa: E402
 # by summation order alone; in bf16 also by the output's rounding, at most
 # half a bf16 step (2^-8 of the value), hence the relative term
 TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
+# the bf16 flash kernel also rounds its unnormalised P (each p in [0, 1]) to
+# bf16 before P·V, which moves the output by at most 2^-8·Σ p|v| / l: it is
+# held to 2^-8·(softmax(s)·|V|) on top, the plain version run on |v|
+FLASH_P_RTOL = 2.0 ** -8
+# the bf16 reduced generate, card against CPU: every activation is rounded to
+# bf16 (2^-8 of its value) on both sides, a dozen times along a two-layer
+# path, and the sums are taken in other orders: logits agree within 2^-4 of
+# the largest CPU logit, and a token may differ only where the CPU's top two
+# logits lie within that band of each other (a near-tie)
+BF16_LOGIT_BAND = 2.0 ** -4
 # page_score does its arithmetic in f32 on both sides whatever q's dtype,
 # and its scores reach ~1e3: its error is scaled by the largest score
 SCORE_RTOL = 1e-6
@@ -186,7 +197,21 @@ def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
                                        sink=sink)
         torch.cuda.synchronize()
         e, ex = err(out, want), excess(out, want, dtype)
+        tol = tol_text(dtype)
+        if dtype == torch.bfloat16:
+            del want
+            torch.cuda.empty_cache()
+            p_term = ref.flash_attention_ref(*widened(q, k, v.abs()), causal=True,
+                                             window=window, sink=sink)
+            want = ref.flash_attention_ref(*widened(q, k, v), causal=True, window=window,
+                                           sink=sink)
+            rtol, atol = TOL[dtype]
+            ex = ((out.float() - want).abs() - FLASH_P_RTOL * p_term
+                  - rtol * want.abs() - atol).max().item()
+            tol = f"{FLASH_P_RTOL:.4g}*(softmax(s)*|V|) + {tol}"
+            del p_term
         del want
+        torch.cuda.empty_cache()
         ms = timer.ms(run, 5)
         plain_ms = timer.ms(plain, 2)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -205,7 +230,7 @@ def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
         cases.append(dict(
             case=f"{label} B={BATCH} S={PROMPT} Hq={heads * g} Hkv={heads} D={d}",
             dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
-            tol=tol_text(dtype), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by))
         del q, k, v, out
         torch.cuda.empty_cache()
@@ -543,6 +568,86 @@ def check_reduced_against_cpu(dev):
     if not torch.equal(toks_dev.cpu(), toks_cpu) or e > 1e-3:
         fail("reduced generate on the card disagrees with the CPU run "
              "(tokens must match, logits within 1e-3)")
+
+
+def lockstep(cfg, params, prompts, gen, capacity, dev):
+    """Greedy lockstep generation as ``launch.serve.generate`` runs it,
+    keeping the logits of every step: (tokens (B, gen), [logits (B, V)]),
+    the first logits being the prefill's."""
+    from repro_torch.runtime import serve as serve_rt
+
+    scfg = serve_rt.ServeConfig(capacity=capacity)
+    steps = {True: serve_rt.make_decode_step(cfg, scfg, do_select=True),
+             False: serve_rt.make_decode_step(cfg, scfg, do_select=False)}
+    w = max(cfg.h2eal.share_window, 1)
+    with torch.inference_mode():
+        logits, state = serve_rt.make_prefill(cfg, scfg)(params, prompts.to(dev))
+        outs, toks = [logits.float().cpu()], []
+        for i in range(gen):
+            toks.append(logits.argmax(dim=-1).to(torch.int32))
+            if i == gen - 1:
+                break
+            logits, state = steps[i % w == 0](params, state, toks[-1])
+            outs.append(logits.float().cpu())
+    return torch.stack(toks, dim=1).cpu(), outs
+
+
+def check_reduced_bf16_against_cpu(dev):
+    """Reduced llama3-8b at the production head_dim of 128, in bf16, so the
+    tensor-core flash kernel and the split-KV paged kernel run at their
+    serving head size: card (kernels) against CPU (plain versions), prefill
+    and every step's logits within BF16_LOGIT_BAND of the largest CPU logit
+    while the tokens agree, and tokens equal except at a near-tie.
+
+    The top-k is raised to cover every page of the context (40 pages of 8):
+    at the reduced top-4 of 37 selectable pages, bf16 page scores near-tie
+    and the two sides select different pages, a discrete jump of the decode
+    logits (0.5 with the same tokens on the card) that says nothing of the
+    kernels' arithmetic, as a token near-tie does not."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    gen_n, prompt_len = 12, 300
+    cfg = reduced(get_arch(ARCH), head_dim=128)
+    page = cfg.h2eal.page_size
+    cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(
+        cfg.h2eal, select_budget=-(-(prompt_len + gen_n) // page) * page))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(2), device="cpu",
+                           dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                            generator=torch.Generator().manual_seed(3))
+    capacity = prompt_len + gen_n + cfg.h2eal.page_size
+    toks_cpu, lg_cpu = lockstep(cfg, params, prompts, gen_n, capacity, "cpu")
+    ops.reset_launches()
+    toks_dev, lg_dev = lockstep(cfg, _to(params, dev), prompts, gen_n, capacity, dev)
+    launched = dict(ops.LAUNCHES)
+    band = BF16_LOGIT_BAND * lg_cpu[0].abs().max().item()
+    worst, ties, ok = 0.0, 0, True
+    for b in range(prompts.shape[0]):
+        for i in range(gen_n):
+            worst = max(worst, err(lg_dev[i][b], lg_cpu[i][b]))
+            if worst > band:
+                ok = False
+            if toks_dev[b, i] != toks_cpu[b, i]:
+                top2 = lg_cpu[i][b].topk(2).values
+                if (top2[0] - top2[1]).item() > band:
+                    ok = False
+                ties += 1
+                break  # the two runs now continue from different tokens
+    log(f"reduced {cfg.name} head_dim 128 bf16 (prompt {prompt_len}, {gen_n} tokens): "
+        f"card vs CPU tokens equal={torch.equal(toks_dev, toks_cpu)} (near-tie "
+        f"divergences {ties}), logits max err {worst:.3e} while tokens agree "
+        f"(band {band:.3e} = 2^-4 * max|CPU logit|), prefill logits max err "
+        f"{err(lg_dev[0], lg_cpu[0]):.3e}; launches flash {launched['flash_attention']} "
+        f"paged {launched['paged_attention']}")
+    if not ok:
+        fail("the bf16 reduced generate on the card disagrees with the CPU run beyond "
+             "the bf16 band")
+    if launched["flash_attention"] != 2 * cfg.num_layers or launched["paged_attention"] == 0:
+        fail("the bf16 reduced generate did not launch the flash and paged kernels")
 
 
 def check_reduced_engine_against_cpu(dev):
@@ -910,6 +1015,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_reduced_against_cpu(dev)
+    check_reduced_bf16_against_cpu(dev)
     check_reduced_engine_against_cpu(dev)
     check_reduced_coplace_engine_against_cpu(dev)
     params = full_params(dev, cfg)
@@ -930,7 +1036,9 @@ def main() -> int:
             fail(f"path {path} never launched {idle}")
 
     src = "src/repro_torch/kernels/csrc/"
-    sources = {"flash_attention": src + "flash_attention.cu",
+    # flash_attention: the main path's bf16 kernel (f32 operands take
+    # flash_attention.cu's FMA kernel)
+    sources = {"flash_attention": src + "flash_attention_sm90.cu",
                "page_score": src + "page_score.cu",
                "paged_attention": src + "paged_attention.cu",
                "chunk_attention": src + "chunk_attention.cu",

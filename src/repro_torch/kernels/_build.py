@@ -25,9 +25,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argument types); each returns a cudaError_t as int
 SIGNATURES = {
+    # flash_attention: f32 on the FMA units, bf16 on the tensor cores
     "h2eal_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _F, _P),
-    "h2eal_paged_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+                              _I, _F, _P),
+    "h2eal_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _P),
+    "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _P),
     "h2eal_page_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _P),

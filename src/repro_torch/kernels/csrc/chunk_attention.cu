@@ -19,8 +19,8 @@
 // (Cq = 512, group 4, D = 128) every key read serves the 2048 query rows
 // of its (slot, kv head), about 4·D·2048 FLOP per 4·D bytes of K and V, far
 // above the card's balance point. This first version runs the products on
-// the f32 FMA units (67 TFLOP/s), as flash_attention.cu does; a wgmma/TMA
-// design is later work.
+// the f32 FMA units (67 TFLOP/s) for both dtypes; the wgmma/TMA ring of
+// flash_attention_sm90.cu is the pattern for a bf16 tensor-core version.
 //
 // Design. The TPU kernel keeps the whole (Cq·G, D) query block of one
 // (slot, kv head) resident in VMEM and streams K/V past it; on this card

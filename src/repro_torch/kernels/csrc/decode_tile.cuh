@@ -1,5 +1,5 @@
-// The one-query decode stream shared by paged_attention.cu and
-// paged_attention_partial.cu: a block of NW warps holds the GQA group's query
+// The one-query decode stream of paged_attention_partial.cu (and of
+// paged_attention.cu before its split-KV grid): a block of NW warps holds the GQA group's query
 // rows in registers; each warp walks its own share of the keys, U at a time
 // (one coalesced row load per key, the 32 lanes splitting D), keeping an f32
 // online-softmax state (running max m, sum l, accumulator acc) per row; the

@@ -1,25 +1,28 @@
-// Prefill GQA attention: causal, optional sliding window and attention sinks.
+// Prefill GQA attention in f32: causal, optional sliding window and
+// attention sinks.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
-// (the pl.pallas_call at :97). Same contract: q (B,Sq,Hq,D), k/v
-// (B,Sk,Hkv,D) in one storage dtype (f32 or bf16), f32 logits and online
-// softmax, output in q's dtype. Key j is attended by query row i (absolute
-// position i + q_offset) iff j <= row (causal), j > row - window (window>0),
-// or j < sink (sink>0, only together with a window). A row with every key
-// masked returns 0.
+// (the pl.pallas_call at :97) for f32 operands; ops.py routes bf16 operands
+// to the tensor-core kernel of flash_attention_sm90.cu. This is routing by
+// dtype, not a fallback: the serving path is bf16, TF32 tensor cores would
+// break the f32 tolerance of 1e-4, and the f32 route serves the reduced
+// card-against-CPU checks. Same contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D)
+// f32, f32 logits and online softmax, f32 output. Key j is attended by query
+// row i (absolute position i + q_offset) iff j <= row (causal), j > row -
+// window (window>0), or j < sink (sink>0, only together with a window). A
+// row with every key masked returns 0.
 //
 // What bounds it on the H100: the retrieval (full causal) half is
 // compute-bound (about 5.5e11 FLOP per layer at B=2, S=8192, 16 heads,
-// D=128). This first kernel runs the products on the f32 FMA units, not
-// the tensor cores, so its ceiling is the 67 TFLOP/s f32 rate and the
-// shared-memory bandwidth that feeds it; a wgmma/TMA design is later work.
+// D=128), and in f32 the products run on the FMA units, so its ceiling is
+// the 67 TFLOP/s f32 rate and the shared-memory bandwidth that feeds it.
 //
 // Design: one block of 128 threads per (64-row q tile, q head, batch).
-// The q tile is staged once in shared memory (transposed, f32); K/V tiles
-// of 64 keys are staged per step. The KV head is read as h / group, never
+// The q tile is staged once in shared memory (transposed); K/V tiles of 64
+// keys are staged per step. The KV head is read as h / group, never
 // materialised per q head as the TPU wrapper's jnp.repeat does. Each
 // thread owns a 4x8 patch of the 64x64 logit tile and a 4 x D/8 patch of
-// the f32 accumulator; the 8 threads of a row reduce max and sum with warp
+// the accumulator; the 8 threads of a row reduce max and sum with warp
 // shuffles. Key tiles wholly outside causal ∪ (window + sink) are skipped,
 // so the streaming heads cost O(S·(window + sink)) and not O(S²). Blocks
 // of the heaviest (last) q tiles are launched first to shorten the tail.
@@ -226,14 +229,10 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 }  // namespace h2eal
 
 extern "C" int h2eal_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int dtype, int b, int sq, int sk, int hq, int hkv, int d,
-                                     int causal, int window, int sink, int q_offset,
-                                     float scale, void* stream) {
+                                     int b, int sq, int sk, int hq, int hkv, int d, int causal,
+                                     int window, int sink, int q_offset, float scale,
+                                     void* stream) {
   using namespace h2eal;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return dispatch_d<float>(d, q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
-  if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
-  return cudaErrorInvalidValue;
+  return dispatch_d<float>(d, q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset,
+                           scale, static_cast<cudaStream_t>(stream));
 }

@@ -24,7 +24,7 @@
 // has B·Hkv. Warp 0 first compacts the stripe's owned slots into shared
 // memory (a ballot per 32 slots), so the block walks only its ~N/S pages and
 // never touches another stripe's; the walk is the GQA-group register tile
-// of paged_attention.cu (decode_tile.cuh), reading each key straight from
+// of decode_tile.cuh, reading each key straight from
 // its page and loading nothing for an invalid key. The epilogue stores the
 // merged raw state instead of dividing.
 #include "decode_tile.cuh"

@@ -27,6 +27,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 8
 _MAX_SLOTS = 2048  # paged_attention_partial's slot list lives in shared memory
+# paged_attention's split-KV grid: fill two blocks on each of the H100's 132
+# SMs, but keep at least this many keys in a split
+_SPLIT_BLOCKS = 2 * 132
+_SPLIT_MIN_KEYS = 128
+# per device: paged_attention's int32 arrival counters, one per (batch, kv
+# head), zeroed once when made; the kernel's last block resets its own
+_COUNTERS: dict = {}
 
 
 def reset_launches() -> None:
@@ -67,7 +74,13 @@ def _stream(t: torch.Tensor) -> int:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sink: int = 0, q_offset: int = 0):
-    """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
+    """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D).
+
+    On the card the dtype picks the kernel: bf16 runs on the tensor cores
+    (``csrc/flash_attention_sm90.cu``: wgmma fed by TMA, P rounded to bf16
+    before P·V), f32 on the FMA units (``csrc/flash_attention.cu``), since
+    TF32 tensor cores would not hold f32's tolerance. Either raises if its
+    kernel fails to build or launch."""
     if _on_cpu(q, k, v):
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         sink=sink, q_offset=q_offset)
@@ -82,19 +95,45 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _require(q_offset >= 0 and window >= 0 and sink >= 0,
              "flash_attention: q_offset, window and sink must be >= 0")
     out = torch.empty_like(q)
+    lib = _build.library()
     with torch.cuda.device(q.device):
-        err = _build.library().h2eal_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, int(causal), window, sink,
-            q_offset, _scale(d), _stream(q))
+        if q.dtype == torch.bfloat16:
+            # TMA reads q, k and v through tensor maps: 16-byte aligned bases
+            _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                     "flash_attention: bf16 operands must be 16-byte aligned")
+            err = lib.h2eal_flash_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+                hq, hkv, d, int(causal), window, sink, q_offset, _scale(d), _stream(q))
+        else:
+            err = lib.h2eal_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+                hq, hkv, d, int(causal), window, sink, q_offset, _scale(d), _stream(q))
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
 
 
+def paged_splits(b: int, hkv: int, t: int) -> int:
+    """Splits of paged_attention's key axis: the smallest n with
+    b·hkv·n >= 264 blocks (two a SM), capped so that a split keeps at least
+    128 keys; 1 where b·hkv already fills the card or t < 256."""
+    want = -(-_SPLIT_BLOCKS // (b * hkv))
+    return max(1, min(want, t // _SPLIT_MIN_KEYS))
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def paged_attention(q, k, v, valid):
     """q: (B, Hq, D); k/v: (B, Hkv, T, D); valid: (B, Hkv, T) bool ->
-    (B, Hq, D)."""
+    (B, Hq, D). On the card: one launch of a split-KV grid of
+    ``paged_splits(B, Hkv, T)`` splits a (batch, kv head), whose last block
+    merges the splits' partials (held in scratch made here)."""
     if _on_cpu(q, k, v, valid):
         return _ref.paged_attention_ref(q, k, v, valid)
     b, hq, d = q.shape
@@ -109,12 +148,19 @@ def paged_attention(q, k, v, valid):
     _require(d in _HEAD_DIMS, f"paged_attention: head_dim {d} not in {_HEAD_DIMS}")
     _require(hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP,
              f"paged_attention: GQA group must divide Hq and be <= {_MAX_GROUP}")
+    g = hq // hkv
+    n = paged_splits(b, hkv, t)
     out = torch.empty_like(q)
+    part = torch.empty(b * hkv * n * g * (d + 2) if n > 1 else 2,
+                       dtype=torch.float32, device=q.device)
+    rows = b * hkv * n * g
     with torch.cuda.device(q.device):
         err = _build.library().h2eal_paged_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], b, hkv, t, hq // hkv, d,
-            _scale(d), _stream(q))
+            out.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * rows,
+            part.data_ptr() + 8 * rows, _counters(q.device, b * hkv).data_ptr(),
+            _DTYPES[q.dtype], b, hkv, t, g, d, n, max(1, -(-t // n)), _scale(d),
+            _stream(q))
     _build.check(err, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     return out

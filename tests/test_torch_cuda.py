@@ -8,6 +8,9 @@ Each kernel computes in f32 and rounds only its output, so it is held
 against the plain version on the same inputs widened to f32, elementwise
 |kernel - plain| <= rtol * |plain| + atol: in f32 atol 1e-4 (summation
 order); in bf16 also half a bf16 step of the output, rtol 2^-8, atol 1e-5.
+The bf16 flash kernel also rounds the unnormalised P (each p in [0, 1]) to
+bf16 before P·V, which moves the output by at most 2^-8·(softmax(s)·|V|):
+it is held to that term on top (``_flash_within``).
 """
 import pytest
 import torch
@@ -38,6 +41,19 @@ def _within(got, want, dtype) -> bool:
     return bool(((got.float() - want).abs() <= rtol * want.abs() + atol).all())
 
 
+def _flash_within(got, q, k, v, **kw) -> bool:
+    """The flash kernel against the plain version on widened inputs; in bf16
+    with the P-rounding term 2^-8·(softmax(s)·|V|), the plain version run on
+    |v| under the same masks."""
+    want = tref.flash_attention_ref(*_widened(q, k, v), **kw)
+    if got.dtype == torch.float32:
+        return _within(got, want, torch.float32)
+    rtol, atol = CARD_TOL[torch.bfloat16]
+    p_term = tref.flash_attention_ref(*_widened(q, k, v.abs()), **kw)
+    return bool(((got.float() - want).abs()
+                 <= 2.0 ** -8 * p_term + rtol * want.abs() + atol).all())
+
+
 @pytest.fixture
 def cuda_dev():
     if not torch.cuda.is_available():
@@ -61,16 +77,60 @@ def test_flash_attention_kernel(cuda_dev, dtype, d, case):
     v = _rand(gen, cuda_dev, dtype, b, sk + 70, hkv, d)
     kw = dict(causal=causal, window=window, sink=sink, q_offset=off)
     got = ops.flash_attention(q, k, v, **kw)
-    want = tref.flash_attention_ref(*_widened(q, k, v), **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    assert _within(got, want, dtype)
+    assert _flash_within(got, q, k, v, **kw)
+
+
+# the bf16 tensor-core kernel's edges (q tiles of 128 rows, key tiles of 128):
+# (b, sq, sk, hq, hkv, causal, window, sink, q_offset); every row attends a key
+FLASH_BF16_CASES = [
+    (1, 1, 1, 8, 1, True, 0, 0, 0),          # Sq = 1, group 8
+    (1, 1, 300, 4, 1, True, 0, 0, 299),      # one query at the end of 300 keys
+    (2, 300, 300, 8, 2, True, 0, 0, 0),      # ragged q and key tiles, group 4
+    (1, 257, 390, 8, 1, True, 0, 0, 133),    # q_offset > 0, group 8
+    (1, 300, 300, 4, 4, True, 100, 0, 0),    # a window across tiles, group 1
+    (1, 300, 300, 8, 2, True, 150, 4, 0),    # window and sink
+    (2, 520, 520, 4, 1, True, 256, 4, 0),    # serving's window: tiles are skipped
+    (1, 129, 200, 4, 1, False, 0, 0, 0),     # not causal, ragged
+]
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_fully_masked_row_is_zero(cuda_dev):
-    q = torch.randn(1, 8, 2, 32, device=cuda_dev)
-    k = torch.randn(1, 8, 1, 32, device=cuda_dev)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_flash_attention_bf16_kernel_edges(cuda_dev, d, case):
+    b, sq, sk, hq, hkv, causal, window, sink, off = case
+    gen = torch.Generator(device=cuda_dev).manual_seed(sq + sk)
+    q = _rand(gen, cuda_dev, torch.bfloat16, b, sq, hq, d)
+    k = _rand(gen, cuda_dev, torch.bfloat16, b, sk, hkv, d)
+    v = _rand(gen, cuda_dev, torch.bfloat16, b, sk, hkv, d)
+    kw = dict(causal=causal, window=window, sink=sink, q_offset=off)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert _flash_within(got, q, k, v, **kw)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_kernel_at_serving_length(cuda_dev):
+    """B=2, S=4096, 8 q heads over 2 kv heads, D=128: 32 q tiles of causal
+    depth up to 32 key tiles, through the TMA ring many times."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(11)
+    q = _rand(gen, cuda_dev, torch.bfloat16, 2, 4096, 8, 128)
+    k = _rand(gen, cuda_dev, torch.bfloat16, 2, 4096, 2, 128)
+    v = _rand(gen, cuda_dev, torch.bfloat16, 2, 4096, 2, 128)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _flash_within(got, q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_kernel_fully_masked_row_is_zero(cuda_dev, dtype, d):
+    q = torch.randn(1, 8, 2, d, device=cuda_dev).to(dtype)
+    k = torch.randn(1, 8, 1, d, device=cuda_dev).to(dtype)
     out = ops.flash_attention(q, k, k, causal=True, window=2, q_offset=20)
     assert out.abs().max().item() == 0.0
 
@@ -92,6 +152,39 @@ def test_paged_attention_kernel(cuda_dev, dtype, d, group):
     torch.cuda.synchronize()
     assert _within(got, want, dtype)
     assert got[1, 2 * group:].abs().max().item() == 0.0
+
+
+# (b, hkv, t, group): the split-KV grid's edges. T below two splits' worth
+# (one split); T not a multiple of the split; B·Hkv under 264 (two splits of
+# the 300 keys); B·Hkv >= 264 (one split a stream); 33 splits of 134 keys
+PAGED_SPLIT_CASES = [(1, 2, 100, 4), (2, 3, 1000, 3), (40, 4, 300, 2),
+                     (70, 4, 600, 4), (2, 4, 4416, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES)
+def test_paged_attention_split_kernel(cuda_dev, dtype, d, case):
+    b, hkv, t, group = case
+    n = ops.paged_splits(b, hkv, t)
+    chunk = -(-t // n)
+    gen = torch.Generator(device=cuda_dev).manual_seed(t)
+    q = _rand(gen, cuda_dev, dtype, b, hkv * group, d)
+    k = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    v = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    valid = torch.rand(b, hkv, t, generator=gen, device=cuda_dev) < 0.8
+    if n > 1:
+        valid[0, 0, chunk:2 * chunk] = False  # a split with no valid key
+    valid[-1, -1] = False                     # an all-invalid row gives 0
+    got = ops.paged_attention(q, k, v, valid)
+    again = ops.paged_attention(q, k, v, valid)  # the counters were reset
+    want = tref.paged_attention_ref(*_widened(q, k, v), valid)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert _within(got, want, dtype)
+    assert got[-1, -group:].abs().max().item() == 0.0
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
