@@ -14,7 +14,8 @@ then, each phase failing the run with a nonzero exit:
      same function, that call;
   3. holds a reduced llama3-8b ``generate`` (f32; and bf16 at head_dim
      128, so the tensor-core flash kernel runs at the serving head size) and
-     a reduced chunked ``Engine`` run (with slot churn) on the card against
+     a reduced chunked ``Engine`` run (with slot churn; f32, and bf16 at
+     head_dim 128 for the tensor-core chunk kernels) on the card against
      the same runs on the CPU (plain versions, same weights);
   4. serves llama3-8b at full width and depth (bf16, seeded random
      weights) through lockstep ``generate``: 2 prompts of 8192 tokens, 32
@@ -63,10 +64,11 @@ import torch  # noqa: E402
 # by summation order alone; in bf16 also by the output's rounding, at most
 # half a bf16 step (2^-8 of the value), hence the relative term
 TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
-# the bf16 flash kernel also rounds its unnormalised P (each p in [0, 1]) to
-# bf16 before P·V, which moves the output by at most 2^-8·Σ p|v| / l: it is
-# held to 2^-8·(softmax(s)·|V|) on top, the plain version run on |v|
-FLASH_P_RTOL = 2.0 ** -8
+# the bf16 tensor-core kernels (flash_attention, chunk_attention,
+# chunk_attention_paged) also round their unnormalised P (each p in [0, 1])
+# to bf16 before P·V, which moves the output by at most 2^-8·Σ p|v| / l:
+# they are held to 2^-8·(softmax(s)·|V|) on top, the plain version run on |v|
+P_RTOL = 2.0 ** -8
 # the bf16 reduced generate, card against CPU: every activation is rounded to
 # bf16 (2^-8 of its value) on both sides, a dozen times along a two-layer
 # path, and the sums are taken in other orders: logits agree within 2^-4 of
@@ -162,6 +164,18 @@ def tol_text(dtype) -> str:
     return f"{rtol:.4g}*|plain| + {atol:.0e}"
 
 
+def p_excess(out, want, p_term) -> float:
+    """excess() of a bf16 tensor-core kernel, whose tolerance adds
+    P_RTOL·(softmax(s)·|V|): ``p_term`` is the plain version run on |v|."""
+    rtol, atol = TOL[torch.bfloat16]
+    want = want.float()
+    return ((out.float() - want).abs() - P_RTOL * p_term - rtol * want.abs()
+            - atol).max().item()
+
+
+P_TOL_TEXT = f"{P_RTOL:.4g}*(softmax(s)*|V|) + {tol_text(torch.bfloat16)}"
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -205,10 +219,7 @@ def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
                                              window=window, sink=sink)
             want = ref.flash_attention_ref(*widened(q, k, v), causal=True, window=window,
                                            sink=sink)
-            rtol, atol = TOL[dtype]
-            ex = ((out.float() - want).abs() - FLASH_P_RTOL * p_term
-                  - rtol * want.abs() - atol).max().item()
-            tol = f"{FLASH_P_RTOL:.4g}*(softmax(s)*|V|) + {tol}"
+            ex, tol = p_excess(out, want, p_term), P_TOL_TEXT
             del p_term
         del want
         torch.cuda.empty_cache()
@@ -472,7 +483,11 @@ def check_chunk(ops, ref, timer, dev, cfg, dtype, gen):
     torch.cuda.synchronize()
     if out[1, 7, :g].abs().max().item() != 0.0:
         fail("chunk_attention: an all-invalid row is not 0")
-    e, ex = err(out, want), excess(out, want, dtype)
+    e, ex, tol = err(out, want), excess(out, want, dtype), tol_text(dtype)
+    if dtype == torch.bfloat16:
+        p_term = ref.chunk_attention_ref(*widened(q, k, v.abs()), valid)
+        ex, tol = p_excess(out, want, p_term), P_TOL_TEXT
+        del p_term
     del want
     lib_mask = valid.repeat_interleave(g, dim=1)
     lib_mask[1, :g, 7] = True  # SDPA gives NaN for an all-masked row
@@ -483,7 +498,7 @@ def check_chunk(ops, ref, timer, dev, cfg, dtype, gen):
     return [dict(
         case=f"streaming B={b} Cq={cq} Hq={hs * g} Hkv={hs} T={k.shape[2]} D={d} "
              f"starts={list(CHUNK_STARTS)}",
-        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol_text(dtype),
+        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol,
         ms=timer.ms(run, 10), plain_ms=timer.ms(plain, 3), library_ms=timer.ms(lib, 10),
         bound_ms=b_ms, bound_by=b_by)]
 
@@ -513,7 +528,12 @@ def check_chunk_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
     want = ref.chunk_attention_paged_ref(*widened(q, kp, vp), ps, start,
                                          *widened(kn, vn))
     torch.cuda.synchronize()
-    e, ex = err(out, want), excess(out, want, dtype)
+    e, ex, tol = err(out, want), excess(out, want, dtype), tol_text(dtype)
+    if dtype == torch.bfloat16:
+        p_term = ref.chunk_attention_paged_ref(*widened(q, kp, vp.abs()), ps, start,
+                                               *widened(kn, vn.abs()))
+        ex, tol = p_excess(out, want, p_term), P_TOL_TEXT
+        del p_term
     del want
     torch.cuda.empty_cache()
     # the library call: one SDPA over the materialised [pages | chunk] buffer
@@ -535,7 +555,7 @@ def check_chunk_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
     case = dict(
         case=f"retrieval B={b} Cq={cq} Hq={nr * g} Hr={nr} C={c} P={p} D={d} "
              f"starts={list(CHUNK_STARTS)}",
-        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol_text(dtype),
+        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol,
         ms=timer.ms(run, 10), plain_ms=timer.ms(plain, 2), library_ms=timer.ms(lib, 5),
         bound_ms=b_ms, bound_by=b_by)
     del kb, vb, mask, lib_mask
@@ -671,6 +691,91 @@ def check_reduced_engine_against_cpu(dev):
         f"({sum(len(c.tokens) for c in cpu.values())} tokens, 5 requests)")
     if not same:
         fail("the reduced chunked engine on the card disagrees with the CPU run")
+
+
+def record_logits(eng):
+    """Keep on the host the logits behind every token ``eng`` emits: the
+    first token's by request uid, each decode step's by trace row."""
+    firsts, steps = {}, []
+    first_token, sample = eng._first_token, eng._sample
+
+    def _first(slot, row):
+        firsts[int(eng.batch.uid[slot])] = row.float().cpu()
+        return first_token(slot, row)
+
+    def _sample(logits):
+        if logits.shape[0] == eng.batch.max_batch:  # a decode step's, not a first token's
+            steps.append(logits.float().cpu())
+        return sample(logits)
+
+    eng._first_token, eng._sample = _first, _sample
+    return firsts, steps
+
+
+def check_reduced_bf16_engine_against_cpu(dev):
+    """Reduced llama3-8b at head_dim 128 in bf16, chunked Engine with churn
+    (5 requests on 2 slots, chunks of 48 that straddle the bf16 chunk
+    kernels' q tiles of 32 positions and start inside their 128-key tiles):
+    card (the tensor-core chunk kernels) against CPU (plain versions),
+    tokens equal except at a near-tie, and every logit behind an agreeing
+    token within BF16_LOGIT_BAND of the largest CPU first-token logit. The
+    selection budget covers every page, so no page near-tie decides (see
+    check_reduced_bf16_against_cpu)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    capacity = 320
+    cfg = reduced(get_arch(ARCH), head_dim=128)
+    cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal,
+                                                             select_budget=capacity))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(9), device="cpu",
+                           dtype=torch.bfloat16)
+    rng = np.random.default_rng(9)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=m)
+            for i, (n, m) in enumerate([(300, 9), (150, 6), (77, 12), (210, 5), (40, 8)])]
+    kw = dict(max_batch=2, capacity=capacity, prompt_buckets=[64], prefill_chunk=48)
+    cpu_eng = Engine(cfg, params, device="cpu", **kw)
+    cpu_rec = record_logits(cpu_eng)
+    cpu = cpu_eng.run(reqs)
+    ops.reset_launches()
+    card_eng = Engine(cfg, _to(params, dev), device=dev, **kw)
+    card_rec = record_logits(card_eng)
+    card = card_eng.run(reqs)
+    launched = dict(ops.LAUNCHES)
+
+    def logits(rec, comp, i):
+        firsts, steps = rec
+        return firsts[comp.uid] if i == 0 else steps[comp._step_idx[i - 1]][comp._slot]
+
+    band = BF16_LOGIT_BAND * max(x.abs().max().item() for x in cpu_rec[0].values())
+    worst, ties, ok = 0.0, 0, sorted(card) == sorted(cpu)
+    for u in cpu:
+        a, b = cpu[u], card[u]
+        ok = ok and len(a.tokens) == len(b.tokens) and a._step_idx == b._step_idx
+        for i, (ta, tb) in enumerate(zip(a.tokens, b.tokens)):
+            la = logits(cpu_rec, a, i)
+            if ta != tb:
+                top2 = la.topk(2).values
+                ok = ok and (top2[0] - top2[1]).item() <= band
+                ties += 1
+                break  # the two runs now continue from different tokens
+            worst = max(worst, err(logits(card_rec, b, i), la))
+    n_chunks = card_eng.stats.prefill_chunks * cfg.num_layers
+    log(f"reduced {cfg.name} head_dim 128 bf16 chunked engine (chunks of 48): card vs CPU "
+        f"tokens equal={all(card[u].tokens == cpu[u].tokens for u in cpu)} (near-tie "
+        f"divergences {ties}), logits max err {worst:.3e} while tokens agree (band "
+        f"{band:.3e}); launches chunk {launched['chunk_attention']} chunk_paged "
+        f"{launched['chunk_attention_paged']} (expected {n_chunks} each)")
+    if not ok or worst > band:
+        fail("the bf16 reduced chunked engine on the card disagrees with the CPU run "
+             "beyond the bf16 band")
+    if not launched["chunk_attention"] == launched["chunk_attention_paged"] == n_chunks > 0:
+        fail("the bf16 reduced chunked engine did not launch the chunk kernels")
 
 
 def check_reduced_coplace_engine_against_cpu(dev):
@@ -1017,6 +1122,7 @@ def main() -> int:
     check_reduced_against_cpu(dev)
     check_reduced_bf16_against_cpu(dev)
     check_reduced_engine_against_cpu(dev)
+    check_reduced_bf16_engine_against_cpu(dev)
     check_reduced_coplace_engine_against_cpu(dev)
     params = full_params(dev, cfg)
     by_path = {"generate": serve_full(dev, cfg, params)}
@@ -1036,13 +1142,14 @@ def main() -> int:
             fail(f"path {path} never launched {idle}")
 
     src = "src/repro_torch/kernels/csrc/"
-    # flash_attention: the main path's bf16 kernel (f32 operands take
-    # flash_attention.cu's FMA kernel)
+    # flash_attention and the chunk kernels: the main path's bf16 kernels
+    # (f32 operands take the FMA kernels of flash_attention.cu and
+    # chunk_attention.cu)
     sources = {"flash_attention": src + "flash_attention_sm90.cu",
                "page_score": src + "page_score.cu",
                "paged_attention": src + "paged_attention.cu",
-               "chunk_attention": src + "chunk_attention.cu",
-               "chunk_attention_paged": src + "chunk_attention.cu",
+               "chunk_attention": src + "chunk_attention_sm90.cu",
+               "chunk_attention_paged": src + "chunk_attention_sm90.cu",
                "paged_attention_partial": src + "paged_attention_partial.cu",
                "combine_partials": src + "combine_partials.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:97",

@@ -33,10 +33,14 @@ SIGNATURES = {
     "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P),
     "h2eal_page_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                              _P),
+    # chunk_attention(_paged): f32 on the FMA units, bf16 on the tensor cores
+    "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "h2eal_chunk_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                   _P),
     "h2eal_chunk_attention_paged": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _P),
+                                    _I, _I, _I, _F, _P),
+    "h2eal_chunk_attention_paged_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _I, _I, _I, _F, _P),
     "h2eal_paged_attention_partial": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _F, _P),
     "h2eal_combine_partials": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -1,6 +1,12 @@
-// Chunked-prefill attention: one chunk of queries per slot over a KV buffer.
+// Chunked-prefill attention in f32: one chunk of queries per slot over a KV
+// buffer.
 //
-// Replaces the two TPU kernels of repro/kernels/chunk_attention.py:
+// Replaces, for f32 operands, the two TPU kernels of
+// repro/kernels/chunk_attention.py; ops.py routes bf16 operands to the
+// tensor-core kernels of chunk_attention_sm90.cu. This is routing by dtype,
+// not a fallback: the serving path is bf16, TF32 tensor cores would break
+// the f32 tolerance of 1e-4, and the f32 route serves the reduced
+// card-against-CPU checks.
 //   chunk_attention        (the pl.pallas_call at :107): q (B,Cq,Hq,D) over
 //                          k/v (B,Hkv,T,D) with a validity mask per query,
 //                          valid (B,Hkv,Cq,T) bool;
@@ -11,16 +17,15 @@
 //                          slot's start, then over the chunk's own keys
 //                          k/v_new (B,Cq,Hr,D) under the causal triangle
 //                          (key j for query c iff j <= c).
-// Same contracts: bf16 or f32 in (one dtype for all operands), f32 logits,
-// online softmax and accumulation, output rounded once to q's dtype; a row
-// with no valid key returns 0 (the max(l, 1e-30) guard), never NaN.
+// Same contracts: f32 in and out, f32 logits, online softmax and
+// accumulation; a row with no valid key returns 0 (the max(l, 1e-30)
+// guard), never NaN.
 //
 // What bounds them on the H100: operations. At llama3-8b's chunk shapes
 // (Cq = 512, group 4, D = 128) every key read serves the 2048 query rows
 // of its (slot, kv head), about 4·D·2048 FLOP per 4·D bytes of K and V, far
-// above the card's balance point. This first version runs the products on
-// the f32 FMA units (67 TFLOP/s) for both dtypes; the wgmma/TMA ring of
-// flash_attention_sm90.cu is the pattern for a bf16 tensor-core version.
+// above the card's balance point; in f32 the products run on the FMA units
+// (67 TFLOP/s).
 //
 // Design. The TPU kernel keeps the whole (Cq·G, D) query block of one
 // (slot, kv head) resident in VMEM and streams K/V past it; on this card
@@ -391,32 +396,21 @@ cudaError_t paged_d(int d, const void* q, const void* kp, const void* vp, const 
 }  // namespace h2eal
 
 extern "C" int h2eal_chunk_attention(const void* q, const void* k, const void* v,
-                                     const void* valid, void* o, int dtype, int b, int cq,
-                                     int hkv, int t_len, int g, int d, float scale,
-                                     void* stream) {
+                                     const void* valid, void* o, int b, int cq, int hkv,
+                                     int t_len, int g, int d, float scale, void* stream) {
   using namespace h2eal;
   if (g < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return chunk_d<float>(d, q, k, v, valid, o, b, cq, hkv, t_len, g, scale, st);
-  if (dtype == kBF16)
-    return chunk_d<__nv_bfloat16>(d, q, k, v, valid, o, b, cq, hkv, t_len, g, scale, st);
-  return cudaErrorInvalidValue;
+  return chunk_d<float>(d, q, k, v, valid, o, b, cq, hkv, t_len, g, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int h2eal_chunk_attention_paged(const void* q, const void* kp, const void* vp,
                                            const void* page_start, const void* start,
-                                           const void* kn, const void* vn, void* o,
-                                           int dtype, int b, int cq, int hr, int n_pages,
-                                           int page, int g, int d, float scale,
-                                           void* stream) {
+                                           const void* kn, const void* vn, void* o, int b,
+                                           int cq, int hr, int n_pages, int page, int g, int d,
+                                           float scale, void* stream) {
   using namespace h2eal;
   if (g < 1 || page < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return paged_d<float>(d, q, kp, vp, page_start, start, kn, vn, o, b, cq, hr, n_pages,
-                          page, g, scale, st);
-  if (dtype == kBF16)
-    return paged_d<__nv_bfloat16>(d, q, kp, vp, page_start, start, kn, vn, o, b, cq, hr,
-                                  n_pages, page, g, scale, st);
-  return cudaErrorInvalidValue;
+  return paged_d<float>(d, q, kp, vp, page_start, start, kn, vn, o, b, cq, hr, n_pages, page,
+                        g, scale, static_cast<cudaStream_t>(stream));
 }

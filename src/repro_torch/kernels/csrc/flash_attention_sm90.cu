@@ -53,6 +53,7 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace h2eal {
@@ -78,48 +79,12 @@ struct Cfg {
   static constexpr int bytes = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-// one box of a 4-D tensor map into shared memory, counted on bar
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::pack_bf16;
+using sm90::tma_load_4d;
 
 // key tiles of one q tile: [0, end), skipping those wholly outside the
 // window that hold no sink key
@@ -329,47 +294,11 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
-// entry-point query, so the library links against the runtime alone
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // (B, S, H, D) bf16 as a 4-D map {D, H, S, B}; a box is `rows` rows of one
 // head, `ac` columns wide (one swizzle atom); rows past S read as zeros
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
-              int ac, int rows, int sw) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
-                                 (cuuint64_t)s * h * d * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)ac, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+bool make_map(sm90::EncodeTiled enc, CUtensorMap* map, const void* ptr, int b, int s, int h,
+              int d, int ac, int rows, int sw) {
+  return sm90::make_map_4d(enc, map, ptr, {d, h, s, b}, {ac, 1, rows, 1}, sw);
 }
 
 template <int D>
@@ -377,7 +306,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
                    int hq, int hkv, int causal, int window, int sink, int q_offset,
                    float scale, cudaStream_t stream) {
   using C = Cfg<D>;
-  const EncodeTiled enc = encoder();
+  const sm90::EncodeTiled enc = sm90::encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!make_map(enc, &tq, q, b, sq, hq, D, C::AC, BQ, C::SW) ||

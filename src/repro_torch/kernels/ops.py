@@ -26,6 +26,7 @@ LAUNCHES = {"flash_attention": 0, "page_score": 0, "paged_attention": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 8
+_MAX_TILE_GROUP = 64  # the bf16 chunk kernels' q tile: 64 rows
 _MAX_SLOTS = 2048  # paged_attention_partial's slot list lives in shared memory
 # paged_attention's split-KV grid: fill two blocks on each of the H100's 132
 # SMs, but keep at least this many keys in a split
@@ -70,6 +71,16 @@ def _scale(d: int) -> float:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_tensor_core(name, g, tensors):
+    """What the bf16 chunk kernels' TMA and 64-row q tiles take: 16-byte
+    aligned operands and a GQA group of at most 64 (a tile holds 64 // g
+    whole chunk positions)."""
+    _require(all(t.data_ptr() % 16 == 0 for t in tensors),
+             f"{name}: bf16 operands must be 16-byte aligned")
+    _require(1 <= g <= _MAX_TILE_GROUP,
+             f"{name}: GQA group {g} above {_MAX_TILE_GROUP} for the bf16 kernel")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -193,7 +204,11 @@ def page_score(q, tau_min, tau_max):
 
 def chunk_attention(q, k, v, valid):
     """q: (B, Cq, Hq, D); k/v: (B, Hkv, T, D); valid: (B, Hkv, Cq, T) bool
-    -> (B, Cq, Hq, D); a row with no valid key gives 0."""
+    -> (B, Cq, Hq, D); a row with no valid key gives 0.
+
+    On the card the dtype picks the kernel, as for ``flash_attention``:
+    bf16 runs on the tensor cores (``csrc/chunk_attention_sm90.cu``), f32
+    on the FMA units (``csrc/chunk_attention.cu``)."""
     if _on_cpu(q, k, v, valid):
         return _ref.chunk_attention_ref(q, k, v, valid)
     b, cq, hq, d = q.shape
@@ -207,12 +222,19 @@ def chunk_attention(q, k, v, valid):
     _check_operands("chunk_attention", (valid,))
     _require(d in _HEAD_DIMS, f"chunk_attention: head_dim {d} not in {_HEAD_DIMS}")
     _require(hq % hkv == 0, "chunk_attention: Hq must be a multiple of Hkv")
+    g = hq // hkv
     out = torch.empty_like(q)
+    lib = _build.library()
     with torch.cuda.device(q.device):
-        err = _build.library().h2eal_chunk_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], b, cq, hkv, t, hq // hkv, d,
-            _scale(d), _stream(q))
+        if q.dtype == torch.bfloat16:
+            _check_tensor_core("chunk_attention", g, (q, k, v))
+            err = lib.h2eal_chunk_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), b, cq, hkv, t, g, d, _scale(d), _stream(q))
+        else:
+            err = lib.h2eal_chunk_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), b, cq, hkv, t, g, d, _scale(d), _stream(q))
     _build.check(err, "chunk_attention")
     LAUNCHES["chunk_attention"] += 1
     return out
@@ -224,7 +246,8 @@ def chunk_attention_paged(q, k_pages, v_pages, page_start, start, k_new, v_new):
     D); page_start: (B, Hr, C) int32; start: (B,) int32; k/v_new: (B, Cq,
     Hr, D) -> (B, Cq, Hq, D). The chunk KV is cast to the cache dtype first,
     on both routes, so the chunk attends exactly what a post-append read
-    would return."""
+    would return. On the card bf16 runs on the tensor cores
+    (``csrc/chunk_attention_sm90.cu``), f32 on the FMA units."""
     k_new = k_new.to(k_pages.dtype)
     v_new = v_new.to(v_pages.dtype)
     if _on_cpu(q, k_pages, v_pages, page_start, start, k_new, v_new):
@@ -249,13 +272,19 @@ def chunk_attention_paged(q, k_pages, v_pages, page_start, start, k_new, v_new):
     _require(d in _HEAD_DIMS,
              f"chunk_attention_paged: head_dim {d} not in {_HEAD_DIMS}")
     _require(hq % hr == 0, "chunk_attention_paged: Hq must be a multiple of Hr")
+    g = hq // hr
     out = torch.empty_like(q)
+    lib = _build.library()
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_start.data_ptr(),
+            start.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), b, cq,
+            hr, c, p, g, d, _scale(d), _stream(q))
     with torch.cuda.device(q.device):
-        err = _build.library().h2eal_chunk_attention_paged(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_start.data_ptr(), start.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, cq, hr, c, p,
-            hq // hr, d, _scale(d), _stream(q))
+        if q.dtype == torch.bfloat16:
+            _check_tensor_core("chunk_attention_paged", g,
+                               (q, k_pages, v_pages, k_new, v_new))
+            err = lib.h2eal_chunk_attention_paged_bf16(*args)
+        else:
+            err = lib.h2eal_chunk_attention_paged(*args)
     _build.check(err, "chunk_attention_paged")
     LAUNCHES["chunk_attention_paged"] += 1
     return out

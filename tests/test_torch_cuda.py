@@ -8,9 +8,11 @@ Each kernel computes in f32 and rounds only its output, so it is held
 against the plain version on the same inputs widened to f32, elementwise
 |kernel - plain| <= rtol * |plain| + atol: in f32 atol 1e-4 (summation
 order); in bf16 also half a bf16 step of the output, rtol 2^-8, atol 1e-5.
-The bf16 flash kernel also rounds the unnormalised P (each p in [0, 1]) to
+The bf16 tensor-core kernels (flash_attention, chunk_attention,
+chunk_attention_paged) also round the unnormalised P (each p in [0, 1]) to
 bf16 before P·V, which moves the output by at most 2^-8·(softmax(s)·|V|):
-it is held to that term on top (``_flash_within``).
+they are held to that term on top (``_p_within``), the plain version run
+on |v| giving softmax(s)·|V|.
 """
 import pytest
 import torch
@@ -41,17 +43,33 @@ def _within(got, want, dtype) -> bool:
     return bool(((got.float() - want).abs() <= rtol * want.abs() + atol).all())
 
 
-def _flash_within(got, q, k, v, **kw) -> bool:
-    """The flash kernel against the plain version on widened inputs; in bf16
-    with the P-rounding term 2^-8·(softmax(s)·|V|), the plain version run on
-    |v| under the same masks."""
-    want = tref.flash_attention_ref(*_widened(q, k, v), **kw)
+def _p_within(got, plain, args, values) -> bool:
+    """A tensor-core kernel against ``plain(*args)`` on widened inputs; in
+    bf16 with the P-rounding term 2^-8·(softmax(s)·|V|): ``plain`` on the
+    same inputs with the value operands (``args`` at the indices
+    ``values``) replaced by their absolute values."""
+    want = plain(*_widened(*args))
     if got.dtype == torch.float32:
         return _within(got, want, torch.float32)
     rtol, atol = CARD_TOL[torch.bfloat16]
-    p_term = tref.flash_attention_ref(*_widened(q, k, v.abs()), **kw)
+    p_term = plain(*_widened(*(a.abs() if i in values else a for i, a in enumerate(args))))
     return bool(((got.float() - want).abs()
                  <= 2.0 ** -8 * p_term + rtol * want.abs() + atol).all())
+
+
+def _flash_within(got, q, k, v, **kw) -> bool:
+    return _p_within(got, lambda *a: tref.flash_attention_ref(*a, **kw), (q, k, v), (2,))
+
+
+def _chunk_within(got, q, k, v, valid) -> bool:
+    return _p_within(got, lambda q, k, v: tref.chunk_attention_ref(q, k, v, valid),
+                     (q, k, v), (2,))
+
+
+def _chunk_paged_within(got, q, kp, vp, ps, st, kn, vn) -> bool:
+    return _p_within(
+        got, lambda q, kp, vp, kn, vn: tref.chunk_attention_paged_ref(q, kp, vp, ps, st, kn, vn),
+        (q, kp, vp, kn, vn), (2, 4))
 
 
 @pytest.fixture
@@ -282,21 +300,52 @@ def test_chunk_attention_kernel(cuda_dev, dtype, d, case):
     valid[:, :, :, 64:] = False      # whole key tiles without a valid key
     valid[0, 0, cq // 2] = False     # an all-invalid row gives 0
     got = ops.chunk_attention(q, k, v, valid)
-    want = tref.chunk_attention_ref(*_widened(q, k, v), valid)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    assert _within(got, want, dtype)
+    assert _chunk_within(got, q, k, v, valid)
     assert got[0, cq // 2, :group].abs().max().item() == 0.0
 
 
+# the bf16 tensor-core kernel's edges (q tiles of 64 // group whole chunk
+# positions, key tiles of 128): (b, cq, hkv, t, group), each under a
+# streaming head's mask (sink 4 + a window of 100 before each position,
+# thinned at random) with one all-invalid row. T = 804 (the main path's
+# ring 292 + chunk 512) is read 4 validity bytes a lane, odd T a byte a
+# lane; Cq not a multiple of 64 // group leaves a ragged last q tile
+CHUNK_BF16_CASES = [(2, 50, 2, 804, 4), (1, 45, 2, 301, 3), (1, 20, 2, 129, 8),
+                    (1, 70, 1, 803, 1), (2, 512, 1, 804, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", CHUNK_BF16_CASES)
+def test_chunk_attention_bf16_kernel_edges(cuda_dev, d, case):
+    b, cq, hkv, t, group = case
+    gen = torch.Generator(device=cuda_dev).manual_seed(t + cq)
+    q = _rand(gen, cuda_dev, torch.bfloat16, b, cq, hkv * group, d)
+    k = _rand(gen, cuda_dev, torch.bfloat16, b, hkv, t, d)
+    v = _rand(gen, cuda_dev, torch.bfloat16, b, hkv, t, d)
+    pos_q = torch.arange(cq, device=cuda_dev)[:, None] + (t - cq)
+    j = torch.arange(t, device=cuda_dev)[None, :]
+    valid = (j <= pos_q) & ((j < 4) | (j > pos_q - 100))
+    valid = valid & (torch.rand(b, hkv, cq, t, generator=gen, device=cuda_dev) < 0.9)
+    valid[-1, -1, cq - 1] = False    # an all-invalid row gives 0
+    got = ops.chunk_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert _chunk_within(got, q, k, v, valid)
+    assert got[-1, cq - 1, -group:].abs().max().item() == 0.0
+
+
 def _paged_inputs(gen, dev, dtype, b, cq, hr, group, c, p, d, written, order):
+    """Pages written up to ``written`` tokens a slot; physical slot i holds
+    logical page order[i]."""
     q = _rand(gen, dev, dtype, b, cq, hr * group, d)
     kp = _rand(gen, dev, dtype, b, hr, c, p, d)
     vp = _rand(gen, dev, dtype, b, hr, c, p, d)
     w = torch.tensor(written, device=dev)
-    first = torch.arange(c, device=dev) * p
+    first = order.to(dev) * p
     ps = torch.where(first[None] < w[:, None], first[None], -1).to(torch.int32)
-    ps = ps[:, None, :].expand(b, hr, c)[..., order].contiguous()
+    ps = ps[:, None, :].expand(b, hr, c).contiguous()
     kn = _rand(gen, dev, dtype, b, cq, hr, d)
     vn = _rand(gen, dev, dtype, b, cq, hr, d)
     return q, kp, vp, ps, kn, vn
@@ -323,11 +372,43 @@ def test_chunk_attention_paged_kernel(cuda_dev, dtype, d, case):
     st = torch.tensor(start, dtype=torch.int32, device=cuda_dev)
     q, kp, vp, ps, kn, vn = ins
     got = ops.chunk_attention_paged(q, kp, vp, ps, st, kn, vn)
-    want = tref.chunk_attention_paged_ref(*_widened(q, kp, vp), ps, st,
-                                          *_widened(kn, vn))
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    assert _within(got, want, dtype)
+    assert _chunk_paged_within(got, q, kp, vp, ps, st, kn, vn)
+
+
+# the bf16 tensor-core kernel's edges: (b, cq, hr, group, c, p, written per
+# slot, start per slot, page order). 128-key tiles over pages of 32 that are
+# partly written (written 200: keys 200..223 of page 6 lie at >= start
+# 190), start 0 beside a long slot, groups 3 and 8, Cq not a multiple of
+# 64 // group, chunks over more than one 128-key tile, pages in
+# coplace_shmap's striped order over 4 stripes and in random order
+CHUNK_PAGED_BF16_CASES = [
+    (2, 50, 2, 4, 12, 32, (200, 0), (190, 0), "in order"),
+    (1, 130, 2, 3, 20, 32, (600,), (590,), "striped"),
+    (2, 40, 1, 8, 12, 32, (384, 100), (384, 100), "striped"),
+    (1, 300, 1, 1, 8, 16, (100,), (99,), "random"),
+    (4, 512, 1, 4, 40, 32, (0, 300, 1000, 1270), (0, 300, 1000, 1270), "striped"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", CHUNK_PAGED_BF16_CASES)
+def test_chunk_attention_paged_bf16_kernel_edges(cuda_dev, d, case):
+    from repro_torch.core import paging
+
+    b, cq, hr, group, c, p, written, start, order = case
+    order = {"in order": torch.arange(c),
+             "striped": paging.logical_pages(c, 4, "cpu"),
+             "random": torch.randperm(c, generator=torch.Generator().manual_seed(c))}[order]
+    gen = torch.Generator(device=cuda_dev).manual_seed(c * p + cq)
+    q, kp, vp, ps, kn, vn = _paged_inputs(gen, cuda_dev, torch.bfloat16, b, cq, hr, group,
+                                          c, p, d, written, order)
+    st = torch.tensor(start, dtype=torch.int32, device=cuda_dev)
+    got = ops.chunk_attention_paged(q, kp, vp, ps, st, kn, vn)
+    torch.cuda.synchronize()
+    assert _chunk_paged_within(got, q, kp, vp, ps, st, kn, vn)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,12 @@ plain versions and the JAX reference:
     |emulated - plain| <= 2^-8·(softmax(s)·|V|) + 2^-8·|plain| + 1e-5 of
     the plain version on widened inputs: each p lies in [0, 1], so its
     rounding moves the output by at most 2^-8·Σ p|v| / l, and the output's
-    own rounding by 2^-8 of the value.
+    own rounding by 2^-8 of the value;
+  * the bf16 chunk_attention and chunk_attention_paged kernels: q tiles of
+    64 // g whole chunk positions, whose live 128-key tiles (the cache's,
+    in physical page order, then the chunk's own) go in turns to two halves
+    with their own online softmax, P rounded to bf16, the halves' (m, l, O)
+    merged at the end: within the same derived bound.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -210,3 +215,157 @@ def test_flash_bf16_numerics_near_zero_outputs(seed):
     want = tref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
     old = ((got.float() - want).abs() - 2.0 ** -8 * want.abs() - 1e-5).max().item()
     assert old > 0.0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 chunk kernels' numerics
+# ---------------------------------------------------------------------------
+
+BQ = 64  # the bf16 chunk kernels' q tile: 64 // g whole chunk positions
+
+
+def _online(half, s, v, ok):
+    """One key tile of a half's online softmax: logits s (R, K) masked by ok
+    (R, K), values v (K, D); P rounded to bf16 before P·V, f32 sums."""
+    m, l, acc = half
+    s = torch.where(ok, s, float("-inf"))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    mu = torch.where(m_new == float("-inf"), 0.0, m_new)
+    corr = torch.exp(m - mu)
+    p = torch.exp(s - mu)
+    return (m_new, l * corr + p.sum(dim=-1, keepdim=True),
+            acc * corr + p.to(torch.bfloat16).float() @ v)
+
+
+def _tile_attend(qr, items):
+    """The rows qr (R, D) of a q tile over its live key tiles ``items`` [(k
+    (K, D), v (K, D), ok (R, K))] in ring order: even items to one half,
+    odd to the other, then the halves' (m, l, O) merged and divided by
+    max(l, 1e-30)."""
+    r, d = qr.shape
+    halves = [(torch.full((r, 1), float("-inf")), torch.zeros(r, 1), torch.zeros(r, d))
+              for _ in range(2)]
+    for i, (k, v, ok) in enumerate(items):
+        halves[i % 2] = _online(halves[i % 2], (qr @ k.T) * tref._scale(d), v, ok)
+    (m0, l0, a0), (m1, l1, a1) = halves
+    mt = torch.maximum(m0, m1)
+    mu = torch.where(mt == float("-inf"), 0.0, mt)
+    f0, f1 = torch.exp(m0 - mu), torch.exp(m1 - mu)
+    return (a0 * f0 + a1 * f1) / (l0 * f0 + l1 * f1).clamp(min=1e-30)
+
+
+def _q_tiles(q, bi, h, g):
+    """(positions, rows (R, D) f32) of each q tile of (slot bi, kv head h):
+    row r = c·g + gi is position c_lo + c of q head h·g + gi."""
+    cq, d = q.shape[1], q.shape[3]
+    for c_lo in range(0, cq, BQ // g):
+        pos = torch.arange(c_lo, min(c_lo + BQ // g, cq))
+        yield pos, q[bi, pos, h * g:(h + 1) * g].float().reshape(-1, d)
+
+
+def chunk_emulated(q, k, v, valid):
+    """What the bf16 chunk_attention kernel computes, in plain torch."""
+    b, cq, hq, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = hq // hkv
+    out = torch.zeros(b, cq, hq, d)
+    for bi in range(b):
+        for h in range(hkv):
+            kf, vf = k[bi, h].float(), v[bi, h].float()
+            for pos, qr in _q_tiles(q, bi, h, g):
+                ok = valid[bi, h, pos].repeat_interleave(g, dim=0)
+                items = [(kf[t0:t0 + BK], vf[t0:t0 + BK], ok[:, t0:t0 + BK])
+                         for t0 in range(0, t, BK) if ok[:, t0:t0 + BK].any()]
+                out[bi, pos, h * g:(h + 1) * g] = _tile_attend(qr, items).reshape(-1, g, d)
+    return out.to(torch.bfloat16)
+
+
+def chunk_paged_emulated(q, kp, vp, page_start, start, kn, vn):
+    """What the bf16 chunk_attention_paged kernel computes, in plain torch:
+    the cache's live 128-key tiles in physical order (none at start 0),
+    then the chunk's tiles up to the q tile's last position."""
+    b, cq, hq, d = q.shape
+    hr, c, p = kp.shape[1:4]
+    g = hq // hr
+    out = torch.zeros(b, cq, hq, d)
+    for bi in range(b):
+        st = int(start[bi])
+        for h in range(hr):
+            kc, vc = kp[bi, h].reshape(c * p, d).float(), vp[bi, h].reshape(c * p, d).float()
+            ps = page_start[bi, h]
+            key_pos = (ps[:, None] + torch.arange(p)).reshape(-1)
+            key_ok = (ps >= 0).repeat_interleave(p) & (key_pos < st)
+            cache = [(kc[t0:t0 + BK], vc[t0:t0 + BK], key_ok[t0:t0 + BK])
+                     for t0 in range(0, c * p, BK) if st > 0 and key_ok[t0:t0 + BK].any()]
+            knf, vnf = kn[bi, :, h].float(), vn[bi, :, h].float()
+            for pos, qr in _q_tiles(q, bi, h, g):
+                row_pos = pos.repeat_interleave(g)
+                items = [(kt, vt, ok[None].expand(len(row_pos), -1)) for kt, vt, ok in cache]
+                for j0 in range(0, int(pos[-1]) + 1, BK):
+                    j = torch.arange(j0, min(j0 + BK, cq))
+                    items.append((knf[j], vnf[j], j[None] <= row_pos[:, None]))
+                out[bi, pos, h * g:(h + 1) * g] = _tile_attend(qr, items).reshape(-1, g, d)
+    return out.to(torch.bfloat16)
+
+
+def p_excess(got, want, p_term) -> float:
+    """Largest |got - want| - (2^-8·p_term + 2^-8·|want| + 1e-5), p_term the
+    plain version on |v|: within the bf16 tensor-core tolerance at <= 0."""
+    bound = 2.0 ** -8 * p_term + 2.0 ** -8 * want.abs() + 1e-5
+    return ((got.float() - want).abs() - bound).max().item()
+
+
+# (b, cq, hkv, t, group): several key tiles, T % 4 != 0, group 3 (63-row q
+# tiles), a ragged last q tile
+CHUNK_EMU_CASES = [(2, 40, 2, 300, 3), (1, 33, 1, 261, 4), (1, 70, 1, 140, 1)]
+
+
+@pytest.mark.parametrize("case", CHUNK_EMU_CASES)
+def test_chunk_bf16_numerics_within_the_derived_tolerance(case):
+    b, cq, hkv, t, g = case
+    rng = np.random.default_rng(t)
+    q, k = _bf16(rng, b, cq, hkv * g, 32, scale=2.0), _bf16(rng, b, hkv, t, 32)
+    v = _bf16(rng, b, hkv, t, 32, scale=4.0)
+    # a streaming head's mask: sink 4 and a window of 60 before each position
+    pos_q = np.arange(cq)[:, None] + t - cq
+    j = np.arange(t)[None, :]
+    valid = (j <= pos_q) & ((j < 4) | (j > pos_q - 60)) & (rng.random((b, hkv, cq, t)) < 0.9)
+    valid[-1, -1, 0] = False                     # an all-invalid row gives 0
+    tvalid = torch.from_numpy(valid)
+    got = chunk_emulated(q, k, v, tvalid)
+    assert got[-1, 0, -g:].abs().max().item() == 0.0
+    want = tref.chunk_attention_ref(q.float(), k.float(), v.float(), tvalid)
+    p_term = tref.chunk_attention_ref(q.float(), k.float(), v.float().abs(), tvalid)
+    assert p_excess(got, want, p_term) <= 0.0
+    jwant = jref.chunk_attention_ref(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
+                                     jnp.asarray(valid))
+    np.testing.assert_allclose(want.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
+
+
+@settings(deadline=None, max_examples=8)
+@given(g=st.sampled_from([1, 3, 4, 8]), cq=st.integers(1, 40),
+       written=st.integers(0, 300), order=st.sampled_from(["in order", "striped", "random"]),
+       seed=st.integers(0, 2 ** 16))
+def test_chunk_paged_bf16_numerics_within_the_derived_tolerance(g, cq, written, order, seed):
+    """Pages of 16 in a 320-key cache in any order, a start anywhere in the
+    written pages (0 included), one kv head of group 1, 3, 4 or 8."""
+    rng = np.random.default_rng(seed)
+    c, p, d = 20, 16, 32
+    start = int(rng.integers(0, written + 1))
+    perm = {"in order": np.arange(c), "random": rng.permutation(c),
+            "striped": (np.arange(c) % (c // 4)) * 4 + np.arange(c) // (c // 4)}[order]
+    first = perm * p
+    ps = np.where(first < written, first, -1).astype(np.int32)[None, None]
+    q, kn = _bf16(rng, 1, cq, g, d, scale=2.0), _bf16(rng, 1, cq, 1, d)
+    kp, vp = _bf16(rng, 1, 1, c, p, d), _bf16(rng, 1, 1, c, p, d, scale=4.0)
+    vn = _bf16(rng, 1, cq, 1, d, scale=4.0)
+    tps, tst = torch.from_numpy(ps), torch.tensor([start], dtype=torch.int32)
+    got = chunk_paged_emulated(q, kp, vp, tps, tst, kn, vn)
+    f = lambda *ts: [t.float() for t in ts]
+    want = tref.chunk_attention_paged_ref(*f(q, kp, vp), tps, tst, *f(kn, vn))
+    p_term = tref.chunk_attention_paged_ref(*f(q, kp, vp.abs()), tps, tst, *f(kn, vn.abs()))
+    assert p_excess(got, want, p_term) <= 0.0
+    jwant = jref.chunk_attention_paged_ref(
+        *(jnp.asarray(x.float().numpy()) for x in (q, kp, vp)), jnp.asarray(ps),
+        jnp.asarray([start], jnp.int32), *(jnp.asarray(x.float().numpy()) for x in (kn, vn)))
+    np.testing.assert_allclose(want.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
