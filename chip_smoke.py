@@ -11,12 +11,15 @@ then, each phase failing the run with a nonzero exit:
      the shapes the serving paths give it, in bf16 and f32 (the plain
      version runs on the inputs widened to f32), and times the
      kernel, the plain version and, where one PyTorch call computes the
-     same function, that call;
+     same function, that call (device times: see ``Timer``); the retrieval
+     heads' decode, which reads its pages in place, also beside the
+     unfused path it replaced (the gather, then the contiguous kernel);
   3. holds a reduced llama3-8b ``generate`` (f32; and bf16 at head_dim
      128, so the tensor-core flash kernel runs at the serving head size) and
      a reduced chunked ``Engine`` run (with slot churn; f32, and bf16 at
      head_dim 128 for the tensor-core chunk kernels) on the card against
-     the same runs on the CPU (plain versions, same weights);
+     the same runs on the CPU (plain versions, same weights); and the bf16
+     page scores and selection at the reduced top-k, card against CPU;
   4. serves llama3-8b at full width and depth (bf16, seeded random
      weights) through lockstep ``generate``: 2 prompts of 8192 tokens, 32
      greedy tokens, hybrid sparse attention, with the kernels' launch
@@ -78,6 +81,12 @@ BF16_LOGIT_BAND = 2.0 ** -4
 # page_score does its arithmetic in f32 on both sides whatever q's dtype,
 # and its scores reach ~1e3: its error is scaled by the largest score
 SCORE_RTOL = 1e-6
+# the bf16 reduced model's page scores, card against CPU: each side's q and
+# page bounds went through its own bf16 roundings, and the card's scores
+# have stayed within 4.0e-3 of the row's largest |score| of the CPU's in
+# this check's runs on an H100; they are held within four times that
+SEL_SCORE_BAND = 2.0 ** -6
+NEG_INF_HALF = -5e29  # below it a page score is masked (NEG_INF)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 
@@ -94,6 +103,7 @@ CHUNK_STARTS = (0, 2048, 5120, 7680)
 SHARDS = 8
 STRIPE_CTX = (8200, 7000, 5000, 3000)
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
+HOLD_CYCLES = 2_000_000  # the Timer's hold of the card, ~1.1 ms at 1.755 GHz
 
 
 def fail(msg: str) -> None:
@@ -106,7 +116,12 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Median device time of a call, with the L2 flushed before each run."""
+    """Median device time of a call, with the L2 flushed before each run.
+    The card is held busy (``torch.cuda._sleep``, about a millisecond) while
+    the host enqueues the call, so the time between the two events is the
+    card's alone: without it, a call that is shorter than the host's time to
+    enqueue it (a decode kernel of tens of microseconds behind its Python
+    wrapper) would be timed as the host's enqueue."""
 
     def __init__(self, dev):
         self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -117,6 +132,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(HOLD_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -286,7 +302,75 @@ def check_page_score(ops, ref, timer, dev, cfg, dtype, gen, capacity):
         library_ms=None, bound_ms=b_ms, bound_by=b_by)]
 
 
+def retrieval_pages(gen, dev, cfg, dtype, capacity):
+    """The retrieval heads' decode inputs of the lockstep path at its main
+    shapes: B=2 slots at context PROMPT + 1 in a cache of ``capacity``
+    tokens (258 pages of 32), a random top-128 selection of each (slot, kv
+    head)'s selectable pages, the [sink | selected | local] slot list (138
+    slots, 4416 tokens) and its validity, as the decode body builds them."""
+    from repro_torch.core import paging
+
+    h2 = cfg.h2eal
+    nr, _, g, d = head_split(cfg)
+    p, top_k = h2.page_size, h2.top_k_pages
+    c = -(-capacity // p)
+    ctx = PROMPT + 1
+    first = torch.arange(c, device=dev) * p
+    start = torch.where(first < ctx, first, -1).to(torch.int32)
+    start = start.expand(BATCH, nr, c).contiguous()
+    n_sink = -(-h2.sink // p)
+    first_local = paging.first_local_page(ctx, local=h2.local, page=p)
+    pick = torch.rand(BATCH, nr, first_local - n_sink, generator=gen, device=dev)
+    sel = (pick.argsort(dim=-1)[..., :top_k] + n_sink).to(torch.int32)
+    slots = paging.attended_page_slots(sel, ctx, sink=h2.sink, local=h2.local, page=p)
+    valid = paging.token_validity(slots, start, ctx, sink=h2.sink, local=h2.local,
+                                  page=p, top_k=top_k)
+    q = torch.randn(BATCH, nr * g, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(BATCH, nr, c, p, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(BATCH, nr, c, p, d, generator=gen, device=dev).to(dtype)
+    return q, kp, vp, slots.contiguous(), valid.contiguous()
+
+
+def check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    """paged_attention_pages (the retrieval heads' decode: the page gather
+    fused) at the lockstep path's shapes; beside the kernel, the unfused
+    path it replaced (the gather, then the contiguous kernel), the gather
+    then SDPA, and SDPA alone on the gathered buffer."""
+    q, kp, vp, slots, valid = retrieval_pages(gen, dev, cfg, dtype, capacity)
+    b, hr, n = slots.shape
+    g, d, p = q.shape[1] // hr, q.shape[2], kp.shape[3]
+    run = lambda: ops.paged_attention_pages(q, kp, vp, slots, valid)
+    plain = lambda: ref.paged_attention_pages_ref(q, kp, vp, slots, valid)
+    out = run()
+    want = ref.paged_attention_pages_ref(*widened(q, kp, vp), slots, valid)
+    torch.cuda.synchronize()
+    e, ex = err(out, want), excess(out, want, dtype)
+    gk, gv = ref.gather_pages(kp, vp, slots)
+    mask = valid.repeat_interleave(g, dim=1)[:, :, None, :]
+    sdpa = lambda k, v: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    unfused = lambda: ops.paged_attention(q, *ref.gather_pages(kp, vp, slots), valid)
+    n_valid = int(valid.sum().item())
+    pages_read = int(valid.reshape(b, hr, n, p).any(dim=-1).sum().item())
+    b_ms, b_by = bound(nbytes(q, slots, valid, out) + 2 * pages_read * p * d * kp.element_size(),
+                       4 * d * g * n_valid, dtype)
+    return dict(
+        case=f"retrieval, pages read in place B={b} Hq={hr * g} Hkv={hr} C={kp.shape[2]} "
+             f"P={p} N={n} T={n * p} D={d} valid={n_valid}",
+        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol_text(dtype),
+        ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
+        library_ms=timer.ms(lambda: sdpa(gk, gv), 20),
+        library="SDPA on the gathered buffer",
+        unfused_ms=timer.ms(unfused, 20),
+        gather_sdpa_ms=timer.ms(lambda: sdpa(*ref.gather_pages(kp, vp, slots)), 20),
+        bound_ms=b_ms, bound_by=b_by, main=True)
+
+
 def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    """paged_attention on a contiguous buffer: the retrieval heads' case as
+    a gathered buffer (the main path reads their pages in place,
+    ``check_paged_pages``), the streaming ring and the full-attention
+    baseline; then the retrieval heads' case as the main path runs it."""
     from repro_torch.core.paging import page_counts
 
     h2 = cfg.h2eal
@@ -298,8 +382,9 @@ def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
     t_ret = (n_sink + h2.top_k_pages + n_local) * h2.page_size
     t_str = h2.sink + h2.local + h2.page_size
     cases = []
-    for label, heads, t in (("retrieval", nr, t_ret), ("streaming", hkv - nr, t_str),
-                            ("full-attention baseline", hkv, capacity)):
+    for label, heads, t, main in (("retrieval", nr, t_ret, False),
+                                  ("streaming", hkv - nr, t_str, True),
+                                  ("full-attention baseline", hkv, capacity, False)):
         q = torch.randn(BATCH, heads * g, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(BATCH, heads, t, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(BATCH, heads, t, d, generator=gen, device=dev).to(dtype)
@@ -323,8 +408,8 @@ def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
             case=f"{label} B={BATCH} Hq={heads * g} Hkv={heads} T={t} D={d}",
             dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
             tol=tol_text(dtype), ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
-            library_ms=timer.ms(lib, 20), bound_ms=b_ms, bound_by=b_by))
-    return cases
+            library_ms=timer.ms(lib, 20), bound_ms=b_ms, bound_by=b_by, main=main))
+    return cases + [check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity)]
 
 
 def partial_excess(got, want) -> float:
@@ -623,7 +708,9 @@ def check_reduced_bf16_against_cpu(dev):
     at the reduced top-4 of 37 selectable pages, bf16 page scores near-tie
     and the two sides select different pages, a discrete jump of the decode
     logits (0.5 with the same tokens on the card) that says nothing of the
-    kernels' arithmetic, as a token near-tie does not."""
+    kernels' arithmetic, as a token near-tie does not. The selection at the
+    reduced top-k is held apart, outside its near-ties
+    (``check_bf16_selection_against_cpu``)."""
     import dataclasses
 
     from repro_torch.configs import get_arch, reduced
@@ -668,6 +755,109 @@ def check_reduced_bf16_against_cpu(dev):
              "the bf16 band")
     if launched["flash_attention"] != 2 * cfg.num_layers or launched["paged_attention"] == 0:
         fail("the bf16 reduced generate did not launch the flash and paged kernels")
+    check_bf16_selection_against_cpu(dev)
+
+
+def check_bf16_selection_against_cpu(dev):
+    """Reduced llama3-8b at head_dim 128 in bf16 with its own top-k (4 of
+    ~34 selectable pages): one prefill of 64 prompts and one select decode
+    step, on the card and on the CPU, fed the same token; every layer's page
+    scores and selection are kept, one (layer, slot, kv head) row each.
+
+      scores: the card's within SEL_SCORE_BAND of the row's largest |score|
+        of the CPU's, on the same pages (masked pages alike);
+      run against run: if every score of a row moved by at most e, the
+        top-k can change only where the CPU's gap between the k-th and
+        (k+1)-th score is at most 2e, a near-tie; every other row's
+        selection must be the CPU's;
+      same inputs: the card's page_score and top-k on the CPU run's q and
+        page bounds against the CPU's selection, near-ties within
+        page_score's f32 tolerance (SCORE_RTOL of the row's largest
+        |score|) skipped.
+
+    Fails on a score out of its band, on a different selection in a compared
+    row, or when a comparison compared no row; prints how many rows each
+    compared and skipped."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import paging
+    from repro_torch.models import model as M
+    from repro_torch.runtime import serve as serve_rt
+
+    prompt_len, n_slots = 300, 64
+    cfg = reduced(get_arch(ARCH), head_dim=128)
+    top_k = cfg.h2eal.top_k_pages
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(4), device="cpu",
+                           dtype=torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (n_slots, prompt_len),
+                            generator=torch.Generator().manual_seed(5))
+    scfg = serve_rt.ServeConfig(capacity=prompt_len + 8 + cfg.h2eal.page_size)
+    score_pages = paging.score_pages
+    tok = None
+
+    def run(where, weights):
+        """[(score_pages' arguments, scores)] of each layer's select step."""
+        nonlocal tok
+        rec = []
+
+        def recording(*a, **kw):
+            scores = score_pages(*a, **kw)
+            rec.append((a, kw, scores))
+            return scores
+
+        with torch.inference_mode():
+            logits, state = serve_rt.make_prefill(cfg, scfg)(weights, prompts.to(where))
+            if tok is None:
+                tok = logits.argmax(dim=-1).to(torch.int32).cpu()
+            paging.score_pages = recording
+            try:
+                serve_rt.make_decode_step(cfg, scfg, do_select=True)(weights, state,
+                                                                     tok.to(where))
+            finally:
+                paging.score_pages = score_pages
+        return rec
+
+    cpu = run("cpu", params)
+    card = run(dev, _to(params, dev))
+    if not len(cpu) == len(card) == cfg.num_layers:
+        fail("the bf16 selection check did not see one selection a layer")
+    counts = {"run against run": [0, 0], "same inputs": [0, 0]}
+    worst = 0.0
+    with torch.inference_mode():
+        for (args, kw, sc), (_, _, sc_card) in zip(cpu, card):
+            sc_card = sc_card.cpu()
+            live = sc > NEG_INF_HALF
+            if not torch.equal(live, sc_card > NEG_INF_HALF):
+                fail("bf16 page scores: the card masks other pages than the CPU")
+            top = torch.where(live, sc.abs(), 0.0).amax(dim=-1)
+            moved = torch.where(live, (sc_card - sc).abs(), 0.0).amax(dim=-1)
+            worst = max(worst, (moved / top).max().item())
+            if (moved > SEL_SCORE_BAND * top).any():
+                fail(f"bf16 page scores: the card's moved {worst:.3e} of the row's largest "
+                     f"|score| from the CPU's, above the band {SEL_SCORE_BAND:.3e}")
+            sel = paging.select_pages(sc, top_k)
+            srt = sc.sort(dim=-1, descending=True).values
+            gap = srt[..., top_k - 1] - srt[..., top_k]
+            same = paging.score_pages(*(x.to(dev) if isinstance(x, torch.Tensor) else x
+                                        for x in args), **kw)
+            for name, scores, band in (("run against run", sc_card, 2 * moved),
+                                       ("same inputs", same, SCORE_RTOL * top)):
+                got = paging.select_pages(scores, top_k).cpu()
+                for idx in zip(*torch.nonzero(gap > band, as_tuple=True)):
+                    if sorted(got[idx].tolist()) != sorted(sel[idx].tolist()):
+                        fail(f"bf16 page selection ({name}): card {sorted(got[idx].tolist())} "
+                             f"vs CPU {sorted(sel[idx].tolist())} at (slot, kv head) {idx}, "
+                             f"a gap {gap[idx].item():.3e} above the band "
+                             f"{band[idx].item():.3e}")
+                counts[name][0] += int((gap > band).sum().item())
+                counts[name][1] += int((gap <= band).sum().item())
+    log(f"reduced {cfg.name} head_dim 128 bf16 selection, top-{top_k} (prompt {prompt_len}, "
+        f"{n_slots} slots, {cfg.num_layers} layers): page scores card vs CPU run max diff "
+        f"{worst:.3e} of the row's max|score| (band {SEL_SCORE_BAND:.3e}); rows (compared, "
+        f"skipped as near-ties): run against run {tuple(counts['run against run'])} (band "
+        f"2 * the row's largest score move), same inputs {tuple(counts['same inputs'])} "
+        f"(band {SCORE_RTOL:.0e} * max|score|)")
+    if any(n == 0 for n, _ in counts.values()):
+        fail("the bf16 selection check compared no row in one of its comparisons")
 
 
 def check_reduced_engine_against_cpu(dev):
@@ -1107,6 +1297,8 @@ def main() -> int:
     for name, cases in results.items():
         for c in cases:
             lib_ms = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+            lib_ms += "".join(f" {k}={c[k]:.4f}" for k in ("unfused_ms", "gather_sdpa_ms")
+                              if k in c)
             log(f"{name} [{c['case']} {c['dtype']}] kernel_ms={c['ms']:.4f} "
                 f"plain_ms={c['plain_ms']:.4f} library_ms={lib_ms} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
@@ -1161,8 +1353,7 @@ def main() -> int:
                 "combine_partials": "src/repro/kernels/paged_attention.py:211"}
     kernels = []
     for name, cases in results.items():
-        main_cases = [c for c in cases if c["dtype"] == "bfloat16"
-                      and not c["case"].startswith("full-attention")]
+        main_cases = [c for c in cases if c["dtype"] == "bfloat16" and c.get("main", True)]
         total = lambda key: sum(c[key] for c in main_cases)
         lib_vals = [c["library_ms"] for c in main_cases]
         kernels.append({

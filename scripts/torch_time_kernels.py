@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Device times of the port's decode and prefill attention kernels beside
+SDPA, for this checkout or another one's, on one CUDA card.
+
+Runs chip_smoke.py's own kernel cases, with its Timer (the L2 flushed, the
+card held busy while the host enqueues the call; median of several runs):
+``check_paged`` (paged_attention on the retrieval heads' gathered buffer,
+the streaming ring and the full-attention baseline; then the retrieval
+heads' decode with its pages read in place, beside the gather followed by
+the contiguous kernel and by SDPA) and ``check_flash`` (the retrieval and
+streaming prefill cases), all in bf16 at the main path's shapes. Each case
+is checked against its plain version as chip_smoke.py checks it. First it
+times the Timer's floor, a 4-byte memset.
+
+``--src`` names the ``src`` directory of the checkout whose kernels and
+plain versions are timed (default: this checkout's); its kernels are built
+into that checkout's ``src/repro_torch/kernels/build/``. A checkout whose
+retrieval decode still gathers its pages first (no
+``ops.paged_attention_pages``) is timed on that path: its
+``paging.gather_pages``, then its ``paged_attention``. Two checkouts are
+compared in one call on one card by running the script once for each:
+
+    python scripts/torch_time_kernels.py [--src DIR] [--tag NAME]
+
+Prints the card's name and power limit, then one JSON object a case.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import types
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def unfused(ops, ref):
+    """ops and ref of a checkout without the fused page gather, with
+    ``paged_attention_pages`` and ``gather_pages`` as that checkout's
+    retrieval decode ran them."""
+    from repro_torch.core import paging
+
+    def pages(q, kp, vp, slots, valid, attend):
+        return attend(q, *paging.gather_pages(kp, vp, slots), valid)
+
+    ops_ns = types.SimpleNamespace(**vars(ops))
+    ops_ns.paged_attention_pages = lambda *a: pages(*a, ops.paged_attention)
+    ref_ns = types.SimpleNamespace(**vars(ref))
+    ref_ns.paged_attention_pages_ref = lambda *a: pages(*a, ref.paged_attention_ref)
+    ref_ns.gather_pages = paging.gather_pages
+    return ops_ns, ref_ns
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--tag", default="this")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device: nothing to time", file=sys.stderr)
+        return 1
+    src = os.path.abspath(args.src)
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != os.path.join(ROOT, "src")]
+    sys.path.insert(0, src)
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+
+    if not hasattr(ops, "paged_attention_pages"):
+        ops, ref = unfused(ops, ref)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda", 0)
+    cfg = get_arch(cs.ARCH)
+    timer = cs.Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    floor = torch.zeros(1, dtype=torch.int32, device=dev)
+    print(json.dumps({"tag": args.tag, "case": "timer floor: a 4-byte memset",
+                      "ms": timer.ms(floor.zero_, 20)}), flush=True)
+    cases = cs.check_paged(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
+                           cs.serve_capacity(cfg))
+    cases += cs.check_flash(ops, ref, timer, dev, cfg, torch.bfloat16, gen)
+    for case in cases:
+        print(json.dumps({"tag": args.tag, **case}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

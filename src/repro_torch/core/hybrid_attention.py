@@ -329,7 +329,8 @@ def _decode(spec: AttnSpec, retrieval, q, k_new, v_new, paged, stream, length,
 def _paged_decode(spec: AttnSpec, q_r, k_r, v_r, paged: cachelib.PagedCache,
                   length, *, do_select: bool, active, need_select):
     """Retrieval heads, single program: append, (select), attend
-    [sink | selected | local] pages -> (out (B, HqR, D), paged)."""
+    [sink | selected | local] pages, read in place through their slots (no
+    gathered copy) -> (out (B, HqR, D), paged)."""
     h2 = spec.h2
     ctx = length + 1
     _, n_local = paging.page_counts(sink=h2.sink, local=h2.local,
@@ -351,11 +352,11 @@ def _paged_decode(spec: AttnSpec, q_r, k_r, v_r, paged: cachelib.PagedCache,
         _keep_selection(paged, sel, imp, need_select)
     slots = paging.attended_page_slots(
         paged.sel_idx, ctx, sink=h2.sink, local=h2.local, page=h2.page_size)
-    gk, gv = paging.gather_pages(paged.k_pages, paged.v_pages, slots)
     valid = paging.token_validity(
         slots, paged.page_start, ctx, sink=h2.sink, local=h2.local,
         page=h2.page_size, top_k=h2.top_k_pages)
-    return kops.paged_attention(q_r, gk, gv, valid), paged
+    return kops.paged_attention_pages(q_r, paged.k_pages, paged.v_pages, slots,
+                                      valid), paged
 
 
 def _keep_selection(paged: cachelib.PagedCache, sel, imp, need_select):

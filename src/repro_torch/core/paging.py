@@ -149,19 +149,6 @@ def coplace_attended_slots(sel_phys, ctx, *, sink: int, local: int, page: int,
                       fixed[:, :, n_sink:]], dim=2)
 
 
-def gather_pages(k_pages, v_pages, slots):
-    """k/v_pages: (B, H, C, P, D); slots: (B, H, N) -> (B, H, N*P, D) each.
-    Slots are clamped into [0, C): a sentinel, or a local page past the
-    end, reads some page, and ``token_validity`` masks it."""
-    b, h, c, p, d = k_pages.shape
-    n = slots.shape[2]
-    sc = slots.clamp(0, c - 1).long()
-    bi = torch.arange(b, device=slots.device)[:, None, None]
-    hi = torch.arange(h, device=slots.device)[None, :, None]
-    return (k_pages[bi, hi, sc].reshape(b, h, n * p, d),
-            v_pages[bi, hi, sc].reshape(b, h, n * p, d))
-
-
 def token_validity(slots, page_start, ctx, *, sink: int, local: int,
                    page: int, top_k: int):
     """Validity mask (B, H, N*P) of the gathered token buffer, enforcing

@@ -22,16 +22,17 @@ BUILD = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: (argument types); each returns a cudaError_t as int
 SIGNATURES = {
     # flash_attention: f32 on the FMA units, bf16 on the tensor cores
     "h2eal_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _P),
-    "h2eal_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _P),
-    "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _P),
+    "h2eal_flash_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _P),
+    # paged_attention: a contiguous buffer (slots null) or a page table
+    "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _L, _I, _F, _P),
     "h2eal_page_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # chunk_attention(_paged): f32 on the FMA units, bf16 on the tensor cores
     "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -1,84 +1,174 @@
-// One-query decode attention over a gathered KV buffer with a validity mask,
-// as a split-KV grid that merges its splits in the same launch.
+// One-query decode attention with a validity mask, over a contiguous KV
+// buffer or straight from the paged cache through a page table, as a
+// split-KV grid that merges its splits in the same launch.
 //
 // Replaces the TPU kernel repro/kernels/paged_attention.py::paged_attention
-// (_stream_call's pl.pallas_call at :89). Same contract: q (B,Hq,D), k/v
-// (B,Hkv,T,D) in one storage dtype (f32 or bf16), valid (B,Hkv,T) bool;
-// softmax(q·kᵀ/sqrt(D))·v over the valid positions in f32, output (B,Hq,D)
-// in q's dtype; a row with no valid position returns 0.
+// (_stream_call's pl.pallas_call at :89). Same contract: q (B,Hq,D), and
+// either k/v (B,Hkv,T,D) (ops.paged_attention: the streaming ring, the
+// full-attention baseline) or k/v pages (B,Hkv,C,P,D) with slots (B,Hkv,N)
+// int32 (ops.paged_attention_pages: the retrieval heads' [sink | top-k |
+// local] pages), where token t of the attended buffer is row t % P of page
+// slots[t / P], clamped into [0, C) as ref.gather_pages clamps it;
+// valid (B,Hkv,T) bool with T = N·P in the paged mode; one storage dtype
+// (f32 or bf16). softmax(q·kᵀ/sqrt(D))·v over the valid tokens in f32,
+// output (B,Hq,D) in q's dtype; a row with no valid token returns 0.
 //
-// What bounds it on the H100: memory. Each call reads its K/V once (about
-// 18 MB for the retrieval heads of llama3-8b at B=2 and T=4416) and does 4
-// FLOP per key element, far below the card's 295 FLOP/byte balance point.
-// At decode batch sizes there are only B·Hkv (kv head, slot) streams (8 in
-// that case), so one block per stream leaves most of the 132 SMs idle and
-// every block waits on the latency of a long serial walk.
+// Why the gather is inside: the TPU kernel takes a gathered buffer because
+// a scalar-prefetched in-kernel gather buys nothing there. On the H100 the
+// gather before it was the costlier half of a decode step: its index
+// kernels copied every attended page into a new buffer that this kernel
+// then read again. A page of P = 32 keys at D = 128 is 8 KB contiguous in
+// the cache, so reading it in place costs one bulk copy and no extra bytes.
 //
-// Design: the grid is (split, kv head, batch). The wrapper picks n splits
-// so that B·Hkv·n fills two blocks per SM while each split keeps >= 128
-// keys (ops.py::paged_splits), and each block walks its split's keys in
-// tiles of TK, copied to shared memory with 16-byte cp.async, two tiles in
-// flight (the next tile's validity bytes are prefetched into registers a
-// tile ahead). Per tile, lane j of warp w dots key j against the query rows
-// r ≡ w (mod 4) of the GQA group (held in shared memory as f32), so a row
-// costs two warp reductions per 32 keys rather than one per key; then each
-// thread owns one value column for every row of the group and accumulates
-// p·v. The block keeps an f32 online softmax per row. With n > 1, each block
-// writes its raw (m, l, o) to scratch, fences, and counts itself in on its
-// (batch, kv head) counter; the block that arrives last merges the n
-// partials in split order by combine_partials' rule (global max, rescale,
-// sum, divide by max(l, 1e-30)), writes the output and resets the counter
-// to 0, so the output does not depend on which block ends last. A split
-// with no valid key contributes the identity (NEG_INF, 0, 0). With n = 1 the
-// block divides and writes directly. The counters are zeroed once when the
-// wrapper creates them; calls on one stream never overlap, so they are
-// always 0 at a launch.
+// What bounds it on the H100: bytes. A call reads its K/V rows once (about
+// 18 MB for llama3-8b's retrieval heads at B=2 and 4416 attended tokens,
+// 68 MB for the full-attention baseline at T=8256) at 4 FLOP per key
+// element, far below the card's 295 FLOP/byte balance point. At decode
+// batch sizes there are few (batch, kv head) streams (8 in that case), so
+// what has to be hidden is latency: by Little's law, 3.35 TB/s over 132 SMs
+// at 1-2 us of latency wants 25-50 KB in flight on every SM.
+//
+// Design. The key axis is cut into units of RK = 32 consecutive tokens of
+// the attended buffer. The grid is (split, kv head, batch), one block an SM
+// (ops.py::paged_splits: the most splits with B·Hkv·n <= 132 that keep 128
+// keys a split); split s owns units [s·U/n, (s+1)·U/n). A block is one
+// producer warp and NW = 4 consumer warps around a ring of STAGES = 4·SPW
+// stages (128 KB: 8 stages of one unit's K and V at bf16 D = 128), each with
+// a full and an empty mbarrier:
+//   producer: reads the validity bytes and page slots of 8 units at a time
+//     (one coalesced load a lane each; the next 8 units' loads fly while
+//     these units issue), and for a unit with a valid token
+//     waits for its stage to be free and issues one 1-D
+//     cp.async.bulk...mbarrier::complete_tx per page piece of the unit for K
+//     and one for V (a unit is one page at P = 32; a contiguous unit is one
+//     run of rows). A unit with no valid token is never loaded, nor is a
+//     piece (page) with none: a sentinel slot (-1, or past C) is invalid in
+//     every attended list (paging.token_validity), so it costs no bytes. It
+//     writes the unit's validity and loaded-row masks beside the stage;
+//     after the last unit, one end marker for each consumer;
+//   consumers: warp w takes live units w, w + 4, ... (its SPW stages are its
+//     own), with a private f32 online-softmax state (m, l, acc) for every
+//     row of the GQA group and no block-wide barrier on the way. A lane owns
+//     8 columns of a key row, read in 16-byte loads (one of 8 bf16, or two
+//     of 4 f32, one in each half of the row), so a D-wide row is LPK = D / 8
+//     lanes and a warp load covers KPI = 32 / LPK keys: q·k partials
+//     for the unit's 32 keys are reduce-scattered over the row's lanes
+//     (LPK - 1 shuffles a query row), which leaves each lane the logit of one
+//     key; the softmax step is one warp max a row; p goes through the warp's
+//     own shared-memory row to the lanes that own the value columns, which
+//     accumulate p·v from 16-byte V loads. Rows not loaded read as 0.
+// The warps' states merge once, through shared memory, at the end. With
+// n = 1 the block divides and writes the output; with n > 1 it writes its
+// raw (m, l, o) to scratch, fences and counts itself in on its (batch, kv
+// head) counter; the block that arrives last merges the n partials in split
+// order by combine_partials' rule (global max, rescale, sum, divide by
+// max(l, 1e-30)) with its loads in flight together, writes the output and
+// resets the counter to 0, so the output does not depend on which block ends
+// last. A split (or warp) with no valid key contributes the identity
+// (NEG_INF, 0, 0). The counters are zeroed once when the wrapper creates
+// them, one set per stream; calls on one stream never overlap, so they are
+// 0 at a launch.
+//
+// Numerics: every product and sum is f32 on the FMA units (bf16 widened
+// exactly), p is never rounded, so the result differs from the plain
+// version on widened inputs by summation order and the output's own
+// rounding alone: 2^-8·|plain| + 1e-5 in bf16, 1e-4 in f32.
+//
+// Registers (-Xptxas -v): the serving instantiation (bf16, D = 128, a group
+// of 4) takes 167 and no instantiation spills but one: f32 at D = 128 with
+// a group of 5 to 8, whose 64 q values and 64 accumulators a lane leave too
+// little room, spills 32 bytes.
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace h2eal {
 namespace {
 
-constexpr int NT = 128;  // threads per block: 4 warps
-constexpr int NWP = NT / 32;
-constexpr int TK = 32;   // keys per tile: one per lane
-constexpr int MAXG = 8;  // largest GQA group
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::smem_u32;
 
-// 16-byte vectors of the storage type, widened to f32
+constexpr int NW = 4;              // consumer warps
+constexpr int NT = 32 * (NW + 1);  // and one producer warp
+constexpr int RK = 32;             // tokens per unit
+constexpr int PF = 8;              // units whose validity and slots the producer reads at once
+constexpr int MAXG = 8;            // largest GQA group
+constexpr int RING_BYTES = 128 * 1024;
+
+constexpr int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+
+// The 8 columns a lane owns of a D-wide row, widened to f32 (zeros where
+// !pred), read in 16-byte pieces: 8 bf16 at 8·dg; for f32, 4 at 4·dg in
+// each half of the row, so that a warp's loads stay contiguous. col()
+// names them.
 template <typename T>
 struct Vec;
 template <>
 struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const float* p, float (&x)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  template <int D>
+  static __device__ __forceinline__ void load(const float* row, int dg, float (&x)[8],
+                                              bool pred) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 a = pred ? *reinterpret_cast<const float4*>(row + 4 * dg) : z;
+    const float4 b = pred ? *reinterpret_cast<const float4*>(row + D / 2 + 4 * dg) : z;
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+  template <int D>
+  static __device__ __forceinline__ int col(int dg, int e) {
+    return (e < 4 ? 0 : D / 2 - 4) + 4 * dg + e;
   }
 };
 template <>
 struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&x)[8]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  template <int D>
+  static __device__ __forceinline__ void load(const __nv_bfloat16* row, int dg, float (&x)[8],
+                                              bool pred) {
+    const uint4 u =
+        pred ? *reinterpret_cast<const uint4*>(row + 8 * dg) : make_uint4(0u, 0u, 0u, 0u);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its f32
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
+  }
+  template <int D>
+  static __device__ __forceinline__ int col(int dg, int e) {
+    return 8 * dg + e;
   }
 };
 
-// 16 bytes global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+template <typename T, int D, int G>
+struct Cfg {
+  static constexpr int VN = 8;              // columns a lane owns of a row
+  static constexpr int LPK = D / VN;        // lanes of one key row
+  static constexpr int KPI = 32 / LPK;      // keys of one warp load
+  static constexpr int ROW = D * (int)sizeof(T);
+  static constexpr int UNIT = RK * ROW;     // bytes of one unit's K (or V)
+  static constexpr int SPW = clampi(RING_BYTES / (NW * 2 * UNIT), 1, 4);  // stages a warp
+  static constexpr int STAGES = NW * SPW;
+  // query rows of one q·k pass: the partial logits s[RB][LPK] stay in registers
+  static constexpr int RB = clampi((G >= 8 ? 32 : 64) / LPK, 1, G);
+  // shared memory: ring | full, empty | stage info | p rows | warp states
+  static constexpr int BARS = STAGES * 2 * UNIT;
+  static constexpr int INFO = BARS + 16 * STAGES;
+  static constexpr int PS = INFO + 16 * STAGES;   // f32 [NW][G][32]
+  static constexpr int WM = PS + 4 * NW * G * 32;  // f32 [NW][G]
+  static constexpr int WL = WM + 4 * NW * G;       // f32 [NW][G]
+  static constexpr int WA = WL + 4 * NW * G;       // f32 [NW][G][D]
+  static constexpr int bytes = WA + 4 * NW * G * D;
+  static_assert(LPK >= 4 && LPK <= 16 && STAGES % NW == 0, "unit layout");
+};
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -86,181 +176,263 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T, int D>
-struct Smem {
-  static constexpr int RS = D + 16 / sizeof(T);  // row stride: 16 bytes of padding
-  static constexpr int KS = NT / D;                 // key slices of the P·V step
-  static constexpr int TILE = TK * RS;            // elements of one K or V tile
-  static constexpr int bytes() {
-    return 4 * TILE * (int)sizeof(T)               // K and V, two stages
-           + (MAXG * D + MAXG * TK + 3 * MAXG) * 4  // q rows, p, corr / m / l
-           + KS * MAXG * D * 4;                     // the key slices' accumulators
+// Sum v[i] over the N lanes of a key row (lane index idx = lane % N); lane
+// idx is left the sum of v[idx]: N - 1 shuffles, half the values each stage
+// (the stages are unrolled by recursion, so v stays in registers)
+template <int O, int N>
+__device__ __forceinline__ void reduce_stage(float (&v)[N], int idx) {
+  if constexpr (O >= 1) {
+    const bool up = idx & O;
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      const float send = up ? v[i] : v[i + O];
+      const float keep = up ? v[i + O] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    reduce_stage<O / 2, N>(v, idx);
   }
-};
+}
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&v)[N], int idx) {
+  reduce_stage<N / 2, N>(v, idx);
+  return v[0];
+}
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_split_kernel(
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(NT, 1) paged_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const unsigned char* __restrict__ valid, T* __restrict__ o, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_o, int* __restrict__ counters,
-    int hkv, int t_len, int g, int n_split, int chunk, float scale) {
-  using S = Smem<T, D>;
-  constexpr int VN = Vec<T>::N;
-  constexpr int KS = S::KS;
-  constexpr int CPR = D / VN;  // 16-byte chunks per key row
-  extern __shared__ float4 smem4[];
-  T* kv_s = reinterpret_cast<T*>(smem4);            // [stage][K|V][TK][RS]
-  float* q_s = reinterpret_cast<float*>(kv_s + 4 * S::TILE);  // [MAXG][D]
-  float* p_s = q_s + MAXG * D;                      // [MAXG][TK]
-  float* c_s = p_s + MAXG * TK;                     // corr [MAXG]
-  float* m_s = c_s + MAXG;                          // [MAXG]
-  float* l_s = m_s + MAXG;                          // [MAXG]
-  float* a_s = l_s + MAXG;                          // [KS][MAXG][D]
+    const int* __restrict__ slots, const unsigned char* __restrict__ valid, T* __restrict__ o,
+    float* __restrict__ part_o, float* __restrict__ part_m, float* __restrict__ part_l,
+    int* __restrict__ counters, int hkv, int g, int t_len, int page, int c, long kv_stride,
+    int n_split, float scale) {
+  using C = Cfg<T, D, G>;
+  constexpr int VN = C::VN, LPK = C::LPK, KPI = C::KPI, STAGES = C::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BARS);
+  uint64_t* empty = full + STAGES;
+  int4* info = reinterpret_cast<int4*>(smem + C::INFO);  // unit (-1: end), valid, loaded
   __shared__ int last;
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long bh = (long)b * hkv + hk;
-  const int t_beg = split * chunk;
-  const int t_end = min(t_len, t_beg + chunk);
-  const int n_tiles = t_end > t_beg ? (t_end - t_beg + TK - 1) / TK : 0;
-  const T* kb = k + bh * t_len * D;
-  const T* vb = v + bh * t_len * D;
-  const unsigned char* vl = valid + bh * t_len;
+  const int n_units = (t_len + RK - 1) / RK;
 
-  for (int idx = tid; idx < g * D; idx += NT) q_s[idx] = to_f32(q[bh * g * D + idx]);
-
-  auto load_tile = [&](int tile) {
-    T* dst = kv_s + (tile & 1) * 2 * S::TILE;
-    const int t0 = t_beg + tile * TK;
-    for (int c = tid; c < TK * CPR; c += NT) {
-      const int j = c / CPR, e = (c % CPR) * VN;
-      const bool in = t0 + j < t_end;
-      const long off = in ? (long)(t0 + j) * D + e : 0;
-      cp_async16(dst + j * S::RS + e, kb + off, in);
-      cp_async16(dst + S::TILE + j * S::RS + e, vb + off, in);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
     }
-    cp_async_commit();
-  };
-  auto key_ok = [&](int tile) {
-    const int t = t_beg + tile * TK + lane;
-    return t < t_end && vl[t] != 0;
-  };
-
-  // rows r = warp + NWP * i of the group: online-softmax state (every lane
-  // of the warp holds the same values)
-  float m[MAXG / NWP], l[MAXG / NWP];
-#pragma unroll
-  for (int i = 0; i < MAXG / NWP; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  const int col = tid % D, ks = tid / D;  // P·V: value column, key slice
-  float acc[MAXG];
-#pragma unroll
-  for (int r = 0; r < MAXG; ++r) acc[r] = 0.f;
-
-  bool ok_next = false;
-  if (n_tiles > 0) {
-    load_tile(0);
-    ok_next = key_ok(0);
-  }
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const bool ok = ok_next;
-    if (tile + 1 < n_tiles) {
-      load_tile(tile + 1);
-      ok_next = key_ok(tile + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile has landed for every thread; q_s is written
-    const T* ks_t = kv_s + (tile & 1) * 2 * S::TILE;
-    const T* vs_t = ks_t + S::TILE;
-
-    // logits: lane = key, warp = row (mod 4)
-#pragma unroll
-    for (int i = 0; i < MAXG / NWP; ++i) {
-      const int r = warp + NWP * i;
-      if (r < g) {
-        float s = 0.f;
-#pragma unroll 4
-        for (int e = 0; e < D; e += VN) {
-          float kx[VN];
-          Vec<T>::load(ks_t + lane * S::RS + e, kx);
-#pragma unroll
-          for (int u = 0; u < VN; u += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(q_s + r * D + e + u);
-            s = fmaf(qv.x, kx[u], s);
-            s = fmaf(qv.y, kx[u + 1], s);
-            s = fmaf(qv.z, kx[u + 2], s);
-            s = fmaf(qv.w, kx[u + 3], s);
-          }
-        }
-        s = ok ? s * scale : kNegInf;
-        const float m_new = fmaxf(m[i], warp_max(s));
-        const float corr = expf(m[i] - m_new);
-        const float p = ok ? expf(s - m_new) : 0.f;
-        l[i] = l[i] * corr + warp_sum(p);
-        m[i] = m_new;
-        p_s[r * TK + lane] = p;
-        if (lane == 0) c_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // p·v: this thread's value column, keys j ≡ ks (mod KS), every row
-#pragma unroll
-    for (int r = 0; r < MAXG; ++r)
-      if (r < g) acc[r] *= c_s[r];
-#pragma unroll 4
-    for (int j = ks; j < TK; j += KS) {
-      const float vv = to_f32(vs_t[j * S::RS + col]);
-#pragma unroll
-      for (int r = 0; r < MAXG; ++r)
-        if (r < g) acc[r] = fmaf(p_s[r * TK + j], vv, acc[r]);
-    }
-    __syncthreads();  // the buffers of this tile are free for tile + 2
-  }
-
-  // the block's state: m, l per row; o = the key slices' sum
-#pragma unroll
-  for (int i = 0; i < MAXG / NWP; ++i) {
-    const int r = warp + NWP * i;
-    if (r < g && lane == 0) {
-      m_s[r] = m[i];
-      l_s[r] = l[i];
-    }
-  }
-  if (tid < KS * D) {
-#pragma unroll
-    for (int r = 0; r < MAXG; ++r)
-      if (r < g) a_s[(ks * MAXG + r) * D + col] = acc[r];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  T* ob = o + bh * g * D;
-  if (n_split == 1) {
-    for (int idx = tid; idx < g * D; idx += NT) {
-      const int r = idx / D, d = idx % D;
-      float os = 0.f;
-      for (int s = 0; s < KS; ++s) os += a_s[(s * MAXG + r) * D + d];
-      store(&ob[idx], os / fmaxf(l_s[r], 1e-30f));
+  if (warp == NW) {
+    // ---- producer ----
+    const int u_beg = (int)((long)split * n_units / n_split);
+    const int u_end = (int)((long)(split + 1) * n_units / n_split);
+    const unsigned char* vl = valid + bh * t_len;
+    const int* sl = slots != nullptr ? slots + bh * (t_len / page) : nullptr;
+    const T* kb = k + bh * kv_stride;
+    const T* vb = v + bh * kv_stride;
+    // this lane's token of units u0 .. u0 + PF - 1: its validity and slot
+    auto fetch = [&](int u0, unsigned char (&ok)[PF], int (&slot)[PF]) {
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int t = (u0 + i) * RK + lane;
+        const bool in = u0 + i < u_end && t < t_len;
+        ok[i] = in ? vl[t] : 0;
+        slot[i] = in && sl != nullptr ? sl[t / page] : t / page;
+      }
+    };
+    unsigned char ok8[PF];
+    int slot8[PF];
+    fetch(u_beg, ok8, slot8);
+    int item = 0;
+    for (int u0 = u_beg; u0 < u_end; u0 += PF) {
+      unsigned char ok_next[PF];  // the next units' loads fly while these issue
+      int slot_next[PF];
+      fetch(u0 + PF, ok_next, slot_next);
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const unsigned okm = __ballot_sync(0xffffffffu, ok8[i] != 0);
+        if (okm == 0) continue;  // no valid token: the unit is never loaded
+        const int t0 = (u0 + i) * RK;
+        // this lane's page piece: [p0, p0 + len) of the unit, within one page;
+        // its rows are loaded iff one of them is valid
+        const bool in = t0 + lane < t_len;
+        const int p0 = max(0, lane - (t0 + lane) % page);
+        const int len = min(min(page - (t0 + p0) % page, RK - p0), t_len - t0 - p0);
+        const unsigned bits =
+            in ? (len >= 32 ? 0xffffffffu : ((1u << len) - 1u)) << p0 : 0u;
+        const bool row_ld = (okm & bits) != 0u;
+        const unsigned ldm = __ballot_sync(0xffffffffu, row_ld);
+        const int st = item % STAGES;
+        if (lane == 0) {
+          mbar_wait(&empty[st], ((item / STAGES) & 1) ^ 1);
+          info[st] = make_int4(u0 + i, (int)okm, (int)ldm, 0);
+          mbar_expect_tx(&full[st], 2u * __popc(ldm) * C::ROW);
+        }
+        __syncwarp();
+        if (row_ld && lane == p0) {
+          const int slot = sl != nullptr ? min(max(slot8[i], 0), c - 1) : slot8[i];
+          const long src = ((long)slot * page + (t0 + p0) % page) * D;
+          unsigned char* dst = smem + st * 2 * C::UNIT + p0 * C::ROW;
+          bulk_load(dst, kb + src, len * C::ROW, &full[st]);
+          bulk_load(dst + C::UNIT, vb + src, len * C::ROW, &full[st]);
+        }
+        ++item;
+      }
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        ok8[i] = ok_next[i];
+        slot8[i] = slot_next[i];
+      }
     }
-    return;
-  }
+    for (int w = 0; w < NW; ++w, ++item) {  // one end marker a consumer
+      const int st = item % STAGES;
+      if (lane == 0) {
+        mbar_wait(&empty[st], ((item / STAGES) & 1) ^ 1);
+        info[st].x = -1;
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: warp `warp` owns stages warp, warp + NW, ... ----
+    const int dg = lane % LPK, ko = lane / LPK;
+    const int kj = dg * KPI + ko;  // the key whose logit this lane holds after the reduce
+    float qr[G][VN], acc[G][VN], m[G], ls[G];
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      Vec<T>::template load<D>(q + (bh * g + r) * D, dg, qr[r], r < g);
+      m[r] = kNegInf;
+      ls[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < VN; ++e) acc[r][e] = 0.f;
+    }
+    float* ps = reinterpret_cast<float*>(smem + C::PS) + warp * G * 32;
+    for (int it = warp;; it += NW) {
+      const int st = it % STAGES;
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      const int4 inf = info[st];
+      if (inf.x < 0) break;
+      const unsigned okm = inf.y, ldm = inf.z;
+      const T* ks = reinterpret_cast<const T*>(smem + st * 2 * C::UNIT);
+      const T* vs = ks + RK * D;
 
+      // logits: lane (dg, ko) forms partials of keys i·KPI + ko over its columns
+      float sv[G];
+#pragma unroll
+      for (int r0 = 0; r0 < G; r0 += C::RB) {
+        float s[C::RB][LPK];
+#pragma unroll
+        for (int i = 0; i < LPK; ++i) {
+          const int j = i * KPI + ko;
+          float kx[VN];
+          Vec<T>::template load<D>(ks + j * D, dg, kx, (ldm >> j) & 1u);
+#pragma unroll
+          for (int r = 0; r < C::RB; ++r) {
+            float a = 0.f;
+#pragma unroll
+            for (int e = 0; e < VN; ++e) a = fmaf(qr[r0 + r][e], kx[e], a);
+            s[r][i] = a;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < C::RB; ++r) sv[r0 + r] = reduce_scatter<LPK>(s[r], dg);
+      }
+      // online softmax: one key a lane, one warp max a row
+      const bool ok = (okm >> kj) & 1u;
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        const float sr = ok ? sv[r] * scale : kNegInf;
+        const float m_new = fmaxf(m[r], warp_max(sr));
+        const float corr = expf(m[r] - m_new);
+        const float p = ok ? expf(sr - m_new) : 0.f;
+        ls[r] = fmaf(ls[r], corr, p);
+        m[r] = m_new;
+        ps[r * 32 + lane] = p;
+#pragma unroll
+        for (int e = 0; e < VN; ++e) acc[r][e] *= corr;
+      }
+      __syncwarp();
+      // p·v: lane (dg, ko) accumulates its columns over keys i·KPI + ko
+#pragma unroll
+      for (int i = 0; i < LPK; i += 4) {
+        float vx[4][VN];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int j = (i + ii) * KPI + ko;
+          Vec<T>::template load<D>(vs + j * D, dg, vx[ii], (ldm >> j) & 1u);
+        }
+#pragma unroll
+        for (int r = 0; r < G; ++r) {
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + r * 32 + ko * LPK + i);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int e = 0; e < VN; ++e) acc[r][e] = fmaf(pv[ii], vx[ii][e], acc[r][e]);
+        }
+      }
+      __syncwarp();  // p rows read; the stage is free
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+    // the warp's state: l summed over lanes, acc over the KPI key lanes
+    float* wm = reinterpret_cast<float*>(smem + C::WM);
+    float* wl = reinterpret_cast<float*>(smem + C::WL);
+    float* wa = reinterpret_cast<float*>(smem + C::WA);
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      const float l = warp_sum(ls[r]);
+#pragma unroll
+      for (int x = LPK; x < 32; x *= 2)
+#pragma unroll
+        for (int e = 0; e < VN; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], x);
+      if (lane == 0) {
+        wm[warp * G + r] = m[r];
+        wl[warp * G + r] = l;
+      }
+      if (ko == 0) {
+#pragma unroll
+        for (int e = 0; e < VN; e += 4)
+          *reinterpret_cast<float4*>(wa + (warp * G + r) * D + Vec<T>::template col<D>(dg, e)) =
+              make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's state: the warps' merged in warp order
+  const float* wm = reinterpret_cast<const float*>(smem + C::WM);
+  const float* wl = reinterpret_cast<const float*>(smem + C::WL);
+  const float* wa = reinterpret_cast<const float*>(smem + C::WA);
+  T* ob = o + bh * g * D;
   const long pbase = (bh * n_split + split) * g;  // this split's rows in scratch
   for (int idx = tid; idx < g * D; idx += NT) {
     const int r = idx / D, d = idx % D;
-    float os = 0.f;
-    for (int s = 0; s < KS; ++s) os += a_s[(s * MAXG + r) * D + d];
-    part_o[pbase * D + idx] = os;
+    float mg = kNegInf;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mg = fmaxf(mg, wm[w * G + r]);
+    float lg = 0.f, og = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float cw = expf(wm[w * G + r] - mg);
+      lg = fmaf(wl[w * G + r], cw, lg);
+      og = fmaf(wa[(w * G + r) * D + d], cw, og);
+    }
+    if (n_split == 1) {
+      store(&ob[idx], og / fmaxf(lg, 1e-30f));
+    } else {
+      part_o[pbase * D + idx] = og;
+      if (d == 0) {
+        part_m[pbase + r] = mg;
+        part_l[pbase + r] = lg;
+      }
+    }
   }
-  if (tid < g) {
-    part_m[pbase + tid] = m_s[tid];
-    part_l[pbase + tid] = l_s[tid];
-  }
+  if (n_split == 1) return;
   __threadfence();  // the partial is visible device-wide before the count
   __syncthreads();
   if (tid == 0) {
@@ -272,49 +444,111 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   if (!last) return;
   __threadfence();  // see every other split's partial
 
-  // merge the n partials in split order: global max, rescale, sum, divide
+  // merge the n partials in split order, every load in flight at once: each
+  // thread's o partials (of the first MAXS splits in registers, the rest
+  // later), and m, l into shared memory (the ring is free) for the weights
+  constexpr int COLS = (G * D / 4 + NT - 1) / NT;  // float4 columns of o a thread
+  constexpr int MAXS = 16 / COLS;
   const long base = bh * n_split * g;
-  for (int idx = tid; idx < g * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
+  float* mt = reinterpret_cast<float*>(smem);  // [n][g] m
+  float* lt = mt + n_split * g;                // [n][g] l
+  float* mx = lt + n_split * g;                // [g] max, [g] 1 / l
+  const float4* src = reinterpret_cast<const float4*>(part_o + base * D);
+  const long s_stride = (long)g * D / 4;       // float4s of one split's partial
+  float4 x[COLS][MAXS];
+#pragma unroll
+  for (int cc = 0; cc < COLS; ++cc) {
+    const int idx = tid + cc * NT;
+#pragma unroll
+    for (int s = 0; s < MAXS; ++s)
+      x[cc][s] = idx < g * D / 4 && s < n_split ? __ldcg(src + s * s_stride + idx)
+                                                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = tid; i < n_split * g; i += NT) {
+    mt[i] = __ldcg(&part_m[base + i]);
+    lt[i] = __ldcg(&part_l[base + i]);
+  }
+  __syncthreads();
+  if (tid < g) {
     float mg = kNegInf;
-    for (int s = 0; s < n_split; ++s) mg = fmaxf(mg, __ldcg(&part_m[base + s * g + r]));
-    float lg = 0.f, og = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const long row = base + s * g + r;
-      const float c = expf(__ldcg(&part_m[row]) - mg);
-      lg = fmaf(__ldcg(&part_l[row]), c, lg);
-      og = fmaf(__ldcg(&part_o[row * D + d]), c, og);
-    }
-    store(&ob[idx], og / fmaxf(lg, 1e-30f));
+    for (int s = 0; s < n_split; ++s) mg = fmaxf(mg, mt[s * g + tid]);
+    float lg = 0.f;
+    for (int s = 0; s < n_split; ++s) lg = fmaf(lt[s * g + tid], expf(mt[s * g + tid] - mg), lg);
+    mx[tid] = mg;
+    mx[g + tid] = 1.f / fmaxf(lg, 1e-30f);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int cc = 0; cc < COLS; ++cc) {
+    const int idx = tid + cc * NT;
+    if (idx >= g * D / 4) break;
+    const int r = idx * 4 / D;
+    const float mg = mx[r];
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](const float4& o4, int s) {
+      const float w = expf(mt[s * g + r] - mg);
+      a.x = fmaf(o4.x, w, a.x);
+      a.y = fmaf(o4.y, w, a.y);
+      a.z = fmaf(o4.z, w, a.z);
+      a.w = fmaf(o4.w, w, a.w);
+    };
+#pragma unroll
+    for (int s = 0; s < MAXS; ++s)
+      if (s < n_split) add(x[cc][s], s);
+    for (int s = MAXS; s < n_split; ++s) add(__ldcg(src + s * s_stride + idx), s);
+    const float il = mx[g + r];
+    T* dst = ob + idx * 4;
+    store(dst, a.x * il);
+    store(dst + 1, a.y * il);
+    store(dst + 2, a.z * il);
+    store(dst + 3, a.w * il);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* valid, void* o,
-                   float* part_m, float* part_l, float* part_o, int* counters, int b, int hkv,
-                   int t_len, int g, int n_split, int chunk, float scale,
-                   cudaStream_t stream) {
-  constexpr int bytes = Smem<T, D>::bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <typename T, int D, int G>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* slots,
+                   const void* valid, void* o, float* po, float* pm, float* pl, int* counters,
+                   int b, int hkv, int g, int t_len, int page, int c, long kv_stride,
+                   int n_split, float scale, cudaStream_t stream) {
+  using C = Cfg<T, D, G>;
+  // the last block's merge keeps 2·n·g + 2·g floats in the ring
+  if ((2 * n_split + 2) * g * 4 > C::STAGES * 2 * C::UNIT) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(paged_kernel<T, D, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_split, hkv, b);
-  paged_split_kernel<T, D><<<grid, NT, bytes, stream>>>(
+  paged_kernel<T, D, G><<<grid, NT, C::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const unsigned char*>(valid), static_cast<T*>(o), part_m, part_l, part_o,
-      counters, hkv, t_len, g, n_split, chunk, scale);
+      static_cast<const int*>(slots), static_cast<const unsigned char*>(valid),
+      static_cast<T*>(o), po, pm, pl, counters, hkv, g, t_len, page, c, kv_stride, n_split,
+      scale);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t dispatch_g(const void* q, const void* k, const void* v, const void* slots,
+                       const void* valid, void* o, float* po, float* pm, float* pl,
+                       int* counters, int b, int hkv, int g, int t_len, int page, int c,
+                       long kv_stride, int n_split, float scale, cudaStream_t st) {
+#define H2EAL_PAGED(G_) \
+  launch<T, D, G_>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, \
+                   kv_stride, n_split, scale, st)
+  if (g <= 1) return H2EAL_PAGED(1);
+  if (g <= 2) return H2EAL_PAGED(2);
+  if (g <= 4) return H2EAL_PAGED(4);
+  return H2EAL_PAGED(8);
+#undef H2EAL_PAGED
+}
+
 template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const void* valid,
-                       void* o, float* pm, float* pl, float* po, int* counters, int b,
-                       int hkv, int t_len, int g, int n_split, int chunk, float scale,
-                       cudaStream_t st) {
+cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const void* slots,
+                       const void* valid, void* o, float* po, float* pm, float* pl,
+                       int* counters, int b, int hkv, int g, int t_len, int page, int c,
+                       long kv_stride, int n_split, float scale, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, valid, o, pm, pl, po, counters, b, hkv, t_len, g, n_split, chunk, scale, st);
-    case 64: return launch<T, 64>(q, k, v, valid, o, pm, pl, po, counters, b, hkv, t_len, g, n_split, chunk, scale, st);
-    case 128: return launch<T, 128>(q, k, v, valid, o, pm, pl, po, counters, b, hkv, t_len, g, n_split, chunk, scale, st);
+    case 32: return dispatch_g<T, 32>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, kv_stride, n_split, scale, st);
+    case 64: return dispatch_g<T, 64>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, kv_stride, n_split, scale, st);
+    case 128: return dispatch_g<T, 128>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, kv_stride, n_split, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -322,23 +556,28 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 }  // namespace
 }  // namespace h2eal
 
-// part_m/part_l: (B, Hkv, n_split, g) f32 and part_o (B, Hkv, n_split, g, D)
-// f32 scratch (unused when n_split == 1); counters: >= B·Hkv int32, all 0
+// slots: (B, Hkv, t_len / page) int32 page table, or null for a contiguous
+// (B, Hkv, t_len, D) k/v (then page = 32); kv_stride: elements of k/v per
+// (batch, kv head). part_o (B, Hkv, n_split, g, D), part_m / part_l (B, Hkv,
+// n_split, g): f32 scratch (unused when n_split == 1); counters: >= B·Hkv
+// int32, all 0. Every pointer is 16-byte aligned.
 extern "C" int h2eal_paged_attention(const void* q, const void* k, const void* v,
-                                     const void* valid, void* o, void* part_m, void* part_l,
-                                     void* part_o, void* counters, int dtype, int b, int hkv,
-                                     int t_len, int g, int d, int n_split, int chunk,
+                                     const void* slots, const void* valid, void* o,
+                                     void* part_o, void* part_m, void* part_l, void* counters,
+                                     int dtype, int b, int hkv, int g, int d, int t_len,
+                                     int page, int c, long long kv_stride, int n_split,
                                      float scale, void* stream) {
   using namespace h2eal;
-  if (g < 1 || g > MAXG || n_split < 1 || chunk < 1) return cudaErrorInvalidValue;
+  if (g < 1 || g > MAXG || n_split < 1 || page < 1 || c < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* po = static_cast<float*>(part_o);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
-  float* po = static_cast<float*>(part_o);
   int* cnt = static_cast<int*>(counters);
+  const long ks = static_cast<long>(kv_stride);
   if (dtype == kF32)
-    return dispatch_d<float>(d, q, k, v, valid, o, pm, pl, po, cnt, b, hkv, t_len, g, n_split, chunk, scale, st);
+    return dispatch_d<float>(d, q, k, v, slots, valid, o, po, pm, pl, cnt, b, hkv, g, t_len, page, c, ks, n_split, scale, st);
   if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, valid, o, pm, pl, po, cnt, b, hkv, t_len, g, n_split, chunk, scale, st);
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, slots, valid, o, po, pm, pl, cnt, b, hkv, g, t_len, page, c, ks, n_split, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -28,13 +28,17 @@ _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 8
 _MAX_TILE_GROUP = 64  # the bf16 chunk kernels' q tile: 64 rows
 _MAX_SLOTS = 2048  # paged_attention_partial's slot list lives in shared memory
-# paged_attention's split-KV grid: fill two blocks on each of the H100's 132
-# SMs, but keep at least this many keys in a split
-_SPLIT_BLOCKS = 2 * 132
+# paged_attention's split-KV grid: one block on each of the H100's 132 SMs,
+# but at least this many keys in a split
+_SPLIT_BLOCKS = 132
 _SPLIT_MIN_KEYS = 128
-# per device: paged_attention's int32 arrival counters, one per (batch, kv
-# head), zeroed once when made; the kernel's last block resets its own
+# per (device, stream), zeroed once when made and left zero by each launch
+# (the kernels' last blocks reset them): paged_attention's int32 arrival
+# counters, one per (batch, kv head), and the bf16 flash kernel's two
+# work-item counters. Launches on one stream never overlap; launches that
+# overlap on two streams take separate counters
 _COUNTERS: dict = {}
+_SCHEDULES: dict = {}
 
 
 def reset_launches() -> None:
@@ -89,7 +93,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     On the card the dtype picks the kernel: bf16 runs on the tensor cores
     (``csrc/flash_attention_sm90.cu``: wgmma fed by TMA, P rounded to bf16
-    before P·V), f32 on the FMA units (``csrc/flash_attention.cu``), since
+    before P·V, one persistent block an SM taking work items from a
+    counter kept per stream), f32 on the FMA units (``csrc/flash_attention.cu``), since
     TF32 tensor cores would not hold f32's tolerance. Either raises if its
     kernel fails to build or launch."""
     if _on_cpu(q, k, v):
@@ -113,8 +118,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                      "flash_attention: bf16 operands must be 16-byte aligned")
             err = lib.h2eal_flash_attention_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-                hq, hkv, d, int(causal), window, sink, q_offset, _scale(d), _stream(q))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _counters(q, 2, _SCHEDULES).data_ptr(), b, sq, sk, hq, hkv, d,
+                int(causal), window, sink, q_offset, _scale(d), _stream(q))
         else:
             err = lib.h2eal_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
@@ -125,56 +131,98 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def paged_splits(b: int, hkv: int, t: int) -> int:
-    """Splits of paged_attention's key axis: the smallest n with
-    b·hkv·n >= 264 blocks (two a SM), capped so that a split keeps at least
-    128 keys; 1 where b·hkv already fills the card or t < 256."""
-    want = -(-_SPLIT_BLOCKS // (b * hkv))
-    return max(1, min(want, t // _SPLIT_MIN_KEYS))
+    """Splits of paged_attention's key axis: the most n with b·hkv·n <= 132
+    blocks (one a SM: a block holds a 128 KB ring), capped so that a split
+    keeps at least 128 keys; 1 where b·hkv already fills the card or
+    t < 256. Split s takes the 32-token units [s·U/n, (s+1)·U/n)."""
+    return max(1, min(_SPLIT_BLOCKS // (b * hkv), t // _SPLIT_MIN_KEYS))
 
 
-def _counters(device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
+def _counters(t: torch.Tensor, n: int, store=_COUNTERS) -> torch.Tensor:
+    key = (t.device, _stream(t))
+    buf = store.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
+        store[key] = buf
     return buf
+
+
+def _check_decode(name, q, k, v, valid, hkv, t):
+    b, hq, d = q.shape
+    _require(valid.shape == (b, hkv, t) and valid.dtype == torch.bool,
+             f"{name}: valid must be (B, Hkv, {t}) bool")
+    _require(q.dtype in _DTYPES, f"{name}: dtype {q.dtype} not supported")
+    _check_operands(name, (q, k, v), q.dtype)
+    _check_operands(name, (valid,))
+    _require(d in _HEAD_DIMS, f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    _require(hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP,
+             f"{name}: GQA group must divide Hq and be <= {_MAX_GROUP}")
+    # q is read, and k/v copied in bulk, in 16-byte pieces
+    _require(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
+             f"{name}: q, k and v must be 16-byte aligned")
+
+
+def _paged_launch(q, k, v, slots, valid, t, page, c, kv_stride):
+    """One launch of csrc/paged_attention.cu: ``paged_splits`` splits a
+    (batch, kv head), whose last block merges the splits' partials (held in
+    scratch made here); ``kv_stride`` elements of k/v per (batch, kv head)."""
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    n = paged_splits(b, hkv, t)
+    out = torch.empty_like(q)
+    rows = b * hkv * n * g
+    part = torch.empty(rows * (d + 2) if n > 1 else 4, dtype=torch.float32,
+                       device=q.device)
+    po = part.data_ptr()  # o first: 16-byte aligned for the merge's loads
+    with torch.cuda.device(q.device):
+        err = _build.library().h2eal_paged_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if slots is None else slots.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), po, po + 4 * rows * d, po + 4 * rows * (d + 1),
+            _counters(q, b * hkv).data_ptr(), _DTYPES[q.dtype], b, hkv, g, d,
+            t, page, c, kv_stride, n, _scale(d), _stream(q))
+    _build.check(err, "paged_attention")
+    LAUNCHES["paged_attention"] += 1
+    return out
 
 
 def paged_attention(q, k, v, valid):
     """q: (B, Hq, D); k/v: (B, Hkv, T, D); valid: (B, Hkv, T) bool ->
-    (B, Hq, D). On the card: one launch of a split-KV grid of
-    ``paged_splits(B, Hkv, T)`` splits a (batch, kv head), whose last block
-    merges the splits' partials (held in scratch made here)."""
+    (B, Hq, D). On the card: one launch of the split-KV kernel of
+    ``csrc/paged_attention.cu`` on rows of 32 keys."""
     if _on_cpu(q, k, v, valid):
         return _ref.paged_attention_ref(q, k, v, valid)
-    b, hq, d = q.shape
+    b, _, d = q.shape
     _require(k.dim() == 4 and k.shape == v.shape and k.shape[0] == b
              and k.shape[3] == d, "paged_attention: k/v must be (B, Hkv, T, D)")
     hkv, t = k.shape[1], k.shape[2]
-    _require(valid.shape == (b, hkv, t) and valid.dtype == torch.bool,
-             "paged_attention: valid must be (B, Hkv, T) bool")
-    _require(q.dtype in _DTYPES, f"paged_attention: dtype {q.dtype} not supported")
-    _check_operands("paged_attention", (q, k, v), q.dtype)
-    _check_operands("paged_attention", (valid,))
-    _require(d in _HEAD_DIMS, f"paged_attention: head_dim {d} not in {_HEAD_DIMS}")
-    _require(hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP,
-             f"paged_attention: GQA group must divide Hq and be <= {_MAX_GROUP}")
-    g = hq // hkv
-    n = paged_splits(b, hkv, t)
-    out = torch.empty_like(q)
-    part = torch.empty(b * hkv * n * g * (d + 2) if n > 1 else 2,
-                       dtype=torch.float32, device=q.device)
-    rows = b * hkv * n * g
-    with torch.cuda.device(q.device):
-        err = _build.library().h2eal_paged_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * rows,
-            part.data_ptr() + 8 * rows, _counters(q.device, b * hkv).data_ptr(),
-            _DTYPES[q.dtype], b, hkv, t, g, d, n, max(1, -(-t // n)), _scale(d),
-            _stream(q))
-    _build.check(err, "paged_attention")
-    LAUNCHES["paged_attention"] += 1
-    return out
+    _check_decode("paged_attention", q, k, v, valid, hkv, t)
+    return _paged_launch(q, k, v, None, valid, t, 32, max(1, -(-t // 32)), t * d)
+
+
+def paged_attention_pages(q, k_pages, v_pages, slots, valid):
+    """Decode attention over the pages ``slots`` names, read in place: q
+    (B, Hq, D); k/v_pages (B, Hkv, C, P, D); slots (B, Hkv, N) int32, clamped
+    into [0, C) as ``ref.gather_pages`` clamps them; valid (B, Hkv, N*P)
+    bool -> (B, Hq, D), ``paged_attention`` of the gathered buffer. On the
+    card: one launch of the same kernel, addressing K/V through the page
+    table (no gathered copy); a page with no valid token is not read.
+    Counts under ``LAUNCHES["paged_attention"]``: the same TPU kernel."""
+    if _on_cpu(q, k_pages, v_pages, slots, valid):
+        return _ref.paged_attention_pages_ref(q, k_pages, v_pages, slots, valid)
+    b, _, d = q.shape
+    _require(k_pages.dim() == 5 and k_pages.shape == v_pages.shape
+             and k_pages.shape[0] == b and k_pages.shape[4] == d,
+             "paged_attention_pages: k/v_pages must be (B, Hkv, C, P, D)")
+    hkv, c, p = k_pages.shape[1:4]
+    _require(slots.dim() == 3 and slots.shape[:2] == (b, hkv)
+             and slots.dtype == torch.int32,
+             "paged_attention_pages: slots must be (B, Hkv, N) int32")
+    _check_operands("paged_attention_pages", (slots,))
+    t = slots.shape[2] * p
+    _check_decode("paged_attention_pages", q, k_pages, v_pages, valid, hkv, t)
+    return _paged_launch(q, k_pages, v_pages, slots, valid, t, p, c, c * p * d)
 
 
 def page_score(q, tau_min, tau_max):

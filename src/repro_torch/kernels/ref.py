@@ -185,6 +185,27 @@ def paged_attention_partial_ref(q, k, v, valid):
     return m.reshape(b, hq), l.reshape(b, hq), o.reshape(b, hq, d)
 
 
+def gather_pages(k_pages, v_pages, slots):
+    """k/v_pages: (B, H, C, P, D); slots: (..., B, H, N) int, clamped into
+    [0, C) -> k, v of shape (..., B, H, N*P, D): the pages read in slot order
+    (a sentinel reads some page, which the caller's validity masks)."""
+    b, h, c, p, d = k_pages.shape
+    n = slots.shape[-1]
+    sc = slots.clamp(0, c - 1).long()
+    bi = torch.arange(b, device=slots.device)[:, None, None]
+    hi = torch.arange(h, device=slots.device)[None, :, None]
+    shape = (*slots.shape[:-1], n * p, d)
+    return k_pages[bi, hi, sc].reshape(shape), v_pages[bi, hi, sc].reshape(shape)
+
+
+def paged_attention_pages_ref(q, k_pages, v_pages, slots, valid):
+    """``paged_attention_ref`` on the pages ``slots`` names: the plain
+    version of the kernel that reads them in place. q: (B, Hq, D); k/v_pages:
+    (B, Hkv, C, P, D); slots: (B, Hkv, N) int, clamped into [0, C) as
+    ``gather_pages`` clamps them; valid: (B, Hkv, N*P) bool."""
+    return paged_attention_ref(q, *gather_pages(k_pages, v_pages, slots), valid)
+
+
 def paged_attention_partial_pages_ref(q, k_pages, v_pages, slots, valid):
     """``paged_attention_partial_ref`` of every page stripe at once, on the
     pages each stripe attends: the plain version of the fused-gather kernel.
@@ -195,13 +216,10 @@ def paged_attention_partial_pages_ref(q, k_pages, v_pages, slots, valid):
     Returns m, l (S, B, Hq) and o (S, B, Hq, D), f32.
     """
     s, b, h, n = slots.shape
-    c, p, d = k_pages.shape[2:]
-    sc = slots.clamp(0, c - 1).long()
-    bi = torch.arange(b, device=q.device)[None, :, None, None]
-    hi = torch.arange(h, device=q.device)[None, None, :, None]
-    k = k_pages[bi, hi, sc].reshape(s * b, h, n * p, d)
-    v = v_pages[bi, hi, sc].reshape(s * b, h, n * p, d)
-    m, l, o = paged_attention_partial_ref(q.repeat(s, 1, 1), k, v,
+    p, d = k_pages.shape[3:]
+    k, v = gather_pages(k_pages, v_pages, slots)
+    m, l, o = paged_attention_partial_ref(q.repeat(s, 1, 1), k.reshape(s * b, h, n * p, d),
+                                          v.reshape(s * b, h, n * p, d),
                                           valid.reshape(s * b, h, n * p))
     hq = q.shape[1]
     return m.reshape(s, b, hq), l.reshape(s, b, hq), o.reshape(s, b, hq, d)

@@ -26,6 +26,7 @@ from repro_torch.core import cache as tcache
 from repro_torch.core import hybrid_attention as thattn
 from repro_torch.core import layouts as tlayouts
 from repro_torch.core import paging as tpaging
+from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as tlayers
 
 TOL = 2e-5
@@ -195,7 +196,7 @@ def test_selection_matches_through_token_validity(ctx):
         for hi in range(h):
             _eq(np.sort(ttok[bi, hi][tv[bi, hi]]), np.sort(jtok[bi, hi][jv[bi, hi]]))
     jk, _ = jpaging.gather_pages(jnp.asarray(kp), jnp.asarray(kp), jslots)
-    tk, _ = tpaging.gather_pages(_t(kp), _t(kp), tslots)
+    tk, _ = tref.gather_pages(_t(kp), _t(kp), tslots)
     assert tk.shape == jk.shape
     imp = _np(rng, b, h, c)
     _close(tpaging.accumulate_importance(_t(imp), ts),

@@ -111,6 +111,13 @@ FLASH_BF16_CASES = [
     (1, 300, 300, 8, 2, True, 150, 4, 0),    # window and sink
     (2, 520, 520, 4, 1, True, 256, 4, 0),    # serving's window: tiles are skipped
     (1, 129, 200, 4, 1, False, 0, 0, 0),     # not causal, ragged
+    # the ping-pong schedule's edges: a single key tile; odd numbers of key
+    # tiles (3 and 5); Sq not a multiple of 128 with window + sink
+    (1, 64, 64, 4, 1, True, 0, 0, 0),
+    (2, 384, 384, 8, 2, True, 0, 0, 0),
+    (1, 200, 640, 4, 2, False, 0, 0, 0),
+    (1, 100, 600, 4, 1, True, 0, 0, 500),
+    (1, 700, 700, 8, 2, True, 256, 4, 0),
 ]
 
 
@@ -173,10 +180,84 @@ def test_paged_attention_kernel(cuda_dev, dtype, d, group):
 
 
 # (b, hkv, t, group): the split-KV grid's edges. T below two splits' worth
-# (one split); T not a multiple of the split; B·Hkv under 264 (two splits of
-# the 300 keys); B·Hkv >= 264 (one split a stream); 33 splits of 134 keys
+# (one split); T not a multiple of the 32-key unit; B·Hkv under 66 (two
+# splits of the 300 keys); B·Hkv > 66 (one split a stream); 16 splits of
+# 8-9 units
 PAGED_SPLIT_CASES = [(1, 2, 100, 4), (2, 3, 1000, 3), (40, 4, 300, 2),
                      (70, 4, 600, 4), (2, 4, 4416, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("p", [8, 32])
+def test_paged_attention_pages_kernel(cuda_dev, dtype, d, group, p):
+    """Decode attention read through a page table (pages of 8: a 32-key unit
+    spans four pages; of 32: one), five splits: sentinel slots (-1, C, past
+    C) whose tokens are invalid, as paging.token_validity makes them, and so
+    never loaded; a sentinel whose tokens are valid, read from its clamped
+    slot as ref.gather_pages reads it; a row with no valid token; two
+    back-to-back calls equal bit for bit (the arrival counters were reset)."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(group * d + p)
+    b, hkv, c = 2, 3, 160 // p * 4
+    n = 640 // p
+    q = _rand(gen, cuda_dev, dtype, b, hkv * group, d)
+    kp = _rand(gen, cuda_dev, dtype, b, hkv, c, p, d)
+    vp = _rand(gen, cuda_dev, dtype, b, hkv, c, p, d)
+    slots = torch.randint(0, c, (b, hkv, n), generator=gen, device=cuda_dev,
+                          dtype=torch.int32)
+    valid = torch.rand(b, hkv, n, p, generator=gen, device=cuda_dev) < 0.7
+    for bi, hi, i, slot in ((0, 1, 3, -1), (1, 0, 7, c), (1, 2, n - 1, c + 5)):
+        slots[bi, hi, i] = slot
+        valid[bi, hi, i] = False
+    slots[0, 0, 2] = -1                 # valid tokens: the clamped slot 0 is read
+    valid[1, 1] = False                 # a row with no valid token
+    valid = valid.reshape(b, hkv, n * p)
+    assert ops.paged_splits(b, hkv, n * p) == 5
+    ops.reset_launches()
+    got = ops.paged_attention_pages(q, kp, vp, slots, valid)
+    again = ops.paged_attention_pages(q, kp, vp, slots, valid)
+    want = tref.paged_attention_pages_ref(*_widened(q, kp, vp), slots, valid)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention"] == 2
+    assert got.dtype == dtype and _within(got, want, dtype)
+    assert got[1, group:2 * group].abs().max().item() == 0.0
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention", "paged_attention"])
+def test_kernels_on_two_streams_at_once(cuda_dev, kernel):
+    """The bf16 flash kernel's work-item counters and paged_attention's
+    arrival counters are kept per (device, stream): launches that overlap on
+    two streams give what each gives alone, bit for bit."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(5)
+    bf = torch.bfloat16
+    if kernel == "flash_attention":
+        args = [(_rand(gen, cuda_dev, bf, 2, 2048, 8, 128),
+                 _rand(gen, cuda_dev, bf, 2, 2048, 2, 128),
+                 _rand(gen, cuda_dev, bf, 2, 2048, 2, 128)) for _ in range(2)]
+        call = lambda a: ops.flash_attention(*a, causal=True)
+    else:
+        args = [(_rand(gen, cuda_dev, bf, 2, 16, 128),
+                 _rand(gen, cuda_dev, bf, 2, 4, 4416, 128),
+                 _rand(gen, cuda_dev, bf, 2, 4, 4416, 128),
+                 torch.rand(2, 4, 4416, generator=gen, device=cuda_dev) < 0.9)
+                for _ in range(2)]
+        call = lambda a: ops.paged_attention(*a)
+    alone = [call(a) for a in args]
+    streams = [torch.cuda.Stream(cuda_dev) for _ in args]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_dev))
+    together = [[], []]
+    for _ in range(4):
+        for i, (s, a) in enumerate(zip(streams, args)):
+            with torch.cuda.stream(s):
+                together[i].append(call(a))
+    torch.cuda.synchronize()
+    for want, outs in zip(alone, together):
+        assert all(torch.equal(out, want) for out in outs)
 
 
 @pytest.mark.cuda
@@ -186,14 +267,15 @@ PAGED_SPLIT_CASES = [(1, 2, 100, 4), (2, 3, 1000, 3), (40, 4, 300, 2),
 def test_paged_attention_split_kernel(cuda_dev, dtype, d, case):
     b, hkv, t, group = case
     n = ops.paged_splits(b, hkv, t)
-    chunk = -(-t // n)
+    units = -(-t // 32)  # split s takes the units of 32 keys [s·U/n, (s+1)·U/n)
+    beg, end = 32 * (units // n), 32 * (2 * units // n)
     gen = torch.Generator(device=cuda_dev).manual_seed(t)
     q = _rand(gen, cuda_dev, dtype, b, hkv * group, d)
     k = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
     v = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
     valid = torch.rand(b, hkv, t, generator=gen, device=cuda_dev) < 0.8
     if n > 1:
-        valid[0, 0, chunk:2 * chunk] = False  # a split with no valid key
+        valid[0, 0, beg:end] = False          # a split with no valid key
     valid[-1, -1] = False                     # an all-invalid row gives 0
     got = ops.paged_attention(q, k, v, valid)
     again = ops.paged_attention(q, k, v, valid)  # the counters were reset

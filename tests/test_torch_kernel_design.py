@@ -5,10 +5,12 @@ Here plain-torch emulations of what they compute are held against the port's
 plain versions and the JAX reference:
 
   * paged_attention: the split count (``ops.paged_splits``), and the
-    split-KV grid's arithmetic: ``paged_attention_partial_ref`` over each
-    split's key range, merged by ``combine_partials_ref``, equals
-    ``paged_attention_ref`` within the f32 tolerance of 2e-5 (the two sum in
-    different orders), splits with no valid key included;
+    split-KV block's arithmetic: each split's units of 32 keys that hold a
+    valid key go in turn to 4 warps, each warp's partial (m, l, o) over its
+    keys, merged in warp order, then the splits' in split order
+    (``block_emulated``), equals ``paged_attention_ref`` within 1e-5 in f32
+    (the two sum in different orders), splits, warps and rows with no valid
+    key included, at the main path's three decode shapes in miniature;
   * the bf16 flash_attention kernel: an online softmax over key tiles of 128
     that rounds the unnormalised P to bf16 before P·V stays within
     |emulated - plain| <= 2^-8·(softmax(s)·|V|) + 2^-8·|plain| + 1e-5 of
@@ -31,66 +33,88 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref as tref
 
 TOL = 2e-5
-SPLIT_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
-BK = 128                # the bf16 flash kernel's key tile
+SPLIT_BLOCKS = 132  # one block on each of the H100's SMs
+UNIT = 32           # paged_attention's unit of keys
+NW = 4              # its consumer warps
+BK = 128            # the bf16 flash kernel's key tile
 
 
 # ---------------------------------------------------------------------------
-# paged_attention: split count and split-and-merge
+# paged_attention: split count, and the block's split-warp-merge arithmetic
 # ---------------------------------------------------------------------------
+
+
+def split_units(t: int, n: int):
+    """[beg, end) units of 32 keys of each split, as the kernel cuts them."""
+    u = -(-t // UNIT)
+    return [(s * u // n, (s + 1) * u // n) for s in range(n)]
 
 
 @settings(deadline=None, max_examples=300)
 @given(b=st.integers(1, 96), hkv=st.integers(1, 16), t=st.integers(1, 40000))
 def test_paged_splits_fill_the_card_and_keep_128_keys_a_split(b, hkv, t):
     n = ops.paged_splits(b, hkv, t)
-    want = -(-SPLIT_BLOCKS // (b * hkv))
+    want = SPLIT_BLOCKS // (b * hkv)
     assert n >= 1
-    if b * hkv >= SPLIT_BLOCKS:
-        assert n == 1
+    if b * hkv * 2 > SPLIT_BLOCKS:
+        assert n == 1                       # a second split would need a second wave
     if n > 1:
-        assert -(-t // n) >= 128          # a split holds >= 128 keys
-        assert b * hkv * (n - 1) < SPLIT_BLOCKS  # no more splits than needed
-    if t // 128 >= want:
-        assert b * hkv * n >= SPLIT_BLOCKS  # fills two blocks a SM where it can
-    else:
-        assert n == max(1, t // 128)        # else as many as 128 keys allow
+        assert b * hkv * n <= SPLIT_BLOCKS  # one wave of one block a SM
+        for beg, end in split_units(t, n):  # each split holds >= 128 keys
+            assert min(t, end * UNIT) - beg * UNIT >= 128
+    assert n == max(1, min(want, t // 128))  # as many as the card and 128 keys allow
 
 
 def test_paged_splits_at_the_serving_shapes():
     """llama3-8b decode at B=2: retrieval heads (4 kv heads, 4416 tokens),
     streaming heads (4 kv heads, 292 slots), full attention (8, 8256)."""
-    assert ops.paged_splits(2, 4, 4416) == 33
+    assert ops.paged_splits(2, 4, 4416) == 16
     assert ops.paged_splits(2, 4, 292) == 2
-    assert ops.paged_splits(2, 8, 8256) == 17
+    assert ops.paged_splits(2, 8, 8256) == 8
     assert ops.paged_splits(70, 4, 600) == 1
 
 
-def split_merge(q, k, v, valid):
-    """The split-KV grid in plain torch: a partial per split's key range
-    (the identity (NEG_INF, 0, 0) where the range is empty), merged."""
+def block_emulated(q, k, v, valid):
+    """The split-KV kernel in plain torch, on the attended buffer: each
+    split's live units (those with a valid key) go in turn to NW warps; each
+    warp's partial (m, l, o) over its keys (the identity (NEG_INF, 0, 0)
+    where it has none); the warps' partials merged in warp order, the
+    splits' in split order, divided by max(l, 1e-30) last. Returns (n, out)."""
     b, hq, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     n = ops.paged_splits(b, hkv, t)
-    chunk = -(-t // n)
-    ms, ls, os_ = [], [], []
-    for s in range(n):
-        lo, hi = s * chunk, min(t, (s + 1) * chunk)
-        if lo >= hi:
-            ms.append(torch.full((b, hq), tref.NEG_INF))
-            ls.append(torch.zeros(b, hq))
-            os_.append(torch.zeros(b, hq, d))
-            continue
-        m, l, o = tref.paged_attention_partial_ref(q, k[:, :, lo:hi], v[:, :, lo:hi],
-                                                   valid[:, :, lo:hi])
-        ms.append(m), ls.append(l), os_.append(o)
-    return n, tref.combine_partials_ref(torch.stack(ms), torch.stack(ls),
-                                        torch.stack(os_)).to(q.dtype)
+    u = -(-t // UNIT)
+    pad = u * UNIT - t
+    vu = torch.nn.functional.pad(valid, (0, pad)).reshape(b, hkv, u, UNIT)
+    live = vu.any(dim=-1)                                          # (B, Hkv, U)
+    warp = torch.full((b, hkv, u), -1)
+    for beg, end in split_units(t, n):
+        rank = live[..., beg:end].long().cumsum(dim=-1) - 1
+        warp[..., beg:end] = torch.where(live[..., beg:end], rank % NW, -1)
+    splits = []
+    for beg, end in split_units(t, n):
+        ms, ls, os_ = [], [], []
+        for w in range(NW):
+            mine = torch.zeros(b, hkv, u, dtype=torch.bool)
+            mine[..., beg:end] = warp[..., beg:end] == w
+            keys = mine[..., None].expand(b, hkv, u, UNIT).reshape(b, hkv, u * UNIT)[..., :t]
+            m, l, o = tref.paged_attention_partial_ref(q, k, v, valid & keys)
+            ms.append(m), ls.append(l), os_.append(o)
+        splits.append(tref.merge_partials_ref(torch.stack(ms), torch.stack(ls),
+                                              torch.stack(os_)))
+    m, l, o = (torch.stack(x) for x in zip(*splits))
+    return n, tref.combine_partials_ref(m, l, o).to(q.dtype)
 
 
-# (b, hkv, t, group, d): one split; a ragged last split; two splits (B·Hkv
-# under 264); one split a stream (B·Hkv >= 264); 33 splits of 134 keys; and
-# 264 splits whose last one is empty (t = 33892: 263 splits of 129 cover it)
+def _decode_inputs(rng, b, hkv, t, group, d):
+    q = rng.standard_normal((b, hkv * group, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
+    return q, k, v
+
+
+# (b, hkv, t, group, d): one split; a ragged last unit; two splits; one split
+# a stream (B·Hkv > 66); 16 splits; 132 splits of one stream
 SPLIT_CASES = [(1, 2, 100, 4, 32), (2, 3, 1000, 3, 64), (40, 4, 300, 2, 32),
                (70, 4, 600, 4, 32), (2, 4, 4416, 4, 64), (1, 1, 33892, 2, 32)]
 
@@ -99,24 +123,63 @@ SPLIT_CASES = [(1, 2, 100, 4, 32), (2, 3, 1000, 3, 64), (40, 4, 300, 2, 32),
 def test_split_and_merge_equals_paged_attention(case):
     b, hkv, t, group, d = case
     rng = np.random.default_rng(t)
-    q = rng.standard_normal((b, hkv * group, d)).astype(np.float32)
-    k = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
-    v = rng.standard_normal((b, hkv, t, d)).astype(np.float32)
+    q, k, v = _decode_inputs(rng, b, hkv, t, group, d)
     valid = rng.random((b, hkv, t)) < 0.8
     n = ops.paged_splits(b, hkv, t)
-    chunk = -(-t // n)
     if n > 1:
-        valid[0, 0, chunk:2 * chunk] = False   # a split with no valid key
-    valid[-1, -1] = False                      # an all-invalid row
+        beg, end = split_units(t, n)[1]
+        valid[0, 0, beg * UNIT:end * UNIT] = False   # a split with no valid key
+    valid[0, -1, :3 * UNIT] = False                  # dead units shift the warps' turns
+    valid[-1, -1] = False                            # an all-invalid row
     tq, tk, tv, tvl = (torch.from_numpy(x) for x in (q, k, v, valid))
-    n_got, got = split_merge(tq, tk, tv, tvl)
+    n_got, got = block_emulated(tq, tk, tv, tvl)
     assert n_got == n
     want = tref.paged_attention_ref(tq, tk, tv, tvl)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
     assert got[-1, -group:].abs().max().item() == 0.0
     jwant = jref.paged_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                      jnp.asarray(valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
+
+
+# the main path's three decode cases in miniature (D = 16): retrieval heads
+# on their [sink | 128 selected | local] pages of 32 (138 slots, the sink
+# page and the local pages partly valid, the last local page past the
+# cache), the streaming ring (292 slots) and the full-attention baseline
+# (T = 8256)
+@pytest.mark.parametrize("case", ["retrieval", "streaming", "baseline"])
+def test_block_emulation_at_the_main_path_shapes(case):
+    rng = np.random.default_rng(len(case))
+    b, hkv, g, d = 2, 4, 4, 16
+    if case == "retrieval":
+        c, p = 258, 32
+        kp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
+        vp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
+        sel = np.stack([rng.permutation(np.arange(1, 248))[:128] for _ in range(b * hkv)])
+        slots = np.concatenate([np.zeros((b * hkv, 1), np.int64), sel,
+                                np.arange(250, 259)[None].repeat(b * hkv, 0)], axis=1)
+        slots = slots.reshape(b, hkv, 138).astype(np.int32)
+        valid = np.ones((b, hkv, 138, p), bool)
+        valid[:, :, 0, 4:] = False                   # the sink page beyond the 4 sinks
+        valid[:, :, 129, :20] = False                # the local window's first page
+        valid[:, :, -1] = False                      # a local page past the cache
+        valid[1, 2, 5:9] = False                     # four sentinel slots
+        slots[1, 2, 5:9] = -1
+        valid = valid.reshape(b, hkv, 138 * p)
+        q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+        tq, tkp, tvp, tsl, tvl = (torch.from_numpy(x) for x in (q, kp, vp, slots, valid))
+        tk, tv = tref.gather_pages(tkp, tvp, tsl)
+        want = ops.paged_attention_pages(tq, tkp, tvp, tsl, tvl)
+    else:
+        hkv = hkv if case == "streaming" else 8
+        t = 292 if case == "streaming" else 8256
+        q, k, v = _decode_inputs(rng, b, hkv, t, g, d)
+        valid = rng.random((b, hkv, t)) < 0.9
+        tq, tk, tv, tvl = (torch.from_numpy(x) for x in (q, k, v, valid))
+        want = ops.paged_attention(tq, tk, tv, tvl)
+    n, got = block_emulated(tq, tk, tv, tvl)
+    assert n == {"retrieval": 16, "streaming": 2, "baseline": 8}[case]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -4,17 +4,24 @@ held against the plain versions on a card in tests/test_torch_cuda.py.
 
 Tolerance: 2e-5 in f32 (the two sides sum in different orders).
 """
+import functools
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import H2ealConfig as JH2
+from repro.core import hybrid_attention as jhattn
 from repro.core import paging as jpaging
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.configs.base import H2ealConfig as TH2
+from repro_torch.core import hybrid_attention as thattn
 from repro_torch.core import paging as tpaging
 from repro_torch.kernels import ops, ref as tref
 
@@ -67,6 +74,72 @@ def test_paged_attention_plain_matches_jax(group):
     got = ops.paged_attention(*(torch.from_numpy(x) for x in (q, k, v, valid)))
     _close(got, want)
     assert float(got[1, :group].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_paged_attention_pages_plain_matches_jax_gather_then_attention(group):
+    """Decode attention read through a page table equals JAX's gather_pages
+    followed by its paged_attention (impl="ref"): slots hold sentinels (-1)
+    and slots past the cache, which the port clamps into [0, C) (JAX's
+    gather fills NaN past C, so it is handed the clamped list), and one row
+    has no valid token (its output is 0). Tolerance 1e-5 in f32."""
+    rng = np.random.default_rng(20 + group)
+    b, hkv, c, p, n, d = 2, 2, 7, 4, 6, 16
+    q = _np(rng, b, hkv * group, d)
+    kp, vp = _np(rng, b, hkv, c, p, d), _np(rng, b, hkv, c, p, d)
+    slots = rng.integers(0, c, (b, hkv, n)).astype(np.int32)
+    slots[0, 0, 1], slots[0, 1, 5], slots[1, 1, 4] = -1, c, c + 2
+    valid = rng.random((b, hkv, n * p)) < 0.7
+    valid[0, 1, 5 * p:] = False   # a page past the cache, masked as token_validity does
+    valid[1, 0] = False           # a row with no valid token
+    jk, jv = jpaging.gather_pages(jnp.asarray(kp), jnp.asarray(vp),
+                                  jnp.asarray(np.clip(slots, 0, c - 1)))
+    want = jops.paged_attention(jnp.asarray(q), jk, jv, jnp.asarray(valid), impl="ref")
+    got = ops.paged_attention_pages(*(torch.from_numpy(x) for x in (q, kp, vp, slots, valid)))
+    assert got.shape == (b, hkv * group, d) and got.dtype == torch.float32
+    _close(got, want, tol=1e-5)
+    assert float(got[1, :group].abs().max()) == 0.0
+
+
+def test_paged_decode_reads_pages_in_place(monkeypatch):
+    """The retrieval heads' decode attends the pages where they lie: a
+    select step and a reuse step each hand the cache's own page tensors to
+    one ``paged_attention_pages`` call, the only gather on the path is that
+    call's plain version (on the card the kernel reads the pages through the
+    slots), and their outputs match JAX's decode_attention."""
+    calls, gathers = [], []
+    fused, gather = ops.paged_attention_pages, tref.gather_pages
+
+    def recording(q, k_pages, v_pages, slots, valid):
+        calls.append((k_pages, v_pages))
+        return fused(q, k_pages, v_pages, slots, valid)
+
+    def counting(*args):
+        gathers.append(len(calls))
+        return gather(*args)
+
+    monkeypatch.setattr(ops, "paged_attention_pages", recording)
+    monkeypatch.setattr(tref, "gather_pages", counting)
+    rng = np.random.default_rng(8)
+    h2 = dict(sink=2, local=16, page_size=8, select_budget=16, share_window=2)
+    jspec = jhattn.AttnSpec(n_q=8, n_kv=4, head_dim=16, h2=JH2(**h2))
+    tspec = thattn.AttnSpec(n_q=8, n_kv=4, head_dim=16, h2=TH2(**h2))
+    s, cap = 45, 64
+    k, v = _np(rng, 2, s, 4, 16), _np(rng, 2, s, 4, 16)
+    jp, js = jhattn.init_decode_state(jspec, jnp.asarray(k), jnp.asarray(v), s, cap)
+    tp, ts = thattn.init_decode_state(tspec, torch.from_numpy(k), torch.from_numpy(v), s, cap)
+    for i, sel in enumerate((True, False)):
+        q, kn, vn = _np(rng, 2, 8, 16), _np(rng, 2, 4, 16), _np(rng, 2, 4, 16)
+        jo, jp, js = jax.jit(functools.partial(jhattn.decode_attention, jspec,
+                                               do_select=sel))(
+            jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jp, js, jnp.int32(s + i))
+        to, tp, ts = thattn.decode_attention(
+            tspec, *(torch.from_numpy(x) for x in (q, kn, vn)), tp, ts, s + i,
+            do_select=sel)
+        _close(to, jo)
+        assert len(calls) == i + 1
+        assert calls[i][0] is tp.k_pages and calls[i][1] is tp.v_pages
+        assert gathers == list(range(1, i + 2))  # one, inside each call
 
 
 @pytest.mark.parametrize("group", [1, 2, 4])
