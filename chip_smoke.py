@@ -13,7 +13,9 @@ then, each phase failing the run with a nonzero exit:
      kernel, the plain version and, where one PyTorch call computes the
      same function, that call (device times: see ``Timer``); the retrieval
      heads' decode, which reads its pages in place, also beside the
-     unfused path it replaced (the gather, then the contiguous kernel);
+     unfused path it replaced (the gather, then the contiguous kernel),
+     and the co-placed decode beside ``paged_attention_pages`` on the same
+     list;
   3. holds a reduced llama3-8b ``generate`` (f32; and bf16 at head_dim
      128, so the tensor-core flash kernel runs at the serving head size) and
      a reduced chunked ``Engine`` run (with slot churn; f32, and bf16 at
@@ -99,7 +101,7 @@ ENGINE_PROMPTS, ENGINE_GENS = (2048, 8192), (8, 32)
 # chunk-kernel phase: the context before the chunk of each of the 4 slots
 CHUNK_STARTS = (0, 2048, 5120, 7680)
 # coplace_shmap: page stripes, and the context of each of the 4 slots in the
-# partial-kernel phase
+# co-placed decode's kernel phase
 SHARDS = 8
 STRIPE_CTX = (8200, 7000, 5000, 3000)
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
@@ -431,11 +433,10 @@ def stripe_inputs(gen, dev, cfg, dtype):
     main shapes: 4 slots at contexts STRIPE_CTX in a cache of the engine
     capacity rounded to whole pages of SHARDS stripes (264 pages of 32),
     the striped page order, a random top-128 selection of each slot's
-    selectable pages (-1 padded where fewer), the [sink | selected |
-    local] slot list (138 slots, 4416 tokens) and its validity, split over
-    the stripes as the decode body splits them."""
+    selectable pages (-1 padded where fewer), the unsplit [sink | selected
+    | local] slot list (138 slots, 4416 tokens) and its validity, as the
+    decode body hands them to ``ops.paged_attention_coplace``."""
     from repro_torch.core import layouts, paging
-    from repro_torch.core.hybrid_attention import stripe_slots
 
     h2 = cfg.h2eal
     nr, _, g, d = head_split(cfg)
@@ -462,52 +463,98 @@ def stripe_inputs(gen, dev, cfg, dtype):
                                           page=p, capacity=c, n_shards=SHARDS)
     valid = paging.token_validity(slots, start, ctx, sink=h2.sink, local=h2.local,
                                   page=p, top_k=top_k)
-    slots_s, valid_s = stripe_slots(slots, valid, shards=SHARDS, capacity=c)
     q = torch.randn(b, nr * g, d, generator=gen, device=dev).to(dtype)
     kp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(dtype)
     vp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(dtype)
-    return q, kp, vp, slots_s, valid_s
+    return q, kp, vp, slots.contiguous(), valid.contiguous()
+
+
+def busiest_units(ops, slots, valid, page, capacity) -> str:
+    """The most 32-token units with a valid token that one block of the
+    co-placed decode walks (the stripe's own), beside the most that one
+    split of ``paged_attention_pages`` walks on the same list (contiguous
+    ranges): the two grids' critical paths."""
+    b, h, n = slots.shape
+    t = n * page
+    pad = -t % 32
+    live = lambda keep: torch.nn.functional.pad(keep, (0, pad)).reshape(
+        b, h, -1, 32).any(-1)                                     # (B, H, units)
+    owner = torch.where(slots >= 0, slots // (capacity // SHARDS), -1)
+    owner = owner.repeat_interleave(page, dim=-1)
+    stripe = max(int(live(valid & (owner == s)).sum(-1).max()) for s in range(SHARDS))
+    units = live(valid)
+    n_split = ops.paged_splits(b, h, t)
+    u = units.shape[-1]
+    split = max(int(units[..., i * u // n_split:(i + 1) * u // n_split].sum(-1).max())
+                for i in range(n_split))
+    return f"stripe {stripe}, contiguous split {split} of {n_split}"
 
 
 def check_partial(ops, ref, timer, dev, cfg, dtype, gen):
-    """paged_attention_partial at the coplace_shmap path's shapes; then
-    combine_partials on the partials it produced."""
+    """The co-placed decode at the coplace_shmap path's shapes: the main
+    path's one launch, ``paged_attention_coplace`` on the unsplit list
+    (beside it ``paged_attention_pages`` on the same list, which ignores
+    the stripes, and the gather then SDPA); ``paged_attention_partial`` on
+    the stripes' lists; then the standalone combine_partials on the
+    partials it produced. Returns (partial cases, combine cases)."""
     q, kp, vp, slots, valid = stripe_inputs(gen, dev, cfg, dtype)
-    s, b, hr, n = slots.shape
-    g, d, p = q.shape[1] // hr, q.shape[2], kp.shape[3]
-    run = lambda: ops.paged_attention_partial(q, kp, vp, slots, valid)
-    plain = lambda: ref.paged_attention_partial_pages_ref(q, kp, vp, slots, valid)
+    b, hr, n = slots.shape
+    g, d, p, c = q.shape[1] // hr, q.shape[2], kp.shape[3], kp.shape[2]
+    tag = str(dtype).split(".")[-1]
+    n_valid = int(valid.sum().item())
+    kv_bytes = 2 * n_valid * d * kp.element_size()
+    flops = 4 * d * g * n_valid
+    shape = (f"B={b} Hq={hr * g} Hr={hr} N={n} P={p} T={n * p} D={d} "
+             f"ctx={list(STRIPE_CTX)} valid={n_valid}")
+
+    run = lambda: ops.paged_attention_coplace(q, kp, vp, slots, valid, SHARDS)
+    plain = lambda: ref.paged_attention_coplace_ref(q, kp, vp, slots, valid, SHARDS)
+    out = run()
+    want = ref.paged_attention_coplace_ref(*widened(q, kp, vp), slots, valid, SHARDS)
+    torch.cuda.synchronize()
+    e, ex = err(out, want), excess(out, want, dtype)
+    del want
+    mask = valid.repeat_interleave(g, dim=1)[:, :, None, :]
+    gather_sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], *ref.gather_pages(kp, vp, slots), attn_mask=mask, enable_gqa=True)
+    b_ms, b_by = bound(nbytes(q, slots, valid, out) + kv_bytes, flops, dtype)
+    coplace = dict(
+        case=f"coplace, merged in the launch S={SHARDS} {shape}; the busiest block's "
+             f"live units: {busiest_units(ops, slots, valid, p, c)}", dtype=tag,
+        max_abs_err=e, excess=ex, tol=tol_text(dtype), ms=timer.ms(run, 20),
+        plain_ms=timer.ms(plain, 5), library_ms=timer.ms(gather_sdpa, 20),
+        library="gather_pages + SDPA on the unsplit list",
+        pages_ms=timer.ms(lambda: ops.paged_attention_pages(q, kp, vp, slots, valid), 20),
+        bound_ms=b_ms, bound_by=b_by, main=True)
+
+    slots_s, valid_s = ref.stripe_slots(slots, valid, shards=SHARDS, capacity=c)
+    run = lambda: ops.paged_attention_partial(q, kp, vp, slots_s, valid_s)
+    plain = lambda: ref.paged_attention_partial_pages_ref(q, kp, vp, slots_s, valid_s)
     got = run()
-    want = ref.paged_attention_partial_pages_ref(*widened(q, kp, vp), slots, valid)
+    want = ref.paged_attention_partial_pages_ref(*widened(q, kp, vp), slots_s, valid_s)
     torch.cuda.synchronize()
     e = max(err(a, w) for a, w in zip(got, want))
     ex = partial_excess(got, want)
     del want
-    n_valid = int(valid.sum().item())
-    outs = nbytes(*got)
-    b_ms, b_by = bound(nbytes(q, slots, valid) + outs + 2 * n_valid * d * kp.element_size(),
-                       4 * d * g * n_valid, dtype)
-    tag = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(nbytes(q, slots_s, valid_s, *got) + kv_bytes, flops, dtype)
     part = dict(
-        case=f"S={s} B={b} Hq={hr * g} Hr={hr} N={n} P={p} T={n * p} D={d} "
-             f"ctx={list(STRIPE_CTX)} valid={n_valid}",
-        dtype=tag, max_abs_err=e, excess=ex,
+        case=f"partials S={SHARDS} {shape}", dtype=tag, max_abs_err=e, excess=ex,
         tol="1e-4*max(l,1) (f32 outputs; m: 1e-4*max(|m|,1))",
         ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 5), library_ms=None,
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, main=False)
     m, l, o = got
     run_c = lambda: ops.combine_partials(m, l, o)
     plain_c = lambda: ref.combine_partials_ref(m, l, o)
     out, want_c = run_c(), plain_c()
     torch.cuda.synchronize()
     rows = b * hr * g
-    b_ms, b_by = bound(nbytes(m, l, o, out), s * rows * (2 * d + 4), torch.float32)
+    b_ms, b_by = bound(nbytes(m, l, o, out), SHARDS * rows * (2 * d + 4), torch.float32)
     comb = dict(
-        case=f"N={s} B={b} Hq={hr * g} D={d} (f32 partials of the {tag} path)",
+        case=f"N={SHARDS} B={b} Hq={hr * g} D={d} (f32 partials of the {tag} path)",
         dtype=tag, max_abs_err=err(out, want_c), excess=excess(out, want_c, torch.float32),
         tol=tol_text(torch.float32), ms=timer.ms(run_c, 50), plain_ms=timer.ms(plain_c, 50),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    return [part], [comb]
+    return [coplace, part], [comb]
 
 
 def engine_workload(cfg):
@@ -999,8 +1046,10 @@ def check_reduced_coplace_engine_against_cpu(dev):
         f"{ops.LAUNCHES['paged_attention_partial']}")
     if not same or card_eng.stats.admission_reorders != cpu_eng.stats.admission_reorders:
         fail("the reduced coplace_shmap engine on the card disagrees with the CPU run")
-    if ops.LAUNCHES["paged_attention_partial"] == 0 or ops.LAUNCHES["combine_partials"] == 0:
-        fail("the reduced coplace_shmap engine did not launch the co-placed kernels")
+    once = card_eng.stats.decode_steps * cfg.num_layers
+    if ops.LAUNCHES["paged_attention_partial"] != once or ops.LAUNCHES["combine_partials"] != 0:
+        fail(f"the reduced coplace_shmap engine did not make its one co-placed launch a "
+             f"layer a decode step ({once})")
 
 
 def full_params(dev, cfg):
@@ -1183,14 +1232,14 @@ def serve_engine(dev, cfg, params):
         launches[mode] = got = dict(ops.LAUNCHES)
         eng.finalize()
         s = eng.stats
-        split = mode == "coplace"  # retrieval heads: partial + combine
+        split = mode == "coplace"  # retrieval heads: one launch, merged in it
         expect = {"flash_attention": 0 if chunk else 2 * n_l * len(reqs),
                   "page_score": s.select_steps * n_l,
                   "paged_attention": (1 if split else 2) * s.decode_steps * n_l,
                   "chunk_attention": s.prefill_chunks * n_l,
                   "chunk_attention_paged": s.prefill_chunks * n_l,
                   "paged_attention_partial": s.decode_steps * n_l if split else 0,
-                  "combine_partials": s.decode_steps * n_l if split else 0}
+                  "combine_partials": 0}
         log(f"engine ({mode}) launches {got} (expected {expect})")
         if got != expect:
             fail(f"the engine ({mode}) did not launch the kernels as expected")
@@ -1297,8 +1346,8 @@ def main() -> int:
     for name, cases in results.items():
         for c in cases:
             lib_ms = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
-            lib_ms += "".join(f" {k}={c[k]:.4f}" for k in ("unfused_ms", "gather_sdpa_ms")
-                              if k in c)
+            lib_ms += "".join(f" {k}={c[k]:.4f}"
+                              for k in ("unfused_ms", "gather_sdpa_ms", "pages_ms") if k in c)
             log(f"{name} [{c['case']} {c['dtype']}] kernel_ms={c['ms']:.4f} "
                 f"plain_ms={c['plain_ms']:.4f} library_ms={lib_ms} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
@@ -1326,8 +1375,7 @@ def main() -> int:
                   "engine_chunked": ("page_score", "paged_attention", "chunk_attention",
                                      "chunk_attention_paged"),
                   "engine_coplace": ("page_score", "paged_attention", "chunk_attention",
-                                     "chunk_attention_paged", "paged_attention_partial",
-                                     "combine_partials")}
+                                     "chunk_attention_paged", "paged_attention_partial")}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:
@@ -1342,7 +1390,7 @@ def main() -> int:
                "paged_attention": src + "paged_attention.cu",
                "chunk_attention": src + "chunk_attention_sm90.cu",
                "chunk_attention_paged": src + "chunk_attention_sm90.cu",
-               "paged_attention_partial": src + "paged_attention_partial.cu",
+               "paged_attention_partial": src + "paged_attention.cu",
                "combine_partials": src + "combine_partials.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:97",
                 "page_score": "src/repro/kernels/page_score.py:46",

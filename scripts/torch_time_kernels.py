@@ -7,9 +7,12 @@ card held busy while the host enqueues the call; median of several runs):
 ``check_paged`` (paged_attention on the retrieval heads' gathered buffer,
 the streaming ring and the full-attention baseline; then the retrieval
 heads' decode with its pages read in place, beside the gather followed by
-the contiguous kernel and by SDPA) and ``check_flash`` (the retrieval and
-streaming prefill cases), all in bf16 at the main path's shapes. Each case
-is checked against its plain version as chip_smoke.py checks it. First it
+the contiguous kernel and by SDPA), ``check_partial`` (the co-placed
+decode over 8 page stripes, beside ``paged_attention_pages`` on the same
+list and the gather followed by SDPA; the stripes' partials; the
+standalone combine) and ``check_flash`` (the retrieval and streaming
+prefill cases), all in bf16 at the main path's shapes. Each case is
+checked against its plain version as chip_smoke.py checks it. First it
 times the Timer's floor, a 4-byte memset.
 
 ``--src`` names the ``src`` directory of the checkout whose kernels and
@@ -17,8 +20,12 @@ plain versions are timed (default: this checkout's); its kernels are built
 into that checkout's ``src/repro_torch/kernels/build/``. A checkout whose
 retrieval decode still gathers its pages first (no
 ``ops.paged_attention_pages``) is timed on that path: its
-``paging.gather_pages``, then its ``paged_attention``. Two checkouts are
-compared in one call on one card by running the script once for each:
+``paging.gather_pages``, then its ``paged_attention``. A checkout whose
+co-placed decode is still the partial kernel, the combine kernel and a
+cast (no ``ops.paged_attention_coplace``) is timed on that path, its
+stripes' lists (``stripe_slots``) made inside the timed call as its decode
+body made them. Two checkouts are compared in one call on one card by
+running the script once for each:
 
     python scripts/torch_time_kernels.py [--src DIR] [--tag NAME]
 
@@ -58,6 +65,26 @@ def unfused(ops, ref):
     return ops_ns, ref_ns
 
 
+def partial_then_combine(ops, ref):
+    """ops and ref of a checkout without the fused co-placed decode, with
+    ``paged_attention_coplace`` as that checkout's decode body ran it: its
+    ``stripe_slots``, the partial, the combine, the cast to q's dtype."""
+    from repro_torch.core.hybrid_attention import stripe_slots
+
+    def coplace(q, kp, vp, slots, valid, shards, partial, combine):
+        s_slots, s_valid = stripe_slots(slots, valid, shards=shards, capacity=kp.shape[2])
+        return combine(*partial(q, kp, vp, s_slots, s_valid)).to(q.dtype)
+
+    ops_ns = types.SimpleNamespace(**vars(ops))
+    ops_ns.paged_attention_coplace = lambda *a: coplace(
+        *a, ops.paged_attention_partial, ops.combine_partials)
+    ref_ns = types.SimpleNamespace(**vars(ref))
+    ref_ns.paged_attention_coplace_ref = lambda *a: coplace(
+        *a, ref.paged_attention_partial_pages_ref, ref.combine_partials_ref)
+    ref_ns.stripe_slots = stripe_slots
+    return ops_ns, ref_ns
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -74,6 +101,8 @@ def main() -> int:
 
     if not hasattr(ops, "paged_attention_pages"):
         ops, ref = unfused(ops, ref)
+    if not hasattr(ops, "paged_attention_coplace"):
+        ops, ref = partial_then_combine(ops, ref)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
@@ -86,6 +115,8 @@ def main() -> int:
                       "ms": timer.ms(floor.zero_, 20)}), flush=True)
     cases = cs.check_paged(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
                            cs.serve_capacity(cfg))
+    for part in cs.check_partial(ops, ref, timer, dev, cfg, torch.bfloat16, gen):
+        cases += part
     cases += cs.check_flash(ops, ref, timer, dev, cfg, torch.bfloat16, gen)
     for case in cases:
         print(json.dumps({"tag": args.tag, **case}), flush=True)

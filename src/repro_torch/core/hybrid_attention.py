@@ -387,10 +387,10 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
                   equal scores, as ``lax.top_k``), as physical ids; a global
                   top-K over the stripe-major concatenation; -1 where the
                   score is masked (<= NEG_INF_HALF) and as padding to K;
-      attend      the [sink | selected | local] slots, each kept only on the
-                  stripe that owns it (-1 elsewhere), with the validity of
-                  the unsplit buffer; one partial-attention launch over
-                  every stripe, one combine launch, cast to q's dtype.
+      attend      the [sink | selected | local] slots and the validity of
+                  the unsplit buffer; each stripe attends the pages it owns,
+                  and the stripes' partials are combined, in q's dtype: one
+                  launch (``kops.paged_attention_coplace``).
 
     No step reads from the card. Returns (out (B, HqR, D), paged).
     """
@@ -425,25 +425,8 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
     valid = paging.token_validity(
         slots, paged.page_start, ctx, sink=h2.sink, local=h2.local, page=p_sz,
         top_k=top_k)                                      # (B, Hr, N*P)
-    slots_s, valid_s = stripe_slots(slots, valid, shards=nsh, capacity=cap)
-    m, l, o = kops.paged_attention_partial(q_r, paged.k_pages, paged.v_pages,
-                                           slots_s, valid_s)
-    return kops.combine_partials(m, l, o).to(q_r.dtype), paged
-
-
-def stripe_slots(slots, valid, *, shards: int, capacity: int):
-    """Each stripe's share of an attended slot list: slots (B, H, N) and the
-    validity (B, H, N*P) of their buffer -> (S, B, H, N) int32 with -1
-    where the stripe does not own the slot (it owns [s·C/S, (s+1)·C/S)),
-    and (S, B, H, N*P) bool. Masking a slot to -1 only clears its tokens,
-    so each stripe's validity is the buffer's restricted to its slots."""
-    n = slots.shape[2]
-    stripe = torch.arange(shards, device=slots.device)[:, None, None, None]
-    mine = (slots >= 0) & (torch.div(slots, capacity // shards,
-                                     rounding_mode="floor") == stripe)
-    slots_s = torch.where(mine, slots, -1).to(torch.int32)
-    valid_s = valid & mine.repeat_interleave(valid.shape[2] // n, dim=3)
-    return slots_s, valid_s
+    return kops.paged_attention_coplace(q_r, paged.k_pages, paged.v_pages, slots,
+                                        valid, nsh), paged
 
 
 def full_decode_attention(spec: AttnSpec, q, k_new, v_new,

@@ -30,9 +30,10 @@ SIGNATURES = {
                               _I, _F, _P),
     "h2eal_flash_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _P),
-    # paged_attention: a contiguous buffer (slots null) or a page table
+    # paged_attention: a contiguous buffer (slots null) or a page table,
+    # split over unit ranges or page stripes (the last _I: the mode)
     "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _L, _I, _F, _P),
+                              _I, _I, _I, _I, _L, _I, _I, _F, _P),
     "h2eal_page_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # chunk_attention(_paged): f32 on the FMA units, bf16 on the tensor cores
     "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
@@ -42,8 +43,6 @@ SIGNATURES = {
                                     _I, _I, _I, _F, _P),
     "h2eal_chunk_attention_paged_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _I, _F, _P),
-    "h2eal_paged_attention_partial": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _F, _P),
     "h2eal_combine_partials": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 

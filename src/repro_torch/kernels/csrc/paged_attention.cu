@@ -1,17 +1,33 @@
 // One-query decode attention with a validity mask, over a contiguous KV
 // buffer or straight from the paged cache through a page table, as a
-// split-KV grid that merges its splits in the same launch.
+// split-KV grid that merges its splits in the same launch; or split over
+// page stripes, the co-placed decode.
 //
-// Replaces the TPU kernel repro/kernels/paged_attention.py::paged_attention
-// (_stream_call's pl.pallas_call at :89). Same contract: q (B,Hq,D), and
-// either k/v (B,Hkv,T,D) (ops.paged_attention: the streaming ring, the
-// full-attention baseline) or k/v pages (B,Hkv,C,P,D) with slots (B,Hkv,N)
-// int32 (ops.paged_attention_pages: the retrieval heads' [sink | top-k |
-// local] pages), where token t of the attended buffer is row t % P of page
-// slots[t / P], clamped into [0, C) as ref.gather_pages clamps it;
-// valid (B,Hkv,T) bool with T = N·P in the paged mode; one storage dtype
-// (f32 or bf16). softmax(q·kᵀ/sqrt(D))·v over the valid tokens in f32,
-// output (B,Hq,D) in q's dtype; a row with no valid token returns 0.
+// Replaces two TPU kernels of repro/kernels/paged_attention.py, both
+// _stream_call's pl.pallas_call at :89:
+//   * paged_attention (fn :121). Contract: q (B,Hq,D), and either k/v
+//     (B,Hkv,T,D) (ops.paged_attention: the streaming ring, the
+//     full-attention baseline) or k/v pages (B,Hkv,C,P,D) with slots
+//     (B,Hkv,N) int32 (ops.paged_attention_pages: the retrieval heads'
+//     [sink | top-k | local] pages), where token t of the attended buffer is
+//     row t % P of page slots[t / P], clamped into [0, C) as
+//     ref.gather_pages clamps it; valid (B,Hkv,T) bool with T = N·P in the
+//     paged mode; one storage dtype (f32 or bf16). softmax(q·kᵀ/sqrt(D))·v
+//     over the valid tokens in f32, output (B,Hq,D) in q's dtype; a row with
+//     no valid token returns 0.
+//   * paged_attention_partial (fn :152), which each device of the
+//     coplace_shmap mesh runs over the pages it owns, and whose partials
+//     combine_partials (:211) merges. Here the mesh's 'model' axis is a
+//     stripe axis of S splits: stripe s owns the page slots [s·C/S,
+//     (s+1)·C/S). Two modes:
+//       coplace (ops.paged_attention_coplace): the unsplit slots (B,Hkv,N)
+//         and validity (B,Hkv,N·P); each stripe keeps the page pieces whose
+//         slot it owns, and the last block of a (batch, kv head) merges the
+//         stripes as combine_partials does: output (B,Hq,D) in q's dtype;
+//       partials (ops.paged_attention_partial): per-stripe slots (S,B,Hkv,N),
+//         -1 where the stripe attends none, and validity (S,B,Hkv,N·P); each
+//         block writes its raw (m, l, o) to m, l (S,B,Hq) and o (S,B,Hq,D)
+//         f32, (-1e30, 0, 0) for a stripe with no valid token.
 //
 // Why the gather is inside: the TPU kernel takes a gathered buffer because
 // a scalar-prefetched in-kernel gather buys nothing there. On the H100 the
@@ -31,7 +47,17 @@
 // Design. The key axis is cut into units of RK = 32 consecutive tokens of
 // the attended buffer. The grid is (split, kv head, batch), one block an SM
 // (ops.py::paged_splits: the most splits with B·Hkv·n <= 132 that keep 128
-// keys a split); split s owns units [s·U/n, (s+1)·U/n). A block is one
+// keys a split); split s owns units [s·U/n, (s+1)·U/n). Split over stripes,
+// the grid is (S, kv head, batch) and a stripe's units are those holding a
+// page piece whose slot it owns: the producer first reads the whole slot
+// list in ceil(N/32) coalesced loads (8 in flight at once), ballots each
+// slot's owner into a bitmap (kept in the ring, which is free until the
+// first copy), and writes the indices of the units with an owned piece to
+// shared memory; the walk below then takes its units from that list, so a
+// stripe never waits on the ~N·(S-1)/S slots it does not own. In every
+// lane's token a piece the stripe does not own reads as not valid: at
+// P < 32 a unit spans pages of several stripes, and each keeps its own.
+// A block is one
 // producer warp and NW = 4 consumer warps around a ring of STAGES = 4·SPW
 // stages (128 KB: 8 stages of one unit's K and V at bf16 D = 128), each with
 // a full and an empty mbarrier:
@@ -58,9 +84,10 @@
 //     own shared-memory row to the lanes that own the value columns, which
 //     accumulate p·v from 16-byte V loads. Rows not loaded read as 0.
 // The warps' states merge once, through shared memory, at the end. With
-// n = 1 the block divides and writes the output; with n > 1 it writes its
-// raw (m, l, o) to scratch, fences and counts itself in on its (batch, kv
-// head) counter; the block that arrives last merges the n partials in split
+// n = 1 the block divides and writes the output; in the partials mode it
+// writes its raw (m, l, o) and ends; otherwise it writes them to scratch
+// ((B, Hkv, n, g[, D]), or over stripes the partials' (n, B, Hkv, g[, D])),
+// fences and counts itself in on its (batch, kv head) counter; the block that arrives last merges the n partials in split
 // order by combine_partials' rule (global max, rescale, sum, divide by
 // max(l, 1e-30)) with its loads in flight together, writes the output and
 // resets the counter to 0, so the output does not depend on which block ends
@@ -72,12 +99,13 @@
 // Numerics: every product and sum is f32 on the FMA units (bf16 widened
 // exactly), p is never rounded, so the result differs from the plain
 // version on widened inputs by summation order and the output's own
-// rounding alone: 2^-8·|plain| + 1e-5 in bf16, 1e-4 in f32.
+// rounding alone: 2^-8·|plain| + 1e-5 in bf16, 1e-4 in f32; the partials
+// are f32 and differ by summation order alone.
 //
 // Registers (-Xptxas -v): the serving instantiation (bf16, D = 128, a group
 // of 4) takes 167 and no instantiation spills but one: f32 at D = 128 with
 // a group of 5 to 8, whose 64 q values and 64 accumulators a lane leave too
-// little room, spills 32 bytes.
+// little room, spills 56 bytes.
 #include "common.cuh"
 #include "tma.cuh"
 
@@ -96,6 +124,11 @@ constexpr int RK = 32;             // tokens per unit
 constexpr int PF = 8;              // units whose validity and slots the producer reads at once
 constexpr int MAXG = 8;            // largest GQA group
 constexpr int RING_BYTES = 128 * 1024;
+
+// how the key axis is split: contiguous unit ranges, merged (paged_attention);
+// page stripes of one slot list, merged (coplace); page stripes of per-stripe
+// slot lists, raw partials out (partials)
+enum Mode { kRange = 0, kCoplace = 1, kPartials = 2 };
 
 constexpr int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
 
@@ -198,13 +231,16 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[N], int idx) {
   return v[0];
 }
 
-template <typename T, int D, int G>
+// STRIPES: split over page stripes (the coplace and partials modes), a
+// separate instantiation so that the range mode's producer is not slowed by
+// the stripes' compaction and owner checks
+template <typename T, int D, int G, bool STRIPES>
 __global__ void __launch_bounds__(NT, 1) paged_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ slots, const unsigned char* __restrict__ valid, T* __restrict__ o,
     float* __restrict__ part_o, float* __restrict__ part_m, float* __restrict__ part_l,
     int* __restrict__ counters, int hkv, int g, int t_len, int page, int c, long kv_stride,
-    int n_split, float scale) {
+    int n_split, int mode, float scale) {
   using C = Cfg<T, D, G>;
   constexpr int VN = C::VN, LPK = C::LPK, KPI = C::KPI, STAGES = C::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -216,6 +252,7 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long bh = (long)b * hkv + hk;
+  const long nbh = (long)gridDim.z * hkv;
   const int n_units = (t_len + RK - 1) / RK;
 
   if (tid == 0) {
@@ -229,35 +266,90 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
 
   if (warp == NW) {
     // ---- producer ----
-    const int u_beg = (int)((long)split * n_units / n_split);
-    const int u_end = (int)((long)(split + 1) * n_units / n_split);
-    const unsigned char* vl = valid + bh * t_len;
-    const int* sl = slots != nullptr ? slots + bh * (t_len / page) : nullptr;
+    // this block's slot list and validity: per stripe in the partials mode
+    const bool lists = STRIPES && mode == kPartials;
+    const long row = lists ? split * nbh + bh : bh;
+    const int n_slots = t_len / page;
+    const unsigned char* vl = valid + row * t_len;
+    const int* sl = slots != nullptr ? slots + row * n_slots : nullptr;
     const T* kb = k + bh * kv_stride;
     const T* vb = v + bh * kv_stride;
-    // this lane's token of units u0 .. u0 + PF - 1: its validity and slot
-    auto fetch = [&](int u0, unsigned char (&ok)[PF], int (&slot)[PF]) {
+    const int c_own = c / n_split;  // slots a stripe owns (coplace)
+    auto owns = [&](int slot) {
+      return slot >= 0 && (lists || slot / c_own == split);
+    };
+    // the units this split walks: list positions [0, u_end) of `units`
+    // (stripes), or units [u_beg, u_end)
+    int* units = reinterpret_cast<int*>(smem + C::bytes);
+    int u_beg = 0, u_end = 0;
+    if constexpr (STRIPES) {
+      // owner bits of every slot, 32 a word, in the ring (free until the
+      // first copy); PF words' loads in flight at once
+      unsigned* own_bits = reinterpret_cast<unsigned*>(smem);
+      const int words = (n_slots + 31) / 32;
+      for (int w0 = 0; w0 < words; w0 += PF) {
+        int s8[PF];
+#pragma unroll
+        for (int i = 0; i < PF; ++i) {
+          const int j = (w0 + i) * 32 + lane;
+          s8[i] = j < n_slots ? sl[j] : -1;
+        }
+#pragma unroll
+        for (int i = 0; i < PF; ++i) {
+          const unsigned bits = __ballot_sync(0xffffffffu, owns(s8[i]));
+          if (lane == 0 && w0 + i < words) own_bits[w0 + i] = bits;
+        }
+      }
+      __syncwarp();
+      // the units with an owned piece (slots [lo, hi] of its tokens), in order
+      for (int u0 = 0; u0 < n_units; u0 += 32) {
+        const int u = u0 + lane;
+        bool own = false;
+        if (u < n_units) {
+          const int hi = (min(t_len, (u + 1) * RK) - 1) / page;
+          for (int i = u * RK / page; i <= hi; ++i) own |= (own_bits[i >> 5] >> (i & 31)) & 1u;
+        }
+        const unsigned om = __ballot_sync(0xffffffffu, own);
+        if (own) units[u_end + __popc(om & ((1u << lane) - 1u))] = u;
+        u_end += __popc(om);
+      }
+      __syncwarp();
+      // the bitmap's reads are done before the ring takes its first copy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    } else {
+      u_beg = (int)((long)split * n_units / n_split);
+      u_end = (int)((long)(split + 1) * n_units / n_split);
+    }
+    // this lane's token of the units at positions i0 .. i0 + PF - 1: the
+    // unit, its validity and its slot (not yet checked for the owner: that
+    // would wait on the loads here, which are to fly while the units before
+    // them issue)
+    auto fetch = [&](int i0, unsigned char (&ok)[PF], int (&slot)[PF], int (&unit)[PF]) {
 #pragma unroll
       for (int i = 0; i < PF; ++i) {
-        const int t = (u0 + i) * RK + lane;
-        const bool in = u0 + i < u_end && t < t_len;
+        const bool listed = i0 + i < u_end;
+        unit[i] = STRIPES && listed ? units[i0 + i] : i0 + i;
+        const int t = unit[i] * RK + lane;
+        const bool in = listed && t < t_len;
         ok[i] = in ? vl[t] : 0;
         slot[i] = in && sl != nullptr ? sl[t / page] : t / page;
       }
     };
     unsigned char ok8[PF];
-    int slot8[PF];
-    fetch(u_beg, ok8, slot8);
+    int slot8[PF], unit8[PF];
+    fetch(u_beg, ok8, slot8, unit8);
     int item = 0;
-    for (int u0 = u_beg; u0 < u_end; u0 += PF) {
+    for (int i0 = u_beg; i0 < u_end; i0 += PF) {
       unsigned char ok_next[PF];  // the next units' loads fly while these issue
-      int slot_next[PF];
-      fetch(u0 + PF, ok_next, slot_next);
+      int slot_next[PF], unit_next[PF];
+      fetch(i0 + PF, ok_next, slot_next, unit_next);
 #pragma unroll
       for (int i = 0; i < PF; ++i) {
-        const unsigned okm = __ballot_sync(0xffffffffu, ok8[i] != 0);
+        const unsigned okm =
+            __ballot_sync(0xffffffffu, ok8[i] != 0 && (!STRIPES || owns(slot8[i])));
         if (okm == 0) continue;  // no valid token: the unit is never loaded
-        const int t0 = (u0 + i) * RK;
+        const int u = STRIPES ? unit8[i] : i0 + i;
+        const int t0 = u * RK;
         // this lane's page piece: [p0, p0 + len) of the unit, within one page;
         // its rows are loaded iff one of them is valid
         const bool in = t0 + lane < t_len;
@@ -270,7 +362,7 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
         const int st = item % STAGES;
         if (lane == 0) {
           mbar_wait(&empty[st], ((item / STAGES) & 1) ^ 1);
-          info[st] = make_int4(u0 + i, (int)okm, (int)ldm, 0);
+          info[st] = make_int4(u, (int)okm, (int)ldm, 0);
           mbar_expect_tx(&full[st], 2u * __popc(ldm) * C::ROW);
         }
         __syncwarp();
@@ -287,6 +379,7 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
       for (int i = 0; i < PF; ++i) {
         ok8[i] = ok_next[i];
         slot8[i] = slot_next[i];
+        unit8[i] = unit_next[i];
       }
     }
     for (int w = 0; w < NW; ++w, ++item) {  // one end marker a consumer
@@ -409,7 +502,13 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
   const float* wl = reinterpret_cast<const float*>(smem + C::WL);
   const float* wa = reinterpret_cast<const float*>(smem + C::WA);
   T* ob = o + bh * g * D;
-  const long pbase = (bh * n_split + split) * g;  // this split's rows in scratch
+  // the partials' rows: (n, B, Hkv, g) over stripes, the partials mode's
+  // layout; (B, Hkv, n, g) over unit ranges
+  const long base = STRIPES ? bh * g : bh * n_split * g;  // split 0's rows
+  const long s_rows = STRIPES ? nbh * g : g;               // from one split to the next
+  const long pbase = base + split * s_rows;
+  const bool partials = STRIPES && mode == kPartials;
+  const bool divide = n_split == 1 && !partials;
   for (int idx = tid; idx < g * D; idx += NT) {
     const int r = idx / D, d = idx % D;
     float mg = kNegInf;
@@ -422,7 +521,7 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
       lg = fmaf(wl[w * G + r], cw, lg);
       og = fmaf(wa[(w * G + r) * D + d], cw, og);
     }
-    if (n_split == 1) {
+    if (divide) {
       store(&ob[idx], og / fmaxf(lg, 1e-30f));
     } else {
       part_o[pbase * D + idx] = og;
@@ -432,7 +531,7 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
       }
     }
   }
-  if (n_split == 1) return;
+  if (divide || partials) return;
   __threadfence();  // the partial is visible device-wide before the count
   __syncthreads();
   if (tid == 0) {
@@ -449,12 +548,11 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
   // later), and m, l into shared memory (the ring is free) for the weights
   constexpr int COLS = (G * D / 4 + NT - 1) / NT;  // float4 columns of o a thread
   constexpr int MAXS = 16 / COLS;
-  const long base = bh * n_split * g;
   float* mt = reinterpret_cast<float*>(smem);  // [n][g] m
   float* lt = mt + n_split * g;                // [n][g] l
   float* mx = lt + n_split * g;                // [g] max, [g] 1 / l
   const float4* src = reinterpret_cast<const float4*>(part_o + base * D);
-  const long s_stride = (long)g * D / 4;       // float4s of one split's partial
+  const long s_stride = s_rows * D / 4;        // float4s from one split's partial to the next
   float4 x[COLS][MAXS];
 #pragma unroll
   for (int cc = 0; cc < COLS; ++cc) {
@@ -465,8 +563,9 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
                                                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (int i = tid; i < n_split * g; i += NT) {
-    mt[i] = __ldcg(&part_m[base + i]);
-    lt[i] = __ldcg(&part_l[base + i]);
+    const long at = STRIPES ? base + (i / g) * s_rows + i % g : base + i;
+    mt[i] = __ldcg(&part_m[at]);
+    lt[i] = __ldcg(&part_l[at]);
   }
   __syncthreads();
   if (tid < g) {
@@ -505,50 +604,60 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
   }
 }
 
-template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* slots,
-                   const void* valid, void* o, float* po, float* pm, float* pl, int* counters,
-                   int b, int hkv, int g, int t_len, int page, int c, long kv_stride,
-                   int n_split, float scale, cudaStream_t stream) {
+// one launch's operands (see h2eal_paged_attention)
+struct Args {
+  const void *q, *k, *v, *slots, *valid;
+  void* o;
+  float *po, *pm, *pl;
+  int* counters;
+  int b, hkv, g, t_len, page, c;
+  long kv_stride;
+  int n_split, mode;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int G, bool STRIPES>
+cudaError_t launch(const Args& a) {
   using C = Cfg<T, D, G>;
-  // the last block's merge keeps 2·n·g + 2·g floats in the ring
-  if ((2 * n_split + 2) * g * 4 > C::STAGES * 2 * C::UNIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(paged_kernel<T, D, G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
+  // the last block's merge keeps 2·n·g + 2·g floats in the ring, and a
+  // stripe's compaction one owner bit a slot
+  if ((2 * a.n_split + 2) * a.g * 4 > C::STAGES * 2 * C::UNIT) return cudaErrorInvalidValue;
+  if (STRIPES && (a.t_len / a.page + 31) / 32 * 4 > C::STAGES * 2 * C::UNIT)
+    return cudaErrorInvalidValue;
+  // a stripe's unit list follows the fixed layout
+  const int bytes = C::bytes + (STRIPES ? 4 * ((a.t_len + RK - 1) / RK) : 0);
+  cudaError_t err = cudaFuncSetAttribute(paged_kernel<T, D, G, STRIPES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_split, hkv, b);
-  paged_kernel<T, D, G><<<grid, NT, C::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(slots), static_cast<const unsigned char*>(valid),
-      static_cast<T*>(o), po, pm, pl, counters, hkv, g, t_len, page, c, kv_stride, n_split,
-      scale);
+  const dim3 grid(a.n_split, a.hkv, a.b);
+  paged_kernel<T, D, G, STRIPES><<<grid, NT, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const int*>(a.slots), static_cast<const unsigned char*>(a.valid),
+      static_cast<T*>(a.o), a.po, a.pm, a.pl, a.counters, a.hkv, a.g, a.t_len, a.page, a.c,
+      a.kv_stride, a.n_split, a.mode, a.scale);
   return cudaGetLastError();
 }
 
+template <typename T, int D, int G>
+cudaError_t dispatch_mode(const Args& a) {
+  return a.mode == kRange ? launch<T, D, G, false>(a) : launch<T, D, G, true>(a);
+}
+
 template <typename T, int D>
-cudaError_t dispatch_g(const void* q, const void* k, const void* v, const void* slots,
-                       const void* valid, void* o, float* po, float* pm, float* pl,
-                       int* counters, int b, int hkv, int g, int t_len, int page, int c,
-                       long kv_stride, int n_split, float scale, cudaStream_t st) {
-#define H2EAL_PAGED(G_) \
-  launch<T, D, G_>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, \
-                   kv_stride, n_split, scale, st)
-  if (g <= 1) return H2EAL_PAGED(1);
-  if (g <= 2) return H2EAL_PAGED(2);
-  if (g <= 4) return H2EAL_PAGED(4);
-  return H2EAL_PAGED(8);
-#undef H2EAL_PAGED
+cudaError_t dispatch_g(const Args& a) {
+  if (a.g <= 1) return dispatch_mode<T, D, 1>(a);
+  if (a.g <= 2) return dispatch_mode<T, D, 2>(a);
+  if (a.g <= 4) return dispatch_mode<T, D, 4>(a);
+  return dispatch_mode<T, D, 8>(a);
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const void* slots,
-                       const void* valid, void* o, float* po, float* pm, float* pl,
-                       int* counters, int b, int hkv, int g, int t_len, int page, int c,
-                       long kv_stride, int n_split, float scale, cudaStream_t st) {
+cudaError_t dispatch_d(int d, const Args& a) {
   switch (d) {
-    case 32: return dispatch_g<T, 32>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, kv_stride, n_split, scale, st);
-    case 64: return dispatch_g<T, 64>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, kv_stride, n_split, scale, st);
-    case 128: return dispatch_g<T, 128>(q, k, v, slots, valid, o, po, pm, pl, counters, b, hkv, g, t_len, page, c, kv_stride, n_split, scale, st);
+    case 32: return dispatch_g<T, 32>(a);
+    case 64: return dispatch_g<T, 64>(a);
+    case 128: return dispatch_g<T, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -556,28 +665,35 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 }  // namespace
 }  // namespace h2eal
 
-// slots: (B, Hkv, t_len / page) int32 page table, or null for a contiguous
-// (B, Hkv, t_len, D) k/v (then page = 32); kv_stride: elements of k/v per
-// (batch, kv head). part_o (B, Hkv, n_split, g, D), part_m / part_l (B, Hkv,
-// n_split, g): f32 scratch (unused when n_split == 1); counters: >= B·Hkv
-// int32, all 0. Every pointer is 16-byte aligned.
+// slots: (B, Hkv, t_len / page) int32 page table ((S, B, Hkv, t_len / page)
+// in the partials mode), or null for a contiguous (B, Hkv, t_len, D) k/v
+// (then page = 32; range mode only); valid: (B, Hkv, t_len) bool ((S, B,
+// Hkv, t_len) in the partials mode); kv_stride: elements of k/v per (batch,
+// kv head). mode: 0 range, 1 coplace, 2 partials (see the note at the top);
+// n_split: the splits, or the stripes S (c a multiple of S in the coplace
+// mode). part_o (B, Hkv, n_split, g, D), part_m / part_l (B, Hkv, n_split,
+// g) in the range mode, (n_split, B, Hkv, g[, D]) over stripes: f32
+// scratch of the merge (unused when n_split == 1 outside the partials
+// mode), the outputs in the partials mode (o unused then); counters:
+// >= B·Hkv int32, all 0. Every pointer is 16-byte aligned.
 extern "C" int h2eal_paged_attention(const void* q, const void* k, const void* v,
                                      const void* slots, const void* valid, void* o,
                                      void* part_o, void* part_m, void* part_l, void* counters,
                                      int dtype, int b, int hkv, int g, int d, int t_len,
                                      int page, int c, long long kv_stride, int n_split,
-                                     float scale, void* stream) {
+                                     int mode, float scale, void* stream) {
   using namespace h2eal;
-  if (g < 1 || g > MAXG || n_split < 1 || page < 1 || c < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* po = static_cast<float*>(part_o);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  int* cnt = static_cast<int*>(counters);
-  const long ks = static_cast<long>(kv_stride);
-  if (dtype == kF32)
-    return dispatch_d<float>(d, q, k, v, slots, valid, o, po, pm, pl, cnt, b, hkv, g, t_len, page, c, ks, n_split, scale, st);
-  if (dtype == kBF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, slots, valid, o, po, pm, pl, cnt, b, hkv, g, t_len, page, c, ks, n_split, scale, st);
+  if (g < 1 || g > MAXG || n_split < 1 || page < 1 || c < 1 || mode < kRange ||
+      mode > kPartials)
+    return cudaErrorInvalidValue;
+  if (mode != kRange && (slots == nullptr || (mode == kCoplace && c % n_split != 0)))
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, slots, valid, o,
+               static_cast<float*>(part_o), static_cast<float*>(part_m),
+               static_cast<float*>(part_l), static_cast<int*>(counters),
+               b, hkv, g, t_len, page, c, static_cast<long>(kv_stride), n_split, mode, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == kF32) return dispatch_d<float>(d, a);
+  if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(d, a);
   return cudaErrorInvalidValue;
 }

@@ -27,11 +27,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 8
 _MAX_TILE_GROUP = 64  # the bf16 chunk kernels' q tile: 64 rows
-_MAX_SLOTS = 2048  # paged_attention_partial's slot list lives in shared memory
 # paged_attention's split-KV grid: one block on each of the H100's 132 SMs,
 # but at least this many keys in a split
 _SPLIT_BLOCKS = 132
 _SPLIT_MIN_KEYS = 128
+# csrc/paged_attention.cu's splits: contiguous unit ranges, merged; page
+# stripes of one slot list, merged; page stripes of per-stripe lists, raw
+# partials out
+_RANGE, _COPLACE, _PARTIALS = 0, 1, 2
+# a stripe's list of 32-token units lives in shared memory beside the ring
+_MAX_STRIPE_UNITS = 16384
 # per (device, stream), zeroed once when made and left zero by each launch
 # (the kernels' last blocks reset them): paged_attention's int32 arrival
 # counters, one per (batch, kv head), and the bf16 flash kernel's two
@@ -162,29 +167,38 @@ def _check_decode(name, q, k, v, valid, hkv, t):
              f"{name}: q, k and v must be 16-byte aligned")
 
 
-def _paged_launch(q, k, v, slots, valid, t, page, c, kv_stride):
-    """One launch of csrc/paged_attention.cu: ``paged_splits`` splits a
-    (batch, kv head), whose last block merges the splits' partials (held in
-    scratch made here); ``kv_stride`` elements of k/v per (batch, kv head)."""
+def _paged_launch(q, k, v, slots, valid, t, page, c, kv_stride, *, mode=_RANGE,
+                  n=None):
+    """One launch of csrc/paged_attention.cu; ``kv_stride`` elements of k/v
+    per (batch, kv head). Split over ``paged_splits`` unit ranges (range
+    mode) or over ``n`` page stripes; merged by the last block of a (batch,
+    kv head) through scratch made here, or, in the partials mode, the
+    stripes' raw (m, l, o) returned."""
     b, hq, d = q.shape
     hkv = k.shape[1]
-    g = hq // hkv
-    n = paged_splits(b, hkv, t)
-    out = torch.empty_like(q)
-    rows = b * hkv * n * g
-    part = torch.empty(rows * (d + 2) if n > 1 else 4, dtype=torch.float32,
-                       device=q.device)
-    po = part.data_ptr()  # o first: 16-byte aligned for the merge's loads
+    n = paged_splits(b, hkv, t) if mode == _RANGE else n
+    rows = n * b * hq
+    if mode == _PARTIALS:
+        m = torch.empty((n, b, hq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        o = torch.empty((n, b, hq, d), dtype=torch.float32, device=q.device)
+        outs = (None, o.data_ptr(), m.data_ptr(), l.data_ptr())
+    else:
+        out = torch.empty_like(q)
+        part = torch.empty(rows * (d + 2) if n > 1 else 4, dtype=torch.float32,
+                           device=q.device)
+        po = part.data_ptr()  # o first: 16-byte aligned for the merge's loads
+        outs = (out.data_ptr(), po, po + 4 * rows * d, po + 4 * rows * (d + 1))
+    name = "paged_attention" if mode == _RANGE else "paged_attention_partial"
     with torch.cuda.device(q.device):
         err = _build.library().h2eal_paged_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if slots is None else slots.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), po, po + 4 * rows * d, po + 4 * rows * (d + 1),
-            _counters(q, b * hkv).data_ptr(), _DTYPES[q.dtype], b, hkv, g, d,
-            t, page, c, kv_stride, n, _scale(d), _stream(q))
-    _build.check(err, "paged_attention")
-    LAUNCHES["paged_attention"] += 1
-    return out
+            None if slots is None else slots.data_ptr(), valid.data_ptr(), *outs,
+            _counters(q, b * hkv).data_ptr(), _DTYPES[q.dtype], b, hkv, hq // hkv, d,
+            t, page, c, kv_stride, n, mode, _scale(d), _stream(q))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return (m, l, o) if mode == _PARTIALS else out
 
 
 def paged_attention(q, k, v, valid):
@@ -201,6 +215,21 @@ def paged_attention(q, k, v, valid):
     return _paged_launch(q, k, v, None, valid, t, 32, max(1, -(-t // 32)), t * d)
 
 
+def _check_pages(name, q, k_pages, v_pages, slots, stripe_lists=False):
+    """The page-table operands: (hkv, c, p, n) of k/v_pages (B, Hkv, C, P, D)
+    and slots (B, Hkv, N) int32, or (S, B, Hkv, N) with ``stripe_lists``."""
+    b, _, d = q.shape
+    _require(k_pages.dim() == 5 and k_pages.shape == v_pages.shape
+             and k_pages.shape[0] == b and k_pages.shape[4] == d,
+             f"{name}: k/v_pages must be (B, Hkv, C, P, D)")
+    hkv, c, p = k_pages.shape[1:4]
+    dims, shape = (4, "(S, B, Hkv, N)") if stripe_lists else (3, "(B, Hkv, N)")
+    _require(slots.dim() == dims and slots.shape[-3:-1] == (b, hkv)
+             and slots.dtype == torch.int32, f"{name}: slots must be {shape} int32")
+    _check_operands(name, (slots,))
+    return hkv, c, p, slots.shape[-1]
+
+
 def paged_attention_pages(q, k_pages, v_pages, slots, valid):
     """Decode attention over the pages ``slots`` names, read in place: q
     (B, Hq, D); k/v_pages (B, Hkv, C, P, D); slots (B, Hkv, N) int32, clamped
@@ -211,18 +240,37 @@ def paged_attention_pages(q, k_pages, v_pages, slots, valid):
     Counts under ``LAUNCHES["paged_attention"]``: the same TPU kernel."""
     if _on_cpu(q, k_pages, v_pages, slots, valid):
         return _ref.paged_attention_pages_ref(q, k_pages, v_pages, slots, valid)
-    b, _, d = q.shape
-    _require(k_pages.dim() == 5 and k_pages.shape == v_pages.shape
-             and k_pages.shape[0] == b and k_pages.shape[4] == d,
-             "paged_attention_pages: k/v_pages must be (B, Hkv, C, P, D)")
-    hkv, c, p = k_pages.shape[1:4]
-    _require(slots.dim() == 3 and slots.shape[:2] == (b, hkv)
-             and slots.dtype == torch.int32,
-             "paged_attention_pages: slots must be (B, Hkv, N) int32")
-    _check_operands("paged_attention_pages", (slots,))
-    t = slots.shape[2] * p
-    _check_decode("paged_attention_pages", q, k_pages, v_pages, valid, hkv, t)
-    return _paged_launch(q, k_pages, v_pages, slots, valid, t, p, c, c * p * d)
+    hkv, c, p, n = _check_pages("paged_attention_pages", q, k_pages, v_pages, slots)
+    _check_decode("paged_attention_pages", q, k_pages, v_pages, valid, hkv, n * p)
+    return _paged_launch(q, k_pages, v_pages, slots, valid, n * p, p, c, c * p * q.shape[2])
+
+
+def _check_stripe_units(name, t):
+    _require(-(-t // 32) <= _MAX_STRIPE_UNITS,
+             f"{name}: {t} attended tokens, above {32 * _MAX_STRIPE_UNITS}")
+
+
+def paged_attention_coplace(q, k_pages, v_pages, slots, valid, shards: int):
+    """The retrieval heads' decode under co-placement over ``shards`` page
+    stripes (stripe s owns the page slots [s·C/S, (s+1)·C/S)): q (B, Hq, D);
+    k/v_pages (B, Hkv, C, P, D); the unsplit attended slots (B, Hkv, N)
+    int32 and validity (B, Hkv, N*P) bool -> (B, Hq, D) in q's dtype:
+    ``combine_partials`` of each stripe's ``paged_attention_partial``
+    (``ref.stripe_slots``), cast to q's dtype. On the card: one launch of
+    ``csrc/paged_attention.cu`` over (S, Hkv, B) blocks, each stripe's block
+    walking the pages it owns, the last block of a (batch, kv head) merging
+    the stripes in stripe order. Counts under
+    ``LAUNCHES["paged_attention_partial"]``."""
+    if _on_cpu(q, k_pages, v_pages, slots, valid):
+        return _ref.paged_attention_coplace_ref(q, k_pages, v_pages, slots, valid, shards)
+    name = "paged_attention_coplace"
+    hkv, c, p, n = _check_pages(name, q, k_pages, v_pages, slots)
+    _check_decode(name, q, k_pages, v_pages, valid, hkv, n * p)
+    _require(shards >= 1 and c % shards == 0,
+             f"{name}: {c} pages do not divide into {shards} stripes")
+    _check_stripe_units(name, n * p)
+    return _paged_launch(q, k_pages, v_pages, slots, valid, n * p, p, c,
+                         c * p * q.shape[2], mode=_COPLACE, n=shards)
 
 
 def page_score(q, tau_min, tau_max):
@@ -345,42 +393,22 @@ def paged_attention_partial(q, k_pages, v_pages, slots, valid):
     int32 page slots of each stripe, -1 where the stripe attends none;
     valid: (S, B, Hkv, N*P) bool. Returns (m (S, B, Hq), l (S, B, Hq),
     o (S, B, Hq, D)), f32: ``paged_attention_partial_ref`` of each stripe's
-    gathered buffer; a row with no valid token gives (-1e30, 0, 0)."""
+    gathered buffer; a row with no valid token gives (-1e30, 0, 0). On the
+    card: one launch of ``csrc/paged_attention.cu`` over (S, Hkv, B)
+    blocks, each walking the slots >= 0 of its stripe's list."""
     if _on_cpu(q, k_pages, v_pages, slots, valid):
         return _ref.paged_attention_partial_pages_ref(q, k_pages, v_pages, slots,
                                                       valid)
-    b, hq, d = q.shape
-    _require(k_pages.dim() == 5 and k_pages.shape == v_pages.shape
-             and k_pages.shape[0] == b and k_pages.shape[4] == d,
-             "paged_attention_partial: k/v_pages must be (B, Hkv, C, P, D)")
-    hkv, c, p = k_pages.shape[1:4]
-    _require(slots.dim() == 4 and slots.shape[1:3] == (b, hkv)
-             and slots.dtype == torch.int32,
-             "paged_attention_partial: slots must be (S, B, Hkv, N) int32")
-    s, n = slots.shape[0], slots.shape[3]
+    name = "paged_attention_partial"
+    hkv, c, p, n = _check_pages(name, q, k_pages, v_pages, slots, stripe_lists=True)
+    s, b = slots.shape[:2]
     _require(valid.shape == (s, b, hkv, n * p) and valid.dtype == torch.bool,
-             "paged_attention_partial: valid must be (S, B, Hkv, N*P) bool")
-    _require(q.dtype in _DTYPES,
-             f"paged_attention_partial: dtype {q.dtype} not supported")
-    _check_operands("paged_attention_partial", (q, k_pages, v_pages), q.dtype)
-    _check_operands("paged_attention_partial", (slots, valid))
-    _require(d in _HEAD_DIMS,
-             f"paged_attention_partial: head_dim {d} not in {_HEAD_DIMS}")
-    _require(hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP,
-             f"paged_attention_partial: GQA group must divide Hq and be <= {_MAX_GROUP}")
-    _require(1 <= n <= _MAX_SLOTS,
-             f"paged_attention_partial: {n} slots, expected 1..{_MAX_SLOTS}")
-    m = torch.empty((s, b, hq), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    o = torch.empty((s, b, hq, d), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _build.library().h2eal_paged_attention_partial(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), slots.data_ptr(),
-            valid.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], s, b, hkv, c, p, n, hq // hkv, d, _scale(d), _stream(q))
-    _build.check(err, "paged_attention_partial")
-    LAUNCHES["paged_attention_partial"] += 1
-    return m, l, o
+             f"{name}: valid must be (S, B, Hkv, N*P) bool")
+    _check_decode(name, q, k_pages, v_pages, valid[0], hkv, n * p)
+    _check_operands(name, (valid,))
+    _check_stripe_units(name, n * p)
+    return _paged_launch(q, k_pages, v_pages, slots, valid, n * p, p, c,
+                         c * p * q.shape[2], mode=_PARTIALS, n=s)
 
 
 def combine_partials(m, l, o):

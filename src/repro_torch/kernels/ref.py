@@ -225,6 +225,35 @@ def paged_attention_partial_pages_ref(q, k_pages, v_pages, slots, valid):
     return m.reshape(s, b, hq), l.reshape(s, b, hq), o.reshape(s, b, hq, d)
 
 
+def stripe_slots(slots, valid, *, shards: int, capacity: int):
+    """Each stripe's share of an attended slot list: slots (B, H, N) and the
+    validity (B, H, N*P) of their buffer -> (S, B, H, N) int32 with -1
+    where the stripe does not own the slot (it owns [s·C/S, (s+1)·C/S) of
+    the ``capacity`` C page slots), and (S, B, H, N*P) bool. Masking a slot
+    to -1 only clears its tokens, so each stripe's validity is the
+    buffer's restricted to its slots."""
+    n = slots.shape[2]
+    stripe = torch.arange(shards, device=slots.device)[:, None, None, None]
+    mine = (slots >= 0) & (torch.div(slots, capacity // shards,
+                                     rounding_mode="floor") == stripe)
+    slots_s = torch.where(mine, slots, -1).to(torch.int32)
+    valid_s = valid & mine.repeat_interleave(valid.shape[2] // n, dim=3)
+    return slots_s, valid_s
+
+
+def paged_attention_coplace_ref(q, k_pages, v_pages, slots, valid, shards: int):
+    """The co-placed decode over ``shards`` page stripes, as the reference's
+    per-device bodies and their combine compute it: each stripe's
+    ``paged_attention_partial_pages_ref`` over the slots it owns
+    (``stripe_slots``), merged by ``combine_partials_ref``, in q's dtype.
+    q: (B, Hq, D); k/v_pages: (B, Hkv, C, P, D); slots: (B, Hkv, N) int;
+    valid: (B, Hkv, N*P) bool -> (B, Hq, D)."""
+    slots_s, valid_s = stripe_slots(slots, valid, shards=shards,
+                                    capacity=k_pages.shape[2])
+    m, l, o = paged_attention_partial_pages_ref(q, k_pages, v_pages, slots_s, valid_s)
+    return combine_partials_ref(m, l, o).to(q.dtype)
+
+
 def merge_partials_ref(m, l, o, axis: int = 0):
     """Merge partials stacked on ``axis`` into one, still unnormalised: the
     global max, each partial rescaled to it, summed. m/l: (N, ...); o:

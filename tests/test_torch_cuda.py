@@ -615,6 +615,65 @@ def test_paged_attention_partial_kernel_at_main_path_width(cuda_dev):
     assert _partial_within(got, want)
 
 
+def _coplace_inputs(gen, dev, dtype, s, b, hkv, group, c, p, n, d):
+    """An unsplit attended list as the coplace_shmap decode hands it over:
+    random page slots (a -1 sentinel and a slot past C among them, both
+    invalid), validity random on the real slots; in row (0, 0) the last
+    stripe owns no slot (its slots moved to stripe 0), and row (B-1, Hkv-1)
+    has no valid token."""
+    q = _rand(gen, dev, dtype, b, hkv * group, d)
+    kp = _rand(gen, dev, dtype, b, hkv, c, p, d)
+    vp = _rand(gen, dev, dtype, b, hkv, c, p, d)
+    slots = torch.randint(0, c, (b, hkv, n), generator=gen, device=dev)
+    if s > 1:
+        c_own = c // s
+        row = slots[0, 0]
+        slots[0, 0] = torch.where(row >= (s - 1) * c_own, row % c_own, row)
+    slots[0, 1 % hkv, 2] = -1
+    slots[-1, 0, 3] = c
+    real = (slots >= 0) & (slots < c)
+    valid = (torch.rand(b, hkv, n, p, generator=gen, device=dev) < 0.7) & real[..., None]
+    valid[-1, -1] = False
+    return q, kp, vp, slots.to(torch.int32), valid.reshape(b, hkv, n * p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("s", [1, 4, 8])
+@pytest.mark.parametrize("p", [8, 32])
+def test_paged_attention_coplace_kernel(cuda_dev, dtype, d, group, s, p):
+    """The co-placed decode in one launch (stripes split and merged in it)
+    against the plain composition: each stripe's partial, combined, cast."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(group * 100 + s * 10 + p)
+    b, hkv, c, n = 2, 3, 24, 45
+    q, kp, vp, slots, valid = _coplace_inputs(gen, cuda_dev, dtype, s, b, hkv, group,
+                                              c, p, n, d)
+    ops.reset_launches()
+    got = ops.paged_attention_coplace(q, kp, vp, slots, valid, s)
+    want = tref.paged_attention_coplace_ref(*_widened(q, kp, vp), slots, valid, s)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paged_attention_partial"] == 1
+    assert ops.LAUNCHES["combine_partials"] == 0 and ops.LAUNCHES["paged_attention"] == 0
+    assert got.dtype == dtype and _within(got, want, dtype)
+    assert got[-1, -group:].abs().max().item() == 0.0
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+def test_paged_attention_coplace_kernel_at_main_path_width(cuda_dev):
+    """S=8 stripes of a 264-page cache, 138 slots of 32 tokens, group 4,
+    D=128, bf16: the coplace engine's decode shape at llama3-8b width."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(10)
+    q, kp, vp, slots, valid = _coplace_inputs(gen, cuda_dev, torch.bfloat16, 8, 4, 4, 4,
+                                              264, 32, 138, 128)
+    got = ops.paged_attention_coplace(q, kp, vp, slots, valid, 8)
+    want = tref.paged_attention_coplace_ref(*_widened(q, kp, vp), slots, valid, 8)
+    torch.cuda.synchronize()
+    assert _within(got, want, torch.bfloat16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 3, 8])
 def test_combine_partials_kernel(cuda_dev, n):
@@ -640,8 +699,8 @@ def test_combine_partials_kernel(cuda_dev, n):
 def test_coplace_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_dev):
     """The coplace_shmap engine over 4 stripes with balanced admission,
     chunked with churn: the CPU's tokens and admission reorders; the
-    retrieval heads go through the partial and combine kernels once a layer
-    a decode step; no step synchronises with the card."""
+    retrieval heads make one co-placed launch a layer a decode step, merged
+    in it (no combine launch); no step synchronises with the card."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
@@ -675,7 +734,7 @@ def test_coplace_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_
                             "chunk_attention": s.prefill_chunks * n,
                             "chunk_attention_paged": s.prefill_chunks * n,
                             "paged_attention_partial": s.decode_steps * n,
-                            "combine_partials": s.decode_steps * n}
+                            "combine_partials": 0}
     assert s.admission_reorders == cpu_eng.stats.admission_reorders
     assert {u: c.tokens for u, c in eng.completions.items()} == {
         u: c.tokens for u, c in cpu.items()}

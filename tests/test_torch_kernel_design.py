@@ -11,6 +11,12 @@ plain versions and the JAX reference:
     (``block_emulated``), equals ``paged_attention_ref`` within 1e-5 in f32
     (the two sum in different orders), splits, warps and rows with no valid
     key included, at the main path's three decode shapes in miniature;
+  * the same block split over page stripes (the co-placed decode): stripe s
+    keeps the keys of the slots it owns, [s·C/S, (s+1)·C/S), and its live
+    units go in turn to the warps (``stripe_keys``); merged in stripe order
+    it equals the plain composition of ``ops.paged_attention_coplace``
+    within 1e-5 and the reference's per-device partials of its masked
+    gather, combined, within 2e-5;
   * the bf16 flash_attention kernel: an online softmax over key tiles of 128
     that rounds the unnormalised P to bf16 before P·V stays within
     |emulated - plain| <= 2^-8·(softmax(s)·|V|) + 2^-8·|plain| + 1e-5 of
@@ -23,12 +29,15 @@ plain versions and the JAX reference:
     with their own online softmax, P rounded to bf16, the halves' (m, l, O)
     merged at the end: within the same derived bound.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from repro.core import paging as jpaging
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref as tref
 
@@ -74,36 +83,41 @@ def test_paged_splits_at_the_serving_shapes():
     assert ops.paged_splits(70, 4, 600) == 1
 
 
-def block_emulated(q, k, v, valid):
+def range_keys(b, hkv, t):
+    """(n, B, Hkv, T) bool: the keys of each of the kernel's contiguous
+    splits, units [s·U/n, (s+1)·U/n) of 32."""
+    keys = torch.zeros(ops.paged_splits(b, hkv, t), b, hkv, t, dtype=torch.bool)
+    for s, (beg, end) in enumerate(split_units(t, keys.shape[0])):
+        keys[s, ..., beg * UNIT:end * UNIT] = True
+    return keys
+
+
+def block_emulated(q, k, v, valid, keys=None):
     """The split-KV kernel in plain torch, on the attended buffer: each
-    split's live units (those with a valid key) go in turn to NW warps; each
-    warp's partial (m, l, o) over its keys (the identity (NEG_INF, 0, 0)
-    where it has none); the warps' partials merged in warp order, the
-    splits' in split order, divided by max(l, 1e-30) last. Returns (n, out)."""
+    split takes the keys ``keys`` gives it ((n, B, Hkv, T) bool; by default
+    ``range_keys``); its live units (those with a valid key it takes) go in
+    turn to NW warps; each warp's partial (m, l, o) over its keys (the
+    identity (NEG_INF, 0, 0) where it has none); the warps' partials merged
+    in warp order, the splits' in split order, divided by max(l, 1e-30)
+    last. Returns (n, out)."""
     b, hq, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    n = ops.paged_splits(b, hkv, t)
+    keys = range_keys(b, hkv, t) if keys is None else keys
     u = -(-t // UNIT)
-    pad = u * UNIT - t
-    vu = torch.nn.functional.pad(valid, (0, pad)).reshape(b, hkv, u, UNIT)
-    live = vu.any(dim=-1)                                          # (B, Hkv, U)
-    warp = torch.full((b, hkv, u), -1)
-    for beg, end in split_units(t, n):
-        rank = live[..., beg:end].long().cumsum(dim=-1) - 1
-        warp[..., beg:end] = torch.where(live[..., beg:end], rank % NW, -1)
     splits = []
-    for beg, end in split_units(t, n):
+    for sk in keys:
+        vs = valid & sk
+        live = torch.nn.functional.pad(vs, (0, u * UNIT - t)).reshape(b, hkv, u, UNIT).any(-1)
+        warp = torch.where(live, (live.long().cumsum(dim=-1) - 1) % NW, -1)  # (B, Hkv, U)
         ms, ls, os_ = [], [], []
         for w in range(NW):
-            mine = torch.zeros(b, hkv, u, dtype=torch.bool)
-            mine[..., beg:end] = warp[..., beg:end] == w
-            keys = mine[..., None].expand(b, hkv, u, UNIT).reshape(b, hkv, u * UNIT)[..., :t]
-            m, l, o = tref.paged_attention_partial_ref(q, k, v, valid & keys)
+            mine = (warp == w).repeat_interleave(UNIT, dim=-1)[..., :t]
+            m, l, o = tref.paged_attention_partial_ref(q, k, v, vs & mine)
             ms.append(m), ls.append(l), os_.append(o)
         splits.append(tref.merge_partials_ref(torch.stack(ms), torch.stack(ls),
                                               torch.stack(os_)))
     m, l, o = (torch.stack(x) for x in zip(*splits))
-    return n, tref.combine_partials_ref(m, l, o).to(q.dtype)
+    return len(keys), tref.combine_partials_ref(m, l, o).to(q.dtype)
 
 
 def _decode_inputs(rng, b, hkv, t, group, d):
@@ -432,3 +446,151 @@ def test_chunk_paged_bf16_numerics_within_the_derived_tolerance(g, cq, written, 
         *(jnp.asarray(x.float().numpy()) for x in (q, kp, vp)), jnp.asarray(ps),
         jnp.asarray([start], jnp.int32), *(jnp.asarray(x.float().numpy()) for x in (kn, vn)))
     np.testing.assert_allclose(want.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# paged_attention split over page stripes: the co-placed decode
+# ---------------------------------------------------------------------------
+
+
+def stripe_keys(slots, page, capacity, shards):
+    """(S, B, Hkv, N*P) bool: the keys of stripe s are the tokens of the
+    slots it owns, slot // (C/S) == s for a slot in [0, C); each lane's
+    token checks its own slot, so at P < 32 a unit's pieces go to the
+    stripes that own their pages."""
+    tok = slots.long().repeat_interleave(page, dim=-1)
+    own = torch.where((tok >= 0) & (tok < capacity), tok // (capacity // shards), -1)
+    return own[None] == torch.arange(shards)[:, None, None, None]
+
+
+def coplace_emulated(q, kp, vp, slots, valid, shards):
+    """The co-placed decode as the kernel computes it: ``block_emulated``
+    with one split a stripe, over the pages read in place."""
+    k, v = tref.gather_pages(kp, vp, slots)
+    return block_emulated(q, k, v, valid, stripe_keys(slots, kp.shape[3], kp.shape[2],
+                                                      shards))[1]
+
+
+def jax_coplace(q, kp, vp, slots, valid, shards, valid_of=None):
+    """The reference's co-placed decode on numpy inputs: each device i of
+    the 'model' axis holds pages [i·C/S, (i+1)·C/S), masks the attended
+    list to its own (loc_masked, src/repro/core/hybrid_attention.py:717-724),
+    gathers and takes the partial; combine_partials(impl="ref") merges.
+    ``valid_of(i, loc_masked)`` gives device i's validity (default: the
+    unsplit validity on its own slots)."""
+    b, hkv, c, p, d = kp.shape
+    c_loc = c // shards
+    parts = []
+    for i in range(shards):
+        loc = slots - i * c_loc
+        mine = (slots >= 0) & (loc >= 0) & (loc < c_loc)
+        loc_masked = np.where(mine, loc, -1).astype(np.int32)
+        vi = (valid & np.repeat(mine, p, axis=-1) if valid_of is None
+              else valid_of(i, loc_masked))
+        parts.append(_jax_device_partial(q, kp[:, :, i * c_loc:(i + 1) * c_loc],
+                                         vp[:, :, i * c_loc:(i + 1) * c_loc], loc_masked, vi))
+    m, l, o = (jnp.stack(x) for x in zip(*parts))
+    return np.asarray(_jax_combine(m, l, o))
+
+
+@jax.jit
+def _jax_device_partial(q, kp, vp, loc_masked, valid):
+    gk, gv = jpaging.gather_pages(kp, vp, loc_masked)
+    return jops.paged_attention_partial(q, gk, gv, valid, impl="ref")
+
+
+@jax.jit
+def _jax_combine(m, l, o):
+    return jops.combine_partials(m, l, o, impl="ref")
+
+
+def _check_coplace(q, kp, vp, slots, valid, shards, valid_of=None):
+    tq, tkp, tvp, tsl, tvl = (torch.from_numpy(x) for x in (q, kp, vp, slots, valid))
+    got = coplace_emulated(tq, tkp, tvp, tsl, tvl, shards)
+    plain = ops.paged_attention_coplace(tq, tkp, tvp, tsl, tvl, shards)
+    assert torch.equal(plain, tref.paged_attention_coplace_ref(tq, tkp, tvp, tsl, tvl, shards))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+    want = jax_coplace(q, kp, vp, slots, valid, shards, valid_of)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    return got
+
+
+# (shards, b, hkv, group, c, p, n, d): one stripe; P = 8, so a 32-token unit
+# spans pages of several stripes, and N·P/32 not whole; 8 stripes over
+# 64 pages; P = 16 at group 1
+COPLACE_CASES = [(1, 2, 2, 4, 12, 32, 7, 16), (4, 2, 3, 2, 24, 8, 45, 16),
+                 (8, 1, 2, 4, 64, 32, 40, 16), (4, 2, 2, 1, 16, 16, 33, 32)]
+
+
+@pytest.mark.parametrize("case", COPLACE_CASES)
+def test_stripe_split_and_merge_equals_the_coplace_decode(case):
+    s, b, hkv, g, c, p, n, d = case
+    rng = np.random.default_rng(c * p + n)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    kp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
+    vp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
+    slots = rng.integers(0, c, (b, hkv, n))
+    if s > 1:  # the last stripe owns no attended page of row (0, 0)
+        c_own = c // s
+        slots[0, 0] = np.where(slots[0, 0] >= (s - 1) * c_own, slots[0, 0] % c_own,
+                               slots[0, 0])
+    slots[0, -1, 1] = -1                         # a sentinel
+    slots[-1, 0, 2] = c                          # a slot past the cache
+    real = (slots >= 0) & (slots < c)
+    valid = (rng.random((b, hkv, n, p)) < 0.7) & real[..., None]
+    valid[-1, -1] = False                        # a row with no valid token
+    slots, valid = slots.astype(np.int32), valid.reshape(b, hkv, n * p)
+    got = _check_coplace(q, kp, vp, slots, valid, s)
+    assert got[-1, -g:].abs().max().item() == 0.0
+    if s > 1:
+        keys = stripe_keys(torch.from_numpy(slots), p, c, s)
+        assert not bool((keys[-1, 0, 0] & torch.from_numpy(valid[0, 0])).any())
+
+
+def test_stripe_split_at_the_main_path_shape():
+    """The coplace engine's decode in miniature (D = 16): 4 slots at
+    contexts 8200 / 7000 / 5000 / 3000 in 264 pages of 32 over 8 stripes
+    (striped page order), a random selection of each slot's selectable
+    pages (-1 padded where fewer than 128), the [sink | selected | local]
+    list of 138 slots and its validity as the port's decode body builds
+    them; the reference builds each device's validity from its own slots
+    (paging.token_validity on loc_masked), which must equal the unsplit
+    validity on that device's slots."""
+    from repro_torch.core import paging as tpaging
+
+    s, b, hkv, g, d, p, c, top_k = 8, 4, 4, 4, 16, 32, 264, 128
+    sink, local = 4, 256
+    ctx = np.array([8200, 7000, 5000, 3000])
+    rng = np.random.default_rng(18)
+    lop = tpaging.logical_pages(c, s, "cpu").numpy()
+    start = np.where(lop[None] * p < ctx[:, None], lop[None] * p, -1)
+    start = np.ascontiguousarray(np.broadcast_to(start[:, None], (b, hkv, c))).astype(np.int32)
+    sel = np.full((b, hkv, top_k), -1, np.int64)
+    for bi, n_ctx in enumerate(ctx):
+        pages = np.arange(1, max(n_ctx - local, 0) // p)
+        for hi in range(hkv):
+            pick = rng.permutation(pages)[:top_k]
+            sel[bi, hi, :len(pick)] = pick
+    sel = torch.from_numpy(sel)
+    sel = torch.where(sel >= 0, tpaging.interleave_slot(sel, c, s), -1)
+    tctx = torch.from_numpy(ctx)
+    slots = tpaging.coplace_attended_slots(sel, tctx, sink=sink, local=local, page=p,
+                                           capacity=c, n_shards=s)
+    valid = tpaging.token_validity(slots, torch.from_numpy(start), tctx, sink=sink,
+                                   local=local, page=p, top_k=top_k)
+    assert slots.shape == (b, hkv, 138)
+    slots, valid = slots.numpy(), valid.numpy()
+    c_loc = c // s
+
+    def device_validity(i, loc_masked):
+        vi = np.asarray(jpaging.token_validity(
+            jnp.asarray(loc_masked), jnp.asarray(start[:, :, i * c_loc:(i + 1) * c_loc]),
+            jnp.asarray(ctx), sink=sink, local=local, page=p, top_k=top_k))
+        mine = np.repeat(loc_masked >= 0, p, axis=-1)
+        np.testing.assert_array_equal(vi, valid & mine)
+        return vi
+
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    kp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
+    vp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
+    _check_coplace(q, kp, vp, slots, valid, s, device_validity)
