@@ -276,6 +276,9 @@ def make_tau(gen, dev, b, h, c, filled, d):
 
 
 def check_page_score(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    """page_score's scores mode at the lockstep path's shapes (every page,
+    nothing masked), then its select mode, the whole select step of the
+    main paths (``check_page_select``)."""
     h2 = cfg.h2eal
     hkv = cfg.num_kv_heads
     nr = hkv - round(hkv * h2.static_sparsity)
@@ -297,11 +300,190 @@ def check_page_score(ops, ref, timer, dev, cfg, dtype, gen, capacity):
     ex = e - SCORE_RTOL * want[fin].abs().max().item()
     flops = 4 * d * g * c * BATCH * nr
     b_ms, b_by = bound(nbytes(q, tau_min, tau_max, out), flops, torch.float32)
-    return [dict(
-        case=f"select B={BATCH} Hr={nr} g={g} C={c} D={d}",
+    scores = dict(
+        case=f"scores mode B={BATCH} Hr={nr} g={g} C={c} D={d}",
         dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
         tol=f"{SCORE_RTOL:.0e}*max|plain|", ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)]
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, main=False)
+    del tau_min, tau_max
+    return [scores] + [check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path)
+                       for path in ("lockstep", "engine", "coplace")]
+
+
+def select_inputs(gen, dev, cfg, dtype, path):
+    """A retrieval layer's select-step inputs at a main path's shapes:
+    lockstep, B=2 slots at context PROMPT + 1 in 258 pages; engine, 4 slots
+    at contexts STRIPE_CTX in 258 pages, one slot outside its share
+    window's select step; coplace, the same in 264 pages striped over
+    SHARDS stripes. τ of the written pages from 32 random keys each."""
+    from repro_torch.core import layouts, paging
+
+    h2 = cfg.h2eal
+    nr, _, g, d = head_split(cfg)
+    p, top_k = h2.page_size, h2.top_k_pages
+    cap = serve_capacity(cfg) if path == "lockstep" else engine_workload(cfg)[1]
+    shards = SHARDS if path == "coplace" else 1
+    if shards > 1:
+        cap = layouts.get_layout("coplace_shmap", shards).plan(cfg).round_capacity(cap)
+    c = -(-cap // p)
+    if path == "lockstep":
+        b, ctx, ctx_rows, need = BATCH, PROMPT + 1, [PROMPT + 1] * BATCH, None
+    else:
+        b, ctx_rows = len(STRIPE_CTX), list(STRIPE_CTX)
+        ctx = torch.tensor(ctx_rows, dtype=torch.int32, device=dev)
+        need = torch.tensor([i != 1 for i in range(b)], device=dev)
+    ctx_t = torch.tensor(ctx_rows, device=dev)
+    filled = max(-(-n // p) for n in ctx_rows)
+    tau_min, tau_max = make_tau(gen, dev, b, nr, c, filled, d)
+    first = torch.arange(c, device=dev) * p
+    start = torch.where(first[None] < ctx_t[:, None], first[None], -1)
+    start = start[:, None, :].expand(b, nr, c).to(torch.int32)
+    empty = (start < 0)[..., None]
+    tau_min = torch.where(empty, math.inf, tau_min)
+    tau_max = torch.where(empty, -math.inf, tau_max)
+    if shards > 1:  # the striped physical order, as the coplace_shmap cache holds it
+        lop = paging.logical_pages(c, shards, dev)
+        tau_min, tau_max, start = (x.index_select(2, lop) for x in (tau_min, tau_max, start))
+    q = torch.randn(b, nr * g, d, generator=gen, device=dev).to(dtype)
+    sel_prev = torch.randint(0, c, (b, nr, top_k), generator=gen, device=dev,
+                             dtype=torch.int32)
+    imp_prev = torch.rand(b, nr, c, generator=gen, device=dev) * 100
+    return (q, tau_min.contiguous(), tau_max.contiguous(), start.contiguous(), ctx,
+            sel_prev, imp_prev, need), shards
+
+
+def parent_select(ops, q, tau_min, tau_max, page_start, ctx, sel_prev, imp_prev,
+                  need=None, *, sink, local, page, top_k, shards):
+    """The select section as the parent commit's decode bodies ran it, op
+    for op: ``ops.page_score``, the mask (``paging.score_pages``), the
+    stable sort and gather (``select_pages``; under coplace_shmap, per
+    stripe and then over the stripes' concatenation, -1 where masked), the
+    padding, the importance and the share-window keep."""
+    neg_inf = -1e30
+    scores = ops.page_score(q, tau_min, tau_max)
+    n_sink = -(-sink // page) if sink else 0
+    if isinstance(ctx, torch.Tensor):
+        first_local = (torch.clamp(ctx - local, min=0) // page)[:, None, None]
+    else:
+        first_local = max(ctx - local, 0) // page
+    pidx = torch.where(page_start >= 0, page_start // page, -1)
+    selectable = (page_start >= 0) & (pidx >= n_sink) & (pidx < first_local)
+    scores = torch.where(selectable, scores, neg_inf)
+
+    def top(x, k):
+        order = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+        return x.gather(-1, order), order
+
+    def pad(idx):
+        idx = idx.to(torch.int32)
+        if idx.shape[-1] < top_k:
+            idx = torch.cat([idx, idx.new_full(idx.shape[:-1] + (top_k - idx.shape[-1],),
+                                               -1)], dim=-1)
+        return idx
+
+    b, hr, c = scores.shape
+    if shards == 1:
+        sel = pad(top(scores, min(top_k, c))[1])
+        imp = imp_prev + torch.where(scores > neg_inf / 2, scores, 0.0)
+    else:
+        imp = imp_prev + torch.where(scores > neg_inf / 2, scores, 0.0)
+        c_loc = c // shards
+        k_eff = min(top_k, c_loc)
+        v_loc, i_loc = top(scores.view(b, hr, shards, c_loc), k_eff)
+        base = torch.arange(shards, device=scores.device)[:, None] * c_loc
+        v_cat = v_loc.reshape(b, hr, shards * k_eff)
+        i_cat = (i_loc + base).reshape(b, hr, shards * k_eff)
+        sel_v, sel_pos = top(v_cat, min(top_k, shards * k_eff))
+        sel = pad(torch.where(sel_v > NEG_INF_HALF, i_cat.gather(2, sel_pos), -1))
+    if need is not None:
+        ns = need[:, None, None]
+        sel = torch.where(ns, sel, sel_prev)
+        imp = torch.where(ns, imp, imp_prev)
+    return sel, imp
+
+
+def check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path):
+    """page_score's select mode, ``ops.page_select``: a retrieval layer's
+    whole select step in one launch, at a main path's shapes
+    (``select_inputs``). Fails unless its selection is the stable top-k of
+    its own scores (read back as imp - 0 on the selectable pages, in the
+    path's layout: coplace also against the two-stage per-stripe form),
+    its scores lie within SCORE_RTOL of the plain version's, and the row
+    outside its select step keeps its selection and importance bit for
+    bit. Times the launch, the plain version, the parent's section
+    (``parent_select``), the scores mode alone, and the yardstick: the
+    scores mode, the mask, then ``torch.topk`` (another tie order)."""
+    args, shards = select_inputs(gen, dev, cfg, dtype, path)
+    q, tau_min, tau_max, start, ctx, sel_prev, imp_prev, need = args
+    h2 = cfg.h2eal
+    top_k = h2.top_k_pages
+    kw = dict(sink=h2.sink, local=h2.local, page=h2.page_size, top_k=top_k)
+    flag = dict(minus_one_masked=shards > 1)
+    b, hr, c = start.shape
+    g, d = q.shape[1] // hr, q.shape[2]
+    tag = str(dtype).split(".")[-1]
+    zeros = torch.zeros_like(imp_prev)
+    sel0, imp0 = ops.page_select(q, tau_min, tau_max, start, ctx, sel_prev, zeros, **kw, **flag)
+    run = lambda: ops.page_select(*args, **kw, **flag)
+    sel1, imp1 = run()
+    plain_sel, plain_imp = ref.page_select_ref(q.float(), *args[1:], **kw, **flag)
+    torch.cuda.synchronize()
+    ok = ref.selectable_pages(start, ctx, sink=h2.sink, local=h2.local, page=h2.page_size)
+    own = torch.where(ok, imp0, ref.NEG_INF).cpu()
+    if not torch.equal(sel0.cpu(), ref.select_top_k(own, top_k, **flag)) or (
+            shards > 1 and not torch.equal(sel0.cpu(), ref.select_top_k(
+                own, top_k, shards=shards, **flag))):
+        fail(f"page_select ({path} {tag}): the selection is not the stable top-k of the "
+             f"kernel's own scores")
+    plain = torch.where(ok, ref.page_score_ref(*widened(q, tau_min, tau_max)), ref.NEG_INF)
+    live = ok.cpu()
+    e = err(own[live], plain.cpu()[live])
+    ex = e - SCORE_RTOL * plain.cpu()[live].abs().max().item()
+    rows = torch.ones(b, dtype=torch.bool) if need is None else need.cpu()
+    if not (torch.equal(sel1.cpu()[~rows], sel_prev.cpu()[~rows])
+            and torch.equal(imp1.cpu()[~rows], imp_prev.cpu()[~rows])
+            and torch.equal(sel1.cpu()[rows], sel0.cpu()[rows])):
+        fail(f"page_select ({path} {tag}): a row outside its select step changed, or the "
+             f"selection moved with the importance")
+    same = int((plain_sel == sel1).all(dim=-1).sum().item())
+    ex = max(ex, ((imp1 - plain_imp).abs()[rows.to(dev)] - 2 * SCORE_RTOL
+                  * plain.cpu()[live].abs().max().item() - 1e-6 * plain_imp.abs()[
+                      rows.to(dev)]).max().item())
+
+    def yardstick():
+        m = ref.selectable_pages(start, ctx, sink=h2.sink, local=h2.local,
+                                 page=h2.page_size)
+        return torch.topk(torch.where(m, ops.page_score(q, tau_min, tau_max), ref.NEG_INF),
+                          min(top_k, c))
+
+    section = lambda: parent_select(ops, *args, **kw, shards=shards)
+    if not torch.equal(section()[0], sel1):
+        log(f"page_select ({path} {tag}): the parent's section selects otherwise in "
+            f"some row (a near-tie of its scores and the kernel's)")
+    # the bytes this run needs: τ of the scored pages; the rows that select
+    # read their page starts, q and ctx; imp in and out; sel written, and
+    # read where a row keeps its selection
+    sel_rows = rows.to(dev)[:, None, None]
+    scored = int((ok & sel_rows).sum().item())
+    n_rows = int(rows.sum().item())
+    byte_count = (2 * scored * d * 4 + n_rows * hr * (c * 4 + g * d * q.element_size())
+                  + 2 * nbytes(imp_prev) + nbytes(sel1) + (b - n_rows) * hr * top_k * 4
+                  + b * 4 * isinstance(ctx, torch.Tensor) + (0 if need is None else b))
+    b_ms, b_by = bound(byte_count, 4 * d * g * scored, torch.float32)
+    return dict(
+        case=f"select ({path}) B={b} Hr={hr} g={g} C={c} D={d} K={top_k} "
+             f"scored={scored} rows={n_rows}/{b}"
+             + (f" S={shards} minus_one_masked" if shards > 1 else ""),
+        dtype=tag, max_abs_err=e, excess=ex,
+        tol=f"{SCORE_RTOL:.0e}*max|plain| (scores); selection exact on its own scores",
+        ms=timer.ms(run, 20), plain_ms=timer.ms(lambda: ref.page_select_ref(
+            *args, **kw, **flag), 20),
+        library_ms=timer.ms(yardstick, 20),
+        library="page_score + mask + torch.topk (another tie order)",
+        section_ms=timer.ms(section, 20),
+        scores_ms=timer.ms(lambda: ops.page_score(q, tau_min, tau_max), 20),
+        plain_rows_equal=f"{same}/{b * hr}",
+        bound_ms=b_ms, bound_by=b_by, main=path == "engine")
 
 
 def retrieval_pages(gen, dev, cfg, dtype, capacity):
@@ -808,8 +990,11 @@ def check_reduced_bf16_against_cpu(dev):
 def check_bf16_selection_against_cpu(dev):
     """Reduced llama3-8b at head_dim 128 in bf16 with its own top-k (4 of
     ~34 selectable pages): one prefill of 64 prompts and one select decode
-    step, on the card and on the CPU, fed the same token; every layer's page
-    scores and selection are kept, one (layer, slot, kv head) row each.
+    step, on the card and on the CPU, fed the same token; every layer's
+    select step (``ops.page_select``: the fused kernel on the card, its
+    plain version on the CPU) is kept, one (layer, slot, kv head) row each.
+    A step's page scores are its importance minus the previous (0 after
+    the prefill) on the selectable pages.
 
       scores: the card's within SEL_SCORE_BAND of the row's largest |score|
         of the CPU's, on the same pages (masked pages alike);
@@ -817,50 +1002,53 @@ def check_bf16_selection_against_cpu(dev):
         top-k can change only where the CPU's gap between the k-th and
         (k+1)-th score is at most 2e, a near-tie; every other row's
         selection must be the CPU's;
-      same inputs: the card's page_score and top-k on the CPU run's q and
-        page bounds against the CPU's selection, near-ties within
-        page_score's f32 tolerance (SCORE_RTOL of the row's largest
-        |score|) skipped.
+      same inputs: the kernel's selection on the CPU run's q and page
+        bounds against the CPU's, near-ties within page_score's f32
+        tolerance (SCORE_RTOL of the row's largest |score|) skipped.
 
     Fails on a score out of its band, on a different selection in a compared
     row, or when a comparison compared no row; prints how many rows each
     compared and skipped."""
     from repro_torch.configs import get_arch, reduced
-    from repro_torch.core import paging
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import model as M
     from repro_torch.runtime import serve as serve_rt
 
     prompt_len, n_slots = 300, 64
     cfg = reduced(get_arch(ARCH), head_dim=128)
-    top_k = cfg.h2eal.top_k_pages
+    h2 = cfg.h2eal
+    top_k = h2.top_k_pages
     params = M.init_params(cfg, generator=torch.Generator().manual_seed(4), device="cpu",
                            dtype=torch.bfloat16)
     prompts = torch.randint(0, cfg.vocab_size, (n_slots, prompt_len),
                             generator=torch.Generator().manual_seed(5))
-    scfg = serve_rt.ServeConfig(capacity=prompt_len + 8 + cfg.h2eal.page_size)
-    score_pages = paging.score_pages
+    scfg = serve_rt.ServeConfig(capacity=prompt_len + 8 + h2.page_size)
+    page_select = ops.page_select
     tok = None
 
     def run(where, weights):
-        """[(score_pages' arguments, scores)] of each layer's select step."""
+        """[(page_select's arguments, scores, selection)] of each layer."""
         nonlocal tok
         rec = []
 
         def recording(*a, **kw):
-            scores = score_pages(*a, **kw)
-            rec.append((a, kw, scores))
-            return scores
+            sel, imp = page_select(*a, **kw)
+            q, tau_min, tau_max, start, ctx, sel_prev, imp_prev = a[:7]
+            ok = ref.selectable_pages(start, ctx, sink=h2.sink, local=h2.local,
+                                      page=h2.page_size)
+            rec.append((a, kw, torch.where(ok, imp - imp_prev, ref.NEG_INF), sel))
+            return sel, imp
 
         with torch.inference_mode():
             logits, state = serve_rt.make_prefill(cfg, scfg)(weights, prompts.to(where))
             if tok is None:
                 tok = logits.argmax(dim=-1).to(torch.int32).cpu()
-            paging.score_pages = recording
+            ops.page_select = recording
             try:
                 serve_rt.make_decode_step(cfg, scfg, do_select=True)(weights, state,
                                                                      tok.to(where))
             finally:
-                paging.score_pages = score_pages
+                ops.page_select = page_select
         return rec
 
     cpu = run("cpu", params)
@@ -870,7 +1058,7 @@ def check_bf16_selection_against_cpu(dev):
     counts = {"run against run": [0, 0], "same inputs": [0, 0]}
     worst = 0.0
     with torch.inference_mode():
-        for (args, kw, sc), (_, _, sc_card) in zip(cpu, card):
+        for (args, kw, sc, sel), (_, _, sc_card, sel_card) in zip(cpu, card):
             sc_card = sc_card.cpu()
             live = sc > NEG_INF_HALF
             if not torch.equal(live, sc_card > NEG_INF_HALF):
@@ -881,14 +1069,13 @@ def check_bf16_selection_against_cpu(dev):
             if (moved > SEL_SCORE_BAND * top).any():
                 fail(f"bf16 page scores: the card's moved {worst:.3e} of the row's largest "
                      f"|score| from the CPU's, above the band {SEL_SCORE_BAND:.3e}")
-            sel = paging.select_pages(sc, top_k)
             srt = sc.sort(dim=-1, descending=True).values
             gap = srt[..., top_k - 1] - srt[..., top_k]
-            same = paging.score_pages(*(x.to(dev) if isinstance(x, torch.Tensor) else x
-                                        for x in args), **kw)
-            for name, scores, band in (("run against run", sc_card, 2 * moved),
-                                       ("same inputs", same, SCORE_RTOL * top)):
-                got = paging.select_pages(scores, top_k).cpu()
+            same = ops.page_select(*(x.to(dev) if isinstance(x, torch.Tensor) else x
+                                     for x in args), **kw)[0]
+            for name, got, band in (("run against run", sel_card, 2 * moved),
+                                    ("same inputs", same, SCORE_RTOL * top)):
+                got = got.cpu()
                 for idx in zip(*torch.nonzero(gap > band, as_tuple=True)):
                     if sorted(got[idx].tolist()) != sorted(sel[idx].tolist()):
                         fail(f"bf16 page selection ({name}): card {sorted(got[idx].tolist())} "
@@ -898,11 +1085,11 @@ def check_bf16_selection_against_cpu(dev):
                 counts[name][0] += int((gap > band).sum().item())
                 counts[name][1] += int((gap <= band).sum().item())
     log(f"reduced {cfg.name} head_dim 128 bf16 selection, top-{top_k} (prompt {prompt_len}, "
-        f"{n_slots} slots, {cfg.num_layers} layers): page scores card vs CPU run max diff "
-        f"{worst:.3e} of the row's max|score| (band {SEL_SCORE_BAND:.3e}); rows (compared, "
-        f"skipped as near-ties): run against run {tuple(counts['run against run'])} (band "
-        f"2 * the row's largest score move), same inputs {tuple(counts['same inputs'])} "
-        f"(band {SCORE_RTOL:.0e} * max|score|)")
+        f"{n_slots} slots, {cfg.num_layers} layers; the fused select step): page scores "
+        f"card vs CPU run max diff {worst:.3e} of the row's max|score| (band "
+        f"{SEL_SCORE_BAND:.3e}); rows (compared, skipped as near-ties): run against run "
+        f"{tuple(counts['run against run'])} (band 2 * the row's largest score move), same "
+        f"inputs {tuple(counts['same inputs'])} (band {SCORE_RTOL:.0e} * max|score|)")
     if any(n == 0 for n, _ in counts.values()):
         fail("the bf16 selection check compared no row in one of its comparisons")
 
@@ -1347,7 +1534,8 @@ def main() -> int:
         for c in cases:
             lib_ms = "n/a" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
             lib_ms += "".join(f" {k}={c[k]:.4f}"
-                              for k in ("unfused_ms", "gather_sdpa_ms", "pages_ms") if k in c)
+                              for k in ("unfused_ms", "gather_sdpa_ms", "pages_ms",
+                                        "section_ms", "scores_ms") if k in c)
             log(f"{name} [{c['case']} {c['dtype']}] kernel_ms={c['ms']:.4f} "
                 f"plain_ms={c['plain_ms']:.4f} library_ms={lib_ms} "
                 f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
@@ -1416,6 +1604,8 @@ def main() -> int:
             "library_ms": None if None in lib_vals else sum(lib_vals),
             "cases": cases,
         })
+        if all("section_ms" in c for c in main_cases):  # page_score: the parent's section
+            kernels[-1]["yardstick_ms"] = total("section_ms")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ kernels that take the most device time:
   * ``--engine``: the continuous-batching engine with chunked prefill on
     chip_smoke.py's engine workload (6 ragged requests on 4 slots, chunks
     of 512), a window of mixed steps (a prompt chunk beside decoding
-    slots) and a window of decode-only steps; ``--layout coplace_shmap
-    --shards S`` serves it co-placed over S page stripes (split-KV decode,
-    FIFO admission, so the windows hold the same steps).
+    slots) and a window of decode-only steps, profiled a step at a time
+    with its select and reuse steps also reported apart; ``--layout
+    coplace_shmap --shards S`` serves it co-placed over S page stripes
+    (split-KV decode, FIFO admission, so the windows hold the same steps).
 
     PYTHONPATH=src python scripts/torch_profile_serve.py [--engine]
     PYTHONPATH=src python scripts/torch_profile_serve.py --engine \\
@@ -49,8 +50,10 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def report(label, prof, wall_s, steps=1, top=8):
-    kern = device_kernels(prof)
+def report(label, kern, wall_s, steps=1, top=8):
+    """Print a window's per-step wall, device busy time, idle share and
+    kernel count, and its ``top`` kernels by device time; ``kern`` is
+    ``device_kernels`` of its profile(s)."""
     busy_ms = sum(us for _, us in kern) / 1e3
     wall_ms = wall_s * 1e3
     print(f"[{label}] wall {wall_ms / steps:.3f} ms/step, device busy "
@@ -78,7 +81,7 @@ def run(cfg, params, prompts, capacity, steps, label):
             logits, state = prefill(params, prompts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report(f"{label} prefill", prof, wall)
+        report(f"{label} prefill", device_kernels(prof), wall)
         tok = logits.argmax(-1).to(torch.int32)
         for i in range(w):  # warm-up steps, one share window
             logits, state = dec[i % w == 0](params, state, tok)
@@ -90,13 +93,16 @@ def run(cfg, params, prompts, capacity, steps, label):
                 tok = logits.argmax(-1).to(torch.int32)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report(f"{label} decode", prof, wall, steps=steps)
+        report(f"{label} decode", device_kernels(prof), wall, steps=steps)
 
 
 def engine_windows(cfg, params, windows, layout="default", shards=1):
     """The chunked engine on chip_smoke.py's engine workload, profiled over
-    each (label, first engine step, steps) window, then one unprofiled run
-    of the whole workload."""
+    each (label, first engine step, steps, by_kind) window, then one
+    unprofiled run of the whole workload. A window ``by_kind`` is profiled
+    one step at a time (each step ends in a synchronize), and its select
+    and reuse decode steps are also reported apart: their difference is
+    the select section's."""
     from chip_smoke import ENGINE_BATCH, ENGINE_CHUNK, engine_workload
     from repro_torch.serving.engine import Engine
 
@@ -110,24 +116,39 @@ def engine_windows(cfg, params, windows, layout="default", shards=1):
         eng.submit(r)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
-        for label, first, n in windows:
+        for label, first, n, by_kind in windows:
             while eng.busy() and eng.stats.engine_steps < first:
                 eng.poll()
             torch.cuda.synchronize()
             s0 = dataclasses.replace(eng.stats)
-            with profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                while eng.busy() and eng.stats.engine_steps < first + n:
-                    eng.poll()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+            kinds = defaultdict(lambda: [[], 0.0, 0])  # kernels, wall s, steps
+            for _ in range(n if by_kind else 1):
+                if not eng.busy():
+                    break
+                before = dataclasses.replace(eng.stats)
+                with profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    while eng.busy() and eng.stats.engine_steps < (
+                            before.engine_steps + 1 if by_kind else first + n):
+                        eng.poll()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                kind = ("select" if eng.stats.select_steps > before.select_steps else
+                        "reuse" if eng.stats.reuse_steps > before.reuse_steps else "other")
+                for key in ("all", kind) if by_kind else ("all",):
+                    kinds[key][0] += device_kernels(prof)
+                    kinds[key][1] += wall
+                    kinds[key][2] += eng.stats.engine_steps - before.engine_steps
             s1 = eng.stats
             done = s1.engine_steps - s0.engine_steps
             print(f"[engine {label}] engine steps {s0.engine_steps}..{s1.engine_steps}: "
                   f"{s1.prefill_chunks - s0.prefill_chunks} chunk, "
                   f"{s1.decode_steps - s0.decode_steps} decode "
                   f"({s1.select_steps - s0.select_steps} select)")
-            report(f"engine {label}", prof, wall, steps=max(done, 1), top=10)
+            kern, wall, _ = kinds.pop("all")
+            report(f"engine {label}", kern, wall, steps=max(done, 1), top=10)
+            for kind, (kern, wall, steps) in sorted(kinds.items()):
+                report(f"engine {label}, {kind} steps", kern, wall, steps=steps, top=10)
         eng = make(params)
         comps = eng.run(reqs)
         s = eng.stats
@@ -160,7 +181,7 @@ def main():
               f"{args.layout} shards={args.shards}")
         # steps 20-27: slot 0 decodes while slot 1's prompt is fed; from
         # step 62 every prompt is in and the slots only decode
-        engine_windows(cfg, params, [("mixed", 20, 8), ("decode-only", 62, 8)],
+        engine_windows(cfg, params, [("mixed", 20, 8, False), ("decode-only", 62, 8, True)],
                        layout=args.layout, shards=args.shards)
         return
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the port's decode and prefill attention kernels beside
-SDPA, for this checkout or another one's, on one CUDA card.
+"""Device times of the port's decode, select and prefill kernels beside
+their yardsticks, for this checkout or another one's, on one CUDA card.
 
 Runs chip_smoke.py's own kernel cases, with its Timer (the L2 flushed, the
 card held busy while the host enqueues the call; median of several runs):
@@ -10,10 +10,15 @@ heads' decode with its pages read in place, beside the gather followed by
 the contiguous kernel and by SDPA), ``check_partial`` (the co-placed
 decode over 8 page stripes, beside ``paged_attention_pages`` on the same
 list and the gather followed by SDPA; the stripes' partials; the
-standalone combine) and ``check_flash`` (the retrieval and streaming
-prefill cases), all in bf16 at the main path's shapes. Each case is
-checked against its plain version as chip_smoke.py checks it. First it
-times the Timer's floor, a 4-byte memset.
+standalone combine), ``check_flash`` (the retrieval and streaming
+prefill cases) and ``check_page_score`` (page_score's scores mode, and
+its select mode, a retrieval layer's whole select step, at the lockstep,
+engine and coplace shapes, beside the parent's section of eager ops),
+all in bf16 at the main path's shapes. Each case is checked against its
+plain version as chip_smoke.py checks it. First it times the Timer's
+floor, a 4-byte memset. ``--select`` times page_score's cases alone;
+``--select-blocks N`` scores a row with a cluster of N blocks instead of
+``ops._SELECT_BLOCKS``.
 
 ``--src`` names the ``src`` directory of the checkout whose kernels and
 plain versions are timed (default: this checkout's); its kernels are built
@@ -24,10 +29,14 @@ retrieval decode still gathers its pages first (no
 co-placed decode is still the partial kernel, the combine kernel and a
 cast (no ``ops.paged_attention_coplace``) is timed on that path, its
 stripes' lists (``stripe_slots``) made inside the timed call as its decode
-body made them. Two checkouts are compared in one call on one card by
-running the script once for each:
+body made them. A checkout whose select step is still the scores kernel
+and eager ops (no ``ops.page_select``) is timed on that section
+(``chip_smoke.parent_select`` with its ``page_score``), checked with this
+checkout's plain versions. Two checkouts are compared in one call on one
+card by running the script once for each:
 
-    python scripts/torch_time_kernels.py [--src DIR] [--tag NAME]
+    python scripts/torch_time_kernels.py [--src DIR] [--tag NAME] [--select]
+        [--select-blocks N]
 
 Prints the card's name and power limit, then one JSON object a case.
 """
@@ -85,10 +94,36 @@ def partial_then_combine(ops, ref):
     return ops_ns, ref_ns
 
 
+def eager_select(ops, ref):
+    """ops and ref of a checkout without the fused select step, with
+    ``page_select`` as that checkout's decode bodies ran it (the coplace
+    shape's two stages over chip_smoke's SHARDS stripes) and this
+    checkout's plain versions of it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "ref_of_this_checkout", os.path.join(ROOT, "src/repro_torch/kernels/ref.py"))
+    this_ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(this_ref)
+
+    def page_select(*a, minus_one_masked=False, **kw):
+        return cs.parent_select(ops, *a, **kw, shards=cs.SHARDS if minus_one_masked else 1)
+
+    ops_ns = types.SimpleNamespace(**vars(ops))
+    ops_ns.page_select = page_select
+    ref_ns = types.SimpleNamespace(**vars(ref))
+    for name in ("selectable_pages", "select_top_k", "page_select_ref", "NEG_INF"):
+        setattr(ref_ns, name, getattr(this_ref, name))
+    return ops_ns, ref_ns
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--select", action="store_true", help="page_score's cases alone")
+    ap.add_argument("--select-blocks", type=int, default=None,
+                    help="blocks of a select row's cluster (1 to 8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to time", file=sys.stderr)
@@ -103,6 +138,10 @@ def main() -> int:
         ops, ref = unfused(ops, ref)
     if not hasattr(ops, "paged_attention_coplace"):
         ops, ref = partial_then_combine(ops, ref)
+    if not hasattr(ops, "page_select"):
+        ops, ref = eager_select(ops, ref)
+    elif args.select_blocks is not None:
+        ops._SELECT_BLOCKS = args.select_blocks
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
@@ -113,11 +152,14 @@ def main() -> int:
     floor = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"tag": args.tag, "case": "timer floor: a 4-byte memset",
                       "ms": timer.ms(floor.zero_, 20)}), flush=True)
-    cases = cs.check_paged(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
-                           cs.serve_capacity(cfg))
-    for part in cs.check_partial(ops, ref, timer, dev, cfg, torch.bfloat16, gen):
-        cases += part
-    cases += cs.check_flash(ops, ref, timer, dev, cfg, torch.bfloat16, gen)
+    cases = cs.check_page_score(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
+                                cs.serve_capacity(cfg))
+    if not args.select:
+        cases += cs.check_paged(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
+                                cs.serve_capacity(cfg))
+        for part in cs.check_partial(ops, ref, timer, dev, cfg, torch.bfloat16, gen):
+            cases += part
+        cases += cs.check_flash(ops, ref, timer, dev, cfg, torch.bfloat16, gen)
     for case in cases:
         print(json.dumps({"tag": args.tag, **case}), flush=True)
     return 0

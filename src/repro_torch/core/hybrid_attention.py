@@ -344,12 +344,7 @@ def _paged_decode(spec: AttnSpec, q_r, k_r, v_r, paged: cachelib.PagedCache,
             f"page_size")
     paged = cachelib.paged_cache_append(paged, k_r, v_r, length, active)
     if do_select:
-        scores = paging.score_pages(
-            q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx,
-            sink=h2.sink, local=h2.local, page=h2.page_size)
-        sel = paging.select_pages(scores, h2.top_k_pages)
-        imp = paging.accumulate_importance(paged.importance, scores)
-        _keep_selection(paged, sel, imp, need_select)
+        _select(h2, q_r, paged, ctx, need_select)
     slots = paging.attended_page_slots(
         paged.sel_idx, ctx, sink=h2.sink, local=h2.local, page=h2.page_size)
     valid = paging.token_validity(
@@ -359,17 +354,16 @@ def _paged_decode(spec: AttnSpec, q_r, k_r, v_r, paged: cachelib.PagedCache,
                                       valid), paged
 
 
-def _keep_selection(paged: cachelib.PagedCache, sel, imp, need_select):
-    """Store a select step's selection and importance; under the engine's
-    per-slot share window only the slots in ``need_select`` take them."""
-    if need_select is not None:
-        ns = need_select[:, None, None]
-        sel = torch.where(ns, sel, paged.sel_idx)
-        imp = torch.where(ns, imp, paged.importance)
-    paged.sel_idx, paged.importance = sel, imp
-
-
-NEG_INF_HALF = -5e29
+def _select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select,
+            minus_one_masked: bool = False):
+    """A select step in one ``kops.page_select``: score the selectable
+    pages, take the stable top-k, add the scores to the importance; under
+    the engine's per-slot share window only the slots in ``need_select``
+    take the new selection and importance."""
+    paged.sel_idx, paged.importance = kops.page_select(
+        q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx, paged.sel_idx,
+        paged.importance, need_select, sink=h2.sink, local=h2.local,
+        page=h2.page_size, top_k=h2.top_k_pages, minus_one_masked=minus_one_masked)
 
 
 def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
@@ -381,12 +375,15 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
     one tensor. Stripe s owns the physical page slots [s·C/S, (s+1)·C/S).
 
       append      the token goes to its page's striped slot;
-      select      page_score over all C slots at once, viewed (B, Hr, S,
-                  C/S); the importance accumulates every score; each stripe
-                  keeps its top k_eff = min(K, C/S) (lower slot first among
-                  equal scores, as ``lax.top_k``), as physical ids; a global
-                  top-K over the stripe-major concatenation; -1 where the
-                  score is masked (<= NEG_INF_HALF) and as padding to K;
+      select      the reference scores each stripe's C/S slots, keeps each
+                  stripe's top k_eff = min(K, C/S) (lower slot first among
+                  equal scores, as ``lax.top_k``) as physical ids, and takes
+                  a global top-K of their stripe-major concatenation, -1
+                  where the score is masked and as padding to K. Stripe s
+                  owns the slots [s·C/S, (s+1)·C/S), and every page of the
+                  global top-K is in its stripe's top-k_eff, so that is one
+                  stable top-K over all C slots (``ref.select_top_k``): one
+                  ``kops.page_select`` with ``minus_one_masked``;
       attend      the [sink | selected | local] slots and the validity of
                   the unsplit buffer; each stripe attends the pages it owns,
                   and the stripes' partials are combined, in q's dtype: one
@@ -396,29 +393,16 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
     """
     h2 = spec.h2
     p_sz, top_k = h2.page_size, h2.top_k_pages
-    b, hr, cap = paged.k_pages.shape[:3]
+    cap = paged.k_pages.shape[2]
     nsh = shards
     if cap % nsh:
         raise ValueError(f"page capacity {cap} must divide by {nsh} stripes: "
                          f"round the capacity up to page_size * stripes")
-    c_loc = cap // nsh
     ctx = length + 1
     paged = cachelib.paged_cache_append(paged, k_r, v_r, length, active,
                                         phys_shards=nsh)
     if do_select:
-        scores = paging.score_pages(
-            q_r, paged.tau_min, paged.tau_max, paged.page_start, ctx,
-            sink=h2.sink, local=h2.local, page=p_sz)      # (B, Hr, C)
-        imp = paging.accumulate_importance(paged.importance, scores)
-        k_eff = min(top_k, c_loc)
-        v_loc, i_loc = paging.top_k(scores.view(b, hr, nsh, c_loc), k_eff)
-        base = torch.arange(nsh, device=scores.device)[:, None] * c_loc
-        v_cat = v_loc.reshape(b, hr, nsh * k_eff)
-        i_cat = (i_loc + base).reshape(b, hr, nsh * k_eff)
-        sel_v, sel_pos = paging.top_k(v_cat, min(top_k, nsh * k_eff))
-        sel = torch.where(sel_v > NEG_INF_HALF, i_cat.gather(2, sel_pos), -1)
-        _keep_selection(paged, paging.pad_selection(sel, top_k), imp,
-                        need_select)
+        _select(h2, q_r, paged, ctx, need_select, minus_one_masked=True)
     slots = paging.coplace_attended_slots(
         paged.sel_idx, ctx, sink=h2.sink, local=h2.local, page=p_sz,
         capacity=cap, n_shards=nsh)                       # (B, Hr, N)

@@ -15,6 +15,12 @@ top-k spans all selectable pages. ``ctx`` is a Python int on the lockstep
 path and a (B,) tensor on the continuous-batching path, where every slot
 has its own context and so its own first local page.
 
+The decode bodies run a select step as one ``kops.page_select`` (the
+selectable pages scored, the stable top-k, the importance, the
+share-window keep); ``score_pages``, ``select_pages`` and
+``accumulate_importance`` are its plain building blocks, as the
+reference composes them.
+
 Chunked prefill selects nothing: retrieval heads attend full causal and
 streaming heads sink+local, with validity computed from absolute
 positions (the chunk helpers at the end).
@@ -29,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 NEG_INF = -1e30
 
@@ -57,38 +64,20 @@ def score_pages(q, tau_min, tau_max, page_start, ctx, *, sink: int,
                 local: int, page: int):
     """Scores (B, Hkv, C); sink, local and empty pages forced to NEG_INF."""
     scores = kops.page_score(q, tau_min, tau_max)
-    n_sink, _ = page_counts(sink=sink, local=local, page=page)
-    first_local = _per_row(first_local_page(ctx, local=local, page=page))
-    pidx = torch.where(page_start >= 0, page_start // page, -1)
-    selectable = (page_start >= 0) & (pidx >= n_sink) & (pidx < first_local)
+    selectable = kref.selectable_pages(page_start, ctx, sink=sink, local=local,
+                                       page=page)
     return torch.where(selectable, scores, NEG_INF)
-
-
-def top_k(x, k: int):
-    """(values, indices) of the k largest entries along the last dim; equal
-    values keep the lower index first, as ``lax.top_k`` does
-    (``torch.topk`` leaves their order open)."""
-    order = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
-    return x.gather(-1, order), order
-
-
-def pad_selection(idx, k: int):
-    """(..., n) page slots -> (..., k) int32, padded with -1 (n <= k)."""
-    idx = idx.to(torch.int32)
-    if idx.shape[-1] < k:
-        idx = torch.cat([idx, idx.new_full(idx.shape[:-1] + (k - idx.shape[-1],),
-                                           -1)], dim=-1)
-    return idx
 
 
 def select_pages(scores, top_k_pages: int):
     """Top-k page slots per (B, Hkv): (B, Hkv, K) int32, padded with -1
-    when fewer than ``top_k_pages`` pages exist, in ``top_k``'s order. The
-    order matters: when fewer than k pages are selectable, masked pages
-    fill the selection, and one of them can become selectable at a later
-    reuse step of the same share window, as the local section moves on."""
-    _, idx = top_k(scores, min(top_k_pages, scores.shape[-1]))
-    return pad_selection(idx, top_k_pages)
+    when fewer than ``top_k_pages`` pages exist; equal scores keep the lower
+    slot first, as ``lax.top_k`` does (``torch.topk`` leaves their order
+    open). The order matters: when fewer than k pages are selectable,
+    masked pages fill the selection, and one of them can become selectable
+    at a later reuse step of the same share window, as the local section
+    moves on."""
+    return kref.select_top_k(scores, top_k_pages)
 
 
 def attended_page_slots(sel_idx, ctx, *, sink: int, local: int, page: int):

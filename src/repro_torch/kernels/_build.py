@@ -35,6 +35,9 @@ SIGNATURES = {
     "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _L, _I, _I, _F, _P),
     "h2eal_page_score": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # page_score's select mode: score, top-k, importance, keep, in one launch
+    "h2eal_page_select": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _P),
     # chunk_attention(_paged): f32 on the FMA units, bf16 on the tensor cores
     "h2eal_chunk_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "h2eal_chunk_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

@@ -37,6 +37,13 @@ _SPLIT_MIN_KEYS = 128
 _RANGE, _COPLACE, _PARTIALS = 0, 1, 2
 # a stripe's list of 32-token units lives in shared memory beside the ring
 _MAX_STRIPE_UNITS = 16384
+# page_select: a (batch, kv head) row's keys live in one block's shared
+# memory (64 KB at the limit, 512k tokens at page 32), beside its K
+# winners (K^2 compares place them); the row is scored by a thread-block
+# cluster of this many blocks (1 to 8, the portable cluster size)
+_MAX_SELECT_PAGES = 16384
+_MAX_SELECT_K = 1024
+_SELECT_BLOCKS = 8
 # per (device, stream), zeroed once when made and left zero by each launch
 # (the kernels' last blocks reset them): paged_attention's int32 arrival
 # counters, one per (batch, kv head), and the bf16 flash kernel's two
@@ -296,6 +303,76 @@ def page_score(q, tau_min, tau_max):
     _build.check(err, "page_score")
     LAUNCHES["page_score"] += 1
     return out
+
+
+def page_select(q, tau_min, tau_max, page_start, ctx, sel_prev, imp_prev, need=None,
+                *, sink: int, local: int, page: int, top_k: int,
+                minus_one_masked: bool = False):
+    """A retrieval layer's whole select step, ``ref.page_select_ref``: q
+    (B, Hq, D); tau_min/max (B, Hkv, C, D) f32; page_start (B, Hkv, C)
+    int32; ctx an int or a (B,) int32 tensor; sel_prev (B, Hkv, K) int32;
+    imp_prev (B, Hkv, C) f32; need None or (B,) bool -> new tensors (sel
+    (B, Hkv, K) int32, imp (B, Hkv, C) f32): the selectable pages scored,
+    the stable top-K, the importance, the previous ones kept where ``need``
+    is false. ``minus_one_masked`` (the coplace_shmap layout) turns
+    selected masked pages into -1; the default layout keeps them as fill.
+
+    On the card: one launch of ``csrc/page_score.cu``'s select mode, a
+    cluster of ``_SELECT_BLOCKS`` blocks a (batch, kv head) row, reading τ
+    of the selectable pages only and ctx from the card. Counts under
+    ``LAUNCHES["page_score"]``: the same TPU kernel."""
+    name = "page_select"
+    tensors = [q, tau_min, tau_max, page_start, sel_prev, imp_prev]
+    tensors += [t for t in (ctx, need) if isinstance(t, torch.Tensor)]
+    kw = dict(sink=sink, local=local, page=page, top_k=top_k,
+              minus_one_masked=minus_one_masked)
+    if _on_cpu(*tensors):
+        return _ref.page_select_ref(q, tau_min, tau_max, page_start, ctx, sel_prev,
+                                    imp_prev, need, **kw)
+    b, hq, d = q.shape
+    _require(tau_min.dim() == 4 and tau_min.shape == tau_max.shape
+             and tau_min.shape[0] == b and tau_min.shape[3] == d,
+             f"{name}: tau must be (B, Hkv, C, D)")
+    hkv, c = tau_min.shape[1], tau_min.shape[2]
+    _require(q.dtype in _DTYPES, f"{name}: dtype {q.dtype} not supported")
+    _require(d in _HEAD_DIMS, f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    _require(hq % hkv == 0 and 1 <= hq // hkv <= _MAX_GROUP,
+             f"{name}: GQA group must divide Hq and be <= {_MAX_GROUP}")
+    _require(1 <= c <= _MAX_SELECT_PAGES,
+             f"{name}: {c} pages, above the limit of {_MAX_SELECT_PAGES} (a row's "
+             f"keys live in shared memory)")
+    _require(1 <= top_k <= _MAX_SELECT_K,
+             f"{name}: top_k {top_k} not in [1, {_MAX_SELECT_K}]")
+    _require(page_start.shape == (b, hkv, c) and page_start.dtype == torch.int32,
+             f"{name}: page_start must be (B, Hkv, C) int32")
+    _require(sel_prev.shape == (b, hkv, top_k) and sel_prev.dtype == torch.int32,
+             f"{name}: sel_prev must be (B, Hkv, top_k) int32")
+    _require(imp_prev.shape == (b, hkv, c) and imp_prev.dtype == torch.float32,
+             f"{name}: imp_prev must be (B, Hkv, C) f32")
+    ctx_t = ctx if isinstance(ctx, torch.Tensor) else None
+    _require(ctx_t is None or (ctx_t.shape == (b,) and ctx_t.dtype == torch.int32),
+             f"{name}: ctx must be an int or a (B,) int32 tensor")
+    _require(need is None or (need.shape == (b,) and need.dtype == torch.bool),
+             f"{name}: need must be None or (B,) bool")
+    _check_operands(name, (q,))
+    _check_operands(name, (tau_min, tau_max, imp_prev), torch.float32)
+    _check_operands(name, [page_start, sel_prev] + tensors[6:])
+    # τ rows are read in 16-byte pieces
+    _require(tau_min.data_ptr() % 16 == 0 and tau_max.data_ptr() % 16 == 0,
+             f"{name}: tau must be 16-byte aligned")
+    sel = torch.empty_like(sel_prev)
+    imp = torch.empty_like(imp_prev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(q.device):
+        err = _build.library().h2eal_page_select(
+            q.data_ptr(), tau_min.data_ptr(), tau_max.data_ptr(), page_start.data_ptr(),
+            ptr(ctx_t), 0 if ctx_t is not None else int(ctx), sel_prev.data_ptr(),
+            imp_prev.data_ptr(), ptr(need), sel.data_ptr(), imp.data_ptr(),
+            _DTYPES[q.dtype], b, hkv, c, hq // hkv, d, -(-sink // page) if sink else 0,
+            local, page, top_k, int(minus_one_masked), _SELECT_BLOCKS, _stream(q))
+    _build.check(err, name)
+    LAUNCHES["page_score"] += 1
+    return sel, imp
 
 
 def chunk_attention(q, k, v, valid):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+NEG_INF_HALF = -5e29  # a score at or below it is masked
 
 
 def _scale(d: int) -> torch.Tensor:
@@ -96,6 +97,79 @@ def page_score_ref(q, tau_min, tau_max):
     hi = _mm_f32("bhgd,bhpd->bhgp", qp, tau_max)
     lo = _mm_f32("bhgd,bhpd->bhgp", qn, tau_min)
     return (hi + lo).sum(dim=2)
+
+
+def selectable_pages(page_start, ctx, *, sink: int, local: int, page: int):
+    """(B, H, C) bool: the pages a select step may pick, those written and
+    past the sink pages and before the first local page,
+    n_sink <= page_start // P < max(ctx - local, 0) // P. ``ctx`` is an int
+    or a (B,) tensor."""
+    n_sink = -(-sink // page) if sink else 0
+    if isinstance(ctx, torch.Tensor):
+        first_local = (torch.clamp(ctx - local, min=0) // page)[:, None, None]
+    else:
+        first_local = max(ctx - local, 0) // page
+    pidx = torch.where(page_start >= 0, page_start // page, -1)
+    return (page_start >= 0) & (pidx >= n_sink) & (pidx < first_local)
+
+
+def stable_top_k(x, k: int):
+    """(values, indices) of the k largest entries along the last dim, equal
+    values lower index first, as ``lax.top_k`` orders them."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return x.gather(-1, order), order
+
+
+def select_top_k(scores, top_k: int, *, minus_one_masked: bool = False,
+                 shards=None):
+    """The selection (..., C) scores -> (..., top_k) int32 slots: the
+    min(top_k, C) largest by (score descending, slot ascending), padded
+    with -1; with ``minus_one_masked``, -1 also where the score is masked
+    (<= NEG_INF_HALF). ``shards`` S takes the co-placed layout's two stages
+    instead, as the reference's per-device bodies do: each stripe of C/S
+    slots keeps its top min(top_k, C/S), and a top-k of their stripe-major
+    concatenation picks the selection; it equals the one stage."""
+    c = scores.shape[-1]
+    if shards is None:
+        val, idx = stable_top_k(scores, min(top_k, c))
+    else:
+        c_loc = c // shards
+        k_eff = min(top_k, c_loc)
+        v_loc, i_loc = stable_top_k(scores.unflatten(-1, (shards, c_loc)), k_eff)
+        i_loc = i_loc + torch.arange(shards, device=scores.device)[:, None] * c_loc
+        v_cat, i_cat = v_loc.flatten(-2), i_loc.flatten(-2)
+        val, pos = stable_top_k(v_cat, min(top_k, shards * k_eff))
+        idx = i_cat.gather(-1, pos)
+    if minus_one_masked:
+        idx = torch.where(val > NEG_INF_HALF, idx, -1)
+    idx = idx.to(torch.int32)
+    if idx.shape[-1] < top_k:
+        idx = torch.cat([idx, idx.new_full(idx.shape[:-1] + (top_k - idx.shape[-1],),
+                                           -1)], dim=-1)
+    return idx
+
+
+def page_select_ref(q, tau_min, tau_max, page_start, ctx, sel_prev, imp_prev,
+                    need=None, *, sink: int, local: int, page: int, top_k: int,
+                    minus_one_masked: bool = False, shards=None):
+    """A retrieval layer's select step: score the selectable pages
+    (``page_score_ref``, every other page NEG_INF), select (``select_top_k``),
+    add the scores to the importance (a masked page adds 0), and keep the
+    previous selection and importance in the rows where ``need`` (B,) bool
+    is false (None: every row takes the new ones).
+
+    q (B, Hq, D); tau_min/max (B, H, C, D) f32; page_start (B, H, C) int;
+    ctx an int or (B,) tensor; sel_prev (B, H, top_k) int32; imp_prev
+    (B, H, C) f32 -> (sel (B, H, top_k) int32, imp (B, H, C) f32)."""
+    ok = selectable_pages(page_start, ctx, sink=sink, local=local, page=page)
+    scores = torch.where(ok, page_score_ref(q, tau_min, tau_max), NEG_INF)
+    sel = select_top_k(scores, top_k, minus_one_masked=minus_one_masked, shards=shards)
+    imp = imp_prev + torch.where(scores > NEG_INF_HALF, scores, 0.0)
+    if need is not None:
+        ns = need[:, None, None]
+        sel = torch.where(ns, sel, sel_prev)
+        imp = torch.where(ns, imp, imp_prev)
+    return sel, imp
 
 
 def chunk_attention_ref(q, k, v, valid):

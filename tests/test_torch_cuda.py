@@ -307,6 +307,124 @@ def test_page_score_kernel(cuda_dev, dtype, d, group):
     assert (got[fin] - want[fin]).abs().max().item() <= 1e-4
 
 
+# page_select: (b, hkv, group, c, d, page, ctx, top_k, stripes, need, ties).
+# ctx an int or one per row; stripes S > 0: the coplace_shmap layout (page
+# slots striped over S stripes, minus_one_masked); need: the rows that take
+# the new selection (None: all); ties: τ rows repeat every 5 pages, so their
+# scores tie exactly, and the last row's q is 0, so all its scores tie at 0
+SELECT_CASES = [
+    (2, 4, 4, 258, 128, 32, 8193, 128, 0, None, False),          # lockstep
+    (4, 4, 4, 258, 128, 32, [8200, 7000, 5000, 3000], 128, 0,
+     [True, True, False, True], False),                           # engine
+    (4, 4, 4, 264, 128, 32, [8200, 7000, 5000, 3000], 128, 8,
+     [True, False, True, True], False),                           # coplace
+    (2, 3, 1, 75, 64, 8, [500, 301], 16, 0, None, True),          # ties, C % 8
+    (2, 3, 1, 75, 64, 8, [500, 301], 16, 5, [False, True], True),
+    (2, 2, 8, 40, 32, 4, [60, 150], 32, 0, None, False),          # < K selectable
+    (2, 2, 8, 40, 32, 4, [60, 150], 32, 4, None, False),
+    (3, 2, 2, 20, 64, 16, [300, 20, 100], 32, 0, None, False),    # K >= C, all masked
+    (3, 2, 2, 20, 64, 16, [300, 20, 100], 32, 4, None, False),
+    (1, 2, 4, 4096, 128, 32, 4096 * 32, 128, 0, None, False),     # C = 4096
+    (1, 1, 4, 16384, 128, 32, 16384 * 32, 128, 8, None, False),   # the C limit
+]
+SCORE_RTOL = 1e-6  # the scores are f32 sums on both sides: of the row's max |score|
+
+
+def _select_inputs(gen, dev, dtype, case):
+    b, hkv, group, c, d, page, ctx, top_k, stripes, need, ties = case
+    q = _rand(gen, dev, dtype, b, hkv * group, d)
+    lo = torch.randn(b, hkv, c, d, generator=gen, device=dev)
+    hi = torch.randn(b, hkv, c, d, generator=gen, device=dev)
+    if ties:
+        lo, hi = lo[:, :, torch.arange(c) % 5], hi[:, :, torch.arange(c) % 5]
+        q[-1] = 0
+    tmin, tmax = torch.minimum(lo, hi).contiguous(), torch.maximum(lo, hi).contiguous()
+    ctx_t = torch.tensor(ctx if isinstance(ctx, list) else [ctx] * b, device=dev)
+    logical = torch.arange(c, device=dev)
+    if stripes:
+        from repro_torch.core import paging
+        logical = paging.logical_pages(c, stripes, dev)
+    start = (logical * page)[None, None].expand(b, hkv, c)
+    start = torch.where(start < ctx_t[:, None, None] - 1, start, -1).to(torch.int32)
+    empty = (start < 0)[..., None]
+    tmin = torch.where(empty, float("inf"), tmin).contiguous()
+    tmax = torch.where(empty, float("-inf"), tmax).contiguous()
+    ctx = ctx_t.to(torch.int32) if isinstance(ctx, list) else ctx
+    need = None if need is None else torch.tensor(need, device=dev)
+    return q, tmin, tmax, start.contiguous(), ctx, need
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_page_select_kernel(cuda_dev, dtype, case):
+    """The fused select step: its selection is the stable top-k of its own
+    scores (read back as imp - 0 on the selectable pages), exactly, in the
+    layout's form (coplace: also the two-stage per-stripe form); its scores
+    lie within SCORE_RTOL of the plain version's; with a previous selection
+    and importance, the rows that need no selection keep them bit for bit
+    and the others add the scores; and rows of the plain version's
+    selection without a near-tie are the kernel's."""
+    b, hkv, group, c, d, page, _, top_k, stripes, _, _ = case
+    gen = torch.Generator(device=cuda_dev).manual_seed(c + b)
+    q, tmin, tmax, start, ctx, need = _select_inputs(gen, cuda_dev, dtype, case)
+    kw = dict(sink=4, local=256 if page == 32 else 3 * page, page=page, top_k=top_k,
+              minus_one_masked=bool(stripes))
+    zeros = torch.zeros(b, hkv, c, device=cuda_dev)
+    sel_prev = torch.randint(-1, c, (b, hkv, top_k), generator=gen, device=cuda_dev,
+                             dtype=torch.int32)
+    ops.reset_launches()
+    sel0, imp0 = ops.page_select(q, tmin, tmax, start, ctx, sel_prev, zeros, **kw)
+    imp_prev = torch.randn(b, hkv, c, generator=gen, device=cuda_dev)
+    sel1, imp1 = ops.page_select(q, tmin, tmax, start, ctx, sel_prev, imp_prev, need, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["page_score"] == 2
+
+    ok = tref.selectable_pages(start, ctx, sink=4, local=kw["local"], page=page).cpu()
+    own = torch.where(ok, imp0.cpu(), tref.NEG_INF)
+    assert torch.equal(imp0.cpu()[~ok], torch.zeros(int((~ok).sum())))
+    flag = dict(minus_one_masked=bool(stripes))
+    assert torch.equal(sel0.cpu(), tref.select_top_k(own, top_k, **flag))
+    if stripes:
+        assert torch.equal(sel0.cpu(), tref.select_top_k(own, top_k, shards=stripes, **flag))
+
+    plain = torch.where(ok, tref.page_score_ref(*_widened(q, tmin, tmax)).cpu(), tref.NEG_INF)
+    band = SCORE_RTOL * torch.where(ok, plain.abs(), 0.0).amax(dim=-1, keepdim=True)
+    assert bool((torch.where(ok, (own - plain).abs(), 0.0) <= band).all())
+
+    rows = torch.ones(b, dtype=torch.bool) if need is None else need.cpu()
+    keep = ~rows
+    assert torch.equal(sel1.cpu()[keep], sel_prev.cpu()[keep])
+    assert torch.equal(imp1.cpu()[keep], imp_prev.cpu()[keep])
+    assert torch.equal(sel1.cpu()[rows], sel0.cpu()[rows])
+    want = imp_prev.cpu() + torch.where(ok, plain, 0.0)
+    assert bool(((imp1.cpu() - want).abs()[rows] <= 2 * band[rows] + 1e-6 * want.abs()[rows]).all())
+
+    ref_sel, _ = tref.page_select_ref(*_widened(q, tmin, tmax), start, ctx, sel_prev,
+                                      zeros, **kw)
+    # a row is clear of near-ties where every gap between its plain top
+    # min(K, C) + 1 scores is wider than the scores' error, masked pairs aside
+    top = plain.sort(dim=-1, descending=True).values[..., : min(top_k, c) + 1]
+    hi, lo = top[..., :-1], top[..., 1:]
+    clear = ((hi - lo > 2 * band) | (hi <= tref.NEG_INF_HALF)).all(dim=-1)
+    assert bool((ref_sel.cpu() == sel0.cpu()).all(dim=-1)[clear].all())
+
+
+@pytest.mark.cuda
+def test_page_select_refuses_above_its_limits(cuda_dev):
+    q = torch.randn(1, 4, 128, device=cuda_dev)
+    for c, top_k, msg in ((ops._MAX_SELECT_PAGES + 1, 128, "limit of 16384"),
+                          (64, ops._MAX_SELECT_K + 1, "top_k")):
+        tau = torch.zeros(1, 1, c, 128, device=cuda_dev)
+        with pytest.raises(ValueError, match=msg):
+            ops.page_select(q, tau, tau, torch.zeros(1, 1, c, dtype=torch.int32,
+                                                     device=cuda_dev),
+                            10_000, torch.zeros(1, 1, top_k, dtype=torch.int32,
+                                                device=cuda_dev),
+                            torch.zeros(1, 1, c, device=cuda_dev), sink=4, local=256,
+                            page=32, top_k=top_k)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_count_and_validate(cuda_dev):
     ops.reset_launches()

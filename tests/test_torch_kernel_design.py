@@ -594,3 +594,136 @@ def test_stripe_split_at_the_main_path_shape():
     kp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
     vp = rng.standard_normal((b, hkv, c, p, d)).astype(np.float32)
     _check_coplace(q, kp, vp, slots, valid, s, device_validity)
+
+
+# ---------------------------------------------------------------------------
+# page_score's select mode: keys, radix select, compaction, rank placement
+# ---------------------------------------------------------------------------
+
+SELECT_CLUSTER = 8   # blocks a row (ops._SELECT_BLOCKS)
+SELECT_WARPS = 8     # warps a block
+DIGIT = 8            # the radix select's digit width: four passes over 32 bits
+
+
+def order_key(s):
+    """The kernel's order-preserving key of f32 scores, as int64 holding
+    the unsigned 32-bit value: -0.0 takes +0.0's key."""
+    s = torch.where(s == 0, 0.0, s)
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, ~u & 0xFFFFFFFF, u | (1 << 31))
+
+
+def key_score(key: int) -> float:
+    u = key & 0x7FFFFFFF if key >= 1 << 31 else ~key & 0xFFFFFFFF
+    return float(torch.tensor([u], dtype=torch.int64).to(torch.int32).view(torch.float32))
+
+
+def radix_select(keys, k: int):
+    """(thr, want): the k-th largest key, and how many keys equal to it the
+    top k take, by histogram passes of DIGIT bits from the top; each pass
+    picks the digit where the count from the top reaches ``want``, as the
+    kernel's warp 0 does from a scan of the block's histogram."""
+    prefix, mask, want = 0, 0, k
+    bins = 1 << DIGIT
+    for shift in range(32 - DIGIT, -1, -DIGIT):
+        match = (keys & mask) == prefix
+        hist = torch.bincount((keys[match] >> shift) & (bins - 1), minlength=bins)
+        incl = hist.flip(0).cumsum(0)         # thread t: digits 255 .. 255 - t
+        t = int(torch.nonzero(incl >= want)[0])
+        digit = bins - 1 - t
+        want -= int(incl[t] - hist[digit])
+        prefix |= digit << shift
+        mask |= (bins - 1) << shift
+    return prefix, want
+
+
+def select_emulated(scores, top_k: int, minus_one_masked: bool):
+    """One row's selection as the leader block computes it from the row's
+    keys: radix select of the K-th key, the ordered compaction (keys above
+    it, then the first ``want`` equal to it in slot order), each winner
+    placed at the count of winners with a larger 64-bit key (score key,
+    complemented slot), -1 padding and, with ``minus_one_masked``, -1 for
+    masked scores."""
+    c = scores.shape[0]
+    k = min(top_k, c)
+    keys = order_key(scores)
+    thr, want = radix_select(keys, k)
+    gt = torch.nonzero(keys > thr).flatten().tolist()
+    eq = torch.nonzero(keys == thr).flatten().tolist()[:want]
+    win = [(int(keys[p]) << 32) | (~p & 0xFFFFFFFF) for p in gt + eq]
+    assert len(win) == k
+    out = [-1] * top_k
+    for w in win:
+        rank = sum(x > w for x in win)
+        masked = minus_one_masked and key_score(w >> 32) <= -5e29
+        out[rank] = -1 if masked else ~w & 0xFFFFFFFF
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def scoring_split(c: int, n: int = SELECT_CLUSTER, nw: int = SELECT_WARPS):
+    """The pages each warp of each block of a row's cluster scores."""
+    ranges = []
+    for r in range(n):
+        beg, end = r * c // n, (r + 1) * c // n
+        per = -(-(end - beg) // nw)
+        for w in range(nw):
+            wb = beg + w * per
+            ranges.append((wb, min(end, wb + per)))
+    return ranges
+
+
+@pytest.mark.parametrize("c", list(range(1, 70)) + [257, 258, 264, 4096, 16384])
+def test_select_scoring_split_scores_every_page_once(c):
+    seen = torch.zeros(c, dtype=torch.int64)
+    for n in (1, SELECT_CLUSTER):
+        seen.zero_()
+        for wb, we in scoring_split(c, n):
+            if we > wb:
+                seen[wb:we] += 1
+        assert bool((seen == 1).all())
+
+
+def _select_rows(kind, rng, c):
+    """(4, c) f32 score rows of a kind; NEG_INF marks a masked page."""
+    rows = rng.standard_normal((4, c)).astype(np.float32) * 50
+    if kind == "ties":
+        rows = rng.choice(np.float32([-3.0, -1.0, 0.5, 2.0, 7.0]), (4, c))
+    elif kind == "signed zeros":
+        rows = rng.choice(np.float32([-0.0, 0.0, -1.0, 1.0]), (4, c))
+    elif kind == "neg_inf fill":
+        rows[:, : c // 2] = -1e30
+    elif kind == "all masked":
+        rows[:] = -1e30
+    elif kind == "mixed":
+        rows = np.where(rng.random((4, c)) < 0.3, np.float32(-1e30),
+                        rng.choice(np.float32([-2.0, -0.0, 0.0, 1.0, 3.0]), (4, c)))
+    return torch.from_numpy(rows.astype(np.float32))
+
+
+# (kind, c, top_k): C not a multiple of the cluster's 8 blocks, K above the
+# selectable count, K >= C
+SELECT_EMU_CASES = [("random", 258, 128), ("ties", 75, 16), ("signed zeros", 37, 20),
+                    ("neg_inf fill", 40, 32), ("all masked", 21, 8), ("mixed", 99, 40),
+                    ("random", 20, 32), ("mixed", 13, 13), ("ties", 1, 4)]
+
+
+@pytest.mark.parametrize("case", SELECT_EMU_CASES, ids=str)
+def test_select_emulation_equals_the_stable_sort(case):
+    """The kernel's selection algorithm equals torch.sort(stable=True)'s
+    top-k (``ref.select_top_k``), in both layouts' forms, row by row."""
+    kind, c, top_k = case
+    rows = _select_rows(kind, np.random.default_rng(c), c)
+    for flag in (False, True):
+        want = tref.select_top_k(rows, top_k, minus_one_masked=flag)
+        got = torch.stack([select_emulated(r, top_k, flag) for r in rows])
+        assert torch.equal(got, want), (kind, flag)
+
+
+def test_order_key_orders_as_the_floats():
+    vals = torch.tensor([-np.inf, -1e30, -5e29, -3.5, -1e-38, -0.0, 0.0, 1e-45, 2.0,
+                         3e38, np.inf], dtype=torch.float32)
+    keys = order_key(vals)
+    assert keys[5] == keys[6]                        # -0.0 and +0.0 share a key
+    assert bool((keys[1:] >= keys[:-1]).all())
+    assert bool((keys[1:5] > keys[:4]).all()) and bool((keys[7:] > keys[6:-1]).all())
+    assert all(key_score(int(k)) == float(v) for k, v in zip(keys, vals))
