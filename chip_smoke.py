@@ -33,14 +33,26 @@ then, each phase failing the run with a nonzero exit:
      prefill of 512 tokens a step, launch counts checked exactly against
      the engine's step counts and every engine step run with CUDA's sync
      debug mode set to error (a step that reads from the card fails the
-     run); then the same requests with prefill-then-pack admission;
+     run); then the same requests with prefill-then-pack admission; these
+     engines run their steps eagerly (``eager=True``);
   6. the ``coplace_shmap`` layout over 8 page stripes (split-KV decode):
      a reduced chunked engine with churn and balanced admission, card
      against CPU; one decode step of one llama3-8b layer from the 8192-token
      lockstep prefill, its retrieval-head outputs held against the default
      layout's (and the full logits' difference printed); then the full-width
      chunked engine of phase 5 with balanced admission, launch counts
-     checked exactly and every step under sync debug mode "error".
+     checked exactly and every step under sync debug mode "error";
+  7. compiled dispatch: a reduced llama3-8b chunked engine with the share
+     window widened to 4 and fused decode windows (``decode_window=4``),
+     f32 and bf16, its steps replayed as the CUDA graphs captured at
+     construction, against the same engine run eagerly on the card (equal
+     tokens and launches) and against the CPU (f32 token for token, bf16 up
+     to a near-tie); then the full-width chunked default and coplace_shmap
+     engines of phases 5 and 6 captured with ``decode_window=4``: launch
+     counts exact (a replay adds its graph's launches), every poll under
+     sync debug mode "error", captures made once at construction, and
+     tokens/s, dispatches, decode steps a dispatch, graph replays and the
+     token agreement with the eager run of the same layout logged.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -97,6 +109,9 @@ BATCH, PROMPT, GEN = 2, 8192, 32
 # the engine phase: 6 requests on 4 slots, prompts of 2048-8192 tokens and
 # generations of 8-32 tokens, fed 512 prompt tokens an engine step
 ENGINE_BATCH, ENGINE_CHUNK, N_REQUESTS = 4, 512, 6
+# the captured engines' fused windows: the reuse steps between two selection
+# boundaries (share window 4: three) as one dispatch
+ENGINE_WINDOW = 4
 ENGINE_PROMPTS, ENGINE_GENS = (2048, 8192), (8, 32)
 # chunk-kernel phase: the context before the chunk of each of the 4 slots
 CHUNK_STARTS = (0, 2048, 5120, 7680)
@@ -1167,7 +1182,8 @@ def check_reduced_bf16_engine_against_cpu(dev):
     cpu_rec = record_logits(cpu_eng)
     cpu = cpu_eng.run(reqs)
     ops.reset_launches()
-    card_eng = Engine(cfg, _to(params, dev), device=dev, **kw)
+    # eager: the recorder sees each step's logits in Python
+    card_eng = Engine(cfg, _to(params, dev), device=dev, eager=True, **kw)
     card_rec = record_logits(card_eng)
     card = card_eng.run(reqs)
     launched = dict(ops.LAUNCHES)
@@ -1222,8 +1238,8 @@ def check_reduced_coplace_engine_against_cpu(dev):
               layout="coplace_shmap", shards=4, admission="balanced")
     cpu_eng = Engine(cfg, params, device="cpu", **kw)
     cpu = cpu_eng.run(reqs)
-    ops.reset_launches()
-    card_eng = Engine(cfg, _to(params, dev), device=dev, **kw)
+    card_eng = Engine(cfg, _to(params, dev), device=dev, **kw)  # captured
+    ops.reset_launches()  # after the warm-up before the captures
     card = card_eng.run(reqs)
     same = all(card[u].tokens == cpu[u].tokens for u in cpu) and sorted(card) == sorted(cpu)
     log(f"reduced {cfg.name} coplace_shmap S=4 balanced chunked engine: card vs CPU "
@@ -1237,6 +1253,145 @@ def check_reduced_coplace_engine_against_cpu(dev):
     if ops.LAUNCHES["paged_attention_partial"] != once or ops.LAUNCHES["combine_partials"] != 0:
         fail(f"the reduced coplace_shmap engine did not make its one co-placed launch a "
              f"layer a decode step ({once})")
+
+
+def window_launches(s, n_l, fused_len, split):
+    """The decode and chunk kernels' launches of an engine run, from its step
+    counts: a fused window runs each of its ``fused_len`` iterations' kernels,
+    past a slot's budget too (those iterations are no-ops on the state)."""
+    decode = s.decode_steps - s.fused_steps + s.fused_windows * fused_len
+    chunks = s.prefill_chunks - s.fused_chunks + s.fused_mixed_windows * fused_len
+    return {"page_score": s.select_steps * n_l,
+            "paged_attention": (1 if split else 2) * decode * n_l,
+            "chunk_attention": chunks * n_l, "chunk_attention_paged": chunks * n_l,
+            "paged_attention_partial": decode * n_l if split else 0,
+            "combine_partials": 0}
+
+
+def serve_polled(eng, reqs, what, guard=True):
+    """Serve ``reqs`` a poll at a time, each poll (admission and step) under
+    CUDA sync debug mode "error" unless ``guard`` is false: neither may read
+    from the card. Returns (launch counts of the run, wall seconds,
+    per-stripe page-load imbalance after each poll)."""
+    from repro_torch.kernels import ops
+
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    imb = []
+    t0 = time.perf_counter()
+    while eng.busy():
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.poll()
+        except RuntimeError as exc:  # a sync with the card raises here
+            fail(f"{what} step failed: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        imb.append(page_load_imbalance(eng, eng.cfg.h2eal.page_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    eng.finalize()
+    return got, wall, imb
+
+
+def first_divergence(got, want):
+    """(uid, token index) of the first token where two runs' traces differ,
+    or None."""
+    for u in sorted(want):
+        for i, (a, b) in enumerate(zip(got[u], want[u])):
+            if a != b:
+                return u, i
+        if len(got[u]) != len(want[u]):
+            return u, min(len(got[u]), len(want[u]))
+    return None
+
+
+def check_reduced_window_engines(dev):
+    """Reduced llama3-8b with the share window widened to 4, the chunked
+    Engine with churn and fused windows (decode_window=4), captured (the
+    default on the card) against the same engine run eagerly on the card:
+    equal tokens and launches, captures made once at construction. Against
+    the CPU: f32 token for token (the fused engine on the CPU), as the
+    per-step reduced engine is held; bf16 at head_dim 128 tokens equal
+    except at a near-tie under BF16_LOGIT_BAND, the CPU's logits from its
+    per-step engine (the windows' first tokens and steps are not kept
+    apart)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    def widen(cfg, **kw):
+        return dataclasses.replace(cfg, h2eal=dataclasses.replace(
+            cfg.h2eal, share_window=4, **kw))
+
+    cases = {
+        torch.float32: (widen(reduced(get_arch(ARCH))), 5, 96, 7,
+                        [(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)]),
+        torch.bfloat16: (widen(reduced(get_arch(ARCH), head_dim=128), select_budget=320),
+                         9, 320, 48, [(300, 9), (150, 6), (77, 12), (210, 5), (40, 8)]),
+    }
+    for dtype, (cfg, seed, capacity, chunk, shape) in cases.items():
+        params = M.init_params(cfg, generator=torch.Generator().manual_seed(seed),
+                               device="cpu", dtype=dtype)
+        rng = np.random.default_rng(seed)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                        max_new=m) for i, (n, m) in enumerate(shape)]
+        kw = dict(max_batch=2, capacity=capacity, prompt_buckets=[64],
+                  prefill_chunk=chunk)
+        card_params = _to(params, dev)
+        runs = {}
+        for mode in ("eager", "graphs"):
+            eng = Engine(cfg, card_params, device=dev, decode_window=4,
+                         eager=mode == "eager", **kw)
+            sizes = eng.jit_cache_sizes()
+            got, _, _ = serve_polled(eng, reqs, f"reduced {dtype} window engine ({mode})")
+            want = window_launches(eng.stats, cfg.num_layers, eng._fused_len, False)
+            want["flash_attention"] = 0
+            if got != want or eng.jit_cache_sizes() != sizes:
+                fail(f"reduced {dtype} window engine ({mode}): launches {got}, expected "
+                     f"{want}; captures {sizes} -> {eng.jit_cache_sizes()}")
+            runs[mode] = ({u: c.tokens for u, c in eng.completions.items()}, eng.stats,
+                          sizes)
+            del eng
+        (eager, s_e, _), (graphs, s_g, sizes) = runs["eager"], runs["graphs"]
+        if graphs != eager or set(sizes.values()) != {1} or not s_g.fused_windows:
+            fail(f"reduced {dtype} window engine: captured tokens differ from the eager "
+                 f"engine's at {first_divergence(graphs, eager)}, or captures {sizes}, "
+                 f"or no fused window ran")
+        if dtype == torch.float32:
+            cpu = Engine(cfg, params, device="cpu", decode_window=4, **kw).run(reqs)
+            cpu = {u: c.tokens for u, c in cpu.items()}
+            at, note = first_divergence(graphs, cpu), "token for token"
+            ok = at is None
+        else:
+            cpu_eng = Engine(cfg, params, device="cpu", **kw)
+            firsts, steps = record_logits(cpu_eng)
+            comps = cpu_eng.run(reqs)
+            cpu = {u: c.tokens for u, c in comps.items()}
+            at = first_divergence(graphs, cpu)
+            band = BF16_LOGIT_BAND * max(x.abs().max().item() for x in firsts.values())
+            ok, note = True, f"near-tie band {band:.3e}"
+            for u in sorted(cpu):  # each request up to its first divergence
+                d = first_divergence({u: graphs[u]}, {u: cpu[u]})
+                if d is not None:
+                    comp, i = comps[u], d[1]
+                    row = firsts[u] if i == 0 else steps[comp._step_idx[i - 1]][comp._slot]
+                    top2 = row.topk(2).values
+                    ok = ok and (top2[0] - top2[1]).item() <= band
+        log(f"reduced {cfg.name} {str(dtype)[6:]} share window 4, chunks of {chunk}, "
+            f"decode_window 4: captured vs eager on the card tokens equal, captures "
+            f"{sizes}, {s_g.fused_windows} fused windows ({s_g.fused_steps} steps, "
+            f"{s_g.fused_mixed_windows} mixed), dispatches {s_g.dispatches} "
+            f"({s_g.steps_per_dispatch:.2f} decode steps a dispatch); vs the CPU "
+            f"({note}): first divergence {at}")
+        if not ok:
+            fail(f"the reduced {dtype} window engine on the card disagrees with the CPU")
 
 
 def full_params(dev, cfg):
@@ -1378,11 +1533,12 @@ def page_load_imbalance(eng, page_size) -> float:
 
 
 def serve_engine(dev, cfg, params):
-    """The continuous-batching Engine at full width: chunked prefill, then
-    prefill-then-pack on the same requests, then the chunked coplace_shmap
-    engine over SHARDS stripes with balanced admission. Returns the launch
-    counts of each run."""
-    from repro_torch.kernels import ops
+    """The continuous-batching Engine at full width, run eagerly: chunked
+    prefill, then prefill-then-pack on the same requests, then the chunked
+    coplace_shmap engine over SHARDS stripes with balanced admission; then
+    the chunked default and coplace_shmap engines with their steps replayed
+    as the CUDA graphs captured at construction and fused decode windows
+    (decode_window=4). Returns the launch counts of each run."""
     from repro_torch.serving.engine import Engine
 
     reqs, capacity = engine_workload(cfg)
@@ -1392,44 +1548,33 @@ def serve_engine(dev, cfg, params):
         f"generations {[r.max_new for r in reqs]}, capacity {capacity}")
     out, launches = {}, {}
     coplace = dict(layout="coplace_shmap", shards=SHARDS, admission="balanced")
-    for mode, chunk, kw in (("chunked", ENGINE_CHUNK, {}), ("packed", None, {}),
-                            ("coplace", ENGINE_CHUNK, coplace)):
+    graphs = dict(decode_window=ENGINE_WINDOW, eager=False)
+    for mode, chunk, kw in (
+            ("chunked", ENGINE_CHUNK, dict(eager=True)),
+            ("packed", None, dict(eager=True)),
+            ("coplace", ENGINE_CHUNK, dict(coplace, eager=True)),
+            ("chunked_graphs", ENGINE_CHUNK, graphs),
+            ("coplace_graphs", ENGINE_CHUNK, dict(coplace, **graphs))):
+        t0 = time.perf_counter()
         eng = Engine(cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
                      prompt_buckets=sorted(set(lens)), prefill_chunk=chunk, device=dev,
                      **kw)
-        for r in reqs:
-            eng.submit(r)
-        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        sizes = eng.jit_cache_sizes()
         torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        imb = []
-        t0 = time.perf_counter()
-        while eng.busy():
-            if chunk:  # admission and step: neither may read from the card
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                eng.poll()
-            except RuntimeError as exc:  # a sync with the card raises here
-                fail(f"engine ({mode}) step failed: {exc}")
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            imb.append(page_load_imbalance(eng, cfg.h2eal.page_size))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[mode] = got = dict(ops.LAUNCHES)
-        eng.finalize()
+        # chunked: admission and step, neither may read from the card
+        got, wall, imb = serve_polled(eng, reqs, f"engine ({mode})", guard=bool(chunk))
+        launches[mode] = got
         s = eng.stats
-        split = mode == "coplace"  # retrieval heads: one launch, merged in it
-        expect = {"flash_attention": 0 if chunk else 2 * n_l * len(reqs),
-                  "page_score": s.select_steps * n_l,
-                  "paged_attention": (1 if split else 2) * s.decode_steps * n_l,
-                  "chunk_attention": s.prefill_chunks * n_l,
-                  "chunk_attention_paged": s.prefill_chunks * n_l,
-                  "paged_attention_partial": s.decode_steps * n_l if split else 0,
-                  "combine_partials": 0}
+        split = "coplace" in mode  # retrieval heads: one launch, merged in it
+        expect = dict(window_launches(s, n_l, eng._fused_len, split),
+                      flash_attention=0 if chunk else 2 * n_l * len(reqs))
         log(f"engine ({mode}) launches {got} (expected {expect})")
         if got != expect:
             fail(f"the engine ({mode}) did not launch the kernels as expected")
+        if eng.jit_cache_sizes() != sizes:
+            fail(f"the engine ({mode}) captured again while serving: {sizes} -> "
+                 f"{eng.jit_cache_sizes()}")
         comps = eng.completions
         for r in reqs:
             t = comps[r.uid].tokens if r.uid in comps else []
@@ -1446,18 +1591,23 @@ def serve_engine(dev, cfg, params):
             f"{peak:.1f} GiB; admission reorders {s.admission_reorders}, per-stripe "
             f"page-load imbalance over {SHARDS} stripes mean {np.mean(imb):.4f} max "
             f"{np.max(imb):.4f} (cache capacity {eng.cache_capacity})")
+        log(f"engine ({mode}) dispatch: {s.dispatches} dispatches, "
+            f"{s.steps_per_dispatch:.3f} decode steps a dispatch, {s.fused_windows} "
+            f"fused windows ({s.fused_steps} steps, {s.fused_mixed_windows} mixed), graph "
+            f"replays {eng.graph_replays()}, captures before/after the run {sizes} / "
+            f"{eng.jit_cache_sizes()}, construction {t_build:.2f}s")
         out[mode] = {u: c.tokens for u, c in comps.items()}
         del eng
         torch.cuda.empty_cache()
-    pairs = [(a, b) for u in out["chunked"] for a, b in zip(out["chunked"][u],
-                                                            out["packed"][u])]
-    agree = sum(a == b for a, b in pairs) / len(pairs)
-    log(f"engine: token agreement chunked vs packed {agree:.3f} (random weights: "
-        f"near-flat logits, so a reassociated sum can flip a token)")
-    pairs = [(a, b) for u in out["chunked"] for a, b in zip(out["chunked"][u],
-                                                            out["coplace"][u])]
-    agree = sum(a == b for a, b in pairs) / len(pairs)
-    log(f"engine: token agreement chunked default vs chunked coplace_shmap {agree:.3f}")
+    for a, b, what in (("chunked", "packed", " (random weights: near-flat logits, so "
+                        "a reassociated sum can flip a token)"),
+                       ("chunked", "coplace", ""),
+                       ("chunked_graphs", "chunked", " (same kernels, captured and fused "
+                        "against eager and per-step)"),
+                       ("coplace_graphs", "coplace", "")):
+        pairs = [(x, y) for u in out[a] for x, y in zip(out[a][u], out[b][u])]
+        agree = sum(x == y for x, y in pairs) / len(pairs)
+        log(f"engine: token agreement {a} vs {b} {agree:.3f}{what}")
     return launches
 
 
@@ -1553,17 +1703,19 @@ def main() -> int:
     check_reduced_engine_against_cpu(dev)
     check_reduced_bf16_engine_against_cpu(dev)
     check_reduced_coplace_engine_against_cpu(dev)
+    check_reduced_window_engines(dev)
     params = full_params(dev, cfg)
     by_path = {"generate": serve_full(dev, cfg, params)}
     check_coplace_layer(dev, cfg, params)
     by_path.update({f"engine_{k}": v for k, v in serve_engine(dev, cfg, params).items()})
     # the main paths: sparse lockstep generate, the chunked engine and the
-    # chunked coplace_shmap engine; every kernel of a path must have run in it
+    # chunked coplace_shmap engine, each eager and captured with fused
+    # windows; every kernel of a path must have run in it
+    engine = ("page_score", "paged_attention", "chunk_attention", "chunk_attention_paged")
+    coplaced = engine + ("paged_attention_partial",)
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
-                  "engine_chunked": ("page_score", "paged_attention", "chunk_attention",
-                                     "chunk_attention_paged"),
-                  "engine_coplace": ("page_score", "paged_attention", "chunk_attention",
-                                     "chunk_attention_paged", "paged_attention_partial")}
+                  "engine_chunked": engine, "engine_coplace": coplaced,
+                  "engine_chunked_graphs": engine, "engine_coplace_graphs": coplaced}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

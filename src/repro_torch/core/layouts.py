@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import torch
+
 from repro_torch.core import hybrid_attention as hattn
 
 LAYOUT_DEFAULT = "default"
@@ -85,6 +87,27 @@ class DefaultLayout:
             need_select=need_select)
         return out, {"paged": paged, "stream": stream}
 
+    def decode_window(self, body, carry, xs, *, length: int):
+        """Run ``length`` reuse decode steps as one fused window, the
+        counterpart of the reference's ``lax.scan``: ``body(carry, x) ->
+        (carry, y)`` takes ``x``, the i-th slice of every tensor of ``xs``
+        (a tensor, a tuple of tensors, or None), and the per-iteration
+        ``y`` are stacked. Returns (carry, stacked ys). ``body``'s decode
+        math routes through this layout's own hooks, so a plain loop is
+        right for every layout; a layout overrides this only to change how
+        the window iterates, never the step math."""
+        ys = []
+        for i in range(length):
+            if xs is None:
+                x = None
+            elif isinstance(xs, torch.Tensor):
+                x = xs[i]
+            else:
+                x = tuple(a[i] for a in xs)
+            carry, y = body(carry, x)
+            ys.append(y)
+        return carry, torch.stack(ys)
+
 
 class CoplaceShmapLayout(DefaultLayout):
     """Co-placement over ``shards`` page stripes: striped page order at
@@ -112,6 +135,12 @@ class CoplaceShmapLayout(DefaultLayout):
 
 
 DEFAULT = DefaultLayout()
+
+
+def dispatch_decode_window(layout, body, carry, xs, *, length: int):
+    """Route a fused decode window (a loop over reuse-step bodies) to
+    ``layout``'s ``decode_window`` hook."""
+    return layout.decode_window(body, carry, xs, length=length)
 
 
 def get_layout(name: str, shards: int = 1) -> DefaultLayout:

@@ -24,6 +24,10 @@ It runs on the card unless ``--device cpu`` is given:
       --reduced --workload ragged --requests 5 --max-batch 2 \\
       --prompt-buckets 16,24 --layout coplace_shmap --shards 4 \\
       --admission balanced --report-balance --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --reduced --workload ragged --requests 5 --max-batch 2 \\
+      --prompt-buckets 16,24 --prefill-chunk 8 --decode-window 4 \\
+      --share-window 4 --device cpu
 """
 from __future__ import annotations
 
@@ -117,11 +121,12 @@ def make_ragged_requests(cfg, *, n: int, prompt_buckets, gen_min: int,
 def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
                prompt_buckets, report_balance: bool = False,
                layout: str = "default", shards: int = 1,
-               admission: str = "fifo", prefill_chunk=None, device=None):
+               admission: str = "fifo", prefill_chunk=None, decode_window=None,
+               device=None):
     """Serve ``requests`` with the continuous-batching engine (packed
-    admission, or chunked with ``prefill_chunk=N``; ``layout``, ``shards``
-    and ``admission`` as in ``Engine``). Returns (completions, stats
-    dict)."""
+    admission, or chunked with ``prefill_chunk=N``; ``layout``, ``shards``,
+    ``admission`` and ``decode_window`` as in ``Engine``). Returns
+    (completions, stats dict)."""
     if admission == "balanced" and layout != layoutlib.LAYOUT_COPLACE_SHMAP:
         raise ValueError(
             "--admission balanced scores per-stripe page loads and only has "
@@ -129,7 +134,7 @@ def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
     eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
                  prompt_buckets=prompt_buckets, layout=layout, shards=shards,
                  admission=admission, prefill_chunk=prefill_chunk,
-                 device=device)
+                 decode_window=decode_window, device=device)
     completions = eng.run(requests)
     s = eng.stats
     stats = {
@@ -144,7 +149,15 @@ def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
         "occupancy": s.occupancy,
         "tokens_out": s.tokens_out,
         "admission_reorders": s.admission_reorders,
+        "dispatches": s.dispatches,
+        "steps_per_dispatch": s.steps_per_dispatch,
+        "jit_cache": eng.jit_cache_sizes(),
+        "graph_replays": eng.graph_replays(),
     }
+    if decode_window:
+        stats["fused"] = {"decode_window": decode_window,
+                          "fused_windows": s.fused_windows,
+                          "fused_steps": s.fused_steps}
     if report_balance:
         stats["balance"] = _balance_report(cfg, eng)
     return completions, stats
@@ -204,6 +217,14 @@ def main(argv=None):
     ap.add_argument("--admission", choices=["fifo", "balanced"], default="fifo",
                     help="ragged admission order (balanced = per-stripe "
                          "page-load aware, sched/balance.py)")
+    ap.add_argument("--decode-window", type=int, default=0,
+                    help="fuse up to N reuse steps between selection "
+                         "boundaries into one dispatch with retirement on "
+                         "the card (0 = per-step dispatch)")
+    ap.add_argument("--share-window", type=int, default=0,
+                    help="override the config's share_window (the selection "
+                         "cadence); the reduced configs pin it to 2, which "
+                         "leaves one reuse step a window")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions of the kernels)")
@@ -216,6 +237,10 @@ def main(argv=None):
     if args.h2eal == "off":
         cfg = dataclasses.replace(
             cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
+    if args.share_window:
+        cfg = dataclasses.replace(
+            cfg, h2eal=dataclasses.replace(cfg.h2eal,
+                                           share_window=args.share_window))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     params = M.init_params(cfg, generator=gen, device=dev, dtype=dtype)
@@ -231,7 +256,8 @@ def main(argv=None):
             cfg, params, reqs, max_batch=args.max_batch, capacity=capacity,
             prompt_buckets=buckets, report_balance=args.report_balance,
             layout=args.layout, shards=args.shards, admission=args.admission,
-            prefill_chunk=args.prefill_chunk or None, device=dev)
+            prefill_chunk=args.prefill_chunk or None,
+            decode_window=args.decode_window or None, device=dev)
         print(f"[serve] arch={cfg.name} workload=ragged device={dev} "
               f"layout={args.layout} shards={args.shards} "
               f"admission={args.admission} "
@@ -242,7 +268,15 @@ def main(argv=None):
         print(f"[serve] select/reuse steps: {stats['select_steps']}/"
               f"{stats['reuse_steps']}; admissions/chunks: "
               f"{stats['admissions']}/{stats['prefill_chunks']}; admission "
-              f"reorders: {stats['admission_reorders']}")
+              f"reorders: {stats['admission_reorders']}; dispatches "
+              f"{stats['dispatches']} ({stats['steps_per_dispatch']:.2f} decode "
+              f"steps a dispatch)")
+        print(f"[serve] graph captures: {stats['jit_cache']}; replays: "
+              f"{stats['graph_replays']}")
+        if "fused" in stats:
+            fu = stats["fused"]
+            print(f"[serve] fused decode windows: w={fu['decode_window']} "
+                  f"windows={fu['fused_windows']} fused_steps={fu['fused_steps']}")
         if "page_loads" in stats.get("balance", {}):
             bal = stats["balance"]
             print(f"[serve] per-stripe page loads {bal['page_loads']} "

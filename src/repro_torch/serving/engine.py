@@ -33,18 +33,34 @@ a fixed batch of ``max_batch`` slots:
     mirrors, copies the small masks and token blocks to the card, and
     keeps each step's (B,) sampled tokens on the card. ``finalize()`` reads
     them once, at the end of ``run()``.
+  * Compiled dispatch (``runtime/graphs.py``): the select, reuse and chunk
+    steps (the greedy sample and the token feed's update folded into the
+    decode steps) and the fused windows have fixed shapes (``max_batch``,
+    ``prefill_chunk``, the window length), so on the card each is captured
+    once as a CUDA graph at construction and replayed; ``jit_cache_sizes``
+    counts the captures, which never grow after construction. Packed
+    prefill (one shape a prompt bucket), packing, slot resets and the first
+    token stay eager. ``eager=True`` runs every step eagerly.
+  * Fused decode windows (``decode_window=w``): strictly between two
+    selection boundaries every decoding slot takes reuse steps only, so the
+    stretch to the next boundary (at most w and share_window - 1 steps)
+    runs as ONE dispatch with retirement on the card
+    (``sched/windows.window_budgets``); a prefilling slot's chunks for the
+    stretch are planned on the host and fed inside the window. Tokens are
+    those of the per-step engine.
 
 The ``default`` and ``coplace_shmap`` layouts (``core/layouts.py``: the
 layout's plan rounds the cache capacity to whole pages per stripe), FIFO
-and balanced admission and greedy sampling are ported; every other option
-of the JAX engine raises and names its ROADMAP item. The engine runs on
-the card unless ``device`` names the CPU, where it runs the kernels' plain
-versions.
+and balanced admission, greedy sampling and fused windows are ported;
+every other option of the JAX engine raises and names its ROADMAP item.
+The engine runs on the card unless ``device`` names the CPU, where it runs
+the kernels' plain versions, eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -55,8 +71,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cache as cachelib
 from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
+from repro_torch.runtime import graphs
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.sched import balance
+from repro_torch.sched.windows import window_budgets
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -85,7 +103,7 @@ class Completion:
     finished_step: int = -1
     first_token_step: int = -1    # EngineStats.engine_steps at the first token
     admitted_engine_step: int = -1
-    _first_tok: object = None     # 0-d tensor on the card until finalize()
+    _first_tok: object = None     # 0-d tensor on the device until finalize()
     _slot: int = -1
     _seq: int = -1                # admission order (FIFO chunk order)
     _step_idx: List[int] = dataclasses.field(default_factory=list)  # trace rows
@@ -96,13 +114,27 @@ class EngineStats:
     decode_steps: int = 0
     select_steps: int = 0
     reuse_steps: int = 0
-    engine_steps: int = 0         # steps that dispatched any work
+    engine_steps: int = 0         # logical steps that did any work (a fused
+                                  # window counts each of its steps)
     admissions: int = 0
     admission_reorders: int = 0   # balanced admission: non-FIFO picks
-    prefill_chunks: int = 0       # chunked-prefill steps
+    prefill_chunks: int = 0       # chunked-prefill steps (chunks fed inside
+                                  # fused windows count too)
     tokens_out: int = 0
     occupancy_sum: float = 0.0    # sum over decode steps of the live-slot share
     wall_s: float = 0.0           # set by run()
+    # dispatch accounting, as the JAX engine's: every step the engine
+    # issues (a graph replay or an eager call: select, reuse, chunk, fused
+    # window; packed prefill, pack, reset and first token) is a dispatch.
+    # The decode steps fold their sample in, so a per-step decode step is
+    # one dispatch; a fused window is one for up to w-1 steps
+    dispatches: int = 0
+    fused_windows: int = 0        # fused-window dispatches
+    fused_steps: int = 0          # decode steps taken inside them
+    # the port's own: mixed-variant windows (a subset of fused_windows) and
+    # the prefill chunks fed inside them, so that launches can be counted
+    fused_mixed_windows: int = 0
+    fused_chunks: int = 0
 
     @property
     def occupancy(self) -> float:
@@ -111,6 +143,24 @@ class EngineStats:
     @property
     def tokens_per_s(self) -> float:
         return self.tokens_out / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def steps_per_s(self) -> float:
+        """Decode-step rate (``tokens_per_s`` per slot while nothing
+        speculates)."""
+        return self.decode_steps / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def engine_steps_per_s(self) -> float:
+        """Logical engine-step rate; ``steps_per_dispatch`` is the fusion
+        factor."""
+        return self.engine_steps / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def steps_per_dispatch(self) -> float:
+        """Decode steps per dispatch: the dispatch reduction of fused
+        windows, observable without a profiler."""
+        return self.decode_steps / self.dispatches if self.dispatches else 0.0
 
 
 @dataclasses.dataclass
@@ -188,10 +238,21 @@ class Engine:
                     default the layout plan's (1: FIFO).
     prefill_chunk   None: prefill-then-pack admission. N: chunked
                     admission, at most N prompt tokens per engine step.
+    decode_window   None or 1: per-step dispatch. w > 1: the reuse steps up
+                    to the next selection boundary, at most
+                    min(w, share_window - 1) of them, run as one fused
+                    window; with chunked admission the prefilling slots'
+                    chunks for the stretch are fed inside it. Tokens equal
+                    the per-step engine's.
     device          the card unless the caller names the CPU.
+    eager           run the steps eagerly on the card instead of replaying
+                    the CUDA graphs captured at construction (the CPU always
+                    runs them eagerly).
 
-    The JAX engine's ``hot_pages``, ``spec_tokens``, ``rebalance`` and
-    ``decode_window`` raise NotImplementedError when given.
+    The engine's graphs read the parameters and the serve state they were
+    captured with: replace neither after construction. The JAX engine's
+    ``hot_pages``, ``spec_tokens`` and ``rebalance`` raise
+    NotImplementedError when given.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int,
@@ -202,7 +263,7 @@ class Engine:
                  prefill_chunk: Optional[int] = None, device=None,
                  hot_pages: Optional[int] = None,
                  spec_tokens: Optional[int] = None, rebalance: str = "off",
-                 decode_window: Optional[int] = None):
+                 decode_window: Optional[int] = None, eager: bool = False):
         if hot_pages:
             raise _not_ported("tiered KV residency (hot_pages)", "Queue 1 item 8")
         if spec_tokens:
@@ -211,9 +272,10 @@ class Engine:
         if rebalance != "off":
             raise _not_ported("live slot rebalancing (rebalance)",
                               "Queue 1 item 8")
-        if decode_window is not None and decode_window != 1:
-            raise _not_ported("fused decode windows (decode_window)",
-                              "Queue 1 item 7")
+        self.decode_window = 1 if decode_window is None else int(decode_window)
+        if self.decode_window < 1:
+            raise ValueError(f"decode_window={decode_window} must be >= 1 "
+                             f"(1 == per-step dispatch)")
         if admission not in ("fifo", "balanced"):
             raise ValueError(f"unknown admission {admission!r}")
         lay = layoutlib.get_layout(layout, shards)
@@ -239,6 +301,10 @@ class Engine:
             raise ValueError(f"prefill_chunk {self.prefill_chunk} exceeds "
                              f"capacity {self.capacity}")
         self.share_window = max(cfg.h2eal.share_window, 1)
+        # a window holds the reuse steps between two selection boundaries
+        self._fused_len = (min(self.decode_window, self.share_window - 1)
+                           if self.decode_window > 1 and self.share_window > 1
+                           else 0)
         scfg = serve_rt.ServeConfig(capacity=self.cache_capacity,
                                     layout=self.layout, shards=self.shards)
         self._prefill = serve_rt.make_prefill(cfg, scfg)
@@ -249,6 +315,12 @@ class Engine:
         if self.prefill_chunk is not None:
             self._chunk = serve_rt.make_prefill_chunk_step(
                 cfg, scfg, chunk=self.prefill_chunk)
+        if self._fused_len:
+            self._fused = serve_rt.make_fused_window_step(
+                cfg, scfg, window=self._fused_len)
+            if self.prefill_chunk is not None:
+                self._fused_mix = serve_rt.make_fused_window_step(
+                    cfg, scfg, window=self._fused_len, chunk=self.prefill_chunk)
         b = int(max_batch)
         self.batch = BatchState(
             serve=M.empty_serve_state(cfg, b, capacity=self.cache_capacity,
@@ -258,10 +330,10 @@ class Engine:
             ready=np.zeros(b, bool), lengths=np.zeros(b, np.int64),
             phase=np.zeros(b, np.int64), uid=np.full(b, -1, np.int64),
             remaining=np.zeros(b, np.int64), prompt_left=np.zeros(b, np.int64))
+        # the token feed: each slot's next input token, updated in place
         self._tok = torch.zeros(b, dtype=torch.int32, device=self.device)
-        self._act_dev = torch.zeros(b, dtype=torch.bool, device=self.device)
-        self._act_mirror = np.zeros(b, bool)
-        self._trace: List[torch.Tensor] = []     # one (B,) token row a decode step
+        self._trace: List[torch.Tensor] = []     # (rows, B) token blocks
+        self._trace_rows = 0
         self.trace_engine_steps: List[int] = []  # engine step of each trace row
         self._prompts: Dict[int, np.ndarray] = {}
         self._admit_seq = 0
@@ -269,6 +341,57 @@ class Engine:
         self._live: Dict[int, Completion] = {}       # slot -> in flight
         self.completions: Dict[int, Completion] = {}  # uid -> finished
         self.stats = EngineStats()
+        self._graphs = graphs.StepGraphs(self.device, eager=eager)
+        self._add_steps(b)
+
+    def _add_steps(self, b: int):
+        """The fixed-shape steps over static input buffers, captured on the
+        card (``runtime/graphs.py``). Each reads the serve state and the
+        token feed and writes them in place."""
+        g, serve, tok = self._graphs, self.batch.serve, self._tok
+        # the steps look the engine up through a proxy, so that they do not
+        # keep it (and its cache) alive in a reference cycle
+        me = weakref.proxy(self)
+        act = g.input("act", (b,), torch.bool)
+
+        def decode(step, *extra):
+            before = graphs.snapshot(serve)
+            logits, new = step(me.params, serve, tok, act, *extra)
+            graphs.commit(before, new)
+            # inactive lanes keep their feed: a slot that finished
+            # prefilling this step already holds its first token there
+            tok.copy_(torch.where(act, me._sample(logits), tok))
+
+        need = g.input("need", (b,), torch.bool)
+        g.add("decode_select", lambda: decode(me._dec_sel, need))
+        g.add("decode_reuse", lambda: decode(me._dec_reuse))
+        c, w = self.prefill_chunk, self._fused_len
+        if c is not None:
+            ctoks = g.input("ctoks", (b, c), torch.int32)
+            clens = g.input("clens", (b,), torch.int32)
+
+            def chunk():
+                before = graphs.snapshot(serve)
+                logits, new = me._chunk(me.params, serve, ctoks, clens, clens > 0)
+                graphs.commit(before, new)
+                return logits
+            g.add("prefill_chunk", chunk)
+        if w:
+            budgets = g.input("budgets", (b,), torch.int32)
+
+            def window(step, *extra):
+                before = graphs.snapshot(serve)
+                trace, new, tok_new = step(me.params, serve, tok, act, budgets,
+                                           *extra)
+                graphs.commit(before, new)
+                tok.copy_(tok_new)
+                return trace
+            g.add("fused_window", lambda: window(me._fused))
+            if c is not None:
+                wx = (g.input("wtoks", (w, b, c), torch.int32),
+                      g.input("wclens", (w, b), torch.int32),
+                      g.input("wfinish", (w, b), torch.bool))
+                g.add("fused_window_mixed", lambda: window(me._fused_mix, *wx))
 
     # ------------------------------------------------------------------
 
@@ -299,9 +422,8 @@ class Engine:
         """Greedy first token of a slot from its prefill logits row, also
         written into the slot's lane of the token feed."""
         first = self._sample(logits_row[None])[0]
-        tok = self._tok.clone()  # trace rows alias earlier feeds
-        tok[slot] = first
-        self._tok = tok
+        self._tok[slot].copy_(first)
+        self.stats.dispatches += 1
         return first
 
     def _new_completion(self, req: Request, slot: int) -> Completion:
@@ -321,6 +443,7 @@ class Engine:
         prompt = self._to_dev(np.asarray(req.prompt, np.int64)[None])
         logits, small = self._prefill(self.params, prompt)
         _pack_slot(self.batch.serve, small, slot)
+        self.stats.dispatches += 2  # prefill + pack
         first = self._first_token(slot, logits[0])
         b = self.batch
         b.ready[slot] = True
@@ -341,6 +464,7 @@ class Engine:
         PREFILLING; later steps feed its prompt chunk by chunk."""
         b = self.batch
         _reset_slot(b.serve, slot)
+        self.stats.dispatches += 1
         b.prefilling[slot] = True
         b.lengths[slot] = 0
         b.phase[slot] = 0
@@ -361,6 +485,25 @@ class Engine:
         comp = self._live[slot]
         comp._first_tok = first
         comp.first_token_step = self.stats.engine_steps
+        self._prompts.pop(slot, None)
+        self.stats.tokens_out += 1
+        b.remaining[slot] -= 1
+        if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
+            self._retire(slot)
+
+    def _finish_prefill_fused(self, slot: int, trace_blk, j: int,
+                              engine_step: int):
+        """Iteration ``j`` of a fused window fed the slot's last prompt
+        tokens and took its first token from the chunk logits, in the
+        window; the decode half never writes a non-active lane, so trace
+        row ``j`` still holds it. The host side of ``_finish_prefill``."""
+        b = self.batch
+        b.prefilling[slot] = False
+        b.ready[slot] = True
+        b.phase[slot] = 0
+        comp = self._live[slot]
+        comp._first_tok = trace_blk[j, slot]
+        comp.first_token_step = engine_step
         self._prompts.pop(slot, None)
         self.stats.tokens_out += 1
         b.remaining[slot] -= 1
@@ -429,23 +572,45 @@ class Engine:
     def _schedule_chunks(self):
         """This step's chunks: (tokens (B, C) int32, chunk_len (B,) int32),
         or None when no slot is prefilling."""
+        plan = self._plan_window_chunks(1)
+        return None if plan is None else (plan[0][0], plan[1][0])
+
+    def _plan_window_chunks(self, n_iters: int):
+        """The chunk scheduler run for ``n_iters`` steps on copies of the
+        host mirrors: (tokens (L, B, C) int32, chunk_len (L, B) int32,
+        finish (L, B) bool, the rows whose prompt completes), or None when
+        no slot is prefilling. The allocator (``sched/balance``) is a
+        function of (lengths, prompt_left) of the prefilling slots, so this
+        gives the blocks the per-step loop would feed, save that no
+        admission joins inside a fused window (a slot's tokens do not
+        depend on when it is admitted)."""
         b = self.batch
         slots = [i for i in range(b.max_batch) if b.prefilling[i]]
         if not slots:
             return None
         slots.sort(key=lambda i: self._live[i]._seq)
-        alloc = balance.chunk_allocation(
-            [int(b.lengths[i]) for i in slots],
-            [int(b.prompt_left[i]) for i in slots], self.prefill_chunk,
-            n_shards=self._chunk_shards(), page_size=self.cfg.h2eal.page_size)
-        tokens = np.zeros((b.max_batch, self.prefill_chunk), np.int32)
-        clens = np.zeros((b.max_batch,), np.int32)
-        for i, n in zip(slots, alloc):
-            if n > 0:
-                fed = int(b.lengths[i])
-                tokens[i, :n] = self._prompts[i][fed:fed + n]
-                clens[i] = n
-        return tokens, clens
+        chunk = self.prefill_chunk
+        lengths = {i: int(b.lengths[i]) for i in slots}
+        left = {i: int(b.prompt_left[i]) for i in slots}
+        tokens = np.zeros((n_iters, b.max_batch, chunk), np.int32)
+        clens = np.zeros((n_iters, b.max_batch), np.int32)
+        finish = np.zeros((n_iters, b.max_batch), bool)
+        for j in range(n_iters):
+            live = [i for i in slots if left[i] > 0]
+            if not live:
+                break
+            alloc = balance.chunk_allocation(
+                [lengths[i] for i in live], [left[i] for i in live], chunk,
+                n_shards=self._chunk_shards(), page_size=self.cfg.h2eal.page_size)
+            for i, n in zip(live, alloc):
+                if n > 0:
+                    fed = lengths[i]
+                    tokens[j, i, :n] = self._prompts[i][fed:fed + n]
+                    clens[j, i] = n
+                    lengths[i] += n
+                    left[i] -= n
+                    finish[j, i] = left[i] == 0
+        return tokens, clens, finish
 
     def _promote_ready(self):
         """READY slots start decoding only when every decoding slot sits at
@@ -464,11 +629,17 @@ class Engine:
 
     def step(self):
         """One engine step: a prompt chunk for the prefilling slots and one
-        ragged decode step for the decoding ones. A slot whose prompt
-        completes emits its first token and starts decoding at a later
-        step. Reads nothing back from the card."""
+        ragged decode step for the decoding ones; or, with fused windows,
+        strictly between two selection boundaries, every step up to the
+        next boundary as one window. A slot whose prompt completes emits its
+        first token and starts decoding at a later step. Reads nothing
+        back from the card."""
         b = self.batch
         self._promote_ready()
+        if (self._fused_len and b.active.any()
+                and not (b.active & (b.phase % self.share_window == 0)).any()):
+            self._window_once(b.active.copy())
+            return
         chunk_work = (self._schedule_chunks()
                       if self.prefill_chunk is not None else None)
         active = b.active.copy()
@@ -477,9 +648,9 @@ class Engine:
         self.stats.engine_steps += 1
         if chunk_work is not None:
             toks, clens = chunk_work
-            logits_c, b.serve = self._chunk(
-                self.params, b.serve, self._to_dev(toks), self._to_dev(clens),
-                self._to_dev(clens > 0))
+            self._graphs.set(ctoks=toks, clens=clens)
+            logits_c = self._graphs.run("prefill_chunk")
+            self.stats.dispatches += 1
             self.stats.prefill_chunks += 1
             for slot in np.nonzero(clens)[0]:
                 slot = int(slot)
@@ -490,28 +661,29 @@ class Engine:
         if active.any():
             self._decode_once(active)
 
+    def _add_trace(self, rows: torch.Tensor) -> int:
+        """Keep a (n, B) block of sampled tokens; returns its first row."""
+        row0 = self._trace_rows
+        self._trace.append(rows)
+        self._trace_rows += rows.shape[0]
+        return row0
+
     def _decode_once(self, active: np.ndarray):
         """The decode half of a step, over the ``active`` mask captured
         before this step's chunk (a slot that finished prefilling in it
         starts later)."""
         b = self.batch
-        row = len(self._trace)
         need = active & (b.phase % self.share_window == 0)
-        if not np.array_equal(self._act_mirror, active):
-            self._act_dev = self._to_dev(active)
-            self._act_mirror = active.copy()
+        self._graphs.set(act=active)
         if need.any():
-            logits, b.serve = self._dec_sel(self.params, b.serve, self._tok,
-                                            self._act_dev, self._to_dev(need))
+            self._graphs.set(need=need)
+            self._graphs.run("decode_select")
             self.stats.select_steps += 1
         else:
-            logits, b.serve = self._dec_reuse(self.params, b.serve, self._tok,
-                                              self._act_dev)
+            self._graphs.run("decode_reuse")
             self.stats.reuse_steps += 1
-        # inactive lanes keep their feed: a slot that finished prefilling
-        # this step already holds its first token there
-        self._tok = torch.where(self._act_dev, self._sample(logits), self._tok)
-        self._trace.append(self._tok)
+        self.stats.dispatches += 1
+        row = self._add_trace(self._tok[None].clone())
         self.trace_engine_steps.append(self.stats.engine_steps)
         self.stats.decode_steps += 1
         self.stats.occupancy_sum += float(active.mean())
@@ -525,6 +697,72 @@ class Engine:
             if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
                 self._retire(slot)
 
+    def _window_once(self, active: np.ndarray):
+        """One fused window: every reuse step from here to the next
+        selection boundary (at most ``_fused_len``) as one dispatch, the
+        sample and the budget-driven retirement inside it
+        (``runtime/serve.make_fused_window_step``), and the prefilling
+        slots' chunks of the stretch fed in it. The host applies the
+        window's bookkeeping from the budget vector alone: a slot emits
+        exactly ``budgets[i]`` tokens, so nothing is read back."""
+        b = self.batch
+        w = self.share_window
+        residue = int(b.phase[np.nonzero(active)[0][0]] % w)
+        _, budgets = window_budgets(active, b.remaining, b.lengths,
+                                    capacity=self.capacity, phase_residue=residue,
+                                    share_window=w, window=self._fused_len)
+        plan = (self._plan_window_chunks(self._fused_len)
+                if self.prefill_chunk is not None else None)
+        self._graphs.set(act=active, budgets=budgets)
+        if plan is None:
+            out = self._graphs.run("fused_window")
+        else:
+            toks, clens, finish = plan
+            self._graphs.set(wtoks=toks, wclens=clens, wfinish=finish)
+            out = self._graphs.run("fused_window_mixed")
+            self.stats.fused_mixed_windows += 1
+        trace_blk = out.clone()
+        self.stats.dispatches += 1
+        self.stats.fused_windows += 1
+        e0 = self.stats.engine_steps
+        max_e = int(budgets[active].max())
+        chunk_iters = int((plan[1].sum(axis=1) > 0).sum()) if plan is not None else 0
+        # the window took as many logical steps as its longer half (the
+        # per-step loop runs the two halves side by side)
+        self.stats.engine_steps += max(max_e, chunk_iters)
+        self.stats.fused_steps += max_e
+        self.stats.decode_steps += max_e
+        self.stats.reuse_steps += max_e
+        self.stats.prefill_chunks += chunk_iters
+        self.stats.fused_chunks += chunk_iters
+        row0 = self._add_trace(trace_blk[:max_e])
+        for j in range(max_e):
+            self.trace_engine_steps.append(e0 + 1 + j)
+            self.stats.occupancy_sum += float((budgets > j).sum()) / b.max_batch
+        # chunk bookkeeping first (the two halves touch disjoint slots): a
+        # slot whose prompt completed in the window turns READY where the
+        # per-step mixed step would have turned it
+        if plan is not None:
+            for j in range(self._fused_len):
+                for slot in np.nonzero(clens[j])[0]:
+                    slot = int(slot)
+                    b.lengths[slot] += int(clens[j, slot])
+                    b.prompt_left[slot] -= int(clens[j, slot])
+                    if finish[j, slot]:
+                        self._finish_prefill_fused(slot, trace_blk, j, e0 + 1 + j)
+        for slot in np.nonzero(active)[0]:
+            slot = int(slot)
+            emitted = int(budgets[slot])
+            self._live[slot]._step_idx.extend(range(row0, row0 + emitted))
+            b.lengths[slot] += emitted
+            # a survivor's budget is the window's useful length, so the live
+            # phases stay aligned at the next boundary
+            b.phase[slot] += emitted
+            b.remaining[slot] -= emitted
+            self.stats.tokens_out += emitted
+            if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
+                self._retire(slot)
+
     def finalize(self):
         """Read the tokens off the card into the completions: the only
         device-to-host read of the serving loop. Idempotent."""
@@ -533,7 +771,7 @@ class Engine:
                    if not c.tokens and c._first_tok is not None]
         if not pending:
             return
-        trace = (torch.stack(self._trace).cpu().numpy() if self._trace
+        trace = (torch.cat(self._trace).cpu().numpy() if self._trace
                  else np.zeros((0, self.batch.max_batch), np.int32))
         firsts = torch.stack([c._first_tok for c in pending]).cpu().numpy()
         for comp, first in zip(pending, firsts):
@@ -568,8 +806,39 @@ class Engine:
         t0 = time.perf_counter()
         while self.busy():
             self.poll()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.sync()
         self.stats.wall_s += time.perf_counter() - t0
         self.finalize()
         return dict(self.completions)
+
+    def sync(self):
+        """Block until the card has run every dispatched step (a latency
+        harness calls this per step; the serving loop never does)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def reset_metrics(self):
+        """Zero the stats, completions and trace between a warm-up and a
+        measured phase; only while idle (nothing queued or in flight)."""
+        if self._queue or self._live:
+            raise RuntimeError("reset_metrics() requires an idle engine")
+        self.finalize()
+        self._trace.clear()
+        self._trace_rows = 0
+        self.trace_engine_steps.clear()
+        self.completions = {}
+        self.stats = EngineStats()
+
+    def context_lengths(self) -> np.ndarray:
+        """Per-slot context lengths of the decoding slots."""
+        return self.batch.lengths[self.batch.active].copy()
+
+    def jit_cache_sizes(self) -> Dict[str, int]:
+        """Captures of each fixed-shape step (the counterpart of the JAX
+        engine's compiled entries): one each on the card, made at
+        construction, never more; 0 where the steps run eagerly."""
+        return dict(self._graphs.captures)
+
+    def graph_replays(self) -> Dict[str, int]:
+        """Replays of each captured step so far."""
+        return dict(self._graphs.replays)

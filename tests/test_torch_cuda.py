@@ -856,3 +856,114 @@ def test_coplace_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_
     assert s.admission_reorders == cpu_eng.stats.admission_reorders
     assert {u: c.tokens for u, c in eng.completions.items()} == {
         u: c.tokens for u, c in cpu.items()}
+
+
+def _window_launches(s, n, fused_len, split):
+    """The kernel launches of an engine run from its step counts: each
+    decode iteration a window runs launches as a step does, past a slot's
+    budget too (the window's no-op iterations run the same kernels)."""
+    decode = s.decode_steps - s.fused_steps + s.fused_windows * fused_len
+    chunks = s.prefill_chunks - s.fused_chunks + s.fused_mixed_windows * fused_len
+    return {"flash_attention": 0, "page_score": s.select_steps * n,
+            "paged_attention": (1 if split else 2) * decode * n,
+            "chunk_attention": chunks * n, "chunk_attention_paged": chunks * n,
+            "paged_attention_partial": decode * n if split else 0,
+            "combine_partials": 0}
+
+
+def _serve_polled(eng, reqs):
+    """Serve ``reqs`` a poll at a time, each under CUDA sync debug mode
+    "error"; the counts of the launches made while serving."""
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launches()
+    while eng.busy():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.poll()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng.finalize()
+    return dict(ops.LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("layout", ["default", "coplace_shmap"])
+def test_captured_engine_matches_the_eager_engine(cuda_dev, layout, window):
+    """The engine's steps replayed as CUDA graphs (the default on the card)
+    against the same engine run eagerly on the card, chunked with churn and
+    a widened share window of 4, per-step and with fused windows: the same
+    tokens, the same kernel launches (a replay adds its graph's launches),
+    each step captured once at construction and never again, and no poll
+    synchronises with the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = reduced(get_arch("llama3-8b"))
+    cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal,
+                                                             share_window=4))
+    params = _to(M.init_params(cfg, generator=torch.Generator().manual_seed(11),
+                               device="cpu"), cuda_dev)
+    rng = torch.Generator().manual_seed(12)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=rng).numpy(),
+                    max_new=m)
+            for i, (n, m) in enumerate([(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)])]
+    kw = dict(max_batch=2, capacity=96, prompt_buckets=[64], prefill_chunk=7,
+              decode_window=window, device=cuda_dev)
+    if layout == "coplace_shmap":
+        kw.update(layout=layout, shards=4, admission="balanced")
+    runs = {}
+    for eager in (True, False):
+        eng = Engine(cfg, params, eager=eager, **kw)
+        sizes = eng.jit_cache_sizes()
+        launches = _serve_polled(eng, reqs)
+        assert eng.jit_cache_sizes() == sizes
+        assert set(sizes.values()) == {0 if eager else 1}
+        assert launches == _window_launches(eng.stats, cfg.num_layers,
+                                            eng._fused_len, layout != "default")
+        runs[eager] = ({u: c.tokens for u, c in eng.completions.items()}, launches,
+                       eng.stats, eng.graph_replays())
+    (tok_e, l_e, s_e, _), (tok_c, l_c, s_c, replays) = runs[True], runs[False]
+    assert tok_c == tok_e and l_c == l_e
+    assert dataclasses.replace(s_c, wall_s=0) == dataclasses.replace(s_e, wall_s=0)
+    # every chunk, decode and window dispatch was a replay
+    assert sum(replays.values()) == (s_c.prefill_chunks - s_c.fused_chunks
+                                     + s_c.decode_steps - s_c.fused_steps
+                                     + s_c.fused_windows)
+    assert (s_c.fused_windows > 0) == (window is not None)
+
+
+@pytest.mark.cuda
+def test_captured_engine_reset_metrics_and_sync(cuda_dev):
+    """reset_metrics and sync on a captured engine: a second run of the same
+    requests after a reset gives the same tokens from the same graphs."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = reduced(get_arch("llama3-8b"))
+    params = _to(M.init_params(cfg, generator=torch.Generator().manual_seed(13),
+                               device="cpu"), cuda_dev)
+    rng = torch.Generator().manual_seed(14)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=rng).numpy(),
+                    max_new=m)
+            for i, (n, m) in enumerate([(30, 6), (12, 5), (44, 3)])]
+    eng = Engine(cfg, params, max_batch=2, capacity=80, prompt_buckets=[64],
+                 prefill_chunk=8, decode_window=2, device=cuda_dev)
+    sizes = eng.jit_cache_sizes()
+    first = eng.run(reqs)
+    eng.sync()
+    replays = sum(eng.graph_replays().values())
+    eng.reset_metrics()
+    assert eng.stats.dispatches == 0 and not eng.completions
+    again = eng.run(reqs)
+    assert {u: c.tokens for u, c in again.items()} == {
+        u: c.tokens for u, c in first.items()}
+    assert sum(eng.graph_replays().values()) > replays > 0
+    assert eng.jit_cache_sizes() == sizes

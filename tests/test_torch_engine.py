@@ -309,7 +309,8 @@ def test_chunked_prefill_validation(smollm):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(hot_pages=4), "hot_pages"), (dict(spec_tokens=2), "spec_tokens"),
-    (dict(rebalance="retire"), "rebalance"), (dict(decode_window=2), "decode_window"),
+    (dict(rebalance="retire"), "rebalance"),
+    (dict(decode_window=4, spec_tokens=2), "decode_window"),
     (dict(layout="head"), "layout"), (dict(layout="interleave"), "layout"),
 ])
 def test_unsupported_engine_options_raise(smollm, kw, what):
