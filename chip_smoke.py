@@ -52,7 +52,21 @@ then, each phase failing the run with a nonzero exit:
      counts exact (a replay adds its graph's launches), every poll under
      sync debug mode "error", captures made once at construction, and
      tokens/s, dispatches, decode steps a dispatch, graph replays and the
-     token agreement with the eager run of the same layout logged.
+     token agreement with the eager run of the same layout logged;
+  8. sampling and speculative decode: in phase 2 also the sampler on the
+     card against the CPU (threefry bits equal, Gumbel within 2 ulp, tokens
+     equal up to near-ties; its device time as a graph replay),
+     chunk_attention at the verify step's shapes (k = 1, 4, 8 chunk queries
+     over the retrieval heads' gathered pages and the streaming ring) and
+     page_score's select mode at the verify call; then a reduced llama3-8b
+     chunked speculative engine (k = 4), captured, against the CPU on both
+     layouts, greedy and sampled; then the full-width chunked captured
+     engine with speculative decode (k = 4) and three drafts (a replay of
+     the non-speculative trace, n-gram, the streaming self-draft) and a
+     sampled run against the non-speculative engine: tokens equal up to
+     near-ties, launches exact, captures made once, and tokens/s, mean
+     accepted length, dispatches and the device time of the verify step,
+     the draft's steps and a decode step logged.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -119,6 +133,9 @@ CHUNK_STARTS = (0, 2048, 5120, 7680)
 # co-placed decode's kernel phase
 SHARDS = 8
 STRIPE_CTX = (8200, 7000, 5000, 3000)
+# speculative decode: the draft length, and the sampled setting of its runs
+SPEC_K = 4
+SPEC_SAMPLING = dict(temperature=0.8, top_p=0.95, seed=1)
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
 HOLD_CYCLES = 2_000_000  # the Timer's hold of the card, ~1.1 ms at 1.755 GHz
 
@@ -501,12 +518,13 @@ def check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path):
         bound_ms=b_ms, bound_by=b_by, main=path == "engine")
 
 
-def retrieval_pages(gen, dev, cfg, dtype, capacity):
+def retrieval_pages(gen, dev, cfg, dtype, capacity, draft=False):
     """The retrieval heads' decode inputs of the lockstep path at its main
     shapes: B=2 slots at context PROMPT + 1 in a cache of ``capacity``
     tokens (258 pages of 32), a random top-128 selection of each (slot, kv
     head)'s selectable pages, the [sink | selected | local] slot list (138
-    slots, 4416 tokens) and its validity, as the decode body builds them."""
+    slots, 4416 tokens) and its validity, as the decode body builds them.
+    ``draft``: the streaming draft's selection, every selected slot -1."""
     from repro_torch.core import paging
 
     h2 = cfg.h2eal
@@ -521,6 +539,8 @@ def retrieval_pages(gen, dev, cfg, dtype, capacity):
     first_local = paging.first_local_page(ctx, local=h2.local, page=p)
     pick = torch.rand(BATCH, nr, first_local - n_sink, generator=gen, device=dev)
     sel = (pick.argsort(dim=-1)[..., :top_k] + n_sink).to(torch.int32)
+    if draft:
+        sel = torch.full_like(sel, -1)
     slots = paging.attended_page_slots(sel, ctx, sink=h2.sink, local=h2.local, page=p)
     valid = paging.token_validity(slots, start, ctx, sink=h2.sink, local=h2.local,
                                   page=p, top_k=top_k)
@@ -530,12 +550,14 @@ def retrieval_pages(gen, dev, cfg, dtype, capacity):
     return q, kp, vp, slots.contiguous(), valid.contiguous()
 
 
-def check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+def check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity, draft=False):
     """paged_attention_pages (the retrieval heads' decode: the page gather
     fused) at the lockstep path's shapes; beside the kernel, the unfused
     path it replaced (the gather, then the contiguous kernel), the gather
-    then SDPA, and SDPA alone on the gathered buffer."""
-    q, kp, vp, slots, valid = retrieval_pages(gen, dev, cfg, dtype, capacity)
+    then SDPA, and SDPA alone on the gathered buffer. ``draft``: the
+    streaming draft's reuse steps, every selected slot the -1 sentinel
+    (sink and local pages only)."""
+    q, kp, vp, slots, valid = retrieval_pages(gen, dev, cfg, dtype, capacity, draft)
     b, hr, n = slots.shape
     g, d, p = q.shape[1] // hr, q.shape[2], kp.shape[3]
     run = lambda: ops.paged_attention_pages(q, kp, vp, slots, valid)
@@ -554,15 +576,16 @@ def check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity):
     b_ms, b_by = bound(nbytes(q, slots, valid, out) + 2 * pages_read * p * d * kp.element_size(),
                        4 * d * g * n_valid, dtype)
     return dict(
-        case=f"retrieval, pages read in place B={b} Hq={hr * g} Hkv={hr} C={kp.shape[2]} "
-             f"P={p} N={n} T={n * p} D={d} valid={n_valid}",
+        case=f"retrieval, pages read in place{', draft selection (-1)' if draft else ''} "
+             f"B={b} Hq={hr * g} Hkv={hr} C={kp.shape[2]} P={p} N={n} T={n * p} D={d} "
+             f"valid={n_valid}",
         dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol_text(dtype),
         ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
         library_ms=timer.ms(lambda: sdpa(gk, gv), 20),
         library="SDPA on the gathered buffer",
         unfused_ms=timer.ms(unfused, 20),
         gather_sdpa_ms=timer.ms(lambda: sdpa(*ref.gather_pages(kp, vp, slots)), 20),
-        bound_ms=b_ms, bound_by=b_by, main=True)
+        bound_ms=b_ms, bound_by=b_by, main=not draft)
 
 
 def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
@@ -608,7 +631,9 @@ def check_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
             dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
             tol=tol_text(dtype), ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20),
             library_ms=timer.ms(lib, 20), bound_ms=b_ms, bound_by=b_by, main=main))
-    return cases + [check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity)]
+    return cases + [check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity),
+                    check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity,
+                                      draft=True)]
 
 
 def partial_excess(got, want) -> float:
@@ -1142,10 +1167,9 @@ def record_logits(eng):
         firsts[int(eng.batch.uid[slot])] = row.float().cpu()
         return first_token(slot, row)
 
-    def _sample(logits):
-        if logits.shape[0] == eng.batch.max_batch:  # a decode step's, not a first token's
-            steps.append(logits.float().cpu())
-        return sample(logits)
+    def _sample(logits, *lanes):
+        steps.append(logits.float().cpu())  # a decode step's (first tokens go apart)
+        return sample(logits, *lanes)
 
     eng._first_token, eng._sample = _first, _sample
     return firsts, steps
@@ -1394,6 +1418,417 @@ def check_reduced_window_engines(dev):
             fail(f"the reduced {dtype} window engine on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# Sampling and speculative decode
+# ---------------------------------------------------------------------------
+
+
+def graph_ms(timer, fn, reps: int) -> float:
+    """Device time of ``fn`` replayed as a CUDA graph, as a captured engine
+    step runs it: eager, a call of many small kernels would be timed as the
+    host's enqueue of them (longer than the Timer's hold)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return timer.ms(graph.replay, reps)
+
+
+def sampler_near_tie(logits, key, temperature, top_p, gap) -> bool:
+    """Whether a draw of ``sample_tokens`` from the (V,) f32 CPU row
+    ``logits`` with ``key`` sits on a near-tie: the top two of ``filtered +
+    gumbel`` within ``gap``, or a probability mass before the top-p boundary
+    within 1e-6 of top_p (the card's and the CPU's softmax and cumulative
+    sums round otherwise)."""
+    from repro_torch.serving import sampling as S
+
+    if temperature <= 0:
+        top2 = logits.topk(2).values
+        return (top2[0] - top2[1]).item() < gap
+    logp = torch.log_softmax(logits.float() / temperature, dim=-1)
+    sp, order = torch.sort(-logp.exp(), stable=True)
+    sp = -sp
+    cum = torch.cumsum(sp.double(), 0) - sp.double()
+    if (cum - top_p).abs().min().item() < 1e-6:
+        return True
+    keep = torch.zeros_like(logp, dtype=torch.bool)
+    keep[order] = cum < top_p
+    z = torch.where(keep, logp + S.gumbel(key, logits.shape), -math.inf)
+    top2 = z.topk(2).values
+    return (top2[0] - top2[1]).item() < gap
+
+
+def check_sampler(timer, dev, cfg):
+    """The sampler on the card against the CPU at the engine's shapes (B=4
+    slots, V=128256): threefry bits equal, Gumbel values within 2 ulp of
+    max(|g|, 1), tokens equal except at a near-tie (top two of filtered +
+    gumbel within 1e-5, or a mass at the top-p boundary within 1e-6); then
+    the device time of the decode step's sampler and of the verify chunk's
+    (k = 4)."""
+    from repro_torch.serving import sampling as S
+
+    b, v = ENGINE_BATCH, cfg.vocab_size
+    base = torch.stack([S.request_key(seed, u) for seed, u in
+                        ((0, 0), (1, 7), (2 ** 31 - 1, 3), (3, 65535))])
+    bits = S.random_bits(base, (v,))
+    if not torch.equal(S.random_bits(base.to(dev), (v,)).cpu(), bits):
+        fail("sampler: the threefry bits on the card differ from the CPU's")
+    g_cpu = S.gumbel(base, (v,))
+    g_dev = S.gumbel(base.to(dev), (v,)).cpu()
+    ulp = torch.from_numpy(np.spacing(np.maximum(g_cpu.abs().numpy(), 1.0)
+                                      .astype(np.float32)))
+    g_ulps = ((g_dev - g_cpu).abs() / ulp).max().item()
+    if g_ulps > 2:
+        fail(f"sampler: Gumbel values differ by {g_ulps:.1f} ulp on the card")
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn(b, v, generator=gen) * 3
+    temp = torch.tensor([0.0, 0.8, 1.0, 0.6])
+    topp = torch.tensor([1.0, 0.95, 0.9, 0.5])
+    gen_idx = torch.tensor([0, 5, 17, 100], dtype=torch.int32)
+    args = (logits, base, gen_idx, temp, topp)
+    want = S.sample_tokens(*args)
+    dev_args = [x.to(dev) for x in args]
+    got = S.sample_tokens(*dev_args).cpu()
+    keys = S.token_key(base, gen_idx)
+    ties = 0
+    for r in torch.nonzero(got != want).flatten().tolist():
+        if not sampler_near_tie(logits[r], keys[r], temp[r].item(), topp[r].item(), 1e-5):
+            fail(f"sampler: row {r} draws {got[r].item()} on the card, "
+                 f"{want[r].item()} on the CPU, without a near-tie")
+        ties += 1
+    chunk = [torch.randn(b, 4, v, generator=gen, device="cpu").to(dev)] + dev_args[1:]
+    step_ms = graph_ms(timer, lambda: S.sample_tokens(*dev_args), 10)
+    chunk_ms = graph_ms(timer, lambda: S.sample_chunk(*chunk), 10)
+    eager_ms = timer.ms(lambda: S.sample_tokens(*dev_args), 10)
+    log(f"sampler B={b} V={v}: card vs CPU bits equal, Gumbel within {g_ulps:.1f} ulp, "
+        f"tokens equal {int((got == want).sum())}/{b} (near-ties {ties}); device time "
+        f"as a captured graph: sample_tokens {step_ms:.4f} ms, sample_chunk (k=4) "
+        f"{chunk_ms:.4f} ms (eager sample_tokens {eager_ms:.4f} ms, the host's enqueue)")
+
+
+def verify_attention_inputs(gen, dev, cfg, dtype, capacity, k):
+    """The two ``chunk_attention`` calls of a verify step at the engine's
+    shapes, built as ``chunk_verify_attention`` builds them: 4 slots at
+    contexts STRIPE_CTX, k chunk queries each. Retrieval: the gathered
+    [sink | selected | local] pages (the selection a random choice of
+    selectable pages) followed by the chunk's keys under a causal triangle,
+    T = 138 pages * 32 + k; streaming: the ring (its own chunk append of
+    the past) followed by the chunk's keys, T = 292 + k. Returns {kind: (q,
+    k, v, valid, gather)} with ``gather`` the retrieval buffer's build."""
+    from repro_torch.core import cache as cachelib
+    from repro_torch.core import paging
+    from repro_torch.core.hybrid_attention import _local_cap
+    from repro_torch.kernels import ref
+
+    h2 = cfg.h2eal
+    nr, hs, g, d = head_split(cfg)
+    p, top_k = h2.page_size, h2.top_k_pages
+    b = len(STRIPE_CTX)
+    c = -(-capacity // p)
+    start = torch.tensor(STRIPE_CTX, dtype=torch.int32, device=dev) - 1
+    pos_q = paging.chunk_positions(start, k)
+    kp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(dtype)
+    first = torch.arange(c, device=dev) * p
+    ps = torch.where(first[None] < start[:, None], first[None], -1).to(torch.int32)
+    ps = ps[:, None, :].expand(b, nr, c).contiguous()
+    ok = ref.selectable_pages(ps, start + 1, sink=h2.sink, local=h2.local, page=p)
+    noise = torch.rand(b, nr, c, generator=gen, device=dev)
+    sel = torch.where(ok, noise, -1.0).topk(top_k, dim=-1).indices.to(torch.int32)
+    kn = torch.randn(b, k, nr + hs, d, generator=gen, device=dev).to(dtype)
+    vn = torch.randn(b, k, nr + hs, d, generator=gen, device=dev).to(dtype)
+    tail = torch.ones(k, k, dtype=torch.bool, device=dev).tril()
+
+    def gather():
+        slots = paging.verify_attended_slots(sel, start + 1, sink=h2.sink,
+                                             local=h2.local, page=p, capacity=c)
+        gk, gv = ref.gather_pages(kp, vp, slots)
+        valid = paging.verify_token_validity(slots, ps, start, pos_q, sink=h2.sink,
+                                             local=h2.local, page=p, top_k=top_k)
+        kr = torch.cat([gk, kn[:, :, :nr].transpose(1, 2)], dim=2)
+        vr = torch.cat([gv, vn[:, :, :nr].transpose(1, 2)], dim=2)
+        return kr, vr, torch.cat([valid, tail.expand(b, nr, k, k)], dim=3)
+
+    kr, vr, valid_r = gather()
+    ring = cachelib.make_stream_cache(b, hs, h2.sink, _local_cap(h2), d, dtype=dtype,
+                                      device=dev)
+    past = torch.randn(b, int(start.max()), hs, d, generator=gen, device=dev).to(dtype)
+    cachelib.stream_cache_append_chunk(ring, past, past, torch.zeros_like(start), start,
+                                       sink=h2.sink)
+    del past
+    ks = torch.cat([ring.k, kn[:, :, nr:].transpose(1, 2)], dim=2)
+    vs = torch.cat([ring.v, vn[:, :, nr:].transpose(1, 2)], dim=2)
+    kpos = torch.cat([ring.pos, pos_q[:, None, :].expand(b, hs, k)], dim=2)
+    valid_s = paging.chunk_stream_validity(kpos, pos_q, sink=h2.sink,
+                                           local=h2.local).contiguous()
+    q = torch.randn(b, k, (nr + hs) * g, d, generator=gen, device=dev).to(dtype)
+    return {"retrieval": (q[:, :, :nr * g].contiguous(), kr, vr, valid_r, gather),
+            "streaming": (q[:, :, nr * g:].contiguous(), ks, vs, valid_s, None)}
+
+
+def check_chunk_verify(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    """``chunk_attention`` at the verify step's shapes, Cq = k in {1, 4, 8}
+    (a one-row chunk; q tiles of 16 chunk positions reaching past Cq; odd T,
+    whose validity rows take the byte reads): the retrieval heads' gathered
+    buffer and the streaming heads' ring, each against its plain version;
+    timed with its bound and SDPA on the same inputs, and the retrieval
+    heads' gather + kernel as the verify step runs them."""
+    out_cases = []
+    g = head_split(cfg)[2]
+    for k in (1, 4, 8):
+        for kind, (q, kb, vb, valid, gather) in verify_attention_inputs(
+                gen, dev, cfg, dtype, capacity, k).items():
+            run = lambda: ops.chunk_attention(q, kb, vb, valid)
+            out = run()
+            want = ref.chunk_attention_ref(*widened(q, kb, vb), valid)
+            torch.cuda.synchronize()
+            e, ex, tol = err(out, want), excess(out, want, dtype), tol_text(dtype)
+            if dtype == torch.bfloat16:
+                p_term = ref.chunk_attention_ref(*widened(q, kb, vb.abs()), valid)
+                ex, tol = p_excess(out, want, p_term), P_TOL_TEXT
+            lib_mask = valid.repeat_interleave(g, dim=1)
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), kb, vb, attn_mask=lib_mask, enable_gqa=True)
+            # the bytes this run needs: q, the K/V rows of valid keys, the
+            # mask, the output
+            keys = int(valid.any(dim=2).sum().item())
+            byte_count = (nbytes(q, valid, out)
+                          + 2 * keys * kb.shape[-1] * kb.element_size())
+            b_ms, b_by = bound(byte_count, 4 * kb.shape[-1] * g * int(valid.sum().item()),
+                               dtype)
+            case = dict(
+                case=f"verify {kind} k={k} B={q.shape[0]} Hq={q.shape[2]} "
+                     f"Hkv={kb.shape[1]} T={kb.shape[2]} D={q.shape[3]}",
+                dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol,
+                ms=timer.ms(run, 10), plain_ms=timer.ms(
+                    lambda: ref.chunk_attention_ref(q, kb, vb, valid), 3),
+                library_ms=timer.ms(lib, 10), bound_ms=b_ms, bound_by=b_by, main=False)
+            if gather is not None:  # its eager ops replayed as a graph, as in a step
+                case["unfused_ms"] = graph_ms(
+                    timer, lambda: ops.chunk_attention(q, *gather()), 10)
+            out_cases.append(case)
+            torch.cuda.empty_cache()
+    return out_cases
+
+
+def spec_launches(s, n_l, k, streaming):
+    """The kernels' launches of a speculative engine run from its step
+    counts: a verify step scores pages once (one page_select, need-gated)
+    and runs two chunk_attention a layer; a streaming draft k-1 reuse decode
+    steps; a prefill chunk one chunk_attention and one chunk_attention_paged
+    a layer."""
+    draft = (k - 1) * s.spec_steps if streaming else 0
+    return {"flash_attention": 0, "page_score": s.spec_steps * n_l,
+            "paged_attention": 2 * draft * n_l,
+            "chunk_attention": (2 * s.spec_steps + s.prefill_chunks) * n_l,
+            "chunk_attention_paged": s.prefill_chunks * n_l,
+            "paged_attention_partial": 0,
+            "combine_partials": 0}
+
+
+def lockstep_logits(cfg, params, prompt, tokens, capacity, dev):
+    """The logits behind each of ``tokens`` for one request, replayed alone
+    through the lockstep steps fed ``tokens`` (the prefill's first, then a
+    decode step a token): a slot's trace depends on its own request alone."""
+    from repro_torch.runtime import serve as serve_rt
+
+    scfg = serve_rt.ServeConfig(capacity=capacity)
+    prefill = serve_rt.make_prefill(cfg, scfg)
+    steps = [serve_rt.make_decode_step(cfg, scfg, do_select=sel) for sel in (False, True)]
+    w = max(cfg.h2eal.share_window, 1)
+    with torch.inference_mode():
+        logits, state = prefill(params, torch.as_tensor(prompt, device=dev)[None].long())
+        rows = [logits[0].float().cpu()]
+        for i, t in enumerate(tokens[:-1]):
+            tok = torch.full((1,), int(t), dtype=torch.int32, device=dev)
+            logits, state = steps[i % w == 0](params, state, tok)
+            rows.append(logits[0].float().cpu())
+    return rows
+
+
+def check_ties(cfg, params, reqs, got, want, sampling, capacity, dev, band, what,
+               relative=False):
+    """``got`` against ``want`` token for token, except at each request's
+    first divergence where the logits behind ``want`` (a lockstep replay)
+    hold a near-tie within ``band`` (times the row's largest |logit| if
+    ``relative``; divided by the temperature when sampling). Returns the
+    number of such divergences."""
+    from repro_torch.serving import sampling as S
+
+    prompts = {r.uid: r.prompt for r in reqs}
+    ties = 0
+    for u in sorted(want):
+        d = first_divergence({u: got[u]}, {u: want[u]})
+        if d is None:
+            continue
+        i = d[1]
+        if len(got[u]) != len(want[u]) or i >= len(want[u]):
+            fail(f"{what}: request {u} gave {len(got[u])} tokens, expected {len(want[u])}")
+        row = lockstep_logits(cfg, params, prompts[u], want[u], capacity, dev)[i]
+        t = sampling.get("temperature", 0.0)
+        key = S.token_key(S.request_key(sampling.get("seed", 0), u), i)
+        scale = band * row.abs().max().item() if relative else band
+        band_u = scale / t if t > 0 else scale
+        if not sampler_near_tie(row, key, t, sampling.get("top_p", 1.0), band_u):
+            fail(f"{what}: request {u} token {i} differs ({got[u][i]} vs {want[u][i]}) "
+                 f"without a near-tie")
+        top2 = row.topk(2).values
+        log(f"{what}: request {u} first differs at token {i}, a near-tie (top-2 logit gap "
+            f"{(top2[0] - top2[1]).item():.3e}, band {band_u:.3e})")
+        ties += 1
+    return ties
+
+
+def check_reduced_spec_engines(dev):
+    """Reduced llama3-8b (f32), the chunked Engine with churn and
+    speculative decode (k = 4, the n-gram draft), captured on the card,
+    against the same engine on the CPU, on both layouts (coplace_shmap over
+    4 stripes, balanced admission), greedy and sampled (temperature 0.8,
+    top_p 0.95, seed 1): tokens equal except at a first divergence whose
+    logits hold a near-tie within 2e-4 (EXPERIMENTS.md's band; over the
+    temperature when sampling); captures made once at construction."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = reduced(get_arch(ARCH))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(15), device="cpu")
+    card_params = _to(params, dev)
+    rng = np.random.default_rng(15)
+    shape = [(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n, _ in shape]
+    kw = dict(max_batch=2, capacity=96, prompt_buckets=[64], prefill_chunk=7,
+              spec_tokens=SPEC_K)
+    for layout in ("default", "coplace_shmap"):
+        lkw = dict(kw, layout=layout, shards=4, admission="balanced") \
+            if layout != "default" else kw
+        for sampling in ({}, SPEC_SAMPLING):
+            reqs = [Request(uid=i, prompt=p, max_new=m, **sampling)
+                    for i, (p, (_, m)) in enumerate(zip(prompts, shape))]
+            cpu = Engine(cfg, params, device="cpu", **lkw).run(reqs)
+            eng = Engine(cfg, card_params, device=dev, **lkw)
+            sizes = eng.jit_cache_sizes()
+            card = eng.run(reqs)
+            got = {u: c.tokens for u, c in card.items()}
+            want = {u: c.tokens for u, c in cpu.items()}
+            what = f"reduced spec engine ({layout}, {sampling or 'greedy'})"
+            if set(sizes.values()) != {1} or eng.jit_cache_sizes() != sizes:
+                fail(f"{what}: captures {sizes} -> {eng.jit_cache_sizes()}")
+            ties = check_ties(cfg, params, reqs, got, want, sampling, lkw["capacity"] + 8,
+                              "cpu", 2e-4, what)
+            log(f"{what}: card vs CPU tokens equal {got == want} (near-tie divergences "
+                f"{ties}), verify steps {eng.stats.spec_steps}, mean accepted length "
+                f"{eng.stats.mean_accepted_len:.3f}, captures {sizes}")
+            del eng
+
+
+class ReplayTimes:
+    """Device time of every replay of a StepGraphs' steps, by CUDA events
+    recorded around each replay (read once the run has synchronised)."""
+
+    def __init__(self, step_graphs):
+        self.events = {}
+        run = step_graphs.run
+
+        def timed(name):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = run(name)
+            b.record()
+            self.events.setdefault(name, []).append((a, b))
+            return out
+        step_graphs.run = timed
+
+    def median_ms(self):
+        return {n: float(np.median([a.elapsed_time(b) for a, b in ev]))
+                for n, ev in self.events.items()}
+
+
+def serve_spec_engines(dev, cfg, params, greedy):
+    """The chunked, captured Engine at full width with speculative decode (k
+    = SPEC_K) on the engine workload, three drafts: ReplayDraft of the
+    non-speculative captured run's trace ``greedy`` (all-accept up to the
+    share-window clamps), NgramDraft, and StreamingDraft; then sampled
+    (temperature 0.8, top_p 0.95, seed 1), speculative (n-gram) against the
+    per-step captured engine. Tokens equal the non-speculative engine's,
+    except at a first divergence whose logits hold a near-tie within
+    BF16_LOGIT_BAND of the row's largest logit (bf16 at full width: the
+    verify chunk attends through chunk_attention, the decode step through
+    paged_attention); the sampled trace differs from the greedy one;
+    launches exact and captures made once at construction. Logs tokens/s,
+    mean accepted length, dispatches and the median device time of the
+    verify step, the draft's two steps and a decode step. The verify step
+    reads the accepted counts back once, so these polls run without the
+    sync guard. Returns the launch counts of each run."""
+    import dataclasses
+
+    from repro_torch.serving.draft import ReplayDraft
+    from repro_torch.serving.engine import Engine
+
+    reqs, capacity = engine_workload(cfg)
+    lens = sorted(set(len(r.prompt) for r in reqs))
+    sampled = [dataclasses.replace(r, **SPEC_SAMPLING) for r in reqs]
+    base = dict(max_batch=ENGINE_BATCH, capacity=capacity, prompt_buckets=lens,
+                prefill_chunk=ENGINE_CHUNK, device=dev)
+    n_l = cfg.num_layers
+    launches, traces, rates = {}, {}, {}
+    runs = (("replay", dict(spec_tokens=SPEC_K, draft=ReplayDraft(greedy)), reqs),
+            ("ngram", dict(spec_tokens=SPEC_K, draft="ngram"), reqs),
+            ("streaming", dict(spec_tokens=SPEC_K, draft="streaming"), reqs),
+            ("sampled", dict(spec_tokens=SPEC_K, draft="ngram"), sampled),
+            ("sampled_nonspec", dict(), sampled))
+    for name, kw, rs in runs:
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, **base, **kw)
+        t_build = time.perf_counter() - t0
+        sizes = eng.jit_cache_sizes()
+        times = ReplayTimes(eng._graphs)
+        draft_times = ReplayTimes(eng.draft._graphs) if name == "streaming" else None
+        got, wall, _ = serve_polled(eng, rs, f"engine (spec {name})", guard=False)
+        s = eng.stats
+        expect = (spec_launches(s, n_l, SPEC_K, name == "streaming") if kw
+                  else dict(window_launches(s, n_l, 0, False), flash_attention=0))
+        if got != expect:
+            fail(f"engine (spec {name}): launches {got}, expected {expect}")
+        if eng.jit_cache_sizes() != sizes or set(sizes.values()) != {1}:
+            fail(f"engine (spec {name}): captures {sizes} -> {eng.jit_cache_sizes()}")
+        traces[name] = {u: c.tokens for u, c in eng.completions.items()}
+        for r in rs:
+            if len(traces[name].get(r.uid, [])) != r.max_new:
+                fail(f"engine (spec {name}): request {r.uid} gave the wrong token count")
+        med = times.median_ms()
+        if draft_times is not None:
+            med.update({f"draft_{n}": t for n, t in draft_times.median_ms().items()})
+        rates[name] = s.tokens_out / wall
+        launches["engine_sampled_graphs" if name == "sampled_nonspec"
+                 else f"engine_spec_{name}"] = got
+        log(f"engine (spec {name}): {s.tokens_out} tokens in {wall:.3f}s = "
+            f"{rates[name]:.2f} tok/s ({s.decode_steps / wall:.2f} decode steps/s); verify steps "
+            f"{s.spec_steps}, mean accepted length {s.mean_accepted_len:.3f} "
+            f"(drafted {s.spec_drafted}, accepted {s.spec_accepted}), dispatches "
+            f"{s.dispatches}, median device ms per replay "
+            f"{ {n: round(t, 4) for n, t in med.items()} }, captures {sizes}, "
+            f"construction {t_build:.2f}s")
+        del eng, times, draft_times
+        torch.cuda.empty_cache()
+    ties = {name: check_ties(cfg, params, reqs, traces[name], greedy, {}, capacity, dev,
+                             BF16_LOGIT_BAND, f"engine (spec {name})", relative=True)
+            for name in ("replay", "ngram", "streaming")}
+    ties["sampled"] = check_ties(cfg, params, sampled, traces["sampled"],
+                                 traces["sampled_nonspec"], SPEC_SAMPLING, capacity, dev,
+                                 BF16_LOGIT_BAND, "engine (spec sampled)", relative=True)
+    if traces["sampled_nonspec"] == greedy:
+        fail("engine (spec sampled): the sampled trace equals the greedy one")
+    log(f"engine (spec): near-tie divergences against the non-speculative captured "
+        f"engine {ties}; tok/s {({n: round(r, 2) for n, r in rates.items()})}")
+    return launches
+
+
 def full_params(dev, cfg):
     from repro_torch.models import model as M
 
@@ -1608,7 +2043,7 @@ def serve_engine(dev, cfg, params):
         pairs = [(x, y) for u in out[a] for x, y in zip(out[a][u], out[b][u])]
         agree = sum(x == y for x, y in pairs) / len(pairs)
         log(f"engine: token agreement {a} vs {b} {agree:.3f}{what}")
-    return launches
+    return launches, out["chunked_graphs"]
 
 
 def _leaves(tree):
@@ -1673,12 +2108,17 @@ def main() -> int:
         results["paged_attention"] += check_paged(ops, ref, timer, dev, cfg, dtype, gen,
                                                   capacity)
         results["chunk_attention"] += check_chunk(ops, ref, timer, dev, cfg, dtype, gen)
+        results["chunk_attention"] += check_chunk_verify(ops, ref, timer, dev, cfg, dtype,
+                                                         gen, engine_capacity)
         results["chunk_attention_paged"] += check_chunk_paged(
             ops, ref, timer, dev, cfg, dtype, gen, engine_capacity)
         part, comb = check_partial(ops, ref, timer, dev, cfg, dtype, gen)
         results["paged_attention_partial"] += part
         results["combine_partials"] += comb
         torch.cuda.empty_cache()
+    results["page_score"].append(check_page_select(ops, ref, timer, dev, cfg,
+                                                   torch.bfloat16, gen, "verify"))
+    check_sampler(timer, dev, cfg)
     bad = []
     for name, cases in results.items():
         for c in cases:
@@ -1704,10 +2144,13 @@ def main() -> int:
     check_reduced_bf16_engine_against_cpu(dev)
     check_reduced_coplace_engine_against_cpu(dev)
     check_reduced_window_engines(dev)
+    check_reduced_spec_engines(dev)
     params = full_params(dev, cfg)
     by_path = {"generate": serve_full(dev, cfg, params)}
     check_coplace_layer(dev, cfg, params)
-    by_path.update({f"engine_{k}": v for k, v in serve_engine(dev, cfg, params).items()})
+    launches, greedy = serve_engine(dev, cfg, params)
+    by_path.update({f"engine_{k}": v for k, v in launches.items()})
+    by_path.update(serve_spec_engines(dev, cfg, params, greedy))
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
     # windows; every kernel of a path must have run in it
@@ -1715,7 +2158,12 @@ def main() -> int:
     coplaced = engine + ("paged_attention_partial",)
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
                   "engine_chunked": engine, "engine_coplace": coplaced,
-                  "engine_chunked_graphs": engine, "engine_coplace_graphs": coplaced}
+                  "engine_chunked_graphs": engine, "engine_coplace_graphs": coplaced,
+                  "engine_spec_replay": engine[:1] + engine[2:],
+                  "engine_spec_ngram": engine[:1] + engine[2:],
+                  "engine_spec_streaming": engine,
+                  "engine_spec_sampled": engine[:1] + engine[2:],
+                  "engine_sampled_graphs": engine}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

@@ -16,6 +16,9 @@ Selection is recomputed every ``share_window`` steps (``do_select``).
 Chunked prefill: a chunk of prompt tokens per slot attends the
           pre-append caches plus the chunk itself (retrieval heads full
           causal, streaming heads sink+local), then is appended.
+Speculative verify (``chunk_verify_attention``): k drafted tokens as k
+          decode steps in one chunk over the pre-append caches, then the
+          accepted prefix appended (``chunk_verify_append``).
 Co-placed decode (``decode_attention_coplace``, paper §IV-B): the
           ``coplace_shmap`` layout's pages are striped round-robin over S
           stripes, the single-card stand-in for the devices of the JAX
@@ -36,6 +39,7 @@ from repro_torch.configs.base import H2ealConfig
 from repro_torch.core import cache as cachelib
 from repro_torch.core import paging
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 
 @dataclass(frozen=True)
@@ -411,6 +415,108 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
         top_k=top_k)                                      # (B, Hr, N*P)
     return kops.paged_attention_coplace(q_r, paged.k_pages, paged.v_pages, slots,
                                         valid, nsh), paged
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify: k decode steps in one chunked pass
+# ---------------------------------------------------------------------------
+
+
+def chunk_verify_attention(spec: AttnSpec, q, k_new, v_new,
+                           paged: cachelib.PagedCache,
+                           stream: cachelib.StreamCache, start, active=None,
+                           need_select=None, *, perm=None, phys_shards: int = 1,
+                           minus_one_masked: bool = False):
+    """Verify k drafted tokens: each chunk query attends exactly what its
+    sequential decode step would, and neither the KV pages nor the ring
+    change (attend-before-append: ``chunk_verify_append`` later commits the
+    accepted prefix, so the τ min/max merge, which cannot be undone, never
+    needs undoing). q: (B, k, Hq, D) roped at start .. start+k-1; k_new /
+    v_new: (B, k, Hkv, D); start: (B,) int32 context before the chunk.
+    Returns (out (B, k, Hq, D), paged, stream); of the paged cache only the
+    selection and importance change, and only for the slots in
+    ``need_select & active`` (the others keep theirs, as on a reuse step).
+
+    Selection is scored once a chunk, with query 0 at context start+1: the
+    query, context and τ of the sequential select step (the page taking
+    position start is never selectable), so the fresh selection is that
+    step's. One ``kops.page_select``, ``minus_one_masked`` as the layout's
+    decode passes it. The engine clamps acceptance at the share-window
+    boundary, so no refresh falls inside a chunk. Retrieval heads attend the
+    gathered [sink | selected | local] pages (``paging.verify_token_validity``
+    sections them per query) followed by the chunk's own keys under a causal
+    triangle; streaming heads the ring followed by the chunk's keys
+    (``chunk_stream_validity``); both through ``kops.chunk_attention``.
+    ``phys_shards`` > 1 lays the fixed sections out in the ``coplace_shmap``
+    striped page order."""
+    _check_ported(spec)
+    h2 = spec.h2
+    g = spec.group
+    nr = spec.n_retrieval
+    qp = _permute_q(q, perm, g)
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    b, kch = q.shape[:2]
+    dev = q.device
+    act = torch.ones(b, dtype=torch.bool, device=dev) if active is None else active
+    need = torch.ones(b, dtype=torch.bool, device=dev) if need_select is None \
+        else need_select
+    start = start.reshape(b).to(torch.int32)
+    pos_q = paging.chunk_positions(start, kch)
+    outs = []
+    if nr > 0:
+        q_r = qp[:, :, : nr * g].contiguous()
+        _select(h2, q_r[:, 0].contiguous(), paged, start + 1, need & act,
+                minus_one_masked=minus_one_masked)
+        slots = paging.verify_attended_slots(
+            paged.sel_idx, start + 1, sink=h2.sink, local=h2.local,
+            page=h2.page_size, capacity=paged.k_pages.shape[2],
+            n_shards=phys_shards)
+        gk, gv = kref.gather_pages(paged.k_pages, paged.v_pages, slots)
+        valid_p = paging.verify_token_validity(
+            slots, paged.page_start, start, pos_q, sink=h2.sink, local=h2.local,
+            page=h2.page_size, top_k=h2.top_k_pages)
+        kr = torch.cat([gk, kp[:, :, :nr].transpose(1, 2).to(gk.dtype)], dim=2)
+        vr = torch.cat([gv, vp[:, :, :nr].transpose(1, 2).to(gv.dtype)], dim=2)
+        tail = torch.ones(kch, kch, dtype=torch.bool, device=dev).tril()
+        valid = torch.cat([valid_p, tail.expand(b, nr, kch, kch)], dim=3)
+        outs.append(kops.chunk_attention(q_r, kr, vr, valid))
+    if spec.n_streaming > 0:
+        ns = spec.n_streaming
+        kr = torch.cat([stream.k, kp[:, :, nr:].transpose(1, 2).to(stream.k.dtype)],
+                       dim=2)
+        vr = torch.cat([stream.v, vp[:, :, nr:].transpose(1, 2).to(stream.v.dtype)],
+                       dim=2)
+        kpos = torch.cat([stream.pos, pos_q[:, None, :].expand(b, ns, kch)], dim=2)
+        valid_s = paging.chunk_stream_validity(kpos, pos_q, sink=h2.sink,
+                                               local=h2.local)
+        outs.append(kops.chunk_attention(qp[:, :, nr * g:].contiguous(), kr, vr,
+                                         valid_s))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return _permute_q(out, _inverse_perm(perm), g), paged, stream
+
+
+def chunk_verify_append(spec: AttnSpec, k_new, v_new, paged: cachelib.PagedCache,
+                        stream: cachelib.StreamCache, start, accepted,
+                        active=None, *, perm=None, phys_shards: int = 1):
+    """Commit the accepted prefix (``accepted`` (B,) >= 1 tokens) of a
+    verified chunk, k_new/v_new (B, k, Hkv, D) roped, into the caches in
+    place: the chunk appends of chunked prefill with chunk_len = accepted,
+    the scatter and τ min/max merge that the same tokens appended one at a
+    time would leave. Returns (paged, stream)."""
+    h2 = spec.h2
+    nr = spec.n_retrieval
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    if nr > 0:
+        paged = cachelib.paged_cache_append_chunk(
+            paged, kp[:, :, :nr], vp[:, :, :nr], start, accepted, active=active,
+            phys_shards=phys_shards)
+    if spec.n_streaming > 0:
+        stream = cachelib.stream_cache_append_chunk(
+            stream, kp[:, :, nr:], vp[:, :, nr:], start, accepted, sink=h2.sink,
+            active=active)
+    return paged, stream
 
 
 def full_decode_attention(spec: AttnSpec, q, k_new, v_new,

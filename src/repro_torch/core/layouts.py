@@ -87,6 +87,32 @@ class DefaultLayout:
             need_select=need_select)
         return out, {"paged": paged, "stream": stream}
 
+    # the co-placed decode turns a selected masked page into -1; the
+    # default keeps it as fill. The verify chunk selects as the decode does
+    minus_one_masked = False
+
+    def verify_chunk(self, spec, state: Dict, q, k_new, v_new, start, *,
+                     active=None, need_select=None, perm=None):
+        """Attend k drafted tokens as k decode steps over the pre-append
+        caches (no KV write; the selection and importance refresh only) ->
+        (out (B, k, Hq, D), state). One body for every layout: its masks
+        come from absolute positions and page starts, and the fixed page
+        sections follow the layout's physical page order."""
+        out, paged, stream = hattn.chunk_verify_attention(
+            spec, q, k_new, v_new, state["paged"], state["stream"], start,
+            active, need_select, perm=perm, phys_shards=self.shards,
+            minus_one_masked=self.minus_one_masked)
+        return out, {"paged": paged, "stream": stream}
+
+    def verify_append(self, spec, state: Dict, k_new, v_new, start, accepted, *,
+                      active=None, perm=None):
+        """Commit the accepted prefix of a verified chunk (the chunk
+        appends) -> state."""
+        paged, stream = hattn.chunk_verify_append(
+            spec, k_new, v_new, state["paged"], state["stream"], start, accepted,
+            active, perm=perm, phys_shards=self.shards)
+        return {"paged": paged, "stream": stream}
+
     def decode_window(self, body, carry, xs, *, length: int):
         """Run ``length`` reuse decode steps as one fused window, the
         counterpart of the reference's ``lax.scan``: ``body(carry, x) ->
@@ -115,6 +141,7 @@ class CoplaceShmapLayout(DefaultLayout):
     a log-sum-exp combine in decode."""
 
     name = LAYOUT_COPLACE_SHMAP
+    minus_one_masked = True
 
     def __init__(self, shards: int):
         self.shards = int(shards)
@@ -141,6 +168,21 @@ def dispatch_decode_window(layout, body, carry, xs, *, length: int):
     """Route a fused decode window (a loop over reuse-step bodies) to
     ``layout``'s ``decode_window`` hook."""
     return layout.decode_window(body, carry, xs, length=length)
+
+
+def dispatch_verify_chunk(layout, spec, state: Dict, q, k_new, v_new, start, *,
+                          active=None, need_select=None, perm=None):
+    """Route one speculative verify pass to ``layout``'s verify_chunk hook."""
+    return layout.verify_chunk(spec, state, q, k_new, v_new, start, active=active,
+                               need_select=need_select, perm=perm)
+
+
+def dispatch_verify_append(layout, spec, state: Dict, k_new, v_new, start,
+                           accepted, *, active=None, perm=None):
+    """Route the commit of a verified chunk's accepted prefix to
+    ``layout``'s verify_append hook."""
+    return layout.verify_append(spec, state, k_new, v_new, start, accepted,
+                                active=active, perm=perm)
 
 
 def get_layout(name: str, shards: int = 1) -> DefaultLayout:

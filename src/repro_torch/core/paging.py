@@ -210,3 +210,70 @@ def chunk_stream_validity(key_pos, pos_q, *, sink: int, local: int):
     kp = key_pos[:, :, None, :]
     pq = pos_q[:, None, :, None]
     return (kp >= 0) & (kp <= pq) & ((kp < sink) | (kp > pq - local))
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify: k decode steps as one chunk over the PRE-append cache
+#
+# The verify chunk holds k tokens at positions start .. start+k-1; query j
+# attends what the sequential engine's step j would. Keys at positions >=
+# start are not in the cache yet (attend-before-append): they come as the
+# chunk's own keys under a causal triangle, so the pages supply positions
+# < start only and the in-context bound is the cache's, one for every
+# query. The section partition is per query: first_local(start+j+1) grows
+# with j, so a page local for query 0 can be selectable-but-unselected
+# (dropped, as the sequential reuse step drops it) for query k-1. The
+# gathered buffer is anchored at first_local(start+1): every query's local
+# low edge is at or above it, and the highest live page (start-1)//P lies
+# within n_local pages of it.
+# ---------------------------------------------------------------------------
+
+
+def verify_attended_slots(sel_idx, ctx, *, sink: int, local: int, page: int,
+                          capacity: int, n_shards: int = 1):
+    """[sink | selected | local] slots of the verify gather, anchored at
+    ``ctx`` (B,) = start + 1, the context of the chunk's first query: the
+    decode step's slot list of each layout (``attended_page_slots``, or
+    ``coplace_attended_slots`` in the striped order for ``n_shards`` > 1,
+    its fixed sections clipped to the last of the ``capacity`` pages).
+    Returns (B, Hkv, n_sink + K + n_local) int32."""
+    if n_shards == 1:
+        return attended_page_slots(sel_idx, ctx, sink=sink, local=local, page=page)
+    return coplace_attended_slots(sel_idx, ctx, sink=sink, local=local, page=page,
+                                  capacity=capacity, n_shards=n_shards)
+
+
+def verify_token_validity(slots, page_start, cache_ctx, pos_q, *, sink: int,
+                          local: int, page: int, top_k: int):
+    """Per-query validity (B, H, Cq, N*P) of the gathered verify buffer: the
+    section rules of ``token_validity`` with two changes. The in-context
+    bound is the pre-append cache length ``cache_ctx`` (B,), one for every
+    query, since the chunk's keys come apart; and the sink / selected /
+    local partition is taken at each query's own context ``pos_q + 1``
+    (pos_q (B, Cq) absolute positions), so a page changes section along the
+    chunk as it does along k sequential decode steps. A sentinel slot (-1)
+    and a slot past the cache's last page are invalid."""
+    b, h, n = slots.shape
+    cq = pos_q.shape[1]
+    n_sink, n_local = page_counts(sink=sink, local=local, page=page)
+    dev = slots.device
+    c = page_start.shape[2]
+    sentinel = ((slots < 0) | (slots >= c))[:, :, None, :, None]
+    start = torch.gather(page_start, 2, slots.clamp(0, c - 1).long())
+    pos = (start[..., None] + torch.arange(page, dtype=torch.int32,
+                                           device=dev))[:, :, None]
+    nonempty = (start >= 0)[:, :, None, :, None]
+    in_ctx = pos < cache_ctx.reshape(b, 1, 1, 1, 1)
+    sec = torch.cat([
+        torch.zeros(n_sink, dtype=torch.int32, device=dev),
+        torch.ones(top_k, dtype=torch.int32, device=dev),
+        torch.full((n_local,), 2, dtype=torch.int32, device=dev),
+    ])[None, None, None, :, None]
+    first_local = first_local_page(pos_q + 1, local=local,
+                                   page=page)[:, None, :, None, None]
+    pidx = torch.div(start, page, rounding_mode="floor")[:, :, None, :, None]
+    ok_local = ((pos >= torch.clamp(first_local, min=n_sink) * page)
+                & (pidx >= first_local))
+    ok_sel = (pidx >= n_sink) & (pidx < first_local)
+    ok = torch.where(sec == 0, True, torch.where(sec == 2, ok_local, ok_sel))
+    return (nonempty & in_ctx & ok & ~sentinel).reshape(b, h, cq, n * page)

@@ -57,11 +57,13 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
              greedy: bool = True, device=None):
     """Lockstep generation. prompts: (B, S) int tokens. ``layout`` and
     ``shards`` as in ``Engine``; the cache holds the layout plan's rounding
-    of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats dict)."""
+    of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats dict).
+
+    Every token is the argmax, whatever ``greedy`` says: the flag is
+    accepted and ignored, as the JAX package's ``generate`` does. Sampling
+    (temperature, top-p, per-request seeds) is the engine's ``Request``."""
+    del greedy  # lockstep generation is greedy, as in the JAX package
     dev = resolve_device(device)
-    if not greedy:
-        raise NotImplementedError("sampling is not ported yet (ROADMAP "
-                                  "Queue 1 item 6)")
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params lie on {params['embed'].device}, generate "
                          f"runs on {dev}")

@@ -1,4 +1,5 @@
-"""Model API for serving: prefill, prefill_chunk and decode_step.
+"""Model API for serving: prefill, prefill_chunk, decode_step and the
+speculative verify (verify_forward, verify_commit).
 
 Counterpart of ``repro/models/model.py``. The serve state is
 ``{"length": ..., "layers": [cache per layer]}``. On the lockstep path
@@ -94,6 +95,49 @@ def prefill_chunk(cfg: ArchConfig, params, state, tokens, *, chunk_len,
     last = (chunk_len.long() - 1).clamp(0, cch - 1)
     x_last = x[torch.arange(b, device=x.device), last]
     return unembed(cfg, params, x_last), {"length": new_len, "layers": caches}
+
+
+def verify_forward(cfg: ArchConfig, params, state, tokens, *, active,
+                   need_select, plan=None, layout=layoutlib.DEFAULT):
+    """Speculative verify: k drafted tokens a slot as k decode steps in ONE
+    chunked pass over the pre-append caches (attend-before-append).
+
+    tokens: (B, k) int, column 0 each slot's pending feed token, columns
+    1..k-1 the draft, at positions length .. length+k-1. Returns (logits
+    (B, k, V), state, stash): logits row j is the distribution at position
+    length+j; ``state`` differs from the input only in the selection and
+    importance (refreshed for ``need_select & active``), the pages, rings
+    and lengths untouched; ``stash`` holds each layer's roped chunk (k, v)
+    for ``verify_commit``. The accepted length decides how much of the
+    chunk is committed; nothing is ever rolled back."""
+    plan = plan if plan is not None else T.default_plan(cfg)
+    start = state["length"]
+    x = embed_input(cfg, params, tokens)
+    rope = _rope(cfg, chunk_positions(start, tokens.shape[1]))  # (B, k, half)
+    caches, stash = [], []
+    for p, perm, c in zip(params["layers"], plan, state["layers"]):
+        x, c, kv = T.block_verify_chunk(cfg, p, perm, x, rope, c, start=start,
+                                        active=active, need_select=need_select,
+                                        layout=layout)
+        caches.append(c)
+        stash.append(kv)
+    return unembed(cfg, params, x), {"length": start, "layers": caches}, stash
+
+
+def verify_commit(cfg: ArchConfig, state, stash, *, accepted, active, plan=None,
+                  layout=layoutlib.DEFAULT):
+    """Commit each slot's accepted prefix (``accepted`` (B,), at least one
+    token of the verified chunk) from the ``verify_forward`` stash, through
+    the chunk appends that the same tokens decoded one at a time reduce to;
+    inactive slots commit nothing. Returns the state advanced by the
+    accepted lengths."""
+    plan = plan if plan is not None else T.default_plan(cfg)
+    start = state["length"]
+    caches = [T.block_verify_append(cfg, perm, c, kv, start=start,
+                                    accepted=accepted, active=active, layout=layout)
+              for perm, c, kv in zip(plan, state["layers"], stash)]
+    new_len = torch.where(active, start + accepted, start).to(start.dtype)
+    return {"length": new_len, "layers": caches}
 
 
 def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,

@@ -209,3 +209,36 @@ def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length,
                                  need_select=need_select)
     x = x + dense(o.reshape(o.shape[0], -1), p["wo"])
     return _ffn_apply(cfg, p, x), cache
+
+
+def block_verify_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start, active,
+                       need_select, layout=layoutlib.DEFAULT):
+    """k drafted tokens through one block as k decode steps in one chunk,
+    the block's KV caches unchanged (``layouts.dispatch_verify_chunk``: the
+    selection and importance refresh only). x: (B, k, d); ``rope`` is (cos,
+    sin) at positions start .. start+k-1. Returns (x, cache, (k_roped, v)):
+    the chunk's KV, kept for ``block_verify_append`` to commit once the
+    accepted length is known. The engine serves speculation on dense
+    attention stacks only, so there is no other mixer here."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    spec = attn_spec(cfg)
+    q, k, v = _qkv(cfg, p, h)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    b, kch = x.shape[:2]
+    o, cache = layoutlib.dispatch_verify_chunk(
+        layout, spec, cache, q, k, v, start, active=active,
+        need_select=need_select, perm=perm)
+    x = x + dense(o.reshape(b, kch, -1), p["wo"])
+    return _ffn_apply(cfg, p, x), cache, (k, v)
+
+
+def block_verify_append(cfg: ArchConfig, perm, cache, kv, *, start, accepted,
+                        active, layout=layoutlib.DEFAULT):
+    """Commit the accepted prefix of a verified chunk into one block's
+    caches from the (k_roped, v) of ``block_verify_chunk``."""
+    k, v = kv
+    return layoutlib.dispatch_verify_append(layout, attn_spec(cfg), cache, k, v,
+                                            start, accepted, active=active,
+                                            perm=perm)

@@ -42,7 +42,9 @@ from repro_torch.kernels import ops
 # and the ring are written in place and never copied whole
 REBINDABLE = ("length", "sel_idx", "importance")
 
-_NUMPY = {torch.bool: np.bool_, torch.int32: np.int32}  # the input buffers' dtypes
+# the input buffers' dtypes
+_NUMPY = {torch.bool: np.bool_, torch.int32: np.int32, torch.int64: np.int64,
+          torch.float32: np.float32}
 
 
 def _fields(state: dict):

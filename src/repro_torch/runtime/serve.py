@@ -3,8 +3,9 @@
 The decode step comes in two variants, select and reuse: the serving
 loop calls the select variant every ``share_window`` steps (fresh page
 scoring and top-k) and the cheaper reuse variant in between. The
-continuous-batching engine uses the ragged decode steps, the greedy
-sampler, the chunked-prefill step and the fused decode window.
+continuous-batching engine uses the ragged decode steps, the per-slot
+sampler, the chunked-prefill step, the fused decode window and the
+speculative verify step.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
+from repro_torch.serving import sampling
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,14 +78,62 @@ def make_ragged_decode_step(cfg: ArchConfig, scfg: ServeConfig, *,
 
 
 def make_sample_step(cfg: ArchConfig, scfg: ServeConfig):
-    """The greedy lane of the engine's sampler: (logits (B, V)) -> tokens
-    (B,) int32, the first maximal index (as ``argmax`` on both sides).
-    Stochastic sampling is ROADMAP Queue 1 item 6."""
-    del cfg, scfg  # greedy sampling depends on neither
+    """The engine's batched per-slot sampler: (logits (B, V), base (B, 2)
+    int64 keys, gen (B,) int32, temp / topp (B,) f32, active (B,) bool) ->
+    (tokens (B,) int32, gen'). Greedy is the temp == 0 lane of the same
+    sampler; each token's key is derived on the card from the request's
+    base key and its generation index (``serving/sampling.py``), and gen
+    advances on the active lanes only."""
+    del cfg, scfg  # sampling depends on neither the model nor the layout
 
-    def sample(logits):
-        return logits.argmax(dim=-1).to(torch.int32)
+    def sample(logits, base, gen, temp, topp, active):
+        tok = sampling.sample_tokens(logits, base, gen, temp, topp)
+        return tok, torch.where(active, gen + 1, gen)
     return sample
+
+
+def make_verify_step(cfg: ArchConfig, scfg: ServeConfig, *, k: int):
+    """The speculative verify step at the fixed (B, k) shape.
+
+    tokens (B, k) int32: column 0 each slot's pending feed token, columns
+    1..k-1 the draft. The verify forward over the pre-append caches
+    (``models/model.verify_forward``), the coupled targets (each chunk
+    position drawn with the key the non-speculative sampler would use,
+    ``sampling.sample_chunk``), the acceptance rule and the commit of the
+    accepted prefix (``verify_commit``).
+
+    Draft j is accepted iff it equals the target drawn at position j - 1
+    with that position's key; at the first mismatch the target is emitted.
+    For a point-mass draft that is rejection sampling (P(accept) = p(d)),
+    and the trace is the non-speculative one sample for sample; at
+    temperature 0 it is "accept while the draft is the argmax".
+    ``max_emit`` (B,) is the host's clamp (share-window boundary, budget,
+    capacity): no selection refresh falls inside a chunk. Returns (targets
+    (B, k), accepted (B,), next_tok (B,), gen', state')::
+
+        verify(params, state, tokens, active, need_select, base, gen, temp,
+               topp, max_emit)
+    """
+    layout = _layout(scfg)
+
+    def verify(params, state, tokens, active, need_select, base, gen, temp, topp,
+               max_emit):
+        if tokens.shape[1] != k:
+            raise ValueError(f"verify chunk of {tokens.shape[1]} tokens, expected {k}")
+        logits, state1, stash = M.verify_forward(cfg, params, state, tokens,
+                                                 active=active,
+                                                 need_select=need_select,
+                                                 layout=layout)
+        targets = sampling.sample_chunk(logits, base, gen, temp, topp)
+        matches = (tokens[:, 1:] == targets[:, :-1]).to(torch.int32)  # (B, k-1)
+        n_nat = 1 + torch.cumprod(matches, dim=1).sum(dim=1)
+        n = torch.minimum(n_nat, torch.clamp(max_emit, min=1)).to(torch.int32)
+        state2 = M.verify_commit(cfg, state1, stash, accepted=n, active=active,
+                                 layout=layout)
+        next_tok = targets.gather(1, (n - 1).long()[:, None])[:, 0]
+        new_gen = torch.where(active, gen + n, gen)
+        return targets, n, next_tok, new_gen, state2
+    return verify
 
 
 def make_prefill_chunk_step(cfg: ArchConfig, scfg: ServeConfig, *, chunk: int):
@@ -105,7 +155,7 @@ def make_fused_window_step(cfg: ArchConfig, scfg: ServeConfig, *, window: int,
     """Fused decode window: ``window`` reuse steps as one dispatch.
 
     A loop over the reuse-step body (``layouts.dispatch_decode_window``,
-    the counterpart of the reference's ``lax.scan``) with the greedy sample
+    the counterpart of the reference's ``lax.scan``) with the sampler
     folded in and retirement on the card: slot i emits exactly
     ``budgets[i]`` tokens (``sched/windows.window_budgets``), then its lane
     of the carried ``active`` mask flips and the remaining iterations leave
@@ -114,68 +164,73 @@ def make_fused_window_step(cfg: ArchConfig, scfg: ServeConfig, *, window: int,
 
     Decode-only variant (``chunk=None``)::
 
-        fused(params, state, tok, active, budgets)
-          -> (trace (window, B) int32, state', tok')
+        fused(params, state, tok, active, gen, budgets, base, temp, topp)
+          -> (trace (window, B) int32, state', tok', gen')
 
     Mixed variant (``chunk=C``) also feeds the engine's presimulated
     chunked-prefill schedule, per iteration a (B, C) token block and the
     per-slot chunk lengths, applied BEFORE the decode half as in the
     per-step mixed step, and a ``finish`` mask marking the rows whose
-    prompt completes at that iteration (their first token is the greedy
-    sample of the chunk logits, as ``Engine._first_token`` takes it)::
+    prompt completes at that iteration (their first token is sampled from
+    the chunk logits with gen = 0, as ``Engine._first_token`` samples it,
+    and their gen set to 1)::
 
-        fused(params, state, tok, active, budgets,
+        fused(params, state, tok, active, gen, budgets, base, temp, topp,
               chunk_tokens (window, B, C), chunk_lens (window, B),
-              finish (window, B)) -> (trace, state', tok')
+              finish (window, B)) -> (trace, state', tok', gen')
 
     Rows of ``trace`` past a slot's budget hold its last token (the
     ``where`` carry), never fresh samples. Iterations past the useful
     length are full no-ops (all-inactive masks), so one capture serves
-    every boundary residue. The sampling lanes (temperature, top-p,
-    per-request seeds) come with Queue 1 item 6.
+    every boundary residue.
     """
     layout = _layout(scfg)
-    sample = make_sample_step(cfg, scfg)
 
-    def decode_half(params, state, tok, act, emitted, budgets):
+    def decode_half(params, state, tok, act, gen, emitted, budgets, base, temp,
+                    topp):
         logits, state = M.decode_step(cfg, params, state, tok, do_select=False,
                                       layout=layout, active=act)
-        tok = torch.where(act, sample(logits), tok)
+        t = sampling.sample_tokens(logits, base, gen, temp, topp)
+        tok = torch.where(act, t, tok)
+        gen = torch.where(act, gen + 1, gen)
         emitted = emitted + act.to(emitted.dtype)
         act = act & (emitted < budgets)
-        return state, tok, act, emitted
+        return state, tok, act, gen, emitted
 
     if chunk is None:
-        def fused(params, state, tok, active, budgets):
+        def fused(params, state, tok, active, gen, budgets, base, temp, topp):
             def body(carry, _):
-                state, tok, act, emitted = decode_half(params, *carry, budgets)
-                return (state, tok, act, emitted), tok
+                carry = decode_half(params, *carry, budgets, base, temp, topp)
+                return carry, carry[1]
 
-            carry0 = (state, tok, active, torch.zeros_like(budgets))
-            (state, tok, _, _), trace = layoutlib.dispatch_decode_window(
+            carry0 = (state, tok, active, gen, torch.zeros_like(budgets))
+            (state, tok, _, gen, _), trace = layoutlib.dispatch_decode_window(
                 layout, body, carry0, None, length=window)
-            return trace, state, tok
+            return trace, state, tok, gen
     else:
-        def fused(params, state, tok, active, budgets, chunk_tokens, chunk_lens,
-                  finish):
+        def fused(params, state, tok, active, gen, budgets, base, temp, topp,
+                  chunk_tokens, chunk_lens, finish):
             if tuple(chunk_tokens.shape[::2]) != (window, chunk):
                 raise ValueError(f"chunk tokens of shape {tuple(chunk_tokens.shape)}, "
                                  f"expected ({window}, B, {chunk})")
 
             def body(carry, xs):
-                state, tok, act, emitted = carry
+                state, tok, act, gen, emitted = carry
                 ctoks, clens, fin = xs
                 logits_c, state = M.prefill_chunk(cfg, params, state, ctoks,
                                                   chunk_len=clens, active=clens > 0,
                                                   layout=layout)
-                tok = torch.where(fin, sample(logits_c), tok)
-                state, tok, act, emitted = decode_half(params, state, tok, act,
-                                                       emitted, budgets)
-                return (state, tok, act, emitted), tok
+                first = sampling.sample_tokens(logits_c, base, torch.zeros_like(gen),
+                                               temp, topp)
+                tok = torch.where(fin, first, tok)
+                gen = torch.where(fin, torch.ones_like(gen), gen)
+                carry = decode_half(params, state, tok, act, gen, emitted, budgets,
+                                    base, temp, topp)
+                return carry, carry[1]
 
-            carry0 = (state, tok, active, torch.zeros_like(budgets))
-            (state, tok, _, _), trace = layoutlib.dispatch_decode_window(
+            carry0 = (state, tok, active, gen, torch.zeros_like(budgets))
+            (state, tok, _, gen, _), trace = layoutlib.dispatch_decode_window(
                 layout, body, carry0, (chunk_tokens, chunk_lens, finish),
                 length=window)
-            return trace, state, tok
+            return trace, state, tok, gen
     return fused

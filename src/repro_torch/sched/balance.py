@@ -91,12 +91,18 @@ def load_imbalance(vals: Sequence[float]) -> float:
 
 def admission_score(ctx_lengths: Sequence[int], candidate_ctx: int, *,
                     n_shards: int, page_size: int,
+                    spec_tokens: int | None = None,
                     prefill_done: Sequence[int] = (),
                     prefill_left: Sequence[int] = (),
                     chunk_budget: int | None = None) -> float:
     """Per-stripe page-load imbalance of the batch AFTER admitting a request
     of context ``candidate_ctx`` beside the live ``ctx_lengths``; lower is
     better, and the engine admits the queued request that minimises it.
+
+    Under speculative decode (``spec_tokens=k``) every context is scored
+    one verify step ahead, at ``ctx + k - 1``: a verify step appends up to
+    k tokens before the host scores again, so a slot just below a page
+    boundary opens its next page within the chunk.
 
     Under chunked prefill the PREFILLING slots come through
     ``prefill_done``/``prefill_left`` (tokens fed / still to come): they
@@ -110,9 +116,10 @@ def admission_score(ctx_lengths: Sequence[int], candidate_ctx: int, *,
     left = [int(t) for t in prefill_left]
     if len(done) != len(left):
         raise ValueError("prefill_done and prefill_left differ in length")
-    ctxs = [int(c) for c in ctx_lengths]
-    ctxs.extend(d + t for d, t in zip(done, left))
-    ctxs.append(int(candidate_ctx))
+    horizon = max(int(spec_tokens) - 1, 0) if spec_tokens else 0
+    ctxs = [int(c) + horizon for c in ctx_lengths]
+    ctxs.extend(d + t + horizon for d, t in zip(done, left))
+    ctxs.append(int(candidate_ctx) + horizon)
     shards = max(int(n_shards), 1)
     loads = device_page_loads(ctxs, n_shards=shards, page_size=page_size)
     if chunk_budget:

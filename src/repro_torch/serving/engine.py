@@ -33,14 +33,29 @@ a fixed batch of ``max_batch`` slots:
     mirrors, copies the small masks and token blocks to the card, and
     keeps each step's (B,) sampled tokens on the card. ``finalize()`` reads
     them once, at the end of ``run()``.
-  * Compiled dispatch (``runtime/graphs.py``): the select, reuse and chunk
-    steps (the greedy sample and the token feed's update folded into the
-    decode steps) and the fused windows have fixed shapes (``max_batch``,
-    ``prefill_chunk``, the window length), so on the card each is captured
-    once as a CUDA graph at construction and replayed; ``jit_cache_sizes``
-    counts the captures, which never grow after construction. Packed
-    prefill (one shape a prompt bucket), packing, slot resets and the first
-    token stay eager. ``eager=True`` runs every step eagerly.
+  * Compiled dispatch (``runtime/graphs.py``): the select, reuse, chunk
+    and verify steps (the sample and the token feed's update folded into
+    the decode steps) and the fused windows have fixed shapes
+    (``max_batch``, ``prefill_chunk``, ``spec_tokens``, the window length),
+    so on the card each is captured once as a CUDA graph at construction
+    and replayed; ``jit_cache_sizes`` counts the captures, which never grow
+    after construction. Packed prefill (one shape a prompt bucket),
+    packing, slot resets and the first token stay eager. ``eager=True``
+    runs every step eagerly. The graphs read the parameters and serve
+    state bound at construction, so both refuse reassignment from then on.
+  * Sampling (``serving/sampling.py``): per-request temperature, top-p
+    and seed. Each slot's lanes (base key, temperature, top-p) are static
+    inputs of every captured step, written at admission; its generation
+    index lives on the card and the steps advance it. A token's key depends
+    on (seed, uid, generation index) alone, so traces do not depend on slot
+    churn, admission order or speculation.
+  * Speculative decode (``spec_tokens=k``): each decode step drafts k-1
+    tokens a slot (``serving/draft.py``), verifies all k in one chunked
+    forward and emits the accepted prefix, at least one token; the coupled
+    sampler makes the trace that of ``spec_tokens=None``, greedy or not.
+    Acceptance stops at the slot's next selection boundary, its budget and
+    the capacity. The host reads the accepted counts and targets once a
+    verify step, as the JAX engine does.
   * Fused decode windows (``decode_window=w``): strictly between two
     selection boundaries every decoding slot takes reuse steps only, so the
     stretch to the next boundary (at most w and share_window - 1 steps)
@@ -51,8 +66,9 @@ a fixed batch of ``max_batch`` slots:
 
 The ``default`` and ``coplace_shmap`` layouts (``core/layouts.py``: the
 layout's plan rounds the cache capacity to whole pages per stripe), FIFO
-and balanced admission, greedy sampling and fused windows are ported;
-every other option of the JAX engine raises and names its ROADMAP item.
+and balanced admission, sampling, speculative decode and fused windows are
+ported; tiered residency and rebalancing raise and name their ROADMAP
+item.
 The engine runs on the card unless ``device`` names the CPU, where it runs
 the kernels' plain versions, eagerly.
 """
@@ -67,7 +83,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, MIXER_ATTENTION, ArchConfig
 from repro_torch.core import cache as cachelib
 from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
@@ -75,23 +91,50 @@ from repro_torch.runtime import graphs
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.sched import balance
 from repro_torch.sched.windows import window_budgets
+from repro_torch.serving import draft as draftlib
+from repro_torch.serving import sampling as samplib
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def _check_spec(cfg: ArchConfig, k: int, hot_pages) -> None:
+    """The JAX engine's gates of ``spec_tokens``: the verify chunk runs the
+    attention decode body only, and its tail must fit inside every later
+    query's local window (k <= h2eal.local)."""
+    if cfg.mixer_pattern and any(m != MIXER_ATTENTION for m in cfg.mixer_pattern):
+        raise ValueError("spec_tokens requires all-attention mixers; "
+                         f"mixer_pattern={cfg.mixer_pattern}")
+    if cfg.attn_pattern == ATTN_LOCAL_GLOBAL:
+        raise ValueError("spec_tokens requires the full attention pattern "
+                         "(local_global windows have no verify-chunk path)")
+    if not cfg.h2eal.enabled:
+        raise ValueError("spec_tokens requires h2eal.enabled")
+    if cfg.embed_frontend_stub:
+        raise ValueError("spec_tokens feeds token chunks through the embedding; "
+                         "frontend-stub archs are unsupported")
+    if hot_pages:
+        raise ValueError("spec_tokens is incompatible with tiered residency")
+    if not 1 <= k <= cfg.h2eal.local:
+        raise ValueError(f"spec_tokens={k} must be in "
+                         f"[1, h2eal.local={cfg.h2eal.local}]")
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request. Under packed admission the prompt length
     must be one of the engine's prompt buckets; chunked admission takes any
-    length in [1, capacity). Only greedy decoding (temperature 0) is
-    ported; top-p and per-request seeds come with sampling."""
+    length in [1, capacity). The sampling policy (``serving/sampling.py``)
+    defaults to greedy argmax; the key stream belongs to (seed, uid), never
+    to the slot."""
 
     uid: int
     prompt: np.ndarray          # (S,) int32
     max_new: int
     temperature: float = 0.0
+    top_p: float = 1.0
+    seed: int = 0
 
 
 @dataclasses.dataclass
@@ -127,7 +170,9 @@ class EngineStats:
     # issues (a graph replay or an eager call: select, reuse, chunk, fused
     # window; packed prefill, pack, reset and first token) is a dispatch.
     # The decode steps fold their sample in, so a per-step decode step is
-    # one dispatch; a fused window is one for up to w-1 steps
+    # one dispatch; a fused window is one for up to w-1 steps, and a verify
+    # step is one (the draft provider's own steps are not counted, as in
+    # the JAX engine)
     dispatches: int = 0
     fused_windows: int = 0        # fused-window dispatches
     fused_steps: int = 0          # decode steps taken inside them
@@ -135,6 +180,11 @@ class EngineStats:
     # the prefill chunks fed inside them, so that launches can be counted
     fused_mixed_windows: int = 0
     fused_chunks: int = 0
+    # speculative decode (spec_tokens=k)
+    spec_steps: int = 0           # verify dispatches
+    spec_slot_steps: int = 0      # per-slot verify events
+    spec_drafted: int = 0         # draft tokens proposed (k-1 an event)
+    spec_accepted: int = 0        # tokens emitted by verify steps (>= 1 an event)
 
     @property
     def occupancy(self) -> float:
@@ -146,8 +196,9 @@ class EngineStats:
 
     @property
     def steps_per_s(self) -> float:
-        """Decode-step rate (``tokens_per_s`` per slot while nothing
-        speculates)."""
+        """Decode-step rate: ``tokens_per_s`` per slot without speculation;
+        under ``spec_tokens=k`` a verify step emits up to k tokens a slot,
+        so the two rates part."""
         return self.decode_steps / self.wall_s if self.wall_s > 0 else 0.0
 
     @property
@@ -155,6 +206,13 @@ class EngineStats:
         """Logical engine-step rate; ``steps_per_dispatch`` is the fusion
         factor."""
         return self.engine_steps / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def mean_accepted_len(self) -> float:
+        """Mean tokens emitted a per-slot verify event (1.0: every draft
+        rejected; k: every draft accepted)."""
+        return (self.spec_accepted / self.spec_slot_steps
+                if self.spec_slot_steps else 0.0)
 
     @property
     def steps_per_dispatch(self) -> float:
@@ -179,6 +237,17 @@ class BatchState:
     uid: np.ndarray             # (B,) int64, -1 when free
     remaining: np.ndarray       # (B,) int64, generation budget left
     prompt_left: np.ndarray     # (B,) int64, prompt tokens not yet fed
+
+    def __setattr__(self, name, value):
+        if name == "serve" and getattr(self, "_sealed", False):
+            raise AttributeError(
+                "the engine's captured steps read the serve state bound at "
+                "construction: write into its tensors, do not replace it")
+        object.__setattr__(self, name, value)
+
+    def seal(self) -> None:
+        """From now on ``serve`` refuses reassignment."""
+        object.__setattr__(self, "_sealed", True)
 
     @property
     def max_batch(self) -> int:
@@ -244,15 +313,28 @@ class Engine:
                     window; with chunked admission the prefilling slots'
                     chunks for the stretch are fed inside it. Tokens equal
                     the per-step engine's.
+    spec_tokens     draft length k: speculative decode. Each decode step
+                    drafts k-1 tokens a slot, verifies all k in one chunked
+                    forward (the verify step, captured) and emits the
+                    accepted prefix; traces equal those of spec_tokens=None,
+                    greedy and sampled. Needs a dense attention stack with
+                    H²EAL on, no tiering, no fused windows, and 1 <= k <=
+                    h2eal.local (the chunk must fit the local window).
+    draft           a ``serving/draft.DraftProvider`` or a builtin's name,
+                    "ngram" (host prompt lookup, the default) or "streaming"
+                    (the model's streaming heads draft); used with
+                    ``spec_tokens`` only.
     device          the card unless the caller names the CPU.
     eager           run the steps eagerly on the card instead of replaying
                     the CUDA graphs captured at construction (the CPU always
                     runs them eagerly).
 
-    The engine's graphs read the parameters and the serve state they were
-    captured with: replace neither after construction. The JAX engine's
-    ``hot_pages``, ``spec_tokens`` and ``rebalance`` raise
-    NotImplementedError when given.
+    The captured steps read the parameters and the serve state bound at
+    construction, so from the end of construction ``params`` and
+    ``batch.serve`` refuse reassignment, on every device (the eager CPU
+    engine would not mix weights, but one rule holds everywhere); write
+    into their tensors instead. The JAX engine's ``hot_pages`` and
+    ``rebalance`` raise NotImplementedError when given.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int,
@@ -262,13 +344,16 @@ class Engine:
                  balance_shards: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, device=None,
                  hot_pages: Optional[int] = None,
-                 spec_tokens: Optional[int] = None, rebalance: str = "off",
-                 decode_window: Optional[int] = None, eager: bool = False):
+                 spec_tokens: Optional[int] = None, draft="ngram",
+                 rebalance: str = "off", decode_window: Optional[int] = None,
+                 eager: bool = False):
+        self.spec_tokens = int(spec_tokens) if spec_tokens else None
+        self.draft = None
+        if self.spec_tokens is not None:
+            _check_spec(cfg, self.spec_tokens, hot_pages)
+            self.draft = draftlib.resolve_draft(draft)
         if hot_pages:
             raise _not_ported("tiered KV residency (hot_pages)", "Queue 1 item 8")
-        if spec_tokens:
-            raise _not_ported("speculative decode (spec_tokens)",
-                              "Queue 1 item 6")
         if rebalance != "off":
             raise _not_ported("live slot rebalancing (rebalance)",
                               "Queue 1 item 8")
@@ -276,6 +361,13 @@ class Engine:
         if self.decode_window < 1:
             raise ValueError(f"decode_window={decode_window} must be >= 1 "
                              f"(1 == per-step dispatch)")
+        if self.decode_window > 1 and self.spec_tokens is not None:
+            # verify steps move each slot's phase by a variable accepted
+            # count, which a fixed-budget window cannot encode
+            raise ValueError(
+                "decode_window > 1 is incompatible with spec_tokens (verify "
+                "steps advance phases by variable accepted counts); pass "
+                "decode_window=None for per-step dispatch")
         if admission not in ("fifo", "balanced"):
             raise ValueError(f"unknown admission {admission!r}")
         lay = layoutlib.get_layout(layout, shards)
@@ -307,6 +399,7 @@ class Engine:
                            else 0)
         scfg = serve_rt.ServeConfig(capacity=self.cache_capacity,
                                     layout=self.layout, shards=self.shards)
+        self.serve_config = scfg
         self._prefill = serve_rt.make_prefill(cfg, scfg)
         self._dec_sel = serve_rt.make_ragged_decode_step(cfg, scfg, do_select=True)
         self._dec_reuse = serve_rt.make_ragged_decode_step(cfg, scfg,
@@ -321,6 +414,10 @@ class Engine:
             if self.prefill_chunk is not None:
                 self._fused_mix = serve_rt.make_fused_window_step(
                     cfg, scfg, window=self._fused_len, chunk=self.prefill_chunk)
+        if self.spec_tokens is not None:
+            self._verify = serve_rt.make_verify_step(cfg, scfg, k=self.spec_tokens)
+            self._spec_history: Dict[int, List[int]] = {}
+            self._spec_emitted = np.zeros(int(max_batch), np.int64)
         b = int(max_batch)
         self.batch = BatchState(
             serve=M.empty_serve_state(cfg, b, capacity=self.cache_capacity,
@@ -330,8 +427,14 @@ class Engine:
             ready=np.zeros(b, bool), lengths=np.zeros(b, np.int64),
             phase=np.zeros(b, np.int64), uid=np.full(b, -1, np.int64),
             remaining=np.zeros(b, np.int64), prompt_left=np.zeros(b, np.int64))
-        # the token feed: each slot's next input token, updated in place
+        # the token feed: each slot's next input token, and the generation
+        # index of that slot's next sample, both updated in place
         self._tok = torch.zeros(b, dtype=torch.int32, device=self.device)
+        self._gen = torch.zeros(b, dtype=torch.int32, device=self.device)
+        # host mirrors of the sampling lanes, copied into the steps' inputs
+        self._samp_base = np.zeros((b, 2), np.int64)
+        self._samp_temp = np.zeros(b, np.float32)
+        self._samp_topp = np.ones(b, np.float32)
         self._trace: List[torch.Tensor] = []     # (rows, B) token blocks
         self._trace_rows = 0
         self.trace_engine_steps: List[int] = []  # engine step of each trace row
@@ -343,24 +446,49 @@ class Engine:
         self.stats = EngineStats()
         self._graphs = graphs.StepGraphs(self.device, eager=eager)
         self._add_steps(b)
+        if self.draft is not None:
+            self.draft.bind(self)
+        self.batch.seal()
+        self._sealed = True
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        if getattr(self, "_sealed", False):
+            raise AttributeError(
+                "the engine's captured steps read the parameters bound at "
+                "construction: build a new Engine for other weights")
+        self._params = value
 
     def _add_steps(self, b: int):
         """The fixed-shape steps over static input buffers, captured on the
-        card (``runtime/graphs.py``). Each reads the serve state and the
-        token feed and writes them in place."""
-        g, serve, tok = self._graphs, self.batch.serve, self._tok
+        card (``runtime/graphs.py``). Each reads the serve state, the token
+        feed, the generation indices and the sampling lanes, and writes the
+        first three in place."""
+        g, serve, tok, gen = self._graphs, self.batch.serve, self._tok, self._gen
         # the steps look the engine up through a proxy, so that they do not
         # keep it (and its cache) alive in a reference cycle
         me = weakref.proxy(self)
-        act = g.input("act", (b,), torch.bool)
+        act = self._act = g.input("act", (b,), torch.bool)
+        lanes = (g.input("base", (b, 2), torch.int64),
+                 g.input("temp", (b,), torch.float32),
+                 g.input("topp", (b,), torch.float32))
+        self._lanes = lanes
+        g.set(topp=self._samp_topp)
 
         def decode(step, *extra):
             before = graphs.snapshot(serve)
             logits, new = step(me.params, serve, tok, act, *extra)
             graphs.commit(before, new)
+            base, temp, topp = lanes
+            t, gen_new = me._sample(logits, base, gen, temp, topp, act)
             # inactive lanes keep their feed: a slot that finished
             # prefilling this step already holds its first token there
-            tok.copy_(torch.where(act, me._sample(logits), tok))
+            tok.copy_(torch.where(act, t, tok))
+            gen.copy_(gen_new)
 
         need = g.input("need", (b,), torch.bool)
         g.add("decode_select", lambda: decode(me._dec_sel, need))
@@ -381,10 +509,11 @@ class Engine:
 
             def window(step, *extra):
                 before = graphs.snapshot(serve)
-                trace, new, tok_new = step(me.params, serve, tok, act, budgets,
-                                           *extra)
+                trace, new, tok_new, gen_new = step(me.params, serve, tok, act, gen,
+                                                    budgets, *lanes, *extra)
                 graphs.commit(before, new)
                 tok.copy_(tok_new)
+                gen.copy_(gen_new)
                 return trace
             g.add("fused_window", lambda: window(me._fused))
             if c is not None:
@@ -392,6 +521,26 @@ class Engine:
                       g.input("wclens", (w, b), torch.int32),
                       g.input("wfinish", (w, b), torch.bool))
                 g.add("fused_window_mixed", lambda: window(me._fused_mix, *wx))
+        if self.spec_tokens is not None:
+            k = self.spec_tokens
+            # the draft: written by the host, or on the card by the
+            # streaming draft's own step
+            self._draft_buf = torch.zeros((b, k - 1), dtype=torch.int32,
+                                          device=self.device)
+            max_emit = g.input("max_emit", (b,), torch.int32)
+
+            def verify():
+                before = graphs.snapshot(serve)
+                tokens = torch.cat([tok[:, None], me._draft_buf], dim=1)
+                targets, n, nxt, gen_new, new = me._verify(
+                    me.params, serve, tokens, act, need, lanes[0], gen, lanes[1],
+                    lanes[2], max_emit)
+                graphs.commit(before, new)
+                tok.copy_(torch.where(act, nxt, tok))
+                gen.copy_(gen_new)
+                # one block for the host's one read: the targets, then n
+                return torch.cat([targets, n[:, None]], dim=1)
+            g.add("verify", verify)
 
     # ------------------------------------------------------------------
 
@@ -402,10 +551,6 @@ class Engine:
                                                           non_blocking=True)
 
     def submit(self, req: Request):
-        if req.temperature > 0.0:
-            raise _not_ported("sampling at temperature > 0", "Queue 1 item 6")
-        if req.temperature < 0.0:
-            raise ValueError(f"temperature must be >= 0, got {req.temperature}")
         if self.prefill_chunk is None:
             if len(req.prompt) not in self.prompt_buckets:
                 raise ValueError(f"prompt length {len(req.prompt)} not in "
@@ -416,14 +561,39 @@ class Engine:
         if req.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {req.max_new} (every "
                              f"admitted request emits at least the prefill token)")
+        samplib.SamplingParams(temperature=req.temperature, top_p=req.top_p,
+                               seed=req.seed).validate()
         self._queue.append(req)
 
+    def _set_sampling(self, req: Request, slot: int):
+        """Install the request's sampling lanes in slot ``slot``: its base
+        key depends on (seed, uid) alone, never on the slot. The lanes reach
+        the card by the steps' input copies; the generation index is reset
+        on the card."""
+        self._samp_base[slot] = samplib.request_key(req.seed, req.uid).numpy()
+        self._samp_temp[slot] = req.temperature
+        self._samp_topp[slot] = req.top_p
+        self._graphs.set(base=self._samp_base, temp=self._samp_temp,
+                         topp=self._samp_topp)
+        self._gen[slot].fill_(0)
+        if self.spec_tokens is not None and self.draft.needs_host_tokens:
+            self._spec_history[slot] = [int(t) for t in np.asarray(req.prompt)]
+
     def _first_token(self, slot: int, logits_row) -> torch.Tensor:
-        """Greedy first token of a slot from its prefill logits row, also
-        written into the slot's lane of the token feed."""
-        first = self._sample(logits_row[None])[0]
+        """The request's first token (generation index 0), sampled from its
+        prefill logits row with the slot's lanes and written into the slot's
+        lane of the token feed; the slot's generation index becomes 1."""
+        base, temp, topp = (x[slot:slot + 1] for x in self._lanes)
+        gen0 = torch.zeros(1, dtype=torch.int32, device=self.device)
+        first = samplib.sample_tokens(logits_row[None], base, gen0, temp, topp)[0]
         self._tok[slot].copy_(first)
+        self._gen[slot].fill_(1)
         self.stats.dispatches += 1
+        if self.spec_tokens is not None:
+            self._spec_emitted[slot] = 1
+            if self.draft.needs_host_tokens:
+                # the host history needs the token: a read, as in the JAX engine
+                self._spec_history[slot].append(int(first))
         return first
 
     def _new_completion(self, req: Request, slot: int) -> Completion:
@@ -441,6 +611,7 @@ class Engine:
         """Packed admission: batch-1 prefill written into the slot, whose
         first token is emitted now; the slot enters READY."""
         prompt = self._to_dev(np.asarray(req.prompt, np.int64)[None])
+        self._set_sampling(req, slot)
         logits, small = self._prefill(self.params, prompt)
         _pack_slot(self.batch.serve, small, slot)
         self.stats.dispatches += 2  # prefill + pack
@@ -463,6 +634,7 @@ class Engine:
         """Chunked admission: the slot's rows are reset and it enters
         PREFILLING; later steps feed its prompt chunk by chunk."""
         b = self.batch
+        self._set_sampling(req, slot)
         _reset_slot(b.serve, slot)
         self.stats.dispatches += 1
         b.prefilling[slot] = True
@@ -516,6 +688,8 @@ class Engine:
         b.ready[slot] = False
         b.uid[slot] = -1
         b.remaining[slot] = 0
+        if self.spec_tokens is not None:
+            self._spec_history.pop(slot, None)
         comp = self._live.pop(slot)
         comp.finished_step = self.stats.decode_steps
         self.completions[comp.uid] = comp
@@ -544,7 +718,8 @@ class Engine:
             score = balance.admission_score(
                 live, len(self._queue[i].prompt), n_shards=n_shards,
                 page_size=self.cfg.h2eal.page_size, prefill_done=pre_done,
-                prefill_left=pre_left, chunk_budget=self.prefill_chunk)
+                prefill_left=pre_left, chunk_budget=self.prefill_chunk,
+                spec_tokens=self.spec_tokens)
             if best_s is None or score < best_s - 1e-12:
                 best_i, best_s = i, score
         if best_i == 0:
@@ -617,12 +792,15 @@ class Engine:
         its refresh boundary (or none decodes), so all active phases share
         one residue mod the share window. A slot's own schedule depends on
         its own phase alone, so this delays its start by at most w-1 steps
-        and changes none of its tokens."""
+        and changes none of its tokens. Under speculation verify steps move
+        the phases by variable counts, so they never realign: READY slots
+        start at once (their tokens are the same either way)."""
         b = self.batch
         if not b.ready.any():
             return
         act = b.active
-        if act.any() and (b.phase[act] % self.share_window).any():
+        if (self.spec_tokens is None and act.any()
+                and (b.phase[act] % self.share_window).any()):
             return
         b.active |= b.ready
         b.ready[:] = False
@@ -672,6 +850,8 @@ class Engine:
         """The decode half of a step, over the ``active`` mask captured
         before this step's chunk (a slot that finished prefilling in it
         starts later)."""
+        if self.spec_tokens is not None:
+            return self._verify_once(active)
         b = self.batch
         need = active & (b.phase % self.share_window == 0)
         self._graphs.set(act=active)
@@ -763,6 +943,62 @@ class Engine:
             if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
                 self._retire(slot)
 
+    def _verify_once(self, active: np.ndarray):
+        """The speculative decode half of a step: draft k-1 tokens for each
+        active slot, verify all k in one chunked forward (the captured
+        ``verify`` step) and emit each slot's accepted prefix, at least one
+        token. Only accepted prefixes are appended (attend-before-append),
+        so nothing is rolled back. ``max_emit`` stops acceptance at the
+        slot's next selection boundary, its budget and the capacity, so the
+        selection cadence stays a function of the slot's own phase."""
+        b = self.batch
+        k, w = self.spec_tokens, self.share_window
+        need = active & (b.phase % w == 0)
+        drafted = self.draft.draft(self, active, k)
+        if isinstance(drafted, np.ndarray):
+            self._draft_buf.copy_(torch.from_numpy(
+                np.ascontiguousarray(drafted, np.int32)), non_blocking=True)
+        elif drafted is not None and drafted is not self._draft_buf:
+            self._draft_buf.copy_(drafted)
+        max_emit = np.ones(b.max_batch, np.int32)
+        for slot in np.nonzero(active)[0]:
+            r = int(b.phase[slot]) % w
+            max_emit[slot] = max(1, min(k, w - r, int(b.remaining[slot]),
+                                        self.capacity - int(b.lengths[slot])))
+        self._graphs.set(act=active, need=need, max_emit=max_emit)
+        out = self._graphs.run("verify")
+        self.stats.dispatches += 1
+        if need.any():
+            self.stats.select_steps += 1
+        else:
+            self.stats.reuse_steps += 1
+        # k trace rows a verify step (the targets); a slot that accepted n
+        # owns the first n
+        row0 = self._add_trace(out[:, :k].t().clone())
+        self.trace_engine_steps.extend([self.stats.engine_steps] * k)
+        self.stats.decode_steps += 1
+        self.stats.spec_steps += 1
+        self.stats.occupancy_sum += float(active.mean())
+        # the one read from the card speculation adds: the accepted counts,
+        # and the targets for a draft that keeps a host history
+        host = out.cpu().numpy()
+        for slot in np.nonzero(active)[0]:
+            slot = int(slot)
+            n = int(host[slot, k])
+            self._live[slot]._step_idx.extend(range(row0, row0 + n))
+            b.lengths[slot] += n
+            b.phase[slot] += n
+            b.remaining[slot] -= n
+            self._spec_emitted[slot] += n
+            self.stats.tokens_out += n
+            self.stats.spec_slot_steps += 1
+            self.stats.spec_drafted += k - 1
+            self.stats.spec_accepted += n
+            if self.draft.needs_host_tokens:
+                self._spec_history[slot].extend(int(t) for t in host[slot, :n])
+            if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
+                self._retire(slot)
+
     def finalize(self):
         """Read the tokens off the card into the completions: the only
         device-to-host read of the serving loop. Idempotent."""
@@ -835,9 +1071,14 @@ class Engine:
 
     def jit_cache_sizes(self) -> Dict[str, int]:
         """Captures of each fixed-shape step (the counterpart of the JAX
-        engine's compiled entries): one each on the card, made at
-        construction, never more; 0 where the steps run eagerly."""
-        return dict(self._graphs.captures)
+        engine's compiled entries), the draft provider's prefixed
+        ``draft_``: one each on the card, made at construction, never more;
+        0 where the steps run eagerly."""
+        sizes = dict(self._graphs.captures)
+        if self.draft is not None:
+            for name, n in self.draft.jit_cache_sizes().items():
+                sizes[f"draft_{name}"] = n
+        return sizes
 
     def graph_replays(self) -> Dict[str, int]:
         """Replays of each captured step so far."""

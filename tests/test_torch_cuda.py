@@ -967,3 +967,163 @@ def test_captured_engine_reset_metrics_and_sync(cuda_dev):
         u: c.tokens for u, c in first.items()}
     assert sum(eng.graph_replays().values()) > replays > 0
     assert eng.jit_cache_sizes() == sizes
+
+
+@pytest.mark.cuda
+def test_sampler_bits_on_the_card_match_the_cpu(cuda_dev):
+    """The threefry bits, keys and Gumbel values of the sampler on the card
+    equal the CPU's (bits exactly, Gumbel within 2 ulp of max(|g|, 1)), and
+    the greedy lane is the argmax."""
+    import numpy as np
+
+    from repro_torch.serving import sampling as S
+
+    base = torch.stack([S.request_key(s, u) for s, u in ((0, 0), (3, 7), (2 ** 31 - 1, 1))])
+    gen = torch.tensor([0, 5, 300], dtype=torch.int32)
+    assert torch.equal(S.token_key(base.to(cuda_dev), gen.to(cuda_dev)).cpu(),
+                       S.token_key(base, gen))
+    assert torch.equal(S.random_bits(base.to(cuda_dev), (1000,)).cpu(),
+                       S.random_bits(base, (1000,)))
+    g, gd = S.gumbel(base, (1000,)), S.gumbel(base.to(cuda_dev), (1000,)).cpu()
+    ulp = torch.from_numpy(np.spacing(np.maximum(g.abs().numpy(), 1.0).astype(np.float32)))
+    assert bool(((gd - g).abs() <= 2 * ulp).all())
+    logits = torch.randn(3, 1000, device=cuda_dev)
+    toks = S.sample_tokens(logits, base.to(cuda_dev), gen.to(cuda_dev),
+                           torch.zeros(3, device=cuda_dev), torch.ones(3, device=cuda_dev))
+    assert torch.equal(toks, logits.argmax(-1).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cq", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["retrieval", "streaming"])
+def test_chunk_attention_kernel_at_verify_shapes(cuda_dev, dtype, cq, kind):
+    """The verify step's chunk_attention: Cq = k chunk queries (fewer than a
+    bf16 q tile's 16 positions at group 4) over a gathered buffer of T =
+    4416 + k keys (retrieval) or 292 + k (streaming), the last k keys the
+    chunk's own under a causal triangle; odd T takes the byte reads."""
+    b, hkv, g, d = 2, 4, 4, 128
+    t = (4416 if kind == "retrieval" else 292) + cq
+    gen = torch.Generator(device=cuda_dev).manual_seed(t)
+    q = _rand(gen, cuda_dev, dtype, b, cq, hkv * g, d)
+    k = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    v = _rand(gen, cuda_dev, dtype, b, hkv, t, d)
+    valid = torch.rand(b, hkv, cq, t, generator=gen, device=cuda_dev) < 0.5
+    valid[..., t - cq:] = torch.ones(cq, cq, dtype=torch.bool, device=cuda_dev).tril()
+    got = ops.chunk_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert _chunk_within(got, q, k, v, valid)
+
+
+def _spec_engine_setup(cuda_dev):
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request
+
+    cfg = reduced(get_arch("llama3-8b"))
+    cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal, share_window=4))
+    params = _to(M.init_params(cfg, generator=torch.Generator().manual_seed(16),
+                               device="cpu"), cuda_dev)
+    rng = torch.Generator().manual_seed(17)
+    reqs = [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=rng).numpy(),
+                    max_new=m, temperature=0.8 * (i % 2), top_p=0.9, seed=2)
+            for i, (n, m) in enumerate([(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)])]
+    return cfg, params, reqs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["ngram", "streaming"])
+@pytest.mark.parametrize("layout", ["default", "coplace_shmap"])
+def test_captured_verify_step_matches_the_eager_one(cuda_dev, layout, draft):
+    """The speculative engine (k = 4, greedy and sampled requests) with its
+    verify step and draft replayed as CUDA graphs against the same engine
+    run eagerly on the card: the same tokens, stats and kernel launches;
+    each step captured once at construction; and the same tokens as the
+    non-speculative captured engine."""
+    import dataclasses
+
+    from repro_torch.serving.engine import Engine
+
+    cfg, params, reqs = _spec_engine_setup(cuda_dev)
+    kw = dict(max_batch=2, capacity=96, prompt_buckets=[64], prefill_chunk=7,
+              device=cuda_dev)
+    if layout == "coplace_shmap":
+        kw.update(layout=layout, shards=4)
+    runs = {}
+    for eager in (True, False):
+        eng = Engine(cfg, params, eager=eager, spec_tokens=4, draft=draft, **kw)
+        sizes = eng.jit_cache_sizes()
+        assert set(sizes.values()) == {0 if eager else 1} and "verify" in sizes
+        if draft == "streaming":
+            assert {"draft_mask", "draft_decode"} <= set(sizes)
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        ops.reset_launches()
+        eng.run()
+        assert eng.jit_cache_sizes() == sizes
+        runs[eager] = ({u: c.tokens for u, c in eng.completions.items()},
+                       dict(ops.LAUNCHES), dataclasses.replace(eng.stats, wall_s=0))
+    assert runs[True] == runs[False]
+    base = Engine(cfg, params, **kw).run([dataclasses.replace(r) for r in reqs])
+    assert runs[False][0] == {u: c.tokens for u, c in base.items()}
+
+
+@pytest.mark.cuda
+def test_captured_streaming_draft_leaves_the_state(cuda_dev):
+    """A replayed streaming draft (the shadow copy, the -1 selection, three
+    reuse steps) leaves the engine's serve state, token feed and generation
+    indices bit for bit, and drafts the same tokens as an eager one."""
+    from repro_torch.runtime import graphs
+    from repro_torch.serving.engine import Engine
+
+    cfg, params, reqs = _spec_engine_setup(cuda_dev)
+    drafts = {}
+    for eager in (True, False):
+        eng = Engine(cfg, params, max_batch=2, capacity=96, prompt_buckets=[64],
+                     prefill_chunk=7, device=cuda_dev, spec_tokens=4, draft="streaming",
+                     eager=eager)
+        for r in reqs[:2]:
+            eng.submit(r)
+        for _ in range(8):
+            eng.poll()
+        torch.cuda.synchronize()
+        before = [t.clone() for _, _, t in graphs.snapshot(eng.batch.serve)]
+        feeds = (eng._tok.clone(), eng._gen.clone())
+        out = eng.draft.draft(eng, eng.batch.active.copy(), 4).clone()
+        torch.cuda.synchronize()
+        after = [t for _, _, t in graphs.snapshot(eng.batch.serve)]
+        assert all(torch.equal(a, b) for a, b in zip(after, before))
+        assert torch.equal(eng._tok, feeds[0]) and torch.equal(eng._gen, feeds[1])
+        drafts[eager] = out[torch.from_numpy(eng.batch.active).to(cuda_dev)]
+    assert torch.equal(drafts[True], drafts[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_pages_kernel_with_the_draft_selection(cuda_dev, dtype):
+    """The streaming draft's retrieval decode: every selected slot the -1
+    sentinel, so only the sink and local pages are attended, at the main
+    path's shapes (138 slots of 32, 128 of them -1), against the plain
+    version."""
+    from repro_torch.core import paging
+
+    b, hkv, g, d, p, c, ctx = 2, 4, 4, 128, 32, 258, 8193
+    gen = torch.Generator(device=cuda_dev).manual_seed(21)
+    sel = torch.full((b, hkv, 128), -1, dtype=torch.int32, device=cuda_dev)
+    slots = paging.attended_page_slots(sel, ctx, sink=4, local=256, page=p).contiguous()
+    first = torch.arange(c, device=cuda_dev) * p
+    start = torch.where(first < ctx, first, -1).to(torch.int32).expand(b, hkv, c)
+    valid = paging.token_validity(slots, start.contiguous(), ctx, sink=4, local=256,
+                                  page=p, top_k=128).contiguous()
+    q = _rand(gen, cuda_dev, dtype, b, hkv * g, d)
+    kp = _rand(gen, cuda_dev, dtype, b, hkv, c, p, d)
+    vp = _rand(gen, cuda_dev, dtype, b, hkv, c, p, d)
+    got = ops.paged_attention_pages(q, kp, vp, slots, valid)
+    want = tref.paged_attention_pages_ref(*_widened(q, kp, vp), slots, valid)
+    torch.cuda.synchronize()
+    # the selected section (slots 1..128) attends nothing; sink and local do
+    assert not valid[..., p:129 * p].any() and bool(valid[..., :p].all())
+    assert _within(got, want, dtype)

@@ -307,22 +307,35 @@ def test_chunked_prefill_validation(smollm):
         packed.submit(req)
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(hot_pages=4), "hot_pages"), (dict(spec_tokens=2), "spec_tokens"),
-    (dict(rebalance="retire"), "rebalance"),
-    (dict(decode_window=4, spec_tokens=2), "decode_window"),
-    (dict(layout="head"), "layout"), (dict(layout="interleave"), "layout"),
+@pytest.mark.parametrize("kw,error,what", [
+    (dict(hot_pages=4), NotImplementedError, "ROADMAP"),
+    (dict(spec_tokens=2), None, None),
+    (dict(rebalance="retire"), NotImplementedError, "ROADMAP"),
+    # the JAX engine's gate: verify steps move phases by variable counts
+    (dict(decode_window=4, spec_tokens=2), ValueError, "decode_window > 1"),
+    (dict(layout="head"), NotImplementedError, "ROADMAP"),
+    (dict(layout="interleave"), NotImplementedError, "ROADMAP"),
 ])
-def test_unsupported_engine_options_raise(smollm, kw, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unsupported_engine_options_raise(smollm, kw, error, what):
+    """The options not ported raise and name their ROADMAP item; the ported
+    ``spec_tokens`` builds, and its gates raise the JAX engine's errors."""
+    if error is None:
+        assert smollm.port(**kw).spec_tokens == kw["spec_tokens"]
+        return
+    with pytest.raises(error, match=what):
         smollm.port(**kw)
 
 
 def test_sampling_and_the_card_default_raise(smollm):
+    """Sampled requests are served (and a bad policy refused, as JAX's
+    ``SamplingParams.validate``); the card is the default device."""
     eng = smollm.port()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(Request(uid=0, prompt=_prompt(smollm.tcfg, 16, 0), max_new=2,
-                           temperature=0.7))
+    req = Request(uid=0, prompt=_prompt(smollm.tcfg, 16, 0), max_new=4,
+                  temperature=0.7, top_p=0.9, seed=3)
+    assert len(eng.run([req])[0].tokens) == 4
+    with pytest.raises(ValueError, match="temperature"):
+        eng.submit(Request(uid=1, prompt=_prompt(smollm.tcfg, 16, 0), max_new=2,
+                           temperature=-0.5))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             smollm.port(device=None)
@@ -344,3 +357,18 @@ def test_ragged_cli_runs_on_the_cpu(chunk, capsys):
     assert stats["admissions"] == 4
     assert (stats["prefill_chunks"] > 0) == (chunk != "0")
     assert "workload=ragged" in capsys.readouterr().out
+
+
+def test_captured_weights_guard(smollm):
+    """The captured steps read the parameters and the serve state bound at
+    construction, so both refuse reassignment afterwards, on every device
+    (the CPU runs eagerly, but one rule holds everywhere)."""
+    eng = smollm.port(prefill_chunk=8)
+    with pytest.raises(AttributeError, match="parameters bound at construction"):
+        eng.params = dict(eng.params)
+    with pytest.raises(AttributeError, match="serve state bound at construction"):
+        eng.batch.serve = dict(eng.batch.serve)
+    eng.batch.active[:] = False  # the mirrors stay writable
+    reqs = _mixed_workload(smollm.tcfg, n=2)
+    want, _ = smollm.jax_run(reqs, prefill_chunk=8)
+    smollm.assert_same(_tokens(eng.run(reqs)), want, reqs)
