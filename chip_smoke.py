@@ -66,7 +66,20 @@ then, each phase failing the run with a nonzero exit:
      sampled run against the non-speculative engine: tokens equal up to
      near-ties, launches exact, captures made once, and tokens/s, mean
      accepted length, dispatches and the device time of the verify step,
-     the draft's steps and a decode step logged.
+     the draft's steps and a decode step logged;
+  9. tiered residency and live slot rebalancing on the full-width chunked
+     captured engine of phase 7 (decode_window=4): with ``hot_pages=144``
+     (258 pages a slot, about 138 of them pinned), one request's pages all
+     forced cold at a selection boundary, the tokens must equal phase 7's
+     captured all-resident engine's, demand fills equal the misses (> 0),
+     prefetches and spills happen, the bytes the far-store copies moved
+     equal the byte model's (``runtime/perfmodel.py``) of the counters, and
+     the captures do not grow; the copies' GB/s over PCIe, tok/s beside the
+     all-resident engine's and the hbsim model's projection of the traffic
+     are logged. Then ``rebalance="retire"``: tokens equal to phase 7's
+     (rebalance off), at least one migration, the imbalance lowered,
+     ``migrate`` captured once, every poll under sync debug mode "error",
+     and the hbsim model's price of the migrations logged.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -127,6 +140,11 @@ ENGINE_BATCH, ENGINE_CHUNK, N_REQUESTS = 4, 512, 6
 # boundaries (share window 4: three) as one dispatch
 ENGINE_WINDOW = 4
 ENGINE_PROMPTS, ENGINE_GENS = (2048, 8192), (8, 32)
+# tiered residency: each slot's page budget on the card (a slot holds 258
+# pages, ~138 of them pinned: 1 sink, 9 local, 128 selected), and the decode
+# step from which one request's pages are all forced cold at its next
+# selection boundary
+TIER_HOT_PAGES, TIER_FORCE_AFTER = 144, 8
 # chunk-kernel phase: the context before the chunk of each of the 4 slots
 CHUNK_STARTS = (0, 2048, 5120, 7680)
 # coplace_shmap: page stripes, and the context of each of the 4 slots in the
@@ -1973,7 +1991,8 @@ def serve_engine(dev, cfg, params):
     coplace_shmap engine over SHARDS stripes with balanced admission; then
     the chunked default and coplace_shmap engines with their steps replayed
     as the CUDA graphs captured at construction and fused decode windows
-    (decode_window=4). Returns the launch counts of each run."""
+    (decode_window=4). Returns the launch counts of each run, and the
+    tokens and tok/s of the captured default engine."""
     from repro_torch.serving.engine import Engine
 
     reqs, capacity = engine_workload(cfg)
@@ -1981,7 +2000,7 @@ def serve_engine(dev, cfg, params):
     n_l = cfg.num_layers
     log(f"engine: {len(reqs)} requests on {ENGINE_BATCH} slots, prompts {lens}, "
         f"generations {[r.max_new for r in reqs]}, capacity {capacity}")
-    out, launches = {}, {}
+    out, launches, rates = {}, {}, {}
     coplace = dict(layout="coplace_shmap", shards=SHARDS, admission="balanced")
     graphs = dict(decode_window=ENGINE_WINDOW, eager=False)
     for mode, chunk, kw in (
@@ -2032,6 +2051,7 @@ def serve_engine(dev, cfg, params):
             f"replays {eng.graph_replays()}, captures before/after the run {sizes} / "
             f"{eng.jit_cache_sizes()}, construction {t_build:.2f}s")
         out[mode] = {u: c.tokens for u, c in comps.items()}
+        rates[mode] = s.tokens_out / wall
         del eng
         torch.cuda.empty_cache()
     for a, b, what in (("chunked", "packed", " (random weights: near-flat logits, so "
@@ -2043,7 +2063,172 @@ def serve_engine(dev, cfg, params):
         pairs = [(x, y) for u in out[a] for x, y in zip(out[a][u], out[b][u])]
         agree = sum(x == y for x, y in pairs) / len(pairs)
         log(f"engine: token agreement {a} vs {b} {agree:.3f}{what}")
-    return launches, out["chunked_graphs"]
+    return launches, out["chunked_graphs"], rates["chunked_graphs"]
+
+
+def tiered_launches(s, n_l, fused_len, replays):
+    """The launches of a tiered run: a plain run's, and each replay of a
+    select step launches that step's kernels again."""
+    out = dict(window_launches(s, n_l, fused_len, False), flash_attention=0)
+    out["page_score"] += replays * n_l
+    out["paged_attention"] += 2 * replays * n_l
+    return out
+
+
+def serve_tiered_and_rebalanced(dev, cfg, params, want, base_rate, card):
+    """Phase 9: the captured chunked engine of phase 7 with tiered residency
+    (one request forced cold), then with retire-triggered rebalancing, each
+    held to phase 7's tokens ``want``. Returns the launch counts of each."""
+    from repro_torch import hbsim
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import perfmodel
+    from repro_torch.serving.engine import Engine
+
+    reqs, capacity = engine_workload(cfg)
+    n_l = cfg.num_layers
+    kw = dict(max_batch=ENGINE_BATCH, capacity=capacity,
+              prompt_buckets=sorted({len(r.prompt) for r in reqs}),
+              prefill_chunk=ENGINE_CHUNK, decode_window=ENGINE_WINDOW, device=dev)
+    launches = {}
+
+    # tiered: polled without the sync guard, since each select step reads
+    # its digest back (one read a select step, as the JAX engine)
+    eng = Engine(cfg, params, hot_pages=TIER_HOT_PAGES, **kw)
+    sizes = eng.jit_cache_sizes()
+    # the pages a select step pins: the union of its 32 layers x 4 heads'
+    # selections, per slot that selected
+    unions, digest = [], eng._tier_digest
+
+    def counted(*args):
+        sel_by, hot_by = digest(*args)
+        unions.extend(len(v) for v in sel_by.values())
+        return sel_by, hot_by
+    eng._tier_digest = counted
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    forced, w = None, eng.share_window
+    t0 = time.perf_counter()
+    while eng.busy():
+        b = eng.batch
+        if forced is None and eng.stats.decode_steps >= TIER_FORCE_AFTER:
+            due = [i for i in range(b.max_batch) if b.active[i] and b.phase[i] % w == 0
+                   and b.remaining[i] > w]
+            if due:
+                forced = (int(b.uid[due[0]]), eng.tier_force_spill(int(b.uid[due[0]])))
+        eng.poll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["tiered"] = got = dict(ops.LAUNCHES)
+    eng.finalize()
+    s, t = eng.stats, eng._tier
+    replays = eng.graph_replays()["decode_select"] - s.select_steps
+    expect = tiered_launches(s, n_l, eng._fused_len, replays)
+    log(f"engine (tiered) launches {got} (expected {expect}; {replays} select-step "
+        f"replays)")
+    if got != expect:
+        fail("the tiered engine did not launch the kernels as expected")
+    tokens = {u: c.tokens for u, c in eng.completions.items()}
+    bad = first_divergence(tokens, want)
+    if bad is not None:
+        fail(f"the tiered engine's tokens differ from the all-resident captured "
+             f"engine's at (uid, index) {bad}")
+    if forced is None or forced[1] == 0:
+        fail(f"the tiered engine forced no page cold ({forced})")
+    if not s.tier_misses == s.tier_fills > 0:
+        fail(f"tier misses {s.tier_misses} and fills {s.tier_fills}: each miss must "
+             f"be filled, and there must be one")
+    if not s.tier_spills > 0:
+        fail(f"the tiered engine spilled no page ({s.tier_spills})")
+    if eng.jit_cache_sizes() != sizes:
+        fail(f"the tiered engine captured again while serving: {sizes} -> "
+             f"{eng.jit_cache_sizes()}")
+    page = perfmodel.tier_page_bytes(cfg)
+    model = perfmodel.tier_traffic_bytes(cfg, fills=s.tier_fills, spills=s.tier_spills,
+                                         prefetch=s.tier_prefetch)
+    # a page's first spill copies it to host; later spills reuse that copy
+    moved_model = model["demand_fills"] + model["prefetch"] + s.tier_archived * page
+    if t.h2d_bytes != model["demand_fills"] + model["prefetch"] or \
+            t.d2h_bytes != s.tier_archived * page:
+        fail(f"the far store moved {t.h2d_bytes} B to the card and {t.d2h_bytes} B to "
+             f"host; the byte model of the counters says "
+             f"{model['demand_fills'] + model['prefetch']} and "
+             f"{s.tier_archived * page}")
+    times = t.transfer_times()
+    rate = {d: b / (ms * 1e-3) / 1e9 for d, (b, ms) in times.items()}
+    log(f"engine (tiered, hot_pages={TIER_HOT_PAGES}, uid {forced[0]} forced cold: "
+        f"{forced[1]} pages) on {card}: {s.tokens_out} tokens in {wall:.3f}s = "
+        f"{s.tokens_out / wall:.2f} tok/s (all-resident captured engine "
+        f"{base_rate:.2f}); tokens equal the all-resident engine's; hits "
+        f"{s.tier_hits} misses {s.tier_misses} (hit rate {s.tier_hit_rate:.4f}) fills "
+        f"{s.tier_fills} prefetches {s.tier_prefetch} spills {s.tier_spills} (first "
+        f"spills copied {s.tier_archived}); batches fill {s.tier_fill_batches} "
+        f"(mean {s.tier_fill_batch_mean:.1f} pages) spill {s.tier_spill_batches} "
+        f"(mean {s.tier_spill_batch_mean:.1f}) gather {s.tier_gather_batches}, "
+        f"largest {s.tier_batch_pages_max}; pages a select step pins (the union of "
+        f"its layers' and heads' selections, a slot) mean {np.mean(unions):.1f} min "
+        f"{min(unions)} max {max(unions)} over {len(unions)}; captures "
+        f"{eng.jit_cache_sizes()}")
+    log(f"engine (tiered) far-store copies on {card}: to the card "
+        f"{t.h2d_bytes} B, to host {t.d2h_bytes} B (byte model of the counters: "
+        f"{moved_model} B moved; {model['total']:.0f} B with every spill counted); "
+        + ", ".join(f"{d} {b} B in {ms:.3f} ms = {rate[d]:.2f} GB/s"
+                    for d, (b, ms) in sorted(times.items())))
+    steps = s.decode_steps
+    proj = hbsim.tiered_serving_overhead(cfg, fills=s.tier_fills, spills=s.tier_spills,
+                                         prefetch=s.tier_prefetch, decode_steps=steps)
+    log(f"engine (tiered): hbsim MODEL projection for the paper's HB accelerator "
+        f"(not measured on any device): far-bank bytes {proj['far_bytes']:.0f}, "
+        f"blocking {proj['blocking_s'] * 1e3:.3f} ms "
+        f"({proj['blocking_s_per_step'] * 1e6:.2f} us a decode step over {steps}), "
+        f"overlapped {proj['overlapped_s'] * 1e3:.3f} ms, energy "
+        f"{proj['energy_j'] * 1e3:.3f} mJ")
+    del eng
+    torch.cuda.empty_cache()
+
+    # rebalanced: at the default two banks of two slots the retirements of
+    # this workload (seeded, engine_workload) leave bank 1 lighter, and the
+    # planner moves one slot (a CPU run of the same schedule: 1 migration)
+    eng = Engine(cfg, params, rebalance="retire", **kw)
+    sizes = eng.jit_cache_sizes()
+    got, wall, _ = serve_polled(eng, reqs, "engine (rebalanced)")
+    launches["rebalanced"] = got
+    s = eng.stats
+    expect = dict(window_launches(s, n_l, eng._fused_len, False), flash_attention=0)
+    log(f"engine (rebalanced) launches {got} (expected {expect})")
+    if got != expect:
+        fail("the rebalanced engine did not launch the kernels as expected")
+    tokens = {u: c.tokens for u, c in eng.completions.items()}
+    bad = first_divergence(tokens, want)
+    if bad is not None:
+        fail(f"the rebalanced engine's tokens differ from rebalance='off' at "
+             f"(uid, index) {bad}")
+    if s.migrations <= 0:
+        fail("the rebalanced engine migrated no slot")
+    if not s.imbalance_post < s.imbalance_pre:
+        fail(f"rebalancing did not lower the imbalance: {s.imbalance_pre} -> "
+             f"{s.imbalance_post}")
+    if sizes.get("migrate") != 1 or eng.jit_cache_sizes() != sizes:
+        fail(f"migrate must be captured once, at construction: {sizes} -> "
+             f"{eng.jit_cache_sizes()}")
+    log(f"engine (rebalanced, retire, {eng.rebalance_banks} banks) on {card}: "
+        f"{s.tokens_out} tokens in {wall:.3f}s = {s.tokens_out / wall:.2f} tok/s "
+        f"(rebalance off {base_rate:.2f}); tokens equal rebalance off's; checks "
+        f"{s.rebalance_checks} applied {s.rebalances} skipped {s.rebalance_skipped} "
+        f"migrations {s.migrations} ({s.migrated_tokens} tokens), cost imbalance "
+        f"{s.imbalance_pre:.4f} -> {s.imbalance_post:.4f}; captures {sizes}")
+    proj = hbsim.rebalance_overhead(cfg, migrations=s.migrations,
+                                    migrated_tokens=s.migrated_tokens,
+                                    decode_steps=s.decode_steps)
+    log(f"engine (rebalanced): hbsim MODEL projection for the paper's HB "
+        f"accelerator (not measured on any device): migration bytes "
+        f"{proj['migration_bytes']:.0f}, NoC transfer {proj['transfer_s'] * 1e3:.3f} ms "
+        f"({proj['transfer_s_per_step'] * 1e6:.2f} us a decode step), energy "
+        f"{proj['energy_j'] * 1e3:.3f} mJ")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _leaves(tree):
@@ -2148,9 +2333,11 @@ def main() -> int:
     params = full_params(dev, cfg)
     by_path = {"generate": serve_full(dev, cfg, params)}
     check_coplace_layer(dev, cfg, params)
-    launches, greedy = serve_engine(dev, cfg, params)
+    launches, greedy, captured_rate = serve_engine(dev, cfg, params)
     by_path.update({f"engine_{k}": v for k, v in launches.items()})
     by_path.update(serve_spec_engines(dev, cfg, params, greedy))
+    by_path.update({f"engine_{k}": v for k, v in serve_tiered_and_rebalanced(
+        dev, cfg, params, greedy, captured_rate, card).items()})
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
     # windows; every kernel of a path must have run in it
@@ -2163,7 +2350,8 @@ def main() -> int:
                   "engine_spec_ngram": engine[:1] + engine[2:],
                   "engine_spec_streaming": engine,
                   "engine_spec_sampled": engine[:1] + engine[2:],
-                  "engine_sampled_graphs": engine}
+                  "engine_sampled_graphs": engine,
+                  "engine_tiered": engine, "engine_rebalanced": engine}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

@@ -43,6 +43,9 @@ class H2ealConfig:
 ATTN_FULL = "full"
 ATTN_LOCAL_GLOBAL = "local_global"
 MIXER_ATTENTION = "attention"
+MIXER_MAMBA2 = "mamba2"
+MIXER_SLSTM = "slstm"
+MIXER_MLSTM = "mlstm"
 
 
 @dataclass(frozen=True)
@@ -102,11 +105,65 @@ class ArchConfig:
             return self.mixer_pattern[i % len(self.mixer_pattern)]
         return MIXER_ATTENTION
 
+    def layer_has_ffn(self, i: int) -> bool:
+        if self.d_ff == 0 and not self.moe.enabled:
+            return False
+        if self.ffn_every_layer:
+            return True
+        return self.mixer_for_layer(i) == MIXER_ATTENTION
+
     def layer_is_global_attn(self, i: int) -> bool:
         if self.attn_pattern != ATTN_LOCAL_GLOBAL:
             return True
         r = self.local_global_ratio
         return (i % (r + 1)) == r
+
+    @property
+    def attention_layers(self) -> Tuple[int, ...]:
+        return tuple(i for i in range(self.num_layers)
+                     if self.mixer_for_layer(i) == MIXER_ATTENTION)
+
+    @property
+    def has_attention(self) -> bool:
+        return len(self.attention_layers) > 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (the hbsim GEMM model reads it)."""
+        hd = self.resolved_head_dim
+        d = self.d_model
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.num_layers):
+            mixer = self.mixer_for_layer(i)
+            if mixer == MIXER_ATTENTION:
+                n += (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                      + self.num_heads * hd * d)
+            elif mixer == MIXER_MAMBA2:
+                inner = self.ssm.expand * d
+                # in_proj (z, x, B, C, dt) + out_proj + conv
+                n += d * (2 * inner + 2 * self.ssm.state_dim) + inner * d
+                n += inner * self.ssm.conv_dim
+            elif mixer in (MIXER_SLSTM, MIXER_MLSTM):
+                n += 4 * d * d + d * d  # gates + out proj (approx)
+            if not self.layer_has_ffn(i):
+                n += 2 * d
+                continue
+            if self.moe.enabled:
+                n += self.moe.num_experts * 3 * d * self.d_ff
+                n += d * self.moe.num_experts  # router
+                if self.moe.shared_expert_ff:
+                    n += 3 * d * self.moe.shared_expert_ff
+            elif self.d_ff:
+                n += 3 * d * self.d_ff  # swiglu
+            n += 2 * d  # norms
+        return n
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: only the top_k experts count)."""
+        if not self.moe.enabled:
+            return self.param_count()
+        inactive = (self.num_layers * (self.moe.num_experts - self.moe.top_k)
+                    * 3 * self.d_model * self.d_ff)
+        return self.param_count() - inactive
 
 
 REGISTRY: dict = {}

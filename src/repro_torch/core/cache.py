@@ -4,6 +4,9 @@
   PagedCache   retrieval heads: paged KV + per-page key min/max (τ)
                metadata + accumulated importance + page_start table.
   StreamCache  streaming heads: sink + local ring buffer.
+  TieredPagedCache  the host side of tiered hot/cold page residency: which
+               pages of each slot are on the card, and the far store of
+               the spilled ones in host memory.
 
 The single-token appends take ``length`` as a Python int (the lockstep
 path: every row writes at one position) or as a (B,) tensor (the
@@ -17,11 +20,13 @@ decode step then moves a token's worth of bytes, not a copy of the cache.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
-from repro_torch.core.paging import interleave_slot, logical_pages
+from repro_torch.core.paging import interleave_slot, logical_pages, page_counts
 
 
 @dataclasses.dataclass
@@ -290,6 +295,349 @@ def full_cache_append_chunk(cache: FullCache, k_new, v_new, start, chunk_len,
     _put_tokens(cache.k, loc, valid, k_new)
     _put_tokens(cache.v, loc, valid, v_new)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Tiered hot/cold page residency (two-tier KV cache)
+#
+# A paged cache's K/V page rows are the only state that moves between the
+# tiers: selection scores, page validity and the appends read the metadata
+# (tau_min/tau_max/importance/page_start), which stays on the card, so a
+# spilled page stays selectable, and is selected exactly as in the
+# all-resident cache, while its contents lie in the far store. The serving
+# engine finds selected-but-cold pages from the select step's digest, fills
+# them and replays the step: a miss is served late, never skipped.
+#
+# The batched ops take (M,) slot and page index tensors of the (slot, page)
+# pairs that move, over every paged layer's k_pages and v_pages, and write
+# the engine's static serve state in place with advanced indexing.
+# ---------------------------------------------------------------------------
+
+
+def kv_page_tensors(state) -> list:
+    """k_pages and v_pages of every paged layer of a batched serve state,
+    layer by layer: the tensors a page's row lives in."""
+    out = []
+    for layer in state["layers"]:
+        paged = layer.get("paged")
+        if paged is not None:
+            out += [paged.k_pages, paged.v_pages]
+    return out
+
+
+def gather_kv_rows_pairs(state, slots, pages) -> torch.Tensor:
+    """(M, 2L, Hr, P, D): the K and V rows of M (slot, physical page)
+    pairs, every paged layer's, in ``kv_page_tensors`` order."""
+    return torch.stack([t[slots, :, pages] for t in kv_page_tensors(state)], dim=1)
+
+
+def spill_kv_rows_pairs(state, slots, pages) -> None:
+    """Zero the K and V rows of M (slot, page) pairs in place: zero is the
+    empty-page value, so to the kernels a spilled page is an empty one; only
+    the metadata, which stays, says otherwise."""
+    for t in kv_page_tensors(state):
+        t[slots, :, pages] = 0
+
+
+def fill_kv_rows_pairs(state, slots, pages, rows) -> None:
+    """Write ``rows`` ((M, 2L, Hr, P, D), as ``gather_kv_rows_pairs`` gives
+    them) back into M (slot, page) pairs in place: the exact inverse of a
+    spill."""
+    for i, t in enumerate(kv_page_tensors(state)):
+        t[slots, :, pages] = rows[:, i].to(t.dtype)
+
+
+class TieredPagedCache:
+    """Host side of the two-tier paged KV cache (the JAX package's
+    ``TieredPagedCache``, with the transfers of the engine's batched tier
+    ops).
+
+    Per engine slot, ``resident`` says which PHYSICAL pages are on the card,
+    and ``far`` holds each spilled page's rows, ``(slot, phys_page) ->
+    (2L, Hr, P, D)`` in host memory (pinned on the card's host): the far
+    bank of the paper's hybrid-bonding chip, whose traffic
+    ``hbsim.tiered_serving_overhead`` prices.
+
+    Residency policy (exact by construction):
+
+    * **Pinned, never spilled:** the sink pages, every page at or above the
+      local window's start ``first_local(ctx)`` (the local span, the page
+      being appended to and the pages not written yet) and the pages
+      currently selected. ``first_local`` only grows, so a page below it is
+      complete and never appended to or back in the local window again: a
+      spilled page is read again only through selection, which reads the
+      metadata alone, so a cold read is always detected.
+    * **Hot set:** the pinned pages and the ``hot_pages`` - |pinned| most
+      important spill candidates (the accumulated importance). The budget
+      is soft: pins may exceed it.
+    * **Refresh:** after each selection the engine asks ``plan_refresh`` for
+      the pages to prefetch (hot again but cold, filled one share window
+      ahead of the next selection) and the pages to spill.
+
+    ``stripe_shards`` > 1 is the ``coplace_shmap`` page striping
+    (``paging.interleave_slot``): selection and importance are already
+    physical there, so the bitmap and far store are kept in physical page
+    space and only the sink and local pins go through the stripe mapping.
+
+    Transfers (``archive``, ``spill``, ``fill``) run on the card's copy
+    stream after the work queued so far, ``non_blocking``, and the current
+    stream waits for them (an event) before the next step reads the state.
+    ``h2d_bytes`` and ``d2h_bytes`` count the bytes the copies moved; on the
+    card each batch's copies are timed with CUDA events (``transfer_times``).
+    """
+
+    def __init__(self, *, n_slots: int, n_pages: int, hot_pages: int,
+                 page_size: int, sink: int, local: int, device,
+                 stripe_shards: int = 1):
+        self.n_slots = int(n_slots)
+        self.n_pages = int(n_pages)
+        self.hot_pages = int(hot_pages)
+        self.page_size = int(page_size)
+        self.sink = int(sink)
+        self.local = int(local)
+        self.stripe = max(int(stripe_shards), 1)
+        self.n_sink_pages, _ = page_counts(sink=sink, local=local, page=page_size)
+        self.resident = np.ones((self.n_slots, self.n_pages), bool)
+        self.far: dict = {}   # (slot, phys_page) -> (2L, Hr, P, D) host tensor
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self._timed: list = []  # (direction, bytes, start event, end event)
+
+    def reset_counters(self) -> None:
+        """Zero the byte counts and timings (a measured phase starts)."""
+        self.h2d_bytes = self.d2h_bytes = 0
+        self._timed.clear()
+
+    # -- page-space mapping -------------------------------------------
+    def phys(self, logical: int) -> int:
+        return int(interleave_slot(int(logical), self.n_pages, self.stripe))
+
+    def first_local(self, ctx: int) -> int:
+        return max(int(ctx) - self.local, 0) // self.page_size
+
+    def data_pages(self, ctx: int) -> int:
+        return -(-int(ctx) // self.page_size)
+
+    # -- residency bookkeeping ----------------------------------------
+    def reset_slot(self, slot: int) -> None:
+        """The slot retired or took a new request, whose pack or reset
+        rewrites every row: the whole slot is resident, its far rows go."""
+        self.resident[slot] = True
+        for key in [k for k in self.far if k[0] == slot]:
+            del self.far[key]
+
+    def move_slot(self, src: int, dst: int) -> None:
+        """A migration moved the occupant of slot ``src`` to ``dst``: its
+        residency and far rows follow it, and ``src`` is reset."""
+        self.resident[dst] = self.resident[src]
+        for s, p in [k for k in self.far if k[0] == src]:
+            self.far[(dst, p)] = self.far.pop((s, p))
+        self.reset_slot(src)
+
+    def missing(self, slot: int, pages) -> list:
+        """The physical ``pages`` not on the card (a selection's cold
+        misses)."""
+        return [p for p in pages if not self.resident[slot, p]]
+
+    # -- policy --------------------------------------------------------
+    def spill_candidates(self, slot: int, ctx: int, selected) -> list:
+        """Physical pages that may be spilled: the complete pages strictly
+        between the sink and local sections, less ``selected``."""
+        fl = self.first_local(ctx)
+        return [self.phys(p) for p in range(self.n_sink_pages, fl)
+                if self.phys(p) not in selected]
+
+    def plan_refresh(self, slot: int, ctx: int, selected, hotness):
+        """(to_fill, to_spill), physical page lists for one refresh.
+
+        ``selected``: the slot's fresh physical selection (resident: misses
+        were filled before this runs); ``hotness``: (n_pages,) accumulated
+        importance in physical page space. The wanted set is the pins and
+        the top-m candidates by hotness, m sized so that the resident data
+        pages meet the ``hot_pages`` budget; ties go to the lower page."""
+        fl = self.first_local(ctx)
+        nd = self.data_pages(ctx)
+        cand = self.spill_candidates(slot, ctx, selected)
+        pinned_data = (min(self.n_sink_pages, nd) + max(nd - fl, 0)
+                       + len(selected))
+        m = max(self.hot_pages - pinned_data, 0)
+        order = sorted(cand, key=lambda p: (-float(hotness[p]), p))
+        want = set(order[:m])
+        to_fill = [p for p in order[:m] if not self.resident[slot, p]]
+        to_spill = [p for p in cand if p not in want and self.resident[slot, p]]
+        return to_fill, to_spill
+
+    # -- transfers -------------------------------------------------------
+    @contextlib.contextmanager
+    def _on_copy_stream(self):
+        """On the card: run the body on the copy stream after the work
+        queued on the current stream, and make the current stream wait for
+        it (an event) before whatever it runs next."""
+        if self._stream is None:
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            yield
+        cur.wait_stream(self._stream)
+
+    def _index(self, pairs):
+        """(slots, pages) int64 index tensors on the device; from pinned
+        memory on the card, so that the copies do not wait."""
+        a = torch.from_numpy(np.asarray(pairs, np.int64).reshape(-1, 2).T.copy())
+        if self._cuda:
+            a = a.pin_memory()
+        a = a.to(self.device, non_blocking=True)
+        return a[0], a[1]
+
+    def _event(self):
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        return ev
+
+    def _time(self, direction: str, nbytes: int, start) -> None:
+        if start is not None:
+            self._timed.append((direction, nbytes, start, self._event()))
+
+    def archive(self, state, pairs) -> int:
+        """Copy the rows of the ``pairs`` not archived yet into the far
+        store (one batched gather on the card, then one copy to host).
+        Complete pages never change on the card, so an archived copy stays
+        exact across spill, fill and spill again. Returns the pages
+        copied."""
+        new = [k for k in pairs if k not in self.far]
+        if not new:
+            return 0
+        with self._on_copy_stream():
+            slots, pages = self._index(new)
+            rows = gather_kv_rows_pairs(state, slots, pages)
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=self._cuda)
+            t0 = self._event()
+            host.copy_(rows, non_blocking=self._cuda)
+            self._time("d2h", host.nbytes, t0)
+        for i, key in enumerate(new):
+            self.far[key] = host[i]
+        self.d2h_bytes += host.nbytes
+        return len(new)
+
+    def spill(self, state, pairs) -> None:
+        """Zero the ``pairs``' rows on the card (after ``archive``)."""
+        with self._on_copy_stream():
+            slots, pages = self._index(pairs)
+            spill_kv_rows_pairs(state, slots, pages)
+        for s, p in pairs:
+            self.resident[s, p] = False
+
+    def fill(self, state, pairs) -> None:
+        """Copy the ``pairs``' far rows back onto the card, one batched
+        write. Every filled page was spilled earlier, so its rows are in
+        the far store."""
+        first = self.far[pairs[0]]
+        with self._on_copy_stream():
+            rows = torch.empty((len(pairs),) + tuple(first.shape), dtype=first.dtype,
+                               device=self.device)
+            t0 = self._event()
+            for i, key in enumerate(pairs):
+                rows[i].copy_(self.far[key], non_blocking=self._cuda)
+            self._time("h2d", rows.nbytes, t0)
+            slots, pages = self._index(pairs)
+            fill_kv_rows_pairs(state, slots, pages, rows)
+        for s, p in pairs:
+            self.resident[s, p] = True
+        self.h2d_bytes += rows.nbytes
+
+    def transfer_times(self) -> dict:
+        """{"h2d" / "d2h": (bytes, milliseconds)} of the timed copies so
+        far, the card's time (CUDA events on the copy stream); empty on the
+        CPU. Waits for the copies."""
+        out = {}
+        for direction, nbytes, t0, t1 in self._timed:
+            t1.synchronize()
+            b, ms = out.get(direction, (0, 0.0))
+            out[direction] = (b + nbytes, ms + t0.elapsed_time(t1))
+        return out
+
+
+class DecodeStepSave:
+    """What one decode step of a batched serve state writes, saved before
+    the step so that it can be undone: the lengths; each paged layer's
+    selection, importance and page starts whole; per slot, the physical
+    page its next token lands in (its K and V rows and τ min/max) and the
+    streaming ring's slot (K, V and position); and the ``extra`` tensors
+    (the engine's token feed and generation indices). A few MB at
+    llama3-8b, where a copy of the whole state would be GBs.
+
+    The tiered select step saves before its pass; a replay after a cold
+    miss restores first, so that it runs on the state the first pass read.
+    The indices are taken from the lengths at ``save`` and kept for
+    ``restore``. Fixed shapes: both are captured once on the card."""
+
+    def __init__(self, state, extra, *, sink: int, phys_shards: int = 1):
+        self.state = state
+        self.extra = list(extra)
+        self.sink = int(sink)
+        self.phys_shards = int(phys_shards)
+        b = state["length"].shape[0]
+        dev = state["length"].device
+        self._bi = torch.arange(b, device=dev)
+        self._page = torch.zeros(b, dtype=torch.long, device=dev)
+        self._ring = torch.zeros(b, dtype=torch.long, device=dev)
+        self._bufs = [torch.empty_like(t) for t in self._whole()]
+        self._rows = [torch.empty_like(t[self._bi, :, idx])
+                      for t, idx in self._per_slot()]
+        self.save()  # a restore before any step writes what the state holds
+
+    def _whole(self):
+        yield self.state["length"]
+        for layer in self.state["layers"]:
+            paged = layer.get("paged")
+            if paged is not None:
+                yield from (paged.sel_idx, paged.importance, paged.page_start)
+        yield from self.extra
+
+    def _per_slot(self):
+        for layer in self.state["layers"]:
+            paged, stream = layer.get("paged"), layer.get("stream")
+            if paged is not None:
+                for t in (paged.k_pages, paged.v_pages, paged.tau_min,
+                          paged.tau_max):
+                    yield t, self._page
+            if stream is not None:
+                for t in (stream.k, stream.v, stream.pos):
+                    yield t, self._ring
+
+    def _indices(self) -> None:
+        length = self.state["length"].long()
+        pages = next(layer["paged"].k_pages for layer in self.state["layers"]
+                     if "paged" in layer)
+        c, p = pages.shape[2:4]
+        self._page.copy_(interleave_slot((length // p).clamp(0, c - 1), c,
+                                         self.phys_shards))
+        stream = next((layer["stream"] for layer in self.state["layers"]
+                       if "stream" in layer), None)
+        if stream is not None:
+            local_cap = stream.k.shape[2] - self.sink
+            self._ring.copy_(torch.where(length < self.sink, length,
+                                         self.sink + (length - self.sink) % local_cap))
+
+    def save(self) -> None:
+        self._indices()
+        for buf, t in zip(self._bufs, self._whole()):
+            buf.copy_(t)
+        for buf, (t, idx) in zip(self._rows, self._per_slot()):
+            buf.copy_(t[self._bi, :, idx])
+
+    def restore(self) -> None:
+        for buf, (t, idx) in zip(self._rows, self._per_slot()):
+            t[self._bi, :, idx] = buf
+        for buf, t in zip(self._bufs, self._whole()):
+            t.copy_(buf)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ selection runs every ``share_window`` decode steps (the select step),
 cheaper reuse steps in between. Greedy sampling. ``--layout coplace_shmap
 --shards S`` serves the co-placed layout over S page stripes (split-KV
 decode); with ``--admission balanced`` the engine admits and feeds prompts
-by per-stripe page load, and ``--report-balance`` prints those loads.
+by per-stripe page load. ``--rebalance retire|interval`` arms live slot
+migration (``sched/rebalance.py``). ``--report-balance`` scores the last
+batch: the paper's bank-grid tiling, naive against co-placed (§IV-B), the
+per-stripe page loads, the whole-slot LPT placement and the rebalancer's
+cost-model bank loads.
 
 It runs on the card unless ``--device cpu`` is given:
 
@@ -28,6 +32,9 @@ It runs on the card unless ``--device cpu`` is given:
       --reduced --workload ragged --requests 5 --max-batch 2 \\
       --prompt-buckets 16,24 --prefill-chunk 8 --decode-window 4 \\
       --share-window 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --reduced --workload ragged --requests 8 --max-batch 4 \\
+      --prompt-buckets 8,16,24 --rebalance retire --report-balance --device cpu
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.runtime.serve import resolve_device
-from repro_torch.sched import balance
+from repro_torch.sched import balance, grid_coords, map_slots, solve_tiling
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -124,11 +131,11 @@ def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
                prompt_buckets, report_balance: bool = False,
                layout: str = "default", shards: int = 1,
                admission: str = "fifo", prefill_chunk=None, decode_window=None,
-               device=None):
+               rebalance: str = "off", device=None):
     """Serve ``requests`` with the continuous-batching engine (packed
     admission, or chunked with ``prefill_chunk=N``; ``layout``, ``shards``,
-    ``admission`` and ``decode_window`` as in ``Engine``). Returns
-    (completions, stats dict)."""
+    ``admission``, ``decode_window`` and ``rebalance`` as in ``Engine``).
+    Returns (completions, stats dict)."""
     if admission == "balanced" and layout != layoutlib.LAYOUT_COPLACE_SHMAP:
         raise ValueError(
             "--admission balanced scores per-stripe page loads and only has "
@@ -136,7 +143,7 @@ def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
     eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
                  prompt_buckets=prompt_buckets, layout=layout, shards=shards,
                  admission=admission, prefill_chunk=prefill_chunk,
-                 decode_window=decode_window, device=device)
+                 decode_window=decode_window, rebalance=rebalance, device=device)
     completions = eng.run(requests)
     s = eng.stats
     stats = {
@@ -160,26 +167,59 @@ def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
         stats["fused"] = {"decode_window": decode_window,
                           "fused_windows": s.fused_windows,
                           "fused_steps": s.fused_steps}
+    if rebalance != "off":
+        stats["rebalance"] = {
+            "trigger": rebalance,
+            "checks": s.rebalance_checks,
+            "rebalances": s.rebalances,
+            "skipped": s.rebalance_skipped,
+            "migrations": s.migrations,
+            "migrated_tokens": s.migrated_tokens,
+            "imbalance_pre": s.imbalance_pre,
+            "imbalance_post": s.imbalance_post,
+        }
     if report_balance:
         stats["balance"] = _balance_report(cfg, eng)
     return completions, stats
 
 
 def _balance_report(cfg, eng):
-    """Per-stripe page loads of the engine's last batch (the contexts its
-    slots hold at the end of the run) under round-robin page striping:
-    over the layout's stripes, or 4 where pages are not striped."""
+    """Score the engine's last batch (the contexts its slots hold at the end
+    of the run): the paper's tiling and co-placed load split on a 4x4 bank
+    grid against one head a bank; the per-stripe page loads under
+    round-robin striping (over the layout's stripes, or 4 where pages are
+    not striped) and the whole-slot LPT placement over as many banks; and
+    the rebalancer's own per-bank cost-model loads (``Engine.
+    compute_loads``) with its migration counters."""
     ctx = [int(c) for c in eng.batch.lengths if c > 0]
     s = eng.stats
     base = {"admissions": s.admissions, "prefill_chunks": s.prefill_chunks}
+    loads = eng.compute_loads()
+    if loads:
+        base["cost_loads"] = [round(x, 1) for x in loads]
+        base["cost_imbalance"] = balance.load_imbalance(loads)
+    if eng.rebalance != "off":
+        base.update(migrations=s.migrations, rebalances=s.rebalances,
+                    imbalance_pre=s.imbalance_pre, imbalance_post=s.imbalance_post)
     if not ctx:
         return base
+    h2 = cfg.h2eal
+    coords = grid_coords(4, 4)[: cfg.num_kv_heads]
+    n_r = max(cfg.num_kv_heads - round(cfg.num_kv_heads * h2.static_sparsity), 0)
+    retr, stream = coords[:n_r], coords[n_r:]
+    tiles, _ = solve_tiling(retr, stream)
+    kinds = {c: ("retrieval" if c in retr else "streaming") for c in coords}
+    naive = balance.ragged_loads(tiles, kinds, h2, ctx, balanced=False)
+    coplaced = balance.ragged_loads(tiles, kinds, h2, ctx, balanced=True)
     n_sh = (eng.plan.page_stripe_shards
             if eng.layout == layoutlib.LAYOUT_COPLACE_SHMAP else 4)
-    pages = balance.device_page_loads(ctx, n_shards=n_sh,
-                                      page_size=cfg.h2eal.page_size)
+    pages = balance.device_page_loads(ctx, n_shards=n_sh, page_size=h2.page_size)
+    lpt = map_slots([balance.slot_head_load("retrieval", h2, c) for c in ctx], n_sh)
     return dict(base, page_loads=pages,
-                page_load_imbalance=balance.load_imbalance(pages))
+                page_load_imbalance=balance.load_imbalance(pages),
+                imbalance_naive=balance.imbalance(naive),
+                imbalance_coplaced=balance.imbalance(coplaced),
+                slot_lpt_imbalance=lpt.imbalance)
 
 
 def main(argv=None):
@@ -219,6 +259,11 @@ def main(argv=None):
     ap.add_argument("--admission", choices=["fifo", "balanced"], default="fifo",
                     help="ragged admission order (balanced = per-stripe "
                          "page-load aware, sched/balance.py)")
+    ap.add_argument("--rebalance", choices=["off", "retire", "interval"],
+                    default="off",
+                    help="live slot migration (sched/rebalance.py): retire = "
+                         "plan when a retirement frees a slot, interval = "
+                         "every 16 engine steps; tokens are unchanged")
     ap.add_argument("--decode-window", type=int, default=0,
                     help="fuse up to N reuse steps between selection "
                          "boundaries into one dispatch with retirement on "
@@ -259,10 +304,11 @@ def main(argv=None):
             prompt_buckets=buckets, report_balance=args.report_balance,
             layout=args.layout, shards=args.shards, admission=args.admission,
             prefill_chunk=args.prefill_chunk or None,
-            decode_window=args.decode_window or None, device=dev)
+            decode_window=args.decode_window or None, rebalance=args.rebalance,
+            device=dev)
         print(f"[serve] arch={cfg.name} workload=ragged device={dev} "
               f"layout={args.layout} shards={args.shards} "
-              f"admission={args.admission} "
+              f"admission={args.admission} rebalance={args.rebalance} "
               f"prefill_chunk={args.prefill_chunk or 'packed'} "
               f"requests={len(completions)} steps={stats['decode_steps']} "
               f"occupancy={stats['occupancy']:.2f} "
@@ -279,10 +325,22 @@ def main(argv=None):
             fu = stats["fused"]
             print(f"[serve] fused decode windows: w={fu['decode_window']} "
                   f"windows={fu['fused_windows']} fused_steps={fu['fused_steps']}")
-        if "page_loads" in stats.get("balance", {}):
-            bal = stats["balance"]
+        if "rebalance" in stats:
+            r = stats["rebalance"]
+            print(f"[serve] rebalance trigger={r['trigger']} checks={r['checks']} "
+                  f"applied={r['rebalances']} skipped={r['skipped']} "
+                  f"migrations={r['migrations']} imbalance "
+                  f"{r['imbalance_pre']:.3f} -> {r['imbalance_post']:.3f}")
+        bal = stats.get("balance", {})
+        if "page_loads" in bal:
             print(f"[serve] per-stripe page loads {bal['page_loads']} "
-                  f"(imbalance {bal['page_load_imbalance']:.2f})")
+                  f"(imbalance {bal['page_load_imbalance']:.2f}); bank "
+                  f"imbalance naive={bal['imbalance_naive']:.2f} "
+                  f"coplaced={bal['imbalance_coplaced']:.2f} "
+                  f"slot_lpt={bal['slot_lpt_imbalance']:.2f}")
+        if "cost_loads" in bal:
+            print(f"[serve] cost-model bank loads {bal['cost_loads']} "
+                  f"(imbalance {bal['cost_imbalance']:.2f})")
         if completions:
             some = completions[min(completions)]
             print(f"[serve] sample tokens (uid {some.uid}): {some.tokens[:16]}")

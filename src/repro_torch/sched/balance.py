@@ -1,19 +1,122 @@
-"""Page-load balancing of a ragged batch (counterpart of the page-load part
-of ``repro/sched/balance.py``, paper §IV-C).
+"""Load balancing (counterpart of ``repro/sched/balance.py``).
 
-Under the ``coplace_shmap`` layout a slot's pages are striped round-robin
-over the S stripes, so each stripe holds the floor share plus one remainder
-page on the first ``pages % S`` stripes. Remainders of different slots
-stack on the SAME low-indexed stripes, so a ragged batch is imbalanced by
-up to one page per slot. Balanced admission (``Engine(admission=
-"balanced")``) picks the queued request whose pages flatten that pile-up,
-and the chunk allocator hands the chunk budget to the slot whose next page
-lands on the least-loaded stripe. Host code on Python ints: nothing here
-reads from the card.
+Two halves, as in the reference:
+
+* **Head placement** (paper §IV-B, cross-head co-placement). A decode step
+  touches sink + local tokens of KV on a streaming head, and sink + local +
+  the selected budget (plus the page-metadata scan) on a retrieval head.
+  Within a tile of the bank grid (``sched/tiling.py``) the retrieval work
+  is spread over all member banks; with interleaved storage each bank
+  takes an equal 1/|tile| share whatever pages were selected. The
+  ``ragged_*`` forms score a continuous batch, each slot at its own
+  context length. The hbsim cycle model (``hbsim/sim.py``) and the serve
+  CLI's ``--report-balance`` read them.
+* **Page loads of a ragged batch** (paper §IV-C). Under the
+  ``coplace_shmap`` layout a slot's pages are striped round-robin over the
+  S stripes, so each stripe holds the floor share plus one remainder page
+  on the first ``pages % S`` stripes. Remainders of different slots stack
+  on the SAME low-indexed stripes, so a ragged batch is imbalanced by up to
+  one page per slot. Balanced admission (``Engine(admission=
+  "balanced")``) picks the queued request whose pages flatten that
+  pile-up, and the chunk allocator hands the chunk budget to the slot
+  whose next page lands on the least-loaded stripe. Under tiered
+  residency (``hot_cap``) a slot counts only its device-resident hot set.
+
+Host code on Python numbers: nothing here reads from the card.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
+
+from repro_torch.configs.base import H2ealConfig
+from repro_torch.sched.tiling import Tile
+
+
+def head_load(kind: str, h2: H2ealConfig, metadata_scan_pages: int = 0) -> float:
+    """Tokens of KV touched per decode step by one head."""
+    if kind == "streaming":
+        return h2.sink + h2.local
+    # retrieval: sink + local + selected pages, plus the metadata pass,
+    # which reads 2 d-vectors a page (2/page_size of a token's K bytes)
+    meta_cost = 2.0 * metadata_scan_pages / h2.page_size
+    return h2.sink + h2.local + h2.select_budget + meta_cost
+
+
+@dataclass(frozen=True)
+class BankLoad:
+    bank: tuple
+    load: float
+
+
+def unbalanced_loads(tiles: Sequence[Tile], kinds: Dict[tuple, str],
+                     h2: H2ealConfig, pages: int = 0) -> List[BankLoad]:
+    """Naive one-head-per-bank placement: each bank carries its own head."""
+    return [BankLoad(bank=b, load=head_load(kinds[b], h2, pages))
+            for t in tiles for b in t.members]
+
+
+def balanced_loads(tiles: Sequence[Tile], kinds: Dict[tuple, str],
+                   h2: H2ealConfig, pages: int = 0) -> List[BankLoad]:
+    """Co-placement: each tile's total load split evenly over its member
+    banks (interleaved KV storage makes the split exact for any page
+    selection)."""
+    out: List[BankLoad] = []
+    for t in tiles:
+        total = sum(head_load(kinds[b], h2, pages) for b in t.members)
+        share = total / len(t.members)
+        out.extend(BankLoad(bank=b, load=share) for b in t.members)
+    return out
+
+
+def imbalance(loads: Sequence[BankLoad]) -> float:
+    """max / mean bank load (1.0 = perfectly balanced)."""
+    return load_imbalance([x.load for x in loads])
+
+
+def slot_head_load(kind: str, h2: H2ealConfig, ctx: int) -> float:
+    """Tokens of KV touched per decode step by one head of ONE slot at
+    context length ``ctx`` (``head_load`` is the ctx -> inf limit, up to its
+    metadata page count)."""
+    ctx = int(ctx)
+    if kind == "streaming":
+        return float(min(ctx, h2.sink + h2.local))
+    live_pages = -(-ctx // h2.page_size)
+    meta_cost = 2.0 * live_pages / h2.page_size
+    return float(min(ctx, h2.sink + h2.local + h2.select_budget)) + meta_cost
+
+
+def ragged_head_load(kind: str, h2: H2ealConfig,
+                     ctx_lengths: Sequence[int]) -> float:
+    """Per-step load of one head over a ragged batch (the live slots'
+    lengths only)."""
+    return sum(slot_head_load(kind, h2, c) for c in ctx_lengths)
+
+
+def ragged_loads(tiles: Sequence[Tile], kinds: Dict[tuple, str],
+                 h2: H2ealConfig, ctx_lengths: Sequence[int],
+                 *, balanced: bool = True) -> List[BankLoad]:
+    """Per-bank loads of a ragged batch: ``balanced`` spreads each tile's
+    total over its members (exact for any selection and any per-slot length,
+    since interleaving stripes every slot's pages the same way); otherwise
+    the naive one-head-per-bank placement."""
+    out: List[BankLoad] = []
+    for t in tiles:
+        members = t.members
+        per_head = {b: ragged_head_load(kinds[b], h2, ctx_lengths)
+                    for b in members}
+        if balanced:
+            share = sum(per_head.values()) / len(members)
+            out.extend(BankLoad(bank=b, load=share) for b in members)
+        else:
+            out.extend(BankLoad(bank=b, load=per_head[b]) for b in members)
+    return out
+
+
+def occupancy(active: Sequence[bool]) -> float:
+    """Share of batch slots serving a request."""
+    n = len(active)
+    return sum(bool(a) for a in active) / n if n else 0.0
 
 
 def slot_pages(ctx: int, page_size: int) -> int:
@@ -28,12 +131,19 @@ def _add_striped(loads: List[int], pages: int) -> None:
 
 
 def device_page_loads(ctx_lengths: Sequence[int], *, n_shards: int,
-                      page_size: int) -> List[int]:
+                      page_size: int,
+                      hot_cap: int | None = None) -> List[int]:
     """Per-stripe resident-page counts of a ragged batch under round-robin
-    page striping."""
+    page striping. ``hot_cap`` models tiered residency
+    (``core/cache.TieredPagedCache``): a slot keeps at most ``hot_cap``
+    pages on the device, whatever its context, so admission under a tiered
+    engine scores hot-set size, not total pages."""
     loads = [0] * n_shards
     for ctx in ctx_lengths:
-        _add_striped(loads, slot_pages(ctx, page_size))
+        pages = slot_pages(ctx, page_size)
+        if hot_cap is not None:
+            pages = min(pages, int(hot_cap))
+        _add_striped(loads, pages)
     return loads
 
 
@@ -91,6 +201,7 @@ def load_imbalance(vals: Sequence[float]) -> float:
 
 def admission_score(ctx_lengths: Sequence[int], candidate_ctx: int, *,
                     n_shards: int, page_size: int,
+                    hot_cap: int | None = None,
                     spec_tokens: int | None = None,
                     prefill_done: Sequence[int] = (),
                     prefill_left: Sequence[int] = (),
@@ -98,6 +209,8 @@ def admission_score(ctx_lengths: Sequence[int], candidate_ctx: int, *,
     """Per-stripe page-load imbalance of the batch AFTER admitting a request
     of context ``candidate_ctx`` beside the live ``ctx_lengths``; lower is
     better, and the engine admits the queued request that minimises it.
+    Under a tiered engine ``hot_cap`` caps each slot's scored pages at the
+    hot-set size (``device_page_loads``).
 
     Under speculative decode (``spec_tokens=k``) every context is scored
     one verify step ahead, at ``ctx + k - 1``: a verify step appends up to
@@ -121,7 +234,8 @@ def admission_score(ctx_lengths: Sequence[int], candidate_ctx: int, *,
     ctxs.extend(d + t + horizon for d, t in zip(done, left))
     ctxs.append(int(candidate_ctx) + horizon)
     shards = max(int(n_shards), 1)
-    loads = device_page_loads(ctxs, n_shards=shards, page_size=page_size)
+    loads = device_page_loads(ctxs, n_shards=shards, page_size=page_size,
+                              hot_cap=hot_cap)
     if chunk_budget:
         alloc = chunk_allocation(done + [0], left + [int(candidate_ctx)],
                                  int(chunk_budget), n_shards=shards,

@@ -63,12 +63,30 @@ a fixed batch of ``max_batch`` slots:
     (``sched/windows.window_budgets``); a prefilling slot's chunks for the
     stretch are planned on the host and fed inside the window. Tokens are
     those of the per-step engine.
+  * Tiered residency (``hot_pages=N``, ``core/cache.TieredPagedCache``):
+    each slot keeps about N pages on the card and spills the others to the
+    far store in host memory. Selection reads only the pages' metadata,
+    which stays on the card, so a select step selects as the all-resident
+    engine does. Its digest (the selection and the page importance, one
+    read a select step) shows the cold pages it selected; the engine then
+    restores what the step wrote (``core/cache.DecodeStepSave``), fills
+    those pages and replays the step: a miss is served late, never skipped.
+    After each selection the hottest cold pages are prefetched one share
+    window ahead and the pages outside the hot set spilled. Reuse steps read
+    pinned pages only, so a fused window never misses.
+  * Live slot rebalancing (``rebalance="retire"`` or ``"interval"``): at a
+    retirement or every ``rebalance_interval`` engine steps the host scores
+    each slot's next-step compute (``sched/cost.py``) and moves slots into
+    free indices of underloaded banks (``sched/rebalance.py``) when that
+    flattens the banks by at least ``rebalance_min_gain``, at most once per
+    ``rebalance_cooldown`` steps. A move copies every row of the slot, the
+    token feed and the sampling lanes (one captured step) and re-keys the
+    host mirrors, so tokens are unchanged.
 
 The ``default`` and ``coplace_shmap`` layouts (``core/layouts.py``: the
 layout's plan rounds the cache capacity to whole pages per stripe), FIFO
-and balanced admission, sampling, speculative decode and fused windows are
-ported; tiered residency and rebalancing raise and name their ROADMAP
-item.
+and balanced admission, sampling, speculative decode, fused windows,
+tiered residency and rebalancing are ported.
 The engine runs on the card unless ``device`` names the CPU, where it runs
 the kernels' plain versions, eagerly.
 """
@@ -90,13 +108,11 @@ from repro_torch.models import model as M
 from repro_torch.runtime import graphs
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.sched import balance
+from repro_torch.sched.cost import CostModel, SlotView, device_compute_loads
+from repro_torch.sched.rebalance import plan_rebalance
 from repro_torch.sched.windows import window_budgets
 from repro_torch.serving import draft as draftlib
 from repro_torch.serving import sampling as samplib
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _check_spec(cfg: ArchConfig, k: int, hot_pages) -> None:
@@ -150,6 +166,9 @@ class Completion:
     _slot: int = -1
     _seq: int = -1                # admission order (FIFO chunk order)
     _step_idx: List[int] = dataclasses.field(default_factory=list)  # trace rows
+    # the slot each trace row was emitted in: a migration moves the request
+    # to another slot, and its earlier rows stay where they were written
+    _slot_idx: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -185,6 +204,27 @@ class EngineStats:
     spec_slot_steps: int = 0      # per-slot verify events
     spec_drafted: int = 0         # draft tokens proposed (k-1 an event)
     spec_accepted: int = 0        # tokens emitted by verify steps (>= 1 an event)
+    # tiered residency (hot_pages=N); every count is of PAGES
+    tier_hits: int = 0            # selected pages found on the card
+    tier_misses: int = 0          # selected pages cold: filled and replayed
+    tier_spills: int = 0          # pages moved to the far store
+    tier_fills: int = 0           # demand fills (a miss's repair)
+    tier_prefetch: int = 0        # fills one share window ahead
+    tier_fill_batches: int = 0    # batched fills (demand and prefetch)
+    tier_spill_batches: int = 0   # batched spills
+    tier_gather_batches: int = 0  # batched copies of first spills to the far store
+    tier_batch_pages_max: int = 0  # the largest batched transfer
+    tier_archived: int = 0        # the port's own: pages copied to the far
+                                  # store (a page's first spill; later spills
+                                  # reuse its copy)
+    # live slot rebalancing (rebalance="retire" / "interval")
+    rebalance_checks: int = 0     # planner runs (after the cooldown)
+    rebalances: int = 0           # plans applied (>= 1 migration each)
+    rebalance_skipped: int = 0    # triggers refused (cooldown or hysteresis)
+    migrations: int = 0           # slot moves
+    migrated_tokens: int = 0      # context tokens moved (the byte model's input)
+    imbalance_pre_sum: float = 0.0   # cost imbalance at each check
+    imbalance_post_sum: float = 0.0  # ... after the plan applied there, if any
 
     @property
     def occupancy(self) -> float:
@@ -219,6 +259,37 @@ class EngineStats:
         """Decode steps per dispatch: the dispatch reduction of fused
         windows, observable without a profiler."""
         return self.decode_steps / self.dispatches if self.dispatches else 0.0
+
+    @property
+    def tier_hit_rate(self) -> float:
+        seen = self.tier_hits + self.tier_misses
+        return self.tier_hits / seen if seen else 1.0
+
+    @property
+    def tier_fill_batch_mean(self) -> float:
+        """Mean pages a batched fill (demand and prefetch)."""
+        return ((self.tier_fills + self.tier_prefetch) / self.tier_fill_batches
+                if self.tier_fill_batches else 0.0)
+
+    @property
+    def tier_spill_batch_mean(self) -> float:
+        """Mean pages a batched spill."""
+        return (self.tier_spills / self.tier_spill_batches
+                if self.tier_spill_batches else 0.0)
+
+    @property
+    def imbalance_pre(self) -> float:
+        """Mean max/mean bank-compute imbalance at the rebalance checks (1.0
+        when none ran)."""
+        return (self.imbalance_pre_sum / self.rebalance_checks
+                if self.rebalance_checks else 1.0)
+
+    @property
+    def imbalance_post(self) -> float:
+        """The same checks after the plan applied there (the pre value where
+        a check moved nothing)."""
+        return (self.imbalance_post_sum / self.rebalance_checks
+                if self.rebalance_checks else 1.0)
 
 
 @dataclasses.dataclass
@@ -276,6 +347,27 @@ def _pack_slot(big: dict, small: dict, slot: int) -> None:
             tb[slot].copy_(ts[0])
 
 
+def _migrate_rows(big: dict, extra, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Copy row ``src`` of every tensor of the batched state and of ``extra``
+    to row ``dst``, then clear ``src`` to the empty values (index tensors of
+    one element, so that the step has fixed shapes and is captured once)."""
+    rows = [("length", big["length"])]
+    for layer in big["layers"]:
+        rows += list(_cache_fields(layer))
+    rows += [("", t) for t in extra]
+    for name, t in rows:
+        t.index_copy_(0, dst, t.index_select(0, src))
+        t.index_fill_(0, src, cachelib.empty_fill_value(name))
+
+
+def _selection_digest(big: dict) -> torch.Tensor:
+    """(L, B, Hr, K + C) int32: each paged layer's selection and, bit for
+    bit, its page importance, so that the host reads both at once."""
+    return torch.stack([torch.cat([layer["paged"].sel_idx,
+                                   layer["paged"].importance.view(torch.int32)], dim=-1)
+                        for layer in big["layers"] if "paged" in layer])
+
+
 def _reset_slot(big: dict, slot: int) -> None:
     """Clear slot ``slot`` of the batched state to the empty-cache values
     (``cache.empty_fill_value``) and length 0, in place: chunked admission
@@ -324,6 +416,19 @@ class Engine:
                     "ngram" (host prompt lookup, the default) or "streaming"
                     (the model's streaming heads draft); used with
                     ``spec_tokens`` only.
+    hot_pages       per-slot budget of pages on the card: tiered residency
+                    (None: every page resident). Cold pages spill to the far
+                    store in host memory; tokens equal the all-resident
+                    engine's. Counted in ``EngineStats.tier_*``.
+    rebalance       "off", "retire" (plan when a slot retires) or "interval"
+                    (every ``rebalance_interval`` engine steps): live slot
+                    migration to flatten the per-bank compute of
+                    ``sched/cost.py`` over ``rebalance_banks`` contiguous
+                    blocks of slot indices (default: the layout's stripes,
+                    else one bank per two slots, at most 4), applied when it
+                    gains at least ``rebalance_min_gain`` and at most once
+                    per ``rebalance_cooldown`` engine steps. Tokens equal
+                    those of rebalance="off".
     device          the card unless the caller names the CPU.
     eager           run the steps eagerly on the card instead of replaying
                     the CUDA graphs captured at construction (the CPU always
@@ -333,8 +438,7 @@ class Engine:
     construction, so from the end of construction ``params`` and
     ``batch.serve`` refuse reassignment, on every device (the eager CPU
     engine would not mix weights, but one rule holds everywhere); write
-    into their tensors instead. The JAX engine's ``hot_pages`` and
-    ``rebalance`` raise NotImplementedError when given.
+    into their tensors instead.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int,
@@ -345,18 +449,23 @@ class Engine:
                  prefill_chunk: Optional[int] = None, device=None,
                  hot_pages: Optional[int] = None,
                  spec_tokens: Optional[int] = None, draft="ngram",
-                 rebalance: str = "off", decode_window: Optional[int] = None,
-                 eager: bool = False):
+                 rebalance: str = "off", rebalance_interval: int = 16,
+                 rebalance_min_gain: float = 0.02, rebalance_cooldown: int = 8,
+                 rebalance_banks: Optional[int] = None,
+                 decode_window: Optional[int] = None, eager: bool = False):
         self.spec_tokens = int(spec_tokens) if spec_tokens else None
         self.draft = None
         if self.spec_tokens is not None:
             _check_spec(cfg, self.spec_tokens, hot_pages)
             self.draft = draftlib.resolve_draft(draft)
-        if hot_pages:
-            raise _not_ported("tiered KV residency (hot_pages)", "Queue 1 item 8")
-        if rebalance != "off":
-            raise _not_ported("live slot rebalancing (rebalance)",
-                              "Queue 1 item 8")
+        self.hot_pages = int(hot_pages) if hot_pages else None
+        if rebalance not in ("off", "retire", "interval"):
+            raise ValueError(f"rebalance={rebalance!r}: valid triggers are "
+                             "'off', 'retire', 'interval'")
+        self.rebalance = rebalance
+        self.rebalance_interval = max(int(rebalance_interval), 1)
+        self.rebalance_min_gain = float(rebalance_min_gain)
+        self.rebalance_cooldown = max(int(rebalance_cooldown), 0)
         self.decode_window = 1 if decode_window is None else int(decode_window)
         if self.decode_window < 1:
             raise ValueError(f"decode_window={decode_window} must be >= 1 "
@@ -375,6 +484,22 @@ class Engine:
         self.admission = admission
         self.admit_lookahead = max(int(admit_lookahead), 1)
         self.balance_shards = balance_shards
+        if rebalance_banks is not None:
+            self.rebalance_banks = min(max(int(rebalance_banks), 1), int(max_batch))
+        else:
+            # one bank per TWO slot indices: LPT can pair a heavy slot with
+            # a light one only inside a block of two or more
+            nb = (self.plan.balance_shards if self.plan.balance_shards > 1
+                  else max(min(int(max_batch) // 2, 4), 1))
+            self.rebalance_banks = min(nb, int(max_batch))
+        self._cost_model = None
+        if self.rebalance != "off":
+            self._cost_model = CostModel.from_config(
+                cfg, hot_cap=self.hot_pages, spec_tokens=self.spec_tokens or 0,
+                chunk_budget=int(prefill_chunk) if prefill_chunk else 0)
+        self._rebalance_due = False
+        self._last_rebalance_step = -(1 << 30)
+        self._prev_engine_steps = 0
         self.cfg = cfg
         self.params = params
         self.device = serve_rt.resolve_device(device)
@@ -444,6 +569,10 @@ class Engine:
         self._live: Dict[int, Completion] = {}       # slot -> in flight
         self.completions: Dict[int, Completion] = {}  # uid -> finished
         self.stats = EngineStats()
+        self._tier = None
+        self._tier_plan = None        # pending (need, selection, hotness) refresh
+        if self.hot_pages is not None:
+            self._init_tier()
         self._graphs = graphs.StepGraphs(self.device, eager=eager)
         self._add_steps(b)
         if self.draft is not None:
@@ -491,8 +620,25 @@ class Engine:
             gen.copy_(gen_new)
 
         need = g.input("need", (b,), torch.bool)
-        g.add("decode_select", lambda: decode(me._dec_sel, need))
+        if self._tier is None:
+            g.add("decode_select", lambda: decode(me._dec_sel, need))
+        else:
+            # the tiered select step saves what it writes, then returns its
+            # digest; a replay after a cold miss restores first
+            save = cachelib.DecodeStepSave(serve, (tok, gen), sink=self.cfg.h2eal.sink,
+                                           phys_shards=self.plan.page_stripe_shards)
+
+            def select():
+                save.save()
+                decode(me._dec_sel, need)
+                return _selection_digest(serve)
+            g.add("decode_select", select)
+            g.add("tier_restore", save.restore)
         g.add("decode_reuse", lambda: decode(me._dec_reuse))
+        if self.rebalance != "off":
+            src = g.input("mig_src", (1,), torch.int64)
+            dst = g.input("mig_dst", (1,), torch.int64)
+            g.add("migrate", lambda: _migrate_rows(serve, (tok, gen), src, dst))
         c, w = self.prefill_chunk, self._fused_len
         if c is not None:
             ctoks = g.input("ctoks", (b, c), torch.int32)
@@ -616,6 +762,8 @@ class Engine:
         _pack_slot(self.batch.serve, small, slot)
         self.stats.dispatches += 2  # prefill + pack
         first = self._first_token(slot, logits[0])
+        if self._tier is not None:
+            self._tier.reset_slot(slot)  # the pack rewrote every row
         b = self.batch
         b.ready[slot] = True
         b.lengths[slot] = len(req.prompt)
@@ -637,6 +785,8 @@ class Engine:
         self._set_sampling(req, slot)
         _reset_slot(b.serve, slot)
         self.stats.dispatches += 1
+        if self._tier is not None:
+            self._tier.reset_slot(slot)  # the reset cleared every row
         b.prefilling[slot] = True
         b.lengths[slot] = 0
         b.phase[slot] = 0
@@ -688,11 +838,17 @@ class Engine:
         b.ready[slot] = False
         b.uid[slot] = -1
         b.remaining[slot] = 0
+        if self._tier is not None:
+            self._tier.reset_slot(slot)  # the next occupant rewrites the rows
         if self.spec_tokens is not None:
             self._spec_history.pop(slot, None)
         comp = self._live.pop(slot)
         comp.finished_step = self.stats.decode_steps
         self.completions[comp.uid] = comp
+        if self.rebalance == "retire":
+            # plan at the END of this step: a retirement can come mid-step,
+            # with a tier refresh still to run
+            self._rebalance_due = True
 
     def _pick_request(self) -> Request:
         """The next request to admit: FIFO, or under balanced admission the
@@ -700,7 +856,8 @@ class Engine:
         the per-stripe page loads flattest (FIFO on ties). Live slots count
         at the page span they will reach (fed + prompt still to come);
         PREFILLING slots also as (fed, left) pairs, so the score sees the
-        chunk compute in flight. Host mirrors only."""
+        chunk compute in flight. Under tiered residency a slot counts its
+        hot set (``hot_cap``). Host mirrors only."""
         n_shards = self.balance_shards or self.plan.balance_shards
         if (self.admission != "balanced" or n_shards <= 1
                 or len(self._queue) <= 1):
@@ -717,7 +874,8 @@ class Engine:
         for i in range(min(self.admit_lookahead, len(self._queue))):
             score = balance.admission_score(
                 live, len(self._queue[i].prompt), n_shards=n_shards,
-                page_size=self.cfg.h2eal.page_size, prefill_done=pre_done,
+                page_size=self.cfg.h2eal.page_size, hot_cap=self.hot_pages,
+                prefill_done=pre_done,
                 prefill_left=pre_left, chunk_budget=self.prefill_chunk,
                 spec_tokens=self.spec_tokens)
             if best_s is None or score < best_s - 1e-12:
@@ -814,9 +972,12 @@ class Engine:
         back from the card."""
         b = self.batch
         self._promote_ready()
+        self._prev_engine_steps = self.stats.engine_steps
         if (self._fused_len and b.active.any()
                 and not (b.active & (b.phase % self.share_window == 0)).any()):
             self._window_once(b.active.copy())
+            if self._cost_model is not None:
+                self._maybe_rebalance()
             return
         chunk_work = (self._schedule_chunks()
                       if self.prefill_chunk is not None else None)
@@ -838,6 +999,8 @@ class Engine:
                     self._finish_prefill(slot, logits_c)
         if active.any():
             self._decode_once(active)
+        if self._cost_model is not None:
+            self._maybe_rebalance()
 
     def _add_trace(self, rows: torch.Tensor) -> int:
         """Keep a (n, B) block of sampled tokens; returns its first row."""
@@ -857,12 +1020,16 @@ class Engine:
         self._graphs.set(act=active)
         if need.any():
             self._graphs.set(need=need)
-            self._graphs.run("decode_select")
+            if self._tier is not None:
+                self._tier_select(need)
+            else:
+                self._graphs.run("decode_select")
+                self.stats.dispatches += 1
             self.stats.select_steps += 1
         else:
             self._graphs.run("decode_reuse")
+            self.stats.dispatches += 1
             self.stats.reuse_steps += 1
-        self.stats.dispatches += 1
         row = self._add_trace(self._tok[None].clone())
         self.trace_engine_steps.append(self.stats.engine_steps)
         self.stats.decode_steps += 1
@@ -872,10 +1039,15 @@ class Engine:
             b.lengths[slot] += 1
             b.phase[slot] += 1
             self._live[slot]._step_idx.append(row)
+            self._live[slot]._slot_idx.append(slot)
             self.stats.tokens_out += 1
             b.remaining[slot] -= 1
             if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
                 self._retire(slot)
+        if self._tier_plan is not None:
+            # prefetch and spill for the NEXT share window, one window ahead
+            # of the selection that will read the pages
+            self._tier_refresh()
 
     def _window_once(self, active: np.ndarray):
         """One fused window: every reuse step from here to the next
@@ -886,6 +1058,10 @@ class Engine:
         window's bookkeeping from the budget vector alone: a slot emits
         exactly ``budgets[i]`` tokens, so nothing is read back."""
         b = self.batch
+        # reuse steps read pinned pages only (the spill candidates exclude
+        # the selection, sink and local sections), so a window never misses,
+        # and the selection step that opened it consumed its refresh plan
+        assert self._tier_plan is None, "a tier refresh plan crossed a window"
         w = self.share_window
         residue = int(b.phase[np.nonzero(active)[0][0]] % w)
         _, budgets = window_budgets(active, b.remaining, b.lengths,
@@ -934,6 +1110,7 @@ class Engine:
             slot = int(slot)
             emitted = int(budgets[slot])
             self._live[slot]._step_idx.extend(range(row0, row0 + emitted))
+            self._live[slot]._slot_idx.extend([slot] * emitted)
             b.lengths[slot] += emitted
             # a survivor's budget is the window's useful length, so the live
             # phases stay aligned at the next boundary
@@ -986,6 +1163,7 @@ class Engine:
             slot = int(slot)
             n = int(host[slot, k])
             self._live[slot]._step_idx.extend(range(row0, row0 + n))
+            self._live[slot]._slot_idx.extend([slot] * n)
             b.lengths[slot] += n
             b.phase[slot] += n
             b.remaining[slot] -= n
@@ -999,6 +1177,256 @@ class Engine:
             if b.remaining[slot] <= 0 or b.lengths[slot] >= self.capacity:
                 self._retire(slot)
 
+    # ------------------------------------------------------------------
+    # tiered residency (core/cache.TieredPagedCache)
+    # ------------------------------------------------------------------
+
+    def _init_tier(self):
+        pages = cachelib.kv_page_tensors(self.batch.serve)
+        if not pages:
+            raise ValueError("hot_pages tiering requires a paged retrieval-head "
+                             "cache; this config's serve state has none")
+        n_pages = pages[0].shape[2]
+        if not 1 <= self.hot_pages <= n_pages:
+            raise ValueError(
+                f"hot_pages={self.hot_pages} must be in [1, {n_pages}] (cache "
+                f"capacity {self.cache_capacity} holds {n_pages} pages of "
+                f"{self.cfg.h2eal.page_size})")
+        h2 = self.cfg.h2eal
+        self._tier = cachelib.TieredPagedCache(
+            n_slots=self.batch.max_batch, n_pages=n_pages, hot_pages=self.hot_pages,
+            page_size=h2.page_size, sink=h2.sink, local=h2.local,
+            stripe_shards=self.plan.page_stripe_shards, device=self.device)
+
+    def _tier_digest(self, digest: torch.Tensor, need: np.ndarray):
+        """The selected physical pages and the (n_pages,) importance summed
+        over layers and heads, of each slot that selected: from the select
+        step's digest, read once."""
+        t = self._tier
+        d = digest.cpu().numpy()
+        k = d.shape[-1] - t.n_pages
+        sel, imp = d[..., :k], np.ascontiguousarray(d[..., k:]).view(np.float32)
+        sel_by, hot_by = {}, {}
+        for slot in np.nonzero(need)[0]:
+            slot = int(slot)
+            sel_by[slot] = {int(x) for x in sel[:, slot].ravel() if 0 <= x < t.n_pages}
+            hot_by[slot] = np.asarray(imp[:, slot], np.float64).reshape(
+                -1, t.n_pages).sum(axis=0)
+        return sel_by, hot_by
+
+    def _tier_fill_work(self, work, *, prefetch: bool):
+        """Fill every (slot, pages) entry of ``work`` from the far store in
+        one batched transfer: a miss's demand fill, or a prefetch."""
+        pairs = [(int(s), int(p)) for s, pg in work for p in pg]
+        self._tier.fill(self.batch.serve, pairs)
+        st = self.stats
+        st.dispatches += 1
+        st.tier_fill_batches += 1
+        st.tier_batch_pages_max = max(st.tier_batch_pages_max, len(pairs))
+        if prefetch:
+            st.tier_prefetch += len(pairs)
+        else:
+            st.tier_fills += len(pairs)
+
+    def _tier_spill_work(self, work):
+        """Spill every (slot, pages) entry of ``work``: the pages spilled for
+        the first time are copied to the far store in one batched gather,
+        then all are zeroed on the card in one batched write."""
+        pairs = [(int(s), int(p)) for s, pg in work for p in pg]
+        st = self.stats
+        archived = self._tier.archive(self.batch.serve, pairs)
+        if archived:
+            st.dispatches += 1
+            st.tier_gather_batches += 1
+            st.tier_archived += archived
+        self._tier.spill(self.batch.serve, pairs)
+        st.dispatches += 1
+        st.tier_spill_batches += 1
+        st.tier_batch_pages_max = max(st.tier_batch_pages_max, len(pairs))
+        st.tier_spills += len(pairs)
+
+    def _tier_select(self, need: np.ndarray):
+        """The tiered select step: run it, read its digest, and if a slot
+        selected a cold page, undo what the step wrote, fill the pages and
+        run it again on the state the first pass read (the JAX engine
+        replays on its preserved input state). One replay, as in the JAX
+        engine; the refresh plan is the first pass's."""
+        digest = self._graphs.run("decode_select")
+        self.stats.dispatches += 1
+        sel_by, hot_by = self._tier_digest(digest, need)
+        miss_work = []
+        for slot in np.nonzero(need)[0]:
+            slot = int(slot)
+            missing = self._tier.missing(slot, sel_by[slot])
+            self.stats.tier_hits += len(sel_by[slot]) - len(missing)
+            self.stats.tier_misses += len(missing)
+            if missing:
+                miss_work.append((slot, missing))
+        if miss_work:
+            self._graphs.run("tier_restore")
+            self._tier_fill_work(miss_work, prefetch=False)
+            self._graphs.run("decode_select")
+            self.stats.dispatches += 1  # the restore and the replay
+        self._tier_plan = (need.copy(), sel_by, hot_by)
+
+    def _tier_refresh(self):
+        """After the select step: prefetch the hottest cold pages of the
+        slots that selected (one share window ahead of their next
+        selection) and spill the resident ones that left the hot set, each
+        direction one batched transfer over every slot."""
+        need, sel_by, hot_by = self._tier_plan
+        self._tier_plan = None
+        b = self.batch
+        fill_work, spill_work = [], []
+        for slot in np.nonzero(need)[0]:
+            slot = int(slot)
+            if not b.active[slot]:  # retired this step
+                continue
+            to_fill, to_spill = self._tier.plan_refresh(
+                slot, int(b.lengths[slot]), sel_by[slot], hot_by[slot])
+            if to_fill:
+                fill_work.append((slot, to_fill))
+            if to_spill:
+                spill_work.append((slot, to_spill))
+        if fill_work:
+            self._tier_fill_work(fill_work, prefetch=True)
+        if spill_work:
+            self._tier_spill_work(spill_work)
+
+    def tier_force_spill(self, uid: int) -> int:
+        """Test hook: spill EVERY complete non-sink page of ``uid``'s slot,
+        the selected ones too, so that its next selection must miss. Legal
+        only when that selection is the slot's next decode step (``phase %
+        share_window == 0``): reuse steps read the current selection, which
+        must never be cold. Returns the pages spilled."""
+        if self._tier is None:
+            raise ValueError("tier_force_spill requires Engine(hot_pages=N)")
+        slots = [s for s, c in self._live.items() if c.uid == uid]
+        if not slots:
+            raise ValueError(f"uid {uid} is not live")
+        slot = slots[0]
+        b = self.batch
+        if not b.active[slot]:
+            raise ValueError(f"uid {uid} is not decoding yet")
+        if b.phase[slot] % self.share_window != 0:
+            raise ValueError("tier_force_spill is only legal at a selection "
+                             f"boundary (slot phase {int(b.phase[slot])} % "
+                             f"{self.share_window} != 0)")
+        t = self._tier
+        pages = [p for p in t.spill_candidates(slot, int(b.lengths[slot]), set())
+                 if t.resident[slot, p]]
+        if pages:
+            self._tier_spill_work([(slot, pages)])
+        return len(pages)
+
+    # ------------------------------------------------------------------
+    # live slot rebalancing (sched/cost.py, sched/rebalance.py)
+    # ------------------------------------------------------------------
+
+    def _slot_views(self) -> List[SlotView]:
+        """The cost model's view of every occupied slot (host mirrors)."""
+        b = self.batch
+        views = []
+        for i in range(b.max_batch):
+            if b.prefilling[i]:
+                phase = "prefill"
+            elif b.ready[i]:
+                phase = "ready"
+            elif b.active[i]:
+                phase = "decode"
+            else:
+                continue
+            views.append(SlotView(slot=i, uid=int(b.uid[i]), ctx=int(b.lengths[i]),
+                                  prompt_left=int(b.prompt_left[i]), phase=phase))
+        return views
+
+    def compute_loads(self) -> List[float]:
+        """Per-bank next-step compute of the live slots under the cost model
+        (``rebalance_banks`` contiguous blocks of slot indices), on any
+        engine: the balance report reads it with rebalancing off too."""
+        cm = self._cost_model or CostModel.from_config(
+            self.cfg, hot_cap=self.hot_pages, spec_tokens=self.spec_tokens or 0,
+            chunk_budget=self.prefill_chunk or 0)
+        stripes = self.plan.page_stripe_shards
+        costs = cm.slot_costs(self._slot_views(), n_shards=stripes)
+        return device_compute_loads(costs, n_banks=self.rebalance_banks,
+                                    max_batch=self.batch.max_batch,
+                                    page_stripe_shards=stripes)
+
+    def _maybe_rebalance(self):
+        """End-of-step check, when due (a retirement this step, or the step
+        crossed a multiple of the interval: a fused window moves several
+        steps at once) and outside the cooldown: plan migrations and apply
+        them if the plan clears the hysteresis."""
+        due = self._rebalance_due
+        if (self.rebalance == "interval"
+                and self.stats.engine_steps // self.rebalance_interval
+                > self._prev_engine_steps // self.rebalance_interval):
+            due = True
+        if not due:
+            return
+        self._rebalance_due = False
+        if self.stats.engine_steps - self._last_rebalance_step < self.rebalance_cooldown:
+            self.stats.rebalance_skipped += 1
+            return
+        views = self._slot_views()
+        if len(views) < 2:
+            return
+        b = self.batch
+        stripes = self.plan.page_stripe_shards
+        costs = self._cost_model.slot_costs(views, n_shards=stripes)
+        plan = plan_rebalance(costs, b.free_slots(), n_banks=self.rebalance_banks,
+                              max_batch=b.max_batch, page_stripe_shards=stripes,
+                              min_gain=self.rebalance_min_gain)
+        st = self.stats
+        st.rebalance_checks += 1
+        st.imbalance_pre_sum += plan.imbalance_before
+        st.imbalance_post_sum += plan.imbalance_after
+        if not plan.moves:
+            st.rebalance_skipped += 1
+            return
+        for mv in plan.moves:
+            self._migrate_slot(mv.src, mv.dst)
+        self._last_rebalance_step = st.engine_steps
+        st.rebalances += 1
+
+    def _migrate_slot(self, src: int, dst: int):
+        """Move the occupant of slot ``src`` to the FREE slot ``dst``: one
+        step copies every row of the serve state, the token feed and the
+        generation index and clears ``src`` to the empty values; the host
+        mirrors, the sampling lanes (static inputs, so through ``set``), the
+        tier's residency and far rows and the completion follow. Keys
+        belong to (seed, uid), so tokens are unchanged."""
+        b = self.batch
+        if src == dst or b.uid[src] == -1 or b.uid[dst] != -1:
+            raise ValueError(f"cannot migrate slot {src} to slot {dst}")
+        self._graphs.set(mig_src=np.array([src]), mig_dst=np.array([dst]))
+        self._graphs.run("migrate")
+        self.stats.dispatches += 1
+        for arr, clear in ((b.active, False), (b.prefilling, False),
+                           (b.ready, False), (b.lengths, 0), (b.phase, 0),
+                           (b.uid, -1), (b.remaining, 0), (b.prompt_left, 0),
+                           (self._samp_base, 0), (self._samp_temp, 0.0),
+                           (self._samp_topp, 1.0)):
+            arr[dst] = arr[src]
+            arr[src] = clear
+        self._graphs.set(base=self._samp_base, temp=self._samp_temp,
+                         topp=self._samp_topp)
+        if src in self._prompts:
+            self._prompts[dst] = self._prompts.pop(src)
+        if self.spec_tokens is not None:
+            if src in self._spec_history:
+                self._spec_history[dst] = self._spec_history.pop(src)
+            self._spec_emitted[dst] = self._spec_emitted[src]
+            self._spec_emitted[src] = 0
+        if self._tier is not None:
+            self._tier.move_slot(src, dst)
+        comp = self._live.pop(src)
+        comp._slot = dst
+        self._live[dst] = comp
+        self.stats.migrations += 1
+        self.stats.migrated_tokens += int(b.lengths[dst])
+
     def finalize(self):
         """Read the tokens off the card into the completions: the only
         device-to-host read of the serving loop. Idempotent."""
@@ -1011,8 +1439,8 @@ class Engine:
                  else np.zeros((0, self.batch.max_batch), np.int32))
         firsts = torch.stack([c._first_tok for c in pending]).cpu().numpy()
         for comp, first in zip(pending, firsts):
-            comp.tokens = [int(first)] + [int(trace[t, comp._slot])
-                                          for t in comp._step_idx]
+            comp.tokens = [int(first)] + [int(trace[t, s]) for t, s in
+                                          zip(comp._step_idx, comp._slot_idx)]
 
     def busy(self) -> bool:
         """True while requests are queued, prefilling, ready or decoding."""
@@ -1064,6 +1492,12 @@ class Engine:
         self.trace_engine_steps.clear()
         self.completions = {}
         self.stats = EngineStats()
+        self._prev_engine_steps = 0
+        # the cooldown counts engine steps, which restart from 0
+        self._last_rebalance_step = -(1 << 30)
+        self._rebalance_due = False
+        if self._tier is not None:
+            self._tier.reset_counters()
 
     def context_lengths(self) -> np.ndarray:
         """Per-slot context lengths of the decoding slots."""

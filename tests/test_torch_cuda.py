@@ -1127,3 +1127,149 @@ def test_paged_attention_pages_kernel_with_the_draft_selection(cuda_dev, dtype):
     # the selected section (slots 1..128) attends nothing; sink and local do
     assert not valid[..., p:129 * p].any() and bool(valid[..., :p].all())
     assert _within(got, want, dtype)
+
+
+def _narrow_llama(seed):
+    """Reduced llama3-8b with a small local window and select budget, so
+    that most pages may be spilled (tests/test_torch_tiered.py's config),
+    and its f32 weights on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+
+    cfg = reduced(get_arch("llama3-8b"))
+    cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal, local=8,
+                                                             select_budget=16))
+    return cfg, M.init_params(cfg, generator=torch.Generator().manual_seed(seed),
+                              device="cpu")
+
+
+def _requests(cfg, spec, seed):
+    from repro_torch.serving.engine import Request
+
+    rng = torch.Generator().manual_seed(seed)
+    return [Request(uid=i, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                generator=rng).numpy(), max_new=m)
+            for i, (n, m) in enumerate(spec)]
+
+
+def _tier_stats(s):
+    return {f: getattr(s, f) for f in ("tier_hits", "tier_misses", "tier_spills",
+                                       "tier_fills", "tier_prefetch", "tier_archived",
+                                       "tier_fill_batches", "tier_spill_batches",
+                                       "tier_gather_batches")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,chunk", [("default", None), ("default", 8),
+                                          ("coplace_shmap", 8)])
+def test_tiered_engine_on_the_card_matches_the_cpu(cuda_dev, layout, chunk):
+    """Tiered residency (hot_pages=6), captured, with one request forced cold
+    at a selection boundary, on both layouts (co-placed over 4 stripes):
+    the CPU engine's tokens and tier counters; the
+    far store moved the bytes the counters say; the restore and the select
+    step are captured once, at construction."""
+    from repro_torch.core.cache import kv_page_tensors
+    from repro_torch.serving.engine import Engine
+
+    cfg, params = _narrow_llama(21)
+    spec = [(64, 10), (40, 14), (64, 6), (56, 12)]
+    kw = dict(max_batch=2, capacity=128, prompt_buckets=[40, 56, 64], hot_pages=6,
+              prefill_chunk=chunk)
+    if layout == "coplace_shmap":
+        kw.update(layout=layout, shards=4)
+    runs = {}
+    for dev in ("cpu", cuda_dev):
+        eng = Engine(cfg, _to(params, dev), device=dev, **kw)
+        sizes = eng.jit_cache_sizes()
+        for r in _requests(cfg, spec, 22):
+            eng.submit(r)
+        forced = 0
+        while eng.busy():
+            b = eng.batch
+            if (not forced and eng.stats.decode_steps >= 4 and b.active[0]
+                    and b.phase[0] % eng.share_window == 0 and b.remaining[0] > 2):
+                forced = eng.tier_force_spill(int(b.uid[0]))
+            eng.poll()
+        eng.finalize()
+        assert forced > 0 and eng.jit_cache_sizes() == sizes
+        page = sum(t[0, :, 0].nbytes for t in kv_page_tensors(eng.batch.serve))
+        s = eng.stats
+        assert eng._tier.h2d_bytes == (s.tier_fills + s.tier_prefetch) * page
+        assert eng._tier.d2h_bytes == s.tier_archived * page
+        runs[str(dev)] = ({u: c.tokens for u, c in eng.completions.items()},
+                          _tier_stats(s), sizes)
+    (tok_c, st_c, _), (tok_g, st_g, sizes_g) = runs["cpu"], runs[str(cuda_dev)]
+    assert tok_g == tok_c and st_g == st_c
+    assert st_g["tier_misses"] == st_g["tier_fills"] > 0
+    assert sizes_g["decode_select"] == sizes_g["tier_restore"] == 1
+
+
+@pytest.mark.cuda
+def test_rebalanced_engine_on_the_card_matches_the_cpu(cuda_dev):
+    """retire-triggered migration on the card, captured: the CPU engine's
+    tokens and rebalance counters, ``migrate`` captured once, and no poll
+    synchronises with the card."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg = reduced(get_arch("llama3-8b"))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(23), device="cpu")
+    spec = [(16, 12), (8, 3), (24, 18), (16, 5), (8, 16), (24, 4), (16, 9), (8, 7)]
+    kw = dict(max_batch=4, capacity=64, prompt_buckets=[8, 16, 24], rebalance="retire",
+              prefill_chunk=8)
+    cpu = Engine(cfg, params, device="cpu", **kw)
+    want = {u: c.tokens for u, c in cpu.run(_requests(cfg, spec, 24)).items()}
+    eng = Engine(cfg, _to(params, cuda_dev), device=cuda_dev, **kw)
+    sizes = eng.jit_cache_sizes()
+    _serve_polled(eng, _requests(cfg, spec, 24))
+    assert {u: c.tokens for u, c in eng.completions.items()} == want
+    fields = ("rebalance_checks", "rebalances", "migrations", "migrated_tokens")
+    assert [getattr(eng.stats, f) for f in fields] == [getattr(cpu.stats, f) for f in fields]
+    assert eng.stats.migrations > 0
+    assert sizes["migrate"] == 1 and eng.jit_cache_sizes() == sizes
+
+
+@pytest.mark.cuda
+def test_tier_fill_on_the_copy_stream_is_seen_by_the_next_replay(cuda_dev):
+    """A page spilled (zeroed) and filled back on the tier's copy stream:
+    a graph replayed on the current stream right after the fill reads the
+    original rows, because the fill's event orders it first."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import cache as cachelib
+    from repro_torch.models import model as M
+
+    cfg = reduced(get_arch("llama3-8b"))
+    state = M.empty_serve_state(cfg, 2, capacity=4096, dtype=torch.bfloat16,
+                                device=cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(25)
+    for t in cachelib.kv_page_tensors(state):
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda_dev).to(t.dtype))
+    pairs = [(s, p) for s in (0, 1) for p in range(3, 400, 7)]
+    slots = torch.tensor([s for s, _ in pairs], device=cuda_dev)
+    pages = torch.tensor([p for _, p in pairs], device=cuda_dev)
+    original = cachelib.gather_kv_rows_pairs(state, slots, pages).clone()
+    tier = cachelib.TieredPagedCache(n_slots=2, n_pages=4096 // 8, hot_pages=4,
+                                     page_size=8, sink=2, local=16, device=cuda_dev)
+    read = torch.empty_like(original)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(cuda_dev)
+    side.wait_stream(torch.cuda.current_stream(cuda_dev))
+    with torch.cuda.stream(side):
+        read.copy_(cachelib.gather_kv_rows_pairs(state, slots, pages))
+    torch.cuda.current_stream(cuda_dev).wait_stream(side)
+    with torch.cuda.graph(graph):
+        read.copy_(cachelib.gather_kv_rows_pairs(state, slots, pages))
+    for _ in range(3):
+        assert tier.archive(state, pairs) in (len(pairs), 0)
+        tier.spill(state, pairs)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not read.any()            # the spill was seen: zero rows
+        tier.fill(state, pairs)
+        graph.replay()                   # no synchronisation in between
+        torch.cuda.synchronize()
+        assert torch.equal(read, original)
+    assert tier.h2d_bytes == 3 * original.nbytes and tier.d2h_bytes == original.nbytes

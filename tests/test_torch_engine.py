@@ -308,9 +308,10 @@ def test_chunked_prefill_validation(smollm):
 
 
 @pytest.mark.parametrize("kw,error,what", [
-    (dict(hot_pages=4), NotImplementedError, "ROADMAP"),
+    # the JAX engine's validation of the tier budget and the trigger
+    (dict(hot_pages=999), ValueError, "hot_pages"),
     (dict(spec_tokens=2), None, None),
-    (dict(rebalance="retire"), NotImplementedError, "ROADMAP"),
+    (dict(rebalance="bogus"), ValueError, "valid triggers"),
     # the JAX engine's gate: verify steps move phases by variable counts
     (dict(decode_window=4, spec_tokens=2), ValueError, "decode_window > 1"),
     (dict(layout="head"), NotImplementedError, "ROADMAP"),
@@ -318,7 +319,8 @@ def test_chunked_prefill_validation(smollm):
 ])
 def test_unsupported_engine_options_raise(smollm, kw, error, what):
     """The options not ported raise and name their ROADMAP item; the ported
-    ``spec_tokens`` builds, and its gates raise the JAX engine's errors."""
+    ``spec_tokens`` builds, and its gates, the tier budget's and the
+    rebalance trigger's raise the JAX engine's errors."""
     if error is None:
         assert smollm.port(**kw).spec_tokens == kw["spec_tokens"]
         return

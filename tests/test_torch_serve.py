@@ -178,11 +178,17 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-             + sorted((ROOT / "scripts").glob("torch_*.py")))
+             + sorted((ROOT / "scripts").glob("torch_*.py"))
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) > 15
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/serving/sampling.py",
-            "src/repro_torch/serving/draft.py"} <= names
+            "src/repro_torch/serving/draft.py",
+            "src/repro_torch/sched/tiling.py", "src/repro_torch/sched/mapping.py",
+            "src/repro_torch/sched/cost.py", "src/repro_torch/sched/rebalance.py",
+            "src/repro_torch/runtime/perfmodel.py", "src/repro_torch/hbsim/sim.py",
+            "src/repro_torch/hbsim/__init__.py",
+            "examples/torch_serve_longcontext.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
