@@ -50,9 +50,9 @@ then, each phase failing the run with a nonzero exit:
      to a near-tie); then the full-width chunked default and coplace_shmap
      engines of phases 5 and 6 captured with ``decode_window=4``: launch
      counts exact (a replay adds its graph's launches), every poll under
-     sync debug mode "error", captures made once at construction, and
-     tokens/s, dispatches, decode steps a dispatch, graph replays and the
-     token agreement with the eager run of the same layout logged;
+     sync debug mode "error", captures made once at construction, tokens
+     equal to the eager run of the same layout, and tokens/s, dispatches,
+     decode steps a dispatch and graph replays logged;
   8. sampling and speculative decode: in phase 2 also the sampler on the
      card against the CPU (threefry bits equal, Gumbel within 2 ulp, tokens
      equal up to near-ties; its device time as a graph replay),
@@ -79,7 +79,19 @@ then, each phase failing the run with a nonzero exit:
      are logged. Then ``rebalance="retire"``: tokens equal to phase 7's
      (rebalance off), at least one migration, the imbalance lowered,
      ``migrate`` captured once, every poll under sync debug mode "error",
-     and the hbsim model's price of the migrations logged.
+     and the hbsim model's price of the migrations logged;
+ 10. gemma3-1b's local:global stack (5 sliding-window layers of 512 for
+     each global layer, head_dim 256, one kv head; phase 2 also holds every
+     kernel at its head_dim-256 shapes, in bf16 and f32, beside SDPA) and
+     the eviction pool: a reduced 8-layer gemma3-1b card against CPU (f32
+     at head_dim 32, bf16 at head_dim 256; generate, and the chunked engine
+     with churn captured with fused windows); gemma3-1b at full width and
+     depth through lockstep ``generate`` (2 prompts of 16384 tokens) and
+     through the engines of phases 5 to 7 (launch counts exact, captures
+     made once, each captured engine's tokens equal to its eager run's);
+     then ``decode_attention_pool`` at llama3-8b's and gemma3-1b's
+     retrieval shapes, a full pool evicting as it decodes, its kernel path
+     on the card against the plain path.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -154,6 +166,11 @@ STRIPE_CTX = (8200, 7000, 5000, 3000)
 # speculative decode: the draft length, and the sampled setting of its runs
 SPEC_K = 4
 SPEC_SAMPLING = dict(temperature=0.8, top_p=0.95, seed=1)
+# gemma3-1b (phases 2 and 10): its lockstep prompts, BATCH of them; the
+# eviction pool's slots, the context it starts from full, and its decode
+# steps (from 8190 they cross the page boundaries at 8192 and 8224)
+G3_ARCH, G3_PROMPT = "gemma3-1b", 16384
+POOL_PAGES, POOL_CTX, POOL_STEPS = 160, 8190, 72
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
 HOLD_CYCLES = 2_000_000  # the Timer's hold of the card, ~1.1 ms at 1.755 GHz
 
@@ -260,18 +277,22 @@ def flash_pairs(s: int, window: int, sink: int) -> int:
     return total
 
 
-def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
+def check_flash(ops, ref, timer, dev, cfg, dtype, gen, prompt=PROMPT, heads_cases=None):
+    """The prefill kernel at the lockstep path's shapes: B=BATCH prompts of
+    ``prompt`` tokens; ``heads_cases`` (label, kv heads, window, sink), by
+    default the H²EAL retrieval and streaming heads of ``cfg``."""
     h2 = cfg.h2eal
     hkv = cfg.num_kv_heads
     nr = hkv - round(hkv * h2.static_sparsity)
     g = cfg.num_heads // hkv
     d = cfg.resolved_head_dim
+    if heads_cases is None:
+        heads_cases = (("retrieval", nr, 0, 0), ("streaming", hkv - nr, h2.local, h2.sink))
     cases = []
-    for label, heads, window, sink in (("retrieval", nr, 0, 0),
-                                       ("streaming", hkv - nr, h2.local, h2.sink)):
-        q = torch.randn(BATCH, PROMPT, heads * g, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(BATCH, PROMPT, heads, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(BATCH, PROMPT, heads, d, generator=gen, device=dev).to(dtype)
+    for label, heads, window, sink in heads_cases:
+        q = torch.randn(BATCH, prompt, heads * g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(BATCH, prompt, heads, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(BATCH, prompt, heads, d, generator=gen, device=dev).to(dtype)
         run = lambda: ops.flash_attention(q, k, v, causal=True, window=window, sink=sink)
         plain = lambda: ref.flash_attention_ref(q, k, v, causal=True, window=window, sink=sink)
         out = run()
@@ -295,8 +316,8 @@ def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
         plain_ms = timer.ms(plain, 2)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if window:
-            i = torch.arange(PROMPT, device=dev)[:, None]
-            j = torch.arange(PROMPT, device=dev)[None, :]
+            i = torch.arange(prompt, device=dev)[:, None]
+            j = torch.arange(prompt, device=dev)[None, :]
             mask = (j <= i) & ((j > i - window) | (j < sink))
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, enable_gqa=True)
@@ -304,10 +325,11 @@ def check_flash(ops, ref, timer, dev, cfg, dtype, gen):
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True, enable_gqa=True)
         lib_ms = timer.ms(lib, 5)
-        flops = 4 * d * flash_pairs(PROMPT, window, sink) * BATCH * heads * g
+        flops = 4 * d * flash_pairs(prompt, window, sink) * BATCH * heads * g
         b_ms, b_by = bound(nbytes(q, k, v, out), flops, dtype)
         cases.append(dict(
-            case=f"{label} B={BATCH} S={PROMPT} Hq={heads * g} Hkv={heads} D={d}",
+            case=f"{label} B={BATCH} S={prompt} Hq={heads * g} Hkv={heads} D={d}"
+                 + (f" window={window} sink={sink}" if window else ""),
             dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
             tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by))
@@ -536,7 +558,7 @@ def check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path):
         bound_ms=b_ms, bound_by=b_by, main=path == "engine")
 
 
-def retrieval_pages(gen, dev, cfg, dtype, capacity, draft=False):
+def retrieval_pages(gen, dev, cfg, dtype, capacity, draft=False, prompt=PROMPT):
     """The retrieval heads' decode inputs of the lockstep path at its main
     shapes: B=2 slots at context PROMPT + 1 in a cache of ``capacity``
     tokens (258 pages of 32), a random top-128 selection of each (slot, kv
@@ -549,7 +571,7 @@ def retrieval_pages(gen, dev, cfg, dtype, capacity, draft=False):
     nr, _, g, d = head_split(cfg)
     p, top_k = h2.page_size, h2.top_k_pages
     c = -(-capacity // p)
-    ctx = PROMPT + 1
+    ctx = prompt + 1
     first = torch.arange(c, device=dev) * p
     start = torch.where(first < ctx, first, -1).to(torch.int32)
     start = start.expand(BATCH, nr, c).contiguous()
@@ -568,14 +590,15 @@ def retrieval_pages(gen, dev, cfg, dtype, capacity, draft=False):
     return q, kp, vp, slots.contiguous(), valid.contiguous()
 
 
-def check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity, draft=False):
+def check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, capacity, draft=False,
+                      prompt=PROMPT):
     """paged_attention_pages (the retrieval heads' decode: the page gather
     fused) at the lockstep path's shapes; beside the kernel, the unfused
     path it replaced (the gather, then the contiguous kernel), the gather
     then SDPA, and SDPA alone on the gathered buffer. ``draft``: the
     streaming draft's reuse steps, every selected slot the -1 sentinel
     (sink and local pages only)."""
-    q, kp, vp, slots, valid = retrieval_pages(gen, dev, cfg, dtype, capacity, draft)
+    q, kp, vp, slots, valid = retrieval_pages(gen, dev, cfg, dtype, capacity, draft, prompt)
     b, hr, n = slots.shape
     g, d, p = q.shape[1] // hr, q.shape[2], kp.shape[3]
     run = lambda: ops.paged_attention_pages(q, kp, vp, slots, valid)
@@ -940,22 +963,23 @@ def check_chunk_paged(ops, ref, timer, dev, cfg, dtype, gen, capacity):
 # ---------------------------------------------------------------------------
 
 
-def check_reduced_against_cpu(dev):
-    """Reduced llama3-8b: card (kernels) against CPU (plain versions)."""
+def check_reduced_against_cpu(dev, cfg=None, prompt_len=45):
+    """A reduced model (llama3-8b unless ``cfg``), f32: card (kernels)
+    against CPU (plain versions)."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
 
-    cfg = reduced(get_arch(ARCH))
+    cfg = cfg or reduced(get_arch(ARCH))
     gen = torch.Generator().manual_seed(1)
     params = M.init_params(cfg, generator=gen, device="cpu")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 45), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len), generator=gen)
     params_dev = _to(params, dev)
-    kw = dict(gen=12, capacity=45 + 12 + cfg.h2eal.page_size)
+    kw = dict(gen=12, capacity=prompt_len + 12 + cfg.h2eal.page_size)
     toks_cpu, st_cpu = generate(cfg, params, prompts, device="cpu", **kw)
     toks_dev, st_dev = generate(cfg, params_dev, prompts, device=dev, **kw)
     e = err(st_dev["last_logits"].cpu(), st_cpu["last_logits"])
-    log(f"reduced {cfg.name}: card vs CPU tokens equal="
+    log(f"reduced {cfg.name} (prompt {prompt_len}): card vs CPU tokens equal="
         f"{torch.equal(toks_dev.cpu(), toks_cpu)} last-logit max err={e:.3e}")
     if not torch.equal(toks_dev.cpu(), toks_cpu) or e > 1e-3:
         fail("reduced generate on the card disagrees with the CPU run "
@@ -987,9 +1011,18 @@ def lockstep(cfg, params, prompts, gen, capacity, dev):
 def check_reduced_bf16_against_cpu(dev):
     """Reduced llama3-8b at the production head_dim of 128, in bf16, so the
     tensor-core flash kernel and the split-KV paged kernel run at their
-    serving head size: card (kernels) against CPU (plain versions), prefill
-    and every step's logits within BF16_LOGIT_BAND of the largest CPU logit
-    while the tokens agree, and tokens equal except at a near-tie.
+    serving head size (``bf16_generate_against_cpu``); then its selection
+    at the reduced top-k (``check_bf16_selection_against_cpu``)."""
+    from repro_torch.configs import get_arch, reduced
+
+    bf16_generate_against_cpu(dev, reduced(get_arch(ARCH), head_dim=128))
+    check_bf16_selection_against_cpu(dev)
+
+
+def bf16_generate_against_cpu(dev, cfg, prompt_len=300, gen_n=12):
+    """A reduced model in bf16: card (kernels) against CPU (plain versions),
+    prefill and every step's logits within BF16_LOGIT_BAND of the largest
+    CPU logit while the tokens agree, and tokens equal except at a near-tie.
 
     The top-k is raised to cover every page of the context (40 pages of 8):
     at the reduced top-4 of 37 selectable pages, bf16 page scores near-tie
@@ -1000,12 +1033,9 @@ def check_reduced_bf16_against_cpu(dev):
     (``check_bf16_selection_against_cpu``)."""
     import dataclasses
 
-    from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    gen_n, prompt_len = 12, 300
-    cfg = reduced(get_arch(ARCH), head_dim=128)
     page = cfg.h2eal.page_size
     cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(
         cfg.h2eal, select_budget=-(-(prompt_len + gen_n) // page) * page))
@@ -1031,7 +1061,8 @@ def check_reduced_bf16_against_cpu(dev):
                     ok = False
                 ties += 1
                 break  # the two runs now continue from different tokens
-    log(f"reduced {cfg.name} head_dim 128 bf16 (prompt {prompt_len}, {gen_n} tokens): "
+    log(f"reduced {cfg.name} head_dim {cfg.resolved_head_dim} bf16 (prompt {prompt_len}, "
+        f"{gen_n} tokens): "
         f"card vs CPU tokens equal={torch.equal(toks_dev, toks_cpu)} (near-tie "
         f"divergences {ties}), logits max err {worst:.3e} while tokens agree "
         f"(band {band:.3e} = 2^-4 * max|CPU logit|), prefill logits max err "
@@ -1040,9 +1071,9 @@ def check_reduced_bf16_against_cpu(dev):
     if not ok:
         fail("the bf16 reduced generate on the card disagrees with the CPU run beyond "
              "the bf16 band")
-    if launched["flash_attention"] != 2 * cfg.num_layers or launched["paged_attention"] == 0:
+    if (launched["flash_attention"] != layer_launches(cfg)["prefill"]
+            or launched["paged_attention"] == 0):
         fail("the bf16 reduced generate did not launch the flash and paged kernels")
-    check_bf16_selection_against_cpu(dev)
 
 
 def check_bf16_selection_against_cpu(dev):
@@ -1297,16 +1328,46 @@ def check_reduced_coplace_engine_against_cpu(dev):
              f"layer a decode step ({once})")
 
 
-def window_launches(s, n_l, fused_len, split):
+def layer_launches(cfg, split=False):
+    """Kernel launches of one pass over ``cfg``'s layers, by step kind: a
+    prefill (flash), a decode step (paged; the co-placed launch where
+    ``split``), a select step's page_select, a chunk step (chunk, chunk
+    paged). A layer with a full cache (a sliding-window layer, or H²EAL
+    off) makes one launch of each attention; an H²EAL layer one for its
+    retrieval and one for its streaming heads, where it has them (a
+    prefill with no streaming head is one flash launch)."""
+    from repro_torch.models import transformer as T
+
+    n = dict(prefill=0, decode=0, partial=0, select=0, chunk=0, chunk_paged=0)
+    for i in range(cfg.num_layers):
+        spec = T.attn_spec(cfg, i % T.period_len(cfg))
+        if spec.window > 0 or not spec.h2.enabled:
+            n["prefill"] += 1
+            n["decode"] += 1
+            n["chunk"] += 1
+            continue
+        nr, ns = spec.n_retrieval > 0, spec.n_streaming > 0
+        n["prefill"] += 1 + (nr and ns)
+        n["decode"] += ns + (nr and not split)
+        n["partial"] += nr and split
+        n["select"] += nr
+        n["chunk"] += ns
+        n["chunk_paged"] += nr
+    return n
+
+
+def window_launches(s, cfg, fused_len, split):
     """The decode and chunk kernels' launches of an engine run, from its step
     counts: a fused window runs each of its ``fused_len`` iterations' kernels,
     past a slot's budget too (those iterations are no-ops on the state)."""
+    per = layer_launches(cfg, split)
     decode = s.decode_steps - s.fused_steps + s.fused_windows * fused_len
     chunks = s.prefill_chunks - s.fused_chunks + s.fused_mixed_windows * fused_len
-    return {"page_score": s.select_steps * n_l,
-            "paged_attention": (1 if split else 2) * decode * n_l,
-            "chunk_attention": chunks * n_l, "chunk_attention_paged": chunks * n_l,
-            "paged_attention_partial": decode * n_l if split else 0,
+    return {"page_score": s.select_steps * per["select"],
+            "paged_attention": decode * per["decode"],
+            "chunk_attention": chunks * per["chunk"],
+            "chunk_attention_paged": chunks * per["chunk_paged"],
+            "paged_attention_partial": decode * per["partial"],
             "combine_partials": 0}
 
 
@@ -1352,7 +1413,15 @@ def first_divergence(got, want):
     return None
 
 
-def check_reduced_window_engines(dev):
+def widen_share(cfg, **kw):
+    """``cfg`` with the share window widened to 4 (and other H²EAL fields)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, h2eal=dataclasses.replace(
+        cfg.h2eal, share_window=4, **kw))
+
+
+def check_reduced_window_engines(dev, cases=None):
     """Reduced llama3-8b with the share window widened to 4, the chunked
     Engine with churn and fused windows (decode_window=4), captured (the
     default on the card) against the same engine run eagerly on the card:
@@ -1361,21 +1430,17 @@ def check_reduced_window_engines(dev):
     per-step reduced engine is held; bf16 at head_dim 128 tokens equal
     except at a near-tie under BF16_LOGIT_BAND, the CPU's logits from its
     per-step engine (the windows' first tokens and steps are not kept
-    apart)."""
-    import dataclasses
-
+    apart). ``cases``: dtype -> (cfg, seed, capacity, chunk, [(prompt,
+    generated)]), by default these reduced llama3-8b engines."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
 
-    def widen(cfg, **kw):
-        return dataclasses.replace(cfg, h2eal=dataclasses.replace(
-            cfg.h2eal, share_window=4, **kw))
-
-    cases = {
-        torch.float32: (widen(reduced(get_arch(ARCH))), 5, 96, 7,
+    cases = cases or {
+        torch.float32: (widen_share(reduced(get_arch(ARCH))), 5, 96, 7,
                         [(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)]),
-        torch.bfloat16: (widen(reduced(get_arch(ARCH), head_dim=128), select_budget=320),
+        torch.bfloat16: (widen_share(reduced(get_arch(ARCH), head_dim=128),
+                                     select_budget=320),
                          9, 320, 48, [(300, 9), (150, 6), (77, 12), (210, 5), (40, 8)]),
     }
     for dtype, (cfg, seed, capacity, chunk, shape) in cases.items():
@@ -1393,7 +1458,7 @@ def check_reduced_window_engines(dev):
                          eager=mode == "eager", **kw)
             sizes = eng.jit_cache_sizes()
             got, _, _ = serve_polled(eng, reqs, f"reduced {dtype} window engine ({mode})")
-            want = window_launches(eng.stats, cfg.num_layers, eng._fused_len, False)
+            want = window_launches(eng.stats, cfg, eng._fused_len, False)
             want["flash_attention"] = 0
             if got != want or eng.jit_cache_sizes() != sizes:
                 fail(f"reduced {dtype} window engine ({mode}): launches {got}, expected "
@@ -1810,7 +1875,7 @@ def serve_spec_engines(dev, cfg, params, greedy):
         got, wall, _ = serve_polled(eng, rs, f"engine (spec {name})", guard=False)
         s = eng.stats
         expect = (spec_launches(s, n_l, SPEC_K, name == "streaming") if kw
-                  else dict(window_launches(s, n_l, 0, False), flash_attention=0))
+                  else dict(window_launches(s, cfg, 0, False), flash_attention=0))
         if got != expect:
             fail(f"engine (spec {name}): launches {got}, expected {expect}")
         if eng.jit_cache_sizes() != sizes or set(sizes.values()) != {1}:
@@ -1859,13 +1924,16 @@ def full_params(dev, cfg):
     return params
 
 
-def serve_full(dev, cfg, params):
+def serve_full(dev, cfg, params, prompt=PROMPT):
+    """Lockstep ``generate`` at full width: BATCH prompts of ``prompt``
+    tokens, GEN greedy tokens, hybrid sparse attention with the launch
+    counts checked exactly, then full attention for token agreement."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
 
-    capacity = serve_capacity(cfg)
+    capacity = prompt + GEN + cfg.h2eal.page_size
     gen = torch.Generator(device=dev).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=gen,
                             device=dev)
     torch.cuda.reset_peak_memory_stats()
 
@@ -1873,12 +1941,12 @@ def serve_full(dev, cfg, params):
     toks, stats = generate(cfg, params, prompts, gen=GEN, capacity=capacity, device=dev)
     launches = dict(ops.LAUNCHES)
     n_sel = -(-GEN // cfg.h2eal.share_window)
-    expect = {"flash_attention": 2 * cfg.num_layers,
-              "page_score": cfg.num_layers * n_sel,
-              "paged_attention": 2 * cfg.num_layers * GEN,
+    per = layer_launches(cfg)
+    expect = {"flash_attention": per["prefill"], "page_score": per["select"] * n_sel,
+              "paged_attention": per["decode"] * GEN,
               "chunk_attention": 0, "chunk_attention_paged": 0,
               "paged_attention_partial": 0, "combine_partials": 0}
-    log(f"generate: sparse run launches {launches} (expected {expect})")
+    log(f"generate ({cfg.name}): sparse run launches {launches} (expected {expect})")
     if launches != expect:
         fail("the serving path did not launch the kernels as expected")
     logits = stats["last_logits"]
@@ -1887,7 +1955,7 @@ def serve_full(dev, cfg, params):
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail("sparse generate produced out-of-range tokens")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"generate B={BATCH} S={PROMPT} capacity {capacity}: sparse prefill "
+    log(f"generate ({cfg.name}) B={BATCH} S={prompt} capacity {capacity}: sparse prefill "
         f"{stats['prefill_s']:.3f}s, decode {stats['decode_s']:.3f}s "
         f"({stats['tokens_per_s']:.1f} tok/s), peak memory {peak:.1f} GiB")
 
@@ -1985,20 +2053,21 @@ def page_load_imbalance(eng, page_size) -> float:
         ctx, n_shards=SHARDS, page_size=page_size))
 
 
-def serve_engine(dev, cfg, params):
+def serve_engine(dev, cfg, params, label=""):
     """The continuous-batching Engine at full width, run eagerly: chunked
     prefill, then prefill-then-pack on the same requests, then the chunked
     coplace_shmap engine over SHARDS stripes with balanced admission; then
     the chunked default and coplace_shmap engines with their steps replayed
     as the CUDA graphs captured at construction and fused decode windows
     (decode_window=4). Returns the launch counts of each run, and the
-    tokens and tok/s of the captured default engine."""
+    tokens and tok/s of the captured default engine. Each captured
+    engine's tokens must equal its eager run's (the same kernels on the same
+    inputs). ``label`` tags the log lines (another model than phase 5's)."""
     from repro_torch.serving.engine import Engine
 
     reqs, capacity = engine_workload(cfg)
     lens = [len(r.prompt) for r in reqs]
-    n_l = cfg.num_layers
-    log(f"engine: {len(reqs)} requests on {ENGINE_BATCH} slots, prompts {lens}, "
+    log(f"engine{label}: {len(reqs)} requests on {ENGINE_BATCH} slots, prompts {lens}, "
         f"generations {[r.max_new for r in reqs]}, capacity {capacity}")
     out, launches, rates = {}, {}, {}
     coplace = dict(layout="coplace_shmap", shards=SHARDS, admission="balanced")
@@ -2017,27 +2086,29 @@ def serve_engine(dev, cfg, params):
         sizes = eng.jit_cache_sizes()
         torch.cuda.reset_peak_memory_stats()
         # chunked: admission and step, neither may read from the card
-        got, wall, imb = serve_polled(eng, reqs, f"engine ({mode})", guard=bool(chunk))
+        got, wall, imb = serve_polled(eng, reqs, f"engine{label} ({mode})",
+                                      guard=bool(chunk))
         launches[mode] = got
         s = eng.stats
         split = "coplace" in mode  # retrieval heads: one launch, merged in it
-        expect = dict(window_launches(s, n_l, eng._fused_len, split),
-                      flash_attention=0 if chunk else 2 * n_l * len(reqs))
-        log(f"engine ({mode}) launches {got} (expected {expect})")
+        expect = dict(window_launches(s, cfg, eng._fused_len, split),
+                      flash_attention=0 if chunk else
+                      layer_launches(cfg)["prefill"] * len(reqs))
+        log(f"engine{label} ({mode}) launches {got} (expected {expect})")
         if got != expect:
-            fail(f"the engine ({mode}) did not launch the kernels as expected")
+            fail(f"the engine{label} ({mode}) did not launch the kernels as expected")
         if eng.jit_cache_sizes() != sizes:
-            fail(f"the engine ({mode}) captured again while serving: {sizes} -> "
+            fail(f"the engine{label} ({mode}) captured again while serving: {sizes} -> "
                  f"{eng.jit_cache_sizes()}")
         comps = eng.completions
         for r in reqs:
             t = comps[r.uid].tokens if r.uid in comps else []
             if len(t) != r.max_new or not all(0 <= x < cfg.vocab_size for x in t):
-                fail(f"engine ({mode}): request {r.uid} gave {len(t)} tokens, "
+                fail(f"engine{label} ({mode}): request {r.uid} gave {len(t)} tokens, "
                      f"expected {r.max_new} in range")
         peak = torch.cuda.max_memory_allocated() / 2**30
         first = {u: comps[u].first_token_step for u in sorted(comps)}
-        log(f"engine ({mode}): {s.tokens_out} tokens in {wall:.3f}s = "
+        log(f"engine{label} ({mode}): {s.tokens_out} tokens in {wall:.3f}s = "
             f"{s.tokens_out / wall:.2f} tok/s; engine steps {s.engine_steps}, "
             f"prefill-chunk steps {s.prefill_chunks}, decode steps {s.decode_steps} "
             f"(select {s.select_steps} / reuse {s.reuse_steps}), mean occupancy "
@@ -2045,7 +2116,7 @@ def serve_engine(dev, cfg, params):
             f"{peak:.1f} GiB; admission reorders {s.admission_reorders}, per-stripe "
             f"page-load imbalance over {SHARDS} stripes mean {np.mean(imb):.4f} max "
             f"{np.max(imb):.4f} (cache capacity {eng.cache_capacity})")
-        log(f"engine ({mode}) dispatch: {s.dispatches} dispatches, "
+        log(f"engine{label} ({mode}) dispatch: {s.dispatches} dispatches, "
             f"{s.steps_per_dispatch:.3f} decode steps a dispatch, {s.fused_windows} "
             f"fused windows ({s.fused_steps} steps, {s.fused_mixed_windows} mixed), graph "
             f"replays {eng.graph_replays()}, captures before/after the run {sizes} / "
@@ -2062,14 +2133,18 @@ def serve_engine(dev, cfg, params):
                        ("coplace_graphs", "coplace", "")):
         pairs = [(x, y) for u in out[a] for x, y in zip(out[a][u], out[b][u])]
         agree = sum(x == y for x, y in pairs) / len(pairs)
-        log(f"engine: token agreement {a} vs {b} {agree:.3f}{what}")
+        log(f"engine{label}: token agreement {a} vs {b} {agree:.3f}{what}")
+        if a.endswith("_graphs") and out[a] != out[b]:
+            fail(f"engine{label} ({a}): tokens differ from the eager run's at "
+                 f"{first_divergence(out[a], out[b])}")
     return launches, out["chunked_graphs"], rates["chunked_graphs"]
 
 
-def tiered_launches(s, n_l, fused_len, replays):
+def tiered_launches(s, cfg, fused_len, replays):
     """The launches of a tiered run: a plain run's, and each replay of a
     select step launches that step's kernels again."""
-    out = dict(window_launches(s, n_l, fused_len, False), flash_attention=0)
+    n_l = cfg.num_layers
+    out = dict(window_launches(s, cfg, fused_len, False), flash_attention=0)
     out["page_score"] += replays * n_l
     out["paged_attention"] += 2 * replays * n_l
     return out
@@ -2085,7 +2160,6 @@ def serve_tiered_and_rebalanced(dev, cfg, params, want, base_rate, card):
     from repro_torch.serving.engine import Engine
 
     reqs, capacity = engine_workload(cfg)
-    n_l = cfg.num_layers
     kw = dict(max_batch=ENGINE_BATCH, capacity=capacity,
               prompt_buckets=sorted({len(r.prompt) for r in reqs}),
               prefill_chunk=ENGINE_CHUNK, decode_window=ENGINE_WINDOW, device=dev)
@@ -2124,7 +2198,7 @@ def serve_tiered_and_rebalanced(dev, cfg, params, want, base_rate, card):
     eng.finalize()
     s, t = eng.stats, eng._tier
     replays = eng.graph_replays()["decode_select"] - s.select_steps
-    expect = tiered_launches(s, n_l, eng._fused_len, replays)
+    expect = tiered_launches(s, cfg, eng._fused_len, replays)
     log(f"engine (tiered) launches {got} (expected {expect}; {replays} select-step "
         f"replays)")
     if got != expect:
@@ -2195,7 +2269,7 @@ def serve_tiered_and_rebalanced(dev, cfg, params, want, base_rate, card):
     got, wall, _ = serve_polled(eng, reqs, "engine (rebalanced)")
     launches["rebalanced"] = got
     s = eng.stats
-    expect = dict(window_launches(s, n_l, eng._fused_len, False), flash_attention=0)
+    expect = dict(window_launches(s, cfg, eng._fused_len, False), flash_attention=0)
     log(f"engine (rebalanced) launches {got} (expected {expect})")
     if got != expect:
         fail("the rebalanced engine did not launch the kernels as expected")
@@ -2229,6 +2303,302 @@ def serve_tiered_and_rebalanced(dev, cfg, params, want, base_rate, card):
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b: head_dim 256 in phase 2, and phase 10
+# ---------------------------------------------------------------------------
+
+
+def check_window_decode(ops, ref, timer, dev, cfg, dtype, gen, prompt):
+    """paged_attention as a sliding-window layer's decode step runs it
+    (``full_decode_attention``): BATCH slots at context prompt + 1, each
+    kv head over its whole full cache (prompt + GEN + one page), the last
+    ``local_window`` positions valid."""
+    hkv, d, w = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.local_window
+    g = cfg.num_heads // hkv
+    t, ctx = prompt + GEN + cfg.h2eal.page_size, prompt + 1
+    q = torch.randn(BATCH, hkv * g, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(BATCH, hkv, t, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(BATCH, hkv, t, d, generator=gen, device=dev).to(dtype)
+    pos = torch.arange(t, device=dev)
+    valid = ((pos < ctx) & (pos > ctx - 1 - w)).expand(BATCH, hkv, t).contiguous()
+    run = lambda: ops.paged_attention(q, k, v, valid)
+    plain = lambda: ref.paged_attention_ref(q, k, v, valid)
+    out, want = run(), ref.paged_attention_ref(*widened(q, k, v), valid)
+    torch.cuda.synchronize()
+    e, ex = err(out, want), excess(out, want, dtype)
+    mask = valid.repeat_interleave(g, dim=1)[:, :, None, :]
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    n_valid = int(valid.sum().item())
+    b_ms, b_by = bound(nbytes(q, valid, out) + 2 * n_valid * d * k.element_size(),
+                       4 * d * g * n_valid, dtype)
+    return dict(
+        case=f"window layer decode over its full cache B={BATCH} Hq={hkv * g} Hkv={hkv} "
+             f"T={t} D={d} window={w}",
+        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol_text(dtype),
+        ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20), library_ms=timer.ms(lib, 20),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_window_chunk(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+    """chunk_attention as a sliding-window layer's chunk step runs it (the
+    full-cache branch of ``block_prefill_chunk``): the 4 slots' chunks of
+    ENGINE_CHUNK tokens at CHUNK_STARTS, already appended, over the whole
+    full cache of ``capacity`` keys, each query's window valid."""
+    from repro_torch.core import paging
+
+    hkv, d, w = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.local_window
+    g = cfg.num_heads // hkv
+    b, cq = ENGINE_BATCH, ENGINE_CHUNK
+    start = torch.tensor(CHUNK_STARTS, dtype=torch.int32, device=dev)
+    q = torch.randn(b, cq, hkv * g, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, hkv, capacity, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, hkv, capacity, d, generator=gen, device=dev).to(dtype)
+    pos_q = paging.chunk_positions(start, cq)[:, None, :, None]
+    key_pos = torch.arange(capacity, device=dev)
+    valid = ((key_pos <= pos_q) & (key_pos > pos_q - w)).expand(
+        b, hkv, cq, capacity).contiguous()
+    run = lambda: ops.chunk_attention(q, k, v, valid)
+    plain = lambda: ref.chunk_attention_ref(q, k, v, valid)
+    out, want = run(), ref.chunk_attention_ref(*widened(q, k, v), valid)
+    torch.cuda.synchronize()
+    e, ex, tol = err(out, want), excess(out, want, dtype), tol_text(dtype)
+    if dtype == torch.bfloat16:
+        p_term = ref.chunk_attention_ref(*widened(q, k, v.abs()), valid)
+        ex, tol = p_excess(out, want, p_term), P_TOL_TEXT
+        del p_term
+    del want
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=valid.repeat_interleave(g, dim=1),
+        enable_gqa=True)
+    n_valid = int(valid.sum().item())
+    touched = sum(min(st, w - 1) + cq for st in CHUNK_STARTS)  # keys some query attends
+    b_ms, b_by = bound(nbytes(q, valid, out) + 2 * touched * hkv * d * k.element_size(),
+                       4 * d * g * n_valid, dtype)
+    return dict(
+        case=f"window layer chunk over its full cache B={b} Cq={cq} Hq={hkv * g} "
+             f"Hkv={hkv} T={capacity} D={d} window={w} starts={list(CHUNK_STARTS)}",
+        dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol,
+        ms=timer.ms(run, 10), plain_ms=timer.ms(plain, 3), library_ms=timer.ms(lib, 10),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_head_dim_256(ops, ref, timer, dev, dtype, gen):
+    """Phase 2 at gemma3-1b's shapes (head_dim 256; one kv head, group 4; a
+    global layer's H²EAL retrieval head has no streaming partner): flash
+    over B=BATCH prompts of G3_PROMPT, global and window 512 (no sink);
+    the select step at the engine's shape; a window layer's decode over its
+    full cache and a global layer's retrieval pages read in place (lockstep);
+    a window layer's chunk over its full cache and a global layer's chunk
+    over its pages (the engine's chunk phase). Cases are tagged with the
+    model and are not part of the main totals."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(G3_ARCH)
+    hkv = cfg.num_kv_heads
+    lock_cap = G3_PROMPT + GEN + cfg.h2eal.page_size
+    eng_cap = engine_workload(cfg)[1]
+    res = {
+        "flash_attention": check_flash(
+            ops, ref, timer, dev, cfg, dtype, gen, prompt=G3_PROMPT,
+            heads_cases=(("global layer", hkv, 0, 0),
+                         ("window layer", hkv, cfg.local_window, 0))),
+        "page_score": [check_page_select(ops, ref, timer, dev, cfg, dtype, gen, "engine")],
+        "paged_attention": [
+            check_window_decode(ops, ref, timer, dev, cfg, dtype, gen, G3_PROMPT),
+            check_paged_pages(ops, ref, timer, dev, cfg, dtype, gen, lock_cap,
+                              prompt=G3_PROMPT)],
+        "chunk_attention": [check_window_chunk(ops, ref, timer, dev, cfg, dtype, gen,
+                                               eng_cap)],
+        "chunk_attention_paged": check_chunk_paged(ops, ref, timer, dev, cfg, dtype, gen,
+                                                   eng_cap),
+    }
+    for cases in res.values():
+        for c in cases:
+            c.update(case=f"{cfg.name} {c['case']}", main=False, arch=cfg.name)
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_reduced_gemma3_against_cpu(dev):
+    """Phase 10a: reduced gemma3-1b with 8 layers (one period of 5 window
+    layers and a global one, then 2 window layers), card against CPU: f32
+    generate (head_dim 32, prompts longer than the window of 64) token for
+    token; bf16 generate at head_dim 256 (the D = 256 kernels) within the
+    bf16 band; the chunked engine with churn, captured with fused windows
+    (decode_window=4), against its eager run and the CPU, f32 and bf16."""
+    from repro_torch.configs import get_arch, reduced
+
+    g3 = get_arch(G3_ARCH)
+    f32_cfg = reduced(g3, num_layers=8)
+    bf16_cfg = reduced(g3, num_layers=8, head_dim=256)
+    check_reduced_against_cpu(dev, f32_cfg, prompt_len=100)
+    bf16_generate_against_cpu(dev, bf16_cfg)
+    check_reduced_window_engines(dev, {
+        torch.float32: (widen_share(f32_cfg), 5, 144, 7,
+                        [(90, 9), (40, 4), (120, 6), (20, 7), (70, 5)]),
+        torch.bfloat16: (widen_share(bf16_cfg, select_budget=320), 9, 320, 48,
+                         [(300, 9), (150, 6), (77, 12), (210, 5), (40, 8)]),
+    })
+
+
+def serve_gemma3(dev):
+    """Phase 10b: gemma3-1b at full width and depth (26 layers, bf16, seeded
+    random weights, H²EAL defaults): lockstep ``generate`` over BATCH prompts
+    of G3_PROMPT tokens, then the engines of phases 5 to 7 on the same
+    workload (eager, packed, coplace_shmap, captured with decode_window=4),
+    launch counts exact, each captured engine's tokens equal to its eager
+    run's. Returns the launch counts of each path."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(G3_ARCH)
+    params = full_params(dev, cfg)
+    by_path = {"gemma3_generate": serve_full(dev, cfg, params, prompt=G3_PROMPT)}
+    launches, _, _ = serve_engine(dev, cfg, params, label=f" {cfg.name}")
+    by_path.update({f"gemma3_engine_{k}": v for k, v in launches.items()})
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def pool_state(gen, dev, spec, b):
+    """A full eviction pool of POOL_PAGES slots for a context of POOL_CTX
+    tokens, its pages in shuffled slots: the sink pages, the local window's
+    pages and a random choice of the pages between; K/V random bf16, τ
+    from each page's written rows, importance random."""
+    from repro_torch.core import cache as cachelib
+    from repro_torch.core import paging
+
+    h2, hr, d = spec.h2, spec.n_retrieval, spec.head_dim
+    p = h2.page_size
+    n_sink, _ = paging.page_counts(sink=h2.sink, local=h2.local, page=h2.page_size)
+    n_ctx = -(-POOL_CTX // p)
+    lo = max(POOL_CTX - h2.local - p, 0) // p  # the local window, a page to spare
+    pool = cachelib.make_paged_cache(b, hr, POOL_PAGES, p, d, h2.top_k_pages,
+                                     dtype=torch.bfloat16, device=dev)
+    pool.k_pages.copy_(torch.randn(pool.k_pages.shape, generator=gen, device=dev))
+    pool.v_pages.copy_(torch.randn(pool.v_pages.shape, generator=gen, device=dev))
+    n_mid = POOL_PAGES - n_sink - (n_ctx - lo)
+    for bi in range(b):
+        for hi in range(hr):
+            mid = n_sink + torch.randperm(lo - n_sink, generator=gen, device=dev)[:n_mid]
+            pages = torch.cat([torch.arange(n_sink, device=dev), mid,
+                               torch.arange(lo, n_ctx, device=dev)])
+            slots = torch.randperm(POOL_PAGES, generator=gen, device=dev)
+            pool.page_start[bi, hi, slots] = (pages * p).to(torch.int32)
+    rows = pool.page_start[..., None] + torch.arange(p, device=dev) < POOL_CTX
+    kf = pool.k_pages.float()
+    pool.tau_min.copy_(torch.where(rows[..., None], kf, math.inf).amin(dim=3))
+    pool.tau_max.copy_(torch.where(rows[..., None], kf, -math.inf).amax(dim=3))
+    pool.importance.copy_(torch.rand(pool.importance.shape, generator=gen, device=dev) * 100)
+    return pool
+
+
+def check_pool_on_card(dev):
+    """Phase 10c: the eviction pool (``decode_attention_pool``, lockstep) at
+    llama3-8b's retrieval shape (B=2, Hr=4, g=4, D=128) and gemma3-1b's
+    (Hr=1, g=4, D=256), H²EAL defaults: a full pool of POOL_PAGES pages
+    (5120 tokens) for a context of POOL_CTX, then POOL_STEPS decode steps
+    (select every share window) that cross two page boundaries, each
+    evicting. The kernel path (the state on the card) against the plain
+    path (the same function on the state widened to f32 on the CPU, fed the
+    same bf16 values): page starts and selections equal (a differing
+    selection must be a near-tie of the plain scores, after which the card
+    takes the CPU's state), importance within 1e-5 of its largest, outputs
+    within the bf16 kernel tolerance, the sink and local pages resident at
+    every step. Returns the kernels' launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import cache as cachelib
+    from repro_torch.core import hybrid_attention as hattn
+    from repro_torch.core import paging
+    from repro_torch.kernels import ops
+
+    launched = {k: 0 for k in ops.LAUNCHES}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for arch, hr, g, d in (("llama3-8b", 4, 4, 128), (G3_ARCH, 1, 4, 256)):
+        h2 = get_arch(arch).h2eal
+        p = h2.page_size
+        # every kv head a retrieval head, as in the reference's pool tests
+        h2 = dataclasses.replace(h2, static_sparsity=0.0, kv_budget=POOL_PAGES * p)
+        spec = hattn.AttnSpec(n_q=hr * g, n_kv=hr, head_dim=d, h2=h2)
+        b = BATCH
+        card = pool_state(gen, dev, spec, b)
+        plain = cachelib.PagedCache(**{f.name: getattr(card, f.name).cpu().clone()
+                                       for f in dataclasses.fields(card)})
+        plain.k_pages, plain.v_pages = plain.k_pages.float(), plain.v_pages.float()
+        ring = lambda where: cachelib.make_stream_cache(b, 0, h2.sink, h2.local + p, d,
+                                                        dtype=torch.bfloat16, device=where)
+        s_card, s_cpu = ring(dev), ring("cpu")
+        worst, ties, evictions, resyncs = -math.inf, 0, 0, 0
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(POOL_STEPS):
+            length = POOL_CTX + i
+            do_select = i % h2.share_window == 0
+            q, k, v = (torch.randn(b, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                       for n in (hr * g, hr, hr))
+            before = card.page_start.clone().cpu()  # the step writes the pool in place
+            out, card, s_card = hattn.decode_attention_pool(
+                spec, q, k, v, card, s_card, length, do_select=do_select)
+            want, plain, s_cpu = hattn.decode_attention_pool(
+                spec, *(x.float().cpu() for x in (q, k, v)), plain, s_cpu, length,
+                do_select=do_select)
+            after = card.page_start.cpu()
+            opened = ~(before == length // p * p).any(dim=-1)
+            evictions += int((opened & (before >= 0).all(dim=-1)).any().item())
+            worst = max(worst, excess(out.cpu(), want, torch.bfloat16))
+            imp_tol = 1e-5 * plain.importance.abs().max().item()
+            same = (torch.equal(after, plain.page_start)
+                    and torch.equal(card.sel_idx.cpu(), plain.sel_idx)
+                    and (card.importance.cpu() - plain.importance).abs().max().item()
+                    <= imp_tol)
+            if not same:
+                # a near-tie of the plain scores at the k-th page, or a failure
+                ctx = length + 1
+                scores = paging.score_pages(q.float().cpu(), plain.tau_min, plain.tau_max,
+                                            plain.page_start, ctx, sink=h2.sink,
+                                            local=h2.local, page=p)
+                top = scores.sort(dim=-1, descending=True).values
+                kk = min(h2.top_k_pages, top.shape[-1] - 1)
+                gap = (top[..., kk - 1] - top[..., kk]).abs().min().item()
+                if not do_select or gap > 2 * SCORE_RTOL * top.abs().max().item():
+                    fail(f"pool ({arch}) step {i}: the card's pool state differs from the "
+                         f"plain path's beyond a near-tie (gap {gap:.3e})")
+                ties += 1
+                for f in dataclasses.fields(card):
+                    getattr(card, f.name).copy_(getattr(plain, f.name))
+                resyncs += 1
+            ctx = length + 1
+            first_local = max(ctx - h2.local, 0) // p
+            need = set(range(0, -(-h2.sink // p) * p, p)) | set(range(first_local * p, ctx, p))
+            for row in after.reshape(-1, POOL_PAGES):
+                if not need <= set(row.tolist()):
+                    fail(f"pool ({arch}) step {i}: a sink or local page is not resident")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, n in ops.LAUNCHES.items():
+            launched[name] += n
+        n_sel = -(-POOL_STEPS // h2.share_window)
+        want_l = {"page_score": n_sel, "paged_attention": POOL_STEPS}
+        got_l = {k: ops.LAUNCHES[k] for k in want_l}
+        log(f"pool ({arch} shape B={b} Hr={hr} g={g} D={d}, {POOL_PAGES} slots = "
+            f"{POOL_PAGES * p} tokens for contexts {POOL_CTX}..{POOL_CTX + POOL_STEPS}, "
+            f"top-k {h2.top_k_pages}): {POOL_STEPS} steps, {evictions} steps evicting, "
+            f"output excess {worst:.3e} (tol {tol_text(torch.bfloat16)}), near-tie "
+            f"selections {ties} (card resynced {resyncs}), launches {got_l} (expected "
+            f"{want_l}), {wall:.2f}s with the CPU's plain path")
+        if not worst <= 0.0:
+            fail(f"pool ({arch}): outputs differ from the plain path beyond tolerance")
+        if evictions < 2:
+            fail(f"pool ({arch}): fewer than two steps evicted a page")
+        if got_l != want_l:
+            fail(f"pool ({arch}): launches {got_l}, expected {want_l}")
+        del card, plain
+    return launched
 
 
 def _leaves(tree):
@@ -2301,6 +2671,8 @@ def main() -> int:
         results["paged_attention_partial"] += part
         results["combine_partials"] += comb
         torch.cuda.empty_cache()
+        for name, cases in check_head_dim_256(ops, ref, timer, dev, dtype, gen).items():
+            results[name] += cases
     results["page_score"].append(check_page_select(ops, ref, timer, dev, cfg,
                                                    torch.bfloat16, gen, "verify"))
     check_sampler(timer, dev, cfg)
@@ -2338,9 +2710,17 @@ def main() -> int:
     by_path.update(serve_spec_engines(dev, cfg, params, greedy))
     by_path.update({f"engine_{k}": v for k, v in serve_tiered_and_rebalanced(
         dev, cfg, params, greedy, captured_rate, card).items()})
+    del params
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    check_reduced_gemma3_against_cpu(dev)
+    by_path.update(serve_gemma3(dev))
+    by_path["pool"] = check_pool_on_card(dev)
+    log(f"phase 10 (gemma3-1b, the eviction pool) {time.perf_counter() - t10:.1f}s")
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
-    # windows; every kernel of a path must have run in it
+    # windows, for llama3-8b and gemma3-1b, and the eviction pool; every
+    # kernel of a path must have run in it
     engine = ("page_score", "paged_attention", "chunk_attention", "chunk_attention_paged")
     coplaced = engine + ("paged_attention_partial",)
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
@@ -2351,7 +2731,12 @@ def main() -> int:
                   "engine_spec_streaming": engine,
                   "engine_spec_sampled": engine[:1] + engine[2:],
                   "engine_sampled_graphs": engine,
-                  "engine_tiered": engine, "engine_rebalanced": engine}
+                  "engine_tiered": engine, "engine_rebalanced": engine,
+                  "gemma3_generate": ("flash_attention", "page_score", "paged_attention"),
+                  "gemma3_engine_chunked": engine, "gemma3_engine_coplace": coplaced,
+                  "gemma3_engine_chunked_graphs": engine,
+                  "gemma3_engine_coplace_graphs": coplaced,
+                  "pool": ("page_score", "paged_attention")}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

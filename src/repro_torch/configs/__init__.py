@@ -9,5 +9,11 @@ from repro_torch.configs.base import (  # noqa: F401
     reduced,
     register,
 )
-from repro_torch.configs import paper_models  # noqa: F401
+# the assigned architectures whose families the port serves (the others
+# wait for their mixers and frontends: ROADMAP Queue 1 item 11)
+from repro_torch.configs import gemma3_1b  # noqa: F401
+from repro_torch.configs import internlm2_20b  # noqa: F401
+from repro_torch.configs import qwen2_72b  # noqa: F401
 from repro_torch.configs import smollm_360m  # noqa: F401
+# the paper's own evaluation models
+from repro_torch.configs import paper_models  # noqa: F401

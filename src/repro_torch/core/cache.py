@@ -297,6 +297,49 @@ def full_cache_append_chunk(cache: FullCache, k_new, v_new, start, chunk_len,
     return cache
 
 
+def pool_append(cache: PagedCache, k_new, v_new, length: int, *, page: int,
+                sink: int, local: int) -> PagedCache:
+    """Fixed-pool append with eviction (paper §IV-A.3, "memory
+    consideration"), in place: the cache's C slots are a pool of pages in
+    any order, found by their ``page_start``. The token at position
+    ``length`` (a Python int: the lockstep path) goes to the slot whose page
+    starts at ``length // page * page``; when it opens a new page, to a dead
+    slot (page_start < 0) if there is one, else to the live page of lowest
+    accumulated importance that is neither a sink page (start < ``sink``)
+    nor in the local window (start at or after the local window's first
+    page), the lower slot among equals. The opened page's τ and importance
+    restart. k_new/v_new: (B, Hr, D); each (slot row, head) evicts on its
+    own, as in the paper."""
+    b, h = cache.page_start.shape[:2]
+    pos0 = length // page * page
+    off = length % page
+    ps = cache.page_start
+    is_open = ps == pos0                                       # (B, H, C)
+    has_open = is_open.any(dim=-1)
+    open_slot = is_open.to(torch.int8).argmax(dim=-1)          # the first
+    dead = ps < 0
+    local_lo = max(length + 1 - local, 0) // page * page
+    protected = ((ps < sink) | (ps >= local_lo)) & ~dead
+    evict_score = torch.where(dead, float("-inf"),
+                              torch.where(protected, float("inf"), cache.importance))
+    slot = torch.where(has_open, open_slot, evict_score.argmin(dim=-1))  # (B, H)
+    fresh = ~has_open
+    bi = torch.arange(b, device=ps.device)[:, None]
+    hi = torch.arange(h, device=ps.device)[None, :]
+    cache.k_pages[bi, hi, slot, off] = k_new.to(cache.k_pages.dtype)
+    cache.v_pages[bi, hi, slot, off] = v_new.to(cache.v_pages.dtype)
+    kf = k_new.float()
+    f = fresh[..., None]
+    cache.tau_min[bi, hi, slot] = torch.minimum(
+        torch.where(f, float("inf"), cache.tau_min[bi, hi, slot]), kf)
+    cache.tau_max[bi, hi, slot] = torch.maximum(
+        torch.where(f, float("-inf"), cache.tau_max[bi, hi, slot]), kf)
+    cache.importance[bi, hi, slot] = torch.where(fresh, 0.0,
+                                                 cache.importance[bi, hi, slot])
+    cache.page_start[bi, hi, slot] = pos0
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Tiered hot/cold page residency (two-tier KV cache)
 #

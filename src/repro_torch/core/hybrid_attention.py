@@ -19,6 +19,9 @@ Chunked prefill: a chunk of prompt tokens per slot attends the
 Speculative verify (``chunk_verify_attention``): k drafted tokens as k
           decode steps in one chunk over the pre-append caches, then the
           accepted prefix appended (``chunk_verify_append``).
+Eviction pool (``decode_attention_pool``, paper §IV-A.3): decode against
+          a fixed pool of page slots, the lowest-importance page
+          overwritten once it is full (lockstep only, as in the reference).
 Co-placed decode (``decode_attention_coplace``, paper §IV-B): the
           ``coplace_shmap`` layout's pages are striped round-robin over S
           stripes, the single-card stand-in for the devices of the JAX
@@ -50,7 +53,7 @@ class AttnSpec:
     n_kv: int
     head_dim: int
     h2: H2ealConfig
-    window: int = 0  # >0: plain sliding-window layer (not ported yet)
+    window: int = 0  # >0: plain sliding-window layer (gemma3's local layers)
 
     @property
     def group(self) -> int:
@@ -100,22 +103,19 @@ def _local_cap(h2: H2ealConfig) -> int:
     return h2.local + h2.page_size
 
 
-def _check_ported(spec: AttnSpec) -> None:
-    if spec.window > 0:
-        raise NotImplementedError(
-            "sliding-window attention layers are not ported yet "
-            "(ROADMAP Queue 1 item 11)")
-
-
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
 
 def prefill_attention(spec: AttnSpec, q, k, v, perm=None):
-    """q: (B,S,Hq,D); k/v: (B,S,Hkv,D) -> (B,S,Hq,D)."""
-    _check_ported(spec)
+    """q: (B,S,Hq,D); k/v: (B,S,Hkv,D) -> (B,S,Hq,D). A sliding-window
+    layer attends its window (no sink), every head alike."""
     h2 = spec.h2
+    if spec.window > 0:
+        return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=True,
+                                    window=spec.window)
     if not h2.enabled or spec.n_streaming == 0:
         return kops.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=True)
@@ -146,7 +146,6 @@ def init_decode_state(spec: AttnSpec, k, v, length: int, capacity: int,
     lays the pages out striped round-robin over that many stripes
     (physical slot p holds logical page ``paging.logical_pages``[p]).
     """
-    _check_ported(spec)
     h2 = spec.h2
     kp = _permute_kv(k, perm)
     vp = _permute_kv(v, perm)
@@ -185,7 +184,6 @@ def empty_decode_state(spec: AttnSpec, batch: int, capacity: int, *, dtype,
                        device):
     """Empty (PagedCache, StreamCache) of ``batch`` slots, the batched
     state the serving engine starts from."""
-    _check_ported(spec)
     h2 = spec.h2
     nr, d = spec.n_retrieval, spec.head_dim
     paged = cachelib.make_paged_cache(batch, nr, -(-capacity // h2.page_size),
@@ -220,7 +218,6 @@ def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
     in the ``coplace_shmap`` striped page order; the attention is the same,
     its validity coming from the page starts.
     """
-    _check_ported(spec)
     h2 = spec.h2
     g = spec.group
     nr = spec.n_retrieval
@@ -302,7 +299,6 @@ def _decode(spec: AttnSpec, retrieval, q, k_new, v_new, paged, stream, length,
             *, do_select: bool, perm, active, need_select):
     """The decode step around a retrieval-head body ``retrieval(spec, q_r,
     k_r, v_r, paged, length, ...) -> (out_r, paged)``."""
-    _check_ported(spec)
     h2 = spec.h2
     g = spec.group
     nr = spec.n_retrieval
@@ -356,6 +352,60 @@ def _paged_decode(spec: AttnSpec, q_r, k_r, v_r, paged: cachelib.PagedCache,
         page=h2.page_size, top_k=h2.top_k_pages)
     return kops.paged_attention_pages(q_r, paged.k_pages, paged.v_pages, slots,
                                       valid), paged
+
+
+def decode_attention_pool(spec: AttnSpec, q, k_new, v_new,
+                          paged: cachelib.PagedCache, stream: cachelib.StreamCache,
+                          length: int, *, do_select: bool, perm=None):
+    """Decode against a FIXED pool of C page slots (``kv_budget`` tokens; paper
+    §IV-A.3): once the pool is full, a new page overwrites the live page of
+    lowest accumulated importance, sink and local pages protected
+    (``cache.pool_append``). Slots hold pages in any order, so the sink and
+    local pages are found by their starts (``paging.slots_of_positions``,
+    -1 where a page is not resident) and the selection scores whatever the
+    slots hold. The lockstep path only: ``length`` is a Python int, the
+    context before this token. The kernels are the main path's: one
+    ``kops.page_select`` a select step (ties by slot, as ``lax.top_k`` on
+    the pool), then ``kops.paged_attention_pages`` over the [sink | selected
+    | local] slots read in place. Returns (out (B,Hq,D), paged, stream)."""
+    h2 = spec.h2
+    g = spec.group
+    nr = spec.n_retrieval
+    qp = _permute_q(q, perm, g)
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    ctx, p_sz = length + 1, h2.page_size
+    outs = []
+    if nr > 0:
+        q_r = qp[:, : nr * g].contiguous()
+        paged = cachelib.pool_append(paged, kp[:, :nr], vp[:, :nr], length,
+                                     page=p_sz, sink=h2.sink, local=h2.local)
+        if do_select:
+            _select(h2, q_r, paged, ctx, None)
+        n_sink, n_local = paging.page_counts(sink=h2.sink, local=h2.local,
+                                             page=p_sz)
+        first_local = paging.first_local_page(ctx, local=h2.local, page=p_sz)
+        dev = q.device
+        sink_pos = torch.arange(n_sink, dtype=torch.int32, device=dev) * p_sz
+        local_pos = (first_local + torch.arange(n_local, dtype=torch.int32,
+                                                device=dev)) * p_sz
+        slots = torch.cat([paging.slots_of_positions(paged.page_start, sink_pos),
+                           paged.sel_idx,
+                           paging.slots_of_positions(paged.page_start, local_pos)],
+                          dim=2)
+        valid = paging.token_validity(slots, paged.page_start, ctx, sink=h2.sink,
+                                      local=h2.local, page=p_sz, top_k=h2.top_k_pages)
+        outs.append(kops.paged_attention_pages(q_r, paged.k_pages, paged.v_pages,
+                                               slots, valid))
+    if spec.n_streaming > 0:
+        stream = cachelib.stream_cache_append(stream, kp[:, nr:], vp[:, nr:],
+                                              length, sink=h2.sink)
+        valid_s = (stream.pos >= 0) & (
+            (stream.pos < h2.sink) | (stream.pos >= ctx - h2.local))
+        outs.append(kops.paged_attention(qp[:, nr * g:].contiguous(), stream.k,
+                                         stream.v, valid_s))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return _permute_q(out, _inverse_perm(perm), g), paged, stream
 
 
 def _select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select,
@@ -449,7 +499,6 @@ def chunk_verify_attention(spec: AttnSpec, q, k_new, v_new,
     (``chunk_stream_validity``); both through ``kops.chunk_attention``.
     ``phys_shards`` > 1 lays the fixed sections out in the ``coplace_shmap``
     striped page order."""
-    _check_ported(spec)
     h2 = spec.h2
     g = spec.group
     nr = spec.n_retrieval
@@ -521,12 +570,16 @@ def chunk_verify_append(spec: AttnSpec, k_new, v_new, paged: cachelib.PagedCache
 
 def full_decode_attention(spec: AttnSpec, q, k_new, v_new,
                           cache: cachelib.FullCache, length, active=None):
-    """Full-attention baseline decode step (H²EAL disabled); ``length`` an
-    int or a (B,) tensor, as in ``decode_attention``."""
-    _check_ported(spec)
+    """Decode step of a layer with a full cache: the full-attention baseline
+    (H²EAL disabled) or a sliding-window layer, which attends the last
+    ``spec.window`` positions; ``length`` an int or a (B,) tensor, as in
+    ``decode_attention``."""
     cache = cachelib.full_cache_append(cache, k_new, v_new, length, active)
     b, h, s, _ = cache.k.shape
     pos = torch.arange(s, device=q.device)
     lb = length[:, None, None] if isinstance(length, torch.Tensor) else length
-    valid = (pos < lb + 1).expand(b, h, s).contiguous()
+    valid = pos < lb + 1
+    if spec.window > 0:
+        valid = valid & (pos > lb - spec.window)
+    valid = valid.expand(b, h, s).contiguous()
     return kops.paged_attention(q.contiguous(), cache.k, cache.v, valid), cache

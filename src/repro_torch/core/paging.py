@@ -171,6 +171,25 @@ def token_validity(slots, page_start, ctx, *, sink: int, local: int,
     return (nonempty & in_ctx & ok & ~sentinel).reshape(b, h, n * page)
 
 
+def slots_of_positions(page_start, positions):
+    """The eviction pool's slot lookup: for each target page start, the
+    slot that holds it (the lowest if several do), or -1. page_start:
+    (B, H, C); positions: (N,) or (B, H, N) -> (B, H, N) int32."""
+    if positions.dim() == 1:
+        positions = positions.expand(*page_start.shape[:2], positions.shape[0])
+    eq = page_start[:, :, :, None] == positions[:, :, None, :]
+    slot = eq.to(torch.int8).argmax(dim=2)
+    return torch.where(eq.any(dim=2), slot, -1).to(torch.int32)
+
+
+def evict_lowest(importance, page_start):
+    """(B, H) int32: the slot of each row's live page (page_start >= 0) of
+    lowest importance, the lower slot among equals (slot 0 if none is
+    live): the page the eviction pool overwrites next."""
+    masked = torch.where(page_start >= 0, importance, float("inf"))
+    return masked.argmin(dim=-1).to(torch.int32)
+
+
 def accumulate_importance(importance, scores):
     """Add this step's scores; masked (NEG_INF) pages contribute 0."""
     return importance + torch.where(scores > NEG_INF / 2, scores, 0.0)

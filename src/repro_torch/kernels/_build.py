@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own
-``nvcc`` process (all started together), the objects are linked into one
-shared library with a plain C interface, and the library is loaded with
-``ctypes``. The build goes into ``kernels/build/<hash of sources and
+``nvcc`` process (all started together; a source listed in ``PARTS`` by
+one process a part), the objects are linked into one shared library with
+a plain C interface, and the library is loaded with ``ctypes``. The build goes into ``kernels/build/<hash of sources and
 flags>/`` (listed in ``.gitignore``), so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing here runs at import time.
 """
@@ -21,6 +21,10 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# sources compiled in parts, one nvcc a part with -DH2EAL_PART=i, all at
+# once: each part holds a share of the source's template instantiations
+# (paged_attention.cu: one dtype and split kind each)
+PARTS = {"paged_attention.cu": 4}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: (argument types); each returns a cudaError_t as int
@@ -63,7 +67,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(PARTS.items()))).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -84,16 +88,20 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(dir=out_dir))
     procs = []
     for src in sorted(CSRC.glob("*.cu")):
-        obj = tmp / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        n = PARTS.get(src.name)
+        for i in range(n) if n else [None]:
+            tag = src.stem if i is None else f"{src.stem}.part{i}"
+            obj = tmp / (tag + ".o")
+            define = [] if i is None else [f"-DH2EAL_PART={i}"]
+            cmd = [nvcc, *NVCC_FLAGS, *define, "-c", str(src), "-o", str(obj)]
+            procs.append((tag, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log, failed = [], []
-    for src, obj, proc in procs:
+    for tag, obj, proc in procs:
         text, _ = proc.communicate()
-        log.append(f"== {src.name}\n{text}")
+        log.append(f"== {tag}\n{text}")
         if proc.returncode != 0:
-            failed.append(src.name)
+            failed.append(tag)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
     part = tmp / lib.name

@@ -47,6 +47,8 @@
 //   start 0 it reads no page at all), then walks the chunk's own keys up
 //   to the tile's last chunk position. Rows past the caller's chunk length
 //   compute finite values that the caller ignores, as on the TPU.
+// Shared memory is (D·68 + D·65 + 64·D)·4 + 65·64 bytes: 201 KB at D = 256,
+// which the launch opts into (dynamic shared memory above 48 KB).
 #include "common.cuh"
 
 namespace h2eal {
@@ -373,6 +375,7 @@ cudaError_t chunk_d(int d, const void* q, const void* k, const void* v, const vo
     case 32: return launch_chunk<T, 32>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     case 64: return launch_chunk<T, 64>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     case 128: return launch_chunk<T, 128>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
+    case 256: return launch_chunk<T, 256>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -388,6 +391,8 @@ cudaError_t paged_d(int d, const void* q, const void* kp, const void* vp, const 
       return launch_paged<T, 64>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
     case 128:
       return launch_paged<T, 128>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
+    case 256:
+      return launch_paged<T, 256>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

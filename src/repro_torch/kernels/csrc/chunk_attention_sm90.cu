@@ -17,7 +17,7 @@
 //                          (key j for query c iff j <= c).
 // Same contracts: f32 logits, online softmax and accumulation, the output
 // rounded once to bf16; a row with no valid key returns 0 (the
-// max(l, 1e-30) guard), never NaN. D in {32, 64, 128}, group g <= 64.
+// max(l, 1e-30) guard), never NaN. D in {32, 64, 128, 256}, group g <= 64.
 //
 // What bounds them on the H100: operations. At the engine's chunk shapes
 // (4 slots at contexts 0/2048/5120/7680, chunk 512, 4 retrieval kv heads
@@ -35,8 +35,8 @@
 // (setmaxnreg), one thread loads the q tile once by TMA (a 4-D box
 // {64 columns, g heads, npos positions, 1} over q viewed as {D, Hq, Cq, B},
 // which lands the rows in the c·g + gi order), then it keeps K and V tiles
-// of BK = 128 keys in flight through a ring of STAGES buffers with full
-// and empty mbarriers. Warpgroups 1 and 2 are consumers of the SAME 64 q
+// of BK = 128 keys (64 at D = 256) in flight through a ring of STAGES
+// buffers with full and empty mbarriers. Warpgroups 1 and 2 are consumers of the SAME 64 q
 // rows: they take the block's key tiles in turns (even and odd ring
 // items), each keeping its own (m, l, O). Flash gives each consumer its own
 // 64 rows (128 rows a block); at 64 rows a block a slot that prefills alone
@@ -45,7 +45,7 @@
 // across blocks, needs no partials in device memory and no second pass:
 // after the last tile the two consumers merge (m, l, O) through the ring's
 // buffers. Each consumer runs, per tile:
-//   S = Q·Kᵀ: wgmma m64n128k16, Q and K read from shared memory K-major
+//   S = Q·Kᵀ: wgmma m64nBKk16, Q and K read from shared memory K-major
 //     through descriptors of the 128-byte swizzle TMA wrote (64-byte at
 //     D = 32), f32 accumulators in registers;
 //   online softmax on the accumulator fragment (two rows a thread, max and
@@ -57,7 +57,7 @@
 // it has completed.
 //
 // Which keys a block walks. Before the warpgroups split, the whole block
-// marks each 128-key tile of the buffer as skipped, full (every key valid
+// marks each BK-key tile of the buffer as skipped, full (every key valid
 // for every row: no mask) or masked, in shared memory, so that producer
 // and consumers walk the same list of live tiles:
 //   chunk_attention: from the validity bytes of the tile's positions (a
@@ -75,7 +75,7 @@
 //     coplace_shmap's striped appends leave them; the mask is per key, as
 //     every cached key precedes every chunk query). A masked tile's bits
 //     (one per key, the same for all rows) are packed by the producer.
-//     The cache tiles are 128-key TMA boxes over the pages viewed as
+//     The cache tiles are BK-key TMA boxes over the pages viewed as
 //     {D, C·P, Hr, B}; at start 0 no page is read at all. Then the chunk's
 //     own keys up to the q tile's last position, boxes over k_new viewed as
 //     {D, Hr, Cq, B}, masked causally where a tile crosses the diagonal.
@@ -110,21 +110,24 @@ using sm90::pack_bf16;
 using sm90::tma_load_4d;
 
 constexpr int BQ = 64;   // q rows per block, shared by both consumers
-constexpr int BK = 128;  // keys per ring stage
 constexpr int NCWG = 2;  // consumer warpgroups
 constexpr int NT = 128 * (NCWG + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kEntryRegs = (128 * kProducerRegs + NCWG * 128 * kConsumerRegs) / NT;
-constexpr int kMaskWords = BQ * BK / 32;  // a bit per (position, key): 64 positions at most
 constexpr int kLive = 1, kMasked = 2;     // tile flags
 
 template <int D>
 struct Cfg {
+  // keys per ring stage: 64 at D = 256, where one stage of 128 keys' K and V
+  // (128 KB) leaves no room for a second
+  static constexpr int BK = D == 256 ? 64 : 128;
+  static constexpr int WPR = BK / 32;             // mask words of one position's keys
+  static constexpr int kMaskWords = BQ * WPR;     // a bit per (position, key): 64 positions at most
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span = bytes of an atom row
   static constexpr int AC = SW / 2;               // bf16 columns of one swizzle atom
   static constexpr int NA = D / AC;               // atoms across D
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int STAGES = D == 256 ? 2 : (D == 128 ? 3 : 4);
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
   static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
@@ -177,6 +180,7 @@ __device__ __forceinline__ void attend(const unsigned char* q_s, const unsigned 
                                        float (&m)[2], float (&l)[2], float scale_log2,
                                        int col_t, bool need_mask, Ok ok) {
   using C = Cfg<D>;
+  constexpr int BK = C::BK;
   float s[BK / 2];
   sm90::fence();
 #pragma unroll
@@ -184,7 +188,7 @@ __device__ __forceinline__ void attend(const unsigned char* q_s, const unsigned 
     const int a = kk * 16 / C::AC, cb = (kk * 16 % C::AC) * 2;
     const uint64_t dq = sm90::make_desc(q_s + a * BQ * C::SW + cb, 16, 8 * C::SW, C::SW);
     const uint64_t dk = sm90::make_desc(k_st + a * BK * C::SW + cb, 16, 8 * C::SW, C::SW);
-    sm90::mma_ss_n128(s, dq, dk, kk > 0);
+    sm90::mma_ss<BK>(s, dq, dk, kk > 0);
   }
   sm90::commit();
   sm90::wait<0>();
@@ -255,6 +259,7 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tkn,
     const __grid_constant__ CUtensorMap tvn, const Args args) {
   using C = Cfg<D>;
+  constexpr int BK = C::BK, kMaskWords = C::kMaskWords, WPR = C::WPR;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -326,8 +331,8 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
   } else {
     for (int kt = tid; kt < n_tiles; kt += NT) flags[kt] = 0;
     __syncthreads();
-    // a warp reads one position's 128 bytes of a tile a load, kBatch loads
-    // in flight
+    // a warp reads one position's BK bytes of a tile a load (4 a lane; at
+    // BK = 64 the upper half of the warp idles), kBatch loads in flight
     const unsigned char* vl = args.valid + (bh * cq + c_lo) * args.n_keys;
     const int warp = tid / 32, lane = tid % 32, n_items = n_tiles * npos;
     constexpr int NW = NT / 32;
@@ -336,16 +341,17 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int it = it0 + u * NW;
-        x[u] = it < n_items ? valid_word(vl + (long)(it % npos) * args.n_keys,
-                                         it / npos * BK + 4 * lane, args.n_keys, args.aligned4)
-                            : 0u;
+        x[u] = it < n_items && 4 * lane < BK
+                   ? valid_word(vl + (long)(it % npos) * args.n_keys, it / npos * BK + 4 * lane,
+                                args.n_keys, args.aligned4)
+                   : 0u;
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int it = it0 + u * NW;
         const uint32_t nib = nibble(x[u]);
         const bool any = __any_sync(0xffffffffu, nib != 0);
-        const bool all = __all_sync(0xffffffffu, nib == 0xFu);
+        const bool all = __all_sync(0xffffffffu, nib == 0xFu || 4 * lane >= BK);
         if (lane == 0 && it < n_items && (any || !all))
           atomicOr(&flags[it / npos], (any ? kLive : 0) | (all ? 0 : kMasked));
       }
@@ -382,15 +388,15 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
           // word w: keys 32w .. 32w + 31 of the tile, the same for every row
           const int key = kt * BK + t;
           bool ok = false;
-          if (key < args.n_keys) {
+          if (t < BK && key < args.n_keys) {
             const int s0 = args.page_start[bh * (args.n_keys / args.page) + key / args.page];
             ok = s0 >= 0 && s0 + key % args.page < st_b;
           }
           const uint32_t w = __ballot_sync(0xffffffffu, ok);
-          if (lane == 0) mk[warp] = w;
+          if (lane == 0 && warp < WPR) mk[warp] = w;
         } else {
-          // word 4·pi + w: keys 32w .. 32w + 31 for position c_lo + pi; a lane
-          // reads 4 keys and the 8 lanes of a word gather their nibbles
+          // word WPR·pi + w: keys 32w .. 32w + 31 for position c_lo + pi; a
+          // lane reads 4 keys and the 8 lanes of a word gather their nibbles
           const unsigned char* vl = args.valid + (bh * cq + c_lo) * args.n_keys;
           const int rows_pos = (BQ - 1) / g + 1;
           for (int pi0 = warp; pi0 < rows_pos; pi0 += 4 * kBatch) {
@@ -398,9 +404,10 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
               const int pi = pi0 + 4 * u;
-              x[u] = pi < npos ? valid_word(vl + (long)pi * args.n_keys, kt * BK + 4 * lane,
-                                            args.n_keys, args.aligned4)
-                               : 0u;
+              x[u] = pi < npos && 4 * lane < BK
+                         ? valid_word(vl + (long)pi * args.n_keys, kt * BK + 4 * lane,
+                                      args.n_keys, args.aligned4)
+                         : 0u;
             }
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
@@ -409,7 +416,7 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
               w |= __shfl_xor_sync(0xffffffffu, w, 1);
               w |= __shfl_xor_sync(0xffffffffu, w, 2);
               w |= __shfl_xor_sync(0xffffffffu, w, 4);
-              if ((lane & 7) == 0 && pi < rows_pos) mk[4 * pi + lane / 8] = w;
+              if ((lane & 7) == 0 && pi < rows_pos && 4 * lane < BK) mk[WPR * pi + lane / 8] = w;
             }
           }
         }
@@ -461,12 +468,12 @@ __global__ void __launch_bounds__(NT, 1) chunk_sm90_kernel(
         mbar_wait(&full[st], (it / C::STAGES) & 1);
         const unsigned char* k_st = kv_s + st * 2 * C::KV_BYTES;
         const uint32_t* mk = mask_s + st * kMaskWords;
-        uint32_t w[2][4];
+        uint32_t w[2][WPR];
         if (f & kMasked) {
 #pragma unroll
           for (int r = 0; r < 2; ++r)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) w[r][j] = mk[(PAGED ? 0 : 4 * pi_row[r]) + j];
+            for (int j = 0; j < WPR; ++j) w[r][j] = mk[(PAGED ? 0 : WPR * pi_row[r]) + j];
         }
         attend<D>(q_s, k_st, k_st + C::KV_BYTES, acc, m, l, args.scale_log2, col_t,
                   (f & kMasked) != 0,
@@ -558,20 +565,20 @@ cudaError_t launch(Args a, const void* q, const void* k, const void* v, const vo
   // k/v (B, H, keys, D): a box is BK keys of one head
   const int hq = a.hkv * a.g;
   if (!sm90::make_map_4d(enc, &tq, q, {D, hq, a.cq, a.nb}, {C::AC, a.g, a.npos, 1}, C::SW) ||
-      !sm90::make_map_4d(enc, &tk, k, {D, a.n_keys, n_heads_kv, a.nb}, {C::AC, BK, 1, 1},
+      !sm90::make_map_4d(enc, &tk, k, {D, a.n_keys, n_heads_kv, a.nb}, {C::AC, C::BK, 1, 1},
                          C::SW) ||
-      !sm90::make_map_4d(enc, &tv, v, {D, a.n_keys, n_heads_kv, a.nb}, {C::AC, BK, 1, 1},
+      !sm90::make_map_4d(enc, &tv, v, {D, a.n_keys, n_heads_kv, a.nb}, {C::AC, C::BK, 1, 1},
                          C::SW))
     return cudaErrorInvalidValue;
   tkn = tk;
   tvn = tv;
   // k/v_new (B, Cq, Hr, D): a box is BK chunk positions of one head
-  if (PAGED && (!sm90::make_map_4d(enc, &tkn, kn, {D, a.hkv, a.cq, a.nb}, {C::AC, 1, BK, 1},
+  if (PAGED && (!sm90::make_map_4d(enc, &tkn, kn, {D, a.hkv, a.cq, a.nb}, {C::AC, 1, C::BK, 1},
                                    C::SW) ||
-                !sm90::make_map_4d(enc, &tvn, vn, {D, a.hkv, a.cq, a.nb}, {C::AC, 1, BK, 1},
+                !sm90::make_map_4d(enc, &tvn, vn, {D, a.hkv, a.cq, a.nb}, {C::AC, 1, C::BK, 1},
                                    C::SW)))
     return cudaErrorInvalidValue;
-  const int bytes = C::fixed + 4 * ((a.n_keys + BK - 1) / BK);
+  const int bytes = C::fixed + 4 * ((a.n_keys + C::BK - 1) / C::BK);
   cudaError_t err = cudaFuncSetAttribute(
       chunk_sm90_kernel<D, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -594,6 +601,7 @@ cudaError_t launch_d(int d, const Args& a, const void* q, const void* k, const v
     case 32: return launch<32, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     case 64: return launch<64, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     case 128: return launch<128, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
+    case 256: return launch<256, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     default: return cudaErrorInvalidValue;
   }
 }

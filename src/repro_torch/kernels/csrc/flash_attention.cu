@@ -26,6 +26,8 @@
 // shuffles. Key tiles wholly outside causal ∪ (window + sink) are skipped,
 // so the streaming heads cost O(S·(window + sink)) and not O(S²). Blocks
 // of the heaviest (last) q tiles are launched first to shorten the tail.
+// Shared memory is (D·68 + D·65 + 64·D)·4 bytes: 197 KB at D = 256, which
+// the launch opts into (dynamic shared memory above 48 KB), one block an SM.
 #include "common.cuh"
 
 namespace h2eal {
@@ -221,6 +223,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
     case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

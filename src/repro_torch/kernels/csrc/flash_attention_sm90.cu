@@ -5,7 +5,7 @@
 // (the pl.pallas_call at :97) for bf16 operands; ops.py routes by dtype, and
 // f32 operands keep the FMA kernel of flash_attention.cu (TF32 tensor cores
 // would not hold f32's 1e-4 tolerance, and the serving path is bf16). Same
-// contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), D in {32, 64, 128}, Hq a
+// contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), D in {32, 64, 128, 256}, Hq a
 // multiple of Hkv; key j is attended by query row i (absolute position
 // i + q_offset) iff j <= row (causal), j > row - window (window > 0), or
 // j < sink (sink > 0, only together with a window). A row with every key
@@ -29,14 +29,15 @@
 // loads each one's q tile by TMA as soon as the consumers' products of the
 // item before have stopped reading the last one (so a q tile's load and the
 // first K/V tiles of an item overlap the last softmax, P·V and epilogue of
-// the one before), then its K tiles of BK = 128 keys; a second thread loads
-// the V tiles; both into one ring of STAGES stages that runs on across items
-// (as many as the 227 KB of shared memory hold: 3 at D = 128, 6 at D = 64, 8
-// at D = 32), K and V each with their own full and empty mbarriers, so that a
-// K buffer goes back to its producer as soon as its S product has completed.
+// the one before), then its K tiles of BK = 128 keys (64 at D = 256); a
+// second thread loads the V tiles; both into one ring of STAGES stages that
+// runs on across items (as many as the 227 KB of shared memory hold: 2 at
+// D = 256, 3 at D = 128, 6 at D = 64, 8 at D = 32), K and V each with their
+// own full and empty mbarriers, so that a K buffer goes back to its producer
+// as soon as its S product has completed.
 // Warpgroups 1 and 2 are consumers of 64 q rows each, with the registers
 // the producer gave up:
-//   S = Q·Kᵀ: wgmma m64n128k16, Q and K read from shared memory K-major
+//   S = Q·Kᵀ: wgmma m64nBKk16, Q and K read from shared memory K-major
 //     through descriptors of the 128-byte swizzle TMA wrote (64-byte at
 //     D = 32), f32 accumulators in registers;
 //   online softmax on the accumulator fragment: a thread holds two rows,
@@ -86,7 +87,6 @@ namespace h2eal {
 namespace {
 
 constexpr int BQ = 128;  // q rows per block: 64 per consumer warpgroup
-constexpr int BK = 128;  // keys per ring stage
 constexpr int NCWG = 2;  // consumer warpgroups
 constexpr int NT = 128 * (NCWG + 1);
 constexpr float kLog2e = 1.4426950408889634f;
@@ -95,6 +95,9 @@ constexpr int kEntryRegs = (128 * kProducerRegs + NCWG * 128 * kConsumerRegs) / 
 
 template <int D>
 struct Cfg {
+  // keys per ring stage: 64 at D = 256, where two stages of 128 keys beside
+  // the q tile would not fit and O's 128 f32 a thread leave S room for 32
+  static constexpr int BK = D == 256 ? 64 : 128;
   static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span = bytes of an atom row
   static constexpr int AC = SW / 2;               // bf16 columns of one swizzle atom
   static constexpr int NA = D / AC;               // atoms across D
@@ -115,9 +118,10 @@ using sm90::mbar_wait;
 using sm90::pack_bf16;
 using sm90::tma_load_4d;
 
-// key tiles of one q tile (its first row at absolute position i_min): [0,
-// end) but [lo, hi], the tiles wholly outside the window that hold no sink
-// key (none without a window)
+// key tiles of BK keys of one q tile (its first row at absolute position
+// i_min): [0, end) but [lo, hi], the tiles wholly outside the window that
+// hold no sink key (none without a window)
+template <int BK>
 struct KeySpan {
   int end, lo, hi;
   __device__ KeySpan(int end_, int i_min, int window, int sink) : end(end_) {
@@ -162,7 +166,7 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
     int* __restrict__ sched, int nb, int sq, int sk, int hq, int hkv, int n_qt, int causal,
     int window, int sink, int q_offset, float scale_log2) {
   using C = Cfg<D>;
-  constexpr int S = C::STAGES;
+  constexpr int S = C::STAGES, BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -184,7 +188,7 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
   auto span_of = [&](int qt) {
     int end = (sk + BK - 1) / BK;
     if (causal) end = min(end, (min(qt * BQ + BQ, sq) - 1 + q_offset) / BK + 1);
-    return KeySpan(end, qt * BQ + q_offset, window, sink);
+    return KeySpan<BK>(end, qt * BQ + q_offset, window, sink);
   };
 
   const int tid = threadIdx.x;
@@ -236,7 +240,7 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
           if (item < 0) break;
         }
         const Item w(item, n_qt, hq, hkv, nb, window);
-        const KeySpan span = span_of(w.qt);
+        const KeySpan<BK> span = span_of(w.qt);
         if (is_k) {
           mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
@@ -274,7 +278,7 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
       const int item = item_s[li & 1];
       if (item < 0) break;
       const Item w(item, n_qt, hq, hkv, nb, window);
-      const KeySpan span = span_of(w.qt);
+      const KeySpan<BK> span = span_of(w.qt);
       const int n_live = span.live();  // the key tiles the producer loads
       const int row_lo = w.qt * BQ + 64 * cw + 16 * warp + lane / 4;  // and row_lo + 8
       const int wg_min = w.qt * BQ + 64 * cw + q_offset;  // absolute positions of the wg's rows
@@ -295,7 +299,7 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
               sm90::make_desc(q_wg + a * BQ * C::SW + cb, 16, 8 * C::SW, C::SW);
           const uint64_t dk =
               sm90::make_desc(k_st + a * BK * C::SW + cb, 16, 8 * C::SW, C::SW);
-          sm90::mma_ss_n128(s, dq, dk, kk > 0);
+          sm90::mma_ss<BK>(s, dq, dk, kk > 0);
         }
         sm90::commit();
       };
@@ -451,8 +455,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int* sc
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!make_map(enc, &tq, q, b, sq, hq, D, C::AC, BQ, C::SW) ||
-      !make_map(enc, &tk, k, b, sk, hkv, D, C::AC, BK, C::SW) ||
-      !make_map(enc, &tv, v, b, sk, hkv, D, C::AC, BK, C::SW))
+      !make_map(enc, &tk, k, b, sk, hkv, D, C::AC, C::BK, C::SW) ||
+      !make_map(enc, &tv, v, b, sk, hkv, D, C::AC, C::BK, C::SW))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       flash_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
@@ -491,6 +495,7 @@ extern "C" int h2eal_flash_attention_bf16(const void* q, const void* k, const vo
     case 32: return launch<32>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     case 64: return launch<64>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     case 128: return launch<128>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 256: return launch<256>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

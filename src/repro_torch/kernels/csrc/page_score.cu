@@ -166,10 +166,15 @@ struct SelectArgs {
   int hkv, c, g, n_sink, local, page, top_k, minus_one_masked;
 };
 
-// an τ row's D/32 coordinates of this lane, in one load where they allow
+// an τ row's D/32 coordinates of this lane, in 16-byte loads where they allow
 template <int DL>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[DL]) {
-  if constexpr (DL == 4) {
+  if constexpr (DL == 8) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 y = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+  } else if constexpr (DL == 4) {
     const float4 x = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
   } else if constexpr (DL == 2) {
@@ -433,6 +438,7 @@ cudaError_t dispatch_score(int d, const void* q, const void* tau_min, const void
     case 32: return launch_score<T, 32>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     case 64: return launch_score<T, 64>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     case 128: return launch_score<T, 128>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    case 256: return launch_score<T, 256>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -444,6 +450,7 @@ cudaError_t dispatch_select(int d, const SelectArgs& a, int b, int blocks,
     case 32: return launch_select<T, 32>(a, b, blocks, stream);
     case 64: return launch_select<T, 64>(a, b, blocks, stream);
     case 128: return launch_select<T, 128>(a, b, blocks, stream);
+    case 256: return launch_select<T, 256>(a, b, blocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }

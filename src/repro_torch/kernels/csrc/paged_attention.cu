@@ -57,10 +57,10 @@
 // stripe never waits on the ~N·(S-1)/S slots it does not own. In every
 // lane's token a piece the stripe does not own reads as not valid: at
 // P < 32 a unit spans pages of several stripes, and each keeps its own.
-// A block is one
-// producer warp and NW = 4 consumer warps around a ring of STAGES = 4·SPW
-// stages (128 KB: 8 stages of one unit's K and V at bf16 D = 128), each with
-// a full and an empty mbarrier:
+// A block is one producer warp and NW = 4 consumer warps (2 for f32 at
+// D = 256, whose unit's K and V take 64 KB) around a ring of STAGES = NW·SPW
+// stages (128 KB: 8 stages of one unit's K and V at bf16 D = 128, 4 at bf16
+// D = 256), each with a full and an empty mbarrier:
 //   producer: reads the validity bytes and page slots of 8 units at a time
 //     (one coalesced load a lane each; the next 8 units' loads fly while
 //     these units issue), and for a unit with a valid token
@@ -72,14 +72,14 @@
 //     every attended list (paging.token_validity), so it costs no bytes. It
 //     writes the unit's validity and loaded-row masks beside the stage;
 //     after the last unit, one end marker for each consumer;
-//   consumers: warp w takes live units w, w + 4, ... (its SPW stages are its
+//   consumers: warp w takes live units w, w + NW, ... (its SPW stages are its
 //     own), with a private f32 online-softmax state (m, l, acc) for every
 //     row of the GQA group and no block-wide barrier on the way. A lane owns
 //     8 columns of a key row, read in 16-byte loads (one of 8 bf16, or two
 //     of 4 f32, one in each half of the row), so a D-wide row is LPK = D / 8
-//     lanes and a warp load covers KPI = 32 / LPK keys: q·k partials
-//     for the unit's 32 keys are reduce-scattered over the row's lanes
-//     (LPK - 1 shuffles a query row), which leaves each lane the logit of one
+//     lanes (the whole warp at D = 256) and a warp load covers KPI = 32 / LPK
+//     keys: q·k partials for the unit's 32 keys are reduce-scattered over the
+//     row's lanes (LPK - 1 shuffles a query row), which leaves each lane the logit of one
 //     key; the softmax step is one warp max a row; p goes through the warp's
 //     own shared-memory row to the lanes that own the value columns, which
 //     accumulate p·v from 16-byte V loads. Rows not loaded read as 0.
@@ -118,8 +118,6 @@ using sm90::mbar_init;
 using sm90::mbar_wait;
 using sm90::smem_u32;
 
-constexpr int NW = 4;              // consumer warps
-constexpr int NT = 32 * (NW + 1);  // and one producer warp
 constexpr int RK = 32;             // tokens per unit
 constexpr int PF = 8;              // units whose validity and slots the producer reads at once
 constexpr int MAXG = 8;            // largest GQA group
@@ -181,6 +179,10 @@ struct Cfg {
   static constexpr int KPI = 32 / LPK;      // keys of one warp load
   static constexpr int ROW = D * (int)sizeof(T);
   static constexpr int UNIT = RK * ROW;     // bytes of one unit's K (or V)
+  // consumer warps, each owning at least one stage of the ring: 4, but 2
+  // where a unit's K and V take 64 KB (f32 at D = 256)
+  static constexpr int NW = 2 * UNIT > RING_BYTES / 4 ? 2 : 4;
+  static constexpr int NT = 32 * (NW + 1);  // and one producer warp
   static constexpr int SPW = clampi(RING_BYTES / (NW * 2 * UNIT), 1, 4);  // stages a warp
   static constexpr int STAGES = NW * SPW;
   // query rows of one q·k pass: the partial logits s[RB][LPK] stay in registers
@@ -193,7 +195,7 @@ struct Cfg {
   static constexpr int WL = WM + 4 * NW * G;       // f32 [NW][G]
   static constexpr int WA = WL + 4 * NW * G;       // f32 [NW][G][D]
   static constexpr int bytes = WA + 4 * NW * G * D;
-  static_assert(LPK >= 4 && LPK <= 16 && STAGES % NW == 0, "unit layout");
+  static_assert(LPK >= 4 && LPK <= 32 && STAGES % NW == 0, "unit layout");
 };
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -235,7 +237,7 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[N], int idx) {
 // separate instantiation so that the range mode's producer is not slowed by
 // the stripes' compaction and owner checks
 template <typename T, int D, int G, bool STRIPES>
-__global__ void __launch_bounds__(NT, 1) paged_kernel(
+__global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ slots, const unsigned char* __restrict__ valid, T* __restrict__ o,
     float* __restrict__ part_o, float* __restrict__ part_m, float* __restrict__ part_l,
@@ -243,6 +245,7 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
     int n_split, int mode, float scale) {
   using C = Cfg<T, D, G>;
   constexpr int VN = C::VN, LPK = C::LPK, KPI = C::KPI, STAGES = C::STAGES;
+  constexpr int NW = C::NW, NT = C::NT;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* empty = full + STAGES;
@@ -604,8 +607,11 @@ __global__ void __launch_bounds__(NT, 1) paged_kernel(
   }
 }
 
-// one launch's operands (see h2eal_paged_attention)
-struct Args {
+}  // namespace
+
+// one launch's operands (see h2eal_paged_attention); outside the anonymous
+// namespace, since the parts of the build hand it from one object to another
+struct PagedArgs {
   const void *q, *k, *v, *slots, *valid;
   void* o;
   float *po, *pm, *pl;
@@ -617,8 +623,21 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The instantiations of one dtype and one split kind (over unit ranges, or
+// over page stripes), for every head_dim and group: each is one part of the
+// build (kernels/_build.py PARTS compiles this file once a part, with
+// -DH2EAL_PART=0..3, all at once; one nvcc took 120 s for the 64 kernels on
+// the H100 host, the other sources at most 12 s). Compiled without
+// H2EAL_PART, the file holds all four.
+cudaError_t paged_f32_range(const PagedArgs& a, int d);
+cudaError_t paged_f32_stripes(const PagedArgs& a, int d);
+cudaError_t paged_bf16_range(const PagedArgs& a, int d);
+cudaError_t paged_bf16_stripes(const PagedArgs& a, int d);
+
+namespace {
+
 template <typename T, int D, int G, bool STRIPES>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(const PagedArgs& a) {
   using C = Cfg<T, D, G>;
   // the last block's merge keeps 2·n·g + 2·g floats in the ring, and a
   // stripe's compaction one owner bit a slot
@@ -631,7 +650,7 @@ cudaError_t launch(const Args& a) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_split, a.hkv, a.b);
-  paged_kernel<T, D, G, STRIPES><<<grid, NT, bytes, a.stream>>>(
+  paged_kernel<T, D, G, STRIPES><<<grid, C::NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const int*>(a.slots), static_cast<const unsigned char*>(a.valid),
       static_cast<T*>(a.o), a.po, a.pm, a.pl, a.counters, a.hkv, a.g, a.t_len, a.page, a.c,
@@ -639,32 +658,50 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, int G>
-cudaError_t dispatch_mode(const Args& a) {
-  return a.mode == kRange ? launch<T, D, G, false>(a) : launch<T, D, G, true>(a);
+template <typename T, int D, bool STRIPES>
+cudaError_t dispatch_g(const PagedArgs& a) {
+  if (a.g <= 1) return launch<T, D, 1, STRIPES>(a);
+  if (a.g <= 2) return launch<T, D, 2, STRIPES>(a);
+  if (a.g <= 4) return launch<T, D, 4, STRIPES>(a);
+  return launch<T, D, 8, STRIPES>(a);
 }
 
-template <typename T, int D>
-cudaError_t dispatch_g(const Args& a) {
-  if (a.g <= 1) return dispatch_mode<T, D, 1>(a);
-  if (a.g <= 2) return dispatch_mode<T, D, 2>(a);
-  if (a.g <= 4) return dispatch_mode<T, D, 4>(a);
-  return dispatch_mode<T, D, 8>(a);
-}
-
-template <typename T>
-cudaError_t dispatch_d(int d, const Args& a) {
+template <typename T, bool STRIPES>
+cudaError_t dispatch_d(int d, const PagedArgs& a) {
   switch (d) {
-    case 32: return dispatch_g<T, 32>(a);
-    case 64: return dispatch_g<T, 64>(a);
-    case 128: return dispatch_g<T, 128>(a);
+    case 32: return dispatch_g<T, 32, STRIPES>(a);
+    case 64: return dispatch_g<T, 64, STRIPES>(a);
+    case 128: return dispatch_g<T, 128, STRIPES>(a);
+    case 256: return dispatch_g<T, 256, STRIPES>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+#ifndef H2EAL_PART
+#define H2EAL_PART -1
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 0
+cudaError_t paged_f32_range(const PagedArgs& a, int d) { return dispatch_d<float, false>(d, a); }
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 1
+cudaError_t paged_f32_stripes(const PagedArgs& a, int d) { return dispatch_d<float, true>(d, a); }
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 2
+cudaError_t paged_bf16_range(const PagedArgs& a, int d) {
+  return dispatch_d<__nv_bfloat16, false>(d, a);
+}
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 3
+cudaError_t paged_bf16_stripes(const PagedArgs& a, int d) {
+  return dispatch_d<__nv_bfloat16, true>(d, a);
+}
+#endif
+
 }  // namespace h2eal
 
+#if H2EAL_PART < 0 || H2EAL_PART == 0
 // slots: (B, Hkv, t_len / page) int32 page table ((S, B, Hkv, t_len / page)
 // in the partials mode), or null for a contiguous (B, Hkv, t_len, D) k/v
 // (then page = 32; range mode only); valid: (B, Hkv, t_len) bool ((S, B,
@@ -688,12 +725,14 @@ extern "C" int h2eal_paged_attention(const void* q, const void* k, const void* v
     return cudaErrorInvalidValue;
   if (mode != kRange && (slots == nullptr || (mode == kCoplace && c % n_split != 0)))
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, slots, valid, o,
-               static_cast<float*>(part_o), static_cast<float*>(part_m),
-               static_cast<float*>(part_l), static_cast<int*>(counters),
-               b, hkv, g, t_len, page, c, static_cast<long>(kv_stride), n_split, mode, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == kF32) return dispatch_d<float>(d, a);
-  if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(d, a);
+  const PagedArgs a{q, k, v, slots, valid, o,
+                    static_cast<float*>(part_o), static_cast<float*>(part_m),
+                    static_cast<float*>(part_l), static_cast<int*>(counters),
+                    b, hkv, g, t_len, page, c, static_cast<long>(kv_stride), n_split, mode,
+                    scale, static_cast<cudaStream_t>(stream)};
+  const bool stripes = mode != kRange;
+  if (dtype == kF32) return stripes ? paged_f32_stripes(a, d) : paged_f32_range(a, d);
+  if (dtype == kBF16) return stripes ? paged_bf16_stripes(a, d) : paged_bf16_range(a, d);
   return cudaErrorInvalidValue;
 }
+#endif

@@ -30,16 +30,25 @@ def _tree(x, fn):
 def params_from_numpy(cfg: ArchConfig, tree, device):
     """JAX ``M.init_params`` tree (numpy leaves) -> the port's parameters.
 
-    The scanned ``blocks/pos0`` leaves carry a leading layer axis; they
-    are unstacked into one dict per layer (a dense stack has period 1 and
-    no remainder layers).
+    The JAX package stacks a period of P layers: ``blocks/pos{p}`` leaves
+    carry a leading axis over the n_per periods, and the n_rem = L % P
+    remainder layers sit unstacked under ``rem/rem{r}``. They become one
+    flat list: ``blocks/pos{p}[per]`` is layer ``per·P + p`` and
+    ``rem/rem{r}`` layer ``n_per·P + r`` (a dense stack has P = 1 and no
+    remainder, so ``pos0[i]`` is layer i).
     """
     T.check_ported(cfg)
-    n_periods, _ = T.layer_layout(cfg)
+    n_per, n_rem = T.layer_layout(cfg)
+    period = T.period_len(cfg)
     to_t = lambda a: tensor_from_numpy(a, device)
-    stacked = tree["blocks"]["pos0"]
-    layers = [_tree(stacked, lambda a, i=i: to_t(np.asarray(a)[i]))
-              for i in range(n_periods)]
+    layers = [None] * cfg.num_layers
+    for pos in range(period if n_per else 0):
+        stacked = tree["blocks"][f"pos{pos}"]
+        for per in range(n_per):
+            layers[per * period + pos] = _tree(
+                stacked, lambda a, per=per: to_t(np.asarray(a)[per]))
+    for r in range(n_rem):
+        layers[n_per * period + r] = _tree(tree["rem"][f"rem{r}"], to_t)
     params = {"embed": to_t(tree["embed"]), "layers": layers,
               "final_norm": to_t(tree["final_norm"])}
     if not cfg.tie_embeddings:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, ArchConfig
 from repro_torch.core import layouts as layoutlib
 from repro_torch.core.paging import chunk_positions
 from repro_torch.models import transformer as T
@@ -40,6 +40,12 @@ def _rope(cfg: ArchConfig, positions):
     return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
+def _positions(cfg: ArchConfig):
+    """Each layer's period position (remainder layers continue the pattern)."""
+    period = T.period_len(cfg)
+    return [i % period for i in range(cfg.num_layers)]
+
+
 def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
             layout=layoutlib.DEFAULT):
     """Process the prompt (B, S); returns (last-token logits (B, V), state).
@@ -51,8 +57,8 @@ def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
     s = x.shape[1]
     rope = _rope(cfg, torch.arange(s, device=x.device))
     caches = []
-    for p, perm in zip(params["layers"], plan):
-        x, c = T.block_prefill(cfg, p, perm, x, rope, capacity=capacity,
+    for pos, p, perm in zip(_positions(cfg), params["layers"], plan):
+        x, c = T.block_prefill(cfg, pos, p, perm, x, rope, capacity=capacity,
                                layout=layout)
         caches.append(c)
     return unembed(cfg, params, x[:, -1]), {"length": s, "layers": caches}
@@ -63,8 +69,8 @@ def empty_serve_state(cfg: ArchConfig, batch: int, *, capacity: int, dtype,
     """The batched serve state of ``batch`` free slots: (B,) lengths 0 and
     empty caches (a slot's rows are rewritten at admission)."""
     T.check_ported(cfg)
-    layers = [T.empty_block_cache(cfg, batch, capacity, dtype=dtype,
-                                  device=device) for _ in range(cfg.num_layers)]
+    layers = [T.empty_block_cache(cfg, pos, batch, capacity, dtype=dtype,
+                                  device=device) for pos in _positions(cfg)]
     return {"length": torch.zeros(batch, dtype=torch.int32, device=device),
             "layers": layers}
 
@@ -86,8 +92,9 @@ def prefill_chunk(cfg: ArchConfig, params, state, tokens, *, chunk_len,
     b, cch = tokens.shape
     rope = _rope(cfg, chunk_positions(start, cch))  # (B, C, half)
     caches = []
-    for p, perm, c in zip(params["layers"], plan, state["layers"]):
-        x, c = T.block_prefill_chunk(cfg, p, perm, x, rope, c, start=start,
+    for pos, p, perm, c in zip(_positions(cfg), params["layers"], plan,
+                               state["layers"]):
+        x, c = T.block_prefill_chunk(cfg, pos, p, perm, x, rope, c, start=start,
                                      chunk_len=chunk_len, active=active,
                                      layout=layout)
         caches.append(c)
@@ -109,14 +116,20 @@ def verify_forward(cfg: ArchConfig, params, state, tokens, *, active,
     importance (refreshed for ``need_select & active``), the pages, rings
     and lengths untouched; ``stash`` holds each layer's roped chunk (k, v)
     for ``verify_commit``. The accepted length decides how much of the
-    chunk is committed; nothing is ever rolled back."""
+    chunk is committed; nothing is ever rolled back. Not for a
+    ``local_global`` stack, whose window layers have no verify chunk (the
+    JAX engine refuses ``spec_tokens`` there too)."""
+    if cfg.attn_pattern == ATTN_LOCAL_GLOBAL:
+        raise ValueError("verify_forward requires the full attention pattern "
+                         "(local_global windows have no verify-chunk path)")
     plan = plan if plan is not None else T.default_plan(cfg)
     start = state["length"]
     x = embed_input(cfg, params, tokens)
     rope = _rope(cfg, chunk_positions(start, tokens.shape[1]))  # (B, k, half)
     caches, stash = [], []
-    for p, perm, c in zip(params["layers"], plan, state["layers"]):
-        x, c, kv = T.block_verify_chunk(cfg, p, perm, x, rope, c, start=start,
+    for pos, p, perm, c in zip(_positions(cfg), params["layers"], plan,
+                               state["layers"]):
+        x, c, kv = T.block_verify_chunk(cfg, pos, p, perm, x, rope, c, start=start,
                                         active=active, need_select=need_select,
                                         layout=layout)
         caches.append(c)
@@ -133,9 +146,10 @@ def verify_commit(cfg: ArchConfig, state, stash, *, accepted, active, plan=None,
     accepted lengths."""
     plan = plan if plan is not None else T.default_plan(cfg)
     start = state["length"]
-    caches = [T.block_verify_append(cfg, perm, c, kv, start=start,
+    caches = [T.block_verify_append(cfg, pos, perm, c, kv, start=start,
                                     accepted=accepted, active=active, layout=layout)
-              for perm, c, kv in zip(plan, state["layers"], stash)]
+              for pos, perm, c, kv in zip(_positions(cfg), plan, state["layers"],
+                                          stash)]
     new_len = torch.where(active, start + accepted, start).to(start.dtype)
     return {"length": new_len, "layers": caches}
 
@@ -163,8 +177,9 @@ def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
         cos, sin = _rope(cfg, torch.arange(length, length + 1, device=x.device))
     rope1 = (cos[:, None], sin[:, None])  # (1 or B, 1, half)
     caches = []
-    for p, perm, c in zip(params["layers"], plan, state["layers"]):
-        x, c = T.block_decode(cfg, p, perm, x, rope1, c, length=length,
+    for pos, p, perm, c in zip(_positions(cfg), params["layers"], plan,
+                               state["layers"]):
+        x, c = T.block_decode(cfg, pos, p, perm, x, rope1, c, length=length,
                               do_select=do_select, layout=layout,
                               active=active, need_select=need_select)
         caches.append(c)

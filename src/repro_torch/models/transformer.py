@@ -1,15 +1,26 @@
 """Decoder blocks (counterpart of ``repro/models/transformer.py``).
 
-Only the dense attention family is ported: every layer an attention mixer
-with a SwiGLU FFN. Parameters are plain dictionaries, one per layer, in
-the JAX package's layout (dense weights are (d_in, d_out)); the JAX
-package's stacked ``blocks/pos0`` leaves become a list (``repro_torch/models/convert.py``).
+The dense attention family is ported: every layer an attention mixer with
+a SwiGLU FFN, either all full-attention layers or gemma3's local:global
+period (``local_global_ratio`` sliding-window layers, then one global
+layer). Parameters are plain dictionaries, one per layer, in the JAX
+package's layout (dense weights are (d_in, d_out)); the JAX package's
+period-stacked ``blocks/pos{p}`` and remainder ``rem/rem{r}`` leaves become
+one flat list (``repro_torch/models/convert.py``). Layer i sits at period
+position ``i % period_len(cfg)`` (remainder layers continue the pattern),
+and every block function takes that position.
+
+A sliding-window layer (``attn_spec(cfg, pos).window > 0``) keeps a
+``{"full": FullCache}`` in every mode, as the reference does: its prefill
+is windowed flash attention, its chunks and decode steps attend the whole
+cache under a window mask. Global layers take H²EAL's paged and streaming
+caches.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, MIXER_ATTENTION
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core import cache as cachelib
 from repro_torch.core import hybrid_attention as hattn
 from repro_torch.core import layouts as layoutlib
@@ -41,18 +52,17 @@ def layer_layout(cfg: ArchConfig) -> tuple[int, int]:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families this port does not serve yet."""
-    dense_stack = (period_len(cfg) == 1 and not cfg.moe.enabled
-                   and not cfg.embed_frontend_stub and cfg.d_ff > 0
-                   and cfg.mixer_for_layer(0) == MIXER_ATTENTION)
+    dense_stack = (not cfg.mixer_pattern and not cfg.moe.enabled
+                   and not cfg.embed_frontend_stub and cfg.d_ff > 0)
     if not dense_stack:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks are ported; other "
-            f"mixers, MoE, window layers and frontends are ROADMAP Queue 1 "
+            f"{cfg.name}: only dense attention stacks (full or local:global) "
+            f"are ported; other mixers, MoE and frontends are ROADMAP Queue 1 "
             f"item 11")
 
 
 def attn_spec(cfg: ArchConfig, pos: int = 0) -> hattn.AttnSpec:
-    """AttnSpec for period position ``pos``."""
+    """AttnSpec for period position ``pos`` (layer i is at i % period)."""
     window = 0
     if cfg.attn_pattern == "local_global" and not cfg.layer_is_global_attn(pos):
         window = cfg.local_window
@@ -71,7 +81,7 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
     kw = dict(dtype=dtype, device=device)
     dense_ = lambda i, o: init_dense(generator, i, o, **kw)
     layers = []
-    for _ in range(cfg.num_layers):
+    for _ in range(cfg.num_layers):  # the same leaves at every position
         p = {
             "ln1": torch.zeros(d, **kw),
             "wq": dense_(d, cfg.num_heads * hd),
@@ -118,20 +128,25 @@ def _qkv(cfg: ArchConfig, p, h):
             v.reshape(*lead, cfg.num_kv_heads, hd))
 
 
-def block_prefill(cfg: ArchConfig, p, perm, x, rope, *, capacity: int,
+def _has_full_cache(spec: hattn.AttnSpec) -> bool:
+    """A window layer, or the full-attention baseline, keeps a FullCache."""
+    return not spec.h2.enabled or spec.window > 0
+
+
+def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
                   layout=layoutlib.DEFAULT):
     """One block over the prompt. x: (B, S, d) -> (x, the layer's cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    spec = attn_spec(cfg)
+    spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     b, s = q.shape[:2]
     o = hattn.prefill_attention(spec, q, k, v, perm)
-    if spec.h2.enabled:
+    if not _has_full_cache(spec):
         cache = layout.prefill(spec, k, v, s, capacity, perm)
-    else:  # full-attention baseline
+    else:  # full-attention baseline / sliding-window layer
         full = cachelib.make_full_cache(b, cfg.num_kv_heads, capacity,
                                         spec.head_dim, dtype=k.dtype,
                                         device=k.device)
@@ -142,11 +157,12 @@ def block_prefill(cfg: ArchConfig, p, perm, x, rope, *, capacity: int,
     return _ffn_apply(cfg, p, x), cache
 
 
-def empty_block_cache(cfg: ArchConfig, batch: int, capacity: int, *, dtype,
-                      device):
-    """One block's empty serve cache for ``batch`` slots."""
-    spec = attn_spec(cfg)
-    if spec.h2.enabled:
+def empty_block_cache(cfg: ArchConfig, pos: int, batch: int, capacity: int, *,
+                      dtype, device):
+    """The empty serve cache of ``batch`` slots of a block at period position
+    ``pos``."""
+    spec = attn_spec(cfg, pos)
+    if not _has_full_cache(spec):
         paged, stream = hattn.empty_decode_state(spec, batch, capacity,
                                                  dtype=dtype, device=device)
         return {"paged": paged, "stream": stream}
@@ -155,8 +171,8 @@ def empty_block_cache(cfg: ArchConfig, batch: int, capacity: int, *, dtype,
                                              device=device)}
 
 
-def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
-                        chunk_len, active, layout=layoutlib.DEFAULT):
+def block_prefill_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *,
+                        start, chunk_len, active, layout=layoutlib.DEFAULT):
     """One prompt chunk per slot through one block. x: (B, C, d); ``rope``
     is (cos, sin) at each slot's chunk positions (B, C, half); ``cache`` is
     the block's serve cache, grown in place; start/chunk_len/active: (B,)
@@ -164,7 +180,7 @@ def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
     chunk_len and inactive slots append nothing and give values the
     caller ignores."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    spec = attn_spec(cfg)
+    spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
@@ -173,13 +189,15 @@ def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
     if "full" not in cache:
         o, cache = layout.prefill_chunk(spec, cache, q, k, v, start, chunk_len,
                                         active, perm=perm)
-    else:  # full-attention baseline: append, then attend causally
+    else:  # full-attention baseline / window layer: append, attend causally
         full = cachelib.full_cache_append_chunk(cache["full"], k, v, start,
                                                 chunk_len, active)
-        pos_q = paging.chunk_positions(start, cch)
+        pos_q = paging.chunk_positions(start, cch)[:, None, :, None]
         key_pos = torch.arange(full.k.shape[2], device=x.device)
-        valid = (key_pos[None, None, None, :] <= pos_q[:, None, :, None]).expand(
-            b, full.k.shape[1], cch, full.k.shape[2])
+        valid = key_pos <= pos_q
+        if spec.window > 0:
+            valid = valid & (key_pos > pos_q - spec.window)
+        valid = valid.expand(b, full.k.shape[1], cch, full.k.shape[2])
         o = kops.chunk_attention(q.contiguous(), full.k, full.v,
                                  valid.contiguous())
         cache = {"full": full}
@@ -187,14 +205,14 @@ def block_prefill_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start,
     return _ffn_apply(cfg, p, x), cache
 
 
-def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length,
+def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
                  do_select: bool, layout=layoutlib.DEFAULT, active=None,
                  need_select=None):
     """Decode one token through one block. x: (B, d). ``length`` is an int
     (lockstep) or (B,) tensor (continuous batching, with the per-slot
     ``active`` and ``need_select`` masks of ``decode_attention``)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    spec = attn_spec(cfg)
+    spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos1, sin1 = rope1  # (1 or B, 1, half) at each slot's position
     q = apply_rope(q[:, None], cos1, sin1)[:, 0]
@@ -211,17 +229,18 @@ def block_decode(cfg: ArchConfig, p, perm, x, rope1, cache, *, length,
     return _ffn_apply(cfg, p, x), cache
 
 
-def block_verify_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start, active,
-                       need_select, layout=layoutlib.DEFAULT):
+def block_verify_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *, start,
+                       active, need_select, layout=layoutlib.DEFAULT):
     """k drafted tokens through one block as k decode steps in one chunk,
     the block's KV caches unchanged (``layouts.dispatch_verify_chunk``: the
     selection and importance refresh only). x: (B, k, d); ``rope`` is (cos,
     sin) at positions start .. start+k-1. Returns (x, cache, (k_roped, v)):
     the chunk's KV, kept for ``block_verify_append`` to commit once the
     accepted length is known. The engine serves speculation on dense
-    attention stacks only, so there is no other mixer here."""
+    full-attention stacks only (not ``local_global``, as the JAX engine),
+    so there is no other mixer or window layer here."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    spec = attn_spec(cfg)
+    spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
@@ -234,11 +253,11 @@ def block_verify_chunk(cfg: ArchConfig, p, perm, x, rope, cache, *, start, activ
     return _ffn_apply(cfg, p, x), cache, (k, v)
 
 
-def block_verify_append(cfg: ArchConfig, perm, cache, kv, *, start, accepted,
-                        active, layout=layoutlib.DEFAULT):
+def block_verify_append(cfg: ArchConfig, pos: int, perm, cache, kv, *, start,
+                        accepted, active, layout=layoutlib.DEFAULT):
     """Commit the accepted prefix of a verified chunk into one block's
     caches from the (k_roped, v) of ``block_verify_chunk``."""
     k, v = kv
-    return layoutlib.dispatch_verify_append(layout, attn_spec(cfg), cache, k, v,
+    return layoutlib.dispatch_verify_append(layout, attn_spec(cfg, pos), cache, k, v,
                                             start, accepted, active=active,
                                             perm=perm)

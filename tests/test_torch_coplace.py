@@ -258,21 +258,45 @@ with open(os.path.join(sys.argv[1], "ref.json"), "w") as f:
 """
 
 
+def _wants_ref4(session) -> bool:
+    """Whether a selected test of this module runs at S = 4."""
+    return any(item.module.__name__ == __name__
+               and getattr(item, "callspec", None) is not None
+               and item.callspec.params.get("shards") == 4 for item in session.items)
+
+
 @pytest.fixture(scope="module")
-def ref1():
+def ref4_run(tmp_path_factory):
+    """The S = 4 reference's subprocess, started once a module; ``ref4``
+    reads what it wrote."""
+    out = tmp_path_factory.mktemp("coplace_shmap_4dev")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]))
+    with open(out / "stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", SUBPROCESS.format(tests=TESTS),
+                                 str(out)], stdout=subprocess.DEVNULL, stderr=err,
+                                env=env, cwd=REPO)
+    yield proc, out
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def ref1(request):
+    # the two JAX sides share the module's time: the S = 4 subprocess runs
+    # while this process computes the S = 1 reference
+    if _wants_ref4(request.session):
+        request.getfixturevalue("ref4_run")
     assert len(jax.devices()) == 1
     return jax_reference()
 
 
 @pytest.fixture(scope="module")
-def ref4(tmp_path_factory):
-    out = tmp_path_factory.mktemp("coplace_shmap_4dev")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]))
-    run = subprocess.run([sys.executable, "-c", SUBPROCESS.format(tests=TESTS),
-                          str(out)], capture_output=True, text=True, timeout=600,
-                         env=env, cwd=REPO)
-    assert run.returncode == 0, run.stderr[-4000:]
+def ref4(ref4_run):
+    proc, out = ref4_run
+    proc.wait(timeout=600)
+    assert proc.returncode == 0, (out / "stderr.txt").read_text()[-4000:]
     with open(out / "ref.json") as f:
         meta = json.load(f)
     return dict(np.load(out / "ref.npz")), meta

@@ -274,7 +274,9 @@ def test_decode_refuses_a_cache_without_room_for_the_local_section():
 
 def test_gspmd_layouts_raise():
     """default and coplace_shmap are ported; the GSPMD placements, which
-    need more than one device, raise and name their ROADMAP item."""
+    need more than one device, raise and name their ROADMAP item. A
+    sliding-window layer (gemma3-1b's local layers) attends its window
+    in prefill, every head alike."""
     assert tlayouts.get_layout("default").name == "default"
     assert tlayouts.get_layout("coplace_shmap").name == "coplace_shmap"
     for name in ("head", "coplace", "interleave"):
@@ -283,7 +285,7 @@ def test_gspmd_layouts_raise():
     with pytest.raises(ValueError, match="unknown"):
         tlayouts.get_layout("nope")
     _, tspec = _specs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thattn.prefill_attention(dataclasses.replace(tspec, window=8),
-                                 torch.zeros(1, 4, 8, 16), torch.zeros(1, 4, 4, 16),
-                                 torch.zeros(1, 4, 4, 16))
+    rng = np.random.default_rng(0)
+    q, k, v = _t(_np(rng, 1, 12, 8, 16)), _t(_np(rng, 1, 12, 4, 16)), _t(_np(rng, 1, 12, 4, 16))
+    got = thattn.prefill_attention(dataclasses.replace(tspec, window=8), q, k, v)
+    _close(got, tref.flash_attention_ref(q, k, v, causal=True, window=8))
