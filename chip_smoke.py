@@ -91,7 +91,18 @@ then, each phase failing the run with a nonzero exit:
      made once, each captured engine's tokens equal to its eager run's);
      then ``decode_attention_pool`` at llama3-8b's and gemma3-1b's
      retrieval shapes, a full pool evicting as it decodes, its kernel path
-     on the card against the plain path.
+     on the card against the plain path;
+ 11. the MoE family (GQA group 16; phase 2 also holds every kernel at
+     qwen3-moe-235b's shapes, in bf16 and f32, beside SDPA): a reduced
+     qwen3-moe with a group of 16 card against CPU (f32 token for token,
+     bf16 within the band; dropless and at capacity factor 0.25, where
+     experts overflow); qwen3-moe-235b-a22b at full width (128 experts,
+     top-8, capacity factor 1.25) cut to 8 of its 94 layers through
+     lockstep ``generate`` (2 prompts of 8192 tokens) and the chunked engine
+     of phase 5 with fused windows, eager and captured (launch counts
+     exact, captures made once, captured tokens equal to eager); then
+     kimi-k2-1t-a32b at full width (384 experts and its shared expert) cut
+     to 1 of its 61 layers through lockstep ``generate``.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -171,6 +182,11 @@ SPEC_SAMPLING = dict(temperature=0.8, top_p=0.95, seed=1)
 # steps (from 8190 they cross the page boundaries at 8192 and 8224)
 G3_ARCH, G3_PROMPT = "gemma3-1b", 16384
 POOL_PAGES, POOL_CTX, POOL_STEPS = 160, 8190, 72
+# the MoE family (phases 2 and 11): qwen3-moe-235b at full width cut to
+# MOE_LAYERS of 94 layers (~42 GB of bf16 weights), kimi-k2-1t to
+# KIMI_LAYERS of 61 (~39 GB)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
+KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
 HOLD_CYCLES = 2_000_000  # the Timer's hold of the card, ~1.1 ms at 1.755 GHz
 
@@ -2053,7 +2069,7 @@ def page_load_imbalance(eng, page_size) -> float:
         ctx, n_shards=SHARDS, page_size=page_size))
 
 
-def serve_engine(dev, cfg, params, label=""):
+def serve_engine(dev, cfg, params, label="", modes=None):
     """The continuous-batching Engine at full width, run eagerly: chunked
     prefill, then prefill-then-pack on the same requests, then the chunked
     coplace_shmap engine over SHARDS stripes with balanced admission; then
@@ -2062,7 +2078,9 @@ def serve_engine(dev, cfg, params, label=""):
     (decode_window=4). Returns the launch counts of each run, and the
     tokens and tok/s of the captured default engine. Each captured
     engine's tokens must equal its eager run's (the same kernels on the same
-    inputs). ``label`` tags the log lines (another model than phase 5's)."""
+    inputs). ``label`` tags the log lines (another model than phase 5's);
+    ``modes`` runs those engines instead, among them ``chunked_windows``,
+    the chunked engine with fused windows run eagerly."""
     from repro_torch.serving.engine import Engine
 
     reqs, capacity = engine_workload(cfg)
@@ -2072,12 +2090,16 @@ def serve_engine(dev, cfg, params, label=""):
     out, launches, rates = {}, {}, {}
     coplace = dict(layout="coplace_shmap", shards=SHARDS, admission="balanced")
     graphs = dict(decode_window=ENGINE_WINDOW, eager=False)
+    modes = modes or ("chunked", "packed", "coplace", "chunked_graphs", "coplace_graphs")
     for mode, chunk, kw in (
             ("chunked", ENGINE_CHUNK, dict(eager=True)),
             ("packed", None, dict(eager=True)),
             ("coplace", ENGINE_CHUNK, dict(coplace, eager=True)),
+            ("chunked_windows", ENGINE_CHUNK, dict(graphs, eager=True)),
             ("chunked_graphs", ENGINE_CHUNK, graphs),
             ("coplace_graphs", ENGINE_CHUNK, dict(coplace, **graphs))):
+        if mode not in modes:
+            continue
         t0 = time.perf_counter()
         eng = Engine(cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
                      prompt_buckets=sorted(set(lens)), prefill_chunk=chunk, device=dev,
@@ -2130,7 +2152,11 @@ def serve_engine(dev, cfg, params, label=""):
                        ("chunked", "coplace", ""),
                        ("chunked_graphs", "chunked", " (same kernels, captured and fused "
                         "against eager and per-step)"),
+                       ("chunked_graphs", "chunked_windows", " (same kernels and fused "
+                        "windows, captured against eager)"),
                        ("coplace_graphs", "coplace", "")):
+        if a not in out or b not in out:
+            continue
         pairs = [(x, y) for u in out[a] for x, y in zip(out[a][u], out[b][u])]
         agree = sum(x == y for x, y in pairs) / len(pairs)
         log(f"engine{label}: token agreement {a} vs {b} {agree:.3f}{what}")
@@ -2601,6 +2627,101 @@ def check_pool_on_card(dev):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: GQA group 16 in phase 2, and phase 11
+# ---------------------------------------------------------------------------
+
+
+def moe_arch(name: str, layers: int):
+    """A registered MoE config at full width, cut to ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch(name), num_layers=layers)
+
+
+def check_group_16(ops, ref, timer, dev, dtype, gen):
+    """Phase 2 at qwen3-moe-235b's shapes (64 query heads over 4 kv heads,
+    a GQA group of 16; 2 retrieval and 2 streaming heads, head_dim 128):
+    flash over B=BATCH prompts of PROMPT (both head kinds); the select step
+    at the lockstep and engine shapes; the streaming ring's decode and the
+    retrieval pages read in place (with the gathered buffer, the
+    full-attention baseline and the draft selection beside them); the
+    chunk kernels at the engine's chunk phase; the co-placed decode and
+    the stripes' partials. Cases are tagged with the model and are not part
+    of the main totals."""
+    cfg = moe_arch(MOE_ARCH, MOE_LAYERS)
+    lock_cap = serve_capacity(cfg)
+    eng_cap = engine_workload(cfg)[1]
+    part, _ = check_partial(ops, ref, timer, dev, cfg, dtype, gen)
+    res = {
+        "flash_attention": check_flash(ops, ref, timer, dev, cfg, dtype, gen),
+        "page_score": [check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path)
+                       for path in ("lockstep", "engine")],
+        "paged_attention": check_paged(ops, ref, timer, dev, cfg, dtype, gen, lock_cap),
+        "chunk_attention": check_chunk(ops, ref, timer, dev, cfg, dtype, gen),
+        "chunk_attention_paged": check_chunk_paged(ops, ref, timer, dev, cfg, dtype, gen,
+                                                   eng_cap),
+        "paged_attention_partial": part,
+    }
+    for cases in res.values():
+        for c in cases:
+            c.update(case=f"{cfg.name} {c['case']}", main=False, arch=cfg.name)
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_reduced_moe_against_cpu(dev):
+    """Phase 11a: qwen3-moe reduced with 32 query heads over 2 kv heads (GQA
+    group 16; 4 experts, top-2), card against CPU: f32 generate at head_dim
+    32, dropless and at capacity factor 0.25 (experts overflow in the
+    prefill), token for token; bf16 generate at head_dim 128 (the group-16
+    D = 128 kernels), dropless and at 0.25, within the bf16 band."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+
+    def factor(cfg, f):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=f))
+
+    base = reduced(get_arch(MOE_ARCH), num_heads=32, num_kv_heads=2)
+    for f in (0.0, 0.25):
+        check_reduced_against_cpu(dev, factor(base, f), prompt_len=45)
+        bf16_generate_against_cpu(dev, factor(dataclasses.replace(base, head_dim=128), f))
+
+
+def serve_moe(dev):
+    """Phase 11b: qwen3-moe-235b-a22b at full width (all 128 experts, top-8,
+    capacity factor 1.25) cut to MOE_LAYERS of its 94 layers, bf16, seeded
+    random weights: lockstep ``generate`` (sparse, then full attention), then
+    the chunked engine of phase 5 with fused windows (decode_window=4),
+    eager and captured, launch counts exact, captured tokens equal to
+    eager (a capacity-bound MoE routes the rows of the slots that are not
+    prefilling, which a fused window computes otherwise than the per-step
+    mixed step: the reference's fused engine departs from its per-step one
+    there, and the port mirrors both, tests/test_torch_moe.py);
+    then kimi-k2-1t-a32b at full width (384 experts and its shared expert)
+    cut to KIMI_LAYERS of 61 through lockstep ``generate``. Returns the
+    launch counts of each path."""
+    cfg = moe_arch(MOE_ARCH, MOE_LAYERS)
+    log(f"{cfg.name}: full width, {cfg.num_layers} of 94 layers (seeded random weights)")
+    params = full_params(dev, cfg)
+    by_path = {"moe_generate": serve_full(dev, cfg, params)}
+    launches, _, _ = serve_engine(dev, cfg, params, label=f" {cfg.name}",
+                                  modes=("chunked_windows", "chunked_graphs"))
+    by_path.update({f"moe_engine_{k}": v for k, v in launches.items()})
+    del params
+    torch.cuda.empty_cache()
+    kimi = moe_arch(KIMI_ARCH, KIMI_LAYERS)
+    log(f"{kimi.name}: full width, {kimi.num_layers} of 61 layers (seeded random weights)")
+    params = full_params(dev, kimi)
+    by_path["kimi_generate"] = serve_full(dev, kimi, params)
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         tree = list(tree.values())
@@ -2673,6 +2794,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, cases in check_head_dim_256(ops, ref, timer, dev, dtype, gen).items():
             results[name] += cases
+        for name, cases in check_group_16(ops, ref, timer, dev, dtype, gen).items():
+            results[name] += cases
     results["page_score"].append(check_page_select(ops, ref, timer, dev, cfg,
                                                    torch.bfloat16, gen, "verify"))
     check_sampler(timer, dev, cfg)
@@ -2717,10 +2840,15 @@ def main() -> int:
     by_path.update(serve_gemma3(dev))
     by_path["pool"] = check_pool_on_card(dev)
     log(f"phase 10 (gemma3-1b, the eviction pool) {time.perf_counter() - t10:.1f}s")
+    t11 = time.perf_counter()
+    check_reduced_moe_against_cpu(dev)
+    by_path.update(serve_moe(dev))
+    log(f"phase 11 (the MoE family) {time.perf_counter() - t11:.1f}s")
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
-    # windows, for llama3-8b and gemma3-1b, and the eviction pool; every
-    # kernel of a path must have run in it
+    # windows, for llama3-8b and gemma3-1b, and the eviction pool; the MoE
+    # family's generate and chunked engines; every kernel of a path must
+    # have run in it
     engine = ("page_score", "paged_attention", "chunk_attention", "chunk_attention_paged")
     coplaced = engine + ("paged_attention_partial",)
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
@@ -2736,7 +2864,11 @@ def main() -> int:
                   "gemma3_engine_chunked": engine, "gemma3_engine_coplace": coplaced,
                   "gemma3_engine_chunked_graphs": engine,
                   "gemma3_engine_coplace_graphs": coplaced,
-                  "pool": ("page_score", "paged_attention")}
+                  "pool": ("page_score", "paged_attention"),
+                  "moe_generate": ("flash_attention", "page_score", "paged_attention"),
+                  "moe_engine_chunked_windows": engine,
+                  "moe_engine_chunked_graphs": engine,
+                  "kimi_generate": ("flash_attention", "page_score", "paged_attention")}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

@@ -15,5 +15,7 @@ from repro_torch.configs import gemma3_1b  # noqa: F401
 from repro_torch.configs import internlm2_20b  # noqa: F401
 from repro_torch.configs import qwen2_72b  # noqa: F401
 from repro_torch.configs import smollm_360m  # noqa: F401
+from repro_torch.configs import qwen3_moe_235b  # noqa: F401
+from repro_torch.configs import kimi_k2_1t  # noqa: F401
 # the paper's own evaluation models
 from repro_torch.configs import paper_models  # noqa: F401

@@ -54,6 +54,11 @@ class AttnSpec:
     head_dim: int
     h2: H2ealConfig
     window: int = 0  # >0: plain sliding-window layer (gemma3's local layers)
+    # a chunk step computes the rows of the slots that take no chunk as the
+    # reference does (their cache walked, their ring keys valid), where they
+    # feed a mixture of experts whose capacity counts them; otherwise the
+    # kernels skip those rows, whose values nothing reads
+    idle_rows: bool = False
 
     @property
     def group(self) -> int:
@@ -213,8 +218,10 @@ def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
     selection state is left as it is. Rows past chunk_len and inactive
     slots append nothing; their outputs are finite values the caller
     ignores (an inactive slot attends only its own chunk, so the kernels
-    skip its cache). Chunked and single-shot prefill sum in different
-    orders, so they agree to float tolerance. ``phys_shards`` > 1 appends
+    skip its cache), unless ``spec.idle_rows``: then they are the
+    reference's values, which a capacity-bound MoE layer routes. Chunked
+    and single-shot prefill sum in different orders, so they agree to
+    float tolerance. ``phys_shards`` > 1 appends
     in the ``coplace_shmap`` striped page order; the attention is the same,
     its validity coming from the page starts.
     """
@@ -230,11 +237,12 @@ def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
     outs = []
     if nr > 0:
         k_r, v_r = kp[:, :, :nr].contiguous(), vp[:, :, :nr].contiguous()
-        # a slot that takes no chunk attends no cached key: its rows are
-        # ignored, and the kernel then skips its whole cache walk
+        # a slot that takes no chunk attends no cached key (unless its rows
+        # are routed): the kernel then skips its whole cache walk
+        attended = start if spec.idle_rows else torch.where(active, start, 0)
         outs.append(kops.chunk_attention_paged(
             qp[:, :, : nr * g].contiguous(), paged.k_pages, paged.v_pages,
-            paged.page_start, torch.where(active, start, 0), k_r, v_r))
+            paged.page_start, attended, k_r, v_r))
         paged = cachelib.paged_cache_append_chunk(paged, k_r, v_r, start,
                                                   chunk_len, active=active,
                                                   phys_shards=phys_shards)
@@ -248,7 +256,8 @@ def chunk_prefill_attention(spec: AttnSpec, q, k_new, v_new,
                          dim=2)
         valid_s = paging.chunk_stream_validity(kpos, pos_q, sink=h2.sink,
                                                local=h2.local)
-        valid_s &= active[:, None, None, None]  # ignored rows: no key tile runs
+        if not spec.idle_rows:
+            valid_s &= active[:, None, None, None]  # ignored rows: no key tile runs
         outs.append(kops.chunk_attention(qp[:, :, nr * g:].contiguous(), kr, vr,
                                          valid_s))
         stream = cachelib.stream_cache_append_chunk(

@@ -23,8 +23,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 # sources compiled in parts, one nvcc a part with -DH2EAL_PART=i, all at
 # once: each part holds a share of the source's template instantiations
-# (paged_attention.cu: one dtype and split kind each)
-PARTS = {"paged_attention.cu": 4}
+# (paged_attention.cu: one dtype and split kind each, for the groups up to
+# 8 and for the group of 16)
+PARTS = {"paged_attention.cu": 8}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: (argument types); each returns a cudaError_t as int

@@ -10,8 +10,9 @@
 // empty page holds τ = ±inf and scores NaN, as the reference's does. One
 // block of 8 warps per (tile of 32 pages, kv head, batch); every lane keeps
 // its D/32 coordinates of the group's query rows, split into positive and
-// negative parts, in registers; a warp scores a page with one load of each
-// τ row and a shuffle sum.
+// negative parts, in registers (room for 8 rows, or 16 above a group of 8:
+// qwen3-moe's, 128 floats a lane at D = 128); a warp scores a page with one
+// load of each τ row and a shuffle sum.
 //
 // Select mode (h2eal_page_select): what core/paging's score_pages ->
 // select_pages -> accumulate_importance and the share-window keep compute
@@ -76,7 +77,7 @@ constexpr int NW = 8;
 constexpr int THREADS = NW * 32;
 constexpr int PAGES_PER_WARP = 4;
 constexpr int BC = NW * PAGES_PER_WARP;
-constexpr int MAXG = 8;
+constexpr int MAXG = 16;  // qwen3-moe's group; a lane holds GR = 8 or 16 rows
 constexpr int MAX_PAGES = 16384;
 constexpr int MAX_K = 1024;
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
@@ -84,11 +85,11 @@ constexpr float kNegInfHalf = -5e29f;
 
 // the lane's D/32 coordinates of the group's g query rows, split into
 // positive and negative parts
-template <typename T, int DL>
-__device__ __forceinline__ void load_q(const T* qb, int g, int lane, float (&qp)[MAXG][DL],
-                                       float (&qn)[MAXG][DL]) {
+template <typename T, int DL, int GR>
+__device__ __forceinline__ void load_q(const T* qb, int g, int lane, float (&qp)[GR][DL],
+                                       float (&qn)[GR][DL]) {
 #pragma unroll
-  for (int r = 0; r < MAXG; ++r)
+  for (int r = 0; r < GR; ++r)
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
       const float x = r < g ? to_f32(qb[(long)r * 32 * DL + lane * DL + e]) : 0.f;
@@ -99,13 +100,13 @@ __device__ __forceinline__ void load_q(const T* qb, int g, int lane, float (&qp)
 
 // one lane's share of a page's score; warp_sum of it is the score. Both
 // modes use it, so they score a page alike
-template <int DL>
-__device__ __forceinline__ float lane_dot(const float (&qp)[MAXG][DL], const float (&qn)[MAXG][DL],
+template <int DL, int GR>
+__device__ __forceinline__ float lane_dot(const float (&qp)[GR][DL], const float (&qn)[GR][DL],
                                           const float (&tmin)[DL], const float (&tmax)[DL],
                                           int g) {
   float part = 0.f;
 #pragma unroll
-  for (int r = 0; r < MAXG; ++r) {
+  for (int r = 0; r < GR; ++r) {
     if (r >= g) break;
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
@@ -116,7 +117,7 @@ __device__ __forceinline__ float lane_dot(const float (&qp)[MAXG][DL], const flo
   return part;
 }
 
-template <typename T, int D>
+template <typename T, int D, int GR>
 __global__ void __launch_bounds__(THREADS) score_kernel(
     const T* __restrict__ q, const float* __restrict__ tau_min,
     const float* __restrict__ tau_max, float* __restrict__ out, int hkv, int c, int g) {
@@ -127,8 +128,8 @@ __global__ void __launch_bounds__(THREADS) score_kernel(
   const int lane = threadIdx.x & 31;
   const long bh = (long)b * hkv + hk;
 
-  float qp[MAXG][DL], qn[MAXG][DL];
-  load_q<T, DL>(q + bh * g * D, g, lane, qp, qn);
+  float qp[GR][DL], qn[GR][DL];
+  load_q<T, DL, GR>(q + bh * g * D, g, lane, qp, qn);
 
 #pragma unroll
   for (int i = 0; i < PAGES_PER_WARP; ++i) {
@@ -142,7 +143,7 @@ __global__ void __launch_bounds__(THREADS) score_kernel(
       tmin[e] = tn[e];
       tmax[e] = tx[e];
     }
-    const float s = warp_sum(lane_dot<DL>(qp, qn, tmin, tmax, g));
+    const float s = warp_sum(lane_dot<DL, GR>(qp, qn, tmin, tmax, g));
     if (lane == 0) out[bh * c + p] = s;
   }
 }
@@ -314,7 +315,7 @@ __device__ void select_row(const SelectArgs& a, const unsigned* keys,
 
 // grid (n, Hkv, B), clusters of (n, 1, 1): block r of a cluster scores the
 // pages [r·C/n, (r+1)·C/n) of row (b, hk); block 0 selects
-template <typename T, int D>
+template <typename T, int D, int GR>
 __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
   constexpr int DL = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -349,8 +350,8 @@ __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
   int ps = wb + lane < we ? ps_row[wb + lane] : -1;
   const float imp_first = beg + tid < end ? imp_prev[beg + tid] : 0.f;
   const int ctx = a.ctx ? a.ctx[b] : a.ctx_all;
-  float qp[MAXG][DL], qn[MAXG][DL];
-  load_q<T, DL>(static_cast<const T*>(a.q) + row * a.g * D, a.g, lane, qp, qn);
+  float qp[GR][DL], qn[GR][DL];
+  load_q<T, DL, GR>(static_cast<const T*>(a.q) + row * a.g * D, a.g, lane, qp, qn);
   const int first_local = max(ctx - a.local, 0) / a.page;
   for (int p0 = wb; p0 < we; p0 += 32) {
     const int p = p0 + lane;
@@ -375,7 +376,7 @@ __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
 #pragma unroll
       for (int j = 0; j < PAGES_PER_WARP; ++j) {
         if (pg[j] < 0) break;
-        const float s = warp_sum(lane_dot<DL>(qp, qn, tmin[j], tmax[j], a.g));
+        const float s = warp_sum(lane_dot<DL, GR>(qp, qn, tmin[j], tmax[j], a.g));
         if (lane == 0) keys[pg[j]] = __float_as_uint(s);
       }
     }
@@ -396,23 +397,23 @@ __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
   select_row(a, keys, win, a.sel + row * a.top_k);
 }
 
-template <typename T, int D>
+template <typename T, int D, int GR>
 cudaError_t launch_score(const void* q, const void* tau_min, const void* tau_max, void* out,
                          int b, int hkv, int c, int g, cudaStream_t stream) {
   const dim3 grid((c + BC - 1) / BC, hkv, b);
-  score_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  score_kernel<T, D, GR><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const float*>(tau_min),
       static_cast<const float*>(tau_max), static_cast<float*>(out), hkv, c, g);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int GR>
 cudaError_t launch_select(const SelectArgs& a, int b, int blocks, cudaStream_t stream) {
   const size_t smem = (((size_t)a.c * 4 + 15) & ~(size_t)15) +
                       (size_t)(a.top_k < a.c ? a.top_k : a.c) * 8;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        select_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        select_kernel<T, D, GR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -427,18 +428,39 @@ cudaError_t launch_select(const SelectArgs& a, int b, int blocks, cudaStream_t s
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, select_kernel<T, D>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, select_kernel<T, D, GR>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the lane's rows of q: 8 up to a group of 8; 16 above (at D = 128 the
+// group's q takes 128 registers a lane, the serving instantiation's)
+template <typename T, int GR>
+cudaError_t dispatch_score_g(int d, const void* q, const void* tau_min, const void* tau_max,
+                             void* out, int b, int hkv, int c, int g, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_score<T, 32, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    case 64: return launch_score<T, 64, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    case 128: return launch_score<T, 128, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    case 256: return launch_score<T, 256, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t dispatch_score(int d, const void* q, const void* tau_min, const void* tau_max,
                            void* out, int b, int hkv, int c, int g, cudaStream_t stream) {
+  return g <= 8 ? dispatch_score_g<T, 8>(d, q, tau_min, tau_max, out, b, hkv, c, g, stream)
+                : dispatch_score_g<T, 16>(d, q, tau_min, tau_max, out, b, hkv, c, g, stream);
+}
+
+template <typename T, int GR>
+cudaError_t dispatch_select_g(int d, const SelectArgs& a, int b, int blocks,
+                              cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_score<T, 32>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
-    case 64: return launch_score<T, 64>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
-    case 128: return launch_score<T, 128>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
-    case 256: return launch_score<T, 256>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    case 32: return launch_select<T, 32, GR>(a, b, blocks, stream);
+    case 64: return launch_select<T, 64, GR>(a, b, blocks, stream);
+    case 128: return launch_select<T, 128, GR>(a, b, blocks, stream);
+    case 256: return launch_select<T, 256, GR>(a, b, blocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -446,13 +468,8 @@ cudaError_t dispatch_score(int d, const void* q, const void* tau_min, const void
 template <typename T>
 cudaError_t dispatch_select(int d, const SelectArgs& a, int b, int blocks,
                             cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch_select<T, 32>(a, b, blocks, stream);
-    case 64: return launch_select<T, 64>(a, b, blocks, stream);
-    case 128: return launch_select<T, 128>(a, b, blocks, stream);
-    case 256: return launch_select<T, 256>(a, b, blocks, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  return a.g <= 8 ? dispatch_select_g<T, 8>(d, a, b, blocks, stream)
+                  : dispatch_select_g<T, 16>(d, a, b, blocks, stream);
 }
 
 }  // namespace

@@ -83,6 +83,10 @@
 //     key; the softmax step is one warp max a row; p goes through the warp's
 //     own shared-memory row to the lanes that own the value columns, which
 //     accumulate p·v from 16-byte V loads. Rows not loaded read as 0.
+// A group above 8 rows (qwen3-moe's 16) is split over two warps that
+// consume the same units, each holding 8 rows' q and accumulators, so that
+// a lane's registers stay those of a group of 8: the NW warps then form NW/2
+// unit streams, and a stage is free once both warps of its stream release it.
 // The warps' states merge once, through shared memory, at the end. With
 // n = 1 the block divides and writes the output; in the partials mode it
 // writes its raw (m, l, o) and ends; otherwise it writes them to scratch
@@ -120,7 +124,8 @@ using sm90::smem_u32;
 
 constexpr int RK = 32;             // tokens per unit
 constexpr int PF = 8;              // units whose validity and slots the producer reads at once
-constexpr int MAXG = 8;            // largest GQA group
+constexpr int MAXG = 16;           // largest GQA group (qwen3-moe's)
+constexpr int WARP_ROWS = 8;       // the most query rows one consumer warp holds
 constexpr int RING_BYTES = 128 * 1024;
 
 // how the key axis is split: contiguous unit ranges, merged (paged_attention);
@@ -174,6 +179,10 @@ struct Vec<__nv_bfloat16> {
 
 template <typename T, int D, int G>
 struct Cfg {
+  // a warp holds GH rows of the group; above WARP_ROWS the group is split
+  // over RW warps that read the same units (each stage is freed by all RW)
+  static constexpr int GH = G < WARP_ROWS ? G : WARP_ROWS;
+  static constexpr int RW = G / GH;
   static constexpr int VN = 8;              // columns a lane owns of a row
   static constexpr int LPK = D / VN;        // lanes of one key row
   static constexpr int KPI = 32 / LPK;      // keys of one warp load
@@ -183,19 +192,22 @@ struct Cfg {
   // where a unit's K and V take 64 KB (f32 at D = 256)
   static constexpr int NW = 2 * UNIT > RING_BYTES / 4 ? 2 : 4;
   static constexpr int NT = 32 * (NW + 1);  // and one producer warp
+  static constexpr int NWS = NW / RW;       // unit streams: warps that split a group share one
   static constexpr int SPW = clampi(RING_BYTES / (NW * 2 * UNIT), 1, 4);  // stages a warp
   static constexpr int STAGES = NW * SPW;
   // query rows of one q·k pass: the partial logits s[RB][LPK] stay in registers
-  static constexpr int RB = clampi((G >= 8 ? 32 : 64) / LPK, 1, G);
+  static constexpr int RB = clampi((GH >= 8 ? 32 : 64) / LPK, 1, GH);
   // shared memory: ring | full, empty | stage info | p rows | warp states
+  // (each warp's GH rows)
   static constexpr int BARS = STAGES * 2 * UNIT;
   static constexpr int INFO = BARS + 16 * STAGES;
-  static constexpr int PS = INFO + 16 * STAGES;   // f32 [NW][G][32]
-  static constexpr int WM = PS + 4 * NW * G * 32;  // f32 [NW][G]
-  static constexpr int WL = WM + 4 * NW * G;       // f32 [NW][G]
-  static constexpr int WA = WL + 4 * NW * G;       // f32 [NW][G][D]
-  static constexpr int bytes = WA + 4 * NW * G * D;
+  static constexpr int PS = INFO + 16 * STAGES;    // f32 [NW][GH][32]
+  static constexpr int WM = PS + 4 * NW * GH * 32;  // f32 [NW][GH]
+  static constexpr int WL = WM + 4 * NW * GH;       // f32 [NW][GH]
+  static constexpr int WA = WL + 4 * NW * GH;       // f32 [NW][GH][D]
+  static constexpr int bytes = WA + 4 * NW * GH * D;
   static_assert(LPK >= 4 && LPK <= 32 && STAGES % NW == 0, "unit layout");
+  static_assert(G % GH == 0 && NW % RW == 0, "group split");
 };
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -245,7 +257,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
     int n_split, int mode, float scale) {
   using C = Cfg<T, D, G>;
   constexpr int VN = C::VN, LPK = C::LPK, KPI = C::KPI, STAGES = C::STAGES;
-  constexpr int NW = C::NW, NT = C::NT;
+  constexpr int NW = C::NW, NT = C::NT, GH = C::GH, RW = C::RW, NWS = C::NWS;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BARS);
   uint64_t* empty = full + STAGES;
@@ -261,7 +273,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);
+      mbar_init(&empty[s], RW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -385,7 +397,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
         unit8[i] = unit_next[i];
       }
     }
-    for (int w = 0; w < NW; ++w, ++item) {  // one end marker a consumer
+    for (int w = 0; w < NWS; ++w, ++item) {  // one end marker a unit stream
       const int st = item % STAGES;
       if (lane == 0) {
         mbar_wait(&empty[st], ((item / STAGES) & 1) ^ 1);
@@ -394,20 +406,22 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
       }
     }
   } else {
-    // ---- consumers: warp `warp` owns stages warp, warp + NW, ... ----
+    // ---- consumers: unit stream ws = warp / RW owns stages ws, ws + NWS,
+    // ...; its RW warps hold the group's rows [h·GH, (h+1)·GH) each ----
+    const int ws = warp / RW, r_lo = (warp % RW) * GH;
     const int dg = lane % LPK, ko = lane / LPK;
     const int kj = dg * KPI + ko;  // the key whose logit this lane holds after the reduce
-    float qr[G][VN], acc[G][VN], m[G], ls[G];
+    float qr[GH][VN], acc[GH][VN], m[GH], ls[GH];
 #pragma unroll
-    for (int r = 0; r < G; ++r) {
-      Vec<T>::template load<D>(q + (bh * g + r) * D, dg, qr[r], r < g);
+    for (int r = 0; r < GH; ++r) {
+      Vec<T>::template load<D>(q + (bh * g + r_lo + r) * D, dg, qr[r], r_lo + r < g);
       m[r] = kNegInf;
       ls[r] = 0.f;
 #pragma unroll
       for (int e = 0; e < VN; ++e) acc[r][e] = 0.f;
     }
-    float* ps = reinterpret_cast<float*>(smem + C::PS) + warp * G * 32;
-    for (int it = warp;; it += NW) {
+    float* ps = reinterpret_cast<float*>(smem + C::PS) + warp * GH * 32;
+    for (int it = ws;; it += NWS) {
       const int st = it % STAGES;
       mbar_wait(&full[st], (it / STAGES) & 1);
       const int4 inf = info[st];
@@ -417,9 +431,9 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
       const T* vs = ks + RK * D;
 
       // logits: lane (dg, ko) forms partials of keys i·KPI + ko over its columns
-      float sv[G];
+      float sv[GH];
 #pragma unroll
-      for (int r0 = 0; r0 < G; r0 += C::RB) {
+      for (int r0 = 0; r0 < GH; r0 += C::RB) {
         float s[C::RB][LPK];
 #pragma unroll
         for (int i = 0; i < LPK; ++i) {
@@ -440,7 +454,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
       // online softmax: one key a lane, one warp max a row
       const bool ok = (okm >> kj) & 1u;
 #pragma unroll
-      for (int r = 0; r < G; ++r) {
+      for (int r = 0; r < GH; ++r) {
         const float sr = ok ? sv[r] * scale : kNegInf;
         const float m_new = fmaxf(m[r], warp_max(sr));
         const float corr = expf(m[r] - m_new);
@@ -462,7 +476,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
           Vec<T>::template load<D>(vs + j * D, dg, vx[ii], (ldm >> j) & 1u);
         }
 #pragma unroll
-        for (int r = 0; r < G; ++r) {
+        for (int r = 0; r < GH; ++r) {
           const float4 p4 = *reinterpret_cast<const float4*>(ps + r * 32 + ko * LPK + i);
           const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
@@ -480,27 +494,28 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
     float* wl = reinterpret_cast<float*>(smem + C::WL);
     float* wa = reinterpret_cast<float*>(smem + C::WA);
 #pragma unroll
-    for (int r = 0; r < G; ++r) {
+    for (int r = 0; r < GH; ++r) {
       const float l = warp_sum(ls[r]);
 #pragma unroll
       for (int x = LPK; x < 32; x *= 2)
 #pragma unroll
         for (int e = 0; e < VN; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], x);
       if (lane == 0) {
-        wm[warp * G + r] = m[r];
-        wl[warp * G + r] = l;
+        wm[warp * GH + r] = m[r];
+        wl[warp * GH + r] = l;
       }
       if (ko == 0) {
 #pragma unroll
         for (int e = 0; e < VN; e += 4)
-          *reinterpret_cast<float4*>(wa + (warp * G + r) * D + Vec<T>::template col<D>(dg, e)) =
+          *reinterpret_cast<float4*>(wa + (warp * GH + r) * D + Vec<T>::template col<D>(dg, e)) =
               make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
       }
     }
   }
   __syncthreads();
 
-  // the block's state: the warps' merged in warp order
+  // the block's state: the warps' merged in warp order (of a row, the
+  // warps that hold it)
   const float* wm = reinterpret_cast<const float*>(smem + C::WM);
   const float* wl = reinterpret_cast<const float*>(smem + C::WL);
   const float* wa = reinterpret_cast<const float*>(smem + C::WA);
@@ -514,15 +529,18 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
   const bool divide = n_split == 1 && !partials;
   for (int idx = tid; idx < g * D; idx += NT) {
     const int r = idx / D, d = idx % D;
+    const int h = r / GH, rr = r % GH;
     float mg = kNegInf;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mg = fmaxf(mg, wm[w * G + r]);
+    for (int w = 0; w < NW; ++w)
+      if (w % RW == h) mg = fmaxf(mg, wm[w * GH + rr]);
     float lg = 0.f, og = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float cw = expf(wm[w * G + r] - mg);
-      lg = fmaf(wl[w * G + r], cw, lg);
-      og = fmaf(wa[(w * G + r) * D + d], cw, og);
+      if (w % RW != h) continue;
+      const float cw = expf(wm[w * GH + rr] - mg);
+      lg = fmaf(wl[w * GH + rr], cw, lg);
+      og = fmaf(wa[(w * GH + rr) * D + d], cw, og);
     }
     if (divide) {
       store(&ob[idx], og / fmaxf(lg, 1e-30f));
@@ -624,15 +642,20 @@ struct PagedArgs {
 };
 
 // The instantiations of one dtype and one split kind (over unit ranges, or
-// over page stripes), for every head_dim and group: each is one part of the
-// build (kernels/_build.py PARTS compiles this file once a part, with
-// -DH2EAL_PART=0..3, all at once; one nvcc took 120 s for the 64 kernels on
-// the H100 host, the other sources at most 12 s). Compiled without
-// H2EAL_PART, the file holds all four.
+// over page stripes), for every head_dim, and the groups up to 8 (parts
+// 0-3) or the group of 16 (parts 4-7): each is one part of the build
+// (kernels/_build.py PARTS compiles this file once a part, with
+// -DH2EAL_PART=0..7, all at once; one nvcc took 120 s for the 64 kernels of
+// groups up to 8 on the H100 host, the other sources at most 12 s).
+// Compiled without H2EAL_PART, the file holds all eight.
 cudaError_t paged_f32_range(const PagedArgs& a, int d);
 cudaError_t paged_f32_stripes(const PagedArgs& a, int d);
 cudaError_t paged_bf16_range(const PagedArgs& a, int d);
 cudaError_t paged_bf16_stripes(const PagedArgs& a, int d);
+cudaError_t paged_f32_range_g16(const PagedArgs& a, int d);
+cudaError_t paged_f32_stripes_g16(const PagedArgs& a, int d);
+cudaError_t paged_bf16_range_g16(const PagedArgs& a, int d);
+cudaError_t paged_bf16_stripes_g16(const PagedArgs& a, int d);
 
 namespace {
 
@@ -658,21 +681,26 @@ cudaError_t launch(const PagedArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool STRIPES>
+// G16: the group of 16 (above 8), else the groups up to 8
+template <typename T, int D, bool STRIPES, bool G16>
 cudaError_t dispatch_g(const PagedArgs& a) {
-  if (a.g <= 1) return launch<T, D, 1, STRIPES>(a);
-  if (a.g <= 2) return launch<T, D, 2, STRIPES>(a);
-  if (a.g <= 4) return launch<T, D, 4, STRIPES>(a);
-  return launch<T, D, 8, STRIPES>(a);
+  if constexpr (G16) {
+    return launch<T, D, 16, STRIPES>(a);
+  } else {
+    if (a.g <= 1) return launch<T, D, 1, STRIPES>(a);
+    if (a.g <= 2) return launch<T, D, 2, STRIPES>(a);
+    if (a.g <= 4) return launch<T, D, 4, STRIPES>(a);
+    return launch<T, D, 8, STRIPES>(a);
+  }
 }
 
-template <typename T, bool STRIPES>
+template <typename T, bool STRIPES, bool G16 = false>
 cudaError_t dispatch_d(int d, const PagedArgs& a) {
   switch (d) {
-    case 32: return dispatch_g<T, 32, STRIPES>(a);
-    case 64: return dispatch_g<T, 64, STRIPES>(a);
-    case 128: return dispatch_g<T, 128, STRIPES>(a);
-    case 256: return dispatch_g<T, 256, STRIPES>(a);
+    case 32: return dispatch_g<T, 32, STRIPES, G16>(a);
+    case 64: return dispatch_g<T, 64, STRIPES, G16>(a);
+    case 128: return dispatch_g<T, 128, STRIPES, G16>(a);
+    case 256: return dispatch_g<T, 256, STRIPES, G16>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -696,6 +724,26 @@ cudaError_t paged_bf16_range(const PagedArgs& a, int d) {
 #if H2EAL_PART < 0 || H2EAL_PART == 3
 cudaError_t paged_bf16_stripes(const PagedArgs& a, int d) {
   return dispatch_d<__nv_bfloat16, true>(d, a);
+}
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 4
+cudaError_t paged_f32_range_g16(const PagedArgs& a, int d) {
+  return dispatch_d<float, false, true>(d, a);
+}
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 5
+cudaError_t paged_f32_stripes_g16(const PagedArgs& a, int d) {
+  return dispatch_d<float, true, true>(d, a);
+}
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 6
+cudaError_t paged_bf16_range_g16(const PagedArgs& a, int d) {
+  return dispatch_d<__nv_bfloat16, false, true>(d, a);
+}
+#endif
+#if H2EAL_PART < 0 || H2EAL_PART == 7
+cudaError_t paged_bf16_stripes_g16(const PagedArgs& a, int d) {
+  return dispatch_d<__nv_bfloat16, true, true>(d, a);
 }
 #endif
 
@@ -731,6 +779,12 @@ extern "C" int h2eal_paged_attention(const void* q, const void* k, const void* v
                     b, hkv, g, t_len, page, c, static_cast<long>(kv_stride), n_split, mode,
                     scale, static_cast<cudaStream_t>(stream)};
   const bool stripes = mode != kRange;
+  if (g > 8) {
+    if (dtype == kF32) return stripes ? paged_f32_stripes_g16(a, d) : paged_f32_range_g16(a, d);
+    if (dtype == kBF16)
+      return stripes ? paged_bf16_stripes_g16(a, d) : paged_bf16_range_g16(a, d);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == kF32) return stripes ? paged_f32_stripes(a, d) : paged_f32_range(a, d);
   if (dtype == kBF16) return stripes ? paged_bf16_stripes(a, d) : paged_bf16_range(a, d);
   return cudaErrorInvalidValue;

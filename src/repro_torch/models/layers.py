@@ -49,10 +49,11 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, dtype, device):
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, dtype, device,
+               scale: float | None = None):
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * (1.0 / d_in ** 0.5)).to(dtype)
+    return (w * (scale if scale is not None else 1.0 / d_in ** 0.5)).to(dtype)
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, *, dtype, device):

@@ -1,10 +1,11 @@
 """Decoder blocks (counterpart of ``repro/models/transformer.py``).
 
-The dense attention family is ported: every layer an attention mixer with
-a SwiGLU FFN, either all full-attention layers or gemma3's local:global
-period (``local_global_ratio`` sliding-window layers, then one global
-layer). Parameters are plain dictionaries, one per layer, in the JAX
-package's layout (dense weights are (d_in, d_out)); the JAX package's
+The attention families are ported: every layer an attention mixer with
+a SwiGLU FFN or a mixture of experts (``models/moe.py``), either all
+full-attention layers or gemma3's local:global period
+(``local_global_ratio`` sliding-window layers, then one global layer).
+Parameters are plain dictionaries, one per layer, in the JAX package's
+layout (dense weights are (d_in, d_out)); the JAX package's
 period-stacked ``blocks/pos{p}`` and remainder ``rem/rem{r}`` leaves become
 one flat list (``repro_torch/models/convert.py``). Layer i sits at period
 position ``i % period_len(cfg)`` (remainder layers continue the pattern),
@@ -26,6 +27,7 @@ from repro_torch.core import hybrid_attention as hattn
 from repro_torch.core import layouts as layoutlib
 from repro_torch.core import paging
 from repro_torch.kernels import ops as kops
+from repro_torch.models import moe as moelib
 from repro_torch.models.layers import (
     apply_rope,
     dense,
@@ -52,13 +54,13 @@ def layer_layout(cfg: ArchConfig) -> tuple[int, int]:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families this port does not serve yet."""
-    dense_stack = (not cfg.mixer_pattern and not cfg.moe.enabled
-                   and not cfg.embed_frontend_stub and cfg.d_ff > 0)
-    if not dense_stack:
+    attention_stack = (not cfg.mixer_pattern and not cfg.embed_frontend_stub
+                       and (cfg.d_ff > 0 or cfg.moe.enabled))
+    if not attention_stack:
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention stacks (full or local:global) "
-            f"are ported; other mixers, MoE and frontends are ROADMAP Queue 1 "
-            f"item 11")
+            f"{cfg.name}: only attention stacks (full or local:global, a dense "
+            f"or MoE FFN) are ported; other mixers and frontends are ROADMAP "
+            f"Queue 1 item 11")
 
 
 def attn_spec(cfg: ArchConfig, pos: int = 0) -> hattn.AttnSpec:
@@ -68,7 +70,8 @@ def attn_spec(cfg: ArchConfig, pos: int = 0) -> hattn.AttnSpec:
         window = cfg.local_window
     return hattn.AttnSpec(n_q=cfg.num_heads, n_kv=cfg.num_kv_heads,
                           head_dim=cfg.resolved_head_dim, h2=cfg.h2eal,
-                          window=window)
+                          window=window,
+                          idle_rows=cfg.moe.enabled and cfg.moe.capacity_factor > 0)
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
@@ -89,9 +92,12 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
             "wv": dense_(d, cfg.num_kv_heads * hd),
             "wo": dense_(cfg.num_heads * hd, d),
             "ln2": torch.zeros(d, **kw),
-            "ffn": {"w_gate": dense_(d, cfg.d_ff), "w_up": dense_(d, cfg.d_ff),
-                    "w_down": dense_(cfg.d_ff, d)},
         }
+        if cfg.moe.enabled:
+            p["moe"] = moelib.init_moe(generator, cfg, **kw)
+        else:
+            p["ffn"] = {"w_gate": dense_(d, cfg.d_ff), "w_up": dense_(d, cfg.d_ff),
+                        "w_down": dense_(cfg.d_ff, d)}
         if cfg.qkv_bias:
             p["bq"] = torch.zeros(cfg.num_heads * hd, **kw)
             p["bk"] = torch.zeros(cfg.num_kv_heads * hd, **kw)
@@ -112,7 +118,11 @@ def default_plan(cfg: ArchConfig):
 
 
 def _ffn_apply(cfg: ArchConfig, p, x):
+    """The FFN half of a block over every row of x, idle and padded rows
+    too: an MoE layer's capacity counts them, as the reference's does."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + moelib.moe_ffn(cfg, p["moe"], h)
     f = p["ffn"]
     return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 

@@ -1,6 +1,7 @@
 """PyTorch port, the configs it registers: the dense stacks internlm2-20b
 and qwen2-72b (QKV bias) against the JAX package at their reduced sizes on
-the CPU, and which families the port refuses.
+the CPU, and which families the port serves (the MoE family since its
+slice: tests/test_torch_moe.py) and refuses.
 
 Every registered config equals the JAX config of the same name field for
 field (``tests/test_torch_serve.py::test_configs_equal_the_jax_ones_field_for_field``,
@@ -19,7 +20,6 @@ from repro import configs as jconfigs
 from repro.models import model as JM
 from repro.runtime import serve as jserve
 from repro_torch import configs as tconfigs
-from repro_torch.configs.base import MoEConfig
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
@@ -60,18 +60,18 @@ def test_dense_config_prefill_and_decode_match_jax(name):
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "internlm2-20b", "qwen2-72b",
-                                  "smollm-360m", "llama3-8b"])
+                                  "smollm-360m", "llama3-8b", "qwen3-moe-235b-a22b",
+                                  "kimi-k2-1t-a32b"])
 def test_served_families_pass_the_check(name):
     TT.check_ported(tconfigs.get_arch(name))
     TT.check_ported(tconfigs.reduced(tconfigs.get_arch(name)))
 
 
 @pytest.mark.parametrize("change", [
-    dict(moe=MoEConfig(num_experts=4, top_k=2)),
     dict(mixer_pattern=("mamba2", "attention")),
     dict(mixer_pattern=("mlstm", "mlstm", "slstm")),
     dict(embed_frontend_stub=True),
-], ids=["moe", "mamba2", "xlstm", "frontend-stub"])
+], ids=["mamba2", "xlstm", "frontend-stub"])
 def test_unported_families_raise_citing_item_11(change):
     cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("smollm-360m")), **change)
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -29,6 +29,7 @@ FLASH_CASES = [
     (1, 16, 40, 4, 1, True, 6, 3, 24),
     (1, 12, 20, 2, 1, False, 0, 0, 0),
     (2, 200, 200, 8, 2, True, 64, 4, 0),
+    (1, 40, 40, 32, 2, True, 8, 2, 0),       # group 16 (qwen3-moe)
 ]
 
 CARD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
@@ -120,6 +121,9 @@ FLASH_BF16_CASES = [
     (1, 200, 640, 4, 2, False, 0, 0, 0),
     (1, 100, 600, 4, 1, True, 0, 0, 500),
     (1, 700, 700, 8, 2, True, 256, 4, 0),
+    # group 16 (qwen3-moe): full causal, and the streaming heads' window + sink
+    (2, 300, 300, 32, 2, True, 0, 0, 0),
+    (1, 520, 520, 16, 1, True, 256, 4, 0),
 ]
 
 
@@ -165,7 +169,7 @@ def test_flash_attention_kernel_fully_masked_row_is_zero(cuda_dev, dtype, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 12, 16])
 def test_paged_attention_kernel(cuda_dev, dtype, d, group):
     gen = torch.Generator(device=cuda_dev).manual_seed(group)
     b, hkv, t = 2, 3, 301
@@ -186,13 +190,13 @@ def test_paged_attention_kernel(cuda_dev, dtype, d, group):
 # splits of the 300 keys); B·Hkv > 66 (one split a stream); 16 splits of
 # 8-9 units
 PAGED_SPLIT_CASES = [(1, 2, 100, 4), (2, 3, 1000, 3), (40, 4, 300, 2),
-                     (70, 4, 600, 4), (2, 4, 4416, 4)]
+                     (70, 4, 600, 4), (2, 4, 4416, 4), (2, 2, 4416, 16)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
 @pytest.mark.parametrize("p", [8, 32])
 def test_paged_attention_pages_kernel(cuda_dev, dtype, d, group, p):
     """Decode attention read through a page table (pages of 8: a 32-key unit
@@ -292,7 +296,7 @@ def test_paged_attention_split_kernel(cuda_dev, dtype, d, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("group", [1, 4, 12, 16])
 def test_page_score_kernel(cuda_dev, dtype, d, group):
     gen = torch.Generator(device=cuda_dev).manual_seed(group)
     b, hkv, c = 2, 3, 75
@@ -306,10 +310,12 @@ def test_page_score_kernel(cuda_dev, dtype, d, group):
     torch.cuda.synchronize()
     assert torch.equal(got.isnan(), want.isnan())
     fin = want.isfinite()
-    # f32 sums of 2·g·D products in two orders: 1e-4 up to D = 128; the sum
-    # and its rounding grow with D (scores ~500 at D = 256, g = 4, where one
-    # f32 step is 6.1e-5), so 1e-4 per 128 coordinates
-    assert (got[fin] - want[fin]).abs().max().item() <= 1e-4 * max(1, d // 128)
+    # f32 sums of 2·g·D products in two orders: 1e-4 up to D = 128 and g = 4;
+    # the sum and its rounding grow with the terms summed (scores ~500 at
+    # D = 256, g = 4, where one f32 step is 6.1e-5), so 1e-4 per 128
+    # coordinates and per 4 rows of the group
+    tol = 1e-4 * max(1, d // 128) * max(1, group // 4)
+    assert (got[fin] - want[fin]).abs().max().item() <= tol
 
 
 # page_select: (b, hkv, group, c, d, page, ctx, top_k, stripes, need, ties).
@@ -334,6 +340,12 @@ SELECT_CASES = [
     (4, 1, 4, 514, 256, 32, [16448, 9000, 4100, 700], 128, 0,
      [True, False, True, True], False),                           # gemma3-1b engine
     (2, 1, 4, 514, 256, 32, [500, 301], 16, 0, None, True),       # D = 256, ties
+    # group 16 (qwen3-moe: 2 retrieval heads of 16 query heads each)
+    (4, 2, 16, 258, 128, 32, [8200, 7000, 5000, 3000], 128, 0,
+     [True, True, False, True], False),                           # engine
+    (4, 2, 16, 264, 128, 32, [8200, 7000, 5000, 3000], 128, 8,
+     [True, False, True, True], False),                           # coplace
+    (2, 3, 16, 75, 32, 8, [500, 301], 16, 0, None, True),         # ties, D = 32
 ]
 SCORE_RTOL = 1e-6  # the scores are f32 sums on both sides: of the row's max |score|
 
@@ -491,7 +503,7 @@ def test_generate_on_the_card_matches_the_cpu_and_counts_launches(cuda_dev):
 # (b, cq, hkv, t, group): query tiles that straddle chunk positions (group
 # 3), a single-row group, and a T that is not a multiple of the key tile
 CHUNK_CASES = [(2, 7, 2, 29, 1), (1, 33, 2, 100, 3), (2, 64, 1, 301, 4),
-               (1, 20, 2, 64, 8)]
+               (1, 20, 2, 64, 8), (1, 20, 2, 100, 16)]
 
 
 @pytest.mark.cuda
@@ -521,7 +533,7 @@ def test_chunk_attention_kernel(cuda_dev, dtype, d, case):
 # ring 292 + chunk 512) is read 4 validity bytes a lane, odd T a byte a
 # lane; Cq not a multiple of 64 // group leaves a ragged last q tile
 CHUNK_BF16_CASES = [(2, 50, 2, 804, 4), (1, 45, 2, 301, 3), (1, 20, 2, 129, 8),
-                    (1, 70, 1, 803, 1), (2, 512, 1, 804, 4)]
+                    (1, 70, 1, 803, 1), (2, 512, 1, 804, 4), (2, 50, 2, 804, 16)]
 
 
 @pytest.mark.cuda
@@ -565,6 +577,7 @@ PAGED_CASES = [
     (2, 64, 2, 4, 9, 32, (200, 77), (190, 77)),  # partial last page, keys >= start
     (1, 40, 1, 3, 20, 8, (150,), (150,)),        # group 3 straddles chunk rows
     (3, 100, 2, 1, 5, 16, (80, 0, 33), (80, 0, 33)),
+    (2, 20, 2, 16, 9, 32, (200, 77), (190, 77)),  # group 16 (qwen3-moe)
 ]
 
 
@@ -597,6 +610,7 @@ CHUNK_PAGED_BF16_CASES = [
     (2, 40, 1, 8, 12, 32, (384, 100), (384, 100), "striped"),
     (1, 300, 1, 1, 8, 16, (100,), (99,), "random"),
     (4, 512, 1, 4, 40, 32, (0, 300, 1000, 1270), (0, 300, 1000, 1270), "striped"),
+    (2, 50, 2, 16, 12, 32, (200, 0), (190, 0), "striped"),       # group 16
 ]
 
 
@@ -707,7 +721,7 @@ def _stripe_inputs(gen, dev, dtype, s, b, hkv, group, c, p, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 3, 4, 8])
+@pytest.mark.parametrize("group", [1, 3, 4, 8, 16])
 def test_paged_attention_partial_kernel(cuda_dev, dtype, d, group):
     gen = torch.Generator(device=cuda_dev).manual_seed(group)
     s, b, hkv, c, p, n = 4, 2, 3, 24, 8, 45
@@ -766,7 +780,7 @@ def _coplace_inputs(gen, dev, dtype, s, b, hkv, group, c, p, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
 @pytest.mark.parametrize("s", [1, 4, 8])
 @pytest.mark.parametrize("p", [8, 32])
 def test_paged_attention_coplace_kernel(cuda_dev, dtype, d, group, s, p):
@@ -1281,3 +1295,43 @@ def test_tier_fill_on_the_copy_stream_is_seen_by_the_next_replay(cuda_dev):
         torch.cuda.synchronize()
         assert torch.equal(read, original)
     assert tier.h2d_bytes == 3 * original.nbytes and tier.d2h_bytes == original.nbytes
+
+
+@pytest.mark.cuda
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda_dev):
+    """qwen3-moe's MoE layer (reduced: 4 experts, top-2) at capacity factor
+    0.25 over 64 tokens, where experts overflow and slot cap-1 of each
+    overflowing expert returns 0 as the reference's last write leaves it:
+    the card against the CPU on the same f32 weights; two card calls, and a
+    CUDA graph replay of the call, equal bit for bit (the dispatch has no
+    scatter with repeated indices and the combine no atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe
+
+    cfg = reduced(get_arch("qwen3-moe-235b-a22b"), num_heads=32, num_kv_heads=2)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, dtype=torch.float32,
+                     device="cpu")
+    x = torch.randn(64, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    _, _, ids = moe._route(cfg, p, x)
+    cap = moe._capacity(64, cfg.moe.num_experts, cfg.moe.top_k, 0.25)
+    assert int(torch.bincount(ids.reshape(-1)).max()) > cap
+    want = moe.moe_ffn(cfg, p, x)
+    pc = _to(p, cuda_dev)
+    xc = x.to(cuda_dev)
+    got = moe.moe_ffn(cfg, pc, xc)
+    again = moe.moe_ffn(cfg, pc, xc)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe.moe_ffn(cfg, pc, xc)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = moe.moe_ffn(cfg, pc, xc)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, again) and torch.equal(got, captured)
