@@ -102,7 +102,20 @@ then, each phase failing the run with a nonzero exit:
      of phase 5 with fused windows, eager and captured (launch counts
      exact, captures made once, captured tokens equal to eager); then
      kimi-k2-1t-a32b at full width (384 experts and its shared expert) cut
-     to 1 of its 61 layers through lockstep ``generate``.
+     to 1 of its 61 layers through lockstep ``generate``;
+ 12. the recurrent mixers (phase 2 also holds every kernel at zamba2-2.7b's
+     shapes, head_dim 80 and a GQA group of 1, in bf16 and f32, beside
+     SDPA): the reduced hybrid (mamba2, mamba2, attention) card against CPU
+     (f32 generate at head_dim 32 token for token, bf16 at head_dim 80
+     within the band, the chunked engine captured with fused windows, the
+     coplace_shmap engine over 2 stripes) and the reduced xlstm-125m (f32
+     generate token for token); zamba2-2.7b at full width and depth (45
+     mamba2 and 9 attention layers) through lockstep ``generate`` and the
+     chunked engine with fused windows, eager and captured (launch counts
+     exact over its attention layers, captured tokens equal to eager);
+     xlstm-125m at full width and depth through ``generate`` and a chunked
+     engine eager and captured (no kernel launched; a captured chunk step's
+     graph node count logged).
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -187,6 +200,15 @@ POOL_PAGES, POOL_CTX, POOL_STEPS = 160, 8190, 72
 # KIMI_LAYERS of 61 (~39 GB)
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
+# the recurrent mixers (phases 2 and 12): zamba2-2.7b at full width and
+# depth (54 layers: 45 mamba2, 9 attention at head_dim 80 with 32 kv heads,
+# 16 retrieval and 16 streaming, GQA group 1); xlstm-125m at full width and
+# depth (12 mLSTM / sLSTM layers, no attention), its lockstep prompts, and
+# its engine's chunk, workload and slots: a chunk step is a loop of X_CHUNK
+# time steps of eager ops a layer, so the captured graphs hold that many
+X_ARCH, Z_ARCH = "xlstm-125m", "zamba2-2.7b"
+X_PROMPT, X_CHUNK = 2048, 128
+X_ENGINE = [(512, 12), (384, 9), (640, 16), (256, 10)]
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
 HOLD_CYCLES = 2_000_000  # the Timer's hold of the card, ~1.1 ms at 1.755 GHz
 
@@ -1307,16 +1329,17 @@ def check_reduced_bf16_engine_against_cpu(dev):
         fail("the bf16 reduced chunked engine did not launch the chunk kernels")
 
 
-def check_reduced_coplace_engine_against_cpu(dev):
-    """Reduced llama3-8b, the coplace_shmap chunked Engine over 4 stripes with
-    balanced admission and slot churn: card (kernels) against CPU (plain
-    versions), token for token, with the same admission reorders."""
+def check_reduced_coplace_engine_against_cpu(dev, cfg=None, shards=4):
+    """Reduced llama3-8b (unless ``cfg``), the coplace_shmap chunked Engine
+    over ``shards`` stripes with balanced admission and slot churn: card
+    (kernels) against CPU (plain versions), token for token, with the same
+    admission reorders."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
 
-    cfg = reduced(get_arch(ARCH))
+    cfg = cfg or reduced(get_arch(ARCH))
     params = M.init_params(cfg, generator=torch.Generator().manual_seed(6), device="cpu")
     rng = np.random.default_rng(6)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
@@ -1324,28 +1347,29 @@ def check_reduced_coplace_engine_against_cpu(dev):
             for i, (n, m) in enumerate([(37, 9), (20, 4), (51, 6), (9, 7), (30, 5),
                                         (44, 3)])]
     kw = dict(max_batch=2, capacity=96, prompt_buckets=[64], prefill_chunk=7,
-              layout="coplace_shmap", shards=4, admission="balanced")
+              layout="coplace_shmap", shards=shards, admission="balanced")
     cpu_eng = Engine(cfg, params, device="cpu", **kw)
     cpu = cpu_eng.run(reqs)
     card_eng = Engine(cfg, _to(params, dev), device=dev, **kw)  # captured
     ops.reset_launches()  # after the warm-up before the captures
     card = card_eng.run(reqs)
     same = all(card[u].tokens == cpu[u].tokens for u in cpu) and sorted(card) == sorted(cpu)
-    log(f"reduced {cfg.name} coplace_shmap S=4 balanced chunked engine: card vs CPU "
+    log(f"reduced {cfg.name} coplace_shmap S={shards} balanced chunked engine: card vs CPU "
         f"tokens equal={same} ({sum(len(c.tokens) for c in cpu.values())} tokens, "
         f"{len(reqs)} requests), admission reorders card {card_eng.stats.admission_reorders}"
         f" / CPU {cpu_eng.stats.admission_reorders}, partial launches "
         f"{ops.LAUNCHES['paged_attention_partial']}")
     if not same or card_eng.stats.admission_reorders != cpu_eng.stats.admission_reorders:
         fail("the reduced coplace_shmap engine on the card disagrees with the CPU run")
-    once = card_eng.stats.decode_steps * cfg.num_layers
+    once = card_eng.stats.decode_steps * layer_launches(cfg, split=True)["partial"]
     if ops.LAUNCHES["paged_attention_partial"] != once or ops.LAUNCHES["combine_partials"] != 0:
         fail(f"the reduced coplace_shmap engine did not make its one co-placed launch a "
              f"layer a decode step ({once})")
 
 
 def layer_launches(cfg, split=False):
-    """Kernel launches of one pass over ``cfg``'s layers, by step kind: a
+    """Kernel launches of one pass over ``cfg``'s attention layers (a
+    recurrent layer, mamba2 or xLSTM, launches none), by step kind: a
     prefill (flash), a decode step (paged; the co-placed launch where
     ``split``), a select step's page_select, a chunk step (chunk, chunk
     paged). A layer with a full cache (a sliding-window layer, or H²EAL
@@ -1355,7 +1379,7 @@ def layer_launches(cfg, split=False):
     from repro_torch.models import transformer as T
 
     n = dict(prefill=0, decode=0, partial=0, select=0, chunk=0, chunk_paged=0)
-    for i in range(cfg.num_layers):
+    for i in cfg.attention_layers:
         spec = T.attn_spec(cfg, i % T.period_len(cfg))
         if spec.window > 0 or not spec.h2.enabled:
             n["prefill"] += 1
@@ -2169,10 +2193,10 @@ def serve_engine(dev, cfg, params, label="", modes=None):
 def tiered_launches(s, cfg, fused_len, replays):
     """The launches of a tiered run: a plain run's, and each replay of a
     select step launches that step's kernels again."""
-    n_l = cfg.num_layers
+    per = layer_launches(cfg)
     out = dict(window_launches(s, cfg, fused_len, False), flash_attention=0)
-    out["page_score"] += replays * n_l
-    out["paged_attention"] += 2 * replays * n_l
+    out["page_score"] += replays * per["select"]
+    out["paged_attention"] += replays * per["decode"]
     return out
 
 
@@ -2641,17 +2665,16 @@ def moe_arch(name: str, layers: int):
     return dataclasses.replace(get_arch(name), num_layers=layers)
 
 
-def check_group_16(ops, ref, timer, dev, dtype, gen):
-    """Phase 2 at qwen3-moe-235b's shapes (64 query heads over 4 kv heads,
-    a GQA group of 16; 2 retrieval and 2 streaming heads, head_dim 128):
-    flash over B=BATCH prompts of PROMPT (both head kinds); the select step
-    at the lockstep and engine shapes; the streaming ring's decode and the
-    retrieval pages read in place (with the gathered buffer, the
-    full-attention baseline and the draft selection beside them); the
-    chunk kernels at the engine's chunk phase; the co-placed decode and
-    the stripes' partials. Cases are tagged with the model and are not part
-    of the main totals."""
-    cfg = moe_arch(MOE_ARCH, MOE_LAYERS)
+def check_arch_shapes(ops, ref, timer, dev, cfg, dtype, gen):
+    """Phase 2 at a registered model's shapes (qwen3-moe-235b: 64 query
+    heads over 4 kv heads, a GQA group of 16, head_dim 128; zamba2-2.7b: 32
+    over 32, a group of 1, head_dim 80): flash over B=BATCH prompts of
+    PROMPT (both head kinds); the select step at the lockstep and engine
+    shapes; the streaming ring's decode and the retrieval pages read in
+    place (with the gathered buffer, the full-attention baseline and the
+    draft selection beside them); the chunk kernels at the engine's chunk
+    phase; the co-placed decode and the stripes' partials. Cases are tagged
+    with the model and are not part of the main totals."""
     lock_cap = serve_capacity(cfg)
     eng_cap = engine_workload(cfg)[1]
     part, _ = check_partial(ops, ref, timer, dev, cfg, dtype, gen)
@@ -2720,6 +2743,151 @@ def serve_moe(dev):
     del params
     torch.cuda.empty_cache()
     return by_path
+
+
+def hybrid_cfg(**kw):
+    """The reference's own hybrid test config: reduced zamba2 with the
+    pattern mamba2, mamba2, attention."""
+    from repro_torch.configs import get_arch, reduced
+
+    return reduced(get_arch(Z_ARCH), mixer_pattern=("mamba2", "mamba2", "attention"),
+                   num_layers=3, **kw)
+
+
+def check_reduced_recurrent_against_cpu(dev):
+    """Phase 12a, card against CPU: the reduced hybrid (mamba2, mamba2,
+    attention) f32 generate at head_dim 32 token for token; bf16 generate at
+    head_dim 80 (the D = 80 kernels) within the bf16 band; its chunked
+    engine with churn, captured with fused windows, against its eager run
+    and the CPU (f32 at head_dim 32, bf16 at 80); its coplace_shmap engine
+    over 2 stripes; then the reduced xlstm-125m (mlstm, mlstm, slstm, mlstm)
+    f32 generate token for token."""
+    from repro_torch.configs import get_arch, reduced
+
+    check_reduced_against_cpu(dev, hybrid_cfg(), prompt_len=45)
+    bf16_generate_against_cpu(dev, hybrid_cfg(head_dim=80))
+    check_reduced_window_engines(dev, {
+        torch.float32: (widen_share(hybrid_cfg()), 5, 96, 7,
+                        [(37, 9), (20, 4), (51, 6), (9, 7), (30, 5)]),
+        torch.bfloat16: (widen_share(hybrid_cfg(head_dim=80), select_budget=320),
+                         9, 320, 48, [(300, 9), (150, 6), (77, 12), (210, 5), (40, 8)]),
+    })
+    check_reduced_coplace_engine_against_cpu(dev, hybrid_cfg(), shards=2)
+    check_reduced_against_cpu(dev, reduced(get_arch(X_ARCH)), prompt_len=45)
+
+
+def serve_zamba2(dev):
+    """Phase 12b: zamba2-2.7b at full width and depth (bf16, seeded random
+    weights, H²EAL defaults on its 9 attention layers): lockstep
+    ``generate`` over BATCH prompts of PROMPT tokens (sparse, then full
+    attention), then the chunked engine of phase 5 with fused windows
+    (decode_window=4), eager and captured: launch counts exact over the
+    attention layers, captures made once, captured tokens equal to eager,
+    every poll under sync debug mode "error". Returns the launch counts of
+    each path."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(Z_ARCH)
+    log(f"{cfg.name}: full width and depth, {cfg.num_layers} layers "
+        f"({len(cfg.attention_layers)} attention, head_dim {cfg.resolved_head_dim})")
+    params = full_params(dev, cfg)
+    by_path = {"zamba2_generate": serve_full(dev, cfg, params)}
+    launches, _, _ = serve_engine(dev, cfg, params, label=f" {cfg.name}",
+                                  modes=("chunked_windows", "chunked_graphs"))
+    by_path.update({f"zamba2_engine_{k}": v for k, v in launches.items()})
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def graph_nodes(fn) -> int:
+    """Nodes of ``fn`` captured as one CUDA graph (after a warm-up), through
+    the driver's cuGraphGetNodes on the graph kept before instantiation."""
+    import ctypes
+
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        fail(f"cuGraphGetNodes failed: {rc}")
+    del graph
+    return int(n.value)
+
+
+def serve_xlstm(dev):
+    """Phase 12c: xlstm-125m at full width and depth (bf16, seeded random
+    weights; attention-free, so H²EAL is off and no attention kernel runs):
+    lockstep ``generate`` over BATCH prompts of X_PROMPT tokens, GEN greedy
+    tokens; then the chunked engine (chunks of X_CHUNK tokens, fused
+    windows) eager and captured on X_ENGINE, captured tokens equal to eager,
+    every poll under sync debug mode "error", no kernel launched anywhere;
+    the node count of one captured chunk step is logged."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    cfg = get_arch(X_ARCH)
+    params = full_params(dev, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, X_PROMPT), generator=gen, device=dev)
+    ops.reset_launches()
+    toks, stats = generate(cfg, params, prompts, gen=GEN,
+                           capacity=X_PROMPT + GEN + cfg.h2eal.page_size, device=dev)
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(torch.isfinite(stats["last_logits"]).all()):
+        fail("xlstm generate produced a wrong shape or non-finite logits")
+    log(f"generate ({cfg.name}) B={BATCH} S={X_PROMPT}: prefill {stats['prefill_s']:.3f}s, "
+        f"decode {stats['decode_s']:.3f}s ({stats['tokens_per_s']:.1f} tok/s); launches "
+        f"{dict(ops.LAUNCHES)}")
+    if any(ops.LAUNCHES.values()):
+        fail("xlstm generate launched an attention kernel")
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=m) for i, (n, m) in enumerate(X_ENGINE)]
+    capacity = max(n for n, _ in X_ENGINE) + max(m for _, m in X_ENGINE) + 32
+    kw = dict(max_batch=2, capacity=capacity, prompt_buckets=[64], prefill_chunk=X_CHUNK,
+              decode_window=ENGINE_WINDOW, device=dev)
+    runs = {}
+    for mode in ("eager", "graphs"):
+        t0 = time.perf_counter()
+        eng = Engine(cfg, params, eager=mode == "eager", **kw)
+        t_build = time.perf_counter() - t0
+        sizes = eng.jit_cache_sizes()
+        got, wall, _ = serve_polled(eng, reqs, f"engine {cfg.name} ({mode})")
+        s = eng.stats
+        log(f"engine {cfg.name} ({mode}): {s.tokens_out} tokens in {wall:.3f}s = "
+            f"{s.tokens_out / wall:.2f} tok/s; engine steps {s.engine_steps}, prefill-chunk "
+            f"steps {s.prefill_chunks}, decode steps {s.decode_steps}, {s.fused_windows} "
+            f"fused windows, captures {sizes}, construction {t_build:.2f}s; launches {got}")
+        if any(got.values()) or eng.jit_cache_sizes() != sizes:
+            fail(f"engine {cfg.name} ({mode}) launched an attention kernel or captured "
+                 f"again: {got}, {sizes} -> {eng.jit_cache_sizes()}")
+        runs[mode] = {u: c.tokens for u, c in eng.completions.items()}
+        del eng
+        torch.cuda.empty_cache()
+    if runs["graphs"] != runs["eager"] or any(
+            len(runs["graphs"][r.uid]) != r.max_new for r in reqs):
+        fail(f"engine {cfg.name}: captured tokens differ from the eager run's at "
+             f"{first_divergence(runs['graphs'], runs['eager'])}")
+    state = M.empty_serve_state(cfg, 2, capacity=capacity, dtype=torch.bfloat16, device=dev)
+    ctoks = torch.zeros((2, X_CHUNK), dtype=torch.int32, device=dev)
+    clens = torch.zeros(2, dtype=torch.int32, device=dev)
+    nodes = graph_nodes(lambda: M.prefill_chunk(cfg, params, state, ctoks, chunk_len=clens,
+                                                active=clens > 0))
+    log(f"engine {cfg.name}: captured tokens equal to eager; one chunk step of "
+        f"{X_CHUNK} tokens captured is {nodes} graph nodes ({cfg.num_layers} layers)")
+    del params, state
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -2794,8 +2962,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, cases in check_head_dim_256(ops, ref, timer, dev, dtype, gen).items():
             results[name] += cases
-        for name, cases in check_group_16(ops, ref, timer, dev, dtype, gen).items():
-            results[name] += cases
+        for arch in (moe_arch(MOE_ARCH, MOE_LAYERS), get_arch(Z_ARCH)):
+            for name, cases in check_arch_shapes(ops, ref, timer, dev, arch, dtype,
+                                                 gen).items():
+                results[name] += cases
     results["page_score"].append(check_page_select(ops, ref, timer, dev, cfg,
                                                    torch.bfloat16, gen, "verify"))
     check_sampler(timer, dev, cfg)
@@ -2844,11 +3014,16 @@ def main() -> int:
     check_reduced_moe_against_cpu(dev)
     by_path.update(serve_moe(dev))
     log(f"phase 11 (the MoE family) {time.perf_counter() - t11:.1f}s")
+    t12 = time.perf_counter()
+    check_reduced_recurrent_against_cpu(dev)
+    by_path.update(serve_zamba2(dev))
+    serve_xlstm(dev)
+    log(f"phase 12 (the recurrent mixers) {time.perf_counter() - t12:.1f}s")
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
     # windows, for llama3-8b and gemma3-1b, and the eviction pool; the MoE
-    # family's generate and chunked engines; every kernel of a path must
-    # have run in it
+    # family's and zamba2's generate and chunked engines; every kernel of a
+    # path must have run in it (xlstm-125m's paths run none)
     engine = ("page_score", "paged_attention", "chunk_attention", "chunk_attention_paged")
     coplaced = engine + ("paged_attention_partial",)
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
@@ -2868,7 +3043,10 @@ def main() -> int:
                   "moe_generate": ("flash_attention", "page_score", "paged_attention"),
                   "moe_engine_chunked_windows": engine,
                   "moe_engine_chunked_graphs": engine,
-                  "kimi_generate": ("flash_attention", "page_score", "paged_attention")}
+                  "kimi_generate": ("flash_attention", "page_score", "paged_attention"),
+                  "zamba2_generate": ("flash_attention", "page_score", "paged_attention"),
+                  "zamba2_engine_chunked_windows": engine,
+                  "zamba2_engine_chunked_graphs": engine}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

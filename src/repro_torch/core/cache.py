@@ -7,6 +7,9 @@
   TieredPagedCache  the host side of tiered hot/cold page residency: which
                pages of each slot are on the card, and the far store of
                the spilled ones in host memory.
+  Mamba2State, MLSTMState, SLSTMState  a recurrent layer's per-slot state
+               (``models/ssm.py``, ``models/xlstm.py``): constant-size, no
+               pages; a layer's cache is {"ssm": Mamba2State} or {"xl": ...}.
 
 The single-token appends take ``length`` as a Python int (the lockstep
 path: every row writes at one position) or as a (B,) tensor (the
@@ -61,15 +64,58 @@ def make_stream_cache(b, h_s, sink, local_cap, d, *, dtype, device):
                                                     device=device))
 
 
+@dataclasses.dataclass
+class Mamba2State:
+    ssm: torch.Tensor     # (B, H, N, P) f32 SSD state
+    conv_x: torch.Tensor  # (B, K-1, inner) pre-conv inputs of the last K-1 positions
+    conv_B: torch.Tensor  # (B, K-1, N)
+    conv_C: torch.Tensor  # (B, K-1, N)
+
+
+@dataclasses.dataclass
+class MLSTMState:
+    C: torch.Tensor  # (B, H, P, P) f32 matrix memory
+    n: torch.Tensor  # (B, H, P) f32 normaliser
+    m: torch.Tensor  # (B, H) f32 max-stabiliser; -inf before the first token
+
+
+@dataclasses.dataclass
+class SLSTMState:
+    c: torch.Tensor  # (B, H, P) f32 cell
+    n: torch.Tensor  # (B, H, P) f32 normaliser
+    m: torch.Tensor  # (B, H, P) f32 max-stabiliser; -inf before the first token
+    h: torch.Tensor  # (B, H, P) f32 hidden state (the recurrent gates' input)
+
+
+
+def state_fields(st) -> dict:
+    """A recurrent state container's tensors as the dict of the reference's
+    keys, the same tensors (no copy)."""
+    return {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
+
+
+def write_state(st, new: dict, keep=None) -> None:
+    """Write the state ``new`` (a dict of ``st``'s fields) into ``st``'s
+    tensors in place; with ``keep`` (B,) bool, only the rows where it holds,
+    the others left as they are, bit for bit. A captured step writes its
+    state so, into the buffers its graph reads."""
+    for name, old in state_fields(st).items():
+        val = new[name]
+        if keep is not None:
+            val = torch.where(keep.reshape((-1,) + (1,) * (old.dim() - 1)), val, old)
+        old.copy_(val)
+
+
 def empty_fill_value(field: str):
     """The empty-cache value of a cache field, the one a fresh cache holds:
-    tau_min +inf, tau_max -inf, page_start and the ring's pos -1, every
-    other field 0. The serving engine writes these into a slot's rows when
-    it admits a request chunk by chunk, so that no key of a previous
-    occupant passes a validity mask and the chunk appends' running τ
-    min/max merge starts from the identity."""
+    tau_min +inf, tau_max -inf, page_start and the ring's pos -1, the xLSTM
+    max-stabiliser ``m`` -inf, every other field 0. The serving engine
+    writes these into a slot's rows when it admits a request chunk by
+    chunk, so that no key of a previous occupant passes a validity mask,
+    the chunk appends' running τ min/max merge starts from the identity and
+    a recurrent slot starts from a fresh state."""
     return {"tau_min": float("inf"), "tau_max": float("-inf"),
-            "page_start": -1, "pos": -1}.get(field, 0)
+            "page_start": -1, "pos": -1, "m": float("-inf")}.get(field, 0)
 
 
 def make_full_cache(b, h_kv, capacity, d, *, dtype, device):
@@ -612,9 +658,11 @@ class DecodeStepSave:
     the step so that it can be undone: the lengths; each paged layer's
     selection, importance and page starts whole; per slot, the physical
     page its next token lands in (its K and V rows and τ min/max) and the
-    streaming ring's slot (K, V and position); and the ``extra`` tensors
-    (the engine's token feed and generation indices). A few MB at
-    llama3-8b, where a copy of the whole state would be GBs.
+    streaming ring's slot (K, V and position); each recurrent layer's
+    state whole (a step advances all of it: ~59 MB a slot at zamba2-2.7b);
+    and the ``extra`` tensors (the engine's token feed and generation
+    indices). A few MB at llama3-8b, where a copy of the whole state would
+    be GBs.
 
     The tiered select step saves before its pass; a replay after a cold
     miss restores first, so that it runs on the state the first pass read.
@@ -642,6 +690,9 @@ class DecodeStepSave:
             paged = layer.get("paged")
             if paged is not None:
                 yield from (paged.sel_idx, paged.importance, paged.page_start)
+            for key in ("ssm", "xl"):
+                if key in layer:
+                    yield from state_fields(layer[key]).values()
         yield from self.extra
 
     def _per_slot(self):

@@ -73,10 +73,18 @@ __host__ __device__ constexpr int smem_bytes() {
   return (D * QS + kp_floats<D>() + BK * D) * 4 + MAXC * BK;
 }
 
+// output columns 32*u + 4*tx + e of a thread, u < U: at D = 80 the third
+// group's upper half (columns 80-95) is never loaded nor stored
+template <int D>
+struct Cols {
+  static constexpr int U = (D + 31) / 32;
+  static_assert(D % 4 == 0, "a thread's 4 columns of a group lie wholly in or past D");
+};
+
 // online-softmax state of one thread: rows ty*4 .. ty*4+3 of the q tile
 template <int D>
 struct RowState {
-  float m[4], l[4], acc[4][D / 8];
+  float m[4], l[4], acc[4][4 * Cols<D>::U];
 };
 
 template <int D>
@@ -86,7 +94,7 @@ __device__ __forceinline__ void init_state(RowState<D>& st) {
     st.m[i] = kNegInf;
     st.l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) st.acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * Cols<D>::U; ++c) st.acc[i][c] = 0.f;
   }
 }
 
@@ -176,7 +184,7 @@ __device__ __forceinline__ void attend_tile(const float* Qt, float* Kt, const fl
     st.l[i] = st.l[i] * corr + ps;
     st.m[i] = m_new;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) st.acc[i][c] *= corr;
+    for (int c = 0; c < 4 * Cols<D>::U; ++c) st.acc[i][c] *= corr;
   }
   __syncthreads();
 
@@ -185,7 +193,8 @@ __device__ __forceinline__ void attend_tile(const float* Qt, float* Kt, const fl
     const float4 pv = *reinterpret_cast<const float4*>(&Pt[j * PS + ty * 4]);
     const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-    for (int u = 0; u < D / 32; ++u) {
+    for (int u = 0; u < Cols<D>::U; ++u) {
+      if (32 * u + 4 * tx >= D) break;
       const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * D + 32 * u + 4 * tx]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -209,9 +218,10 @@ __device__ __forceinline__ void store_rows(T* __restrict__ o, const RowState<D>&
     const float lsum = fmaxf(st.l[i], 1e-30f);
     T* op = o + row_offset(b, hk, row, cq, hq, g, D);
 #pragma unroll
-    for (int u = 0; u < D / 32; ++u)
+    for (int u = 0; u < Cols<D>::U; ++u)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(&op[32 * u + 4 * tx + e], st.acc[i][4 * u + e] / lsum);
+      for (int e = 0; e < 4; ++e)
+        if (32 * u + 4 * tx < D) store(&op[32 * u + 4 * tx + e], st.acc[i][4 * u + e] / lsum);
   }
 }
 
@@ -374,6 +384,7 @@ cudaError_t chunk_d(int d, const void* q, const void* k, const void* v, const vo
   switch (d) {
     case 32: return launch_chunk<T, 32>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     case 64: return launch_chunk<T, 64>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
+    case 80: return launch_chunk<T, 80>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     case 128: return launch_chunk<T, 128>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     case 256: return launch_chunk<T, 256>(q, k, v, valid, o, b, cq, hkv, t_len, g, scale, s);
     default: return cudaErrorInvalidValue;
@@ -389,6 +400,8 @@ cudaError_t paged_d(int d, const void* q, const void* kp, const void* vp, const 
       return launch_paged<T, 32>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
     case 64:
       return launch_paged<T, 64>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
+    case 80:
+      return launch_paged<T, 80>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
     case 128:
       return launch_paged<T, 128>(q, kp, vp, ps, st, kn, vn, o, b, cq, hr, n_pages, page, g, scale, s);
     case 256:

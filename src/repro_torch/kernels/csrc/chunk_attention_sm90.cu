@@ -17,7 +17,7 @@
 //                          (key j for query c iff j <= c).
 // Same contracts: f32 logits, online softmax and accumulation, the output
 // rounded once to bf16; a row with no valid key returns 0 (the
-// max(l, 1e-30) guard), never NaN. D in {32, 64, 128, 256}, group g <= 64.
+// max(l, 1e-30) guard), never NaN. D in {32, 64, 80, 128, 256}, group g <= 64.
 //
 // What bounds them on the H100: operations. At the engine's chunk shapes
 // (4 slots at contexts 0/2048/5120/7680, chunk 512, 4 retrieval kv heads
@@ -47,7 +47,7 @@
 // buffers. Each consumer runs, per tile:
 //   S = Q·Kᵀ: wgmma m64nBKk16, Q and K read from shared memory K-major
 //     through descriptors of the 128-byte swizzle TMA wrote (64-byte at
-//     D = 32), f32 accumulators in registers;
+//     D = 32, 32-byte at D = 80), f32 accumulators in registers;
 //   online softmax on the accumulator fragment (two rows a thread, max and
 //     sum over the 4 threads of a quad), with a mask only where the tile
 //     needs one;
@@ -124,9 +124,12 @@ struct Cfg {
   static constexpr int BK = D == 256 ? 64 : 128;
   static constexpr int WPR = BK / 32;             // mask words of one position's keys
   static constexpr int kMaskWords = BQ * WPR;     // a bit per (position, key): 64 positions at most
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span = bytes of an atom row
+  // swizzle span = bytes of an atom row: the widest of 128, 64 and 32 whose
+  // atoms tile D exactly (32 at D = 80: five atoms of 16 columns)
+  static constexpr int SW = D % 64 == 0 ? 128 : (D % 32 == 0 ? 64 : 32);
   static constexpr int AC = SW / 2;               // bf16 columns of one swizzle atom
   static constexpr int NA = D / AC;               // atoms across D
+  static_assert(D % AC == 0 && D % 16 == 0, "the atoms and the k16 steps tile D");
   static constexpr int STAGES = D == 256 ? 2 : (D == 128 ? 3 : 4);
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
@@ -600,6 +603,7 @@ cudaError_t launch_d(int d, const Args& a, const void* q, const void* k, const v
   switch (d) {
     case 32: return launch<32, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     case 64: return launch<64, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
+    case 80: return launch<80, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     case 128: return launch<128, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     case 256: return launch<256, PAGED>(a, q, k, v, kn, vn, n_heads_kv, s);
     default: return cudaErrorInvalidValue;

@@ -22,7 +22,8 @@
 // keys are staged per step. The KV head is read as h / group, never
 // materialised per q head as the TPU wrapper's jnp.repeat does. Each
 // thread owns a 4x8 patch of the 64x64 logit tile and a 4 x D/8 patch of
-// the accumulator; the 8 threads of a row reduce max and sum with warp
+// the accumulator (4 x 12 at D = 80: three 32-column groups, the third's
+// upper half, columns 80-95, never loaded nor stored); the 8 threads of a row reduce max and sum with warp
 // shuffles. Key tiles wholly outside causal ∪ (window + sink) are skipped,
 // so the streaming heads cost O(S·(window + sink)) and not O(S²). Blocks
 // of the heaviest (last) q tiles are launched first to shorten the tail.
@@ -70,7 +71,9 @@ __global__ void __launch_bounds__(NT) flash_kernel(
   const int ty = tid >> 3;  // rows ty*4 .. ty*4+3
   const int tx = tid & 7;   // logit columns tx + 8*jj; output columns 32*u + 4*tx + e
   const int r0 = qtile * BQ;
-  constexpr int DC = D / 8;  // output columns per thread
+  constexpr int U = (D + 31) / 32;  // 32-column groups of the output
+  constexpr int DC = 4 * U;         // output columns per thread
+  static_assert(D % 4 == 0, "a thread's 4 columns of a group lie wholly in or past D");
 
   const long q_rs = (long)hq * D;
   const long k_rs = (long)hkv * D;
@@ -174,7 +177,8 @@ __global__ void __launch_bounds__(NT) flash_kernel(
       const float4 pv = *reinterpret_cast<const float4*>(&Pt[j * PS + ty * 4]);
       const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-      for (int u = 0; u < D / 32; ++u) {
+      for (int u = 0; u < U; ++u) {
+        if (32 * u + 4 * tx >= D) break;  // at D = 80, the last group's upper half
         const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * D + 32 * u + 4 * tx]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -194,9 +198,10 @@ __global__ void __launch_bounds__(NT) flash_kernel(
     const float lsum = fmaxf(l[i], 1e-30f);
     T* op = o + (((long)b * sq + srow) * hq + h) * D;
 #pragma unroll
-    for (int u = 0; u < D / 32; ++u)
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(&op[32 * u + 4 * tx + e], acc[i][4 * u + e] / lsum);
+      for (int e = 0; e < 4; ++e)
+        if (32 * u + 4 * tx < D) store(&op[32 * u + 4 * tx + e], acc[i][4 * u + e] / lsum);
   }
 }
 
@@ -222,6 +227,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
   switch (d) {
     case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;

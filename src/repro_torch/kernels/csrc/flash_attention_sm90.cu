@@ -5,7 +5,7 @@
 // (the pl.pallas_call at :97) for bf16 operands; ops.py routes by dtype, and
 // f32 operands keep the FMA kernel of flash_attention.cu (TF32 tensor cores
 // would not hold f32's 1e-4 tolerance, and the serving path is bf16). Same
-// contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), D in {32, 64, 128, 256}, Hq a
+// contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), D in {32, 64, 80, 128, 256}, Hq a
 // multiple of Hkv; key j is attended by query row i (absolute position
 // i + q_offset) iff j <= row (causal), j > row - window (window > 0), or
 // j < sink (sink > 0, only together with a window). A row with every key
@@ -32,14 +32,16 @@
 // the one before), then its K tiles of BK = 128 keys (64 at D = 256); a
 // second thread loads the V tiles; both into one ring of STAGES stages that
 // runs on across items (as many as the 227 KB of shared memory hold: 2 at
-// D = 256, 3 at D = 128, 6 at D = 64, 8 at D = 32), K and V each with their
+// D = 256, 3 at D = 128, 5 at D = 80, 6 at D = 64, 8 at D = 32), K and V each with their
 // own full and empty mbarriers, so that a K buffer goes back to its producer
 // as soon as its S product has completed.
 // Warpgroups 1 and 2 are consumers of 64 q rows each, with the registers
 // the producer gave up:
 //   S = Q·Kᵀ: wgmma m64nBKk16, Q and K read from shared memory K-major
 //     through descriptors of the 128-byte swizzle TMA wrote (64-byte at
-//     D = 32), f32 accumulators in registers;
+//     D = 32; 32-byte at D = 80, whose 160-byte rows no wider atom tiles,
+//     so each k16 step is one atom of 16 columns), f32 accumulators in
+//     registers;
 //   online softmax on the accumulator fragment: a thread holds two rows,
 //     whose max and sum need two shuffles among the 4 threads of a quad; the
 //     masks run only on tiles that cross the causal diagonal, the window
@@ -98,9 +100,12 @@ struct Cfg {
   // keys per ring stage: 64 at D = 256, where two stages of 128 keys beside
   // the q tile would not fit and O's 128 f32 a thread leave S room for 32
   static constexpr int BK = D == 256 ? 64 : 128;
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle span = bytes of an atom row
+  // swizzle span = bytes of an atom row: the widest of 128, 64 and 32 whose
+  // atoms tile D exactly (32 at D = 80: five atoms of 16 columns)
+  static constexpr int SW = D % 64 == 0 ? 128 : (D % 32 == 0 ? 64 : 32);
   static constexpr int AC = SW / 2;               // bf16 columns of one swizzle atom
   static constexpr int NA = D / AC;               // atoms across D
+  static_assert(D % AC == 0 && D % 16 == 0, "the atoms and the k16 steps tile D");
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
   // as many stages as a block's 232,448 bytes of shared memory hold, at most 8
@@ -494,6 +499,7 @@ extern "C" int h2eal_flash_attention_bf16(const void* q, const void* k, const vo
   switch (d) {
     case 32: return launch<32>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     case 64: return launch<64>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 80: return launch<80>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     case 128: return launch<128>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     case 256: return launch<256>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     default: return cudaErrorInvalidValue;

@@ -11,8 +11,9 @@
 // block of 8 warps per (tile of 32 pages, kv head, batch); every lane keeps
 // its D/32 coordinates of the group's query rows, split into positive and
 // negative parts, in registers (room for 8 rows, or 16 above a group of 8:
-// qwen3-moe's, 128 floats a lane at D = 128); a warp scores a page with one
-// load of each τ row and a shuffle sum.
+// qwen3-moe's, 128 floats a lane at D = 128; at D = 80 the lanes of
+// D = 128, 20 of them holding columns); a warp scores a page with one load
+// of each τ row and a shuffle sum.
 //
 // Select mode (h2eal_page_select): what core/paging's score_pages ->
 // select_pages -> accumulate_importance and the share-window keep compute
@@ -83,16 +84,31 @@ constexpr int MAX_K = 1024;
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 constexpr float kNegInfHalf = -5e29f;
 
-// the lane's D/32 coordinates of the group's g query rows, split into
-// positive and negative parts
-template <typename T, int DL, int GR>
-__device__ __forceinline__ void load_q(const T* qb, int g, int lane, float (&qp)[GR][DL],
-                                       float (&qn)[GR][DL]) {
+// A lane's coordinates of a D-wide row: DL = DP / 32 consecutive ones, DP
+// the layout's width: D, or at D = 80 (zamba2-2.7b) D = 128's layout with
+// the lanes past column 80 predicated off (they hold zeros), since 80 / 32
+// coordinates a lane would drop 16 columns
+template <int D>
+struct Lanes {
+  static constexpr int DP = D <= 32 ? 32 : (D <= 64 ? 64 : (D <= 128 ? 128 : 256));
+  static constexpr int DL = DP / 32;
+  static_assert(D % DL == 0 && D <= DP, "whole lanes of DL coordinates cover D");
+  static __device__ __forceinline__ bool on(int lane) { return lane * DL < D; }
+};
+
+// the lane's coordinates of the group's g query rows, split into positive
+// and negative parts
+template <typename T, int D, int GR>
+__device__ __forceinline__ void load_q(const T* qb, int g, int lane,
+                                       float (&qp)[GR][Lanes<D>::DL],
+                                       float (&qn)[GR][Lanes<D>::DL]) {
+  constexpr int DL = Lanes<D>::DL;
+  const bool on = Lanes<D>::on(lane);
 #pragma unroll
   for (int r = 0; r < GR; ++r)
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
-      const float x = r < g ? to_f32(qb[(long)r * 32 * DL + lane * DL + e]) : 0.f;
+      const float x = r < g && on ? to_f32(qb[(long)r * D + lane * DL + e]) : 0.f;
       qp[r][e] = fmaxf(x, 0.f);
       qn[r][e] = fminf(x, 0.f);
     }
@@ -121,15 +137,16 @@ template <typename T, int D, int GR>
 __global__ void __launch_bounds__(THREADS) score_kernel(
     const T* __restrict__ q, const float* __restrict__ tau_min,
     const float* __restrict__ tau_max, float* __restrict__ out, int hkv, int c, int g) {
-  constexpr int DL = D / 32;
+  constexpr int DL = Lanes<D>::DL;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const bool on = Lanes<D>::on(lane);
   const long bh = (long)b * hkv + hk;
 
   float qp[GR][DL], qn[GR][DL];
-  load_q<T, DL, GR>(q + bh * g * D, g, lane, qp, qn);
+  load_q<T, D, GR>(q + bh * g * D, g, lane, qp, qn);
 
 #pragma unroll
   for (int i = 0; i < PAGES_PER_WARP; ++i) {
@@ -140,8 +157,8 @@ __global__ void __launch_bounds__(THREADS) score_kernel(
     float tmin[DL], tmax[DL];
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
-      tmin[e] = tn[e];
-      tmax[e] = tx[e];
+      tmin[e] = on ? tn[e] : 0.f;
+      tmax[e] = on ? tx[e] : 0.f;
     }
     const float s = warp_sum(lane_dot<DL, GR>(qp, qn, tmin, tmax, g));
     if (lane == 0) out[bh * c + p] = s;
@@ -167,10 +184,14 @@ struct SelectArgs {
   int hkv, c, g, n_sink, local, page, top_k, minus_one_masked;
 };
 
-// an τ row's D/32 coordinates of this lane, in 16-byte loads where they allow
+// an τ row's DL coordinates of this lane, in 16-byte loads where they allow;
+// zeros where the lane lies past the row (off)
 template <int DL>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[DL]) {
-  if constexpr (DL == 8) {
+__device__ __forceinline__ void load_row(const float* p, float (&v)[DL], bool on) {
+  if (!on) {
+#pragma unroll
+    for (int e = 0; e < DL; ++e) v[e] = 0.f;
+  } else if constexpr (DL == 8) {
     const float4 x = __ldg(reinterpret_cast<const float4*>(p));
     const float4 y = __ldg(reinterpret_cast<const float4*>(p) + 1);
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
@@ -317,7 +338,7 @@ __device__ void select_row(const SelectArgs& a, const unsigned* keys,
 // pages [r·C/n, (r+1)·C/n) of row (b, hk); block 0 selects
 template <typename T, int D, int GR>
 __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
-  constexpr int DL = D / 32;
+  constexpr int DL = Lanes<D>::DL;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned* keys = reinterpret_cast<unsigned*>(smem);  // C: scores, then keys
   unsigned long long* win =
@@ -351,7 +372,7 @@ __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
   const float imp_first = beg + tid < end ? imp_prev[beg + tid] : 0.f;
   const int ctx = a.ctx ? a.ctx[b] : a.ctx_all;
   float qp[GR][DL], qn[GR][DL];
-  load_q<T, DL, GR>(static_cast<const T*>(a.q) + row * a.g * D, a.g, lane, qp, qn);
+  load_q<T, D, GR>(static_cast<const T*>(a.q) + row * a.g * D, a.g, lane, qp, qn);
   const int first_local = max(ctx - a.local, 0) / a.page;
   for (int p0 = wb; p0 < we; p0 += 32) {
     const int p = p0 + lane;
@@ -369,8 +390,8 @@ __global__ void __launch_bounds__(THREADS) select_kernel(const SelectArgs a) {
           pg[j] = p0 + __ffs(todo) - 1;
           todo &= todo - 1;
           const long off = (row * c + pg[j]) * D + lane * DL;
-          load_row<DL>(a.tau_min + off, tmin[j]);
-          load_row<DL>(a.tau_max + off, tmax[j]);
+          load_row<DL>(a.tau_min + off, tmin[j], Lanes<D>::on(lane));
+          load_row<DL>(a.tau_max + off, tmax[j], Lanes<D>::on(lane));
         }
       }
 #pragma unroll
@@ -440,6 +461,7 @@ cudaError_t dispatch_score_g(int d, const void* q, const void* tau_min, const vo
   switch (d) {
     case 32: return launch_score<T, 32, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     case 64: return launch_score<T, 64, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
+    case 80: return launch_score<T, 80, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     case 128: return launch_score<T, 128, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     case 256: return launch_score<T, 256, GR>(q, tau_min, tau_max, out, b, hkv, c, g, stream);
     default: return cudaErrorInvalidValue;
@@ -459,6 +481,7 @@ cudaError_t dispatch_select_g(int d, const SelectArgs& a, int b, int blocks,
   switch (d) {
     case 32: return launch_select<T, 32, GR>(a, b, blocks, stream);
     case 64: return launch_select<T, 64, GR>(a, b, blocks, stream);
+    case 80: return launch_select<T, 80, GR>(a, b, blocks, stream);
     case 128: return launch_select<T, 128, GR>(a, b, blocks, stream);
     case 256: return launch_select<T, 256, GR>(a, b, blocks, stream);
     default: return cudaErrorInvalidValue;

@@ -77,8 +77,9 @@
 //     row of the GQA group and no block-wide barrier on the way. A lane owns
 //     8 columns of a key row, read in 16-byte loads (one of 8 bf16, or two
 //     of 4 f32, one in each half of the row), so a D-wide row is LPK = D / 8
-//     lanes (the whole warp at D = 256) and a warp load covers KPI = 32 / LPK
-//     keys: q·k partials for the unit's 32 keys are reduce-scattered over the
+//     lanes (the whole warp at D = 256; at D = 80 the 16 lanes of D = 128,
+//     of which the 6 past column 80 load zeros and store nothing) and a
+//     warp load covers KPI = 32 / LPK keys: q·k partials for the unit's 32 keys are reduce-scattered over the
 //     row's lanes (LPK - 1 shuffles a query row), which leaves each lane the logit of one
 //     key; the softmax step is one warp max a row; p goes through the warp's
 //     own shared-memory row to the lanes that own the value columns, which
@@ -184,7 +185,12 @@ struct Cfg {
   static constexpr int GH = G < WARP_ROWS ? G : WARP_ROWS;
   static constexpr int RW = G / GH;
   static constexpr int VN = 8;              // columns a lane owns of a row
-  static constexpr int LPK = D / VN;        // lanes of one key row
+  // the lane layout's row width: D, or at D = 80 (zamba2-2.7b) D = 128's
+  // layout with the lanes past column 80 predicated off (their loads read
+  // zeros, their columns are never stored), since a key row of 10 lanes
+  // would not tile a warp's shuffles
+  static constexpr int DP = D <= 32 ? 32 : (D <= 64 ? 64 : (D <= 128 ? 128 : 256));
+  static constexpr int LPK = DP / VN;       // lanes of one key row
   static constexpr int KPI = 32 / LPK;      // keys of one warp load
   static constexpr int ROW = D * (int)sizeof(T);
   static constexpr int UNIT = RK * ROW;     // bytes of one unit's K (or V)
@@ -206,7 +212,8 @@ struct Cfg {
   static constexpr int WL = WM + 4 * NW * GH;       // f32 [NW][GH]
   static constexpr int WA = WL + 4 * NW * GH;       // f32 [NW][GH][D]
   static constexpr int bytes = WA + 4 * NW * GH * D;
-  static_assert(LPK >= 4 && LPK <= 32 && STAGES % NW == 0, "unit layout");
+  static_assert(D % VN == 0 && D <= DP && LPK >= 4 && LPK <= 32 && STAGES % NW == 0,
+                "unit layout: whole lanes of VN columns cover D");
   static_assert(G % GH == 0 && NW % RW == 0, "group split");
 };
 
@@ -411,10 +418,11 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
     const int ws = warp / RW, r_lo = (warp % RW) * GH;
     const int dg = lane % LPK, ko = lane / LPK;
     const int kj = dg * KPI + ko;  // the key whose logit this lane holds after the reduce
+    const bool cols = dg * VN < D;  // the lane's columns lie in the row (all but at D = 80)
     float qr[GH][VN], acc[GH][VN], m[GH], ls[GH];
 #pragma unroll
     for (int r = 0; r < GH; ++r) {
-      Vec<T>::template load<D>(q + (bh * g + r_lo + r) * D, dg, qr[r], r_lo + r < g);
+      Vec<T>::template load<D>(q + (bh * g + r_lo + r) * D, dg, qr[r], cols && r_lo + r < g);
       m[r] = kNegInf;
       ls[r] = 0.f;
 #pragma unroll
@@ -439,7 +447,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
         for (int i = 0; i < LPK; ++i) {
           const int j = i * KPI + ko;
           float kx[VN];
-          Vec<T>::template load<D>(ks + j * D, dg, kx, (ldm >> j) & 1u);
+          Vec<T>::template load<D>(ks + j * D, dg, kx, cols && ((ldm >> j) & 1u));
 #pragma unroll
           for (int r = 0; r < C::RB; ++r) {
             float a = 0.f;
@@ -473,7 +481,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
           const int j = (i + ii) * KPI + ko;
-          Vec<T>::template load<D>(vs + j * D, dg, vx[ii], (ldm >> j) & 1u);
+          Vec<T>::template load<D>(vs + j * D, dg, vx[ii], cols && ((ldm >> j) & 1u));
         }
 #pragma unroll
         for (int r = 0; r < GH; ++r) {
@@ -504,7 +512,7 @@ __global__ void __launch_bounds__((Cfg<T, D, G>::NT), 1) paged_kernel(
         wm[warp * GH + r] = m[r];
         wl[warp * GH + r] = l;
       }
-      if (ko == 0) {
+      if (ko == 0 && cols) {
 #pragma unroll
         for (int e = 0; e < VN; e += 4)
           *reinterpret_cast<float4*>(wa + (warp * GH + r) * D + Vec<T>::template col<D>(dg, e)) =
@@ -699,6 +707,7 @@ cudaError_t dispatch_d(int d, const PagedArgs& a) {
   switch (d) {
     case 32: return dispatch_g<T, 32, STRIPES, G16>(a);
     case 64: return dispatch_g<T, 64, STRIPES, G16>(a);
+    case 80: return dispatch_g<T, 80, STRIPES, G16>(a);
     case 128: return dispatch_g<T, 128, STRIPES, G16>(a);
     case 256: return dispatch_g<T, 256, STRIPES, G16>(a);
     default: return cudaErrorInvalidValue;

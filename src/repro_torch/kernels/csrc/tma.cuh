@@ -92,7 +92,7 @@ inline EncodeTiled encoder() {
 
 // A dense bf16 tensor of dims {d0, d1, d2, d3} (d0 contiguous) as a 4-D map
 // whose box is {box0, box1, box2, box3} elements, box0 one swizzle atom of
-// sw bytes (128 or 64); a box reaching past a dim reads zeros there
+// sw bytes (128, 64 or 32); a box reaching past a dim reads zeros there
 inline bool make_map_4d(EncodeTiled enc, CUtensorMap* map, const void* ptr, const int (&dim)[4],
                         const int (&box)[4], int sw) {
   const cuuint64_t dims[4] = {(cuuint64_t)dim[0], (cuuint64_t)dim[1], (cuuint64_t)dim[2],
@@ -104,7 +104,9 @@ inline bool make_map_4d(EncodeTiled enc, CUtensorMap* map, const void* ptr, cons
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
              boxes, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+             : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -11,9 +11,9 @@
 namespace h2eal {
 namespace sm90 {
 
-// Descriptor of a tile that TMA wrote with an SW-byte swizzle (SW = 128 or
-// 64): start address, leading and stride byte offsets (in 16-byte units),
-// and the swizzle mode in bits 62-63 (1: 128 B, 2: 64 B).
+// Descriptor of a tile that TMA wrote with an SW-byte swizzle (SW = 128, 64
+// or 32): start address, leading and stride byte offsets (in 16-byte
+// units), and the swizzle mode in bits 62-63 (1: 128 B, 2: 64 B, 3: 32 B).
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo, uint32_t sbo,
                                               int sw) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -21,7 +21,7 @@ __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo, ui
   d |= static_cast<uint64_t>((a & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(sw == 128 ? 1 : 2) << 62;
+  d |= static_cast<uint64_t>(sw == 128 ? 1 : (sw == 64 ? 2 : 3)) << 62;
   return d;
 }
 
@@ -95,6 +95,19 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A·B, m64n80k16, A (64 x 16 bf16) from registers in the m16k16
+// fragment layout, B (16 x 80) in shared memory with N contiguous (transposed):
+// head_dim 80 (zamba2-2.7b), N a multiple of 8 as wgmma takes it
+__device__ __forceinline__ void mma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d += A·B, m64n128k16, A (64 x 16 bf16) from registers in the m16k16
 // fragment layout, B (16 x 128) in shared memory with N contiguous (transposed)
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -123,6 +136,7 @@ template <int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 32) mma_rs_n32(d, a, db);
   else if constexpr (N == 64) mma_rs_n64(d, a, db);
+  else if constexpr (N == 80) mma_rs_n80(d, a, db);
   else if constexpr (N == 128) mma_rs_n128(d, a, db);
   else mma_rs_n256(d, a, db);
 }

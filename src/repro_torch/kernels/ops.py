@@ -24,7 +24,7 @@ LAUNCHES = {"flash_attention": 0, "page_score": 0, "paged_attention": 0,
             "paged_attention_partial": 0, "combine_partials": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)  # 80: zamba2-2.7b; 256: gemma3-1b
 _MAX_GROUP = 16  # qwen3-moe: 64 query heads over 4 kv heads
 _MAX_TILE_GROUP = 64  # the bf16 chunk kernels' q tile: 64 rows
 # paged_attention's split-KV grid: one block on each of the H100's 132 SMs,

@@ -35,6 +35,16 @@ It runs on the card unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --reduced --workload ragged --requests 8 --max-batch 4 \\
       --prompt-buckets 8,16,24 --rebalance retire --report-balance --device cpu
+
+Every registered arch serves both ways, the recurrent ones too (mamba2 and
+attention layers: ``--arch zamba2-2.7b``; mLSTM and sLSTM layers, no
+attention: ``--arch xlstm-125m``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --batch 2 --prompt-len 8192 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+      --reduced --workload ragged --requests 5 --max-batch 2 \\
+      --prompt-buckets 16,24 --prefill-chunk 8 --device cpu
 """
 from __future__ import annotations
 

@@ -35,7 +35,10 @@ def params_from_numpy(cfg: ArchConfig, tree, device):
     remainder layers sit unstacked under ``rem/rem{r}``. They become one
     flat list: ``blocks/pos{p}[per]`` is layer ``per·P + p`` and
     ``rem/rem{r}`` layer ``n_per·P + r`` (a dense stack has P = 1 and no
-    remainder, so ``pos0[i]`` is layer i).
+    remainder, so ``pos0[i]`` is layer i). Each leaf keeps its dtype: a
+    recurrent layer's ``mamba`` or ``xl`` leaves come with its f32 ones
+    (A_log, D, dt_bias; b_if; b) f32 in a bf16 model, and a layer without
+    an FFN (zamba2's mamba2 layers) has no ``ln2`` or ``ffn`` leaves.
     """
     T.check_ported(cfg)
     n_per, n_rem = T.layer_layout(cfg)

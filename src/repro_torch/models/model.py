@@ -2,8 +2,9 @@
 speculative verify (verify_forward, verify_commit).
 
 Counterpart of ``repro/models/model.py``. The serve state is
-``{"length": ..., "layers": [cache per layer]}``. On the lockstep path
-``length`` is a Python int; in the continuous-batching engine's batched
+``{"length": ..., "layers": [cache per layer]}``: an attention layer's KV
+caches, or a recurrent layer's state (``models/transformer.py``). On the
+lockstep path ``length`` is a Python int; in the continuous-batching engine's batched
 state it is a (B,) int32 tensor on the state's device, advanced on the
 device, so no step reads a value back from the card. The caches are
 updated in place by ``prefill_chunk`` and ``decode_step``.
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, ArchConfig
+from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, MIXER_ATTENTION, ArchConfig
 from repro_torch.core import layouts as layoutlib
 from repro_torch.core.paging import chunk_positions
 from repro_torch.models import transformer as T
@@ -117,11 +118,15 @@ def verify_forward(cfg: ArchConfig, params, state, tokens, *, active,
     and lengths untouched; ``stash`` holds each layer's roped chunk (k, v)
     for ``verify_commit``. The accepted length decides how much of the
     chunk is committed; nothing is ever rolled back. Not for a
-    ``local_global`` stack, whose window layers have no verify chunk (the
+    ``local_global`` stack, whose window layers have no verify chunk, nor
+    for a recurrent mixer, whose state a verify chunk would advance (the
     JAX engine refuses ``spec_tokens`` there too)."""
     if cfg.attn_pattern == ATTN_LOCAL_GLOBAL:
         raise ValueError("verify_forward requires the full attention pattern "
                          "(local_global windows have no verify-chunk path)")
+    if any(m != MIXER_ATTENTION for m in cfg.mixer_pattern):
+        raise ValueError("verify_forward requires all-attention mixers; "
+                         f"mixer_pattern={cfg.mixer_pattern}")
     plan = plan if plan is not None else T.default_plan(cfg)
     start = state["length"]
     x = embed_input(cfg, params, tokens)

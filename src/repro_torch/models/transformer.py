@@ -1,9 +1,13 @@
 """Decoder blocks (counterpart of ``repro/models/transformer.py``).
 
-The attention families are ported: every layer an attention mixer with
-a SwiGLU FFN or a mixture of experts (``models/moe.py``), either all
-full-attention layers or gemma3's local:global period
-(``local_global_ratio`` sliding-window layers, then one global layer).
+Every mixer of the JAX package is ported: attention layers with a SwiGLU
+FFN or a mixture of experts (``models/moe.py``), either all full-attention
+layers or gemma3's local:global period (``local_global_ratio``
+sliding-window layers, then one global layer); and the recurrent mixers,
+mamba2 (``models/ssm.py``; zamba2's period of five mamba2 layers and one
+attention layer) and xLSTM's mLSTM and sLSTM (``models/xlstm.py``), each
+layer with an FFN only where ``cfg.layer_has_ffn``. The frontend stubs
+(``embed_frontend_stub``) are not ported yet.
 Parameters are plain dictionaries, one per layer, in the JAX package's
 layout (dense weights are (d_in, d_out)); the JAX package's
 period-stacked ``blocks/pos{p}`` and remainder ``rem/rem{r}`` leaves become
@@ -15,19 +19,34 @@ A sliding-window layer (``attn_spec(cfg, pos).window > 0``) keeps a
 ``{"full": FullCache}`` in every mode, as the reference does: its prefill
 is windowed flash attention, its chunks and decode steps attend the whole
 cache under a window mask. Global layers take H²EAL's paged and streaming
-caches.
+caches. A recurrent layer keeps ``{"ssm": Mamba2State}`` or ``{"xl":
+MLSTMState | SLSTMState}`` (``core/cache.py``): its chunk and decode steps
+compute the new state as the reference's functions do and write it into
+those tensors in place (the rows of slots not stepping left as they are,
+the reference's ``_keep_active``), so that a captured step advances the
+engine's own buffers. Layouts own only the attention caches.
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (
+    MIXER_ATTENTION,
+    MIXER_MAMBA2,
+    MIXER_MLSTM,
+    MIXER_SLSTM,
+    ArchConfig,
+)
 from repro_torch.core import cache as cachelib
 from repro_torch.core import hybrid_attention as hattn
 from repro_torch.core import layouts as layoutlib
 from repro_torch.core import paging
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe as moelib
+from repro_torch.models import ssm as ssmlib
+from repro_torch.models import xlstm as xlstmlib
 from repro_torch.models.layers import (
     apply_rope,
     dense,
@@ -52,15 +71,15 @@ def layer_layout(cfg: ArchConfig) -> tuple[int, int]:
     return cfg.num_layers // p, cfg.num_layers % p
 
 
+_MIXERS = (MIXER_ATTENTION, MIXER_MAMBA2, MIXER_MLSTM, MIXER_SLSTM)
+
+
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families this port does not serve yet."""
-    attention_stack = (not cfg.mixer_pattern and not cfg.embed_frontend_stub
-                       and (cfg.d_ff > 0 or cfg.moe.enabled))
-    if not attention_stack:
+    if cfg.embed_frontend_stub or any(m not in _MIXERS for m in cfg.mixer_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: only attention stacks (full or local:global, a dense "
-            f"or MoE FFN) are ported; other mixers and frontends are ROADMAP "
-            f"Queue 1 item 11")
+            f"{cfg.name}: the attention, mamba2 and xLSTM mixers are ported; the "
+            f"frontend stubs (precomputed embeddings) are ROADMAP Queue 1 item 11")
 
 
 def attn_spec(cfg: ArchConfig, pos: int = 0) -> hattn.AttnSpec:
@@ -84,24 +103,26 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
     kw = dict(dtype=dtype, device=device)
     dense_ = lambda i, o: init_dense(generator, i, o, **kw)
     layers = []
-    for _ in range(cfg.num_layers):  # the same leaves at every position
-        p = {
-            "ln1": torch.zeros(d, **kw),
-            "wq": dense_(d, cfg.num_heads * hd),
-            "wk": dense_(d, cfg.num_kv_heads * hd),
-            "wv": dense_(d, cfg.num_kv_heads * hd),
-            "wo": dense_(cfg.num_heads * hd, d),
-            "ln2": torch.zeros(d, **kw),
-        }
-        if cfg.moe.enabled:
-            p["moe"] = moelib.init_moe(generator, cfg, **kw)
+    for i in range(cfg.num_layers):
+        mixer = cfg.mixer_for_layer(i)
+        p = {"ln1": torch.zeros(d, **kw)}
+        if mixer == MIXER_ATTENTION:
+            p.update(wq=dense_(d, cfg.num_heads * hd), wk=dense_(d, cfg.num_kv_heads * hd),
+                     wv=dense_(d, cfg.num_kv_heads * hd), wo=dense_(cfg.num_heads * hd, d))
+            if cfg.qkv_bias:
+                p["bq"] = torch.zeros(cfg.num_heads * hd, **kw)
+                p["bk"] = torch.zeros(cfg.num_kv_heads * hd, **kw)
+                p["bv"] = torch.zeros(cfg.num_kv_heads * hd, **kw)
         else:
-            p["ffn"] = {"w_gate": dense_(d, cfg.d_ff), "w_up": dense_(d, cfg.d_ff),
-                        "w_down": dense_(cfg.d_ff, d)}
-        if cfg.qkv_bias:
-            p["bq"] = torch.zeros(cfg.num_heads * hd, **kw)
-            p["bk"] = torch.zeros(cfg.num_kv_heads * hd, **kw)
-            p["bv"] = torch.zeros(cfg.num_kv_heads * hd, **kw)
+            r = _RECURRENT[mixer]
+            p[r.pkey] = r.init_params(generator, cfg, **kw)
+        if cfg.layer_has_ffn(i):
+            p["ln2"] = torch.zeros(d, **kw)
+            if cfg.moe.enabled:
+                p["moe"] = moelib.init_moe(generator, cfg, **kw)
+            else:
+                p["ffn"] = {"w_gate": dense_(d, cfg.d_ff), "w_up": dense_(d, cfg.d_ff),
+                            "w_down": dense_(cfg.d_ff, d)}
         layers.append(p)
     params = {"embed": init_embed(generator, cfg.vocab_size, d, **kw),
               "layers": layers, "final_norm": torch.zeros(d, **kw)}
@@ -117,9 +138,12 @@ def default_plan(cfg: ArchConfig):
     return [None] * cfg.num_layers
 
 
-def _ffn_apply(cfg: ArchConfig, p, x):
+def _ffn_apply(cfg: ArchConfig, pos: int, p, x):
     """The FFN half of a block over every row of x, idle and padded rows
-    too: an MoE layer's capacity counts them, as the reference's does."""
+    too: an MoE layer's capacity counts them, as the reference's does. A
+    layer without an FFN (mamba2 at zamba2, every xLSTM layer) passes x on."""
+    if not cfg.layer_has_ffn(pos):
+        return x
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         return x + moelib.moe_ffn(cfg, p["moe"], h)
@@ -143,10 +167,75 @@ def _has_full_cache(spec: hattn.AttnSpec) -> bool:
     return not spec.h2.enabled or spec.window > 0
 
 
+def _mamba2_prefill_with_state(cfg: ArchConfig, p, h):
+    """The chunked forward and the exact final SSM / conv state."""
+    return ssmlib.mamba2_forward(cfg, p, h), ssmlib.mamba2_final_state(cfg, p, h)
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent mixer: its cache key, parameter key and state container,
+    and the reference's functions over it."""
+    key: str
+    pkey: str
+    state_cls: type
+    init_params: Callable  # (generator, cfg, *, dtype, device) -> params
+    prefill: Callable  # (cfg, p, h) -> (y, state) from a fresh state
+    chunk: Callable
+    step: Callable
+    init_state: Callable  # (cfg, batch, dtype, device) -> state
+
+
+_RECURRENT = {
+    MIXER_MAMBA2: _Recurrent(
+        "ssm", "mamba", cachelib.Mamba2State, ssmlib.init_mamba2,
+        _mamba2_prefill_with_state,
+        ssmlib.mamba2_prefill_chunk, ssmlib.mamba2_step,
+        lambda cfg, b, dtype, device: ssmlib.init_mamba2_state(cfg, b, dtype=dtype,
+                                                               device=device)),
+    MIXER_MLSTM: _Recurrent(
+        "xl", "xl", cachelib.MLSTMState, xlstmlib.init_mlstm,
+        xlstmlib.mlstm_forward_with_state,
+        xlstmlib.mlstm_prefill_chunk, xlstmlib.mlstm_step,
+        lambda cfg, b, dtype, device: xlstmlib.init_mlstm_state(cfg, b, device=device)),
+    MIXER_SLSTM: _Recurrent(
+        "xl", "xl", cachelib.SLSTMState, xlstmlib.init_slstm,
+        xlstmlib.slstm_forward_with_state,
+        xlstmlib.slstm_prefill_chunk, xlstmlib.slstm_step,
+        lambda cfg, b, dtype, device: xlstmlib.init_slstm_state(cfg, b, device=device)),
+}
+
+
+def _recurrent_prefill(cfg: ArchConfig, mixer: str, p, h):
+    """A recurrent layer over the prompt from a fresh state: (y, its cache)."""
+    r = _RECURRENT[mixer]
+    y, st = r.prefill(cfg, p[r.pkey], h)
+    return y, {r.key: r.state_cls(**st)}
+
+
+def _recurrent_step(cfg: ArchConfig, mixer: str, p, h, cache, keep, chunk=None):
+    """A recurrent layer's chunk (``chunk`` = (chunk_len, active)) or decode
+    step: the reference's function on the layer's state, the new state
+    written into the cache's tensors in place (decode: the rows where
+    ``keep``, as the reference's ``_keep_active``; a chunk leaves the rows of
+    slots without tokens as they were by its own arithmetic). Returns y."""
+    r = _RECURRENT[mixer]
+    st = cachelib.state_fields(cache[r.key])
+    if chunk is not None:
+        y, new = r.chunk(cfg, p[r.pkey], st, h, chunk_len=chunk[0], active=chunk[1])
+    else:
+        y, new = r.step(cfg, p[r.pkey], st, h)
+    cachelib.write_state(cache[r.key], new, keep)
+    return y
+
+
 def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
                   layout=layoutlib.DEFAULT):
     """One block over the prompt. x: (B, S, d) -> (x, the layer's cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    mixer = cfg.mixer_for_layer(pos)
+    if mixer != MIXER_ATTENTION:
+        y, cache = _recurrent_prefill(cfg, mixer, p, h)
+        return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos, sin = rope
@@ -164,13 +253,17 @@ def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
         full.v[:, :, :s] = v.transpose(1, 2)
         cache = {"full": full}
     x = x + dense(o.reshape(b, s, -1), p["wo"])
-    return _ffn_apply(cfg, p, x), cache
+    return _ffn_apply(cfg, pos, p, x), cache
 
 
 def empty_block_cache(cfg: ArchConfig, pos: int, batch: int, capacity: int, *,
                       dtype, device):
     """The empty serve cache of ``batch`` slots of a block at period position
     ``pos``."""
+    mixer = cfg.mixer_for_layer(pos)
+    if mixer != MIXER_ATTENTION:
+        r = _RECURRENT[mixer]
+        return {r.key: r.state_cls(**r.init_state(cfg, batch, dtype, device))}
     spec = attn_spec(cfg, pos)
     if not _has_full_cache(spec):
         paged, stream = hattn.empty_decode_state(spec, batch, capacity,
@@ -188,8 +281,13 @@ def block_prefill_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *,
     the block's serve cache, grown in place; start/chunk_len/active: (B,)
     context before the chunk, valid tokens, slots prefilling. Rows past
     chunk_len and inactive slots append nothing and give values the
-    caller ignores."""
+    caller ignores. A recurrent layer resumes each slot's state over its
+    chunk (the state of a slot without tokens stays as it was)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    mixer = cfg.mixer_for_layer(pos)
+    if mixer != MIXER_ATTENTION:
+        y = _recurrent_step(cfg, mixer, p, h, cache, None, chunk=(chunk_len, active))
+        return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos, sin = rope
@@ -212,7 +310,7 @@ def block_prefill_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *,
                                  valid.contiguous())
         cache = {"full": full}
     x = x + dense(o.reshape(b, cch, -1), p["wo"])
-    return _ffn_apply(cfg, p, x), cache
+    return _ffn_apply(cfg, pos, p, x), cache
 
 
 def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
@@ -220,8 +318,14 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
                  need_select=None):
     """Decode one token through one block. x: (B, d). ``length`` is an int
     (lockstep) or (B,) tensor (continuous batching, with the per-slot
-    ``active`` and ``need_select`` masks of ``decode_attention``)."""
+    ``active`` and ``need_select`` masks of ``decode_attention``). A
+    recurrent layer steps the state of the ``active`` slots (all in
+    lockstep)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    mixer = cfg.mixer_for_layer(pos)
+    if mixer != MIXER_ATTENTION:
+        y = _recurrent_step(cfg, mixer, p, h, cache, active)
+        return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
     cos1, sin1 = rope1  # (1 or B, 1, half) at each slot's position
@@ -236,7 +340,7 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
                                  do_select=do_select, perm=perm, active=active,
                                  need_select=need_select)
     x = x + dense(o.reshape(o.shape[0], -1), p["wo"])
-    return _ffn_apply(cfg, p, x), cache
+    return _ffn_apply(cfg, pos, p, x), cache
 
 
 def block_verify_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *, start,
@@ -247,8 +351,8 @@ def block_verify_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *, st
     sin) at positions start .. start+k-1. Returns (x, cache, (k_roped, v)):
     the chunk's KV, kept for ``block_verify_append`` to commit once the
     accepted length is known. The engine serves speculation on dense
-    full-attention stacks only (not ``local_global``, as the JAX engine),
-    so there is no other mixer or window layer here."""
+    full-attention stacks only (not ``local_global`` nor a recurrent mixer,
+    as the JAX engine), so there is no other mixer or window layer here."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
@@ -260,7 +364,7 @@ def block_verify_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *, st
         layout, spec, cache, q, k, v, start, active=active,
         need_select=need_select, perm=perm)
     x = x + dense(o.reshape(b, kch, -1), p["wo"])
-    return _ffn_apply(cfg, p, x), cache, (k, v)
+    return _ffn_apply(cfg, pos, p, x), cache, (k, v)
 
 
 def block_verify_append(cfg: ArchConfig, pos: int, perm, cache, kv, *, start,

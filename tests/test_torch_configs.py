@@ -1,7 +1,8 @@
 """PyTorch port, the configs it registers: the dense stacks internlm2-20b
 and qwen2-72b (QKV bias) against the JAX package at their reduced sizes on
 the CPU, and which families the port serves (the MoE family since its
-slice: tests/test_torch_moe.py) and refuses.
+slice: tests/test_torch_moe.py; the recurrent mixers since theirs:
+tests/test_torch_recurrent.py) and refuses.
 
 Every registered config equals the JAX config of the same name field for
 field (``tests/test_torch_serve.py::test_configs_equal_the_jax_ones_field_for_field``,
@@ -61,17 +62,15 @@ def test_dense_config_prefill_and_decode_match_jax(name):
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "internlm2-20b", "qwen2-72b",
                                   "smollm-360m", "llama3-8b", "qwen3-moe-235b-a22b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "zamba2-2.7b", "xlstm-125m"])
 def test_served_families_pass_the_check(name):
     TT.check_ported(tconfigs.get_arch(name))
     TT.check_ported(tconfigs.reduced(tconfigs.get_arch(name)))
 
 
 @pytest.mark.parametrize("change", [
-    dict(mixer_pattern=("mamba2", "attention")),
-    dict(mixer_pattern=("mlstm", "mlstm", "slstm")),
     dict(embed_frontend_stub=True),
-], ids=["mamba2", "xlstm", "frontend-stub"])
+], ids=["frontend-stub"])
 def test_unported_families_raise_citing_item_11(change):
     cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("smollm-360m")), **change)
     with pytest.raises(NotImplementedError, match="item 11"):

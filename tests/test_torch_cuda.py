@@ -33,8 +33,8 @@ FLASH_CASES = [
 ]
 
 CARD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
-# every head_dim the kernels take; 256 is gemma3-1b's
-HEAD_DIMS = [32, 64, 128, 256]
+# every head_dim the kernels take; 80 is zamba2-2.7b's, 256 gemma3-1b's
+HEAD_DIMS = [32, 64, 80, 128, 256]
 
 
 def _widened(*ts):
@@ -346,6 +346,12 @@ SELECT_CASES = [
     (4, 2, 16, 264, 128, 32, [8200, 7000, 5000, 3000], 128, 8,
      [True, False, True, True], False),                           # coplace
     (2, 3, 16, 75, 32, 8, [500, 301], 16, 0, None, True),         # ties, D = 32
+    # head_dim 80 (zamba2-2.7b: 16 retrieval heads of group 1)
+    (4, 16, 1, 258, 80, 32, [8200, 7000, 5000, 3000], 128, 0,
+     [True, True, False, True], False),                           # engine
+    (4, 16, 1, 264, 80, 32, [8200, 7000, 5000, 3000], 128, 8,
+     [True, False, True, True], False),                           # coplace
+    (2, 2, 4, 75, 80, 8, [500, 301], 16, 0, None, True),          # ties, group 4
 ]
 SCORE_RTOL = 1e-6  # the scores are f32 sums on both sides: of the row's max |score|
 
@@ -1335,3 +1341,68 @@ def test_moe_ffn_on_the_card_matches_the_cpu(cuda_dev):
     torch.cuda.synchronize()
     assert (got.cpu() - want).abs().max().item() <= 1e-4
     assert torch.equal(got, again) and torch.equal(got, captured)
+
+
+def _recurrent_cfg(kind):
+    from repro_torch.configs import get_arch, reduced
+
+    if kind == "mamba2":  # the reference's hybrid: mamba2, mamba2, attention
+        return reduced(get_arch("zamba2-2.7b"), mixer_pattern=("mamba2", "mamba2", "attention"),
+                       num_layers=3)
+    return reduced(get_arch("xlstm-125m"))  # mlstm, mlstm, slstm, mlstm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mamba2", "xlstm"])
+def test_captured_recurrent_chunk_step_matches_eager(cuda_dev, kind):
+    """The engine's chunk step on a recurrent stack (f32, 3 slots, chunks of
+    8 with a ragged tail and a slot without tokens), captured as a CUDA
+    graph after a warm-up with every input zero, against the same step run
+    eagerly on a copy of the state: the logits and every state tensor (the
+    recurrent states written in place, the KV caches) equal bit for bit,
+    and the slot without tokens keeps its rows."""
+    import copy
+
+    from repro_torch.models import model as M
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime import serve as serve_rt
+
+    cfg = _recurrent_cfg(kind)
+    params = _to(M.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
+                 cuda_dev)
+    cap, c = 64, 8
+    step = serve_rt.make_prefill_chunk_step(cfg, serve_rt.ServeConfig(capacity=cap), chunk=c)
+    gen = torch.Generator().manual_seed(1)
+    toks = [torch.randint(0, cfg.vocab_size, (3, c), generator=gen).to(torch.int32).to(cuda_dev)
+            for _ in range(2)]
+    first = torch.tensor([8, 8, 5], dtype=torch.int32, device=cuda_dev)
+    second = torch.tensor([8, 3, 0], dtype=torch.int32, device=cuda_dev)
+    state = M.empty_serve_state(cfg, 3, capacity=cap, dtype=torch.float32, device=cuda_dev)
+    before = graphs.snapshot(state)  # some state to resume from
+    graphs.commit(before, step(params, state, toks[0], first, first > 0)[1])
+    eager = copy.deepcopy(state)
+
+    g = graphs.StepGraphs(cuda_dev)
+    ctoks = g.input("ctoks", (3, c), torch.int32)
+    clens = g.input("clens", (3,), torch.int32)
+
+    def chunk():
+        before = graphs.snapshot(state)
+        logits, new = step(params, state, ctoks, clens, clens > 0)
+        graphs.commit(before, new)
+        return logits
+    g.add("chunk", chunk)
+    assert g.captures == {"chunk": 1}
+    ctoks.copy_(toks[1])
+    clens.copy_(second)
+    got = g.run("chunk").clone()
+    want, eager_new = step(params, eager, toks[1], second, second > 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for (_, key, a), (_, _, b) in zip(graphs.snapshot(state), graphs.snapshot(eager_new)):
+        assert torch.equal(a, b), key
+    pre = copy.deepcopy(state)
+    g.run("chunk")  # slot 2 takes no tokens: its rows stay as they are
+    for (_, key, a), (_, _, b) in zip(graphs.snapshot(state), graphs.snapshot(pre)):
+        if key != "length":
+            assert torch.equal(a[2], b[2]), key

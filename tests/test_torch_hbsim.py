@@ -24,6 +24,8 @@ from repro_torch.runtime import perfmodel as TP
 PAPER_MODELS = ("llama2-7b", "llama3-8b", "mistral-7b")
 # the MoE family: the GEMM term reads the active parameters (top-k experts)
 MOE_MODELS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b")
+# the recurrent mixers: 9 attention layers of 54 (zamba2), none (xlstm)
+RECURRENT_MODELS = ("zamba2-2.7b", "xlstm-125m")
 FIG9_SEQS = (16384, 65536, 262144)
 TABLE3_SEQS = (65536, 262144)
 
@@ -44,7 +46,7 @@ def test_hb_config_equal():
 
 
 @pytest.mark.parametrize("share_window", [1, 4])
-@pytest.mark.parametrize("name", PAPER_MODELS + MOE_MODELS)
+@pytest.mark.parametrize("name", PAPER_MODELS + MOE_MODELS + RECURRENT_MODELS)
 def test_attention_decode_equal(name, share_window):
     """Fig 9's grid: every mode at every decode length, per-step selection
     (share_window 1) as the figure runs it, and 4 as Table III does."""
@@ -57,7 +59,7 @@ def test_attention_decode_equal(name, share_window):
                 JH.attention_decode(j, seq, mode, h2=jh2)
 
 
-@pytest.mark.parametrize("name", PAPER_MODELS + MOE_MODELS)
+@pytest.mark.parametrize("name", PAPER_MODELS + MOE_MODELS + RECURRENT_MODELS)
 def test_e2e_and_gemm_decode_equal(name):
     """Table III's end-to-end decode, and the GEMM term alone."""
     t, j = _cfgs(name, share_window=4)
@@ -78,7 +80,8 @@ def test_far_bank_transfer_equal():
                 JH.far_bank_transfer(nbytes, hops=hops)
 
 
-@pytest.mark.parametrize("name", PAPER_MODELS + ("smollm-360m",) + MOE_MODELS)
+@pytest.mark.parametrize("name", PAPER_MODELS + ("smollm-360m",) + MOE_MODELS
+                         + RECURRENT_MODELS)
 def test_byte_model_and_overheads_equal(name):
     """The serving byte model and the two overheads hbsim prices from the
     engine's counters."""

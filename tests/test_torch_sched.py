@@ -26,6 +26,8 @@ from repro_torch.configs import reduced as treduced
 PAPER_MODELS = ("llama2-7b", "llama3-8b", "mistral-7b")
 # the MoE family: active parameters count only the top-k experts
 MOE_MODELS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b")
+# the recurrent mixers: 9 attention layers of 54 (zamba2), none (xlstm)
+RECURRENT_MODELS = ("zamba2-2.7b", "xlstm-125m")
 H2S = (dict(), dict(sink=4, local=8, select_budget=16, page_size=8),
        dict(sink=4, local=256, select_budget=4096, page_size=32))
 
@@ -194,7 +196,8 @@ def _cost_models(cfg_t, cfg_j):
                        J.CostModel.from_config(cfg_j, **kw))
 
 
-@pytest.mark.parametrize("name", PAPER_MODELS + ("smollm-360m",) + MOE_MODELS)
+@pytest.mark.parametrize("name", PAPER_MODELS + ("smollm-360m",) + MOE_MODELS
+                         + RECURRENT_MODELS)
 def test_cost_model_equal(name):
     """``CostModel.from_config`` over the serving modes (tiered hot cap,
     speculative horizon, chunk budget); each slot's decode and prefill cost;

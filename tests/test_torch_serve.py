@@ -217,10 +217,14 @@ def test_llama3_8b_serving_defaults():
 
 
 def test_unported_families_raise():
+    # the recurrent mixers are served (tests/test_torch_recurrent.py); the
+    # frontend stubs are not
     cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("smollm-360m")),
-                              mixer_pattern=("mamba2", "attention"))
+                              embed_frontend_stub=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.check_ported(cfg)
+    TT.check_ported(dataclasses.replace(cfg, embed_frontend_stub=False,
+                                        mixer_pattern=("mamba2", "attention")))
 
 
 def test_bridge_round_trips_a_bf16_tree():
