@@ -115,7 +115,25 @@ then, each phase failing the run with a nonzero exit:
      exact over its attention layers, captured tokens equal to eager);
      xlstm-125m at full width and depth through ``generate`` and a chunked
      engine eager and captured (no kernel launched; a captured chunk step's
-     graph node count logged).
+     graph node count logged);
+ 13. training and head identification: (a) the attention backward
+     (``csrc/flash_attention_bwd.cu``) against its plain version at every
+     head_dim, GQA groups 1, 3, 4 and 16, causal, window 256 + sink 4 and
+     window 512, f32 and bf16, a ragged S (and, in f32, against autograd
+     through the plain forward), then timed beside its bound, its plain
+     version and SDPA's backward at smollm-360m's training shape and
+     llama3-8b's head-identification shape (f32, the dtype both paths run,
+     and bf16), each timed case also held to its plain version; (b)
+     reduced smollm-360m's ``make_train_step`` and the head-identification
+     loop of ``examples/torch_head_identification.py`` card against CPU
+     (α, each step's α gradient, and the α gradient at the identified
+     state computed on both from the same inputs), and the identified plan
+     served through ``prefill`` and ``decode_step``; (c) ``python -m repro_torch.launch.train`` (its
+     ``main``) at smollm-360m's full width and depth, f32, B = 8, S = 2048,
+     6 steps, then crashed after 3 and resumed: the final losses equal
+     within 1e-6; (d) one head-identification step at llama3-8b's full width
+     (bf16 weights, α trainable, S = 8192): a finite, non-zero α gradient.
+     The serving paths of phases 4 to 12 must launch no backward kernel.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -123,6 +141,7 @@ sources are missing.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -134,6 +153,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the trainer (phase 13c) runs under PyTorch's deterministic algorithms,
+# whose cuBLAS workspace setting must be in place before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 
@@ -1408,7 +1430,7 @@ def window_launches(s, cfg, fused_len, split):
             "chunk_attention": chunks * per["chunk"],
             "chunk_attention_paged": chunks * per["chunk_paged"],
             "paged_attention_partial": decode * per["partial"],
-            "combine_partials": 0}
+            "combine_partials": 0, "flash_attention_bwd": 0}
 
 
 def serve_polled(eng, reqs, what, guard=True):
@@ -1750,7 +1772,7 @@ def spec_launches(s, n_l, k, streaming):
             "chunk_attention": (2 * s.spec_steps + s.prefill_chunks) * n_l,
             "chunk_attention_paged": s.prefill_chunks * n_l,
             "paged_attention_partial": 0,
-            "combine_partials": 0}
+            "combine_partials": 0, "flash_attention_bwd": 0}
 
 
 def lockstep_logits(cfg, params, prompt, tokens, capacity, dev):
@@ -1985,7 +2007,8 @@ def serve_full(dev, cfg, params, prompt=PROMPT):
     expect = {"flash_attention": per["prefill"], "page_score": per["select"] * n_sel,
               "paged_attention": per["decode"] * GEN,
               "chunk_attention": 0, "chunk_attention_paged": 0,
-              "paged_attention_partial": 0, "combine_partials": 0}
+              "paged_attention_partial": 0, "combine_partials": 0,
+              "flash_attention_bwd": 0}
     log(f"generate ({cfg.name}): sparse run launches {launches} (expected {expect})")
     if launches != expect:
         fail("the serving path did not launch the kernels as expected")
@@ -2909,6 +2932,407 @@ def _to(tree, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: training and head identification
+# ---------------------------------------------------------------------------
+
+
+# the backward kernel against its plain version: in f32 the two differ by
+# summation order, scaled by a tensor's largest value (dq and dk are sums of
+# signed terms that cancel); in bf16 also by the output's one rounding, at
+# most half a bf16 step (csrc/flash_attention_bwd.cu derives it)
+BWD_MAX_RTOL, BWD_ATOL, BWD_BF16_RTOL = 1e-4, 1e-5, 2.0 ** -8
+# the check's masks: causal, llama3-8b's streaming heads (window 256, sink 4),
+# gemma3-1b's window layers (512, no sink); a ragged S past both windows
+BWD_MASKS = (("causal", 0, 0), ("window+sink", 256, 4), ("window", 512, 0))
+BWD_GROUPS = (1, 3, 4, 16)  # 3: smollm-360m's 15 over 5
+BWD_S = 601
+# the trainer (13c): smollm-360m at full width and depth, f32
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "smollm-360m", 8, 2048
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT = 6, 2, 3
+# head identification at llama3-8b (13d): one step at B = 1, S = 8192
+HEADID_S = 8192
+# 13b's identification loop, card against CPU. Step 0's α gradient, and the
+# α gradient at the CPU's identified weights and α computed on both, see the
+# same inputs and differ by summation order alone: within BWD_MAX_RTOL of
+# the largest |gradient|. The later steps see weights that AdamW moved
+# apart: where a weight's gradient is near zero, its normalised step rests
+# on the sums' last bits and may differ by up to 2·lr
+# (tests/test_torch_train.py::test_train_step_matches_jax), which moves the
+# α gradient by more. With the α gradients within HEADID_STEP_GRAD_RTOL,
+# AdamW (lr 2e-2) moves α by about 2e-2 · 1e-3 a step more at most: α within
+# HEADID_ALPHA_TOL after three steps, and at most half of it past 1e-5. A
+# missing or wrong α update moves α by about lr a step
+HEADID_STEP_GRAD_RTOL, HEADID_ALPHA_TOL = 1e-3, 1e-4
+
+
+def bwd_excess(got, want, dtype) -> float:
+    """Largest |kernel - plain| - bound over a gradient tensor: within at <= 0."""
+    want = want.float()
+    lim = BWD_MAX_RTOL * want.abs().max() + BWD_ATOL
+    if dtype == torch.bfloat16:
+        lim = lim + BWD_BF16_RTOL * want.abs()
+    return ((got.float() - want).abs() - lim).max().item()
+
+
+BWD_TOL_TEXT = {torch.float32: f"{BWD_MAX_RTOL:g}*max|plain| + {BWD_ATOL:g}",
+                torch.bfloat16: f"{BWD_BF16_RTOL:.4g}*|plain| + {BWD_MAX_RTOL:g}*max|plain|"
+                                f" + {BWD_ATOL:g}"}
+
+
+def bwd_inputs(ops, gen, dev, dtype, b, s, hq, hkv, d, mask):
+    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, **mask)
+    return q, k, v, o, do
+
+
+def check_bwd_cases(ops, ref, dev, gen):
+    """Phase 13a: the backward kernel against ref.flash_attention_bwd_ref on
+    the card at every head_dim x GQA group x mask x dtype (B = 1, a ragged S,
+    one kv head), and, in f32, against torch.autograd.grad through
+    ref.flash_attention_ref. Returns the number of cases."""
+    bad, n, worst = [], 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in ops._HEAD_DIMS:
+            for g in BWD_GROUPS:
+                for label, window, sink in BWD_MASKS:
+                    mask = dict(causal=True, window=window, sink=sink)
+                    q, k, v, o, do = bwd_inputs(ops, gen, dev, dtype, 1, BWD_S, g, 1, d, mask)
+                    got = ops.flash_attention_bwd(q, k, v, o, do, **mask)
+                    want = ref.flash_attention_bwd_ref(*widened(q, k, v, o, do), **mask)
+                    checks = [(got, want)]
+                    if dtype == torch.float32:
+                        leaves_ = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                        out = ref.flash_attention_ref(*leaves_, **mask)
+                        checks.append((got, torch.autograd.grad(out, leaves_, do)))
+                    torch.cuda.synchronize()
+                    for gots, wants in checks:
+                        for name, a, w in zip("qkv", gots, wants):
+                            ex = bwd_excess(a, w, dtype)
+                            worst[dtype] = max(worst[dtype], err(a, w))
+                            if not ex <= 0.0:
+                                bad.append(f"d{name} D={d} G={g} {label} "
+                                           f"{str(dtype).split('.')[-1]} excess {ex:.3e}")
+                    n += 1
+    for dtype, e in worst.items():
+        log(f"flash_attention_bwd check: {n // 2} cases in {str(dtype).split('.')[-1]} "
+            f"(head_dim {list(ops._HEAD_DIMS)}, GQA {list(BWD_GROUPS)}, "
+            f"{[m[0] for m in BWD_MASKS]}, S={BWD_S}), max err {e:.3e} "
+            f"(tol {BWD_TOL_TEXT[dtype]})")
+    if bad:
+        fail(f"flash_attention_bwd disagrees with its plain version: {bad[:8]}")
+    return n
+
+
+def time_bwd(ops, ref, timer, dev, gen):
+    """Phase 13a's times: the backward kernel, its plain version and SDPA's
+    backward through autograd (a bool mask for the window case) at
+    smollm-360m's training shape and llama3-8b's head-identification shape
+    (causal, and window 256 + sink 4: the gated mix's two calls), each in
+    f32, the dtype both paths run (``main``), and in bf16. Each case is
+    also held to its plain version, at these shapes' batch and kv-head
+    offsets."""
+    shapes = [(f"{TRAIN_ARCH} training", TRAIN_B, TRAIN_S, 15, 5, 64, (0, 0), dt)
+              for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(f"{ARCH} head identification", 1, HEADID_S, 32, 8, 128, ws, dt)
+               for dt in (torch.float32, torch.bfloat16) for ws in ((0, 0), (256, 4))]
+    cases = []
+    for label, b, s, hq, hkv, d, (window, sink), dtype in shapes:
+        mask = dict(causal=True, window=window, sink=sink)
+        q, k, v, o, do = bwd_inputs(ops, gen, dev, dtype, b, s, hq, hkv, d, mask)
+        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, **mask)
+        got = run()
+        want = ref.flash_attention_bwd_ref(*widened(q, k, v, o, do), **mask)
+        torch.cuda.synchronize()
+        ex = max(bwd_excess(a, w, dtype) for a, w in zip(got, want))
+        e = max(err(a, w) for a, w in zip(got, want))
+        del got, want
+        torch.cuda.empty_cache()
+        case = (f"{label} B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal"
+                + (f" window={window} sink={sink}" if window else ""))
+        if not ex <= 0.0:
+            fail(f"flash_attention_bwd disagrees with its plain version at {case} "
+                 f"{str(dtype).split('.')[-1]}: excess {ex:.3e}")
+        ms = timer.ms(run, 5)
+        plain_ms = timer.ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, **mask), 2)
+        torch.cuda.empty_cache()
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        if window:
+            i = torch.arange(s, device=dev)[:, None]
+            j = torch.arange(s, device=dev)[None, :]
+            attn = dict(attn_mask=(j <= i) & ((j > i - window) | (j < sink)))
+        else:
+            attn = dict(is_causal=True)
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True,
+                                                               **attn)
+        doh = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+        lib_ms = timer.ms(lib, 5)
+        del out, qh, kh, vh
+        # the function's work: S, dP, dq, dk, dv, five D-long products a
+        # pair (2.5x the forward's two); launch 1's recompute of S is this
+        # kernel's choice, not the function's, and is not counted
+        flops = 10 * d * flash_pairs(s, window, sink) * b * hq
+        b_ms, b_by = bound(nbytes(q, k, v, o, do) + nbytes(q, k, v), flops, dtype)
+        cases.append(dict(
+            case=case, dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
+            tol=BWD_TOL_TEXT[dtype], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, main=dtype == torch.float32))
+        log(f"flash_attention_bwd [{case} {cases[-1]['dtype']}] kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"max_err={e:.3e} excess={ex:.3e} (tol {BWD_TOL_TEXT[dtype]})")
+        del q, k, v, o, do
+        torch.cuda.empty_cache()
+    return cases
+
+
+def train_steps(cfg, params, batches, dev):
+    """``make_train_step`` (remat) over ``batches`` from ``params``: the
+    [(loss, grad norm)] of each step."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+
+    step_fn = train_rt.make_train_step(cfg, train_rt.TrainConfig(lr=1e-3, warmup=1,
+                                                                 total_steps=10))
+    params = _to(params, dev)
+    opt = adamw.init_state(params)
+    out = []
+    for i, batch in enumerate(batches):
+        params, opt, m = step_fn(params, opt, {k: v.to(dev) for k, v in batch.items()}, i)
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    return out
+
+
+def check_training_against_cpu(dev):
+    """Phase 13b, f32, card (kernels) against CPU (plain versions), same
+    weights: three make_train_step steps of reduced smollm-360m on the same
+    lm_batch steps (losses and grad norms within 1e-5 relative); three steps
+    of examples/torch_head_identification.py's loop on its model widened to
+    4 kv heads (losses within 1e-5 relative, α and the α gradients within
+    the bounds stated at HEADID_STEP_GRAD_RTOL, classify_heads equal); then
+    the identified plan, a non-identity permutation, served through prefill
+    and 8 decode_steps (tokens equal, last logits within 1e-3)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import gating
+    from repro_torch.data import lm_batch, niah_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_head_identification as head_id
+
+    cfg = reduced(get_arch(TRAIN_ARCH))
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(4), device="cpu")
+    batches = [lm_batch(i, batch=4, seq=64, vocab=cfg.vocab_size) for i in range(3)]
+    ops.reset_launches()
+    card = train_steps(cfg, params, batches, dev)
+    launched = dict(ops.LAUNCHES)
+    cpu = train_steps(cfg, params, batches, "cpu")
+    worst = max(abs(a - b) / abs(b) for c, p in zip(card, cpu) for a, b in zip(c, p))
+    log(f"train steps {cfg.name} (B=4 S=64, remat): card (loss, grad norm) {card} "
+        f"CPU {cpu}, max rel diff {worst:.3e}; launches fwd "
+        f"{launched['flash_attention']} bwd {launched['flash_attention_bwd']}")
+    per = 3 * cfg.num_layers
+    if not worst <= 1e-5 or launched["flash_attention"] != 2 * per \
+            or launched["flash_attention_bwd"] != per:
+        fail("the reduced training steps on the card disagree with the CPU or did not "
+             "launch the kernels (2 forward and 1 backward a layer and step)")
+
+    hcfg = dataclasses.replace(head_id.config(), num_heads=8, num_kv_heads=4)
+    hparams = M.init_params(hcfg, generator=torch.Generator().manual_seed(5), device="cpu")
+    runs = {}
+    for where in (dev, "cpu"):
+        runs[str(where)] = head_id.identify(hcfg, _to(hparams, where), steps=3,
+                                            device=where, log_every=100)
+    (_, a_card, t_card), (p_cpu, a_cpu, t_cpu) = runs[str(dev)], runs["cpu"]
+    perm_card = gating.classify_heads(a_card, hcfg.h2eal.static_sparsity).cpu()
+    perm_cpu = gating.classify_heads(a_cpu, hcfg.h2eal.static_sparsity)
+
+    def alpha_grad(where):
+        """The α gradient at the CPU's identified weights and α, on the
+        loop's next batch."""
+        batch = niah_batch(3, batch=16, seq=64, vocab=hcfg.vocab_size, depth_frac=0.4)
+        a = a_cpu.to(where).requires_grad_(True)
+        loss, _ = head_id.loss_fn(hcfg, _to(p_cpu, where), a, batch["tokens"].to(where),
+                                  batch["answer"].to(where))
+        return torch.autograd.grad(loss, [a])[0].cpu()
+
+    rel = lambda got, want: err(got, want) / want.abs().max().item()
+    g_steps = [rel(c[2], p[2]) for c, p in zip(t_card, t_cpu)]
+    g_fixed = {str(w): alpha_grad(w) for w in (dev, "cpu")}
+    g_fixed_err = rel(g_fixed[str(dev)], g_fixed["cpu"])
+    diff = (a_card.cpu() - a_cpu).abs()
+    loose = int((diff > 1e-5).sum())
+    loss_err = max(abs(a[i] - b[i]) / abs(b[i]) for a, b in zip(t_card, t_cpu)
+                   for i in (0, 1))
+    log(f"head identification ({hcfg.num_layers} layers x {hcfg.num_kv_heads} kv heads, 3 "
+        f"steps): losses card vs CPU max rel diff {loss_err:.3e}; alpha gradient max err "
+        f"over max|grad| by step {[f'{x:.3e}' for x in g_steps]} (norms card "
+        f"{[round(t[2].norm().item(), 6) for t in t_card]} CPU "
+        f"{[round(t[2].norm().item(), 6) for t in t_cpu]}), at the identified state "
+        f"{g_fixed_err:.3e}; alpha max err {diff.max().item():.3e}, {loose} of "
+        f"{diff.numel()} past 1e-5; perms {perm_cpu.tolist()} "
+        f"equal={torch.equal(perm_card, perm_cpu)}")
+    if not (loss_err <= 1e-5 and g_steps[0] <= BWD_MAX_RTOL and g_fixed_err <= BWD_MAX_RTOL
+            and max(g_steps[1:]) <= HEADID_STEP_GRAD_RTOL
+            and diff.max().item() <= HEADID_ALPHA_TOL and loose <= diff.numel() // 2
+            and g_fixed["cpu"].abs().min().item() > 0 and torch.equal(perm_card, perm_cpu)):
+        fail("head identification on the card disagrees with the CPU")
+    plan_cpu = gating.plan_from_perms(perm_cpu)
+    if all(p is None for p in plan_cpu):
+        fail("the identified plan is the identity: the check would not exercise it")
+    plan_dev = [None if p is None else p.to(dev) for p in plan_cpu]
+    prompts = torch.randint(0, hcfg.vocab_size, (2, 45), generator=torch.Generator().manual_seed(6))
+    cap = 45 + 8 + hcfg.h2eal.page_size
+    w = max(hcfg.h2eal.share_window, 1)
+    toks, last = {}, {}
+    for where, plan in ((dev, plan_dev), ("cpu", plan_cpu)):
+        with torch.inference_mode():
+            params_ = _to(p_cpu, where)  # both sides serve the CPU's identified weights
+            logits, state = M.prefill(hcfg, params_, prompts.to(where), capacity=cap,
+                                      plan=plan)
+            out = []
+            for i in range(8):
+                tok = logits.argmax(dim=-1).to(torch.int32)
+                out.append(tok)
+                logits, state = M.decode_step(hcfg, params_, state, tok, plan=plan,
+                                              do_select=i % w == 0)
+        toks[str(where)] = torch.stack(out, 1).cpu()
+        last[str(where)] = logits.float().cpu()
+    e = err(last[str(dev)], last["cpu"])
+    same = torch.equal(toks[str(dev)], toks["cpu"])
+    log(f"identified plan {[None if p is None else p.tolist() for p in plan_cpu]} served "
+        f"(prefill 45 + 8 decode steps): card vs CPU tokens equal={same}, last-logit max "
+        f"err {e:.3e}")
+    if not same or e > 1e-3:
+        fail("the identified plan serves differently on the card and the CPU")
+
+
+def train_full_width(dev):
+    """Phase 13c: ``python -m repro_torch.launch.train`` (its ``main``) at
+    smollm-360m's full width and depth, f32, B = 8, S = 2048, remat, 6 steps
+    with a checkpoint every 2; then again with a crash after 3 steps, and a
+    resume from the last checkpoint: the final losses must agree within
+    1e-6. Returns the uninterrupted run's launch counts."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    cfg = get_arch(TRAIN_ARCH)
+    common = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+              "--seq", str(TRAIN_S), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+              "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_ref = train_cli.main(common + ["--ckpt-dir", os.path.join(tmp, "a")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        try:
+            train_cli.main(common + ["--ckpt-dir", os.path.join(tmp, "b"),
+                                     "--crash-at", str(TRAIN_CRASH_AT)])
+            fail("the trainer did not crash at --crash-at")
+        except RuntimeError as exc:
+            log(f"trainer: {exc}")
+        loss_res = train_cli.main(common + ["--ckpt-dir", os.path.join(tmp, "b")])
+    want = dict(flash_attention=2 * cfg.num_layers * TRAIN_STEPS,
+                flash_attention_bwd=cfg.num_layers * TRAIN_STEPS)
+    got = {k: launches[k] for k in want}
+    log(f"trainer {cfg.name} full width ({cfg.num_layers} layers, d_model {cfg.d_model}), "
+        f"f32, B={TRAIN_B} S={TRAIN_S}, remat: {TRAIN_STEPS} steps in {wall:.1f}s "
+        f"(checkpoints included), peak memory {peak:.2f} GiB, launches {got} (expected "
+        f"{want}); final loss {loss_ref!r}, after crash at {TRAIN_CRASH_AT} and resume "
+        f"{loss_res!r}, diff {abs(loss_ref - loss_res):.3e}")
+    if got != want:
+        fail("the trainer did not launch the forward and backward kernels as expected")
+    if not math.isfinite(loss_ref) or abs(loss_ref - loss_res) > 1e-6:
+        fail("the resumed training run does not reproduce the uninterrupted one")
+    return launches
+
+
+def head_id_full_width(dev):
+    """Phase 13d: one head-identification step at llama3-8b's full width and
+    depth: bf16 random weights without grad, α (32 x 8, f32) the only
+    trainable leaf, the gated lm_loss + λ‖α‖₁ at B = 1, S = 8192 with remat,
+    its backward, and one AdamW step on α. (The gated mix promotes to α's
+    f32, as the reference's does, so the layers after the first run in f32.)
+    Returns the launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import gating
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = get_arch(ARCH)
+    params = full_params(dev, cfg)
+    batch = {k: v.to(dev) for k, v in lm_batch(0, batch=1, seq=HEADID_S,
+                                                vocab=cfg.vocab_size).items()}
+    alpha = gating.init_alpha(cfg.num_layers, cfg.num_kv_heads, device=dev)
+    opt = adamw.init_state(alpha)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a = alpha.detach().requires_grad_(True)
+    task = M.lm_loss(cfg, params, batch["tokens"], batch["labels"], alpha=a, remat=True)
+    loss = gating.gating_loss(task, a, 2e-3)
+    (grad,) = torch.autograd.grad(loss, [a])
+    alpha, opt, _ = adamw.apply_updates(alpha, grad, opt,
+                                        adamw.AdamWConfig(lr=2e-2, weight_decay=0.0))
+    alpha = gating.clip_alpha(alpha)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gnorm = grad.norm().item()
+    # layer 0's q, k and v depend on no trainable leaf, so its attention
+    # makes no autograd node: its α gradient is full - stream
+    want = dict(flash_attention=4 * cfg.num_layers,
+                flash_attention_bwd=2 * (cfg.num_layers - 1))
+    got = {k: launches[k] for k in want}
+    log(f"head identification {cfg.name} full width (bf16 weights, alpha f32 "
+        f"{tuple(alpha.shape)}), B=1 S={HEADID_S}, remat: step {wall:.2f}s, peak memory "
+        f"{peak:.2f} GiB, task loss {task.item():.4f}, alpha grad norm {gnorm:.4e}, "
+        f"alpha after the step in [{alpha.min().item():.4f}, {alpha.max().item():.4f}], "
+        f"launches {got} (expected {want})")
+    if not (math.isfinite(gnorm) and gnorm > 0):
+        fail("the head-identification alpha gradient is not finite and non-zero")
+    if got != want:
+        fail("head identification did not launch the forward and backward kernels as "
+             "expected")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase13(ops, ref, dev):
+    """Phase 13: (a) the backward kernel's check and times, (b) training and
+    head identification card against CPU, (c) the full-width trainer with
+    crash and resume, (d) llama3-8b's head-identification step. Returns
+    (the backward's kernel-line cases, launch counts by path)."""
+    t13 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    check_bwd_cases(ops, ref, dev, gen)
+    timer = Timer(dev)
+    cases = time_bwd(ops, ref, timer, dev, gen)
+    del timer
+    torch.cuda.empty_cache()
+    check_training_against_cpu(dev)
+    by_path = {"train": train_full_width(dev), "head_id": head_id_full_width(dev)}
+    log(f"phase 13 (training and head identification) {time.perf_counter() - t13:.1f}s")
+    return cases, by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3019,6 +3443,9 @@ def main() -> int:
     by_path.update(serve_zamba2(dev))
     serve_xlstm(dev)
     log(f"phase 12 (the recurrent mixers) {time.perf_counter() - t12:.1f}s")
+    results["flash_attention_bwd"], train_paths = phase13(ops, ref, dev)
+    serving_paths = list(by_path)
+    by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
     # windows, for llama3-8b and gemma3-1b, and the eviction pool; the MoE
@@ -3046,11 +3473,16 @@ def main() -> int:
                   "kimi_generate": ("flash_attention", "page_score", "paged_attention"),
                   "zamba2_generate": ("flash_attention", "page_score", "paged_attention"),
                   "zamba2_engine_chunked_windows": engine,
-                  "zamba2_engine_chunked_graphs": engine}
+                  "zamba2_engine_chunked_graphs": engine,
+                  "train": ("flash_attention", "flash_attention_bwd"),
+                  "head_id": ("flash_attention", "flash_attention_bwd")}
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:
             fail(f"path {path} never launched {idle}")
+    backward = [p for p in serving_paths if by_path[p]["flash_attention_bwd"]]
+    if backward:
+        fail(f"serving paths {backward} launched the attention backward")
 
     src = "src/repro_torch/kernels/csrc/"
     # flash_attention and the chunk kernels: the main path's bf16 kernels
@@ -3062,17 +3494,25 @@ def main() -> int:
                "chunk_attention": src + "chunk_attention_sm90.cu",
                "chunk_attention_paged": src + "chunk_attention_sm90.cu",
                "paged_attention_partial": src + "paged_attention.cu",
-               "combine_partials": src + "combine_partials.cu"}
+               "combine_partials": src + "combine_partials.cu",
+               "flash_attention_bwd": src + "flash_attention_bwd.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:97",
                 "page_score": "src/repro/kernels/page_score.py:46",
                 "paged_attention": "src/repro/kernels/paged_attention.py:89",
                 "chunk_attention": "src/repro/kernels/chunk_attention.py:107",
                 "chunk_attention_paged": "src/repro/kernels/chunk_attention.py:213",
                 "paged_attention_partial": "src/repro/kernels/paged_attention.py:89",
-                "combine_partials": "src/repro/kernels/paged_attention.py:211"}
+                "combine_partials": "src/repro/kernels/paged_attention.py:211",
+                # no Pallas backward: the JAX package differentiates the plain
+                # body of the function whose forward is flash_attention.py:97
+                "flash_attention_bwd": "src/repro/kernels/ref.py:40"}
     kernels = []
+    # the serving paths run bf16; training and head identification run the
+    # backward in f32 (the gated mix promotes to α's f32)
+    path_dtype = {"flash_attention_bwd": "float32"}
     for name, cases in results.items():
-        main_cases = [c for c in cases if c["dtype"] == "bfloat16" and c.get("main", True)]
+        main_cases = [c for c in cases if c["dtype"] == path_dtype.get(name, "bfloat16")
+                      and c.get("main", True)]
         total = lambda key: sum(c[key] for c in main_cases)
         lib_vals = [c["library_ms"] for c in main_cases]
         kernels.append({

@@ -24,8 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # sources compiled in parts, one nvcc a part with -DH2EAL_PART=i, all at
 # once: each part holds a share of the source's template instantiations
 # (paged_attention.cu: one dtype and split kind each, for the groups up to
-# 8 and for the group of 16)
-PARTS = {"paged_attention.cu": 8}
+# 8 and for the group of 16; flash_attention_bwd.cu: one dtype each)
+PARTS = {"paged_attention.cu": 8, "flash_attention_bwd.cu": 2}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: (argument types); each returns a cudaError_t as int
@@ -52,6 +52,11 @@ SIGNATURES = {
     "h2eal_chunk_attention_paged_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _I, _F, _P),
     "h2eal_combine_partials": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # flash_attention's backward: q, k, v, o, dO, dq, dk, dv, the f32 row
+    # scratch (lse, delta), then dtype, b, sq, sk, hq, hkv, d, causal, window,
+    # sink, q_offset, scale, stream
+    "h2eal_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None

@@ -21,7 +21,8 @@ from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"flash_attention": 0, "page_score": 0, "paged_attention": 0,
             "chunk_attention": 0, "chunk_attention_paged": 0,
-            "paged_attention_partial": 0, "combine_partials": 0}
+            "paged_attention_partial": 0, "combine_partials": 0,
+            "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128, 256)  # 80: zamba2-2.7b; 256: gemma3-1b
@@ -108,20 +109,36 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     before P·V, one persistent block an SM taking work items from a
     counter kept per stream), f32 on the FMA units (``csrc/flash_attention.cu``), since
     TF32 tensor cores would not hold f32's tolerance. Either raises if its
-    kernel fails to build or launch."""
+    kernel fails to build or launch. Where grad mode is on and an input
+    requires grad, the call is an autograd node whose backward is
+    ``flash_attention_bwd``'s kernel; otherwise (serving, ``no_grad``,
+    inference) it is the forward kernel alone. On the CPU, autograd
+    differentiates the plain version, as the JAX package differentiates its
+    plain body."""
     if _on_cpu(q, k, v):
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         sink=sink, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, sink, q_offset)
+    return _flash_forward(q, k, v, causal, window, sink, q_offset)
+
+
+def _check_flash(name, q, k, v, window, sink, q_offset):
     b, sq, hq, d = q.shape
     _require(k.dim() == 4 and k.shape == v.shape and k.shape[0] == b
-             and k.shape[3] == d, "flash_attention: k/v must be (B, Sk, Hkv, D)")
-    sk, hkv = k.shape[1], k.shape[2]
-    _require(q.dtype in _DTYPES, f"flash_attention: dtype {q.dtype} not supported")
-    _check_operands("flash_attention", (q, k, v), q.dtype)
-    _require(d in _HEAD_DIMS, f"flash_attention: head_dim {d} not in {_HEAD_DIMS}")
-    _require(hq % hkv == 0, "flash_attention: Hq must be a multiple of Hkv")
+             and k.shape[3] == d, f"{name}: k/v must be (B, Sk, Hkv, D)")
+    _require(q.dtype in _DTYPES, f"{name}: dtype {q.dtype} not supported")
+    _check_operands(name, (q, k, v), q.dtype)
+    _require(d in _HEAD_DIMS, f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    _require(hq % k.shape[2] == 0, f"{name}: Hq must be a multiple of Hkv")
     _require(q_offset >= 0 and window >= 0 and sink >= 0,
-             "flash_attention: q_offset, window and sink must be >= 0")
+             f"{name}: q_offset, window and sink must be >= 0")
+    return b, sq, k.shape[1], hq, k.shape[2], d
+
+
+def _flash_forward(q, k, v, causal, window, sink, q_offset):
+    b, sq, sk, hq, hkv, d = _check_flash("flash_attention", q, k, v, window, sink,
+                                         q_offset)
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -140,6 +157,55 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, and ``flash_attention_bwd``'s kernel as its
+    backward (q, k, v and the output saved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sink, q_offset):
+        o = _flash_forward(q, k, v, causal, window, sink, q_offset)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = dict(causal=causal, window=window, sink=sink, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
+                        sink: int = 0, q_offset: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_attention`` with the same mask
+    arguments, from its inputs, its output o and the output's gradient do
+    (each like q), in the inputs' dtype. On the card: one call of
+    ``csrc/flash_attention_bwd.cu`` (three launches: the rows' log-sum-exp
+    and Δ, dq, dk and dv; f32 arithmetic, no atomics), raising if the kernel
+    fails to build or launch."""
+    if _on_cpu(q, k, v, o, do):
+        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window,
+                                            sink=sink, q_offset=q_offset)
+    b, sq, sk, hq, hkv, d = _check_flash("flash_attention_bwd", q, k, v, window, sink,
+                                         q_offset)
+    _require(o.shape == q.shape and do.shape == q.shape,
+             "flash_attention_bwd: o and do must be shaped like q")
+    _check_operands("flash_attention_bwd", (o, do), q.dtype)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rows = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.library().h2eal_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows[0].data_ptr(),
+            rows[1].data_ptr(), _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, int(causal),
+            window, sink, q_offset, _scale(d), _stream(q))
+    _build.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 def paged_splits(b: int, hkv: int, t: int) -> int:

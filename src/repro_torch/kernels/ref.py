@@ -50,9 +50,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     kx = k.repeat_interleave(group, dim=2) if group > 1 else k
     vx = v.repeat_interleave(group, dim=2) if group > 1 else v
     logits = _mm_f32("bihd,bjhd->bhij", q.to(k.dtype), kx) * _scale(d).to(q.device)
-    i = torch.arange(sq, device=q.device)[:, None] + q_offset
-    j = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    mask = _flash_mask(sq, sk, causal, window, sink, q_offset, q.device)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = _mm_f32("bhij,bjhd->bihd", p.to(v.dtype), vx)
+    return out.to(q.dtype)
+
+
+def _flash_mask(sq: int, sk: int, causal: bool, window: int, sink: int,
+                q_offset: int, device):
+    """(Sq, Sk) bool: key j attended by query row i (position i + q_offset)."""
+    i = torch.arange(sq, device=device)[:, None] + q_offset
+    j = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= j <= i
     if window > 0:
@@ -60,10 +70,38 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
         if sink > 0:
             win |= j < sink
         mask &= win
-    logits = torch.where(mask[None, None], logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    out = _mm_f32("bhij,bjhd->bihd", p.to(v.dtype), vx)
-    return out.to(q.dtype)
+    return mask
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True, window: int = 0,
+                            sink: int = 0, q_offset: int = 0):
+    """The gradients of ``flash_attention_ref`` by the explicit formulas, in
+    f32: P = softmax(scale·q·kᵀ) under the same mask, dP = dO·vᵀ,
+    Δ = Σ_d dO∘o (from the given output o), dS = P∘(dP − Δ); dq = scale·dS·k,
+    dk = scale·dSᵀ·q and dv = Pᵀ·dO, each kv head's summed over its GQA
+    group. q, o, do: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D). Returns (dq, dk,
+    dv) in the inputs' dtype. P is not rounded to v's dtype, so in bf16 this
+    is the gradient of the unrounded function (what the card's backward
+    computes); in f32 it equals autograd through ``flash_attention_ref``."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    kx = kf.repeat_interleave(group, dim=2) if group > 1 else kf
+    vx = vf.repeat_interleave(group, dim=2) if group > 1 else vf
+    scale = _scale(d).to(q.device)
+    mask = _flash_mask(sq, sk, causal, window, sink, q_offset, q.device)
+    p = torch.einsum("bihd,bjhd->bhij", qf, kx) * scale
+    p = torch.softmax(torch.where(mask[None, None], p, NEG_INF), dim=-1)
+    ds = torch.einsum("bihd,bjhd->bhij", dof, vx)  # dP, then dS in place
+    ds -= (dof * of).sum(dim=-1).transpose(1, 2)[..., None]
+    ds *= p
+    dq = torch.einsum("bhij,bjhd->bihd", ds, kx) * scale
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qf) * scale
+    del ds
+    dv = torch.einsum("bhij,bihd->bjhd", p, dof)
+    fold = lambda t: t.reshape(b, sk, hkv, group, d).sum(dim=3)
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
 
 def paged_attention_ref(q, k, v, valid):

@@ -2,29 +2,21 @@
 
 The JAX tree arrives as nested dicts of numpy arrays (``np.asarray`` of
 every leaf), so this module needs neither JAX nor ``ml_dtypes``: a bf16
-array (``a.dtype.name == "bfloat16"``) is reinterpreted bit for bit
-through a uint16 view.
+array (``a.dtype.name == "bfloat16"``, or a ``ckpt.load_numpy`` leaf of
+bf16 bits) is reinterpreted bit for bit through a 16-bit view
+(``ckpt.checkpoint.to_tensor``).
 """
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from repro_torch.ckpt.checkpoint import to_tensor
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models import transformer as T
 
 
-def tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.array(a, copy=True, order="C")  # writable and owned by torch
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
-def _tree(x, fn):
-    if isinstance(x, dict):
-        return {k: _tree(v, fn) for k, v in x.items()}
-    return fn(x)
+tensor_from_numpy = to_tensor
 
 
 def params_from_numpy(cfg: ArchConfig, tree, device):
@@ -48,10 +40,10 @@ def params_from_numpy(cfg: ArchConfig, tree, device):
     for pos in range(period if n_per else 0):
         stacked = tree["blocks"][f"pos{pos}"]
         for per in range(n_per):
-            layers[per * period + pos] = _tree(
-                stacked, lambda a, per=per: to_t(np.asarray(a)[per]))
+            layers[per * period + pos] = tree_map(
+                lambda a, per=per: to_t(np.asanyarray(a)[per]), stacked)
     for r in range(n_rem):
-        layers[n_per * period + r] = _tree(tree["rem"][f"rem{r}"], to_t)
+        layers[n_per * period + r] = tree_map(to_t, tree["rem"][f"rem{r}"])
     params = {"embed": to_t(tree["embed"]), "layers": layers,
               "final_norm": to_t(tree["final_norm"])}
     if not cfg.tie_embeddings:

@@ -1,5 +1,6 @@
-"""Model API for serving: prefill, prefill_chunk, decode_step and the
-speculative verify (verify_forward, verify_commit).
+"""Model API: the training forward and ``lm_loss``; for serving, prefill,
+prefill_chunk, decode_step and the speculative verify (verify_forward,
+verify_commit).
 
 Counterpart of ``repro/models/model.py``. The serve state is
 ``{"length": ..., "layers": [cache per layer]}``: an attention layer's KV
@@ -12,6 +13,7 @@ updated in place by ``prefill_chunk`` and ``decode_step``.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, MIXER_ATTENTION, ArchConfig
 from repro_torch.core import layouts as layoutlib
@@ -31,10 +33,13 @@ def embed_input(cfg: ArchConfig, params, batch):
 
 
 def unembed(cfg: ArchConfig, params, x):
+    """The final norm and the vocabulary projection, in the promoted dtype of
+    x and the weight, as the reference's einsum (head identification's
+    gated mix gives f32 activations over bf16 weights)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def _rope(cfg: ArchConfig, positions):
@@ -45,6 +50,46 @@ def _positions(cfg: ArchConfig):
     """Each layer's period position (remainder layers continue the pattern)."""
     period = T.period_len(cfg)
     return [i % period for i in range(cfg.num_layers)]
+
+
+def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
+    """The full-sequence training forward: tokens (B, S) -> logits (B, S, V).
+
+    ``alpha`` ((num_layers, Hkv)) gates each attention layer's heads for
+    head identification (``core/gating.py``); None is plain attention.
+    With ``remat`` each period of ``period_len(cfg)`` layers is recomputed
+    in the backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` of
+    the reference's period); the remainder layers are not, as there."""
+    T.check_ported(cfg)
+    x = embed_input(cfg, params, batch)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=x.device))
+    period = T.period_len(cfg)
+    n_per = cfg.num_layers // period
+
+    def run(x, first: int, count: int):
+        for i in range(first, first + count):
+            x = T.block_train(cfg, i % period, params["layers"][i], x, rope,
+                              alpha=None if alpha is None else alpha[i])
+        return x
+
+    for per in range(n_per):
+        if remat:
+            x = checkpoint(run, x, per * period, period, use_reentrant=False)
+        else:
+            x = run(x, per * period, period)
+    x = run(x, n_per * period, cfg.num_layers - n_per * period)
+    return unembed(cfg, params, x)
+
+
+def lm_loss(cfg: ArchConfig, params, batch, labels, *, alpha=None,
+            remat: bool = True):
+    """Mean next-token cross-entropy over the labels >= 0 (-100 pads), from
+    the f32 log-softmax of the logits."""
+    logits = forward(cfg, params, batch, alpha=alpha, remat=remat).float()
+    mask = labels >= 0
+    lab = torch.clamp(labels, min=0).long()
+    nll = -torch.log_softmax(logits, dim=-1).gather(-1, lab[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
 
 
 def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,

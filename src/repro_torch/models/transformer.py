@@ -40,6 +40,7 @@ from repro_torch.configs.base import (
     ArchConfig,
 )
 from repro_torch.core import cache as cachelib
+from repro_torch.core import gating as gatinglib
 from repro_torch.core import hybrid_attention as hattn
 from repro_torch.core import layouts as layoutlib
 from repro_torch.core import paging
@@ -179,6 +180,7 @@ class _Recurrent(NamedTuple):
     pkey: str
     state_cls: type
     init_params: Callable  # (generator, cfg, *, dtype, device) -> params
+    forward: Callable  # (cfg, p, h) -> y, the training forward
     prefill: Callable  # (cfg, p, h) -> (y, state) from a fresh state
     chunk: Callable
     step: Callable
@@ -188,18 +190,18 @@ class _Recurrent(NamedTuple):
 _RECURRENT = {
     MIXER_MAMBA2: _Recurrent(
         "ssm", "mamba", cachelib.Mamba2State, ssmlib.init_mamba2,
-        _mamba2_prefill_with_state,
+        ssmlib.mamba2_forward, _mamba2_prefill_with_state,
         ssmlib.mamba2_prefill_chunk, ssmlib.mamba2_step,
         lambda cfg, b, dtype, device: ssmlib.init_mamba2_state(cfg, b, dtype=dtype,
                                                                device=device)),
     MIXER_MLSTM: _Recurrent(
         "xl", "xl", cachelib.MLSTMState, xlstmlib.init_mlstm,
-        xlstmlib.mlstm_forward_with_state,
+        xlstmlib.mlstm_forward, xlstmlib.mlstm_forward_with_state,
         xlstmlib.mlstm_prefill_chunk, xlstmlib.mlstm_step,
         lambda cfg, b, dtype, device: xlstmlib.init_mlstm_state(cfg, b, device=device)),
     MIXER_SLSTM: _Recurrent(
         "xl", "xl", cachelib.SLSTMState, xlstmlib.init_slstm,
-        xlstmlib.slstm_forward_with_state,
+        xlstmlib.slstm_forward, xlstmlib.slstm_forward_with_state,
         xlstmlib.slstm_prefill_chunk, xlstmlib.slstm_step,
         lambda cfg, b, dtype, device: xlstmlib.init_slstm_state(cfg, b, device=device)),
 }
@@ -226,6 +228,30 @@ def _recurrent_step(cfg: ArchConfig, mixer: str, p, h, cache, keep, chunk=None):
         y, new = r.step(cfg, p[r.pkey], st, h)
     cachelib.write_state(cache[r.key], new, keep)
     return y
+
+
+def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None):
+    """The training forward of one block, differentiable. x: (B, S, d).
+    Attention is full causal, or the layer's window (a ``local_global``
+    window layer); with ``alpha`` ((Hkv,), head identification) the α-gated
+    mix of ``core/gating.py`` instead, window layers too, as the reference
+    does. A recurrent layer runs its mixer's forward from a fresh state."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    mixer = cfg.mixer_for_layer(pos)
+    if mixer != MIXER_ATTENTION:
+        r = _RECURRENT[mixer]
+        return _ffn_apply(cfg, pos, p, x + r.forward(cfg, p[r.pkey], h))
+    q, k, v = _qkv(cfg, p, h)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if alpha is not None:
+        o = gatinglib.gated_attention(q, k, v, alpha, sink=cfg.h2eal.sink,
+                                      local=cfg.h2eal.local)
+    else:
+        o = kops.flash_attention(q, k, v, causal=True, window=attn_spec(cfg, pos).window)
+    b, s = o.shape[:2]
+    return _ffn_apply(cfg, pos, p, x + dense(o.reshape(b, s, -1), p["wo"]))
 
 
 def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,

@@ -1,0 +1,9 @@
+from repro_torch.optim.adamw import (  # noqa: F401
+    AdamWConfig,
+    apply_updates,
+    clip_by_global_norm,
+    cosine_schedule,
+    global_norm,
+    init_state,
+)
+from repro_torch.optim import grad_compress  # noqa: F401

@@ -21,7 +21,9 @@ buffers it captured, so
     added);
   * the kernels' per-stream counters (``ops._COUNTERS``, ``ops._SCHEDULES``)
     are made during the warm-up on the capture stream, not inside a
-    capture, and kept alive as long as the graphs.
+    capture, and kept alive as long as the graphs;
+  * no graph is destroyed during a capture: the garbage collector runs
+    before it and not during it.
 
 Eager execution on the card happens only when asked for (``eager=True``);
 the CPU, which has no graphs, always runs the steps eagerly. A capture or
@@ -30,6 +32,7 @@ a replay that fails raises.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -144,8 +147,19 @@ class StepGraphs:
         self._keep += list(ops._COUNTERS.values()) + list(ops._SCHEDULES.values())
         graph = torch.cuda.CUDAGraph()
         before = dict(ops.LAUNCHES)
-        with torch.cuda.graph(graph, stream=self._stream):
-            out = fn()
+        # a graph destroyed while this one captures invalidates the capture:
+        # an older engine left in a reference cycle holds graphs that the
+        # cyclic collector may free at any allocation (torch.cuda.graph no
+        # longer collects first), so collect now and not again until the end
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
         ops.LAUNCHES.update(before)  # a capture launches nothing
         self._steps[name] = (fn, graph, out, delta)

@@ -124,6 +124,31 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     return b1 ^ b2
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` on the partitionable path: (num, 2) keys, key i
+    the hash of the counter pair (0, i), which is ``fold_in(key, i)``."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    return fold_in(key[None, :].expand(num, 2), idx)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """int32 ``jax.random.randint`` in [minval, maxval): 32 high and 32 low
+    bits from the key's two halves of ``split``, reduced modulo the span
+    in uint32 arithmetic (2^32 mod span as (2^16 mod span)^2 mod span,
+    products wrapped to 32 bits), as jax does."""
+    k1, k2 = split(key, 2)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = max(int(maxval) - int(minval), 1) & _MASK
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    off = (((hi % span) * mult) & _MASK) + lo % span
+    return ((off & _MASK) % span + int(minval)).to(torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli`` in its "low" mode: an f32 uniform below p."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """f32 ``jax.random.uniform``: the top 23 bits as the mantissa of a

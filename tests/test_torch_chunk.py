@@ -39,6 +39,7 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.sched import balance as tbalance
 from repro_torch.serving.engine import _reset_slot as t_reset_slot
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TOL = 2e-5
 LOGIT_TOL = 2e-4

@@ -24,6 +24,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 LOGIT_TOL = 2e-4
 

@@ -54,6 +54,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.sched import balance as tbalance
 from repro_torch.serving.engine import Engine, Request
 from test_torch_engine import TIE_GAP, Model
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)

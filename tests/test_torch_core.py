@@ -28,6 +28,7 @@ from repro_torch.core import layouts as tlayouts
 from repro_torch.core import paging as tpaging
 from repro_torch.kernels import ref as tref
 from repro_torch.models import layers as tlayers
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TOL = 2e-5
 H2 = dict(sink=2, local=16, page_size=8, select_budget=32, share_window=2)

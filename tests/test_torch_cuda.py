@@ -166,6 +166,118 @@ def test_flash_attention_kernel_fully_masked_row_is_zero(cuda_dev, dtype, d):
     assert out.abs().max().item() == 0.0
 
 
+# flash_attention's backward (csrc/flash_attention_bwd.cu): (b, s, hq, hkv,
+# causal, window, sink, q_offset); S ragged (no multiple of the 64-row or
+# 32-key tiles); GQA groups 1, 3 (smollm-360m), 4 (llama3-8b) and 16; causal,
+# window 256 + sink 4 (llama3-8b's streaming heads), window 512 (gemma3-1b)
+FLASH_BWD_CASES = [
+    (2, 77, 4, 4, True, 0, 0, 0),
+    (1, 150, 15, 5, True, 0, 0, 0),
+    (1, 300, 8, 2, True, 256, 4, 0),
+    (1, 601, 16, 1, True, 512, 0, 0),
+    (1, 601, 3, 1, True, 256, 4, 0),
+    (1, 40, 8, 2, True, 6, 3, 24),
+    (1, 33, 4, 1, False, 0, 0, 0),
+]
+
+
+def _bwd_within(got, want, dtype) -> bool:
+    """The backward against its plain version: 1e-4·max|plain| + 1e-5 (the
+    summation order; dq and dk are sums that cancel), and in bf16 2^-8·|plain|
+    more for the output's rounding (the source's note derives it)."""
+    want = want.float()
+    lim = 1e-4 * want.abs().max() + 1e-5
+    if dtype == torch.bfloat16:
+        lim = lim + 2.0 ** -8 * want.abs()
+    return bool(((got.float() - want).abs() <= lim).all())
+
+
+def _bwd_inputs(dev, dtype, b, s, hq, hkv, d, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_rand(gen, dev, dtype, b, s, hq, d), _rand(gen, dev, dtype, b, s, hkv, d),
+            _rand(gen, dev, dtype, b, s, hkv, d), _rand(gen, dev, dtype, b, s, hq, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel(cuda_dev, dtype, d, case):
+    b, s, hq, hkv, causal, window, sink, off = case
+    kw = dict(causal=causal, window=window, sink=sink, q_offset=off)
+    q, k, v, do = _bwd_inputs(cuda_dev, dtype, b, s, hq, hkv, d)
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v, **kw)
+    got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_bwd_ref(*_widened(q, k, v, o, do), **kw)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert _bwd_within(g, w, dtype)
+    if dtype == torch.float32:  # the plain version is autograd's gradient
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(tref.flash_attention_ref(*leaves, **kw), leaves, do)
+        for g, a in zip(got, auto):
+            assert _bwd_within(g, a, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_runs_the_kernels(cuda_dev, dtype):
+    """With grad on and an input requiring grad, ops.flash_attention is an
+    autograd node: one forward launch, and its backward one launch of the
+    backward kernel, equal to ops.flash_attention_bwd and deterministic (bit
+    for bit on a rerun). Under no_grad, or with no input requiring grad, the
+    forward alone, as serving runs it."""
+    q, k, v, do = _bwd_inputs(cuda_dev, dtype, 2, 200, 8, 2, 64, seed=1)
+    kw = dict(causal=True, window=64, sink=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    out = ops.flash_attention(*leaves, **kw)
+    assert out.grad_fn is not None and ops.LAUNCHES["flash_attention"] == 1
+    grads = torch.autograd.grad(out, leaves, do)
+    assert ops.LAUNCHES["flash_attention_bwd"] == 1
+    again = ops.flash_attention_bwd(q, k, v, out.detach(), do, **kw)
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)
+    with torch.no_grad():
+        plain = ops.flash_attention(*leaves, **kw)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+    assert ops.flash_attention(q, k, v, **kw).grad_fn is None
+    assert ops.LAUNCHES["flash_attention"] == 3 and ops.LAUNCHES["flash_attention_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_dev):
+    """Two make_train_step steps of reduced smollm-360m (remat) on the card
+    against the CPU on the same weights and batches: losses and grad norms
+    within 1e-5 relative; 2 forward and 1 backward launch a layer a step."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import lm_batch
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+
+    cfg = reduced(get_arch("smollm-360m"))
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    step_fn = train_rt.make_train_step(cfg, train_rt.TrainConfig(lr=1e-3, warmup=1))
+    out = {}
+    for dev in ("cpu", cuda_dev):
+        p = _to(params, dev)
+        opt = adamw.init_state(p)
+        ops.reset_launches()
+        out[str(dev)] = []
+        for step in range(2):
+            batch = {k: t.to(dev) for k, t in
+                     lm_batch(step, batch=2, seq=64, vocab=cfg.vocab_size).items()}
+            p, opt, m = step_fn(p, opt, batch, step)
+            out[str(dev)].append((m["loss"].item(), m["grad_norm"].item()))
+    assert ops.LAUNCHES["flash_attention"] == 2 * 2 * cfg.num_layers
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2 * cfg.num_layers
+    for (a, b), (c, d) in zip(out["cpu"], out[str(cuda_dev)]):
+        assert abs(c - a) <= 1e-5 * abs(a) and abs(d - b) <= 1e-5 * abs(b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
@@ -501,7 +613,8 @@ def test_generate_on_the_card_matches_the_cpu_and_counts_launches(cuda_dev):
                             "page_score": n_sel * cfg.num_layers,
                             "paged_attention": 2 * gen * cfg.num_layers,
                             "chunk_attention": 0, "chunk_attention_paged": 0,
-                            "paged_attention_partial": 0, "combine_partials": 0}
+                            "paged_attention_partial": 0, "combine_partials": 0,
+                            "flash_attention_bwd": 0}
     assert torch.equal(toks.cpu(), toks_cpu)
     assert (st["last_logits"].cpu() - st_cpu["last_logits"]).abs().max().item() <= 1e-3
 
@@ -692,7 +805,8 @@ def test_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_dev):
                             "paged_attention": 2 * s.decode_steps * n,
                             "chunk_attention": s.prefill_chunks * n,
                             "chunk_attention_paged": s.prefill_chunks * n,
-                            "paged_attention_partial": 0, "combine_partials": 0}
+                            "paged_attention_partial": 0, "combine_partials": 0,
+                            "flash_attention_bwd": 0}
     assert {u: c.tokens for u, c in eng.completions.items()} == {
         u: c.tokens for u, c in cpu.items()}
 
@@ -880,7 +994,7 @@ def test_coplace_engine_on_the_card_matches_the_cpu_and_reads_nothing_back(cuda_
                             "chunk_attention": s.prefill_chunks * n,
                             "chunk_attention_paged": s.prefill_chunks * n,
                             "paged_attention_partial": s.decode_steps * n,
-                            "combine_partials": 0}
+                            "combine_partials": 0, "flash_attention_bwd": 0}
     assert s.admission_reorders == cpu_eng.stats.admission_reorders
     assert {u: c.tokens for u, c in eng.completions.items()} == {
         u: c.tokens for u, c in cpu.items()}
@@ -896,7 +1010,7 @@ def _window_launches(s, n, fused_len, split):
             "paged_attention": (1 if split else 2) * decode * n,
             "chunk_attention": chunks * n, "chunk_attention_paged": chunks * n,
             "paged_attention_partial": decode * n if split else 0,
-            "combine_partials": 0}
+            "combine_partials": 0, "flash_attention_bwd": 0}
 
 
 def _serve_polled(eng, reqs):
@@ -995,6 +1109,38 @@ def test_captured_engine_reset_metrics_and_sync(cuda_dev):
         u: c.tokens for u, c in first.items()}
     assert sum(eng.graph_replays().values()) > replays > 0
     assert eng.jit_cache_sizes() == sizes
+
+
+@pytest.mark.cuda
+def test_capture_survives_the_collector_freeing_an_older_graph(cuda_dev):
+    """A graph destroyed while another captures invalidates that capture. An
+    engine's steps left in a reference cycle are freed by the cyclic
+    collector whenever it runs, at any allocation: here it runs inside the
+    capture. StepGraphs collects before a capture (and holds automatic
+    collection off during it), so the older graph is gone by then."""
+    import gc
+
+    from repro_torch.runtime import graphs
+
+    old = graphs.StepGraphs(cuda_dev)
+    x = old.input("x", (4,), torch.float32)
+    old.add("inc", lambda: x.add_(1))
+    old.cycle = old  # freed only by the cyclic collector
+    del old
+    new = graphs.StepGraphs(cuda_dev)
+    y = new.input("y", (4,), torch.float32)
+    calls = []
+
+    def step():
+        calls.append(len(calls))
+        if len(calls) == 2:  # the capture (the first call is the warm-up)
+            gc.collect()
+        return y.add_(1)
+
+    new.add("inc", step)
+    new.run("inc")
+    torch.cuda.synchronize()
+    assert y.tolist() == [2.0] * 4  # the warm-up and one replay
 
 
 @pytest.mark.cuda

@@ -30,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import Engine, Request
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 CAP = 64
 TIE_GAP = 1e-3

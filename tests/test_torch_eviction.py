@@ -29,6 +29,7 @@ from repro_torch.configs.base import H2ealConfig as TH2
 from repro_torch.core import cache as tcache
 from repro_torch.core import hybrid_attention as thattn
 from repro_torch.core import paging as tpaging
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TOL = 2e-5
 B, HQ, HKV, D = 1, 4, 2, 32

@@ -33,6 +33,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import Engine, Request
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 LOGIT_TOL = 2e-4
 # one prompt bucket past the window of 64 (a JAX program a bucket)

@@ -20,6 +20,7 @@ from repro_torch import hbsim as TH
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.configs import reduced as treduced
 from repro_torch.runtime import perfmodel as TP
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 PAPER_MODELS = ("llama2-7b", "llama3-8b", "mistral-7b")
 # the MoE family: the GEMM term reads the active parameters (top-k experts)

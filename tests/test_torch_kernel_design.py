@@ -40,6 +40,7 @@ from repro.core import paging as jpaging
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref as tref
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TOL = 2e-5
 SPLIT_BLOCKS = 132  # one block on each of the H100's SMs
@@ -112,7 +113,13 @@ def block_emulated(q, k, v, valid, keys=None):
         ms, ls, os_ = [], [], []
         for w in range(NW):
             mine = (warp == w).repeat_interleave(UNIT, dim=-1)[..., :t]
-            m, l, o = tref.paged_attention_partial_ref(q, k, v, vs & mine)
+            # the warp's partial over the keys it takes in some row: every
+            # other key is masked in every row and adds nothing (at least one
+            # key, all masked, where it takes none: the identity)
+            cols = (sk & mine).flatten(0, 1).any(0).nonzero().flatten()
+            cols = cols if cols.numel() else cols.new_zeros(1)
+            m, l, o = tref.paged_attention_partial_ref(q, k[:, :, cols], v[:, :, cols],
+                                                       (vs & mine)[..., cols])
             ms.append(m), ls.append(l), os_.append(o)
         splits.append(tref.merge_partials_ref(torch.stack(ms), torch.stack(ls),
                                               torch.stack(os_)))

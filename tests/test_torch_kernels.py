@@ -24,6 +24,7 @@ from repro_torch.configs.base import H2ealConfig as TH2
 from repro_torch.core import hybrid_attention as thattn
 from repro_torch.core import paging as tpaging
 from repro_torch.kernels import ops, ref as tref
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TOL = 2e-5
 
@@ -190,10 +191,15 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     k = torch.from_numpy(_np(rng, 1, 8, 1, 16))
     torch.testing.assert_close(ops.flash_attention(q, k, k),
                                tref.flash_attention_ref(q, k, k), rtol=0, atol=0)
+    o = tref.flash_attention_ref(q, k, k)
+    for got, want in zip(ops.flash_attention_bwd(q, k, k, o, q),
+                         tref.flash_attention_bwd_ref(q, k, k, o, q)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "page_score": 0,
                             "paged_attention": 0, "chunk_attention": 0,
                             "chunk_attention_paged": 0,
-                            "paged_attention_partial": 0, "combine_partials": 0}
+                            "paged_attention_partial": 0, "combine_partials": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_mixed_devices_raise():

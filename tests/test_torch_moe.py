@@ -33,6 +33,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.serving.engine import Engine, Request
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 MOE_TOL = 1e-5
 LOGIT_TOL = 2e-4

@@ -21,6 +21,7 @@ from repro.serving import Request as JRequest
 from repro_torch import configs as tconfigs
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import Engine, Request
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 CAP = 64
 BUCKETS = [8, 16, 24]

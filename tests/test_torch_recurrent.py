@@ -38,6 +38,7 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models import xlstm as txl
 from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.serving.engine import Engine, Request, _reset_slot
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 FN_TOL = 1e-5
 LOGIT_TOL = 2e-4

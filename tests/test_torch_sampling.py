@@ -32,6 +32,7 @@ from _hypothesis_compat import given, settings, st  # noqa: E402
 
 from repro.serving import sampling as jsamp  # noqa: E402
 from repro_torch.serving import sampling as tsamp  # noqa: E402
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 GUMBEL_ULP = 2
 TIE_GAP = 1e-5

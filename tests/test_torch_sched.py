@@ -22,6 +22,7 @@ from repro_torch import sched as T
 from repro_torch.configs import base as tbase
 from repro_torch.configs import get_arch as tget_arch
 from repro_torch.configs import reduced as treduced
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 PAPER_MODELS = ("llama2-7b", "llama3-8b", "mistral-7b")
 # the MoE family: active parameters count only the top-k experts

@@ -26,6 +26,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro.core import paging as jpaging
 from repro_torch.kernels import ops, ref as tref
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 SINK, LOCAL, PAGE = 4, 8, 4
 NEG_INF = -1e30

@@ -28,6 +28,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import serve as tserve
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 ROOT = Path(__file__).resolve().parents[1]
 LOGIT_TOL = 2e-4
@@ -188,7 +189,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/sched/cost.py", "src/repro_torch/sched/rebalance.py",
             "src/repro_torch/runtime/perfmodel.py", "src/repro_torch/hbsim/sim.py",
             "src/repro_torch/hbsim/__init__.py",
-            "examples/torch_serve_longcontext.py"} <= names
+            "examples/torch_serve_longcontext.py",
+            "src/repro_torch/optim/adamw.py", "src/repro_torch/optim/grad_compress.py",
+            "src/repro_torch/data/pipeline.py", "src/repro_torch/ckpt/checkpoint.py",
+            "src/repro_torch/core/gating.py", "src/repro_torch/core/tree.py",
+            "src/repro_torch/runtime/train.py", "src/repro_torch/launch/train.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_head_identification.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

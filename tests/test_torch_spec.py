@@ -47,6 +47,7 @@ from repro_torch.sched import balance as tbalance
 from repro_torch.serving import draft as tdraft
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.engine import _reset_slot as t_reset_slot
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 CAP = 64
 LOGIT_TOL = 2e-4

@@ -21,6 +21,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.core.cache import kv_page_tensors
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import Engine, Request, _selection_digest
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 CAP = 128          # 16 pages of 8
 COUNTERS = ("tier_hits", "tier_misses", "tier_spills", "tier_fills",

@@ -39,6 +39,7 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import graphs
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.sched.windows import window_budgets
+import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 CAP = 64
 W = 4  # widened share window (the reduced configs pin 2)
