@@ -117,13 +117,16 @@ then, each phase failing the run with a nonzero exit:
      engine eager and captured (no kernel launched; a captured chunk step's
      graph node count logged);
  13. training and head identification: (a) the attention backward
-     (``csrc/flash_attention_bwd.cu``) against its plain version at every
-     head_dim, GQA groups 1, 3, 4 and 16, causal, window 256 + sink 4 and
-     window 512, f32 and bf16, a ragged S (and, in f32, against autograd
-     through the plain forward), then timed beside its bound, its plain
-     version and SDPA's backward at smollm-360m's training shape and
-     llama3-8b's head-identification shape (f32, the dtype both paths run,
-     and bf16), each timed case also held to its plain version; (b)
+     (``csrc/flash_attention_bwd.cu``, bf16 ``csrc/flash_attention_bwd_sm90.cu``)
+     against its plain version at every head_dim, GQA groups 1, 3, 4 and
+     16, causal, window 256 + sink 4 and window 512, f32 and bf16, a ragged
+     S (and, in f32, against autograd through the plain forward), with the
+     forward's row log-sum-exp against its plain version and the forward's
+     output bit for bit with and without it; then timed beside its bound,
+     its plain version and SDPA's backward at smollm-360m's training shape
+     and llama3-8b's head-identification shape (f32, the dtype both paths
+     run, and bf16), each timed case also held to its plain version, and
+     the f32 forward with its log-sum-exp timed at the same shapes; (b)
      reduced smollm-360m's ``make_train_step`` and the head-identification
      loop of ``examples/torch_head_identification.py`` card against CPU
      (α, each step's α gradient, and the α gradient at the identified
@@ -187,6 +190,10 @@ SCORE_RTOL = 1e-6
 SEL_SCORE_BAND = 2.0 ** -6
 NEG_INF_HALF = -5e29  # below it a page score is masked (NEG_INF)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+# f32 products of matrices at f32 accuracy on the tensor cores: 3xTF32,
+# three TF32 products for one, a third of the 495 TFLOP/s TF32 rate (the
+# backward's f32 route runs them; the f32 forward could)
+PEAK_F32_MMA = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 ARCH = "llama3-8b"
@@ -283,9 +290,13 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(byte_count: int, flops: float, dtype):
+def bound(byte_count: int, flops: float, dtype, mma: bool = False):
+    """The least time of the work: its bytes at the memory rate or its FLOP
+    at the peak of its type, whichever is longer; ``mma``: the FLOP are
+    products of matrices, which f32 can run on the tensor cores as 3xTF32."""
     tb = byte_count / PEAK_BYTES * 1e3
-    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    peak = PEAK_F32_MMA if mma and dtype == torch.float32 else PEAK_FLOPS[dtype]
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -2979,29 +2990,59 @@ BWD_TOL_TEXT = {torch.float32: f"{BWD_MAX_RTOL:g}*max|plain| + {BWD_ATOL:g}",
                                 f" + {BWD_ATOL:g}"}
 
 
+# the forward's row log-sum-exp against ref.flash_attention_lse_ref: f32
+# scores summed in another order (and, in bf16, exact products), exp2 within
+# 2^-22: |L - plain| <= LSE_TOL·(1 + |plain|)
+LSE_TOL = 1e-5
+
+
 def bwd_inputs(ops, gen, dev, dtype, b, s, hq, hkv, d, mask):
+    """q, k, v, the forward's output o and row log-sum-exp L (one launch, as
+    the autograd forward makes it), and dO."""
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
     do = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
     with torch.no_grad():
-        o = ops.flash_attention(q, k, v, **mask)
-    return q, k, v, o, do
+        o, lse = ops.flash_attention_lse(q, k, v, **mask)
+    return q, k, v, o, do, lse
+
+
+def lse_excess(got, want) -> float:
+    """Largest |L - plain| - LSE_TOL·(1 + |plain|) over the rows with an
+    allowed key, inf where the rows without one (-inf) differ."""
+    if not torch.equal(got.isinf(), want.isinf()):
+        return math.inf
+    fin = want.isfinite()
+    return ((got[fin] - want[fin]).abs() - LSE_TOL * (1 + want[fin].abs())).max().item()
 
 
 def check_bwd_cases(ops, ref, dev, gen):
-    """Phase 13a: the backward kernel against ref.flash_attention_bwd_ref on
+    """Phase 13a: the backward kernels against ref.flash_attention_bwd_ref on
     the card at every head_dim x GQA group x mask x dtype (B = 1, a ragged S,
     one kv head), and, in f32, against torch.autograd.grad through
-    ref.flash_attention_ref. Returns the number of cases."""
+    ref.flash_attention_ref; the forward's L against
+    ref.flash_attention_lse_ref, and its output bit for bit the serving
+    forward's (no L pointer). Returns the number of cases."""
     bad, n, worst = [], 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_lse = {torch.float32: -math.inf, torch.bfloat16: -math.inf}
     for dtype in (torch.float32, torch.bfloat16):
         for d in ops._HEAD_DIMS:
             for g in BWD_GROUPS:
                 for label, window, sink in BWD_MASKS:
                     mask = dict(causal=True, window=window, sink=sink)
-                    q, k, v, o, do = bwd_inputs(ops, gen, dev, dtype, 1, BWD_S, g, 1, d, mask)
-                    got = ops.flash_attention_bwd(q, k, v, o, do, **mask)
+                    tag = f"D={d} G={g} {label} {str(dtype).split('.')[-1]}"
+                    q, k, v, o, do, lse = bwd_inputs(ops, gen, dev, dtype, 1, BWD_S, g, 1,
+                                                     d, mask)
+                    with torch.no_grad():
+                        if not torch.equal(o, ops.flash_attention(q, k, v, **mask)):
+                            bad.append(f"forward output differs with the L pointer {tag}")
+                    ex_lse = lse_excess(lse, ref.flash_attention_lse_ref(*widened(q, k),
+                                                                         **mask))
+                    worst_lse[dtype] = max(worst_lse[dtype], ex_lse)
+                    if not ex_lse <= 0.0:
+                        bad.append(f"L {tag} excess {ex_lse:.3e}")
+                    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
                     want = ref.flash_attention_bwd_ref(*widened(q, k, v, o, do), **mask)
                     checks = [(got, want)]
                     if dtype == torch.float32:
@@ -3014,36 +3055,88 @@ def check_bwd_cases(ops, ref, dev, gen):
                             ex = bwd_excess(a, w, dtype)
                             worst[dtype] = max(worst[dtype], err(a, w))
                             if not ex <= 0.0:
-                                bad.append(f"d{name} D={d} G={g} {label} "
-                                           f"{str(dtype).split('.')[-1]} excess {ex:.3e}")
+                                bad.append(f"d{name} {tag} excess {ex:.3e}")
                     n += 1
     for dtype, e in worst.items():
         log(f"flash_attention_bwd check: {n // 2} cases in {str(dtype).split('.')[-1]} "
             f"(head_dim {list(ops._HEAD_DIMS)}, GQA {list(BWD_GROUPS)}, "
             f"{[m[0] for m in BWD_MASKS]}, S={BWD_S}), max err {e:.3e} "
-            f"(tol {BWD_TOL_TEXT[dtype]})")
+            f"(tol {BWD_TOL_TEXT[dtype]}); forward L excess {worst_lse[dtype]:.3e} "
+            f"(tol {LSE_TOL:g}*(1 + |plain|)), forward output equal with and without L")
     if bad:
         fail(f"flash_attention_bwd disagrees with its plain version: {bad[:8]}")
     return n
 
 
+def sdpa_mask(s, window, sink, dev):
+    """SDPA's arguments for the causal mask, or the window + sink mask as a
+    bool matrix."""
+    if not window:
+        return dict(is_causal=True)
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(s, device=dev)[None, :]
+    return dict(attn_mask=(j <= i) & ((j > i - window) | (j < sink)))
+
+
+def time_fwd32(ops, ref, timer, dev, label, q, k, v, mask):
+    """The f32 forward as the training paths launch it (the output and each
+    row's L, ``ops.flash_attention_lse``), checked against its plain versions
+    and timed beside them and SDPA's f32 forward."""
+    b, s, hq, d = q.shape
+    window, sink = mask["window"], mask["sink"]
+    run = lambda: ops.flash_attention_lse(q, k, v, **mask)
+    with torch.no_grad():
+        out, lse = run()
+        want = ref.flash_attention_ref(q, k, v, **mask)
+        torch.cuda.synchronize()
+        e, ex = err(out, want), excess(out, want, torch.float32)
+        del want
+        ex = max(ex, lse_excess(lse, ref.flash_attention_lse_ref(q, k, **mask)))
+        torch.cuda.empty_cache()
+        case = (f"{label} forward with L (flash_attention.cu) B={b} S={s} Hq={hq} "
+                f"Hkv={k.shape[2]} D={d} causal"
+                + (f" window={window} sink={sink}" if window else ""))
+        if not ex <= 0.0:
+            fail(f"flash_attention (f32, with L) disagrees with its plain version at {case}: "
+                 f"excess {ex:.3e}")
+        ms = timer.ms(run, 5)
+        plain_ms = timer.ms(lambda: ref.flash_attention_ref(q, k, v, **mask), 2)
+        torch.cuda.empty_cache()
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        attn = sdpa_mask(s, window, sink, dev)
+        lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, enable_gqa=True, **attn), 5)
+    flops = 4 * d * flash_pairs(s, window, sink) * b * hq
+    b_ms, b_by = bound(nbytes(q, k, v, out, lse), flops, torch.float32, mma=True)
+    log(f"flash_attention [{case} float32] kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) max_err={e:.3e} "
+        f"excess={ex:.3e} (tol {tol_text(torch.float32)}, L {LSE_TOL:g}*(1 + |plain|))")
+    return dict(case=case, dtype="float32", max_abs_err=e, excess=ex,
+                tol=tol_text(torch.float32), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, main=False)
+
+
 def time_bwd(ops, ref, timer, dev, gen):
-    """Phase 13a's times: the backward kernel, its plain version and SDPA's
-    backward through autograd (a bool mask for the window case) at
+    """Phase 13a's times: the backward kernels, their plain version and
+    SDPA's backward through autograd (a bool mask for the window case) at
     smollm-360m's training shape and llama3-8b's head-identification shape
     (causal, and window 256 + sink 4: the gated mix's two calls), each in
     f32, the dtype both paths run (``main``), and in bf16. Each case is
     also held to its plain version, at these shapes' batch and kv-head
-    offsets."""
+    offsets. In f32 the forward that the paths run before it (with L) is
+    timed too (``time_fwd32``). Returns (the
+    backward's cases, the f32 forward's cases)."""
     shapes = [(f"{TRAIN_ARCH} training", TRAIN_B, TRAIN_S, 15, 5, 64, (0, 0), dt)
               for dt in (torch.float32, torch.bfloat16)]
     shapes += [(f"{ARCH} head identification", 1, HEADID_S, 32, 8, 128, ws, dt)
                for dt in (torch.float32, torch.bfloat16) for ws in ((0, 0), (256, 4))]
-    cases = []
+    cases, fwd_cases = [], []
     for label, b, s, hq, hkv, d, (window, sink), dtype in shapes:
         mask = dict(causal=True, window=window, sink=sink)
-        q, k, v, o, do = bwd_inputs(ops, gen, dev, dtype, b, s, hq, hkv, d, mask)
-        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, **mask)
+        q, k, v, o, do, lse = bwd_inputs(ops, gen, dev, dtype, b, s, hq, hkv, d, mask)
+        if dtype == torch.float32:
+            fwd_cases.append(time_fwd32(ops, ref, timer, dev, label, q, k, v, mask))
+        run = lambda: ops.flash_attention_bwd(q, k, v, o, do, lse, **mask)
         got = run()
         want = ref.flash_attention_bwd_ref(*widened(q, k, v, o, do), **mask)
         torch.cuda.synchronize()
@@ -3060,23 +3153,19 @@ def time_bwd(ops, ref, timer, dev, gen):
         plain_ms = timer.ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, **mask), 2)
         torch.cuda.empty_cache()
         qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-        if window:
-            i = torch.arange(s, device=dev)[:, None]
-            j = torch.arange(s, device=dev)[None, :]
-            attn = dict(attn_mask=(j <= i) & ((j > i - window) | (j < sink)))
-        else:
-            attn = dict(is_causal=True)
-        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, enable_gqa=True,
-                                                               **attn)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, enable_gqa=True, **sdpa_mask(s, window, sink, dev))
         doh = do.transpose(1, 2)
         lib = lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
         lib_ms = timer.ms(lib, 5)
         del out, qh, kh, vh
         # the function's work: S, dP, dq, dk, dv, five D-long products a
-        # pair (2.5x the forward's two); launch 1's recompute of S is this
-        # kernel's choice, not the function's, and is not counted
+        # pair (2.5x the forward's two); the kernels' own recompute of S and
+        # dP in the dq launch, and in bf16 the split operands' second
+        # products, are their choice, not the function's, and are not counted
         flops = 10 * d * flash_pairs(s, window, sink) * b * hq
-        b_ms, b_by = bound(nbytes(q, k, v, o, do) + nbytes(q, k, v), flops, dtype)
+        b_ms, b_by = bound(nbytes(q, k, v, o, do, lse) + nbytes(q, k, v), flops, dtype,
+                           mma=True)
         cases.append(dict(
             case=case, dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
             tol=BWD_TOL_TEXT[dtype], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -3084,9 +3173,9 @@ def time_bwd(ops, ref, timer, dev, gen):
         log(f"flash_attention_bwd [{case} {cases[-1]['dtype']}] kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"max_err={e:.3e} excess={ex:.3e} (tol {BWD_TOL_TEXT[dtype]})")
-        del q, k, v, o, do
+        del q, k, v, o, do, lse
         torch.cuda.empty_cache()
-    return cases
+    return cases, fwd_cases
 
 
 def train_steps(cfg, params, batches, dev):
@@ -3315,21 +3404,22 @@ def head_id_full_width(dev):
 
 
 def phase13(ops, ref, dev):
-    """Phase 13: (a) the backward kernel's check and times, (b) training and
+    """Phase 13: (a) the backward kernels' check and times, (b) training and
     head identification card against CPU, (c) the full-width trainer with
     crash and resume, (d) llama3-8b's head-identification step. Returns
-    (the backward's kernel-line cases, launch counts by path)."""
+    (the backward's kernel-line cases, the f32 forward's cases at the
+    training shapes, launch counts by path)."""
     t13 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(13)
     check_bwd_cases(ops, ref, dev, gen)
     timer = Timer(dev)
-    cases = time_bwd(ops, ref, timer, dev, gen)
+    cases, fwd_cases = time_bwd(ops, ref, timer, dev, gen)
     del timer
     torch.cuda.empty_cache()
     check_training_against_cpu(dev)
     by_path = {"train": train_full_width(dev), "head_id": head_id_full_width(dev)}
     log(f"phase 13 (training and head identification) {time.perf_counter() - t13:.1f}s")
-    return cases, by_path
+    return cases, fwd_cases, by_path
 
 
 # ---------------------------------------------------------------------------
@@ -3443,7 +3533,8 @@ def main() -> int:
     by_path.update(serve_zamba2(dev))
     serve_xlstm(dev)
     log(f"phase 12 (the recurrent mixers) {time.perf_counter() - t12:.1f}s")
-    results["flash_attention_bwd"], train_paths = phase13(ops, ref, dev)
+    results["flash_attention_bwd"], fwd32, train_paths = phase13(ops, ref, dev)
+    results["flash_attention"] += fwd32  # f32, not the serving path's bf16: not in its totals
     serving_paths = list(by_path)
     by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the

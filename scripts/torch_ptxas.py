@@ -4,11 +4,13 @@ Compiles each ``src/repro_torch/kernels/csrc/*.cu`` (a source listed in
 ``_build.PARTS`` once a part) with the build's own flags plus ``-Xptxas
 -v`` into a scratch directory, one nvcc a compile, all at once, and prints
 one line a kernel instantiation whose demangled name contains every
-``--match`` string: registers, spill stores and loads, and the name. Needs
-nvcc (the card's machine); the library that the kernels run from is not
-touched.
+``--match`` string: registers, spill stores and loads, the tensor-core
+instructions in its SASS (``cuobjdump -sass``: HMMA, mma.sync's; HGMMA,
+wgmma's), and the name. Needs nvcc and cuobjdump (the card's machine); the
+library that the kernels run from is not touched.
 
     python scripts/torch_ptxas.py --match "80"          # the D = 80 instantiations
+    python scripts/torch_ptxas.py --match bwd           # flash attention's backward
 """
 from __future__ import annotations
 
@@ -26,6 +28,25 @@ from repro_torch.kernels import _build  # noqa: E402
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_FUNC = re.compile(r"Function : (\S+)")
+
+
+def tensor_ops(obj: Path) -> dict:
+    """{mangled kernel name: (HMMA count, HGMMA count)} from the object's SASS."""
+    nvcc_dir = Path(_build._nvcc()).parent
+    tool = nvcc_dir / "cuobjdump"
+    out = subprocess.run([str(tool if tool.exists() else "cuobjdump"), "-sass", str(obj)],
+                         capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = [0, 0]
+        elif cur is not None:
+            counts[cur][0] += " HMMA." in line
+            counts[cur][1] += " HGMMA." in line
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def _demangle(names):
@@ -71,23 +92,31 @@ def main() -> None:
                 obj = Path(tmp) / f"{src.stem}{'' if part is None else part}.o"
                 cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", *define, "-c", str(src),
                        "-o", str(obj)]
-                procs.append((src.name, part, subprocess.Popen(
+                procs.append((src.name, part, obj, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        rows, failed = [], []
-        for name, part, p in procs:
+        rows, failed, tc, warned = [], [], {}, []
+        for name, part, obj, p in procs:
             out, _ = p.communicate()
             if p.returncode != 0:
                 failed.append(f"{name} part {part}:\n{out}")
                 continue
             rows += [(name, *r) for r in report(out)]
+            tc.update(tensor_ops(obj))
+            # ptxas serialises wgmma where it cannot keep its registers in flight
+            warned += [f"{name}: {line.strip()}" for line in out.splitlines()
+                       if "wgmma" in line and "serializ" in line]
     names = _demangle([r[1] for r in rows])
     worst = 0
     for src, mangled, regs, st, ld in rows:
         full = names[mangled]
         if all(m in full for m in args.match):
-            print(f"{src:28s} regs {regs:3d} spill_st {st:4d} spill_ld {ld:4d}  {full}")
+            hmma, hgmma = tc.get(mangled, (0, 0))
+            print(f"{src:28s} regs {regs:3d} spill_st {st:4d} spill_ld {ld:4d} "
+                  f"HMMA {hmma:5d} HGMMA {hgmma:5d}  {full}")
             worst = max(worst, st + ld)
     print(f"spill bytes, most of one matched kernel: {worst}")
+    for line in warned:
+        print(line)
     if failed:
         print("\n".join(failed), file=sys.stderr)
         sys.exit(1)

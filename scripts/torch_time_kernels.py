@@ -18,7 +18,13 @@ all in bf16 at the main path's shapes. Each case is checked against its
 plain version as chip_smoke.py checks it. First it times the Timer's
 floor, a 4-byte memset. ``--select`` times page_score's cases alone;
 ``--select-blocks N`` scores a row with a cluster of N blocks instead of
-``ops._SELECT_BLOCKS``.
+``ops._SELECT_BLOCKS``. ``--bwd`` times flash attention's backward instead:
+``time_bwd``'s cases (smollm-360m's training shape and llama3-8b's
+head-identification shapes, f32 and bf16, beside their plain version and
+SDPA's backward; in f32 also the forward with its row log-sum-exp), then
+the bf16 serving forward (``check_flash``) at llama3-8b, gemma3-1b and
+zamba2-2.7b, whose kernels the backward's slice touched; it needs a
+checkout whose forward saves the log-sum-exp (``ops.flash_attention_lse``).
 
 ``--src`` names the ``src`` directory of the checkout whose kernels and
 plain versions are timed (default: this checkout's); its kernels are built
@@ -36,7 +42,7 @@ checkout's plain versions. Two checkouts are compared in one call on one
 card by running the script once for each:
 
     python scripts/torch_time_kernels.py [--src DIR] [--tag NAME] [--select]
-        [--select-blocks N]
+        [--select-blocks N] [--bwd]
 
 Prints the card's name and power limit, then one JSON object a case.
 """
@@ -117,6 +123,23 @@ def eager_select(ops, ref):
     return ops_ns, ref_ns
 
 
+def bwd_cases(ops, ref, timer, dev, gen):
+    """--bwd: the backward's cases and the f32 forward's, then the bf16
+    serving forward's rows."""
+    from repro_torch.configs import get_arch
+
+    bwd, fwd = cs.time_bwd(ops, ref, timer, dev, gen)
+    cases = bwd + fwd
+    for arch in (cs.ARCH, cs.Z_ARCH, cs.G3_ARCH):
+        cfg = get_arch(arch)
+        h = cfg.num_kv_heads
+        kw = {} if arch != cs.G3_ARCH else dict(prompt=cs.G3_PROMPT, heads_cases=(
+            ("global layer", h, 0, 0), ("window layer", h, cfg.local_window, 0)))
+        cases += [dict(c, case=f"{arch} {c['case']}") for c in
+                  cs.check_flash(ops, ref, timer, dev, cfg, torch.bfloat16, gen, **kw)]
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -124,6 +147,8 @@ def main() -> int:
     ap.add_argument("--select", action="store_true", help="page_score's cases alone")
     ap.add_argument("--select-blocks", type=int, default=None,
                     help="blocks of a select row's cluster (1 to 8)")
+    ap.add_argument("--bwd", action="store_true",
+                    help="flash attention's backward and the serving forward alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: nothing to time", file=sys.stderr)
@@ -152,9 +177,12 @@ def main() -> int:
     floor = torch.zeros(1, dtype=torch.int32, device=dev)
     print(json.dumps({"tag": args.tag, "case": "timer floor: a 4-byte memset",
                       "ms": timer.ms(floor.zero_, 20)}), flush=True)
-    cases = cs.check_page_score(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
-                                cs.serve_capacity(cfg))
-    if not args.select:
+    if args.bwd:
+        cases = bwd_cases(ops, ref, timer, dev, gen)
+    else:
+        cases = cs.check_page_score(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
+                                    cs.serve_capacity(cfg))
+    if not args.select and not args.bwd:
         cases += cs.check_paged(ops, ref, timer, dev, cfg, torch.bfloat16, gen,
                                 cs.serve_capacity(cfg))
         for part in cs.check_partial(ops, ref, timer, dev, cfg, torch.bfloat16, gen):

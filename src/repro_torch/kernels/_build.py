@@ -24,17 +24,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # sources compiled in parts, one nvcc a part with -DH2EAL_PART=i, all at
 # once: each part holds a share of the source's template instantiations
 # (paged_attention.cu: one dtype and split kind each, for the groups up to
-# 8 and for the group of 16; flash_attention_bwd.cu: one dtype each)
+# 8 and for the group of 16; flash_attention_bwd.cu: one dtype each of its
+# kernels, the f32 route with the C entry and the bf16 FMA kernels)
 PARTS = {"paged_attention.cu": 8, "flash_attention_bwd.cu": 2}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: (argument types); each returns a cudaError_t as int
 SIGNATURES = {
-    # flash_attention: f32 on the FMA units, bf16 on the tensor cores
-    "h2eal_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # flash_attention: f32 on the FMA units, bf16 on the tensor cores; the
+    # fifth pointer is null or the rows' log-sum-exp (B, Hq, Sq) f32
+    "h2eal_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _F, _P),
-    "h2eal_flash_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _P),
+    "h2eal_flash_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _P),
     # paged_attention: a contiguous buffer (slots null) or a page table,
     # split over unit ranges or page stripes (the last _I: the mode)
     "h2eal_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -52,11 +54,12 @@ SIGNATURES = {
     "h2eal_chunk_attention_paged_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          _I, _I, _I, _I, _F, _P),
     "h2eal_combine_partials": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # flash_attention's backward: q, k, v, o, dO, dq, dk, dv, the f32 row
-    # scratch (lse, delta), then dtype, b, sq, sk, hq, hkv, d, causal, window,
-    # sink, q_offset, scale, stream
-    "h2eal_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # flash_attention's backward: q, k, v, o, dO, the forward's row
+    # log-sum-exp (f32), dq, dk, dv, the f32 row scratch Δ, key tile 0's
+    # parts (f32, or null) and their int32 arrival counters, then dtype, b,
+    # sq, sk, hq, hkv, d, causal, window, sink, q_offset, scale, stream
+    "h2eal_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lib = None
@@ -121,6 +124,14 @@ def build() -> Path:
     return lib
 
 
+# queries that return a count, not a cudaError_t: (argument types, result)
+QUERIES = {
+    # f32 floats of the backward's scratch for key tile 0's parts: dtype, d,
+    # b, sq, hkv, window, sink
+    "h2eal_flash_attention_bwd_parts": ((_I, _I, _I, _I, _I, _I, _I), _L),
+}
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
@@ -130,6 +141,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
         lib.h2eal_error_string.argtypes = [ctypes.c_int]
         lib.h2eal_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -4,13 +4,20 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (the pl.pallas_call at :97) for f32 operands; ops.py routes bf16 operands
 // to the tensor-core kernel of flash_attention_sm90.cu. This is routing by
-// dtype, not a fallback: the serving path is bf16, TF32 tensor cores would
-// break the f32 tolerance of 1e-4, and the f32 route serves the reduced
-// card-against-CPU checks. Same contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D)
-// f32, f32 logits and online softmax, f32 output. Key j is attended by query
-// row i (absolute position i + q_offset) iff j <= row (causal), j > row -
-// window (window>0), or j < sink (sink>0, only together with a window). A
-// row with every key masked returns 0.
+// dtype, not a fallback: the serving path is bf16, single TF32 products
+// would break the f32 tolerance of 1e-4 (3xTF32, three TF32 products for
+// one, holds it: the backward's f32 route in flash_attention_bwd.cu; this
+// forward keeps the FMA units), and the f32 route serves the reduced
+// card-against-CPU checks and the training paths' forward. Same contract:
+// q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) f32, f32 logits and online softmax, f32
+// output. Key j is attended by query row i (absolute position i +
+// q_offset) iff j <= row (causal), j > row - window (window>0), or j < sink
+// (sink>0, only together with a window). A row with every key masked
+// returns 0. Where the caller passes `lse` (a
+// (B, Hq, Sq) f32 buffer: the autograd forward, for the backward), each
+// row's log-sum-exp L = m + log l of its scaled, masked scores is written
+// there, natural log, −inf for a row with no allowed key; serving passes
+// null and the output is the same bit for bit.
 //
 // What bounds it on the H100: the retrieval (full causal) half is
 // compute-bound (about 5.5e11 FLOP per layer at B=2, S=8192, 16 heads,
@@ -55,8 +62,8 @@ __host__ __device__ constexpr int smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int sq, int sk, int hq, int hkv, int causal, int window,
-    int sink, int q_offset, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int hq, int hkv, int causal,
+    int window, int sink, int q_offset, float scale) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [D][QS]
   float* Kt = Qt + D * QS;                      // [D][KS], reused as Pt [BK][PS]
@@ -196,6 +203,8 @@ __global__ void __launch_bounds__(NT) flash_kernel(
     const int srow = r0 + ty * 4 + i;
     if (srow >= sq) continue;
     const float lsum = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long)b * hq + h) * sq + srow] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     T* op = o + (((long)b * sq + srow) * hq + h) * D;
 #pragma unroll
     for (int u = 0; u < U; ++u)
@@ -206,7 +215,7 @@ __global__ void __launch_bounds__(NT) flash_kernel(
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
                    int sk, int hq, int hkv, int causal, int window, int sink, int q_offset,
                    float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
@@ -216,20 +225,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   flash_kernel<T, D><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, hq, hkv, causal, window, sink, q_offset, scale);
+      static_cast<T*>(o), lse, sq, sk, hq, hkv, causal, window, sink, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void* o, int b,
+cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void* o, float* lse, int b,
                        int sq, int sk, int hq, int hkv, int causal, int window, int sink,
                        int q_offset, float scale, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -237,11 +246,12 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, void*
 }  // namespace
 }  // namespace h2eal
 
+// lse: null, or (B, Hq, Sq) f32 for the rows' log-sum-exp
 extern "C" int h2eal_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int b, int sq, int sk, int hq, int hkv, int d, int causal,
+                                     void* lse, int b, int sq, int sk, int hq, int hkv, int d, int causal,
                                      int window, int sink, int q_offset, float scale,
                                      void* stream) {
   using namespace h2eal;
-  return dispatch_d<float>(d, q, k, v, o, b, sq, sk, hq, hkv, causal, window, sink, q_offset,
+  return dispatch_d<float>(d, q, k, v, o, static_cast<float*>(lse), b, sq, sk, hq, hkv, causal, window, sink, q_offset,
                            scale, static_cast<cudaStream_t>(stream));
 }

@@ -3,13 +3,20 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (the pl.pallas_call at :97) for bf16 operands; ops.py routes by dtype, and
-// f32 operands keep the FMA kernel of flash_attention.cu (TF32 tensor cores
-// would not hold f32's 1e-4 tolerance, and the serving path is bf16). Same
+// f32 operands keep the FMA kernel of flash_attention.cu (single TF32
+// products would not hold f32's 1e-4 tolerance, and the serving path is
+// bf16). Same
 // contract: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), D in {32, 64, 80, 128, 256}, Hq a
 // multiple of Hkv; key j is attended by query row i (absolute position
 // i + q_offset) iff j <= row (causal), j > row - window (window > 0), or
 // j < sink (sink > 0, only together with a window). A row with every key
-// masked returns 0. Output bf16.
+// masked returns 0. Output bf16. Where the caller passes `lse` (a (B, Hq, Sq)
+// f32 buffer: the autograd forward, for the backward), each row's
+// log-sum-exp of its scaled, masked scores is written there in natural log:
+// the kernel works in base 2 with the scale folded in (m and the exponents
+// are scale·log2e·s), so L = (m + log2 l)·ln 2, −inf for a row with no
+// allowed key; serving passes null, launching an instantiation without
+// the write, and the output is the same bit for bit.
 //
 // What bounds it on the H100: the retrieval (full causal) heads are
 // compute-bound: 5.5e11 FLOP per layer at B=2, S=8192, 16 heads, D=128, so
@@ -92,6 +99,7 @@ constexpr int BQ = 128;  // q rows per block: 64 per consumer warpgroup
 constexpr int NCWG = 2;  // consumer warpgroups
 constexpr int NT = 128 * (NCWG + 1);
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kEntryRegs = (128 * kProducerRegs + NCWG * 128 * kConsumerRegs) / NT;
 
@@ -164,11 +172,14 @@ struct Item {
   }
 };
 
-template <int D>
+// kLse: the instantiation that writes the rows' log-sum-exp (the autograd
+// forward); serving launches the one without, whose code is the kernel's
+// before the output existed
+template <int D, bool kLse>
 __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-    int* __restrict__ sched, int nb, int sq, int sk, int hq, int hkv, int n_qt, int causal,
+    float* __restrict__ lse, int* __restrict__ sched, int nb, int sq, int sk, int hq, int hkv, int n_qt, int causal,
     int window, int sink, int q_offset, float scale_log2) {
   using C = Cfg<D>;
   constexpr int S = C::STAGES, BK = C::BK;
@@ -422,11 +433,15 @@ __global__ void __launch_bounds__(NT, 1) flash_sm90_kernel(
       }
       g0 += n_live;
 
-      // epilogue: sum l over the quad, divide, write bf16
+      // epilogue: sum l over the quad, L where asked, divide, write bf16
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = row_lo + 8 * r;
+        if (kLse && lane % 4 == 0 && row < sq)
+          lse[((long)w.b * hq + w.h) * sq + row] =
+              l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
         l[r] = 1.f / fmaxf(l[r], 1e-30f);
       }
 #pragma unroll
@@ -452,7 +467,7 @@ bool make_map(sm90::EncodeTiled enc, CUtensorMap* map, const void* ptr, int b, i
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int* sched, int b,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int* sched, int b,
                    int sq, int sk, int hq, int hkv, int causal, int window, int sink,
                    int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -463,14 +478,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int* sc
       !make_map(enc, &tk, k, b, sk, hkv, D, C::AC, C::BK, C::SW) ||
       !make_map(enc, &tv, v, b, sk, hkv, D, C::AC, C::BK, C::SW))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
+  const auto kern = lse != nullptr ? flash_sm90_kernel<D, true> : flash_sm90_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
   if (err != cudaSuccess) return err;
   // setmaxnreg moves registers within the block: the consumers' 232 need the
   // block to start with (128·40 + 256·232) / 384 = 168 a thread, or their
   // setmaxnreg.inc would wait forever; refuse to launch rather than hang
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, flash_sm90_kernel<D>);
+  err = cudaFuncGetAttributes(&attr, kern);
   if (err != cudaSuccess) return err;
   if (attr.numRegs < kEntryRegs) return cudaErrorInvalidConfiguration;
   int dev = 0, sms = 0;
@@ -479,8 +495,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int* sc
     return err;
   const int n_qt = (sq + BQ - 1) / BQ;
   const int n_items = n_qt * hq * b;
-  flash_sm90_kernel<D><<<min(n_items, sms), NT, C::bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sched, b, sq, sk, hq, hkv, n_qt, causal,
+  kern<<<min(n_items, sms), NT, C::bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, sched, b, sq, sk, hq, hkv, n_qt, causal,
       window, sink, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
@@ -488,20 +504,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int* sc
 }  // namespace
 }  // namespace h2eal
 
-// sched: 2 int32 on the device, both 0 at a launch (the kernel leaves them so)
+// sched: 2 int32 on the device, both 0 at a launch (the kernel leaves them so);
+// lse: null, or (B, Hq, Sq) f32 for the rows' log-sum-exp
 extern "C" int h2eal_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                          void* sched, int b, int sq, int sk, int hq, int hkv,
+                                          void* lse, void* sched, int b, int sq, int sk, int hq, int hkv,
                                           int d, int causal, int window, int sink,
                                           int q_offset, float scale, void* stream) {
   using namespace h2eal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* sc = static_cast<int*>(sched);
+  float* ls = static_cast<float*>(lse);
   switch (d) {
-    case 32: return launch<32>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
-    case 64: return launch<64>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
-    case 80: return launch<80>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
-    case 128: return launch<128>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
-    case 256: return launch<256>(q, k, v, o, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 32: return launch<32>(q, k, v, o, ls, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 64: return launch<64>(q, k, v, o, ls, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 80: return launch<80>(q, k, v, o, ls, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 128: return launch<128>(q, k, v, o, ls, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
+    case 256: return launch<256>(q, k, v, o, ls, sc, b, sq, sk, hq, hkv, causal, window, sink, q_offset, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

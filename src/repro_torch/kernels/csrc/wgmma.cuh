@@ -1,5 +1,5 @@
 // Hopper warpgroup matrix multiply (wgmma) and the shared-memory matrix
-// descriptors it reads, for the bf16 flash-attention kernel. Each call is
+// descriptors it reads, for the bf16 flash-attention kernels. Each call is
 // made by all 128 threads of a warpgroup; d is the f32 accumulator
 // fragment of an m64nN tile: thread t (warp w = t/32, lane l) holds, for
 // each 8-column chunk i, d[4i + {0,1}] at row 16w + l/4 and d[4i + {2,3}] at
@@ -64,10 +64,24 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// S = Q·Kᵀ over a key tile of N = 64 or 128 keys
+// d (+)= A·Bᵀ, m64n32k16, A (64 x 16) and B (32 x 16) both K-major in shared
+// memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S = Q·Kᵀ over a key tile of N = 32, 64 or 128 keys (32: the backward's Sᵀ
+// over a q tile of 32 rows)
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 64) mma_ss_n64(d, da, db, scale_d);
+  if constexpr (N == 32) mma_ss_n32(d, da, db, scale_d);
+  else if constexpr (N == 64) mma_ss_n64(d, da, db, scale_d);
   else mma_ss_n128(d, da, db, scale_d);
 }
 

@@ -52,6 +52,8 @@ _SELECT_BLOCKS = 8
 # overlap on two streams take separate counters
 _COUNTERS: dict = {}
 _SCHEDULES: dict = {}
+# the backward's arrival counters, one per (batch, kv head), kept like them
+_ARRIVALS: dict = {}
 
 
 def reset_launches() -> None:
@@ -107,20 +109,37 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     On the card the dtype picks the kernel: bf16 runs on the tensor cores
     (``csrc/flash_attention_sm90.cu``: wgmma fed by TMA, P rounded to bf16
     before P·V, one persistent block an SM taking work items from a
-    counter kept per stream), f32 on the FMA units (``csrc/flash_attention.cu``), since
-    TF32 tensor cores would not hold f32's tolerance. Either raises if its
-    kernel fails to build or launch. Where grad mode is on and an input
-    requires grad, the call is an autograd node whose backward is
-    ``flash_attention_bwd``'s kernel; otherwise (serving, ``no_grad``,
-    inference) it is the forward kernel alone. On the CPU, autograd
-    differentiates the plain version, as the JAX package differentiates its
-    plain body."""
+    counter kept per stream), f32 on the FMA units (``csrc/flash_attention.cu``:
+    single TF32 products would not hold f32's tolerance, and the serving
+    path is bf16; the backward's f32 route holds it on the tensor cores as
+    3xTF32). Either raises if its kernel fails to build or launch. Where
+    grad mode is on and an input requires grad, the call is an autograd
+    node: its forward also saves each row's log-sum-exp, and its backward is
+    ``flash_attention_bwd``'s kernels; otherwise (serving, ``no_grad``,
+    inference) it is the forward kernel alone, which writes no log-sum-exp.
+    On the CPU, autograd differentiates the plain version, as the JAX
+    package differentiates its plain body."""
     if _on_cpu(q, k, v):
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                         sink=sink, q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, sink, q_offset)
-    return _flash_forward(q, k, v, causal, window, sink, q_offset)
+    return _flash_forward(q, k, v, causal, window, sink, q_offset)[0]
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        sink: int = 0, q_offset: int = 0):
+    """``flash_attention``'s output and each row's log-sum-exp L (B, Hq, Sq)
+    f32 of its scaled, masked scores (natural log, -inf for a row with no
+    allowed key): what the autograd forward saves for
+    ``flash_attention_bwd``. On the card one launch of the forward kernel,
+    which writes L beside the output (the output bit for bit what
+    ``flash_attention`` gives); on the CPU the plain versions."""
+    if _on_cpu(q, k, v):
+        mask = dict(causal=causal, window=window, sink=sink, q_offset=q_offset)
+        return (_ref.flash_attention_ref(q, k, v, **mask),
+                _ref.flash_attention_lse_ref(q, k, **mask))
+    return _flash_forward(q, k, v, causal, window, sink, q_offset, with_lse=True)
 
 
 def _check_flash(name, q, k, v, window, sink, q_offset):
@@ -136,10 +155,14 @@ def _check_flash(name, q, k, v, window, sink, q_offset):
     return b, sq, k.shape[1], hq, k.shape[2], d
 
 
-def _flash_forward(q, k, v, causal, window, sink, q_offset):
+def _flash_forward(q, k, v, causal, window, sink, q_offset, with_lse=False):
+    """One forward launch: (output, the rows' log-sum-exp or None)."""
     b, sq, sk, hq, hkv, d = _check_flash("flash_attention", q, k, v, window, sink,
                                          q_offset)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lse_ptr = lse.data_ptr() if with_lse else None
     lib = _build.library()
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
@@ -147,45 +170,58 @@ def _flash_forward(q, k, v, causal, window, sink, q_offset):
             _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                      "flash_attention: bf16 operands must be 16-byte aligned")
             err = lib.h2eal_flash_attention_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                 _counters(q, 2, _SCHEDULES).data_ptr(), b, sq, sk, hq, hkv, d,
                 int(causal), window, sink, q_offset, _scale(d), _stream(q))
         else:
             err = lib.h2eal_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-                hq, hkv, d, int(causal), window, sink, q_offset, _scale(d), _stream(q))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, sq,
+                sk, hq, hkv, d, int(causal), window, sink, q_offset, _scale(d), _stream(q))
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, and ``flash_attention_bwd``'s kernel as its
-    backward (q, k, v and the output saved)."""
+    """The forward kernel, and ``flash_attention_bwd``'s kernels as its
+    backward (q, k, v, the output and the rows' log-sum-exp saved)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sink, q_offset):
-        o = _flash_forward(q, k, v, causal, window, sink, q_offset)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _flash_forward(q, k, v, causal, window, sink, q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = dict(causal=causal, window=window, sink=sink, q_offset=q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), **ctx.mask)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse, **ctx.mask)
         return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, window: int = 0,
                         sink: int = 0, q_offset: int = 0):
     """The gradients (dq, dk, dv) of ``flash_attention`` with the same mask
-    arguments, from its inputs, its output o and the output's gradient do
-    (each like q), in the inputs' dtype. On the card: one call of
-    ``csrc/flash_attention_bwd.cu`` (three launches: the rows' log-sum-exp
-    and Δ, dq, dk and dv; f32 arithmetic, no atomics), raising if the kernel
-    fails to build or launch."""
-    if _on_cpu(q, k, v, o, do):
+    arguments, from its inputs, its output o, the rows' log-sum-exp ``lse``
+    that ``flash_attention_lse`` gives beside o, and the output's gradient do
+    (each like q), in the inputs' dtype.
+
+    On the card: one call of ``csrc/flash_attention_bwd.cu``, two launches
+    (dq with each row's Δ = Σ dO∘o, then dk and dv; P recomputed in f32 from
+    q, k and lse; no atomic adds into the sums, so their order is fixed),
+    raising if a kernel fails to build or launch. The route is a rule by
+    dtype and head_dim: f32 at head_dim <= 128 on the tensor cores as
+    3xTF32 (mma.sync, each product lo·hi + hi·lo + hi·hi of tf32 halves);
+    bf16 at head_dim <= 128 on wgmma fed by TMA
+    (``csrc/flash_attention_bwd_sm90.cu``, P and dS split into two bf16
+    operands each); head_dim 256, either dtype, on the FMA units (a key
+    tile's dk and dv do not fit a warpgroup's registers there; no training
+    path runs it). Under a window with sink keys the first key tile, which
+    every q tile sees, is cut into runs whose partial sums the last run adds
+    in a fixed order. On the CPU the plain version, which computes its own
+    softmax from q and k (``lse`` unused)."""
+    if _on_cpu(q, k, v, o, do, lse):
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window,
                                             sink=sink, q_offset=q_offset)
     b, sq, sk, hq, hkv, d = _check_flash("flash_attention_bwd", q, k, v, window, sink,
@@ -193,16 +229,27 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
     _require(o.shape == q.shape and do.shape == q.shape,
              "flash_attention_bwd: o and do must be shaped like q")
     _check_operands("flash_attention_bwd", (o, do), q.dtype)
+    _require(lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+             and lse.is_contiguous(), "flash_attention_bwd: lse must be (B, Hq, Sq) f32")
+    # cp.async and TMA read the operands in 16-byte pieces
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do)),
+             "flash_attention_bwd: operands must be 16-byte aligned")
+    lib = _build.library()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rows = torch.empty((2, b, hq, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    # key tile 0's partial sums where a window with sink keys cuts its walk
+    n_parts = lib.h2eal_flash_attention_bwd_parts(_DTYPES[q.dtype], d, b, sq, hkv, window,
+                                                  sink)
+    parts = torch.empty(n_parts, dtype=torch.float32, device=q.device) if n_parts else None
     with torch.cuda.device(q.device):
-        err = _build.library().h2eal_flash_attention_bwd(
+        err = lib.h2eal_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows[0].data_ptr(),
-            rows[1].data_ptr(), _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, int(causal),
-            window, sink, q_offset, _scale(d), _stream(q))
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            parts.data_ptr() if n_parts else None,
+            _counters(q, b * hkv, _ARRIVALS).data_ptr(), _DTYPES[q.dtype], b, sq, sk, hq,
+            hkv, d, int(causal), window, sink, q_offset, _scale(d), _stream(q))
     _build.check(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

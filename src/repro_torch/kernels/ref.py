@@ -57,6 +57,21 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
+def flash_attention_lse_ref(q, k, *, causal: bool = True, window: int = 0,
+                            sink: int = 0, q_offset: int = 0):
+    """Each row's log-sum-exp of ``flash_attention_ref``'s scaled, masked
+    scores: (B, Hq, Sq) f32, natural log, the output the forward kernels
+    write for the backward. A row with no allowed key gives -inf (log of an
+    empty sum), as the kernels write it, where the reference's uniform
+    NEG_INF logits would give about NEG_INF."""
+    b, sq, hq, d = q.shape
+    group = hq // k.shape[2]
+    kx = k.repeat_interleave(group, dim=2) if group > 1 else k
+    logits = _mm_f32("bihd,bjhd->bhij", q.to(k.dtype), kx) * _scale(d).to(q.device)
+    mask = _flash_mask(sq, k.shape[1], causal, window, sink, q_offset, q.device)
+    return torch.logsumexp(torch.where(mask[None, None], logits, -torch.inf), dim=-1)
+
+
 def _flash_mask(sq: int, sk: int, causal: bool, window: int, sink: int,
                 q_offset: int, device):
     """(Sq, Sk) bool: key j attended by query row i (position i + q_offset)."""

@@ -166,10 +166,12 @@ def test_flash_attention_kernel_fully_masked_row_is_zero(cuda_dev, dtype, d):
     assert out.abs().max().item() == 0.0
 
 
-# flash_attention's backward (csrc/flash_attention_bwd.cu): (b, s, hq, hkv,
-# causal, window, sink, q_offset); S ragged (no multiple of the 64-row or
-# 32-key tiles); GQA groups 1, 3 (smollm-360m), 4 (llama3-8b) and 16; causal,
-# window 256 + sink 4 (llama3-8b's streaming heads), window 512 (gemma3-1b)
+# flash_attention's backward (csrc/flash_attention_bwd.cu and, in bf16,
+# csrc/flash_attention_bwd_sm90.cu): (b, s, hq, hkv, causal, window, sink,
+# q_offset); S ragged (no multiple of the 128-row, 32- to 128-key tiles); GQA
+# groups 1, 3 (smollm-360m), 4 (llama3-8b) and 16; causal, window 256 + sink 4
+# (llama3-8b's streaming heads), window 512 (gemma3-1b); a window with sinks
+# over S = 2048, where launch 2 cuts key tile 0's walk into runs (6 to 8)
 FLASH_BWD_CASES = [
     (2, 77, 4, 4, True, 0, 0, 0),
     (1, 150, 15, 5, True, 0, 0, 0),
@@ -178,13 +180,15 @@ FLASH_BWD_CASES = [
     (1, 601, 3, 1, True, 256, 4, 0),
     (1, 40, 8, 2, True, 6, 3, 24),
     (1, 33, 4, 1, False, 0, 0, 0),
+    (2, 2048, 4, 2, True, 64, 4, 0),
 ]
 
 
 def _bwd_within(got, want, dtype) -> bool:
     """The backward against its plain version: 1e-4·max|plain| + 1e-5 (the
-    summation order; dq and dk are sums that cancel), and in bf16 2^-8·|plain|
-    more for the output's rounding (the source's note derives it)."""
+    summation order and 3xTF32's 2^-20 a product; dq and dk are sums that
+    cancel), and in bf16 2^-8·|plain| more for the output's rounding (the
+    sources' notes derive it)."""
     want = want.float()
     lim = 1e-4 * want.abs().max() + 1e-5
     if dtype == torch.bfloat16:
@@ -203,13 +207,24 @@ def _bwd_inputs(dev, dtype, b, s, hq, hkv, d, seed=0):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
 def test_flash_attention_bwd_kernel(cuda_dev, dtype, d, case):
+    """The backward kernels against their plain version (and, in f32,
+    against autograd through the plain forward), bit for bit the same on a
+    rerun; the forward's L against ``ref.flash_attention_lse_ref``, and its
+    output bit for bit the same with and without the L pointer."""
     b, s, hq, hkv, causal, window, sink, off = case
     kw = dict(causal=causal, window=window, sink=sink, q_offset=off)
     q, k, v, do = _bwd_inputs(cuda_dev, dtype, b, s, hq, hkv, d)
     with torch.no_grad():
-        o = ops.flash_attention(q, k, v, **kw)
-    got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+        o, lse = ops.flash_attention_lse(q, k, v, **kw)
+        assert torch.equal(o, ops.flash_attention(q, k, v, **kw))
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    want_lse = tref.flash_attention_lse_ref(*_widened(q, k), **kw)
+    assert lse.shape == (b, hq, s) and torch.equal(lse.isinf(), want_lse.isinf())
+    fin = want_lse.isfinite()
+    assert ((lse[fin] - want_lse[fin]).abs() <= 1e-5 * want_lse[fin].abs() + 1e-5).all()
     want = tref.flash_attention_bwd_ref(*_widened(q, k, v, o, do), **kw)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape
@@ -223,12 +238,29 @@ def test_flash_attention_bwd_kernel(cuda_dev, dtype, d, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_attention_lse_of_a_row_with_no_key(cuda_dev, dtype, d):
+    """A row with no allowed key: output 0 with or without L, L = -inf, and
+    the backward gives it dq = 0 (its P is 0)."""
+    q, k, v, do = _bwd_inputs(cuda_dev, dtype, 1, 8, 2, 1, d, seed=3)
+    kw = dict(causal=True, window=2, q_offset=20)
+    with torch.no_grad():
+        o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    assert o.abs().max().item() == 0.0 and bool((lse == -torch.inf).all())
+    dq, dk, dv = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert dq.abs().max().item() == 0.0 and dk.abs().max().item() == 0.0
+    assert dv.abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_autograd_runs_the_kernels(cuda_dev, dtype):
     """With grad on and an input requiring grad, ops.flash_attention is an
-    autograd node: one forward launch, and its backward one launch of the
-    backward kernel, equal to ops.flash_attention_bwd and deterministic (bit
-    for bit on a rerun). Under no_grad, or with no input requiring grad, the
-    forward alone, as serving runs it."""
+    autograd node: one forward launch (with L), and its backward one call of
+    the backward kernels, equal to ops.flash_attention_bwd on the forward's
+    output and L and deterministic (bit for bit on a rerun). Under no_grad,
+    or with no input requiring grad, the forward alone, as serving runs it."""
     q, k, v, do = _bwd_inputs(cuda_dev, dtype, 2, 200, 8, 2, 64, seed=1)
     kw = dict(causal=True, window=64, sink=4)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -237,14 +269,17 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_dev, dtype):
     assert out.grad_fn is not None and ops.LAUNCHES["flash_attention"] == 1
     grads = torch.autograd.grad(out, leaves, do)
     assert ops.LAUNCHES["flash_attention_bwd"] == 1
-    again = ops.flash_attention_bwd(q, k, v, out.detach(), do, **kw)
+    with torch.no_grad():
+        o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o, out.detach())
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     for g, a in zip(grads, again):
         assert torch.equal(g, a)
     with torch.no_grad():
         plain = ops.flash_attention(*leaves, **kw)
     assert plain.grad_fn is None and torch.equal(plain, out.detach())
     assert ops.flash_attention(q, k, v, **kw).grad_fn is None
-    assert ops.LAUNCHES["flash_attention"] == 3 and ops.LAUNCHES["flash_attention_bwd"] == 2
+    assert ops.LAUNCHES["flash_attention"] == 4 and ops.LAUNCHES["flash_attention_bwd"] == 2
 
 
 @pytest.mark.cuda

@@ -191,8 +191,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     k = torch.from_numpy(_np(rng, 1, 8, 1, 16))
     torch.testing.assert_close(ops.flash_attention(q, k, k),
                                tref.flash_attention_ref(q, k, k), rtol=0, atol=0)
-    o = tref.flash_attention_ref(q, k, k)
-    for got, want in zip(ops.flash_attention_bwd(q, k, k, o, q),
+    o, lse = ops.flash_attention_lse(q, k, k)
+    torch.testing.assert_close(o, tref.flash_attention_ref(q, k, k), rtol=0, atol=0)
+    torch.testing.assert_close(lse, tref.flash_attention_lse_ref(q, k), rtol=0, atol=0)
+    for got, want in zip(ops.flash_attention_bwd(q, k, k, o, q, lse),
                          tref.flash_attention_bwd_ref(q, k, k, o, q)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "page_score": 0,

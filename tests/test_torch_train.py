@@ -34,7 +34,7 @@ from repro_torch import ckpt
 from repro_torch import configs as tconfigs
 from repro_torch.core.tree import leaves, leaves_with_paths
 from repro_torch.data import lm_batch, niah_batch
-from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ops as tops, ref as tref
 from repro_torch.launch import train as train_cli
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
@@ -291,11 +291,15 @@ def test_jax_checkpoint_reads_into_port(tmp_path, dtype):
     dict(hq=4, hkv=2, causal=True, window=0, sink=0),           # causal, GQA 2
     dict(hq=4, hkv=2, causal=True, window=8, sink=3),           # window + sink
     dict(hq=2, hkv=2, causal=True, window=5, sink=0, q_offset=4),  # window, offset
-], ids=["causal-g1", "causal-g2", "window-sink-g2", "window-offset-g1"])
+    dict(hq=6, hkv=2, causal=True, window=6, sink=2, q_offset=3),  # GQA 3, all of it
+], ids=["causal-g1", "causal-g2", "window-sink-g2", "window-offset-g1",
+        "window-sink-offset-g3"])
 def test_flash_attention_bwd_ref_matches_autograd_and_jax(case):
     """ref.flash_attention_bwd_ref against torch.autograd through
     flash_attention_ref and against jax's vjp of the reference's
-    flash_attention_ref, to 1e-5."""
+    flash_attention_ref, to 1e-5; it computes its own softmax, so the
+    forward's L that ops.flash_attention_bwd takes beside o (from
+    ops.flash_attention_lse) changes nothing on the CPU."""
     case = dict(case)
     hq, hkv = case.pop("hq"), case.pop("hkv")
     rng = np.random.default_rng(7)
@@ -312,6 +316,11 @@ def test_flash_attention_bwd_ref_matches_autograd_and_jax(case):
     for name, g, a, w in zip("qkv", got, auto, want):
         np.testing.assert_allclose(g.numpy(), a.numpy(), atol=1e-5, rtol=0, err_msg=name)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0, err_msg=name)
+    o, lse = tops.flash_attention_lse(tq.detach(), tk.detach(), tv.detach(), **case)
+    assert torch.equal(o, out.detach())
+    for g, w in zip(tops.flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), o,
+                                             _t(do), lse, **case), got):
+        assert torch.equal(g, w)
 
 
 _JAX_LOSS: dict = {}
