@@ -136,7 +136,23 @@ then, each phase failing the run with a nonzero exit:
      6 steps, then crashed after 3 and resumed: the final losses equal
      within 1e-6; (d) one head-identification step at llama3-8b's full width
      (bf16 weights, α trainable, S = 8192): a finite, non-zero α gradient.
-     The serving paths of phases 4 to 12 must launch no backward kernel.
+     The serving paths of phases 4 to 12 and 14 must launch no backward
+     kernel;
+ 14. the frontend-stub families, fed seeded embeddings (phase 2 also holds
+     every serving kernel at internvl2-1b's shapes, GQA group 7 on the
+     group-8 instantiations, and musicgen-large's, MHA, head_dim 64, in bf16
+     and f32 beside SDPA; phase 13a the backward at internvl2-1b's training
+     shape): (b) reduced internvl2-1b with 14 query heads over 2 and reduced
+     musicgen-large through ``prefill`` and 8 ``decode_step``s, card against
+     CPU (f32 at head_dim 32, bf16 at 64), and one ``make_train_step`` step
+     of the reduced group-7 model, card against CPU; (c) both models at
+     full width and depth, bf16: ``prefill`` on 2 x 8192 embeddings and 32
+     decode steps, launch counts exact, every logit finite, then with H²EAL
+     off and the logits' difference; (d) internvl2-1b's train step at full
+     width and depth, f32, B = 4 x S = 2048, 4 steps, launch counts exact;
+     (e) the dry run's (``launch/dryrun.py``) parameter, AdamW, serve-state
+     and serving-input bytes equal to what the card holds, the peak memory
+     beside its total.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -238,6 +254,21 @@ KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
 X_ARCH, Z_ARCH = "xlstm-125m", "zamba2-2.7b"
 X_PROMPT, X_CHUNK = 2048, 128
 X_ENGINE = [(512, 12), (384, 9), (640, 16), (256, 10)]
+# the frontend-stub families (phases 2, 13a and 14), fed seeded embeddings:
+# internvl2-1b (24 layers, 14 query heads over 2 kv heads: GQA group 7,
+# head_dim 64) and musicgen-large (48 layers, 32 MHA heads, head_dim 64);
+# their reduced configs (internvl2-1b at its 14 over 2 heads) and decode
+# steps for the card against CPU; internvl2-1b's full-width train step
+STUB_ARCHS = ("internvl2-1b", "musicgen-large")
+STUB_REDUCED = (("internvl2-1b", dict(num_heads=14, num_kv_heads=2)), ("musicgen-large", {}))
+STUB_REDUCED_STEPS = 8
+STUB_TRAIN_B, STUB_TRAIN_S, STUB_TRAIN_STEPS = 4, 2048, 4
+# f32 logits, card against CPU, after the whole reduced stack (the ROADMAP's
+# band for the port against the reference, EXPERIMENTS.md:250-266); f32
+# parameters after one AdamW step: where a gradient is near zero its
+# normalised step rests on the sums' last bits, so an element may move by up
+# to 2·lr (tests/test_torch_train.py::test_train_step_matches_jax)
+LOGIT_TOL, PARAM_TOL = 2e-4, 1e-5
 FLUSH_BYTES = 256 << 20  # more than the 50 MB L2
 HOLD_CYCLES = 2_000_000  # the Timer's hold of the card, ~1.1 ms at 1.755 GHz
 
@@ -2707,11 +2738,12 @@ def check_arch_shapes(ops, ref, timer, dev, cfg, dtype, gen):
     shapes; the streaming ring's decode and the retrieval pages read in
     place (with the gathered buffer, the full-attention baseline and the
     draft selection beside them); the chunk kernels at the engine's chunk
-    phase; the co-placed decode and the stripes' partials. Cases are tagged
-    with the model and are not part of the main totals."""
+    phase; the co-placed decode, the stripes' partials and the standalone
+    merge of those partials. Cases are tagged with the model and are not
+    part of the main totals."""
     lock_cap = serve_capacity(cfg)
     eng_cap = engine_workload(cfg)[1]
-    part, _ = check_partial(ops, ref, timer, dev, cfg, dtype, gen)
+    part, comb = check_partial(ops, ref, timer, dev, cfg, dtype, gen)
     res = {
         "flash_attention": check_flash(ops, ref, timer, dev, cfg, dtype, gen),
         "page_score": [check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path)
@@ -2721,6 +2753,7 @@ def check_arch_shapes(ops, ref, timer, dev, cfg, dtype, gen):
         "chunk_attention_paged": check_chunk_paged(ops, ref, timer, dev, cfg, dtype, gen,
                                                    eng_cap),
         "paged_attention_partial": part,
+        "combine_partials": comb,
     }
     for cases in res.values():
         for c in cases:
@@ -3124,12 +3157,15 @@ def time_bwd(ops, ref, timer, dev, gen):
     f32, the dtype both paths run (``main``), and in bf16. Each case is
     also held to its plain version, at these shapes' batch and kv-head
     offsets. In f32 the forward that the paths run before it (with L) is
-    timed too (``time_fwd32``). Returns (the
+    timed too (``time_fwd32``). Then the same at internvl2-1b's training
+    shape (GQA group 7), tagged and not in the main totals. Returns (the
     backward's cases, the f32 forward's cases)."""
     shapes = [(f"{TRAIN_ARCH} training", TRAIN_B, TRAIN_S, 15, 5, 64, (0, 0), dt)
               for dt in (torch.float32, torch.bfloat16)]
     shapes += [(f"{ARCH} head identification", 1, HEADID_S, 32, 8, 128, ws, dt)
                for dt in (torch.float32, torch.bfloat16) for ws in ((0, 0), (256, 4))]
+    shapes += [(f"{STUB_ARCHS[0]} training", STUB_TRAIN_B, STUB_TRAIN_S, 14, 2, 64, (0, 0),
+                dt) for dt in (torch.float32, torch.bfloat16)]
     cases, fwd_cases = [], []
     for label, b, s, hq, hkv, d, (window, sink), dtype in shapes:
         mask = dict(causal=True, window=window, sink=sink)
@@ -3169,7 +3205,8 @@ def time_bwd(ops, ref, timer, dev, gen):
         cases.append(dict(
             case=case, dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex,
             tol=BWD_TOL_TEXT[dtype], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by, main=dtype == torch.float32))
+            bound_ms=b_ms, bound_by=b_by,
+            main=dtype == torch.float32 and not label.startswith(STUB_ARCHS[0])))
         log(f"flash_attention_bwd [{case} {cases[-1]['dtype']}] kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
             f"max_err={e:.3e} excess={ex:.3e} (tol {BWD_TOL_TEXT[dtype]})")
@@ -3423,6 +3460,316 @@ def phase13(ops, ref, dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the frontend-stub families, and the dry run against the card
+# ---------------------------------------------------------------------------
+
+
+def stub_embeds(gen, dev, dtype, *shape):
+    """Seeded precomputed embeddings, the stub archs' inputs."""
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+def check_stub_shapes(ops, ref, timer, dev, cfg, dtype, gen):
+    """Phase 2 at a frontend-stub model's serving shapes (internvl2-1b: 14
+    query heads over 2 kv heads, GQA group 7 on the group-8 instantiations;
+    musicgen-large: 32 over 32, a group of 1; head_dim 64): flash over
+    B=BATCH prompts of PROMPT (both head kinds), the select step at the
+    lockstep and engine shapes, the streaming ring's decode and the
+    retrieval pages read in place (with the gathered buffer, the
+    full-attention baseline and the draft selection beside them). The
+    stubs serve through prefill and decode_step only (no chunked prefill:
+    the reference refuses it), so the chunk kernels are not at their
+    shapes. Cases are tagged with the model, not in the main totals."""
+    res = {
+        "flash_attention": check_flash(ops, ref, timer, dev, cfg, dtype, gen),
+        "page_score": [check_page_select(ops, ref, timer, dev, cfg, dtype, gen, path)
+                       for path in ("lockstep", "engine")],
+        "paged_attention": check_paged(ops, ref, timer, dev, cfg, dtype, gen,
+                                       serve_capacity(cfg)),
+    }
+    for cases in res.values():
+        for c in cases:
+            c.update(case=f"{cfg.name} {c['case']}", main=False, arch=cfg.name)
+    torch.cuda.empty_cache()
+    return res
+
+
+def stub_steps(cfg, params, x, xs, capacity, dev):
+    """prefill on the embeddings x (B, S, d), then a decode step fed each of
+    xs (B, d), select steps every share window; the logits of each (the
+    prefill's first) on the CPU in f32."""
+    from repro_torch.runtime import serve as serve_rt
+
+    scfg = serve_rt.ServeConfig(capacity=capacity)
+    steps = {s: serve_rt.make_decode_step(cfg, scfg, do_select=s) for s in (True, False)}
+    w = max(cfg.h2eal.share_window, 1)
+    with torch.inference_mode():
+        logits, state = serve_rt.make_prefill(cfg, scfg)(params, x.to(dev))
+        out = [logits.float().cpu()]
+        for i, xi in enumerate(xs):
+            logits, state = steps[i % w == 0](params, state, xi.to(dev))
+            out.append(logits.float().cpu())
+    return out
+
+
+def check_reduced_stubs_against_cpu(dev):
+    """Phase 14b, card (kernels) against CPU (plain versions), same weights
+    and seeded embeddings: reduced internvl2-1b with 14 query heads over 2
+    (group 7) and reduced musicgen-large (MHA) through prefill and
+    STUB_REDUCED_STEPS decode steps (select and reuse), f32 at head_dim 32
+    (every logit within LOGIT_TOL) and bf16 at head_dim 64 (within
+    BF16_LOGIT_BAND of the largest CPU logit; the top-k covers every page,
+    as in bf16_generate_against_cpu, so that no bf16 near-tie of page scores
+    moves the selection); then one make_train_step step of the reduced
+    group-7 model, f32: loss and grad norm within 1e-5 relative, the
+    parameters within PARAM_TOL but for AdamW's sign flips of near-zero
+    gradients (each within 2·lr, at most a thousandth of the elements)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+
+    n = STUB_REDUCED_STEPS
+    for name, kw in STUB_REDUCED:
+        for dtype, hd, s in ((torch.float32, 32, 45), (torch.bfloat16, 64, 300)):
+            cfg = reduced(get_arch(name), head_dim=hd, **kw)
+            page = cfg.h2eal.page_size
+            if dtype == torch.bfloat16:
+                cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(
+                    cfg.h2eal, select_budget=-(-(s + n) // page) * page))
+            gen = torch.Generator().manual_seed(14)
+            params = M.init_params(cfg, generator=gen, device="cpu", dtype=dtype)
+            x = stub_embeds(gen, "cpu", dtype, 2, s, cfg.d_model)
+            xs = [stub_embeds(gen, "cpu", dtype, 2, cfg.d_model) for _ in range(n)]
+            cap = s + n + page
+            cpu = stub_steps(cfg, params, x, xs, cap, "cpu")
+            ops.reset_launches()
+            card = stub_steps(cfg, _to(params, dev), x, xs, cap, dev)
+            launched = dict(ops.LAUNCHES)
+            worst = max(err(a, b) for a, b in zip(card, cpu))
+            band = (LOGIT_TOL if dtype == torch.float32
+                    else BF16_LOGIT_BAND * max(c.abs().max().item() for c in cpu))
+            per = layer_launches(cfg)
+            want = {"flash_attention": per["prefill"], "paged_attention": per["decode"] * n,
+                    "page_score": per["select"] * -(-n // max(cfg.h2eal.share_window, 1))}
+            got = {k: launched[k] for k in want}
+            log(f"reduced {cfg.name} Hq={cfg.num_heads} Hkv={cfg.num_kv_heads} head_dim {hd} "
+                f"{str(dtype).split('.')[-1]} (prefill {s} embeddings + {n} decode steps): "
+                f"card vs CPU logits max err {worst:.3e} (band {band:.3e}); launches {got} "
+                f"(expected {want})")
+            if not worst <= band or got != want:
+                fail(f"the reduced {cfg.name} on the card disagrees with the CPU run or did "
+                     f"not launch the kernels as expected")
+
+    cfg = reduced(get_arch(STUB_REDUCED[0][0]), **STUB_REDUCED[0][1])
+    gen = torch.Generator().manual_seed(15)
+    params = M.init_params(cfg, generator=gen, device="cpu")
+    batch = {"tokens": stub_embeds(gen, "cpu", torch.float32, 4, 64, cfg.d_model),
+             "labels": lm_batch(0, batch=4, seq=64, vocab=cfg.vocab_size)["labels"]}
+    lr = 1e-3
+    step_fn = train_rt.make_train_step(cfg, train_rt.TrainConfig(lr=lr, warmup=1,
+                                                                 total_steps=10))
+    out = {}
+    ops.reset_launches()
+    for where in (dev, "cpu"):
+        p = _to(params, where)
+        p, _, m = step_fn(p, adamw.init_state(p), {k: v.to(where) for k, v in batch.items()},
+                          0)
+        out[str(where)] = (_to(p, "cpu"), m["loss"].item(), m["grad_norm"].item())
+    launched = dict(ops.LAUNCHES)
+    (p_card, l_card, g_card), (p_cpu, l_cpu, g_cpu) = out[str(dev)], out["cpu"]
+    flips, worst, n_el = 0, 0.0, 0
+    for a, b in zip(leaves(p_card), leaves(p_cpu)):
+        off = (a - b).abs()
+        flips += int((off > PARAM_TOL).sum())
+        worst = max(worst, off.max().item())
+        n_el += off.numel()
+    rel = max(abs(l_card - l_cpu) / abs(l_cpu), abs(g_card - g_cpu) / abs(g_cpu))
+    log(f"train step reduced {cfg.name} (group {cfg.num_heads // cfg.num_kv_heads}, "
+        f"B=4 S=64 embeddings, remat): loss card {l_card!r} CPU {l_cpu!r}, grad norm card "
+        f"{g_card!r} CPU {g_cpu!r}, max rel diff {rel:.3e}; parameters max diff {worst:.3e}, "
+        f"{flips} of {n_el} past {PARAM_TOL:g}; launches fwd {launched['flash_attention']} "
+        f"bwd {launched['flash_attention_bwd']}")
+    if not (rel <= 1e-5 and worst <= 2 * lr and flips <= n_el // 1000):
+        fail("the reduced frontend-stub train step on the card disagrees with the CPU")
+    if (launched["flash_attention"] != 2 * cfg.num_layers
+            or launched["flash_attention_bwd"] != cfg.num_layers):
+        fail("the reduced frontend-stub train step did not launch the kernels as expected")
+
+
+def serve_stub(dev, name, card):
+    """Phase 14c and e: ``name`` at full width and depth, bf16, seeded random
+    weights and seeded bf16 embeddings: prefill on BATCH x PROMPT, then GEN
+    decode steps (select every share window), H²EAL defaults; launch counts
+    exact, every logit finite; the bytes the card holds for the parameters,
+    the embeddings and the serve state after prefill equal to the dry run's
+    (``launch/dryrun.memory_bytes``); then the same run with H²EAL off and the
+    logits' difference. Returns the sparse run's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.runtime import serve as serve_rt
+
+    cfg = get_arch(name)
+    params = full_params(dev, cfg)
+    capacity = serve_capacity(cfg)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = stub_embeds(gen, dev, torch.bfloat16, BATCH, PROMPT, cfg.d_model)
+    xs = stub_embeds(gen, dev, torch.bfloat16, GEN, BATCH, cfg.d_model)
+    w = max(cfg.h2eal.share_window, 1)
+    runs = {}
+    for h2 in (True, False):
+        rcfg = cfg if h2 else dataclasses.replace(
+            cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
+        scfg = serve_rt.ServeConfig(capacity=capacity)
+        prefill = serve_rt.make_prefill(rcfg, scfg)
+        steps = {s: serve_rt.make_decode_step(rcfg, scfg, do_select=s) for s in (True, False)}
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, state = prefill(params, x)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            finite = torch.isfinite(logits).all()
+            state_bytes = specs.tree_bytes(state["layers"])
+            outs = [logits]
+            t0 = time.perf_counter()
+            for i in range(GEN):
+                logits, state = steps[i % w == 0](params, state, xs[i])
+                finite &= torch.isfinite(logits).all()
+                outs.append(logits)
+            torch.cuda.synchronize()
+            t_decode = time.perf_counter() - t0
+        runs[h2] = dict(launches=dict(ops.LAUNCHES), logits=torch.stack(outs).float(),
+                        finite=bool(finite), prefill_s=t_prefill, decode_s=t_decode,
+                        state_bytes=state_bytes,
+                        peak=torch.cuda.max_memory_allocated())
+        del state, outs, logits
+        torch.cuda.empty_cache()
+    sparse = runs[True]
+    per = layer_launches(cfg)
+    expect = {"flash_attention": per["prefill"],
+              "page_score": per["select"] * -(-GEN // w),
+              "paged_attention": per["decode"] * GEN,
+              "chunk_attention": 0, "chunk_attention_paged": 0,
+              "paged_attention_partial": 0, "combine_partials": 0,
+              "flash_attention_bwd": 0}
+    dry = dryrun.memory_bytes(cfg, ShapeConfig("stub_prefill", PROMPT, BATCH, "prefill"),
+                              capacity)
+    held = specs.tree_bytes(params)
+    diff = (sparse["logits"] - runs[False]["logits"]).abs()
+    log(f"{cfg.name} full width and depth ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads, head_dim "
+        f"{cfg.resolved_head_dim}), bf16 embeddings B={BATCH} S={PROMPT} + {GEN} decode "
+        f"steps, capacity {capacity}: sparse prefill {sparse['prefill_s']:.3f}s, decode "
+        f"{sparse['decode_s']:.3f}s ({GEN / sparse['decode_s']:.2f} steps/s), all logits "
+        f"finite={sparse['finite']}; launches {sparse['launches']} (expected {expect}); "
+        f"full attention prefill {runs[False]['prefill_s']:.3f}s, decode "
+        f"{runs[False]['decode_s']:.3f}s, finite={runs[False]['finite']}; logits sparse vs "
+        f"full max abs diff {diff.max().item():.4e} (prefill {diff[0].max().item():.4e}), "
+        f"argmax agreement {(sparse['logits'].argmax(-1) == runs[False]['logits'].argmax(-1)).float().mean().item():.3f}")
+    log(f"dry run {cfg.name} on one {card}: params {dry['params']} B (card holds {held}), "
+        f"serve state {dry['serve_state']} B (card holds {sparse['state_bytes']} after "
+        f"prefill), inputs {dry['inputs']} B (card holds {specs.tree_bytes(x)}), resident "
+        f"{dry['resident'] / 2**30:.3f} GiB; peak memory allocated "
+        f"{sparse['peak'] / 2**30:.3f} GiB (H2EAL off {runs[False]['peak'] / 2**30:.3f} GiB)")
+    if sparse["launches"] != expect:
+        fail(f"{cfg.name}: the serving path did not launch the kernels as expected")
+    if not (sparse["finite"] and runs[False]["finite"]):
+        fail(f"{cfg.name}: non-finite logits")
+    if (dry["params"] != held or dry["serve_state"] != sparse["state_bytes"]
+            or dry["inputs"] != specs.tree_bytes(x)):
+        fail(f"{cfg.name}: the dry run's bytes differ from the card's")
+    del params
+    torch.cuda.empty_cache()
+    return sparse["launches"]
+
+
+def train_stub(dev, card):
+    """Phase 14d and e: internvl2-1b's make_train_step at full width and
+    depth, f32, remat, B x S = STUB_TRAIN_B x STUB_TRAIN_S seeded
+    embeddings, labels from lm_batch, STUB_TRAIN_STEPS steps: finite losses,
+    the forward and backward launches exact, step seconds and peak memory;
+    the parameter and AdamW bytes equal to the dry run's. Returns the launch
+    counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as train_rt
+
+    cfg = get_arch(STUB_ARCHS[0])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    params = M.init_params(cfg, generator=gen, device=dev)
+    opt = adamw.init_state(params)
+    step_fn = train_rt.make_train_step(cfg, train_rt.TrainConfig(remat=True))
+    dry = dryrun.memory_bytes(cfg, ShapeConfig("stub_train", STUB_TRAIN_S, STUB_TRAIN_B,
+                                               "train"))
+    held = {"params": specs.tree_bytes(params),
+            "optimizer": specs.tree_bytes({"mu": opt["mu"], "nu": opt["nu"]})}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(STUB_TRAIN_STEPS):
+        batch = {"tokens": stub_embeds(gen, dev, torch.float32, STUB_TRAIN_B, STUB_TRAIN_S,
+                                       cfg.d_model),
+                 "labels": lm_batch(step, batch=STUB_TRAIN_B, seq=STUB_TRAIN_S,
+                                    vocab=cfg.vocab_size)["labels"].to(dev)}
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch, step)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(flash_attention=2 * cfg.num_layers * STUB_TRAIN_STEPS,
+                flash_attention_bwd=cfg.num_layers * STUB_TRAIN_STEPS)
+    got = {k: launches[k] for k in want}
+    log(f"train {cfg.name} full width and depth ({cfg.num_layers} layers, group "
+        f"{cfg.num_heads // cfg.num_kv_heads}), f32, B={STUB_TRAIN_B} S={STUB_TRAIN_S} "
+        f"embeddings, remat: losses {losses}, step seconds {[round(t, 3) for t in times]}, "
+        f"peak memory allocated {peak / 2**30:.3f} GiB; launches {got} (expected {want})")
+    log(f"dry run {cfg.name} training on one {card}: params {dry['params']} B (card holds "
+        f"{held['params']}), AdamW m and v {dry['optimizer']} B (card holds "
+        f"{held['optimizer']}), resident with gradients {dry['resident'] / 2**30:.3f} GiB "
+        f"beside the peak {peak / 2**30:.3f} GiB (activations are not in the dry run)")
+    if not all(math.isfinite(v) for v in losses):
+        fail("the frontend-stub training losses are not finite")
+    if got != want:
+        fail("the frontend-stub train step did not launch the kernels as expected")
+    if dry["params"] != held["params"] or dry["optimizer"] != held["optimizer"]:
+        fail("the dry run's training bytes differ from the card's")
+    del params, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase14(dev, card):
+    """Phase 14: the frontend-stub families (phase 2 held their kernels at
+    their shapes, phase 13a the backward at internvl2-1b's training shape):
+    (b) reduced card against CPU, (c) both models at full width and depth
+    through prefill and decode fed embeddings, (d) internvl2-1b's train step
+    at full width, (e) the dry run's bytes against the card's. Returns the
+    launch counts by path."""
+    t14 = time.perf_counter()
+    check_reduced_stubs_against_cpu(dev)
+    by_path = {f"stub_{name}_serve": serve_stub(dev, name, card) for name in STUB_ARCHS}
+    by_path[f"stub_{STUB_ARCHS[0]}_train"] = train_stub(dev, card)
+    log(f"phase 14 (the frontend-stub families, the dry run) "
+        f"{time.perf_counter() - t14:.1f}s")
+    return by_path
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3480,6 +3827,10 @@ def main() -> int:
             for name, cases in check_arch_shapes(ops, ref, timer, dev, arch, dtype,
                                                  gen).items():
                 results[name] += cases
+        for arch in STUB_ARCHS:
+            for name, cases in check_stub_shapes(ops, ref, timer, dev, get_arch(arch), dtype,
+                                                 gen).items():
+                results[name] += cases
     results["page_score"].append(check_page_select(ops, ref, timer, dev, cfg,
                                                    torch.bfloat16, gen, "verify"))
     check_sampler(timer, dev, cfg)
@@ -3535,13 +3886,17 @@ def main() -> int:
     log(f"phase 12 (the recurrent mixers) {time.perf_counter() - t12:.1f}s")
     results["flash_attention_bwd"], fwd32, train_paths = phase13(ops, ref, dev)
     results["flash_attention"] += fwd32  # f32, not the serving path's bf16: not in its totals
+    stub_paths = phase14(dev, card)
+    train_paths.update({p: n for p, n in stub_paths.items() if p.endswith("_train")})
+    by_path.update({p: n for p, n in stub_paths.items() if not p.endswith("_train")})
     serving_paths = list(by_path)
     by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the
     # chunked coplace_shmap engine, each eager and captured with fused
     # windows, for llama3-8b and gemma3-1b, and the eviction pool; the MoE
-    # family's and zamba2's generate and chunked engines; every kernel of a
-    # path must have run in it (xlstm-125m's paths run none)
+    # family's and zamba2's generate and chunked engines; the frontend stubs'
+    # prefill and decode steps and internvl2-1b's train step; every kernel of
+    # a path must have run in it (xlstm-125m's paths run none)
     engine = ("page_score", "paged_attention", "chunk_attention", "chunk_attention_paged")
     coplaced = engine + ("paged_attention_partial",)
     main_paths = {"generate": ("flash_attention", "page_score", "paged_attention"),
@@ -3567,6 +3922,9 @@ def main() -> int:
                   "zamba2_engine_chunked_graphs": engine,
                   "train": ("flash_attention", "flash_attention_bwd"),
                   "head_id": ("flash_attention", "flash_attention_bwd")}
+    for name in STUB_ARCHS:  # phase 14: prefill and decode fed embeddings
+        main_paths[f"stub_{name}_serve"] = ("flash_attention", "page_score", "paged_attention")
+    main_paths[f"stub_{STUB_ARCHS[0]}_train"] = ("flash_attention", "flash_attention_bwd")
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

@@ -45,6 +45,11 @@ attention: ``--arch xlstm-125m``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
       --reduced --workload ragged --requests 5 --max-batch 2 \\
       --prompt-buckets 16,24 --prefill-chunk 8 --device cpu
+
+The frontend-stub archs (internvl2-1b, musicgen-large) take precomputed
+embeddings, not token ids: ``generate``, the engine and this CLI refuse
+them, where the reference's feed token ids and fail. They serve through
+``models.model.prefill`` and ``decode_step`` fed embeddings.
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ from repro_torch.models import model as M
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.runtime.serve import resolve_device
 from repro_torch.sched import balance, grid_coords, map_slots, solve_tiling
-from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.engine import STUB_ENGINE_REFUSAL, Engine, Request
 
 
 def _sync(dev: torch.device) -> None:
@@ -78,11 +83,15 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
 
     Every token is the argmax, whatever ``greedy`` says: the flag is
     accepted and ignored, as the JAX package's ``generate`` does. Sampling
-    (temperature, top-p, per-request seeds) is the engine's ``Request``."""
+    (temperature, top-p, per-request seeds) is the engine's ``Request``.
+    A frontend-stub arch is refused (``serving.engine.STUB_ENGINE_REFUSAL``):
+    argmax ids cannot feed a model that takes embeddings."""
     del greedy  # lockstep generation is greedy, as in the JAX package
+    if cfg.embed_frontend_stub:
+        raise ValueError(STUB_ENGINE_REFUSAL)
     dev = resolve_device(device)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"params lie on {params['embed'].device}, generate "
+    if params["final_norm"].device.type != dev.type:
+        raise ValueError(f"params lie on {params['final_norm'].device}, generate "
                          f"runs on {dev}")
     if not h2eal:
         cfg = dataclasses.replace(
@@ -291,6 +300,8 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.embed_frontend_stub:
+        raise ValueError(STUB_ENGINE_REFUSAL)
     if args.h2eal == "off":
         cfg = dataclasses.replace(
             cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))

@@ -66,6 +66,13 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.embed_frontend_stub:
+        # the reference's CLI feeds these archs lm_batch token ids where
+        # embeddings are due and fails in its first forward (ROADMAP Queue 3)
+        raise ValueError(
+            f"{cfg.name} takes precomputed embeddings: this CLI's data stream "
+            f"is lm_batch token ids, as the reference's; train the arch through "
+            f"runtime.train.make_train_step with embedding batches")
     tcfg = train_rt.TrainConfig(microbatches=args.microbatches, remat=True,
                                 lr=args.lr, total_steps=args.steps)
     deterministic = (torch.are_deterministic_algorithms_enabled(),

@@ -30,7 +30,8 @@ def params_from_numpy(cfg: ArchConfig, tree, device):
     remainder, so ``pos0[i]`` is layer i). Each leaf keeps its dtype: a
     recurrent layer's ``mamba`` or ``xl`` leaves come with its f32 ones
     (A_log, D, dt_bias; b_if; b) f32 in a bf16 model, and a layer without
-    an FFN (zamba2's mamba2 layers) has no ``ln2`` or ``ffn`` leaves.
+    an FFN (zamba2's mamba2 layers) has no ``ln2`` or ``ffn`` leaves. A
+    frontend-stub arch has no ``embed`` leaf on either side.
     """
     T.check_ported(cfg)
     n_per, n_rem = T.layer_layout(cfg)
@@ -44,8 +45,8 @@ def params_from_numpy(cfg: ArchConfig, tree, device):
                 lambda a, per=per: to_t(np.asanyarray(a)[per]), stacked)
     for r in range(n_rem):
         layers[n_per * period + r] = tree_map(to_t, tree["rem"][f"rem{r}"])
-    params = {"embed": to_t(tree["embed"]), "layers": layers,
-              "final_norm": to_t(tree["final_norm"])}
+    params = {} if cfg.embed_frontend_stub else {"embed": to_t(tree["embed"])}
+    params.update(layers=layers, final_norm=to_t(tree["final_norm"]))
     if not cfg.tie_embeddings:
         params["lm_head"] = to_t(tree["lm_head"])
     return params

@@ -51,6 +51,9 @@ def apply_rope(x, cos, sin):
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, *, dtype, device,
                scale: float | None = None):
+    if torch.device(device).type == "meta":  # shapes only (launch/specs.py):
+        # the meta draws cost the dry run's 40 cells seconds
+        return torch.empty((d_in, d_out), dtype=dtype, device=device)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device)
     return (w * (scale if scale is not None else 1.0 / d_in ** 0.5)).to(dtype)

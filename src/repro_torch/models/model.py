@@ -9,6 +9,14 @@ lockstep path ``length`` is a Python int; in the continuous-batching engine's ba
 state it is a (B,) int32 tensor on the state's device, advanced on the
 device, so no step reads a value back from the card. The caches are
 updated in place by ``prefill_chunk`` and ``decode_step``.
+
+A frontend-stub arch (``cfg.embed_frontend_stub``: internvl2-1b,
+musicgen-large) takes precomputed embeddings where another arch takes
+token ids: ``forward``, ``lm_loss`` and ``prefill`` (B, S, d_model),
+``decode_step`` (B, d_model). They are not cast, as in the reference: f32
+embeddings over bf16 weights promote the whole stack, caches included, to
+f32. Chunked prefill and the speculative verify feed token ids through the
+embedding and refuse such an arch, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,8 +35,15 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
     return T.init_params(cfg, generator=generator, device=device, dtype=dtype)
 
 
+STUB_CHUNK_REFUSAL = ("chunked prefill feeds token chunks through the embedding; "
+                      "frontend-stub archs use prefill-then-pack admission")
+
+
 def embed_input(cfg: ArchConfig, params, batch):
-    """batch: (B, S) or (B,) int token ids."""
+    """batch: (B, S) or (B,) int token ids; for a frontend-stub arch the
+    (B, S, d_model) or (B, d_model) embeddings themselves, passed through."""
+    if cfg.embed_frontend_stub:
+        return batch
     return params["embed"][batch.long()]
 
 
@@ -53,7 +68,8 @@ def _positions(cfg: ArchConfig):
 
 
 def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
-    """The full-sequence training forward: tokens (B, S) -> logits (B, S, V).
+    """The full-sequence training forward: tokens (B, S) (a frontend stub's
+    embeddings (B, S, d_model)) -> logits (B, S, V).
 
     ``alpha`` ((num_layers, Hkv)) gates each attention layer's heads for
     head identification (``core/gating.py``); None is plain attention.
@@ -94,7 +110,8 @@ def lm_loss(cfg: ArchConfig, params, batch, labels, *, alpha=None,
 
 def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
             layout=layoutlib.DEFAULT):
-    """Process the prompt (B, S); returns (last-token logits (B, V), state).
+    """Process the prompt (B, S) (a frontend stub's embeddings (B, S,
+    d_model)); returns (last-token logits (B, V), state).
     ``layout`` (a ``core/layouts`` layout) builds the caches in its page
     order, as it does in every step below."""
     T.check_ported(cfg)
@@ -132,6 +149,8 @@ def prefill_chunk(cfg: ArchConfig, params, state, tokens, *, chunk_len,
     slot's last valid chunk position, state): the row of a slot whose
     prompt just completed is its first-token distribution.
     """
+    if cfg.embed_frontend_stub:
+        raise ValueError(STUB_CHUNK_REFUSAL)
     plan = plan if plan is not None else T.default_plan(cfg)
     start = state["length"]
     x = embed_input(cfg, params, tokens)
@@ -164,14 +183,18 @@ def verify_forward(cfg: ArchConfig, params, state, tokens, *, active,
     for ``verify_commit``. The accepted length decides how much of the
     chunk is committed; nothing is ever rolled back. Not for a
     ``local_global`` stack, whose window layers have no verify chunk, nor
-    for a recurrent mixer, whose state a verify chunk would advance (the
-    JAX engine refuses ``spec_tokens`` there too)."""
+    for a recurrent mixer, whose state a verify chunk would advance, nor
+    for a frontend stub, which has no embedding to feed drafted ids through
+    (the JAX engine refuses ``spec_tokens`` there too)."""
     if cfg.attn_pattern == ATTN_LOCAL_GLOBAL:
         raise ValueError("verify_forward requires the full attention pattern "
                          "(local_global windows have no verify-chunk path)")
     if any(m != MIXER_ATTENTION for m in cfg.mixer_pattern):
         raise ValueError("verify_forward requires all-attention mixers; "
                          f"mixer_pattern={cfg.mixer_pattern}")
+    if cfg.embed_frontend_stub:
+        raise ValueError("spec_tokens feeds token chunks through the embedding; "
+                         "frontend-stub archs are unsupported")
     plan = plan if plan is not None else T.default_plan(cfg)
     start = state["length"]
     x = embed_input(cfg, params, tokens)
@@ -207,8 +230,8 @@ def verify_commit(cfg: ArchConfig, state, stash, *, accepted, active, plan=None,
 def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
                 do_select: bool = True, layout=layoutlib.DEFAULT, active=None,
                 need_select=None):
-    """One decode step. token: (B,) int. Returns (logits (B, V), state
-    advanced by one token).
+    """One decode step. token: (B,) int (a frontend stub's embeddings (B,
+    d_model)). Returns (logits (B, V), state advanced by one token).
 
     ``state["length"]`` is an int (lockstep) or a (B,) tensor (continuous
     batching), where ``active`` (B,) bool marks the decoding slots (the

@@ -43,6 +43,8 @@ _INIT_EXPERTS = 16
 
 def _init_experts(gen, e: int, d_in: int, d_out: int, *, dtype, device):
     w = torch.empty((e, d_in, d_out), dtype=dtype, device=device)
+    if w.is_meta:  # shapes only (launch/specs.py): the meta draws take seconds
+        return w
     for i in range(0, e, _INIT_EXPERTS):
         n = min(_INIT_EXPERTS, e - i)
         x = torch.randn((n, d_in, d_out), generator=gen, dtype=torch.float32,

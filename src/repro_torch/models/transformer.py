@@ -6,8 +6,9 @@ layers or gemma3's local:global period (``local_global_ratio``
 sliding-window layers, then one global layer); and the recurrent mixers,
 mamba2 (``models/ssm.py``; zamba2's period of five mamba2 layers and one
 attention layer) and xLSTM's mLSTM and sLSTM (``models/xlstm.py``), each
-layer with an FFN only where ``cfg.layer_has_ffn``. The frontend stubs
-(``embed_frontend_stub``) are not ported yet.
+layer with an FFN only where ``cfg.layer_has_ffn``. A frontend-stub arch
+(``embed_frontend_stub``: internvl2-1b, musicgen-large) is a dense stack
+fed precomputed embeddings, so it has no ``embed`` leaf.
 Parameters are plain dictionaries, one per layer, in the JAX package's
 layout (dense weights are (d_in, d_out)); the JAX package's
 period-stacked ``blocks/pos{p}`` and remainder ``rem/rem{r}`` leaves become
@@ -76,11 +77,13 @@ _MIXERS = (MIXER_ATTENTION, MIXER_MAMBA2, MIXER_MLSTM, MIXER_SLSTM)
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the families this port does not serve yet."""
-    if cfg.embed_frontend_stub or any(m not in _MIXERS for m in cfg.mixer_pattern):
+    """Raise for a mixer that is not one of the reference's (every family of
+    the reference is ported: ROADMAP Queue 1 item 11)."""
+    unknown = sorted(set(cfg.mixer_pattern) - set(_MIXERS))
+    if unknown:
         raise NotImplementedError(
-            f"{cfg.name}: the attention, mamba2 and xLSTM mixers are ported; the "
-            f"frontend stubs (precomputed embeddings) are ROADMAP Queue 1 item 11")
+            f"{cfg.name}: mixers {unknown} are not the reference's; the port serves "
+            f"the attention, mamba2, mLSTM and sLSTM mixers (ROADMAP Queue 1 item 11)")
 
 
 def attn_spec(cfg: ArchConfig, pos: int = 0) -> hattn.AttnSpec:
@@ -98,8 +101,12 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32):
     """Random-init parameters from ``generator`` (which must live on
     ``device``). Same shapes and scales as the JAX init; not the same
-    numbers (tests bridge JAX weights with ``repro_torch/models/convert.py``)."""
+    numbers (tests bridge JAX weights with ``repro_torch/models/convert.py``).
+    On the meta device ``generator`` may be None: shapes and dtypes only
+    (``launch/specs.py``). A frontend-stub arch has no ``embed`` leaf."""
     check_ported(cfg)
+    if generator is None and torch.device(device).type != "meta":
+        raise ValueError("init_params needs a generator off the meta device")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     kw = dict(dtype=dtype, device=device)
     dense_ = lambda i, o: init_dense(generator, i, o, **kw)
@@ -125,8 +132,9 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
                 p["ffn"] = {"w_gate": dense_(d, cfg.d_ff), "w_up": dense_(d, cfg.d_ff),
                             "w_down": dense_(cfg.d_ff, d)}
         layers.append(p)
-    params = {"embed": init_embed(generator, cfg.vocab_size, d, **kw),
-              "layers": layers, "final_norm": torch.zeros(d, **kw)}
+    params = ({} if cfg.embed_frontend_stub
+              else {"embed": init_embed(generator, cfg.vocab_size, d, **kw)})
+    params.update(layers=layers, final_norm=torch.zeros(d, **kw))
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_(d, cfg.vocab_size)
     return params

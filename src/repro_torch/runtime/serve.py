@@ -42,6 +42,9 @@ def _layout(scfg: ServeConfig):
 
 
 def make_prefill(cfg: ArchConfig, scfg: ServeConfig):
+    """prefill(params, batch): batch (B, S) token ids, or a frontend stub's
+    (B, S, d_model) embeddings (``make_decode_step``'s token likewise (B,)
+    or (B, d_model))."""
     layout = _layout(scfg)
 
     def prefill(params, batch):

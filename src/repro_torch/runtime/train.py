@@ -43,7 +43,8 @@ def value_and_grad(loss_fn, params, *args):
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics {loss, grad_norm, lr_scale}); the inputs are left as
-    they were."""
+    they were. ``batch["tokens"]`` is (B, S) token ids, or a frontend stub's
+    (B, S, d_model) embeddings; ``batch["labels"]`` (B, S) int either way."""
     ocfg = adamw.AdamWConfig(lr=tcfg.lr)
     gdtype = torch.bfloat16 if tcfg.grad_dtype == "bf16" else torch.float32
 

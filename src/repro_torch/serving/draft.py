@@ -122,7 +122,7 @@ class StreamingDraft(DraftProvider):
         real = engine.batch.serve
         shadow = M.empty_serve_state(engine.cfg, engine.batch.max_batch,
                                      capacity=engine.cache_capacity,
-                                     dtype=engine.params["embed"].dtype,
+                                     dtype=engine.params["final_norm"].dtype,
                                      device=engine.device)
         dec = serve_rt.make_ragged_decode_step(engine.cfg, engine.serve_config,
                                                do_select=False)

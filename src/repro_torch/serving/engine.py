@@ -137,6 +137,17 @@ def _check_spec(cfg: ArchConfig, k: int, hot_pages) -> None:
                          f"[1, h2eal.local={cfg.h2eal.local}]")
 
 
+# a frontend-stub arch (internvl2-1b, musicgen-large) takes precomputed
+# embeddings, which a Request's token-id prompt cannot carry; the reference's
+# engine constructs, then feeds the prompt's and the sampled token ids where
+# embeddings are due and fails (ROADMAP Queue 3)
+STUB_ENGINE_REFUSAL = (
+    "frontend-stub archs take precomputed embeddings, not token ids: the "
+    "reference's Engine.run and generate feed token ids where an embedding "
+    "is due and fail; serve them through models.model.prefill and "
+    "decode_step fed embeddings")
+
+
 @dataclasses.dataclass
 class Request:
     """One generation request. Under packed admission the prompt length
@@ -503,8 +514,8 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.device = serve_rt.resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params lie on {params['embed'].device}, the "
+        if params["final_norm"].device.type != self.device.type:
+            raise ValueError(f"params lie on {params['final_norm'].device}, the "
                              f"engine runs on {self.device}")
         self.capacity = int(capacity)
         # a whole number of pages per stripe; retirement stays at `capacity`
@@ -514,6 +525,8 @@ class Engine:
             raise ValueError(f"prompt buckets {self.prompt_buckets} must be "
                              f"non-empty and below capacity {self.capacity}")
         self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        if self.prefill_chunk is not None and cfg.embed_frontend_stub:
+            raise ValueError(M.STUB_CHUNK_REFUSAL)
         if self.prefill_chunk is not None and self.prefill_chunk > self.capacity:
             raise ValueError(f"prefill_chunk {self.prefill_chunk} exceeds "
                              f"capacity {self.capacity}")
@@ -546,7 +559,7 @@ class Engine:
         b = int(max_batch)
         self.batch = BatchState(
             serve=M.empty_serve_state(cfg, b, capacity=self.cache_capacity,
-                                      dtype=params["embed"].dtype,
+                                      dtype=params["final_norm"].dtype,
                                       device=self.device),
             active=np.zeros(b, bool), prefilling=np.zeros(b, bool),
             ready=np.zeros(b, bool), lengths=np.zeros(b, np.int64),
@@ -574,7 +587,8 @@ class Engine:
         if self.hot_pages is not None:
             self._init_tier()
         self._graphs = graphs.StepGraphs(self.device, eager=eager)
-        self._add_steps(b)
+        if self._takes_requests():
+            self._add_steps(b)
         if self.draft is not None:
             self.draft.bind(self)
         self.batch.seal()
@@ -696,7 +710,15 @@ class Engine:
         return torch.from_numpy(np.array(a, copy=True)).to(self.device,
                                                           non_blocking=True)
 
+    def _takes_requests(self, *, refuse: bool = False) -> bool:
+        """False for a frontend-stub arch, whose engine takes no request
+        (``STUB_ENGINE_REFUSAL``, raised instead when ``refuse``)."""
+        if self.cfg.embed_frontend_stub and refuse:
+            raise ValueError(STUB_ENGINE_REFUSAL)
+        return not self.cfg.embed_frontend_stub
+
     def submit(self, req: Request):
+        self._takes_requests(refuse=True)
         if self.prefill_chunk is None:
             if len(req.prompt) not in self.prompt_buckets:
                 raise ValueError(f"prompt length {len(req.prompt)} not in "
@@ -1465,6 +1487,7 @@ class Engine:
             ) -> Dict[int, Completion]:
         """Serve until nothing is queued or in flight. Returns a snapshot
         of the completions (a later run never mutates it)."""
+        self._takes_requests(refuse=True)
         for r in requests or ():
             self.submit(r)
         t0 = time.perf_counter()

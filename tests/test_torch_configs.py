@@ -2,7 +2,9 @@
 and qwen2-72b (QKV bias) against the JAX package at their reduced sizes on
 the CPU, and which families the port serves (the MoE family since its
 slice: tests/test_torch_moe.py; the recurrent mixers since theirs:
-tests/test_torch_recurrent.py) and refuses.
+tests/test_torch_recurrent.py; the frontend stubs since theirs:
+tests/test_torch_frontend.py) and what it refuses (a mixer that is not the
+reference's).
 
 Every registered config equals the JAX config of the same name field for
 field (``tests/test_torch_serve.py::test_configs_equal_the_jax_ones_field_for_field``,
@@ -63,17 +65,24 @@ def test_dense_config_prefill_and_decode_match_jax(name):
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "internlm2-20b", "qwen2-72b",
                                   "smollm-360m", "llama3-8b", "qwen3-moe-235b-a22b",
-                                  "kimi-k2-1t-a32b", "zamba2-2.7b", "xlstm-125m"])
+                                  "kimi-k2-1t-a32b", "zamba2-2.7b", "xlstm-125m",
+                                  "internvl2-1b", "musicgen-large"])
 def test_served_families_pass_the_check(name):
     TT.check_ported(tconfigs.get_arch(name))
     TT.check_ported(tconfigs.reduced(tconfigs.get_arch(name)))
 
 
 @pytest.mark.parametrize("change", [
-    dict(embed_frontend_stub=True),
+    dict(embed_frontend_stub=True, mixer_pattern=("retnet", "attention")),
 ], ids=["frontend-stub"])
 def test_unported_families_raise_citing_item_11(change):
-    cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("smollm-360m")), **change)
+    """Every family of the reference is served since the frontend stubs'
+    slice (item 11): what is left to refuse is a mixer the reference does
+    not have, here on a frontend-stub config (which alone passes)."""
+    base = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("smollm-360m")),
+                               embed_frontend_stub=True)
+    TT.check_ported(base)
+    cfg = dataclasses.replace(base, **change)
     with pytest.raises(NotImplementedError, match="item 11"):
         TT.check_ported(cfg)
     with pytest.raises(NotImplementedError, match="item 11"):

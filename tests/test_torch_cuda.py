@@ -30,6 +30,9 @@ FLASH_CASES = [
     (1, 12, 20, 2, 1, False, 0, 0, 0),
     (2, 200, 200, 8, 2, True, 64, 4, 0),
     (1, 40, 40, 32, 2, True, 8, 2, 0),       # group 16 (qwen3-moe)
+    (2, 40, 40, 14, 2, True, 0, 0, 0),       # group 7 (internvl2-1b)
+    (1, 50, 50, 7, 1, True, 8, 2, 0),        # group 7, window and sink
+    (1, 40, 40, 32, 32, True, 0, 0, 0),      # MHA, 32 heads (musicgen-large)
 ]
 
 CARD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (2.0 ** -8, 1e-5)}
@@ -124,6 +127,12 @@ FLASH_BF16_CASES = [
     # group 16 (qwen3-moe): full causal, and the streaming heads' window + sink
     (2, 300, 300, 32, 2, True, 0, 0, 0),
     (1, 520, 520, 16, 1, True, 256, 4, 0),
+    # group 7 (internvl2-1b: 14 query heads over 2 kv heads) on the group-8
+    # tiles, full causal and the streaming heads' window + sink; MHA with
+    # 32 + 32 heads (musicgen-large)
+    (2, 300, 300, 14, 2, True, 0, 0, 0),
+    (1, 520, 520, 7, 1, True, 256, 4, 0),
+    (1, 300, 300, 32, 32, True, 0, 0, 0),
 ]
 
 
@@ -181,6 +190,8 @@ FLASH_BWD_CASES = [
     (1, 40, 8, 2, True, 6, 3, 24),
     (1, 33, 4, 1, False, 0, 0, 0),
     (2, 2048, 4, 2, True, 64, 4, 0),
+    (2, 150, 14, 2, True, 0, 0, 0),          # group 7 (internvl2-1b)
+    (1, 77, 32, 32, True, 0, 0, 0),          # MHA, 32 heads (musicgen-large)
 ]
 
 
@@ -316,7 +327,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 12, 16])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8, 12, 16])
 def test_paged_attention_kernel(cuda_dev, dtype, d, group):
     gen = torch.Generator(device=cuda_dev).manual_seed(group)
     b, hkv, t = 2, 3, 301
@@ -337,13 +348,14 @@ def test_paged_attention_kernel(cuda_dev, dtype, d, group):
 # splits of the 300 keys); B·Hkv > 66 (one split a stream); 16 splits of
 # 8-9 units
 PAGED_SPLIT_CASES = [(1, 2, 100, 4), (2, 3, 1000, 3), (40, 4, 300, 2),
-                     (70, 4, 600, 4), (2, 4, 4416, 4), (2, 2, 4416, 16)]
+                     (70, 4, 600, 4), (2, 4, 4416, 4), (2, 2, 4416, 16),
+                     (2, 1, 4416, 7)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 4, 8, 16])
+@pytest.mark.parametrize("group", [1, 4, 7, 8, 16])
 @pytest.mark.parametrize("p", [8, 32])
 def test_paged_attention_pages_kernel(cuda_dev, dtype, d, group, p):
     """Decode attention read through a page table (pages of 8: a 32-key unit
@@ -443,7 +455,7 @@ def test_paged_attention_split_kernel(cuda_dev, dtype, d, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 4, 12, 16])
+@pytest.mark.parametrize("group", [1, 4, 7, 12, 16])
 def test_page_score_kernel(cuda_dev, dtype, d, group):
     gen = torch.Generator(device=cuda_dev).manual_seed(group)
     b, hkv, c = 2, 3, 75
@@ -499,6 +511,14 @@ SELECT_CASES = [
     (4, 16, 1, 264, 80, 32, [8200, 7000, 5000, 3000], 128, 8,
      [True, False, True, True], False),                           # coplace
     (2, 2, 4, 75, 80, 8, [500, 301], 16, 0, None, True),          # ties, group 4
+    # group 7 (internvl2-1b: 1 retrieval head of 7 query heads, D = 64) on
+    # the group-8 lanes, and MHA at D = 64 (musicgen-large: 16 retrieval heads)
+    (2, 1, 7, 258, 64, 32, 8193, 128, 0, None, False),            # lockstep
+    (4, 1, 7, 258, 64, 32, [8200, 7000, 5000, 3000], 128, 0,
+     [True, True, False, True], False),                           # engine
+    (2, 3, 7, 75, 64, 8, [500, 301], 16, 0, None, True),          # ties
+    (4, 16, 1, 258, 64, 32, [8200, 7000, 5000, 3000], 128, 0,
+     [True, True, False, True], False),                           # engine, MHA
 ]
 SCORE_RTOL = 1e-6  # the scores are f32 sums on both sides: of the row's max |score|
 
@@ -876,7 +896,7 @@ def _stripe_inputs(gen, dev, dtype, s, b, hkv, group, c, p, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("group", [1, 3, 4, 7, 8, 16])
 def test_paged_attention_partial_kernel(cuda_dev, dtype, d, group):
     gen = torch.Generator(device=cuda_dev).manual_seed(group)
     s, b, hkv, c, p, n = 4, 2, 3, 24, 8, 45
@@ -935,7 +955,7 @@ def _coplace_inputs(gen, dev, dtype, s, b, hkv, group, c, p, n, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("group", [1, 4, 8, 16])
+@pytest.mark.parametrize("group", [1, 4, 7, 8, 16])
 @pytest.mark.parametrize("s", [1, 4, 8])
 @pytest.mark.parametrize("p", [8, 32])
 def test_paged_attention_coplace_kernel(cuda_dev, dtype, d, group, s, p):

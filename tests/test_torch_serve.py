@@ -224,14 +224,15 @@ def test_llama3_8b_serving_defaults():
 
 
 def test_unported_families_raise():
-    # the recurrent mixers are served (tests/test_torch_recurrent.py); the
-    # frontend stubs are not
+    # the recurrent mixers (tests/test_torch_recurrent.py) and the frontend
+    # stubs (tests/test_torch_frontend.py) are served; a mixer the
+    # reference does not have is not
     cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("smollm-360m")),
-                              embed_frontend_stub=True)
+                              mixer_pattern=("retnet", "attention"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.check_ported(cfg)
-    TT.check_ported(dataclasses.replace(cfg, embed_frontend_stub=False,
-                                        mixer_pattern=("mamba2", "attention")))
+    TT.check_ported(dataclasses.replace(cfg, mixer_pattern=("mamba2", "attention")))
+    TT.check_ported(dataclasses.replace(cfg, mixer_pattern=(), embed_frontend_stub=True))
 
 
 def test_bridge_round_trips_a_bf16_tree():
