@@ -152,7 +152,20 @@ then, each phase failing the run with a nonzero exit:
      width and depth, f32, B = 4 x S = 2048, 4 steps, launch counts exact;
      (e) the dry run's (``launch/dryrun.py``) parameter, AdamW, serve-state
      and serving-input bytes equal to what the card holds, the peak memory
-     beside its total.
+     beside its total;
+ 15. the GSPMD layouts ``head``, ``coplace`` and ``interleave`` on
+     ``torch.distributed`` ranks: paged_attention_partial and combine_partials
+     timed at the rank blocks' shapes; (a) an NCCL group of one rank,
+     llama3-8b at full width and depth, the default engine and each
+     layout's, packed and chunked, captured, on 4 requests of 2048-8192
+     tokens (16 new each): launch counts exact, tokens equal to the default
+     engine's up to a near-tie (``head``'s exactly), decode steps/s beside
+     the default's; (b) two ranks spawned on cuda:0 over gloo (this script
+     with ``--gspmd-rank``), llama3-8b cut to 8 layers, eager: ``head`` and
+     ``coplace`` on (1, 2), ``interleave`` on (2, 1) at 3 slots (tokens
+     striped within pages), packed and chunked; both ranks' tokens equal
+     and equal to the one-rank default engine's up to a near-tie, one decode
+     step's attention output within a bf16 step of the default's.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -3770,6 +3783,439 @@ def phase14(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the GSPMD layouts (head, coplace, interleave) on torch.distributed
+# ranks: (a) one NCCL rank, llama3-8b at full width and depth, captured steps;
+# (b) two ranks that share cuda:0 over gloo, llama3-8b at full width cut to
+# GSPMD_CUT layers, eager steps
+# ---------------------------------------------------------------------------
+
+GSPMD_LAYOUTS = ("head", "coplace", "interleave")
+# 15a: 4 ragged requests, prompts of 2048-8192 tokens, 16 new tokens each, on
+# 4 slots, fed ENGINE_CHUNK prompt tokens a step (share window 4: llama3-8b's)
+GSPMD_A = dict(prompts=(2048, 8192), n=4, new=16, seed=5)
+# 15b: the cut, and 3 requests of 1024-2048 tokens, 8 new tokens each; head
+# and coplace on the (1, 2) mesh at 2 slots, interleave on (2, 1) at 3 slots,
+# where the batch cannot take 'data' and the tokens stripe within pages
+GSPMD_CUT = 8
+GSPMD_B = dict(prompts=(1024, 2048), n=3, new=8, seed=6)
+GSPMD_B_CASES = (("head", 2, 2), ("coplace", 2, 2), ("interleave", 1, 3))
+# a decode step's attention output of a GSPMD layout against the default
+# layout's on the same state: both round their f32 result to bf16 once, from
+# sums taken in other orders, so they may sit a bf16 step apart
+GSPMD_STEP_RTOL, GSPMD_STEP_ATOL = 2.0 ** -7, 1e-5
+GSPMD_TIMEOUT = 600
+SMOKE_DIR = os.path.join(ROOT, ".smoke")
+
+
+def gspmd_workload(cfg, prompts, n, new, seed):
+    """(requests, capacity): ``n`` seeded prompts of ``prompts`` tokens (the
+    first the longest), ``new`` tokens each."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompts[0], prompts[1] + 1, n)
+    lens[0] = prompts[1]
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(m)).astype(np.int32),
+                    max_new=new) for i, m in enumerate(lens)]
+    return reqs, int(lens.max() + new + cfg.h2eal.page_size)
+
+
+def gspmd_launches(s, cfg, layout, n_prefills):
+    """The launches of a GSPMD-layout engine run from its step counts: the
+    default engine's, where the layouts that shard pages attend the
+    retrieval heads by ``paged_attention_partial`` and ``combine_partials``
+    (one each a layer a decode step) in place of ``paged_attention``."""
+    split = layout != "head"
+    exp = window_launches(s, cfg, 0, split)
+    exp["combine_partials"] = exp["paged_attention_partial"]
+    exp["flash_attention"] = layer_launches(cfg)["prefill"] * n_prefills
+    return exp
+
+
+def gspmd_step_check(cfg, layout, mesh, b, capacity, dev):
+    """One decode select step of one layer at ``cfg``'s full width on this
+    rank's blocks of a seeded bf16 state (slots prefilled to 1500, 900, 2000
+    tokens), beside the default layout's step on the whole state: (largest
+    |diff|, excess over the band, attended tokens)."""
+    from repro_torch.core import layouts
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharding
+
+    spec = T.attn_spec(cfg)
+    placed = layouts.get_layout(layout).placed(mesh, batch=b, capacity=capacity)
+    place = placed.place(spec)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+    hkv, hq, d = spec.n_kv, spec.n_q, spec.head_dim
+    lengths = [1500, 900, 2000][:b]
+    paged, stream = layouts.DEFAULT.empty_decode_state(spec, b, capacity,
+                                                       dtype=torch.bfloat16, device=dev)
+    full = {"paged": paged, "stream": stream}
+    for i, n in enumerate(lengths):
+        small = layouts.DEFAULT.prefill(spec, rnd(1, n, hkv, d), rnd(1, n, hkv, d), n,
+                                        capacity)
+        for key, c in full.items():
+            for f in dataclasses.fields(c):
+                getattr(c, f.name)[i].copy_(getattr(small[key], f.name)[0])
+    block = {key: type(c)(**{f.name: sharding.local_block(
+        getattr(c, f.name), place.specs[(key, f.name)], mesh).clone()
+        for f in dataclasses.fields(c)}) for key, c in full.items()}
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
+    want, _ = layouts.DEFAULT.decode(spec, full, q, k, v, length, do_select=True,
+                                     active=active, need_select=active)
+    got, _ = placed.decode(spec, block, q, k, v, length, do_select=True, active=active,
+                           need_select=active)
+    torch.cuda.synchronize()
+    w = want.float()
+    over = ((got.float() - w).abs() - GSPMD_STEP_RTOL * w.abs() - GSPMD_STEP_ATOL).max().item()
+    return (got.float() - w).abs().max().item(), over, sum(lengths) + b
+
+
+def gspmd_rank(rank: int, store: str, out: str) -> int:
+    """One of phase 15b's two ranks (``chip_smoke.py --gspmd-rank R STORE
+    OUT``): gloo on cuda:0, both meshes made, every case of GSPMD_B_CASES
+    served chunked and packed through the eager engine, the decode step
+    check, the launch counts; its results written to OUT.R. A failure raises
+    and exits non-zero."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    meshlib.init_distributed("gloo", store_path=store, rank=rank, world_size=2)
+    meshes = {m: meshlib.make_local_mesh(model=m) for m in (2, 1)}
+    # which collectives gloo takes on card tensors (the port gathers with
+    # all_reduce alone; this is a report)
+    probe = {}
+    x = torch.ones(4, device=dev)
+    for name, call in (("all_reduce", lambda: dist.all_reduce(x.clone())),
+                       ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+                       ("all_gather", lambda: dist.all_gather([x.clone() for _ in range(2)],
+                                                              x)),
+                       ("all_gather_into_tensor",
+                        lambda: dist.all_gather_into_tensor(torch.empty(8, device=dev), x))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            probe[name] = "yes"
+        except (RuntimeError, ValueError) as exc:
+            probe[name] = f"no ({str(exc).splitlines()[0][:80]})"
+    cfg = dataclasses.replace(get_arch(ARCH), num_layers=GSPMD_CUT)
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    reqs, capacity = gspmd_workload(cfg, **GSPMD_B)
+    buckets = sorted({len(r.prompt) for r in reqs})
+    res = {"probe": probe, "cases": {}}
+    for layout, model, max_batch in GSPMD_B_CASES:
+        mesh = meshes[model]
+        for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
+            eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
+                         prompt_buckets=buckets, prefill_chunk=chunk, layout=layout,
+                         mesh=mesh, device=dev, eager=True)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            comps = eng.run(reqs)
+            wall = time.perf_counter() - t0
+            s = eng.stats
+            res["cases"][f"{layout}_{mode}"] = dict(
+                mesh=mesh.shape, coords=list(mesh.coords), max_batch=max_batch,
+                tokens={str(u): c.tokens for u, c in comps.items()},
+                launches=dict(ops.LAUNCHES),
+                expect=gspmd_launches(s, cfg, layout, 0 if chunk else len(reqs)),
+                wall=wall, decode_steps=s.decode_steps, tokens_out=s.tokens_out,
+                cache_capacity=eng.cache_capacity,
+                block=list(eng.batch.serve["layers"][0]["paged"].k_pages.shape))
+            del eng
+            torch.cuda.empty_cache()
+        err_, over, n_tok = gspmd_step_check(cfg, layout, mesh, max_batch,
+                                             res["cases"][f"{layout}_chunked"]["cache_capacity"],
+                                             dev)
+        res["cases"][f"{layout}_step"] = dict(err=err_, excess=over, tokens=n_tok)
+    dist.destroy_process_group()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def time_gspmd_kernels(ops, ref, timer, dev, cfg):
+    """paged_attention_partial and combine_partials at phase 15's shapes, bf16:
+    the decode step of the layouts that shard pages, 4 slots at contexts
+    STRIPE_CTX of the 15a capacity (a top-128 selection of each slot's
+    selectable pages, the [sink | selected | local] list), on one rank's
+    block: the whole cache (15a, one rank) and the first half of its pages
+    (15b's rank 0 of the 'model' axis of 2), merged over N = 1 and N = 2
+    partials. Returns (partial cases, combine cases), not in the kernel
+    totals (``main`` False)."""
+    from repro_torch.core import paging
+
+    h2 = cfg.h2eal
+    nr, _, g, d = head_split(cfg)
+    p, top_k = h2.page_size, h2.top_k_pages
+    cap = gspmd_workload(cfg, **GSPMD_A)[1]
+    c = -(-cap // p)
+    c += c % 2
+    b = len(STRIPE_CTX)
+    ctx = torch.tensor(STRIPE_CTX, device=dev)
+    pg = torch.arange(c, device=dev)
+    start = torch.where(pg[None] * p < ctx[:, None], pg[None] * p, -1)
+    start = start[:, None, :].expand(b, nr, c).to(torch.int32).contiguous()
+    rng = np.random.default_rng(4)
+    sel = np.full((b, nr, top_k), -1, np.int64)
+    for bi, n_ctx in enumerate(STRIPE_CTX):
+        pages = np.arange(-(-h2.sink // p), max(n_ctx - h2.local, 0) // p)
+        for hi in range(nr):
+            pick = rng.permutation(pages)[:top_k]
+            sel[bi, hi, :len(pick)] = pick
+    slots = paging.attended_page_slots(torch.from_numpy(sel).to(dev).to(torch.int32), ctx,
+                                       sink=h2.sink, local=h2.local, page=p)
+    valid = paging.token_validity(slots, start, ctx, sink=h2.sink, local=h2.local, page=p,
+                                  top_k=top_k)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    q = torch.randn(b, nr * g, d, generator=gen, device=dev).to(torch.bfloat16)
+    kp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(b, nr, c, p, d, generator=gen, device=dev).to(torch.bfloat16)
+    parts, combs = [], []
+    for n_ranks in (1, 2):
+        c_l = c // n_ranks
+        local = paging.block_slots(slots, 0, c_l)
+        n = local.shape[2]
+        v_l = (valid.reshape(b, nr, n, p) & (local >= 0)[..., None]).reshape(1, b, nr, -1)
+        k_l, vv_l = kp[:, :, :c_l].contiguous(), vp[:, :, :c_l].contiguous()
+        args = (q, k_l, vv_l, local[None].contiguous(), v_l.contiguous())
+        run = lambda: ops.paged_attention_partial(*args)
+        plain = lambda: ref.paged_attention_partial_pages_ref(*args)
+        got = run()
+        want = ref.paged_attention_partial_pages_ref(*widened(q, k_l, vv_l), *args[3:])
+        torch.cuda.synchronize()
+        n_valid = int(v_l.sum().item())
+        b_ms, b_by = bound(nbytes(q, *args[3:], *got) + 2 * n_valid * d * 2,
+                           4 * d * g * n_valid, torch.bfloat16)
+        what = "15a one rank" if n_ranks == 1 else "15b rank 0 of model 2"
+        parts.append(dict(
+            case=f"gspmd block ({what}) B={b} Hq={nr * g} Hr={nr} C={c_l} of {c} N={n} "
+                 f"P={p} D={d} ctx={list(STRIPE_CTX)} valid={n_valid}", dtype="bfloat16",
+            max_abs_err=max(err(a, w) for a, w in zip(got, want)),
+            excess=partial_excess(got, want),
+            tol="1e-4*max(l,1) (f32 outputs; m: 1e-4*max(|m|,1))", ms=timer.ms(run, 20),
+            plain_ms=timer.ms(plain, 5), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            main=False))
+        m, l, o = (torch.cat([x] * n_ranks) for x in got)
+        run_c = lambda: ops.combine_partials(m, l, o)
+        plain_c = lambda: ref.combine_partials_ref(m, l, o)
+        out, want_c = run_c(), plain_c()
+        torch.cuda.synchronize()
+        rows = b * nr * g
+        b_ms, b_by = bound(nbytes(m, l, o, out), n_ranks * rows * (2 * d + 4), torch.float32)
+        combs.append(dict(
+            case=f"gspmd N={n_ranks} ({what}) B={b} Hq={nr * g} D={d}", dtype="bfloat16",
+            max_abs_err=err(out, want_c), excess=excess(out, want_c, torch.float32),
+            tol=tol_text(torch.float32), ms=timer.ms(run_c, 50),
+            plain_ms=timer.ms(plain_c, 50), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            main=False))
+    return parts, combs
+
+
+def phase15a(dev, cfg, params):
+    """15a: an NCCL group of one rank on the card, llama3-8b at full width and
+    depth (``params``), captured steps: the default engine and each GSPMD
+    layout's, packed and chunked, on GSPMD_A's workload; launch counts exact,
+    no capture after construction, no read from the card in a chunked step,
+    tokens equal to the default engine's up to a near-tie. Returns the launch
+    counts by path."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.serving.engine import Engine
+
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    store = os.path.join(SMOKE_DIR, "nccl1.store")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(dev)
+    meshlib.init_distributed("nccl", store_path=store, rank=0, world_size=1)
+    mesh = meshlib.make_local_mesh()
+    reqs, capacity = gspmd_workload(cfg, **GSPMD_A)
+    buckets = sorted({len(r.prompt) for r in reqs})
+    log(f"15a: an NCCL group of one rank (backend {mesh.backend}, mesh {mesh.shape}); "
+        f"{len(reqs)} requests on {ENGINE_BATCH} slots, prompts {buckets}, "
+        f"{GSPMD_A['new']} new tokens each, capacity {capacity}, captured steps")
+    by_path, traces, rates = {}, {}, {}
+    for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
+        for layout in ("default",) + GSPMD_LAYOUTS:
+            t0 = time.perf_counter()
+            eng = Engine(cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
+                         prompt_buckets=buckets, prefill_chunk=chunk, layout=layout,
+                         mesh=None if layout == "default" else mesh, device=dev)
+            t_build = time.perf_counter() - t0
+            sizes = eng.jit_cache_sizes()
+            what = f"15a engine {layout} ({mode})"
+            got, wall, _ = serve_polled(eng, reqs, what, guard=bool(chunk))
+            s = eng.stats
+            if layout == "default":
+                expect = dict(window_launches(s, cfg, 0, False),
+                              flash_attention=0 if chunk else
+                              layer_launches(cfg)["prefill"] * len(reqs))
+            else:
+                expect = gspmd_launches(s, cfg, layout, 0 if chunk else len(reqs))
+            if set(sizes.values()) != {1} or eng.jit_cache_sizes() != sizes:
+                fail(f"{what}: captures {sizes} -> {eng.jit_cache_sizes()}")
+            if got != expect:
+                fail(f"{what} did not launch the kernels as expected: {got} vs {expect}")
+            traces[(layout, mode)] = {u: c.tokens for u, c in eng.completions.items()}
+            rates[(layout, mode)] = s.decode_steps / wall
+            by_path[f"gspmd_{layout}_{mode}" if layout != "default"
+                    else f"gspmd_default_{mode}"] = got
+            blk = eng.batch.serve["layers"][0]["paged"].k_pages.shape
+            log(f"{what}: {s.tokens_out} tokens, {s.decode_steps} decode steps in "
+                f"{wall:.3f}s = {s.decode_steps / wall:.2f} decode steps/s "
+                f"({s.tokens_out / wall:.2f} tok/s; default {rates[('default', mode)]:.2f} "
+                f"decode steps/s); block {tuple(blk)}, construction {t_build:.2f}s, "
+                f"captures {sizes}; launches partial {got['paged_attention_partial']} "
+                f"combine {got['combine_partials']}")
+            del eng
+            torch.cuda.empty_cache()
+        for layout in GSPMD_LAYOUTS:
+            ties = check_ties(cfg, params, reqs, traces[(layout, mode)],
+                              traces[("default", mode)], {}, capacity, dev, BF16_LOGIT_BAND,
+                              f"15a engine {layout} ({mode})", relative=True)
+            log(f"15a engine {layout} ({mode}): tokens equal to the default engine's "
+                f"{traces[(layout, mode)] == traces[('default', mode)]} (near-tie "
+                f"divergences {ties})")
+        if traces[("head", mode)] != traces[("default", mode)]:
+            fail(f"15a engine head ({mode}): one rank runs the default kernels on the same "
+                 f"inputs, yet its tokens differ")
+    dist.destroy_process_group()
+    return by_path
+
+
+def phase15b(dev, card):
+    """15b: two ranks that share cuda:0 over gloo (spawned, each ``chip_smoke.py
+    --gspmd-rank``), llama3-8b at full width cut to GSPMD_CUT layers, eager
+    steps: head and coplace on (1, 2), interleave on (2, 1) at 3 slots; both
+    ranks' tokens equal to each other's and to the one-rank default engine's
+    at the same cut (up to a near-tie), the launch counts exact on each rank,
+    one decode step's attention output within a bf16 step of the default's.
+    Returns the launch counts by path (rank 0's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import Engine
+
+    log("15b: two ranks share cuda:0; their collectives go through gloo (host copies). "
+        "NCCL at two or more ranks, one a card, waits for a four-card check")
+    cfg = dataclasses.replace(get_arch(ARCH), num_layers=GSPMD_CUT)
+    params = full_params(dev, cfg)
+    reqs, capacity = gspmd_workload(cfg, **GSPMD_B)
+    buckets = sorted({len(r.prompt) for r in reqs})
+    want = {}
+    for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
+        eng = Engine(cfg, params, max_batch=2, capacity=capacity, prompt_buckets=buckets,
+                     prefill_chunk=chunk, device=dev, eager=True)
+        t0 = time.perf_counter()
+        want[mode] = {str(u): c.tokens for u, c in eng.run(reqs).items()}
+        log(f"15b default engine at the cut ({mode}, one rank): {eng.stats.decode_steps} "
+            f"decode steps in {time.perf_counter() - t0:.3f}s")
+        del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    store, out = os.path.join(SMOKE_DIR, "gloo2.store"), os.path.join(SMOKE_DIR, "gloo2")
+    for path in [store] + [f"{out}.{r}" for r in range(2)]:
+        if os.path.exists(path):
+            os.remove(path)
+    log(f"15b: card memory before the spawn {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gspmd-rank",
+                               str(r), store, out], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=GSPMD_TIMEOUT)[0].decode(errors="replace"))
+    finally:
+        for pr in procs:  # a rank still running when another failed
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, pr in enumerate(procs):
+        if pr.returncode != 0:
+            fail(f"15b rank {r} exited {pr.returncode}:\n{logs[r][-4000:]}")
+    res = []
+    for r in range(2):
+        with open(f"{out}.{r}") as f:
+            res.append(json.load(f))
+    log(f"15b: two ranks in {time.perf_counter() - t0:.1f}s; gloo on card tensors takes "
+        f"{res[0]['probe']}")
+    by_path = {}
+    for layout, model, max_batch in GSPMD_B_CASES:
+        for mode in ("chunked", "packed"):
+            key = f"{layout}_{mode}"
+            a, b = res[0]["cases"][key], res[1]["cases"][key]
+            what = f"15b engine {layout} ({mode})"
+            for r, c in enumerate((a, b)):
+                if c["launches"] != c["expect"]:
+                    fail(f"{what} rank {r} did not launch the kernels as expected: "
+                         f"{c['launches']} vs {c['expect']}")
+            if a["tokens"] != b["tokens"]:
+                fail(f"{what}: the two ranks' tokens differ")
+            got = {int(u): t for u, t in a["tokens"].items()}
+            ties = check_ties(cfg, params, reqs, got,
+                              {int(u): t for u, t in want[mode].items()}, {}, capacity, dev,
+                              BF16_LOGIT_BAND, what, relative=True)
+            log(f"{what} on mesh {a['mesh']} ({max_batch} slots, rank blocks "
+                f"{a['block']} of the paged cache): tokens equal across ranks, equal to "
+                f"the default engine's {a['tokens'] == want[mode]} (near-tie divergences "
+                f"{ties}); {a['decode_steps']} decode steps in {a['wall']:.3f}s = "
+                f"{a['decode_steps'] / a['wall']:.2f} decode steps/s; launches rank 0 "
+                f"{a['launches']}")
+            by_path[f"gspmd2_{layout}_{mode}"] = a["launches"]
+        st = [res[r]["cases"][f"{layout}_step"] for r in range(2)]
+        log(f"15b decode step {layout}: attention output against the default layout's, "
+            f"max |diff| {max(x['err'] for x in st):.3e}, excess over "
+            f"{GSPMD_STEP_RTOL:g}*|ref|+{GSPMD_STEP_ATOL:g} "
+            f"{max(x['excess'] for x in st):.3e} ({st[0]['tokens']} context tokens)")
+        if max(x["excess"] for x in st) > 0:
+            fail(f"15b decode step {layout}: the attention output leaves the band")
+    del params
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase15(ops, ref, dev, card):
+    """Phase 15: the GSPMD layouts. Returns (launches by path, partial cases,
+    combine cases)."""
+    from repro_torch.configs import get_arch
+
+    t15 = time.perf_counter()
+    cfg = get_arch(ARCH)
+    timer = Timer(dev)
+    parts, combs = time_gspmd_kernels(ops, ref, timer, dev, cfg)
+    del timer
+    for c in parts + combs:
+        log(f"phase 15 kernel [{c['case']}] kernel_ms={c['ms']:.4f} "
+            f"plain_ms={c['plain_ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
+            f"max_err={c['max_abs_err']:.3e} excess={c['excess']:.3e} (tol {c['tol']})")
+        if not c["excess"] <= 0.0:
+            fail(f"phase 15 kernel case disagrees with its plain version: {c['case']}")
+    params = full_params(dev, cfg)
+    by_path = phase15a(dev, cfg, params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    by_path.update(phase15b(dev, card))
+    log(f"phase 15 (the GSPMD layouts on torch.distributed ranks) "
+        f"{time.perf_counter() - t15:.1f}s")
+    return by_path, parts, combs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3889,6 +4335,10 @@ def main() -> int:
     stub_paths = phase14(dev, card)
     train_paths.update({p: n for p, n in stub_paths.items() if p.endswith("_train")})
     by_path.update({p: n for p, n in stub_paths.items() if not p.endswith("_train")})
+    gspmd_paths, gspmd_parts, gspmd_combs = phase15(ops, ref, dev, card)
+    by_path.update(gspmd_paths)
+    results["paged_attention_partial"] += gspmd_parts
+    results["combine_partials"] += gspmd_combs
     serving_paths = list(by_path)
     by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the
@@ -3925,6 +4375,18 @@ def main() -> int:
     for name in STUB_ARCHS:  # phase 14: prefill and decode fed embeddings
         main_paths[f"stub_{name}_serve"] = ("flash_attention", "page_score", "paged_attention")
     main_paths[f"stub_{STUB_ARCHS[0]}_train"] = ("flash_attention", "flash_attention_bwd")
+    # phase 15: each GSPMD layout's engine, packed and chunked, on one NCCL rank
+    # (gspmd_) and on two gloo ranks (gspmd2_, rank 0's counts); the layouts
+    # that shard pages attend by partials merged with combine_partials
+    for prefix, layouts_ in (("gspmd", ("default",) + GSPMD_LAYOUTS),
+                             ("gspmd2", GSPMD_LAYOUTS)):
+        for layout in layouts_:
+            part = ("paged_attention_partial", "combine_partials")
+            base = ("page_score",) + (part if layout not in ("default", "head") else
+                                      ("paged_attention",))
+            main_paths[f"{prefix}_{layout}_chunked"] = base + ("chunk_attention",
+                                                               "chunk_attention_paged")
+            main_paths[f"{prefix}_{layout}_packed"] = base + ("flash_attention",)
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:
@@ -3987,4 +4449,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--gspmd-rank":  # a phase 15b rank
+        sys.exit(gspmd_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -387,6 +387,181 @@ def pool_append(cache: PagedCache, k_new, v_new, length: int, *, page: int,
 
 
 # ---------------------------------------------------------------------------
+# Blocks of the GSPMD layouts (``head``, ``coplace``, ``interleave``)
+#
+# Under a GSPMD layout every rank holds only its block of each serve-cache
+# leaf: the tile ``runtime/sharding.py`` cuts by the reference's placement
+# rules (kv heads, pages or within-page tokens over 'model' / 'data', the
+# batch over 'data'). A ``Placement`` records, for one attention layer,
+# each leaf's placement and this rank's tile of the full leaf. The appends
+# below take the whole batch's new tokens (every rank computes them, the
+# layer being replicated) and write only what falls in the rank's tile;
+# every other element of the block is left bit for bit as it was.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """One attention layer's serve cache on one rank of ``mesh``.
+
+    specs     (cache key, field) -> the leaf's placement (a tuple of axis
+              names per dimension, ``runtime/sharding``).
+    shapes    (cache key, field) -> the full leaf's shape.
+    bounds    (cache key, field) -> this rank's tile of the full leaf,
+              (start, stop) per dimension.
+    page      tokens a page (the full page; a token stripe holds fewer).
+    partials  the retrieval heads attend by per-rank partials merged with
+              ``combine_partials`` (the layouts that shard pages).
+    """
+
+    mesh: object
+    specs: dict
+    shapes: dict
+    bounds: dict
+    page: int
+    partials: bool
+
+    def axes(self, key: str, field: str, dim: int) -> tuple:
+        """The mesh axes that cut dimension ``dim`` of a leaf, most
+        significant first; () when the dimension is whole."""
+        a = self.specs[(key, field)]
+        a = a[dim] if dim < len(a) else None
+        return () if a is None else (a if isinstance(a, tuple) else (a,))
+
+
+def block_of(full, key: str, place: Placement, device):
+    """The rank's block of the empty cache ``full`` (a ``PagedCache`` or
+    ``StreamCache``, typically on the meta device): each field allocated at
+    its tile's shape and filled with its empty value."""
+    out = {}
+    for f in dataclasses.fields(full):
+        t = getattr(full, f.name)
+        shape = tuple(b - a for a, b in place.bounds[(key, f.name)])
+        out[f.name] = torch.full(shape, empty_fill_value(f.name), dtype=t.dtype,
+                                 device=device)
+    return type(full)(**out)
+
+
+def _tile(t, bounds):
+    return t[tuple(slice(a, b) for a, b in bounds)]
+
+
+def pack_block_row(big: dict, small: dict, slot: int, place: Placement) -> None:
+    """Write row 0 of the full batch-1 layer cache ``small`` into global slot
+    ``slot`` of the rank's block ``big``, in place: the rank writes its tile
+    of the row, or nothing where its block holds another batch row."""
+    for key, cache in big.items():
+        for f in dataclasses.fields(cache):
+            (b0, b1), *rest = place.bounds[(key, f.name)]
+            if b0 <= slot < b1:
+                src = _tile(getattr(small[key], f.name)[0], rest)
+                getattr(cache, f.name)[slot - b0].copy_(src)
+
+
+def reset_block_row(big: dict, slot: int, place: Placement) -> None:
+    """Clear global slot ``slot`` of the rank's block to the empty values."""
+    for key, cache in big.items():
+        for f in dataclasses.fields(cache):
+            (b0, b1) = place.bounds[(key, f.name)][0]
+            if b0 <= slot < b1:
+                getattr(cache, f.name)[slot - b0].fill_(empty_fill_value(f.name))
+
+
+def paged_block_append(cache: PagedCache, k_new, v_new, length, active,
+                       place: Placement) -> PagedCache:
+    """The decode append of one token a slot at positions ``length`` (B,),
+    into the rank's block, in place: k_new/v_new (B, Hr, D) of the whole
+    batch. K and V go to the rank that owns the token's page and, under
+    token stripes, its offset in the page; τ min/max and the page start to
+    the rank that owns the page in the metadata's tile (every rank, where
+    the metadata is replicated). The page is clamped to the cache's last,
+    as ``paged_cache_append`` clamps it."""
+    p = place.page
+    b = k_new.shape[0]
+    lb, act = _rows(length, active, b, k_new.device)
+    (b0, b1), (h0, h1), (c0, c1), (p0, p1), _ = place.bounds[("paged", "k_pages")]
+    page = (lb // p).clamp(0, place.shapes[("paged", "k_pages")][2] - 1)
+    off = lb % p
+    own = act & (page >= c0) & (page < c1) & (off >= p0) & (off < p1)
+    r = slice(b0, b1)
+    bi = torch.arange(b1 - b0, device=k_new.device)
+    slot = (page[r] - c0).clamp(0, c1 - c0 - 1)
+    loff = (off[r] - p0).clamp(0, p1 - p0 - 1)
+    a3 = own[r][:, None, None]
+    for buf, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
+        new = new[r, h0:h1].to(buf.dtype)
+        buf[bi, :, slot, loff] = torch.where(a3, new, buf[bi, :, slot, loff])
+    (t0, t1), (th0, th1), (tc0, tc1), _ = place.bounds[("paged", "tau_min")]
+    r = slice(t0, t1)
+    bi = torch.arange(t1 - t0, device=k_new.device)
+    own_t = (act & (page >= tc0) & (page < tc1))[r]
+    slot = (page[r] - tc0).clamp(0, tc1 - tc0 - 1)
+    a3 = own_t[:, None, None]
+    kf = k_new[r, th0:th1].float()
+    old_min, old_max = cache.tau_min[bi, :, slot], cache.tau_max[bi, :, slot]
+    cache.tau_min[bi, :, slot] = torch.where(a3, torch.minimum(old_min, kf), old_min)
+    cache.tau_max[bi, :, slot] = torch.where(a3, torch.maximum(old_max, kf), old_max)
+    cache.page_start[bi, :, slot] = torch.where(
+        own_t[:, None], (page[r] * p)[:, None].int(), cache.page_start[bi, :, slot])
+    return cache
+
+
+def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
+                             *, active, place: Placement) -> PagedCache:
+    """The chunk append (``paged_cache_append_chunk``) into the rank's
+    block, in place: k_new/v_new (B, C, Hr, D) of the whole batch. K and V
+    are written through a window of the block's pages that the chunk can
+    reach (its own token positions read back where they are valid and
+    owned, the values in place elsewhere): the window's slots are distinct,
+    so no two writes meet. τ min/max merge by scatter-min/max of the
+    owned tokens (a masked token adds the identity), and the page starts
+    of the opened pages in the metadata's tile are set."""
+    b, cch = k_new.shape[:2]
+    p = place.page
+    dev = k_new.device
+    st = start.reshape(b).long()
+    n = chunk_len.reshape(b).long()
+    act = _active(active, b, dev)
+    (b0, b1), (h0, h1), (c0, c1), (p0, p1), _ = place.bounds[("paged", "k_pages")]
+    cl, pl, bl = c1 - c0, p1 - p0, b1 - b0
+    w = min(-(-cch // p) + 1, cl)
+    r = slice(b0, b1)
+    first = (st[r] // p - c0).clamp(0, cl - w)
+    lp = first[:, None] + torch.arange(w, device=dev)                    # (Bl, w)
+    pos = ((lp + c0) * p + p0)[:, :, None] + torch.arange(pl, device=dev)
+    j = pos - st[r][:, None, None]                                       # (Bl, w, Pl)
+    ok = act[r][:, None, None] & (j >= 0) & (j < n[r][:, None, None])
+    jc = j.clamp(0, cch - 1)
+    bi = torch.arange(bl, device=dev)
+    for buf, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
+        took = new[r][bi[:, None, None], jc][..., h0:h1, :]              # (Bl, w, Pl, Hl, D)
+        took = took.permute(0, 1, 3, 2, 4).to(buf.dtype)                 # (Bl, w, Hl, Pl, D)
+        old = buf[bi[:, None], :, lp]                                    # (Bl, w, Hl, Pl, D)
+        buf[bi[:, None], :, lp] = torch.where(ok[:, :, None, :, None], took, old)
+    (t0, t1), (th0, th1), (tc0, tc1), d = place.bounds[("paged", "tau_min")]
+    r = slice(t0, t1)
+    jj = torch.arange(cch, device=dev)
+    pos_t = st[r][:, None] + jj                                          # (Bt, C)
+    valid = (jj < n[r][:, None]) & act[r][:, None]
+    page = pos_t // p
+    own = valid & (page >= tc0) & (page < tc1)
+    ht, dd = th1 - th0, d[1] - d[0]
+    idx = (page - tc0).clamp(0, tc1 - tc0 - 1)[:, None, :, None].expand(t1 - t0, ht,
+                                                                        cch, dd)
+    kf = k_new[r][:, :, th0:th1].float().transpose(1, 2)                 # (Bt, Ht, C, D)
+    om = own[:, None, :, None]
+    cache.tau_min.scatter_reduce_(2, idx, torch.where(om, kf, float("inf")), "amin")
+    cache.tau_max.scatter_reduce_(2, idx, torch.where(om, kf, float("-inf")), "amax")
+    last = pos_t.gather(1, (n[r][:, None] - 1).clamp(min=0))
+    pg = torch.arange(tc0, tc1, device=dev)
+    opened = (valid.any(dim=1, keepdim=True) & (pg >= pos_t[:, :1] // p)
+              & (pg <= last // p))
+    cache.page_start.copy_(torch.where(opened[:, None, :], (pg * p).int(),
+                                       cache.page_start))
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # Tiered hot/cold page residency (two-tier KV cache)
 #
 # A paged cache's K/V page rows are the only state that moves between the

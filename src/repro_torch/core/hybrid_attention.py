@@ -28,6 +28,9 @@ Co-placed decode (``decode_attention_coplace``, paper §IV-B): the
           mesh's 'model' axis; each stripe scores, selects and attends the
           pages it owns and emits flash partials (m, l, o), which a
           log-sum-exp combine merges (a split-KV decode).
+GSPMD layouts (``decode_attention_placed``, ``chunk_prefill_attention_placed``):
+          the steps above on one rank's blocks of the caches, gathering
+          over the rank's mesh where GSPMD would (see their section).
 
 The caches are updated in place (see ``repro_torch/core/cache.py``).
 """
@@ -43,6 +46,7 @@ from repro_torch.core import cache as cachelib
 from repro_torch.core import paging
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.runtime import collectives as coll
 
 
 @dataclass(frozen=True)
@@ -474,6 +478,252 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
         top_k=top_k)                                      # (B, Hr, N*P)
     return kops.paged_attention_coplace(q_r, paged.k_pages, paged.v_pages, slots,
                                         valid, nsh), paged
+
+
+# ---------------------------------------------------------------------------
+# The GSPMD layouts (head, coplace, interleave): one rank's block
+#
+# The reference runs the default decode body and lets GSPMD partition it by
+# the caches' placement. Here each rank holds its block of every cache leaf
+# (``cache.Placement``) and computes on it, with an explicit gather where
+# GSPMD inserts its own collectives (``runtime/collectives``):
+#
+#   append   the owner of the token's tile writes (``cache.paged_block_append``);
+#   select   on the rank's τ tile. Where τ's pages are cut over 'model'
+#            (coplace), each rank keeps the top min(K, C/M) of its pages, the
+#            candidates (scores, global slots) are gathered, and every rank
+#            takes the same stable top-K of their rank-major concatenation:
+#            one stable top-K over all C pages, as the reference selects
+#            (``ref.select_top_k``'s two stages). Kv heads cut over 'model'
+#            (head) gather the selections, which the reference keeps whole;
+#   attend   ``head``: the page-table decode on the rank's heads;
+#            ``coplace`` / ``interleave``: ``paged_attention_partial`` over
+#            the rank's pages (and token stripe) among the [sink | selected
+#            | local] slots, the partials (m, l, o) gathered over the axes
+#            that cut the pages and merged by ``combine_partials``;
+#   ring     the streaming heads, over 'model' in every layout, attend their
+#            own ring.
+#
+# The outputs of kv heads and batch rows cut over an axis are gathered, so
+# every rank ends the layer with the whole batch's attention output. The
+# batch is the engine's: lengths are (B,) tensors (no lockstep path).
+# ---------------------------------------------------------------------------
+
+
+def _gather_dim(x, mesh, axes, dim: int):
+    """Blocks of ``x`` cut over ``axes`` (most significant first) along
+    ``dim``, gathered into the whole dimension."""
+    for a in reversed(axes):
+        x = coll.gather(x, mesh, a, dim)
+    return x
+
+
+def _gather_out(out, place: cachelib.Placement, key: str, field: str, head_dim: int):
+    """An attention output computed on a leaf's batch rows and kv heads,
+    gathered over the axes that cut them (heads on ``head_dim``, rows on 0)."""
+    out = _gather_dim(out, place.mesh, place.axes(key, field, 1), head_dim)
+    return _gather_dim(out, place.mesh, place.axes(key, field, 0), 0)
+
+
+def _require_ragged(length):
+    if not isinstance(length, torch.Tensor):
+        raise NotImplementedError(
+            "the GSPMD layouts serve the engine's ragged steps only; lockstep "
+            "generate on a mesh is not ported (ROADMAP Queue 1 item 9c)")
+
+
+def decode_attention_placed(spec: AttnSpec, q, k_new, v_new,
+                            paged: cachelib.PagedCache,
+                            stream: cachelib.StreamCache, length, *,
+                            do_select: bool, place: cachelib.Placement,
+                            perm=None, active=None, need_select=None):
+    """``decode_attention`` on one rank's block of a GSPMD layout. q, k_new,
+    v_new, length (B,), active and need_select are the whole batch's (the
+    layer is replicated); ``paged`` and ``stream`` the rank's blocks.
+    Returns (out (B, Hq, D), paged, stream), ``out`` the same on every rank."""
+    _require_ragged(length)
+    g = spec.group
+    nr = spec.n_retrieval
+    b = q.shape[0]
+    act = cachelib._active(active, b, q.device)
+    qp = _permute_q(q, perm, g)
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    outs = []
+    if nr > 0:
+        outs.append(_placed_retrieval_decode(
+            spec, qp[:, : nr * g], kp[:, :nr], vp[:, :nr], paged, length,
+            do_select=do_select, place=place, active=act, need_select=need_select))
+    if spec.n_streaming > 0:
+        outs.append(_placed_ring_decode(spec, qp[:, nr * g:], kp[:, nr:],
+                                        vp[:, nr:], stream, length, place, act))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return _permute_q(out, _inverse_perm(perm), g), paged, stream
+
+
+def _placed_ring_decode(spec: AttnSpec, q_s, k_s, v_s, stream, length, place, act):
+    """The streaming heads on the rank's ring block: append, attend the
+    sink+local keys, gather the output."""
+    h2, g = spec.h2, spec.group
+    (b0, b1), (h0, h1) = place.bounds[("stream", "k")][:2]
+    r = slice(b0, b1)
+    stream = cachelib.stream_cache_append(stream, k_s[r, h0:h1], v_s[r, h0:h1],
+                                          length[r], sink=h2.sink, active=act[r])
+    ctx = (length[r] + 1)[:, None, None]
+    valid = (stream.pos >= 0) & ((stream.pos < h2.sink) | (stream.pos >= ctx - h2.local))
+    out = kops.paged_attention(q_s[r, h0 * g:h1 * g].contiguous(), stream.k, stream.v,
+                               valid)
+    return _gather_out(out, place, "stream", "k", 1)
+
+
+def _placed_select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select, place,
+                   group: int):
+    """A select step on the rank's τ tile (see the section comment)."""
+    top_k = h2.top_k_pages
+    (t0, t1), (th0, th1), (tc0, tc1) = place.bounds[("paged", "tau_min")][:3]
+    (s0, s1) = place.bounds[("paged", "sel_idx")][0]
+    r = slice(t0, t1)
+    q_t = q_r[r, th0 * group:th1 * group].contiguous()
+    ctx_t = ctx[r].to(torch.int32)
+    need_t = None if need_select is None else need_select[r]
+    # the previous selection of the τ tile's rows and heads; rows outside the
+    # selection's own tile (interleave's replicated τ over a cut batch) are
+    # computed and dropped
+    prev = torch.zeros((t1 - t0, th1 - th0, top_k), dtype=torch.int32, device=q_r.device)
+    prev[s0 - t0:s1 - t0] = paged.sel_idx[:, th0:th1]
+    if not place.axes("paged", "tau_min", 2):
+        sel, imp = kops.page_select(
+            q_t, paged.tau_min, paged.tau_max, paged.page_start, ctx_t, prev,
+            paged.importance, need_t, sink=h2.sink, local=h2.local, page=h2.page_size,
+            top_k=top_k)
+    else:
+        # pages cut over 'model': each rank's top min(K, C/M), then one
+        # stable top-K of the gathered candidates
+        ok = kref.selectable_pages(paged.page_start, ctx_t, sink=h2.sink,
+                                   local=h2.local, page=h2.page_size)
+        scores = torch.where(ok, kops.page_score(q_t, paged.tau_min, paged.tau_max),
+                             kref.NEG_INF)
+        imp = paged.importance + torch.where(scores > kref.NEG_INF_HALF, scores, 0.0)
+        k_eff = min(top_k, tc1 - tc0)
+        v_loc, i_loc = kref.stable_top_k(scores, k_eff)
+        (axis,) = place.axes("paged", "tau_min", 2)
+        cand_v = coll.stack(v_loc, place.mesh, axis)              # (M, Bt, Ht, k_eff)
+        cand_i = coll.stack(i_loc + tc0, place.mesh, axis)
+        m = cand_v.shape[0]
+        v_cat = cand_v.permute(1, 2, 0, 3).reshape(t1 - t0, th1 - th0, m * k_eff)
+        i_cat = cand_i.permute(1, 2, 0, 3).reshape(t1 - t0, th1 - th0, m * k_eff)
+        _, pos = kref.stable_top_k(v_cat, min(top_k, m * k_eff))
+        sel = i_cat.gather(-1, pos).to(torch.int32)
+        if sel.shape[-1] < top_k:
+            sel = torch.cat([sel, sel.new_full(sel.shape[:-1] + (top_k - sel.shape[-1],),
+                                               -1)], dim=-1)
+        if need_t is not None:
+            sel = torch.where(need_t[:, None, None], sel, prev)
+            imp = torch.where(need_t[:, None, None], imp, paged.importance)
+    sel = _gather_dim(sel, place.mesh, place.axes("paged", "tau_min", 1), 1)
+    paged.sel_idx = sel[s0 - t0:s1 - t0]
+    paged.importance = imp
+
+
+def _placed_retrieval_decode(spec: AttnSpec, q_r, k_r, v_r, paged, length, *,
+                             do_select: bool, place, active, need_select):
+    """Retrieval heads on the rank's blocks: append, (select), attend,
+    gather (see the section comment)."""
+    h2, g = spec.h2, spec.group
+    p_sz = h2.page_size
+    ctx = length + 1
+    cachelib.paged_block_append(paged, k_r, v_r, length, active, place)
+    if do_select:
+        _placed_select(h2, q_r, paged, ctx, need_select, place, g)
+    (b0, b1), (h0, h1), (c0, c1), (p0, p1), _ = place.bounds[("paged", "k_pages")]
+    (m0, _), (mh0, _), (mc0, mc1) = place.bounds[("paged", "page_start")]
+    (s0, _) = place.bounds[("paged", "sel_idx")][0]
+    r = slice(b0, b1)
+    ctx_b = ctx[r]
+    slots = paging.attended_page_slots(paged.sel_idx[b0 - s0:b1 - s0, h0:h1], ctx_b,
+                                       sink=h2.sink, local=h2.local, page=p_sz)
+    page_start = paged.page_start[b0 - m0:b1 - m0, h0 - mh0:h1 - mh0]
+    valid = paging.token_validity(paging.block_slots(slots, mc0, mc1), page_start,
+                                  ctx_b, sink=h2.sink, local=h2.local, page=p_sz,
+                                  top_k=h2.top_k_pages)                # (Bl, Hl, N*P)
+    q_b = q_r[r, h0 * g:h1 * g].contiguous()
+    if not place.partials:
+        out = kops.paged_attention_pages(q_b, paged.k_pages, paged.v_pages,
+                                         paging.block_slots(slots, c0, c1), valid)
+        return _gather_out(out, place, "paged", "k_pages", 1)
+    local = paging.block_slots(slots, c0, c1)                           # (Bl, Hl, N)
+    bl, hl, n = local.shape
+    valid = (valid.reshape(bl, hl, n, p_sz) & (local >= 0)[..., None])[..., p0:p1]
+    m, l, o = kops.paged_attention_partial(q_b, paged.k_pages, paged.v_pages,
+                                           local[None], valid.reshape(1, bl, hl, -1))
+    # the partials of every rank whose pages (or token stripes) differ
+    for dim in (3, 2):
+        for axis in reversed(place.axes("paged", "k_pages", dim)):
+            m, l, o = (coll.stack(x, place.mesh, axis).flatten(0, 1) for x in (m, l, o))
+    out = kops.combine_partials(m, l, o).to(q_r.dtype)
+    return _gather_out(out, place, "paged", "k_pages", 1)
+
+
+def chunk_prefill_attention_placed(spec: AttnSpec, q, k_new, v_new,
+                                   paged: cachelib.PagedCache,
+                                   stream: cachelib.StreamCache, start, chunk_len,
+                                   active=None, *, place: cachelib.Placement,
+                                   perm=None):
+    """``chunk_prefill_attention`` on one rank's block of a GSPMD layout. The
+    chunk kernels take whole caches, so where pages (or token stripes) are
+    cut the rank gathers its rows' and heads' pages of this layer first, as
+    GSPMD gathers around a custom call; then it attends its rows and heads,
+    appends into its block, and gathers the outputs. Returns (out (B, C, Hq,
+    D), paged, stream), ``out`` the same on every rank."""
+    h2 = spec.h2
+    g = spec.group
+    nr = spec.n_retrieval
+    qp = _permute_q(q, perm, g)
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    b, cch = q.shape[:2]
+    act = cachelib._active(active, b, q.device)
+    mesh = place.mesh
+    outs = []
+    if nr > 0:
+        (b0, b1), (h0, h1) = place.bounds[("paged", "k_pages")][:2]
+        (m0, _), (mh0, _) = place.bounds[("paged", "page_start")][:2]
+        r = slice(b0, b1)
+        k_pages, v_pages = paged.k_pages, paged.v_pages
+        for dim in (3, 2):
+            k_pages = _gather_dim(k_pages, mesh, place.axes("paged", "k_pages", dim), dim)
+            v_pages = _gather_dim(v_pages, mesh, place.axes("paged", "v_pages", dim), dim)
+        page_start = _gather_dim(paged.page_start[b0 - m0:b1 - m0, h0 - mh0:h1 - mh0],
+                                 mesh, place.axes("paged", "page_start", 2), 2)
+        attended = start[r] if spec.idle_rows else torch.where(act[r], start[r], 0)
+        out = kops.chunk_attention_paged(
+            qp[r, :, h0 * g:h1 * g].contiguous(), k_pages, v_pages,
+            page_start.contiguous(), attended, kp[r, :, h0:h1].contiguous(),
+            vp[r, :, h0:h1].contiguous())
+        del k_pages, v_pages
+        cachelib.paged_block_append_chunk(paged, kp[:, :, :nr], vp[:, :, :nr], start,
+                                          chunk_len, active=act, place=place)
+        outs.append(_gather_out(out, place, "paged", "k_pages", 2))
+    if spec.n_streaming > 0:
+        (b0, b1), (h0, h1) = place.bounds[("stream", "k")][:2]
+        r = slice(b0, b1)
+        ns = h1 - h0
+        k_s, v_s = kp[r, :, nr + h0:nr + h1], vp[r, :, nr + h0:nr + h1]
+        kr = torch.cat([stream.k, k_s.transpose(1, 2).to(stream.k.dtype)], dim=2)
+        vr = torch.cat([stream.v, v_s.transpose(1, 2).to(stream.v.dtype)], dim=2)
+        pos_q = paging.chunk_positions(start[r], cch)
+        kpos = torch.cat([stream.pos, pos_q[:, None, :].expand(b1 - b0, ns, cch)], dim=2)
+        valid_s = paging.chunk_stream_validity(kpos, pos_q, sink=h2.sink, local=h2.local)
+        if not spec.idle_rows:
+            valid_s &= act[r][:, None, None, None]
+        hs = nr * g
+        out = kops.chunk_attention(qp[r, :, hs + h0 * g:hs + h1 * g].contiguous(), kr,
+                                   vr, valid_s)
+        stream = cachelib.stream_cache_append_chunk(
+            stream, k_s, v_s, start[r], chunk_len[r], sink=h2.sink, active=act[r])
+        outs.append(_gather_out(out, place, "stream", "k", 2))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return _permute_q(out, _inverse_perm(perm), g), paged, stream
 
 
 # ---------------------------------------------------------------------------

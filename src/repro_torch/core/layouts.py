@@ -1,48 +1,81 @@
 """Serve-cache layouts (counterpart of ``repro/core/layouts.py``).
 
-Two layouts are ported:
+Every layout is an entry in a registry, resolved by name (placement is
+data, not control flow); unknown names raise with the registered list.
 
-  * ``default``: the single-program §IV-A algorithm, the token-exactness
-    oracle every other layout is held to;
-  * ``coplace_shmap``: memory-compute co-placement (paper §IV-B) on one
-    card. The JAX layout stripes the physical pages round-robin over the
-    mesh's 'model' axis and runs one shard_map program per device; here
-    that axis is a stripe axis of one tensor, of ``shards`` stripes (what
-    the size of the ambient mesh's 'model' axis is to the JAX layout; 1, as
-    on one JAX device, by default), and decode is split-KV over the stripes
-    (``hybrid_attention.decode_attention_coplace``).
+  default        the single-program §IV-A algorithm, the token-exactness
+                 oracle every other layout is held to;
+  head           GSPMD baseline head parallelism: kv heads over 'model',
+                 the batch over 'data' (paper Fig 3a);
+  coplace        GSPMD memory-compute co-placement: the page dimension over
+                 'model' in contiguous blocks (paper §IV-B);
+  interleave     co-placement with interleaved storage: pages over 'model'
+                 and, where the batch cannot take 'data', the within-page
+                 tokens over 'data' (paper Fig 7b);
+  coplace_shmap  co-placement on one card: the JAX layout stripes the
+                 physical pages round-robin over the mesh's 'model' axis and
+                 runs one shard_map program per device; here that axis is a
+                 stripe axis of one tensor, of ``shards`` stripes, and decode
+                 is split-KV over the stripes
+                 (``hybrid_attention.decode_attention_coplace``).
 
-``head``, ``coplace`` and ``interleave`` are GSPMD placements over more
-than one device; they raise until their ROADMAP item lands.
+The three GSPMD layouts run over the ranks of a ``launch/mesh.Mesh``, one
+process a device. Their ``plan`` is the reference's (capacity rounded to
+whole pages per 'model' rank for the layouts that shard pages, the mesh
+validated, the balance shards), and ``cache_axes`` the reference's leaf
+axes, which ``runtime/sharding.py`` turns into each rank's block.
+``placed(mesh, batch, capacity)`` binds a GSPMD layout to one rank: that
+object allocates the rank's blocks and runs the decode and chunk steps on
+them (``hybrid_attention.decode_attention_placed``), gathering where GSPMD
+would. Without a process group the mesh is the one-rank (1, 1) mesh of the
+caller's device, the reference's default mesh over its one device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import warnings
+from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core import cache as cachelib
 from repro_torch.core import hybrid_attention as hattn
 
 LAYOUT_DEFAULT = "default"
+LAYOUT_HEAD = "head"
+LAYOUT_COPLACE = "coplace"
+LAYOUT_INTERLEAVE = "interleave"
 LAYOUT_COPLACE_SHMAP = "coplace_shmap"
-_NOT_PORTED = ("head", "coplace", "interleave")
+
+# pre-registry spellings, resolved with a one-shot DeprecationWarning each
+_ALIASES = {None: LAYOUT_DEFAULT, "auto": LAYOUT_DEFAULT}
+_warned_aliases: set = set()
+
+# the GSPMD layouts serve the dense attention family only; the rest waits
+GSPMD_FAMILY_REFUSAL = (
+    "the GSPMD layouts (head, coplace, interleave) serve the dense attention "
+    "family (llama, smollm, internlm2, qwen2) with H2EAL on; {what} on them is "
+    "not ported (ROADMAP Queue 1 item 9b)")
 
 
 @dataclasses.dataclass(frozen=True)
 class LayoutPlan:
     """What the serving engine needs to know before the first step.
 
+    mesh                the resolved mesh of a GSPMD layout (None: no mesh).
     capacity_quantum    the cache capacity (tokens) rounds up to a multiple
-                        of this (a whole number of pages per stripe).
-    balance_shards      the stripe count ``admission="balanced"`` scores
-                        page loads against (1: FIFO).
+                        of this (a whole number of pages per stripe or rank).
+    shard_state         each rank holds only its block of the serve state.
+    balance_shards      the shard count ``admission="balanced"`` scores page
+                        loads against (1: FIFO).
     page_stripe_shards  the physical page striping factor (1: physical
                         page order is logical page order).
     """
 
     layout: str
+    mesh: Any = None
     capacity_quantum: int = 1
+    shard_state: bool = False
     balance_shards: int = 1
     page_stripe_shards: int = 1
 
@@ -52,14 +85,30 @@ class LayoutPlan:
 
 
 class DefaultLayout:
-    """Single-program path: no striping."""
+    """Single-program path: no striping, no mesh."""
 
     name = LAYOUT_DEFAULT
     shards = 1
+    #: pages are distributed: balanced admission has an effect
+    shards_pages = False
+    #: a GSPMD placement over the ranks of a mesh
+    gspmd = False
 
-    def plan(self, cfg) -> LayoutPlan:
+    def plan(self, cfg, mesh=None) -> LayoutPlan:
         del cfg  # the default plan depends on no configuration
-        return LayoutPlan(layout=self.name)
+        return LayoutPlan(layout=self.name, mesh=mesh)
+
+    def cache_axes(self, kind: str, *, batch_ok: bool) -> Tuple:
+        """Axis names of a paged-cache leaf ("batch" resolved by
+        ``runtime/sharding``): kind "pages" (B,Hr,C,P,D), "tau" (B,Hr,C,D)
+        or "meta" (B,Hr,C)."""
+        nd = {"pages": 5, "tau": 4, "meta": 3}[kind]
+        return ("batch",) + (None,) * (nd - 1)
+
+    def empty_decode_state(self, spec, batch: int, capacity: int, *, dtype, device):
+        """The empty (PagedCache, StreamCache) of ``batch`` slots."""
+        return hattn.empty_decode_state(spec, batch, capacity, dtype=dtype,
+                                        device=device)
 
     def prefill(self, spec, k, v, length: int, capacity: int, perm=None) -> Dict:
         """Build the decode state {"paged", "stream"} from prefill K/V."""
@@ -141,16 +190,22 @@ class CoplaceShmapLayout(DefaultLayout):
     a log-sum-exp combine in decode."""
 
     name = LAYOUT_COPLACE_SHMAP
+    shards_pages = True
     minus_one_masked = True
 
-    def __init__(self, shards: int):
+    def __init__(self, shards: int = 1):
         self.shards = int(shards)
 
-    def plan(self, cfg) -> LayoutPlan:
+    def plan(self, cfg, mesh=None) -> LayoutPlan:
+        del mesh  # the stripes stand for the mesh's 'model' axis
         return LayoutPlan(layout=self.name,
                           capacity_quantum=cfg.h2eal.page_size * self.shards,
                           balance_shards=self.shards,
                           page_stripe_shards=self.shards)
+
+    def cache_axes(self, kind: str, *, batch_ok: bool) -> Tuple:
+        nd = {"pages": 5, "tau": 4, "meta": 3}[kind]
+        return ("batch", None, "model") + (None,) * (nd - 3)
 
     def decode(self, spec, state: Dict, q, k_new, v_new, length, *,
                do_select: bool, perm=None, active=None, need_select=None):
@@ -161,7 +216,228 @@ class CoplaceShmapLayout(DefaultLayout):
         return out, {"paged": paged, "stream": stream}
 
 
-DEFAULT = DefaultLayout()
+class _GspmdLayout(DefaultLayout):
+    """Shared base of the GSPMD layouts: the decode math is the default
+    body's; the layout lives in ``plan`` and ``cache_axes``, and a rank runs
+    it on its blocks through ``placed``."""
+
+    gspmd = True
+
+    def _default_mesh(self, cfg):
+        from repro_torch.launch.mesh import Mesh
+
+        del cfg
+        return Mesh()
+
+    def _validate_mesh(self, mesh, axes=("model",)):
+        missing = [a for a in axes if a not in mesh.axis_names]
+        if missing:
+            raise ValueError(
+                f"layout {self.name!r} requires a mesh with axis(es) "
+                f"{missing} (got {tuple(mesh.axis_names)})")
+        return mesh
+
+    def plan(self, cfg, mesh=None) -> LayoutPlan:
+        mesh = self._validate_mesh(mesh if mesh is not None
+                                   else self._default_mesh(cfg))
+        nsh = int(mesh.shape["model"])
+        quantum = (cfg.h2eal.page_size * nsh if self.shards_pages else 1)
+        return LayoutPlan(layout=self.name, mesh=mesh,
+                          capacity_quantum=quantum, shard_state=True,
+                          balance_shards=nsh if self.shards_pages else 1)
+
+    def placed(self, mesh, *, batch: int, capacity: int) -> "PlacedLayout":
+        """This layout on one rank of ``mesh``, for a batched state of
+        ``batch`` slots and ``capacity`` tokens."""
+        return PlacedLayout(self, mesh, batch=batch, capacity=capacity)
+
+
+class HeadLayout(_GspmdLayout):
+    """Baseline head parallelism (paper Fig 3a): kv heads over 'model', the
+    batch over 'data'. No page distribution, so balanced admission is a
+    no-op here."""
+
+    name = LAYOUT_HEAD
+    shards_pages = False
+
+    def cache_axes(self, kind: str, *, batch_ok: bool) -> Tuple:
+        nd = {"pages": 5, "tau": 4, "meta": 3}[kind]
+        return ("batch", "model") + (None,) * (nd - 2)
+
+
+class CoplaceLayout(_GspmdLayout):
+    """Memory-compute co-placement (paper §IV-B): the page dimension over
+    'model', so each rank holds whole pages of every head."""
+
+    name = LAYOUT_COPLACE
+    shards_pages = True
+
+    def cache_axes(self, kind: str, *, batch_ok: bool) -> Tuple:
+        nd = {"pages": 5, "tau": 4, "meta": 3}[kind]
+        return ("batch", None, "model") + (None,) * (nd - 3)
+
+
+class InterleaveLayout(CoplaceLayout):
+    """Co-placement with interleaved storage (paper Fig 7b): pages over
+    'model' and, where the batch cannot take 'data', the within-page tokens
+    over 'data', so every page is striped across the data axis. τ, the page
+    starts and the importance stay replicated, as in the reference."""
+
+    name = LAYOUT_INTERLEAVE
+
+    def plan(self, cfg, mesh=None) -> LayoutPlan:
+        plan = super().plan(cfg, mesh)
+        self._validate_mesh(plan.mesh, axes=("model", "data"))
+        return plan
+
+    def cache_axes(self, kind: str, *, batch_ok: bool) -> Tuple:
+        if kind == "pages" and not batch_ok:
+            return (None, None, "model", "data", None)
+        if kind in ("tau", "meta"):
+            return (None,) * {"tau": 4, "meta": 3}[kind]
+        return super().cache_axes(kind, batch_ok=batch_ok)
+
+
+class PlacedLayout(DefaultLayout):
+    """A GSPMD layout bound to one rank of ``mesh``: the rank's blocks of a
+    batched state of ``batch`` slots and ``capacity`` tokens, and the decode
+    and chunk steps on them. Packed prefill builds the whole batch-1 state,
+    replicated; ``pack_slot`` writes the rank's block of it."""
+
+    gspmd = True
+
+    def __init__(self, layout: _GspmdLayout, mesh, *, batch: int, capacity: int):
+        self.layout = layout
+        self.name = layout.name
+        self.shards_pages = layout.shards_pages
+        self.mesh = mesh
+        self.batch = int(batch)
+        self.capacity = int(capacity)
+        self._places: Dict = {}
+
+    def place(self, spec) -> cachelib.Placement:
+        """The rank's block of every leaf of an attention layer of ``spec``."""
+        if spec not in self._places:
+            from repro_torch.runtime import sharding
+
+            full = dict(zip(("paged", "stream"), hattn.empty_decode_state(
+                spec, self.batch, self.capacity, dtype=torch.float32, device="meta")))
+            _, batch_ok = sharding.resolve_state_layout(self.mesh, self.name,
+                                                        self.batch)
+            specs, shapes, bounds = {}, {}, {}
+            for key, cache in full.items():
+                for f in dataclasses.fields(cache):
+                    shape = tuple(getattr(cache, f.name).shape)
+                    s = sharding._cache_leaf_spec(f"['{key}'].{f.name}", shape,
+                                                  self.mesh, self.layout, batch_ok,
+                                                  False)
+                    specs[(key, f.name)] = s
+                    shapes[(key, f.name)] = shape
+                    bounds[(key, f.name)] = sharding.block_bounds(shape, s, self.mesh)
+            self._places[spec] = cachelib.Placement(
+                mesh=self.mesh, specs=specs, shapes=shapes, bounds=bounds,
+                page=spec.h2.page_size, partials=self.shards_pages)
+        return self._places[spec]
+
+    def empty_decode_state(self, spec, batch: int, capacity: int, *, dtype, device):
+        if (batch, capacity) != (self.batch, self.capacity):
+            raise ValueError(f"layout {self.name!r} was placed for {self.batch} slots "
+                             f"of {self.capacity} tokens, not {batch} of {capacity}")
+        place = self.place(spec)
+        paged, stream = hattn.empty_decode_state(spec, batch, capacity, dtype=dtype,
+                                                 device="meta")
+        return (cachelib.block_of(paged, "paged", place, device),
+                cachelib.block_of(stream, "stream", place, device))
+
+    def pack_slot(self, spec, big: Dict, small: Dict, slot: int) -> None:
+        """Write the rank's block of the batch-1 prefill cache ``small`` into
+        slot ``slot`` of the block ``big``, in place."""
+        cachelib.pack_block_row(big, small, slot, self.place(spec))
+
+    def reset_slot(self, spec, big: Dict, slot: int) -> None:
+        cachelib.reset_block_row(big, slot, self.place(spec))
+
+    def prefill_chunk(self, spec, state: Dict, q, k_new, v_new, start,
+                      chunk_len, active, perm=None):
+        out, paged, stream = hattn.chunk_prefill_attention_placed(
+            spec, q, k_new, v_new, state["paged"], state["stream"], start,
+            chunk_len, active, place=self.place(spec), perm=perm)
+        return out, {"paged": paged, "stream": stream}
+
+    def decode(self, spec, state: Dict, q, k_new, v_new, length, *,
+               do_select: bool, perm=None, active=None, need_select=None):
+        out, paged, stream = hattn.decode_attention_placed(
+            spec, q, k_new, v_new, state["paged"], state["stream"], length,
+            do_select=do_select, place=self.place(spec), perm=perm, active=active,
+            need_select=need_select)
+        return out, {"paged": paged, "stream": stream}
+
+    def verify_chunk(self, *args, **kwargs):
+        raise NotImplementedError(GSPMD_FAMILY_REFUSAL.format(what="spec_tokens"))
+
+    verify_append = verify_chunk
+
+
+_REGISTRY: Dict[str, DefaultLayout] = {}
+
+
+def register_layout(layout: DefaultLayout) -> DefaultLayout:
+    """Register a layout instance under ``layout.name`` (last wins)."""
+    _REGISTRY[layout.name] = layout
+    return layout
+
+
+def available_layouts() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def _lookup(name) -> DefaultLayout:
+    """Canonicalize (silently) and fetch; raise ValueError if unknown."""
+    name = _ALIASES.get(name, name)
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown attention layout {name!r}; registered layouts: "
+            f"{', '.join(available_layouts())}")
+    return _REGISTRY[name]
+
+
+def resolve_layout(name) -> str:
+    """Canonicalize a layout name; raise ValueError if unknown. ``None`` and
+    ``"auto"`` resolve to ``"default"`` with a DeprecationWarning once per
+    process per spelling, as in the reference."""
+    if name in _ALIASES:
+        canonical = _ALIASES[name]
+        if name not in _warned_aliases:
+            _warned_aliases.add(name)
+            warnings.warn(
+                f"layout={name!r} is a deprecated alias for "
+                f"{canonical!r} and will be removed; pass "
+                f"{canonical!r} instead", DeprecationWarning,
+                stacklevel=2)
+    return _lookup(name).name
+
+
+def get_layout(name, shards: int = 1) -> DefaultLayout:
+    """The layout ``name`` (aliases canonicalize silently); ``shards`` is the
+    stripe count of ``coplace_shmap`` (the size of the JAX mesh's 'model'
+    axis) and must stay 1 for every other layout."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    lay = _lookup(name)
+    if lay.name == LAYOUT_COPLACE_SHMAP:
+        return CoplaceShmapLayout(shards)
+    if shards != 1:
+        raise ValueError("shards stripes the pages of the coplace_shmap layout "
+                         "only")
+    return lay
+
+
+def check_gspmd_config(cfg) -> None:
+    """Raise for a config the GSPMD layouts do not serve: anything outside
+    the dense full-attention family with H²EAL on."""
+    if cfg.family != "dense" or cfg.attn_pattern != "full" or cfg.mixer_pattern \
+            or cfg.moe.enabled or cfg.embed_frontend_stub or not cfg.h2eal.enabled:
+        raise NotImplementedError(GSPMD_FAMILY_REFUSAL.format(what=cfg.name))
 
 
 def dispatch_decode_window(layout, body, carry, xs, *, length: int):
@@ -185,20 +461,8 @@ def dispatch_verify_append(layout, spec, state: Dict, k_new, v_new, start,
                                 active=active, perm=perm)
 
 
-def get_layout(name: str, shards: int = 1) -> DefaultLayout:
-    """The layout ``name``; ``shards`` is the stripe count of
-    ``coplace_shmap`` (the size of the JAX mesh's 'model' axis)."""
-    if shards < 1:
-        raise ValueError(f"shards must be >= 1, got {shards}")
-    if name == LAYOUT_COPLACE_SHMAP:
-        return CoplaceShmapLayout(shards)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layout {name!r} is not ported yet (ROADMAP Queue 1 item 9)")
-    if name != LAYOUT_DEFAULT:
-        raise ValueError(f"unknown attention layout {name!r}; ported layouts: "
-                         f"{LAYOUT_DEFAULT}, {LAYOUT_COPLACE_SHMAP}")
-    if shards != 1:
-        raise ValueError("shards stripes the pages of the coplace_shmap layout "
-                         "only")
-    return DEFAULT
+DEFAULT = register_layout(DefaultLayout())
+register_layout(HeadLayout())
+register_layout(CoplaceLayout())
+register_layout(InterleaveLayout())
+register_layout(CoplaceShmapLayout())

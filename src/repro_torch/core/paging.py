@@ -29,6 +29,12 @@ Under the ``coplace_shmap`` layout the physical page slots are striped
 round-robin over S stripes (``interleave_slot``): logical page p lives in
 stripe p % S. ``coplace_attended_slots`` builds the attended slot list in
 that physical order.
+
+Under the GSPMD layouts ``coplace`` and ``interleave`` a rank owns a
+contiguous block of logical pages (and, under ``interleave``'s token
+stripes, a contiguous range of each page's offsets): page p belongs to the
+rank whose block [first, stop) holds it, and ``block_slots`` turns global
+slots into the block's own, -1 where another rank owns the page.
 """
 from __future__ import annotations
 
@@ -136,6 +142,14 @@ def coplace_attended_slots(sel_phys, ctx, *, sink: int, local: int, page: int,
         b, h, n_sink + n_local)
     return torch.cat([fixed[:, :, :n_sink], sel_phys.to(torch.int32),
                       fixed[:, :, n_sink:]], dim=2)
+
+
+def block_slots(slots, first: int, stop: int):
+    """Page slots local to a block of pages [first, stop) of the full cache
+    (a rank's block under a GSPMD layout that shards pages): slot - first
+    where the rank owns the page, -1 (a sentinel) elsewhere."""
+    own = (slots >= first) & (slots < stop)
+    return torch.where(own, slots - first, -1).to(torch.int32)
 
 
 def token_validity(slots, page_start, ctx, *, sink: int, local: int,

@@ -46,6 +46,19 @@ attention: ``--arch xlstm-125m``):
       --reduced --workload ragged --requests 5 --max-batch 2 \\
       --prompt-buckets 16,24 --prefill-chunk 8 --device cpu
 
+The GSPMD layouts ``head``, ``coplace`` and ``interleave`` serve the
+ragged workload over the ranks of ``torchrun``, one process a device
+(NCCL on cards, gloo on the CPU), ``--mesh-model M`` of them on the mesh's
+'model' axis and the rest on 'data'; every rank serves the same requests,
+rank 0 prints. Without torchrun they run on one rank:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch llama3-8b \
+      --workload ragged --requests 8 --max-batch 4 --prompt-buckets 2048,8192 \
+      --prefill-chunk 512 --layout coplace --mesh-model 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --reduced --workload ragged --requests 5 --max-batch 2 \
+      --prompt-buckets 16,24 --layout interleave --device cpu
+
 The frontend-stub archs (internvl2-1b, musicgen-large) take precomputed
 embeddings, not token ids: ``generate``, the engine and this CLI refuse
 them, where the reference's feed token ids and fail. They serve through
@@ -55,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -62,6 +76,7 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core import layouts as layoutlib
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import model as M
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.runtime.serve import resolve_device
@@ -89,6 +104,11 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     del greedy  # lockstep generation is greedy, as in the JAX package
     if cfg.embed_frontend_stub:
         raise ValueError(STUB_ENGINE_REFUSAL)
+    if layoutlib.get_layout(layout, shards).gspmd:
+        raise NotImplementedError(
+            f"lockstep generate on the GSPMD layout {layout!r} (the reference's "
+            f"tensor-parallel generate(mesh=...)) is not ported (ROADMAP Queue 1 "
+            f"item 9c); serve it through the engine (--workload ragged)")
     dev = resolve_device(device)
     if params["final_norm"].device.type != dev.type:
         raise ValueError(f"params lie on {params['final_norm'].device}, generate "
@@ -148,20 +168,22 @@ def make_ragged_requests(cfg, *, n: int, prompt_buckets, gen_min: int,
 
 def run_ragged(cfg, params, requests, *, max_batch: int, capacity: int,
                prompt_buckets, report_balance: bool = False,
-               layout: str = "default", shards: int = 1,
+               layout: str = "default", shards: int = 1, mesh=None,
                admission: str = "fifo", prefill_chunk=None, decode_window=None,
                rebalance: str = "off", device=None):
     """Serve ``requests`` with the continuous-batching engine (packed
     admission, or chunked with ``prefill_chunk=N``; ``layout``, ``shards``,
-    ``admission``, ``decode_window`` and ``rebalance`` as in ``Engine``).
-    Returns (completions, stats dict)."""
-    if admission == "balanced" and layout != layoutlib.LAYOUT_COPLACE_SHMAP:
+    ``mesh``, ``admission``, ``decode_window`` and ``rebalance`` as in
+    ``Engine``). Returns (completions, stats dict)."""
+    if admission == "balanced" and \
+            not layoutlib.get_layout(layout, shards).shards_pages:
         raise ValueError(
-            "--admission balanced scores per-stripe page loads and only has "
-            "an effect for a layout that stripes pages (--layout coplace_shmap)")
+            "--admission balanced scores per-device page load and only has "
+            "an effect for layouts that shard pages (e.g. --layout "
+            "coplace_shmap or interleave)")
     eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
                  prompt_buckets=prompt_buckets, layout=layout, shards=shards,
-                 admission=admission, prefill_chunk=prefill_chunk,
+                 mesh=mesh, admission=admission, prefill_chunk=prefill_chunk,
                  decode_window=decode_window, rebalance=rebalance, device=device)
     completions = eng.run(requests)
     s = eng.stats
@@ -267,11 +289,15 @@ def main(argv=None):
                     help="chunked prefill: at most N prompt tokens per "
                          "engine step, beside the decode of the other slots "
                          "(0 = prefill-then-pack admission)")
-    ap.add_argument("--layout", choices=[layoutlib.LAYOUT_DEFAULT,
-                                         layoutlib.LAYOUT_COPLACE_SHMAP],
+    ap.add_argument("--layout", choices=list(layoutlib.available_layouts()),
                     default=layoutlib.LAYOUT_DEFAULT,
                     help="serve-cache layout: coplace_shmap = co-placement "
-                         "over --shards page stripes, split-KV decode")
+                         "over --shards page stripes, split-KV decode; head, "
+                         "coplace, interleave = GSPMD placements over the "
+                         "ranks of torchrun (one rank without it)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="ranks on the mesh's 'model' axis (the rest on "
+                         "'data'); GSPMD layouts only")
     ap.add_argument("--shards", type=int, default=1,
                     help="page stripes of coplace_shmap (the size of the JAX "
                          "mesh's 'model' axis)")
@@ -296,6 +322,29 @@ def main(argv=None):
                          "the plain versions of the kernels)")
     args = ap.parse_args(argv)
 
+    if args.mesh_model != 1 and not layoutlib.get_layout(args.layout, args.shards).gspmd:
+        raise ValueError("--mesh-model places a GSPMD layout (head, coplace, "
+                         "interleave)")
+    joined = "RANK" in os.environ  # under torchrun: one rank a device
+    if joined:
+        if args.device is None:
+            args.device = str(meshlib.local_device())
+        backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+        meshlib.init_distributed(backend)
+    try:
+        mesh = None
+        if layoutlib.get_layout(args.layout, args.shards).gspmd:
+            mesh = meshlib.make_local_mesh(model=args.mesh_model)
+        return _serve(args, mesh)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _serve(args, mesh):
+    """The CLI's run on this rank. Every rank serves the same requests and
+    gets the same tokens; rank 0 prints them."""
+    quiet = torch.distributed.is_initialized() and torch.distributed.get_rank() > 0
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -323,12 +372,15 @@ def main(argv=None):
         completions, stats = run_ragged(
             cfg, params, reqs, max_batch=args.max_batch, capacity=capacity,
             prompt_buckets=buckets, report_balance=args.report_balance,
-            layout=args.layout, shards=args.shards, admission=args.admission,
-            prefill_chunk=args.prefill_chunk or None,
+            layout=args.layout, shards=args.shards, mesh=mesh,
+            admission=args.admission, prefill_chunk=args.prefill_chunk or None,
             decode_window=args.decode_window or None, rebalance=args.rebalance,
             device=dev)
+        if quiet:
+            return stats
+        mesh_txt = f" mesh={mesh.shape}" if mesh is not None else ""
         print(f"[serve] arch={cfg.name} workload=ragged device={dev} "
-              f"layout={args.layout} shards={args.shards} "
+              f"layout={args.layout} shards={args.shards}{mesh_txt} "
               f"admission={args.admission} rebalance={args.rebalance} "
               f"prefill_chunk={args.prefill_chunk or 'packed'} "
               f"requests={len(completions)} steps={stats['decode_steps']} "

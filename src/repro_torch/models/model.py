@@ -61,10 +61,12 @@ def _rope(cfg: ArchConfig, positions):
     return rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _positions(cfg: ArchConfig):
+def layer_positions(cfg: ArchConfig):
     """Each layer's period position (remainder layers continue the pattern)."""
     period = T.period_len(cfg)
     return [i % period for i in range(cfg.num_layers)]
+
+
 
 
 def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
@@ -114,13 +116,13 @@ def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
     d_model)); returns (last-token logits (B, V), state).
     ``layout`` (a ``core/layouts`` layout) builds the caches in its page
     order, as it does in every step below."""
-    T.check_ported(cfg)
+    T.check_ported(cfg, layout)
     plan = plan if plan is not None else T.default_plan(cfg)
     x = embed_input(cfg, params, batch)
     s = x.shape[1]
     rope = _rope(cfg, torch.arange(s, device=x.device))
     caches = []
-    for pos, p, perm in zip(_positions(cfg), params["layers"], plan):
+    for pos, p, perm in zip(layer_positions(cfg), params["layers"], plan):
         x, c = T.block_prefill(cfg, pos, p, perm, x, rope, capacity=capacity,
                                layout=layout)
         caches.append(c)
@@ -128,12 +130,15 @@ def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
 
 
 def empty_serve_state(cfg: ArchConfig, batch: int, *, capacity: int, dtype,
-                      device):
+                      device, layout=layoutlib.DEFAULT):
     """The batched serve state of ``batch`` free slots: (B,) lengths 0 and
-    empty caches (a slot's rows are rewritten at admission)."""
-    T.check_ported(cfg)
+    empty caches (a slot's rows are rewritten at admission). Under a GSPMD
+    layout (placed on a rank) the caches are the rank's blocks; the lengths
+    stay whole, as the reference replicates them."""
+    T.check_ported(cfg, layout)
     layers = [T.empty_block_cache(cfg, pos, batch, capacity, dtype=dtype,
-                                  device=device) for pos in _positions(cfg)]
+                                  device=device, layout=layout)
+              for pos in layer_positions(cfg)]
     return {"length": torch.zeros(batch, dtype=torch.int32, device=device),
             "layers": layers}
 
@@ -157,7 +162,7 @@ def prefill_chunk(cfg: ArchConfig, params, state, tokens, *, chunk_len,
     b, cch = tokens.shape
     rope = _rope(cfg, chunk_positions(start, cch))  # (B, C, half)
     caches = []
-    for pos, p, perm, c in zip(_positions(cfg), params["layers"], plan,
+    for pos, p, perm, c in zip(layer_positions(cfg), params["layers"], plan,
                                state["layers"]):
         x, c = T.block_prefill_chunk(cfg, pos, p, perm, x, rope, c, start=start,
                                      chunk_len=chunk_len, active=active,
@@ -200,7 +205,7 @@ def verify_forward(cfg: ArchConfig, params, state, tokens, *, active,
     x = embed_input(cfg, params, tokens)
     rope = _rope(cfg, chunk_positions(start, tokens.shape[1]))  # (B, k, half)
     caches, stash = [], []
-    for pos, p, perm, c in zip(_positions(cfg), params["layers"], plan,
+    for pos, p, perm, c in zip(layer_positions(cfg), params["layers"], plan,
                                state["layers"]):
         x, c, kv = T.block_verify_chunk(cfg, pos, p, perm, x, rope, c, start=start,
                                         active=active, need_select=need_select,
@@ -221,7 +226,7 @@ def verify_commit(cfg: ArchConfig, state, stash, *, accepted, active, plan=None,
     start = state["length"]
     caches = [T.block_verify_append(cfg, pos, perm, c, kv, start=start,
                                     accepted=accepted, active=active, layout=layout)
-              for pos, perm, c, kv in zip(_positions(cfg), plan, state["layers"],
+              for pos, perm, c, kv in zip(layer_positions(cfg), plan, state["layers"],
                                           stash)]
     new_len = torch.where(active, start + accepted, start).to(start.dtype)
     return {"length": new_len, "layers": caches}
@@ -250,7 +255,7 @@ def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
         cos, sin = _rope(cfg, torch.arange(length, length + 1, device=x.device))
     rope1 = (cos[:, None], sin[:, None])  # (1 or B, 1, half)
     caches = []
-    for pos, p, perm, c in zip(_positions(cfg), params["layers"], plan,
+    for pos, p, perm, c in zip(layer_positions(cfg), params["layers"], plan,
                                state["layers"]):
         x, c = T.block_decode(cfg, pos, p, perm, x, rope1, c, length=length,
                               do_select=do_select, layout=layout,

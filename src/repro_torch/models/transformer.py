@@ -76,14 +76,17 @@ def layer_layout(cfg: ArchConfig) -> tuple[int, int]:
 _MIXERS = (MIXER_ATTENTION, MIXER_MAMBA2, MIXER_MLSTM, MIXER_SLSTM)
 
 
-def check_ported(cfg: ArchConfig) -> None:
+def check_ported(cfg: ArchConfig, layout=None) -> None:
     """Raise for a mixer that is not one of the reference's (every family of
-    the reference is ported: ROADMAP Queue 1 item 11)."""
+    the reference is ported: ROADMAP Queue 1 item 11), and, on a GSPMD
+    layout, for anything outside the dense attention family (item 9b)."""
     unknown = sorted(set(cfg.mixer_pattern) - set(_MIXERS))
     if unknown:
         raise NotImplementedError(
             f"{cfg.name}: mixers {unknown} are not the reference's; the port serves "
             f"the attention, mamba2, mLSTM and sLSTM mixers (ROADMAP Queue 1 item 11)")
+    if layout is not None and layout.gspmd:
+        layoutlib.check_gspmd_config(cfg)
 
 
 def attn_spec(cfg: ArchConfig, pos: int = 0) -> hattn.AttnSpec:
@@ -291,17 +294,17 @@ def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
 
 
 def empty_block_cache(cfg: ArchConfig, pos: int, batch: int, capacity: int, *,
-                      dtype, device):
+                      dtype, device, layout=layoutlib.DEFAULT):
     """The empty serve cache of ``batch`` slots of a block at period position
-    ``pos``."""
+    ``pos`` (a GSPMD layout's: the rank's block of it)."""
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
         r = _RECURRENT[mixer]
         return {r.key: r.state_cls(**r.init_state(cfg, batch, dtype, device))}
     spec = attn_spec(cfg, pos)
     if not _has_full_cache(spec):
-        paged, stream = hattn.empty_decode_state(spec, batch, capacity,
-                                                 dtype=dtype, device=device)
+        paged, stream = layout.empty_decode_state(spec, batch, capacity,
+                                                  dtype=dtype, device=device)
         return {"paged": paged, "stream": stream}
     return {"full": cachelib.make_full_cache(batch, cfg.num_kv_heads, capacity,
                                              spec.head_dim, dtype=dtype,

@@ -28,6 +28,12 @@ buffers it captured, so
 Eager execution on the card happens only when asked for (``eager=True``);
 the CPU, which has no graphs, always runs the steps eagerly. A capture or
 a replay that fails raises.
+
+Under a GSPMD layout the steps gather over the ranks of a mesh
+(``runtime/collectives``). NCCL collectives are captured inside the graphs;
+each axis group's communicator is made by a collective before the first
+capture. A gloo group cannot be captured: the steps of a mesh over gloo on
+the card refuse to capture, and the caller asks for ``eager=True``.
 """
 from __future__ import annotations
 
@@ -104,9 +110,17 @@ class StepGraphs:
     ``run(name)`` replays the step (or calls it) and returns its output,
     which a later run of the same step overwrites."""
 
-    def __init__(self, device, *, eager: bool = False):
+    def __init__(self, device, *, eager: bool = False, mesh=None):
         self.device = torch.device(device)
         self.capture = self.device.type == "cuda" and not eager
+        if self.capture and mesh is not None and mesh.backend == "gloo":
+            raise ValueError("the steps of a mesh over gloo cannot be captured as "
+                             "CUDA graphs (gloo collectives run on the host): pass "
+                             "eager=True, or use an NCCL group")
+        if self.capture and mesh is not None and mesh.backend is not None:
+            from repro_torch.runtime import collectives
+
+            collectives.warm_up(mesh, self.device)
         self._inputs: Dict[str, list] = {}   # name -> [buffer, host copy]
         self._steps: Dict[str, tuple] = {}   # name -> (fn, graph, output, delta)
         self.captures: Dict[str, int] = {}

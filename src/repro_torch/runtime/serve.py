@@ -10,7 +10,7 @@ speculative verify step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -33,19 +33,29 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     capacity: int             # most context tokens the cache holds
-    layout: str = "default"   # core/layouts name: "default" or "coplace_shmap"
+    layout: str = "default"   # a core/layouts registry name
     shards: int = 1           # coplace_shmap's page stripes
+    mesh: Any = None          # a GSPMD layout's mesh (launch/mesh.Mesh)
+    max_batch: int = 0        # the batched state's slots (a GSPMD layout's blocks)
 
 
-def _layout(scfg: ServeConfig):
-    return layoutlib.get_layout(scfg.layout, scfg.shards)
+def serve_layout(scfg: ServeConfig):
+    """The layout of ``scfg``; a GSPMD layout placed on this rank of its mesh
+    for ``max_batch`` slots."""
+    lay = layoutlib.get_layout(scfg.layout, scfg.shards)
+    if lay.gspmd:
+        if scfg.mesh is None or scfg.max_batch < 1:
+            raise ValueError(f"layout {lay.name!r} serves the engine's batched state: "
+                             f"give the ServeConfig its plan's mesh and max_batch")
+        return lay.placed(scfg.mesh, batch=scfg.max_batch, capacity=scfg.capacity)
+    return lay
 
 
 def make_prefill(cfg: ArchConfig, scfg: ServeConfig):
     """prefill(params, batch): batch (B, S) token ids, or a frontend stub's
     (B, S, d_model) embeddings (``make_decode_step``'s token likewise (B,)
     or (B, d_model))."""
-    layout = _layout(scfg)
+    layout = serve_layout(scfg)
 
     def prefill(params, batch):
         return M.prefill(cfg, params, batch, capacity=scfg.capacity,
@@ -54,7 +64,7 @@ def make_prefill(cfg: ArchConfig, scfg: ServeConfig):
 
 
 def make_decode_step(cfg: ArchConfig, scfg: ServeConfig, *, do_select: bool):
-    layout = _layout(scfg)
+    layout = serve_layout(scfg)
 
     def decode(params, state, token):
         return M.decode_step(cfg, params, state, token, do_select=do_select,
@@ -67,7 +77,7 @@ def make_ragged_decode_step(cfg: ArchConfig, scfg: ServeConfig, *,
     """Decode step of the continuous-batching engine: per-slot (B,) lengths
     in the state and an ``active`` mask; the select variant also takes
     ``need_select``, each slot's share-window phase."""
-    layout = _layout(scfg)
+    layout = serve_layout(scfg)
     if do_select:
         def decode(params, state, token, active, need_select):
             return M.decode_step(cfg, params, state, token, do_select=True,
@@ -117,7 +127,7 @@ def make_verify_step(cfg: ArchConfig, scfg: ServeConfig, *, k: int):
         verify(params, state, tokens, active, need_select, base, gen, temp,
                topp, max_emit)
     """
-    layout = _layout(scfg)
+    layout = serve_layout(scfg)
 
     def verify(params, state, tokens, active, need_select, base, gen, temp, topp,
                max_emit):
@@ -143,7 +153,7 @@ def make_prefill_chunk_step(cfg: ArchConfig, scfg: ServeConfig, *, chunk: int):
     """Chunked-prefill half of the engine's mixed step: each prefilling
     slot's next prompt chunk (at most ``chunk`` tokens, a fixed shape) goes
     straight into its rows of the batched state."""
-    layout = _layout(scfg)
+    layout = serve_layout(scfg)
 
     def chunk_step(params, state, tokens, chunk_len, active):
         if tokens.shape[1] != chunk:
@@ -187,7 +197,7 @@ def make_fused_window_step(cfg: ArchConfig, scfg: ServeConfig, *, window: int,
     length are full no-ops (all-inactive masks), so one capture serves
     every boundary residue.
     """
-    layout = _layout(scfg)
+    layout = serve_layout(scfg)
 
     def decode_half(params, state, tok, act, gen, emitted, budgets, base, temp,
                     topp):

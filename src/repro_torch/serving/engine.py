@@ -83,10 +83,14 @@ a fixed batch of ``max_batch`` slots:
     token feed and the sampling lanes (one captured step) and re-keys the
     host mirrors, so tokens are unchanged.
 
-The ``default`` and ``coplace_shmap`` layouts (``core/layouts.py``: the
-layout's plan rounds the cache capacity to whole pages per stripe), FIFO
-and balanced admission, sampling, speculative decode, fused windows,
-tiered residency and rebalancing are ported.
+Every layout of the reference's registry is ported (``core/layouts.py``:
+the layout's plan rounds the cache capacity to whole pages per stripe or
+rank): ``default``, ``coplace_shmap``, and the GSPMD layouts ``head``,
+``coplace`` and ``interleave``, where each rank of a ``launch/mesh.Mesh``
+runs this engine on its block of the serve state. FIFO and balanced
+admission, sampling, speculative decode, fused windows, tiered residency
+and rebalancing are ported; the last three are not served on a GSPMD
+layout yet.
 The engine runs on the card unless ``device`` names the CPU, where it runs
 the kernels' plain versions, eagerly.
 """
@@ -105,6 +109,7 @@ from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, MIXER_ATTENTION, ArchCon
 from repro_torch.core import cache as cachelib
 from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.runtime import graphs
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.sched import balance
@@ -398,9 +403,20 @@ class Engine:
     capacity        the most context tokens a slot may reach; the cache
                     holds the layout plan's rounding of it.
     prompt_buckets  prompt lengths packed admission takes.
-    layout          serve-cache layout, "default" or "coplace_shmap".
+    layout          serve-cache layout, a ``core/layouts`` registry name:
+                    "default", "coplace_shmap", or a GSPMD layout ("head",
+                    "coplace", "interleave") over the ranks of ``mesh``.
     shards          coplace_shmap's page stripes (the size of the JAX mesh's
                     'model' axis; 1 as on one JAX device).
+    mesh            a GSPMD layout's ``launch/mesh.Mesh`` (default: the
+                    one-rank mesh). Every rank builds the same engine with the
+                    same parameters and requests and takes the same host
+                    decisions; it holds only its block of the serve state, and
+                    every rank's steps give the same tokens. ``spec_tokens``,
+                    ``hot_pages`` and ``rebalance`` raise there (ROADMAP item
+                    9b), as does a family outside the dense attention one; the
+                    steps of a gloo mesh run eagerly, and a gloo mesh on the
+                    card refuses capture unless ``eager=True``.
     admission       "fifo" or "balanced": scores the first
                     ``admit_lookahead`` queued requests by the per-stripe
                     page-load imbalance they would leave
@@ -454,7 +470,7 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int,
                  capacity: int, prompt_buckets: Sequence[int],
-                 layout: str = "default", shards: int = 1,
+                 layout: str = "default", shards: int = 1, mesh=None,
                  admission: str = "fifo", admit_lookahead: int = 4,
                  balance_shards: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, device=None,
@@ -464,6 +480,14 @@ class Engine:
                  rebalance_min_gain: float = 0.02, rebalance_cooldown: int = 8,
                  rebalance_banks: Optional[int] = None,
                  decode_window: Optional[int] = None, eager: bool = False):
+        lay = layoutlib.get_layout(layout, shards)
+        if lay.gspmd:
+            # what the GSPMD layouts do not serve yet raises, never falls back
+            for what, on in (("spec_tokens", spec_tokens), ("hot_pages", hot_pages),
+                             ("rebalance", rebalance != "off")):
+                if on:
+                    raise NotImplementedError(
+                        layoutlib.GSPMD_FAMILY_REFUSAL.format(what=what))
         self.spec_tokens = int(spec_tokens) if spec_tokens else None
         self.draft = None
         if self.spec_tokens is not None:
@@ -490,8 +514,8 @@ class Engine:
                 "decode_window=None for per-step dispatch")
         if admission not in ("fifo", "balanced"):
             raise ValueError(f"unknown admission {admission!r}")
-        lay = layoutlib.get_layout(layout, shards)
-        self.layout, self.shards, self.plan = lay.name, lay.shards, lay.plan(cfg)
+        self.layout, self.shards, self.plan = lay.name, lay.shards, lay.plan(cfg, mesh)
+        self.mesh = self.plan.mesh if lay.gspmd else None
         self.admission = admission
         self.admit_lookahead = max(int(admit_lookahead), 1)
         self.balance_shards = balance_shards
@@ -536,8 +560,11 @@ class Engine:
                            if self.decode_window > 1 and self.share_window > 1
                            else 0)
         scfg = serve_rt.ServeConfig(capacity=self.cache_capacity,
-                                    layout=self.layout, shards=self.shards)
+                                    layout=self.layout, shards=self.shards,
+                                    mesh=self.mesh, max_batch=int(max_batch))
         self.serve_config = scfg
+        # a GSPMD layout placed on this rank: the batched state is its blocks
+        self._placed = serve_rt.serve_layout(scfg) if lay.gspmd else None
         self._prefill = serve_rt.make_prefill(cfg, scfg)
         self._dec_sel = serve_rt.make_ragged_decode_step(cfg, scfg, do_select=True)
         self._dec_reuse = serve_rt.make_ragged_decode_step(cfg, scfg,
@@ -560,7 +587,8 @@ class Engine:
         self.batch = BatchState(
             serve=M.empty_serve_state(cfg, b, capacity=self.cache_capacity,
                                       dtype=params["final_norm"].dtype,
-                                      device=self.device),
+                                      device=self.device,
+                                      layout=self._placed or layoutlib.DEFAULT),
             active=np.zeros(b, bool), prefilling=np.zeros(b, bool),
             ready=np.zeros(b, bool), lengths=np.zeros(b, np.int64),
             phase=np.zeros(b, np.int64), uid=np.full(b, -1, np.int64),
@@ -586,7 +614,7 @@ class Engine:
         self._tier_plan = None        # pending (need, selection, hotness) refresh
         if self.hot_pages is not None:
             self._init_tier()
-        self._graphs = graphs.StepGraphs(self.device, eager=eager)
+        self._graphs = graphs.StepGraphs(self.device, eager=eager, mesh=self.mesh)
         if self._takes_requests():
             self._add_steps(b)
         if self.draft is not None:
@@ -710,6 +738,26 @@ class Engine:
         return torch.from_numpy(np.array(a, copy=True)).to(self.device,
                                                           non_blocking=True)
 
+    def _pack(self, small: dict, slot: int) -> None:
+        """Write the batch-1 prefill state into slot ``slot``: the whole row,
+        or under a GSPMD layout the rank's block of it."""
+        if self._placed is None:
+            return _pack_slot(self.batch.serve, small, slot)
+        big = self.batch.serve
+        big["length"][slot].fill_(small["length"])
+        for pos, lb, ls in zip(M.layer_positions(self.cfg), big["layers"],
+                               small["layers"]):
+            self._placed.pack_slot(T.attn_spec(self.cfg, pos), lb, ls, slot)
+
+    def _reset(self, slot: int) -> None:
+        """Clear slot ``slot`` to the empty values (the rank's block of it)."""
+        if self._placed is None:
+            return _reset_slot(self.batch.serve, slot)
+        big = self.batch.serve
+        big["length"][slot].fill_(0)
+        for pos, lb in zip(M.layer_positions(self.cfg), big["layers"]):
+            self._placed.reset_slot(T.attn_spec(self.cfg, pos), lb, slot)
+
     def _takes_requests(self, *, refuse: bool = False) -> bool:
         """False for a frontend-stub arch, whose engine takes no request
         (``STUB_ENGINE_REFUSAL``, raised instead when ``refuse``)."""
@@ -781,7 +829,7 @@ class Engine:
         prompt = self._to_dev(np.asarray(req.prompt, np.int64)[None])
         self._set_sampling(req, slot)
         logits, small = self._prefill(self.params, prompt)
-        _pack_slot(self.batch.serve, small, slot)
+        self._pack(small, slot)
         self.stats.dispatches += 2  # prefill + pack
         first = self._first_token(slot, logits[0])
         if self._tier is not None:
@@ -805,7 +853,7 @@ class Engine:
         PREFILLING; later steps feed its prompt chunk by chunk."""
         b = self.batch
         self._set_sampling(req, slot)
-        _reset_slot(b.serve, slot)
+        self._reset(slot)
         self.stats.dispatches += 1
         if self._tier is not None:
             self._tier.reset_slot(slot)  # the reset cleared every row

@@ -1,0 +1,161 @@
+"""One rank of a GSPMD-layout run of the PyTorch port, on the CPU over gloo.
+
+``tests/test_torch_layouts.py`` starts as many processes as its largest
+mesh has ranks:
+
+    python tests/_torch_mesh_worker.py JOB RANK
+
+JOB is a pickle of the meshes to run, each with its world size, its
+'model' axis size, its FileStore path and its cases. Each process takes
+every mesh in turn: as rank RANK of that mesh's own process group where
+RANK is below its world size, and sits it out otherwise. Each case names
+a config, the parameters (the JAX package's tree as numpy arrays, bridged
+by ``models/convert.params_from_numpy``), a layout, the engine's options
+and the requests, or a single-step check of the sharded attention bodies
+against the default body. The process writes its results, by mesh, to
+JOB.RANK. This module imports no JAX: the port's ranks run without it.
+"""
+import dataclasses
+import os
+import pickle
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
+
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core import hybrid_attention as hattn  # noqa: E402
+from repro_torch.core import layouts as layoutlib  # noqa: E402
+from repro_torch.launch import mesh as meshlib  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.runtime import sharding  # noqa: E402
+from repro_torch.serving.engine import Engine, Request  # noqa: E402
+
+
+def config(name, overrides):
+    return tconfigs.reduced(tconfigs.get_arch(name), **overrides)
+
+
+def run_engine(case, mesh):
+    """The case's engine on this rank: its tokens, and its step captures
+    before and after the run."""
+    cfg = config(case["arch"], case["overrides"])
+    params = params_from_numpy(cfg, case["params"], "cpu")
+    eng = Engine(cfg, params, layout=case["layout"], mesh=mesh, device="cpu",
+                 **case["engine"])
+    before = eng.jit_cache_sizes()
+    comps = eng.run([Request(**r) for r in case["requests"]])
+    return {"tokens": {u: c.tokens for u, c in comps.items()},
+            "captures": (before, eng.jit_cache_sizes()),
+            "stats": dataclasses.asdict(eng.stats)}
+
+
+def _fields(c):
+    return {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
+
+
+def _block(state, place, mesh):
+    """This rank's blocks of a whole layer state {"paged", "stream"}."""
+    return {key: type(c)(**{f: sharding.local_block(t, place.specs[(key, f)],
+                                                    mesh).clone()
+                            for f, t in _fields(c).items()})
+            for key, c in state.items()}
+
+
+def _clone(state):
+    return {key: type(c)(**{f: t.clone() for f, t in _fields(c).items()})
+            for key, c in state.items()}
+
+
+def _state_diff(block, full, place, mesh):
+    """The largest difference of the rank's blocks from its tiles of the
+    full state, per field (equal values, infinities too, differ by 0), and
+    of the importance relative to its magnitude (at least 1)."""
+    out = {}
+    for key, c in block.items():
+        for f, t in _fields(c).items():
+            want = sharding.local_block(getattr(full[key], f), place.specs[(key, f)], mesh)
+            diff = (t.double() - want.double()).abs().nan_to_num(nan=float("inf"))
+            if f == "importance":
+                diff = diff / want.double().abs().clamp(min=1.0)
+            out[f"{key}.{f}"] = float(torch.where(t == want, 0.0, diff).max())
+    return out
+
+
+def run_steps(case, mesh):
+    """One layer's decode steps (select, then reuse) and a chunk step on the
+    rank's blocks, beside the default body on the whole state, from one
+    seeded state: each output's largest difference from the default's, and
+    the blocks' from the tiles of the default's state."""
+    cfg = config(case["arch"], case["overrides"])
+    spec = T.attn_spec(cfg)
+    b, cap, cch = case["batch"], case["capacity"], case["chunk"]
+    placed = layoutlib.get_layout(case["layout"]).placed(mesh, batch=b, capacity=cap)
+    place = placed.place(spec)
+    g = torch.Generator().manual_seed(case["seed"])
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    hkv, hq, d = spec.n_kv, spec.n_q, spec.head_dim
+    # the whole state: slot i prefilled to its own length, then packed
+    full = dict(zip(("paged", "stream"), hattn.empty_decode_state(
+        spec, b, cap, dtype=torch.float32, device="cpu")))
+    lengths = case["lengths"]
+    for i, n in enumerate(lengths):
+        small = layoutlib.DEFAULT.prefill(spec, rnd(1, n, hkv, d), rnd(1, n, hkv, d), n, cap)
+        for key in full:
+            for f, t in _fields(full[key]).items():
+                t[i].copy_(getattr(small[key], f)[0])
+    block = _block(full, place, mesh)
+    length = torch.tensor(lengths, dtype=torch.int32)
+    active = torch.tensor(case["active"])
+    out = {"steps": []}
+    for do_select, need in ((True, torch.tensor(case["need"])), (False, None)):
+        q, k, v = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
+        want, full = layoutlib.DEFAULT.decode(spec, full, q, k, v, length,
+                                              do_select=do_select, active=active,
+                                              need_select=need)
+        got, block = placed.decode(spec, block, q, k, v, length, do_select=do_select,
+                                   active=active, need_select=need)
+        out["steps"].append({"out": float((got - want).abs().max()),
+                             "state": _state_diff(block, full, place, mesh)})
+        length = torch.where(active, length + 1, length)
+    q, k, v = rnd(b, cch, hq, d), rnd(b, cch, hkv, d), rnd(b, cch, hkv, d)
+    clen = torch.tensor(case["chunk_len"], dtype=torch.int32)
+    want, full = layoutlib.DEFAULT.prefill_chunk(spec, _clone(full), q, k, v, length,
+                                                 clen, clen > 0)
+    got, block = placed.prefill_chunk(spec, block, q, k, v, length, clen, clen > 0)
+    out["chunk"] = {"out": float((got - want).abs().max()),
+                    "state": _state_diff(block, full, place, mesh)}
+    return out
+
+
+def run_mesh(job, rank: int) -> dict:
+    """Every case of one mesh, as rank ``rank`` of its process group."""
+    meshlib.init_distributed("gloo", store_path=job["store"], rank=rank,
+                             world_size=job["world"])
+    try:
+        mesh = meshlib.make_local_mesh(model=job["model"])
+        results = {}
+        for name, case in job["cases"].items():
+            run = run_steps if case["kind"] == "steps" else run_engine
+            results[name] = run(case, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"mesh": (mesh.sizes, mesh.coords), "results": results}
+
+
+def main(job_path: str, rank: int) -> None:
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    out = {key: run_mesh(m, rank) for key, m in job["meshes"].items()
+           if rank < m["world"]}
+    with open(f"{job_path}.{rank}", "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))

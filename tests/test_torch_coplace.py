@@ -3,10 +3,13 @@ and balanced admission against the JAX package (``impl="ref"``) on the CPU.
 
 The port's stripe count S stands for the size of the JAX mesh's 'model'
 axis, so each port run at S stripes is held against the JAX layout on S
-devices: S=1 in this process (a 1x1 mesh) and S=4 in one subprocess with
-four fake host devices, which computes every reference once per module
-(``jax_reference``) and hands it over as files. The JAX side's own inputs
-come from ``_inputs``, made from numpy with fixed seeds on both sides.
+devices: S=1 in a subprocess of one device (a 1x1 mesh) and S=4 in one
+with four fake host devices, each computing every reference once per
+module (``jax_reference``) and handing it over as files. Both start when
+the module does, so they compute while its other tests run. The JAX
+side's own inputs come from ``_inputs``, made from numpy with fixed seeds
+on both sides; a JAX engine serves the FIFO and the balanced run of one
+configuration (admission is the host's pick alone).
 
 Tolerances (EXPERIMENTS.md:250-266): partials and attention outputs 2e-5,
 caches 1e-4 where a sum is reassociated, logits 2e-4, integer state
@@ -228,9 +231,20 @@ def jax_reference():
     if shards == 1:
         runs.update({f"default4_{mode}": dict(kw, balance_shards=4)
                      for mode, kw in ENGINE_MODES.items() if "balanced" in mode})
+    # one engine a compiled configuration: the admission policy is the
+    # host's pick alone (``Engine.admission``, read at each admission), so a
+    # FIFO run and a balanced one share their compiled steps
+    engines = {}
     for name, kw in runs.items():
-        eng = JEngine(cfg, params, max_batch=2, capacity=ENGINE_CAP,
-                      prompt_buckets=[16, 24], **kw)
+        kw = dict(kw)
+        admission = kw.pop("admission", "fifo")
+        key = tuple(sorted(kw.items()))
+        eng = engines.get(key)
+        if eng is None:
+            eng = engines[key] = JEngine(cfg, params, max_batch=2, capacity=ENGINE_CAP,
+                                         prompt_buckets=[16, 24], **kw)
+        eng.reset_metrics()
+        eng.admission = admission
         comps = eng.run(reqs)
         meta[name] = _engine_record(eng, comps)
     return arrays, meta
@@ -247,60 +261,76 @@ def _engine_record(eng, comps):
 
 SUBPROCESS = """
 import json, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+shards = int(sys.argv[2])
+if shards > 1:
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={{shards}}"
 sys.path.insert(0, {tests!r})
 import numpy as np
 import test_torch_coplace as T
 arrays, meta = T.jax_reference()
-assert meta["shards"] == 4, meta["shards"]
+assert meta["shards"] == shards, meta["shards"]
 np.savez(os.path.join(sys.argv[1], "ref.npz"), **arrays)
 with open(os.path.join(sys.argv[1], "ref.json"), "w") as f:
     json.dump(meta, f)
 """
 
 
-def _wants_ref4(session) -> bool:
-    """Whether a selected test of this module runs at S = 4."""
-    return any(item.module.__name__ == __name__
-               and getattr(item, "callspec", None) is not None
-               and item.callspec.params.get("shards") == 4 for item in session.items)
+def _wants_ref(session, shards: int) -> bool:
+    """Whether a selected test of this module reads the reference at
+    ``shards`` devices."""
+    for item in session.items:
+        if item.module.__name__ != __name__:
+            continue
+        spec = getattr(item, "callspec", None)
+        if spec is not None and spec.params.get("shards") == shards:
+            return True
+        if shards == 1 and "ref1" in getattr(item, "fixturenames", ()):
+            return True
+    return False
 
 
-@pytest.fixture(scope="module")
-def ref4_run(tmp_path_factory):
-    """The S = 4 reference's subprocess, started once a module; ``ref4``
-    reads what it wrote."""
-    out = tmp_path_factory.mktemp("coplace_shmap_4dev")
+@pytest.fixture(scope="module", autouse=True)
+def ref_runs(request, tmp_path_factory):
+    """The JAX references' subprocesses, S = 1 and S = 4, started when the
+    module starts (each only if a selected test reads it), so they compute
+    while this module's other tests run; ``ref1`` / ``ref4`` read what they
+    wrote."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]))
-    with open(out / "stderr.txt", "w") as err:
-        proc = subprocess.Popen([sys.executable, "-c", SUBPROCESS.format(tests=TESTS),
-                                 str(out)], stdout=subprocess.DEVNULL, stderr=err,
-                                env=env, cwd=REPO)
-    yield proc, out
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    runs = {}
+    for shards in (1, 4):
+        if not _wants_ref(request.session, shards):
+            continue
+        out = tmp_path_factory.mktemp(f"coplace_shmap_{shards}dev")
+        with open(out / "stderr.txt", "w") as err:
+            proc = subprocess.Popen([sys.executable, "-c", SUBPROCESS.format(tests=TESTS),
+                                     str(out), str(shards)], stdout=subprocess.DEVNULL,
+                                    stderr=err, env=env, cwd=REPO)
+        runs[shards] = (proc, out)
+    yield runs
+    for proc, _ in runs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
-@pytest.fixture(scope="module")
-def ref1(request):
-    # the two JAX sides share the module's time: the S = 4 subprocess runs
-    # while this process computes the S = 1 reference
-    if _wants_ref4(request.session):
-        request.getfixturevalue("ref4_run")
-    assert len(jax.devices()) == 1
-    return jax_reference()
-
-
-@pytest.fixture(scope="module")
-def ref4(ref4_run):
-    proc, out = ref4_run
+def _read_ref(runs, shards):
+    proc, out = runs[shards]
     proc.wait(timeout=600)
     assert proc.returncode == 0, (out / "stderr.txt").read_text()[-4000:]
     with open(out / "ref.json") as f:
         meta = json.load(f)
     return dict(np.load(out / "ref.npz")), meta
+
+
+@pytest.fixture(scope="module")
+def ref1(ref_runs):
+    return _read_ref(ref_runs, 1)
+
+
+@pytest.fixture(scope="module")
+def ref4(ref_runs):
+    return _read_ref(ref_runs, 4)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from repro_torch.core import hybrid_attention as thattn
 from repro_torch.core import layouts as tlayouts
 from repro_torch.core import paging as tpaging
 from repro_torch.kernels import ref as tref
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as tlayers
 import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
@@ -274,18 +275,25 @@ def test_decode_refuses_a_cache_without_room_for_the_local_section():
 
 
 def test_gspmd_layouts_raise():
-    """default and coplace_shmap are ported; the GSPMD placements, which
-    need more than one device, raise and name their ROADMAP item. A
-    sliding-window layer (gemma3-1b's local layers) attends its window
-    in prefill, every head alike."""
+    """Every layout of the registry resolves; a GSPMD placement serves the
+    engine's ragged steps and raises on the lockstep path (an int length),
+    naming its ROADMAP item. A sliding-window layer (gemma3-1b's local
+    layers) attends its window in prefill, every head alike."""
     assert tlayouts.get_layout("default").name == "default"
     assert tlayouts.get_layout("coplace_shmap").name == "coplace_shmap"
+    _, tspec = _specs()
     for name in ("head", "coplace", "interleave"):
+        lay = tlayouts.get_layout(name)
+        assert lay.gspmd and lay.name == name
+        placed = lay.placed(Mesh(), batch=1, capacity=32)
+        state = dict(zip(("paged", "stream"), placed.empty_decode_state(
+            tspec, 1, 32, dtype=torch.float32, device="cpu")))
+        x = torch.zeros(1, tspec.n_kv, tspec.head_dim)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlayouts.get_layout(name)
+            placed.decode(tspec, state, torch.zeros(1, tspec.n_q, tspec.head_dim), x, x,
+                          8, do_select=True)
     with pytest.raises(ValueError, match="unknown"):
         tlayouts.get_layout("nope")
-    _, tspec = _specs()
     rng = np.random.default_rng(0)
     q, k, v = _t(_np(rng, 1, 12, 8, 16)), _t(_np(rng, 1, 12, 4, 16)), _t(_np(rng, 1, 12, 4, 16))
     got = thattn.prefill_attention(dataclasses.replace(tspec, window=8), q, k, v)

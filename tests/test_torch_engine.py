@@ -315,11 +315,12 @@ def test_chunked_prefill_validation(smollm):
     (dict(rebalance="bogus"), ValueError, "valid triggers"),
     # the JAX engine's gate: verify steps move phases by variable counts
     (dict(decode_window=4, spec_tokens=2), ValueError, "decode_window > 1"),
-    (dict(layout="head"), NotImplementedError, "ROADMAP"),
-    (dict(layout="interleave"), NotImplementedError, "ROADMAP"),
+    # the GSPMD layouts build; what they do not serve yet raises
+    (dict(layout="head", spec_tokens=2), NotImplementedError, "ROADMAP"),
+    (dict(layout="interleave", hot_pages=4), NotImplementedError, "ROADMAP"),
 ])
 def test_unsupported_engine_options_raise(smollm, kw, error, what):
-    """The options not ported raise and name their ROADMAP item; the ported
+    """The options not served raise and name their ROADMAP item; the ported
     ``spec_tokens`` builds, and its gates, the tier budget's and the
     rebalance trigger's raise the JAX engine's errors."""
     if error is None:

@@ -180,7 +180,8 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "scripts").glob("torch_*.py"))
-             + sorted((ROOT / "examples").glob("torch_*.py")))
+             + sorted((ROOT / "examples").glob("torch_*.py"))
+             + [ROOT / "tests" / "_torch_mesh_worker.py"])
     assert len(files) > 15
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/serving/sampling.py",
@@ -195,7 +196,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/core/gating.py", "src/repro_torch/core/tree.py",
             "src/repro_torch/runtime/train.py", "src/repro_torch/launch/train.py",
             "examples/torch_quickstart.py",
-            "examples/torch_head_identification.py"} <= names
+            "examples/torch_head_identification.py",
+            "src/repro_torch/launch/mesh.py", "src/repro_torch/runtime/sharding.py",
+            "src/repro_torch/runtime/collectives.py",
+            "tests/_torch_mesh_worker.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
