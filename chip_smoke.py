@@ -158,14 +158,31 @@ then, each phase failing the run with a nonzero exit:
      timed at the rank blocks' shapes; (a) an NCCL group of one rank,
      llama3-8b at full width and depth, the default engine and each
      layout's, packed and chunked, captured, on 4 requests of 2048-8192
-     tokens (16 new each): launch counts exact, tokens equal to the default
-     engine's up to a near-tie (``head``'s exactly), decode steps/s beside
+     tokens (16 new each, one sampled): launch counts exact (one rank
+     holds every page, so every layout runs the default's kernels), tokens
+     equal to the default engine's up to a near-tie, decode steps/s beside
      the default's; (b) two ranks spawned on cuda:0 over gloo (this script
      with ``--gspmd-rank``), llama3-8b cut to 8 layers, eager: ``head`` and
      ``coplace`` on (1, 2), ``interleave`` on (2, 1) at 3 slots (tokens
      striped within pages), packed and chunked; both ranks' tokens equal
      and equal to the one-rank default engine's up to a near-tie, one decode
-     step's attention output within a bf16 step of the default's.
+     step's attention output within a bf16 step of the default's; and
+     ``coplace`` with speculative decode (the n-gram draft) and with tiered
+     residency (a request forced cold), ``head`` on (2, 1) with the batch
+     on 'data' and retire-triggered rebalancing that moves a slot's row to
+     the other rank: tokens and counters equal across ranks and to the
+     one-rank default engine's with the same options; (c) in (a)'s NCCL
+     group, each layout beside the default with speculative decode (k = 4,
+     the n-gram draft chunked, the replay draft packed; one request
+     sampled): tokens equal to the layout's non-speculative engine's and
+     the default's up to a near-tie, the verify step's device time and the
+     mean accepted length beside the default's; with tiered residency
+     (phase 9's budget, one request forced cold): tokens equal to the
+     all-resident engine's, tier counters equal to the default's, the far
+     store's GB/s; ``coplace`` and ``interleave`` with retire-triggered
+     rebalancing: tokens equal to rebalance off's, a migration counted;
+     and chunk_attention at the verify's shapes on a rank's block timed
+     against its plain version and SDPA.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -1830,10 +1847,25 @@ def spec_launches(s, n_l, k, streaming):
             "combine_partials": 0, "flash_attention_bwd": 0}
 
 
+# lockstep replays already made: (params, config, capacity, prompt, tokens)
+# -> logit rows. Phase 15 holds several layouts' traces to one reference,
+# whose near-ties would otherwise be replayed once a layout
+_LOCKSTEP: dict = {}
+
+
 def lockstep_logits(cfg, params, prompt, tokens, capacity, dev):
     """The logits behind each of ``tokens`` for one request, replayed alone
     through the lockstep steps fed ``tokens`` (the prefill's first, then a
-    decode step a token): a slot's trace depends on its own request alone."""
+    decode step a token): a slot's trace depends on its own request alone.
+    A replay of the same request and tokens is made once."""
+    key = (id(params), cfg, capacity, tuple(int(t) for t in prompt),
+           tuple(int(t) for t in tokens))
+    if key not in _LOCKSTEP:
+        _LOCKSTEP[key] = _lockstep_logits(cfg, params, prompt, tokens, capacity, dev)
+    return _LOCKSTEP[key]
+
+
+def _lockstep_logits(cfg, params, prompt, tokens, capacity, dev):
     from repro_torch.runtime import serve as serve_rt
 
     scfg = serve_rt.ServeConfig(capacity=capacity)
@@ -3803,13 +3835,30 @@ GSPMD_B_CASES = (("head", 2, 2), ("coplace", 2, 2), ("interleave", 1, 3))
 # layout's on the same state: both round their f32 result to bf16 once, from
 # sums taken in other orders, so they may sit a bf16 step apart
 GSPMD_STEP_RTOL, GSPMD_STEP_ATOL = 2.0 ** -7, 1e-5
+# 15b's rebalanced case: head on (2, 1) at 4 slots, the batch over 'data';
+# a CPU run of this seeded schedule at the cut moves slot 2 (rank 1) to slot
+# 0 (rank 0). 15b's tiered case: each slot's page budget (a slot's 66
+# pages are all pinned, so only the forced request spills)
+GSPMD_B_REBALANCE = dict(prompts=(1024, 2048), n=4, new=8, seed=6)
+GSPMD_B_HOT_PAGES = 48
+# ... on GSPMD_B's prompts with 16 new tokens each, so that a decoding slot
+# reaches a selection boundary with more than a share window to go
+GSPMD_B_TIERED = dict(GSPMD_B, new=16)
+# 15b's further cases: (name, layout, 'model' ranks, slots, engine options,
+# workload); chunked, eager, the tiered request forced cold at its first
+# selection boundary after GSPMD_B_FORCE_AFTER decode steps
+GSPMD_B_FORCE_AFTER = 1
+GSPMD_B_EXTRA = (("spec", "coplace", 2, 2, dict(spec_tokens=SPEC_K, draft="ngram"), GSPMD_B),
+                 ("tiered", "coplace", 2, 2, dict(hot_pages=GSPMD_B_HOT_PAGES), GSPMD_B_TIERED),
+                 ("rebalanced", "head", 1, 4, dict(rebalance="retire"), GSPMD_B_REBALANCE))
 GSPMD_TIMEOUT = 600
 SMOKE_DIR = os.path.join(ROOT, ".smoke")
 
 
-def gspmd_workload(cfg, prompts, n, new, seed):
+def gspmd_workload(cfg, prompts, n, new, seed, sampled=False):
     """(requests, capacity): ``n`` seeded prompts of ``prompts`` tokens (the
-    first the longest), ``new`` tokens each."""
+    first the longest), ``new`` tokens each; with ``sampled`` the last
+    request samples (SPEC_SAMPLING), the others are greedy."""
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(seed)
@@ -3817,15 +3866,94 @@ def gspmd_workload(cfg, prompts, n, new, seed):
     lens[0] = prompts[1]
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, int(m)).astype(np.int32),
                     max_new=new) for i, m in enumerate(lens)]
+    if sampled:
+        reqs[-1] = dataclasses.replace(reqs[-1], **SPEC_SAMPLING)
     return reqs, int(lens.max() + new + cfg.h2eal.page_size)
 
 
-def gspmd_launches(s, cfg, layout, n_prefills):
+def check_ties_split(cfg, params, reqs, got, want, capacity, dev, what):
+    """``check_ties`` of the greedy requests and, with their sampling, of
+    the sampled ones (SPEC_SAMPLING). Returns the near-tie divergences."""
+    ties = 0
+    for sampled in (False, True):
+        part = [r for r in reqs if (r.temperature > 0) == sampled]
+        uids = {r.uid for r in part}
+        if part:
+            ties += check_ties(cfg, params, part, {u: got[u] for u in uids},
+                               {u: want[u] for u in uids},
+                               SPEC_SAMPLING if sampled else {}, capacity, dev,
+                               BF16_LOGIT_BAND, what, relative=True)
+    return ties
+
+
+def serve_forced(eng, reqs, after=None):
+    """Serve ``reqs`` a poll at a time, unguarded (a tiered select step
+    reads its digest, a verify step its accepted counts), forcing every
+    spillable page of the first decoding slot cold at a selection boundary
+    once ``after`` decode steps have run (``Engine.tier_force_spill``; no
+    force where ``after`` is None). Returns (launch counts, wall seconds,
+    (uid, pages forced) or None)."""
+    from repro_torch.kernels import ops
+
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    forced, w = None, eng.share_window
+    t0 = time.perf_counter()
+    while eng.busy():
+        b = eng.batch
+        if forced is None and after is not None and eng.stats.decode_steps >= after:
+            due = [i for i in range(b.max_batch) if b.active[i] and b.phase[i] % w == 0
+                   and b.remaining[i] > w]
+            if due:
+                forced = (int(b.uid[due[0]]), eng.tier_force_spill(int(b.uid[due[0]])))
+        eng.poll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    eng.finalize()
+    return got, wall, forced
+
+
+SPEC_COUNTERS = ("spec_steps", "spec_slot_steps", "spec_drafted", "spec_accepted")
+TIER_COUNTERS = ("tier_hits", "tier_misses", "tier_spills", "tier_fills", "tier_prefetch",
+                 "tier_fill_batches", "tier_spill_batches", "tier_gather_batches",
+                 "tier_batch_pages_max", "tier_archived")
+REBALANCE_COUNTERS = ("rebalance_checks", "rebalances", "rebalance_skipped", "migrations",
+                      "migrated_tokens")
+
+
+def counters(stats, names):
+    return {n: getattr(stats, n) for n in names}
+
+
+def attends_by_partials(eng) -> bool:
+    """The engine's retrieval decode runs per-rank partials merged by
+    ``combine_partials``: a layout that shards pages over more than one
+    rank (one rank holding every page runs the default's kernels)."""
+    return eng._place is not None and eng._place.partials
+
+
+def gspmd_tiered_launches(s, cfg, split, replays):
+    """A GSPMD layout's (or the default's) chunked run with tiering: its
+    plain run's launches, and each replay of a select step launches that
+    step's kernels again; ``split`` as ``attends_by_partials``."""
+    per = layer_launches(cfg, split)
+    out = gspmd_launches(s, cfg, split, 0)
+    out["page_score"] += replays * per["select"]
+    out["paged_attention"] += replays * per["decode"]
+    out["paged_attention_partial"] += replays * per["partial"]
+    out["combine_partials"] += replays * per["partial"]
+    return out
+
+
+def gspmd_launches(s, cfg, split, n_prefills):
     """The launches of a GSPMD-layout engine run from its step counts: the
-    default engine's, where the layouts that shard pages attend the
-    retrieval heads by ``paged_attention_partial`` and ``combine_partials``
-    (one each a layer a decode step) in place of ``paged_attention``."""
-    split = layout != "head"
+    default engine's, where ``split`` (``attends_by_partials``) the
+    retrieval heads attend by ``paged_attention_partial`` and
+    ``combine_partials`` (one each a layer a decode step) in place of
+    ``paged_attention``."""
     exp = window_launches(s, cfg, 0, split)
     exp["combine_partials"] = exp["paged_attention_partial"]
     exp["flash_attention"] = layer_launches(cfg)["prefill"] * n_prefills
@@ -3929,7 +4057,8 @@ def gspmd_rank(rank: int, store: str, out: str) -> int:
                 mesh=mesh.shape, coords=list(mesh.coords), max_batch=max_batch,
                 tokens={str(u): c.tokens for u, c in comps.items()},
                 launches=dict(ops.LAUNCHES),
-                expect=gspmd_launches(s, cfg, layout, 0 if chunk else len(reqs)),
+                expect=gspmd_launches(s, cfg, attends_by_partials(eng),
+                                      0 if chunk else len(reqs)),
                 wall=wall, decode_steps=s.decode_steps, tokens_out=s.tokens_out,
                 cache_capacity=eng.cache_capacity,
                 block=list(eng.batch.serve["layers"][0]["paged"].k_pages.shape))
@@ -3939,10 +4068,52 @@ def gspmd_rank(rank: int, store: str, out: str) -> int:
                                              res["cases"][f"{layout}_chunked"]["cache_capacity"],
                                              dev)
         res["cases"][f"{layout}_step"] = dict(err=err_, excess=over, tokens=n_tok)
+    for name, layout, model, max_batch, kw, workload in GSPMD_B_EXTRA:
+        res["cases"][name] = gspmd_extra_case(cfg, params, dev, name, layout,
+                                              meshes[model], max_batch, kw, workload)
     dist.destroy_process_group()
     with open(f"{out}.{rank}", "w") as f:
         json.dump(res, f)
     return 0
+
+
+def gspmd_extra_case(cfg, params, dev, name, layout, mesh, max_batch, kw, workload):
+    """One of GSPMD_B_EXTRA's engines (or, with ``mesh`` None, the one-rank
+    default engine of its options), chunked and eager, its tiered request
+    forced cold: tokens, counters, the migrations' (src, dst), the pages
+    forced, the launch counts and the wall time."""
+    from repro_torch.serving.engine import Engine
+
+    reqs, capacity = gspmd_workload(cfg, **workload)
+    eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
+                 prompt_buckets=sorted({len(r.prompt) for r in reqs}),
+                 prefill_chunk=ENGINE_CHUNK, layout=layout if mesh is not None else "default",
+                 mesh=mesh, device=dev, eager=True, **kw)
+    moves, migrate, calls, run = [], eng._migrate_slot, {}, eng._graphs.run
+
+    def logged(src, dst):
+        moves.append([src, dst])
+        migrate(src, dst)
+
+    def counted(step):
+        calls[step] = calls.get(step, 0) + 1
+        return run(step)
+    eng._migrate_slot, eng._graphs.run = logged, counted
+    got, wall, forced = serve_forced(eng, reqs, GSPMD_B_FORCE_AFTER if eng.hot_pages else None)
+    s = eng.stats
+    if eng.spec_tokens:
+        expect = spec_launches(s, cfg.num_layers, SPEC_K, False)
+    else:
+        expect = gspmd_tiered_launches(s, cfg, attends_by_partials(eng),
+                                       calls.get("decode_select", 0) - s.select_steps)
+    out = dict(tokens={str(u): c.tokens for u, c in eng.completions.items()},
+               counters=counters(s, SPEC_COUNTERS + TIER_COUNTERS + REBALANCE_COUNTERS),
+               mean_accepted_len=s.mean_accepted_len, moves=moves, forced=forced,
+               launches=got, expect=expect, wall=wall, decode_steps=s.decode_steps,
+               far=None if eng._tier is None else [eng._tier.h2d_bytes, eng._tier.d2h_bytes])
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_gspmd_kernels(ops, ref, timer, dev, cfg):
@@ -3950,7 +4121,8 @@ def time_gspmd_kernels(ops, ref, timer, dev, cfg):
     the decode step of the layouts that shard pages, 4 slots at contexts
     STRIPE_CTX of the 15a capacity (a top-128 selection of each slot's
     selectable pages, the [sink | selected | local] list), on one rank's
-    block: the whole cache (15a, one rank) and the first half of its pages
+    block: the whole cache (a rank holding every page, which 15a serves
+    with the default's kernels instead) and the first half of its pages
     (15b's rank 0 of the 'model' axis of 2), merged over N = 1 and N = 2
     partials. Returns (partial cases, combine cases), not in the kernel
     totals (``main`` False)."""
@@ -3998,7 +4170,7 @@ def time_gspmd_kernels(ops, ref, timer, dev, cfg):
         n_valid = int(v_l.sum().item())
         b_ms, b_by = bound(nbytes(q, *args[3:], *got) + 2 * n_valid * d * 2,
                            4 * d * g * n_valid, torch.bfloat16)
-        what = "15a one rank" if n_ranks == 1 else "15b rank 0 of model 2"
+        what = "every page on one rank" if n_ranks == 1 else "15b rank 0 of model 2"
         parts.append(dict(
             case=f"gspmd block ({what}) B={b} Hq={nr * g} Hr={nr} C={c_l} of {c} N={n} "
                  f"P={p} D={d} ctx={list(STRIPE_CTX)} valid={n_valid}", dtype="bfloat16",
@@ -4023,30 +4195,22 @@ def time_gspmd_kernels(ops, ref, timer, dev, cfg):
     return parts, combs
 
 
-def phase15a(dev, cfg, params):
-    """15a: an NCCL group of one rank on the card, llama3-8b at full width and
-    depth (``params``), captured steps: the default engine and each GSPMD
-    layout's, packed and chunked, on GSPMD_A's workload; launch counts exact,
-    no capture after construction, no read from the card in a chunked step,
-    tokens equal to the default engine's up to a near-tie. Returns the launch
-    counts by path."""
-    import torch.distributed as dist
-
-    from repro_torch.launch import mesh as meshlib
+def phase15a(dev, cfg, params, mesh):
+    """15a: an NCCL group of one rank on the card (``mesh``), llama3-8b at
+    full width and depth (``params``), captured steps: the default engine and
+    each GSPMD layout's, packed and chunked, on GSPMD_A's workload (its last
+    request sampled); launch counts exact, no capture after construction, no
+    read from the card in a chunked step, tokens equal to the default
+    engine's (one rank holds every page, and runs the default's kernels).
+    Returns (launch counts by path, the traces by (layout, mode))."""
     from repro_torch.serving.engine import Engine
 
-    os.makedirs(SMOKE_DIR, exist_ok=True)
-    store = os.path.join(SMOKE_DIR, "nccl1.store")
-    if os.path.exists(store):
-        os.remove(store)
-    torch.cuda.set_device(dev)
-    meshlib.init_distributed("nccl", store_path=store, rank=0, world_size=1)
-    mesh = meshlib.make_local_mesh()
-    reqs, capacity = gspmd_workload(cfg, **GSPMD_A)
+    reqs, capacity = gspmd_workload(cfg, **GSPMD_A, sampled=True)
     buckets = sorted({len(r.prompt) for r in reqs})
     log(f"15a: an NCCL group of one rank (backend {mesh.backend}, mesh {mesh.shape}); "
         f"{len(reqs)} requests on {ENGINE_BATCH} slots, prompts {buckets}, "
-        f"{GSPMD_A['new']} new tokens each, capacity {capacity}, captured steps")
+        f"{GSPMD_A['new']} new tokens each (uid {reqs[-1].uid} sampled: "
+        f"{SPEC_SAMPLING}), capacity {capacity}, captured steps")
     by_path, traces, rates = {}, {}, {}
     for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
         for layout in ("default",) + GSPMD_LAYOUTS:
@@ -4059,12 +4223,9 @@ def phase15a(dev, cfg, params):
             what = f"15a engine {layout} ({mode})"
             got, wall, _ = serve_polled(eng, reqs, what, guard=bool(chunk))
             s = eng.stats
-            if layout == "default":
-                expect = dict(window_launches(s, cfg, 0, False),
-                              flash_attention=0 if chunk else
-                              layer_launches(cfg)["prefill"] * len(reqs))
-            else:
-                expect = gspmd_launches(s, cfg, layout, 0 if chunk else len(reqs))
+            # one rank holds every page: each layout runs the default's kernels
+            expect = gspmd_launches(s, cfg, attends_by_partials(eng),
+                                    0 if chunk else len(reqs))
             if set(sizes.values()) != {1} or eng.jit_cache_sizes() != sizes:
                 fail(f"{what}: captures {sizes} -> {eng.jit_cache_sizes()}")
             if got != expect:
@@ -4082,17 +4243,195 @@ def phase15a(dev, cfg, params):
                 f"combine {got['combine_partials']}")
             del eng
             torch.cuda.empty_cache()
+        # one rank holds every page: each layout runs the default's kernels
+        # on the same inputs, so its tokens are the default's exactly
         for layout in GSPMD_LAYOUTS:
-            ties = check_ties(cfg, params, reqs, traces[(layout, mode)],
-                              traces[("default", mode)], {}, capacity, dev, BF16_LOGIT_BAND,
-                              f"15a engine {layout} ({mode})", relative=True)
-            log(f"15a engine {layout} ({mode}): tokens equal to the default engine's "
-                f"{traces[(layout, mode)] == traces[('default', mode)]} (near-tie "
-                f"divergences {ties})")
-        if traces[("head", mode)] != traces[("default", mode)]:
-            fail(f"15a engine head ({mode}): one rank runs the default kernels on the same "
-                 f"inputs, yet its tokens differ")
-    dist.destroy_process_group()
+            bad = first_divergence(traces[(layout, mode)], traces[("default", mode)])
+            if bad is not None:
+                fail(f"15a engine {layout} ({mode}): one rank runs the default's kernels "
+                     f"on the same inputs, yet its tokens differ at (uid, index) {bad}")
+            log(f"15a engine {layout} ({mode}): tokens equal to the default engine's")
+    return by_path, traces
+
+
+def check_verify_blocks(ops, ref, timer, dev, cfg):
+    """chunk_attention at the speculative verify's shapes on a rank's block
+    (bf16, k = SPEC_K, 4 slots at contexts STRIPE_CTX of the 15a capacity):
+    the whole buffer, as 15c's one rank attends it and as every rank of a
+    layout that shards pages attends it once the owners' tiles are summed;
+    and ``head``'s rank of a 'model' axis of 2, half the kv heads. Each held
+    to its plain version with the bf16 bound of phase 2, timed beside it,
+    SDPA and its bound. Returns the cases, not in the kernel totals."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cap = gspmd_workload(cfg, **GSPMD_A)[1]
+    g = head_split(cfg)[2]
+    cases = []
+    for kind, (q, kb, vb, valid, _) in verify_attention_inputs(
+            gen, dev, cfg, torch.bfloat16, cap, SPEC_K).items():
+        for what, n_h in (("one rank / a page-sharding rank, summed buffer", kb.shape[1]),
+                          ("head rank of model 2", kb.shape[1] // 2)):
+            qh, kh, vh = (q[:, :, :n_h * g].contiguous(), kb[:, :n_h].contiguous(),
+                          vb[:, :n_h].contiguous())
+            vd = valid[:, :n_h].contiguous()
+            run = lambda: ops.chunk_attention(qh, kh, vh, vd)
+            out = run()
+            want = ref.chunk_attention_ref(*widened(qh, kh, vh), vd)
+            p_term = ref.chunk_attention_ref(*widened(qh, kh, vh.abs()), vd)
+            torch.cuda.synchronize()
+            lib_mask = vd.repeat_interleave(g, dim=1)
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh.transpose(1, 2), kh, vh, attn_mask=lib_mask, enable_gqa=True)
+            keys = int(vd.any(dim=2).sum().item())
+            b_ms, b_by = bound(nbytes(qh, vd, out) + 2 * keys * kh.shape[-1] * 2,
+                               4 * kh.shape[-1] * g * int(vd.sum().item()), torch.bfloat16)
+            cases.append(dict(
+                case=f"verify on a rank's block ({what}) {kind} k={SPEC_K} B={qh.shape[0]} "
+                     f"Hq={qh.shape[2]} Hkv={kh.shape[1]} T={kh.shape[2]} D={qh.shape[3]}",
+                dtype="bfloat16", max_abs_err=err(out, want),
+                excess=p_excess(out, want, p_term), tol=P_TOL_TEXT, ms=timer.ms(run, 10),
+                plain_ms=timer.ms(lambda: ref.chunk_attention_ref(qh, kh, vh, vd), 3),
+                library_ms=timer.ms(lib, 10), bound_ms=b_ms, bound_by=b_by, main=False))
+        del q, kb, vb, valid
+        torch.cuda.empty_cache()
+    return cases
+
+
+def phase15c(dev, cfg, params, mesh, traces, card):
+    """15c: in 15a's NCCL group of one rank, llama3-8b at full width and
+    depth, captured: each GSPMD layout beside the default with speculative
+    decode (k = SPEC_K; the n-gram draft chunked, the replay draft of the
+    layout's own 15a trace packed), with tiered residency (TIER_HOT_PAGES,
+    the first decoding request forced cold at a selection boundary after
+    TIER_FORCE_AFTER decode steps) and, on ``coplace`` and ``interleave``,
+    with retire-triggered rebalancing; GSPMD_A's workload, one request
+    sampled. Tokens are held to 15a's ``traces`` of the same layout and to
+    the default engine's; launch counts exact. Returns launch counts by
+    path."""
+    from repro_torch.core import cache as cachelib
+    from repro_torch.serving.draft import ReplayDraft
+    from repro_torch.serving.engine import Engine
+
+    reqs, capacity = gspmd_workload(cfg, **GSPMD_A, sampled=True)
+    base = dict(max_batch=ENGINE_BATCH, capacity=capacity,
+                prompt_buckets=sorted({len(r.prompt) for r in reqs}), device=dev)
+    n_l = cfg.num_layers
+    by_path, spec, tier = {}, {}, {}
+    mesh_of = lambda layout: None if layout == "default" else mesh
+
+    def build(layout, what, **kw):
+        eng = Engine(cfg, params, layout=layout, mesh=mesh_of(layout), **base, **kw)
+        sizes = eng.jit_cache_sizes()
+        if set(sizes.values()) != {1}:
+            fail(f"{what}: captures {sizes}")
+        return eng, sizes
+
+    def held(eng, sizes, got, expect, what):
+        if got != expect:
+            fail(f"{what} did not launch the kernels as expected: {got} vs {expect}")
+        if eng.jit_cache_sizes() != sizes:
+            fail(f"{what} captured again while serving: {sizes} -> {eng.jit_cache_sizes()}")
+        return {u: c.tokens for u, c in eng.completions.items()}
+
+    # speculative decode
+    for layout in ("default",) + GSPMD_LAYOUTS:
+        for draft, mode, chunk in (("ngram", "chunked", ENGINE_CHUNK), ("replay", "packed", None)):
+            what = f"15c engine {layout} (spec {draft}, {mode})"
+            eng, sizes = build(layout, what, prefill_chunk=chunk, spec_tokens=SPEC_K,
+                               draft=draft if draft == "ngram" else
+                               ReplayDraft(traces[(layout, mode)]))
+            times = ReplayTimes(eng._graphs)
+            got, wall, _ = serve_forced(eng, reqs)
+            s = eng.stats
+            expect = dict(spec_launches(s, n_l, SPEC_K, False),
+                          flash_attention=0 if chunk else
+                          layer_launches(cfg)["prefill"] * len(reqs))
+            toks = held(eng, sizes, got, expect, what)
+            own = check_ties_split(cfg, params, reqs, toks, traces[(layout, mode)], capacity,
+                                   dev, what + " against its non-speculative engine")
+            ms = times.median_ms()["verify"]
+            spec[(layout, draft)] = (toks, ms, s.mean_accepted_len)
+            d_toks, d_ms, d_acc = spec[("default", draft)]
+            # one rank: the default's kernels on the same inputs (the verify
+            # attends through chunk_attention, the decode through
+            # paged_attention, so against the non-speculative engine only up
+            # to a near-tie, as in phase 8)
+            if toks != d_toks or s.mean_accepted_len != d_acc:
+                fail(f"{what}: tokens or acceptance differ from the default layout's "
+                     f"speculative engine's ({first_divergence(toks, d_toks)}, "
+                     f"{s.mean_accepted_len} vs {d_acc})")
+            by_path[f"gspmd_spec_{layout}_{draft}"] = got
+            log(f"{what} on {card}: {s.tokens_out} tokens in {wall:.3f}s = "
+                f"{s.tokens_out / wall:.2f} tok/s; verify steps {s.spec_steps}, median "
+                f"device ms a verify step {ms:.4f} (default {d_ms:.4f}), mean accepted "
+                f"length {s.mean_accepted_len:.3f} (default {d_acc:.3f}); tokens equal the "
+                f"layout's non-speculative engine's {toks == traces[(layout, mode)]} "
+                f"(near-tie divergences {own}), equal to the default's")
+            del eng, times
+            torch.cuda.empty_cache()
+
+    # tiered residency
+    for layout in ("default",) + GSPMD_LAYOUTS:
+        what = f"15c engine {layout} (tiered, hot_pages={TIER_HOT_PAGES})"
+        eng, sizes = build(layout, what, prefill_chunk=ENGINE_CHUNK, hot_pages=TIER_HOT_PAGES)
+        calls, run = {}, eng._graphs.run
+
+        def counted(step, run=run, calls=calls):
+            calls[step] = calls.get(step, 0) + 1
+            return run(step)
+        eng._graphs.run = counted
+        got, wall, forced = serve_forced(eng, reqs, TIER_FORCE_AFTER)
+        s, t = eng.stats, eng._tier
+        # a page's K and V rows in every layer: one rank's block is the whole cache
+        page = sum(x[0, :, 0].nbytes for x in cachelib.kv_page_tensors(eng.batch.serve))
+        expect = gspmd_tiered_launches(s, cfg, attends_by_partials(eng),
+                                       calls["decode_select"] - s.select_steps)
+        toks = held(eng, sizes, got, expect, what)
+        if toks != traces[(layout, "chunked")]:
+            fail(f"{what}: tokens differ from the all-resident engine's at "
+                 f"{first_divergence(toks, traces[(layout, 'chunked')])}")
+        if forced is None or forced[1] == 0 or not s.tier_misses == s.tier_fills > 0:
+            fail(f"{what}: forced {forced}, misses {s.tier_misses}, fills {s.tier_fills}: "
+                 f"the forced request must miss and be filled")
+        c = counters(s, TIER_COUNTERS)
+        tier[layout] = c
+        if c != tier["default"]:
+            fail(f"{what}: tier counters {c} differ from the default layout's "
+                 f"{tier['default']}")
+        if (t.h2d_bytes, t.d2h_bytes) != ((s.tier_fills + s.tier_prefetch) * page,
+                                          s.tier_archived * page):
+            fail(f"{what}: the far store moved {t.h2d_bytes} / {t.d2h_bytes} B, the "
+                 f"counters say {(s.tier_fills + s.tier_prefetch) * page} / "
+                 f"{s.tier_archived * page}")
+        rate = {d: (b, ms, b / (ms * 1e-3) / 1e9) for d, (b, ms) in t.transfer_times().items()}
+        by_path[f"gspmd_tiered_{layout}"] = got
+        log(f"{what} on {card}: {s.tokens_out} tokens in {wall:.3f}s; tokens equal the "
+            f"all-resident engine's; uid {forced[0]} forced cold ({forced[1]} pages); tier "
+            f"counters {c} (equal to the default layout's); far store "
+            + ", ".join(f"{d} {b} B in {ms:.3f} ms = {r:.2f} GB/s"
+                        for d, (b, ms, r) in sorted(rate.items())))
+        del eng
+        torch.cuda.empty_cache()
+
+    # rebalancing: a CPU run of this schedule moves slot 3 to slot 0
+    for layout in ("coplace", "interleave"):
+        what = f"15c engine {layout} (rebalanced, retire)"
+        eng, sizes = build(layout, what, prefill_chunk=ENGINE_CHUNK, rebalance="retire")
+        got, wall, _ = serve_polled(eng, reqs, what)
+        s = eng.stats
+        toks = held(eng, sizes, got, gspmd_launches(s, cfg, attends_by_partials(eng), 0),
+                    what)
+        if toks != traces[(layout, "chunked")]:
+            fail(f"{what}: tokens differ from rebalance off's at "
+                 f"{first_divergence(toks, traces[(layout, 'chunked')])}")
+        if s.migrations < 1 or sizes.get("migrate") != 1:
+            fail(f"{what}: migrations {s.migrations}, captures {sizes}")
+        by_path[f"gspmd_rebalanced_{layout}"] = got
+        log(f"{what} on {card}: {s.tokens_out} tokens in {wall:.3f}s; tokens equal "
+            f"rebalance off's; checks {s.rebalance_checks} applied {s.rebalances} "
+            f"migrations {s.migrations} ({s.migrated_tokens} tokens), {eng.rebalance_banks} "
+            f"banks; migrate captured once")
+        del eng
+        torch.cuda.empty_cache()
     return by_path
 
 
@@ -4183,36 +4522,105 @@ def phase15b(dev, card):
             f"{max(x['excess'] for x in st):.3e} ({st[0]['tokens']} context tokens)")
         if max(x["excess"] for x in st) > 0:
             fail(f"15b decode step {layout}: the attention output leaves the band")
+    by_path.update(check_gspmd_extra(cfg, params, dev, res))
     del params
     torch.cuda.empty_cache()
     return by_path
 
 
+def check_gspmd_extra(cfg, params, dev, res):
+    """15b's further cases (GSPMD_B_EXTRA) of both ranks' results ``res``
+    against each other and the one-rank default engine with the same
+    options, run here: launch counts exact, tokens and counters equal across
+    ranks, tokens equal to the default's up to a near-tie and counters equal
+    to its (where the tokens are), the forced request missed and filled, a
+    migration that crossed ranks. Returns rank 0's launch counts by path."""
+    by_path = {}
+    for name, layout, model, max_batch, kw, workload in GSPMD_B_EXTRA:
+        one = gspmd_extra_case(cfg, params, dev, name, layout, None, max_batch, kw, workload)
+        a, b = res[0]["cases"][name], res[1]["cases"][name]
+        what = f"15b engine {layout} ({name}, mesh (data, model) = {(2 // model, model)})"
+        for r, c in enumerate((a, b, one)):
+            if c["launches"] != c["expect"]:
+                fail(f"{what} {('rank 0', 'rank 1', 'one-rank default')[r]} did not launch "
+                     f"the kernels as expected: {c['launches']} vs {c['expect']}")
+        if a["tokens"] != b["tokens"] or a["counters"] != b["counters"]:
+            fail(f"{what}: the two ranks' tokens or counters differ")
+        w_reqs, w_cap = gspmd_workload(cfg, **workload)
+        ties = check_ties(cfg, params, w_reqs, {int(u): t for u, t in a["tokens"].items()},
+                          {int(u): t for u, t in one["tokens"].items()}, {}, w_cap, dev,
+                          BF16_LOGIT_BAND, what, relative=True)
+        if not ties and a["counters"] != one["counters"]:
+            fail(f"{what}: counters {a['counters']} differ from the one-rank default "
+                 f"engine's {one['counters']}")
+        if name == "tiered" and not (a["forced"] and a["forced"][1] > 0
+                                     and a["counters"]["tier_misses"]
+                                     == a["counters"]["tier_fills"] > 0):
+            fail(f"{what}: forced {a['forced']}, counters {a['counters']}: the forced "
+                 f"request must miss and be filled")
+        if name == "tiered" and [x + y for x, y in zip(a["far"], b["far"])] != one["far"]:
+            fail(f"{what}: the ranks' far stores moved {a['far']} + {b['far']} B, the "
+                 f"one-rank engine {one['far']}: each page's rows lie on one rank")
+        rows = max_batch // (2 // model)
+        if name == "rebalanced" and not any(s_ // rows != d_ // rows for s_, d_ in a["moves"]):
+            fail(f"{what}: no migration moved a slot's row to the other rank ({a['moves']})")
+        if name == "spec" and not a["counters"]["spec_steps"] > 0:
+            fail(f"{what}: no verify step ran")
+        log(f"{what}: tokens and counters equal across ranks; equal to the one-rank "
+            f"default engine's {a['tokens'] == one['tokens']} (near-tie divergences "
+            f"{ties}), counters equal {a['counters'] == one['counters']} "
+            f"{ {k: v for k, v in a['counters'].items() if v} }; mean accepted length "
+            f"{a['mean_accepted_len']:.3f} (default {one['mean_accepted_len']:.3f}); "
+            f"migrations {a['moves']}; forced cold {a['forced']}; far-store bytes rank 0 "
+            f"{a['far']} rank 1 {b['far']} (one rank {one['far']}); {a['decode_steps']} "
+            f"decode steps in {a['wall']:.3f}s (one-rank default {one['wall']:.3f}s); "
+            f"launches rank 0 {a['launches']}")
+        by_path[f"gspmd2_{name}_{layout}"] = a["launches"]
+    return by_path
+
+
 def phase15(ops, ref, dev, card):
     """Phase 15: the GSPMD layouts. Returns (launches by path, partial cases,
-    combine cases)."""
+    combine cases, verify cases)."""
+    import torch.distributed as dist
+
     from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as meshlib
 
     t15 = time.perf_counter()
     cfg = get_arch(ARCH)
     timer = Timer(dev)
     parts, combs = time_gspmd_kernels(ops, ref, timer, dev, cfg)
+    verify = check_verify_blocks(ops, ref, timer, dev, cfg)
     del timer
-    for c in parts + combs:
+    for c in parts + combs + verify:
         log(f"phase 15 kernel [{c['case']}] kernel_ms={c['ms']:.4f} "
             f"plain_ms={c['plain_ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
-            f"max_err={c['max_abs_err']:.3e} excess={c['excess']:.3e} (tol {c['tol']})")
+            + (f"library_ms={c['library_ms']:.4f} " if c["library_ms"] is not None else "")
+            + f"max_err={c['max_abs_err']:.3e} excess={c['excess']:.3e} (tol {c['tol']})")
         if not c["excess"] <= 0.0:
             fail(f"phase 15 kernel case disagrees with its plain version: {c['case']}")
     params = full_params(dev, cfg)
-    by_path = phase15a(dev, cfg, params)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    store = os.path.join(SMOKE_DIR, "nccl1.store")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(dev)
+    meshlib.init_distributed("nccl", store_path=store, rank=0, world_size=1)
+    mesh = meshlib.make_local_mesh()
+    by_path, traces = phase15a(dev, cfg, params, mesh)
+    t15c = time.perf_counter()
+    by_path.update(phase15c(dev, cfg, params, mesh, traces, card))
+    log(f"15c (speculative, tiered, rebalanced on the GSPMD layouts) "
+        f"{time.perf_counter() - t15c:.1f}s")
+    dist.destroy_process_group()
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     by_path.update(phase15b(dev, card))
     log(f"phase 15 (the GSPMD layouts on torch.distributed ranks) "
         f"{time.perf_counter() - t15:.1f}s")
-    return by_path, parts, combs
+    return by_path, parts, combs, verify
 
 
 # ---------------------------------------------------------------------------
@@ -4335,10 +4743,11 @@ def main() -> int:
     stub_paths = phase14(dev, card)
     train_paths.update({p: n for p, n in stub_paths.items() if p.endswith("_train")})
     by_path.update({p: n for p, n in stub_paths.items() if not p.endswith("_train")})
-    gspmd_paths, gspmd_parts, gspmd_combs = phase15(ops, ref, dev, card)
+    gspmd_paths, gspmd_parts, gspmd_combs, gspmd_verify = phase15(ops, ref, dev, card)
     by_path.update(gspmd_paths)
     results["paged_attention_partial"] += gspmd_parts
     results["combine_partials"] += gspmd_combs
+    results["chunk_attention"] += gspmd_verify
     serving_paths = list(by_path)
     by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the
@@ -4376,17 +4785,32 @@ def main() -> int:
         main_paths[f"stub_{name}_serve"] = ("flash_attention", "page_score", "paged_attention")
     main_paths[f"stub_{STUB_ARCHS[0]}_train"] = ("flash_attention", "flash_attention_bwd")
     # phase 15: each GSPMD layout's engine, packed and chunked, on one NCCL rank
-    # (gspmd_) and on two gloo ranks (gspmd2_, rank 0's counts); the layouts
-    # that shard pages attend by partials merged with combine_partials
+    # (gspmd_), where one rank holds every page and runs the default's
+    # kernels, and on two gloo ranks (gspmd2_, rank 0's counts), where the
+    # layouts that shard pages attend by partials merged with combine_partials
+    whole = ("page_score", "paged_attention")
+    split = ("page_score", "paged_attention_partial", "combine_partials")
     for prefix, layouts_ in (("gspmd", ("default",) + GSPMD_LAYOUTS),
                              ("gspmd2", GSPMD_LAYOUTS)):
         for layout in layouts_:
-            part = ("paged_attention_partial", "combine_partials")
-            base = ("page_score",) + (part if layout not in ("default", "head") else
-                                      ("paged_attention",))
+            base = split if prefix == "gspmd2" and layout != "head" else whole
             main_paths[f"{prefix}_{layout}_chunked"] = base + ("chunk_attention",
                                                                "chunk_attention_paged")
             main_paths[f"{prefix}_{layout}_packed"] = base + ("flash_attention",)
+    # 15c on the NCCL rank: speculative (a verify step scores pages once and
+    # runs chunk_attention twice a layer), tiered and rebalanced; 15b's
+    # further cases on the two gloo ranks (rank 0's counts)
+    for layout in ("default",) + GSPMD_LAYOUTS:
+        main_paths[f"gspmd_spec_{layout}_ngram"] = ("page_score", "chunk_attention",
+                                                    "chunk_attention_paged")
+        main_paths[f"gspmd_spec_{layout}_replay"] = ("page_score", "chunk_attention",
+                                                     "flash_attention")
+        main_paths[f"gspmd_tiered_{layout}"] = main_paths["gspmd_default_chunked"]
+        if layout in ("coplace", "interleave"):
+            main_paths[f"gspmd_rebalanced_{layout}"] = main_paths["gspmd_default_chunked"]
+    main_paths["gspmd2_spec_coplace"] = main_paths["gspmd_spec_coplace_ngram"]
+    main_paths["gspmd2_tiered_coplace"] = main_paths["gspmd2_coplace_chunked"]
+    main_paths["gspmd2_rebalanced_head"] = main_paths["gspmd2_head_chunked"]
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

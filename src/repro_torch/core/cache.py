@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.paging import interleave_slot, logical_pages, page_counts
+from repro_torch.runtime import collectives as coll
 
 
 @dataclasses.dataclass
@@ -411,7 +412,9 @@ class Placement:
               (start, stop) per dimension.
     page      tokens a page (the full page; a token stripe holds fewer).
     partials  the retrieval heads attend by per-rank partials merged with
-              ``combine_partials`` (the layouts that shard pages).
+              ``combine_partials``: the layouts that shard pages, where more
+              than one rank holds them (one rank holding every page takes
+              the default's kernels, and its numbers).
     """
 
     mesh: object
@@ -427,6 +430,10 @@ class Placement:
         a = self.specs[(key, field)]
         a = a[dim] if dim < len(a) else None
         return () if a is None else (a if isinstance(a, tuple) else (a,))
+
+    def cut(self, key: str, field: str, dim: int) -> tuple:
+        """``axes`` of more than one rank: those that split the dimension."""
+        return tuple(a for a in self.axes(key, field, dim) if self.mesh.shape[a] > 1)
 
 
 def block_of(full, key: str, place: Placement, device):
@@ -561,6 +568,52 @@ def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
     return cache
 
 
+def move_block_rows(layers, place: Placement, src, dst) -> None:
+    """Move global slot ``src``'s row of every cache leaf of ``layers`` (the
+    rank's blocks of each layer, all placed by ``place``) to slot
+    ``dst`` and clear ``src`` to the empty values, in place (``src``, ``dst``
+    (1,) int64 card tensors: fixed shapes, so that the step is captured
+    once). A leaf whose batch rows are whole moves locally. Where rows are
+    cut (over 'data'), the owner of ``src`` along that axis sends its row
+    to the rest (``collectives.owner_select``, one collective for every cut
+    leaf), the owner of ``dst`` writes it, and every other row of the block
+    is written back as it was."""
+    cut, axis = [], None
+    for layer in layers:
+        for key, cache in layer.items():
+            for f in dataclasses.fields(cache):
+                t = getattr(cache, f.name)
+                axes = place.cut(key, f.name, 0)
+                if not axes:
+                    t.index_copy_(0, dst, t.index_select(0, src))
+                    t.index_fill_(0, src, empty_fill_value(f.name))
+                    continue
+                if len(axes) != 1 or axis not in (None, axes[0]):
+                    raise NotImplementedError(f"batch rows cut over {axes}: a migration "
+                                              f"moves rows over one mesh axis")
+                axis = axes[0]
+                cut.append((t, f.name, place.bounds[(key, f.name)][0]))
+    if not cut:
+        return
+    rows, locs = [], []
+    for t, _, (b0, b1) in cut:
+        s_l, d_l = (src - b0).clamp(0, b1 - b0 - 1), (dst - b0).clamp(0, b1 - b0 - 1)
+        locs.append((s_l, d_l))
+        rows.append(t.index_select(0, s_l).float().reshape(-1))
+    bl = cut[0][2][1] - cut[0][2][0]
+    moved = coll.owner_select(torch.cat(rows), place.mesh, axis, src // bl)
+    off = 0
+    for (t, name, (b0, b1)), (s_l, d_l) in zip(cut, locs):
+        n = t[0].numel()
+        row = moved[off:off + n].view((1,) + tuple(t.shape[1:])).to(t.dtype)
+        off += n
+        into = ((dst >= b0) & (dst < b1)).reshape((1,) * t.dim())
+        t.index_copy_(0, d_l, torch.where(into, row, t.index_select(0, d_l)))
+        out = ((src >= b0) & (src < b1)).reshape((1,) * t.dim())
+        t.index_copy_(0, s_l, torch.where(out, torch.full_like(row, empty_fill_value(name)),
+                                          t.index_select(0, s_l)))
+
+
 # ---------------------------------------------------------------------------
 # Tiered hot/cold page residency (two-tier KV cache)
 #
@@ -574,7 +627,10 @@ def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
 #
 # The batched ops take (M,) slot and page index tensors of the (slot, page)
 # pairs that move, over every paged layer's k_pages and v_pages, and write
-# the engine's static serve state in place with advanced indexing.
+# the engine's static serve state in place with advanced indexing. Under a
+# GSPMD layout the state is the rank's blocks and the indices are local to
+# them: ``TieredPagedCache`` moves the pairs this rank owns, and every rank
+# keeps the same residency and takes the same decisions.
 # ---------------------------------------------------------------------------
 
 
@@ -643,6 +699,14 @@ class TieredPagedCache:
     physical there, so the bitmap and far store are kept in physical page
     space and only the sink and local pins go through the stripe mapping.
 
+    ``block`` ((b0, b1), (c0, c1)): the state is one rank's block of a GSPMD
+    layout, its slots [b0, b1) and pages [c0, c1) (each page's tokens or
+    heads perhaps a stripe of them). The decisions and the residency are
+    every rank's alike, taken from the whole batch's selection; the copies
+    and the far store hold the rank's tiles of the pairs it owns (``far``
+    maps another rank's pair to None), and ``h2d_bytes`` / ``d2h_bytes``
+    count this rank's bytes.
+
     Transfers (``archive``, ``spill``, ``fill``) run on the card's copy
     stream after the work queued so far, ``non_blocking``, and the current
     stream waits for them (an event) before the next step reads the state.
@@ -652,7 +716,7 @@ class TieredPagedCache:
 
     def __init__(self, *, n_slots: int, n_pages: int, hot_pages: int,
                  page_size: int, sink: int, local: int, device,
-                 stripe_shards: int = 1):
+                 stripe_shards: int = 1, block=None):
         self.n_slots = int(n_slots)
         self.n_pages = int(n_pages)
         self.hot_pages = int(hot_pages)
@@ -663,6 +727,7 @@ class TieredPagedCache:
         self.n_sink_pages, _ = page_counts(sink=sink, local=local, page=page_size)
         self.resident = np.ones((self.n_slots, self.n_pages), bool)
         self.far: dict = {}   # (slot, phys_page) -> (2L, Hr, P, D) host tensor
+        self.block = block or ((0, self.n_slots), (0, self.n_pages))
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -693,12 +758,32 @@ class TieredPagedCache:
         for key in [k for k in self.far if k[0] == slot]:
             del self.far[key]
 
-    def move_slot(self, src: int, dst: int) -> None:
+    def owns(self, slot: int, page: int) -> bool:
+        """The pair lies in this rank's block (always, without one)."""
+        (b0, b1), (c0, c1) = self.block
+        return b0 <= slot < b1 and c0 <= page < c1
+
+    def _local(self, pairs) -> list:
+        """(index in ``pairs``, local (slot, page)) of the pairs this rank owns."""
+        (b0, _), (c0, _) = self.block
+        return [(i, (s - b0, p - c0)) for i, (s, p) in enumerate(pairs) if self.owns(s, p)]
+
+    def move_slot(self, src: int, dst: int, relay=None) -> None:
         """A migration moved the occupant of slot ``src`` to ``dst``: its
-        residency and far rows follow it, and ``src`` is reset."""
+        residency and far rows follow it, and ``src`` is reset. Where slots
+        of one page block lie on several ranks, ``relay(src, dst, rows)``
+        takes the far rows of ``src``'s pages in this rank's page block
+        (None where another rank holds ``src``) and returns them as the
+        rank holding ``dst`` keeps them (None elsewhere)."""
         self.resident[dst] = self.resident[src]
-        for s, p in [k for k in self.far if k[0] == src]:
-            self.far[(dst, p)] = self.far.pop((s, p))
+        keys = sorted(k for k in self.far if k[0] == src)
+        rows = {k: self.far.pop(k) for k in keys}
+        if relay is not None:
+            c0, c1 = self.block[1]
+            mine = [k for k in keys if c0 <= k[1] < c1]
+            rows.update(zip(mine, relay(src, dst, [rows[k] for k in mine])))
+        for k in keys:
+            self.far[(dst, k[1])] = rows[k]
         self.reset_slot(src)
 
     def missing(self, slot: int, pages) -> list:
@@ -778,23 +863,30 @@ class TieredPagedCache:
         new = [k for k in pairs if k not in self.far]
         if not new:
             return 0
+        for key in new:
+            self.far[key] = None
+        own = self._local(new)
+        if not own:
+            return len(new)
         with self._on_copy_stream():
-            slots, pages = self._index(new)
+            slots, pages = self._index([loc for _, loc in own])
             rows = gather_kv_rows_pairs(state, slots, pages)
             host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=self._cuda)
             t0 = self._event()
             host.copy_(rows, non_blocking=self._cuda)
             self._time("d2h", host.nbytes, t0)
-        for i, key in enumerate(new):
-            self.far[key] = host[i]
+        for j, (i, _) in enumerate(own):
+            self.far[new[i]] = host[j]
         self.d2h_bytes += host.nbytes
         return len(new)
 
     def spill(self, state, pairs) -> None:
         """Zero the ``pairs``' rows on the card (after ``archive``)."""
-        with self._on_copy_stream():
-            slots, pages = self._index(pairs)
-            spill_kv_rows_pairs(state, slots, pages)
+        own = self._local(pairs)
+        if own:
+            with self._on_copy_stream():
+                slots, pages = self._index([loc for _, loc in own])
+                spill_kv_rows_pairs(state, slots, pages)
         for s, p in pairs:
             self.resident[s, p] = False
 
@@ -802,18 +894,21 @@ class TieredPagedCache:
         """Copy the ``pairs``' far rows back onto the card, one batched
         write. Every filled page was spilled earlier, so its rows are in
         the far store."""
-        first = self.far[pairs[0]]
-        with self._on_copy_stream():
-            rows = torch.empty((len(pairs),) + tuple(first.shape), dtype=first.dtype,
-                               device=self.device)
-            t0 = self._event()
-            for i, key in enumerate(pairs):
-                rows[i].copy_(self.far[key], non_blocking=self._cuda)
-            self._time("h2d", rows.nbytes, t0)
-            slots, pages = self._index(pairs)
-            fill_kv_rows_pairs(state, slots, pages, rows)
         for s, p in pairs:
             self.resident[s, p] = True
+        own = self._local(pairs)
+        if not own:
+            return
+        first = self.far[pairs[own[0][0]]]
+        with self._on_copy_stream():
+            rows = torch.empty((len(own),) + tuple(first.shape), dtype=first.dtype,
+                               device=self.device)
+            t0 = self._event()
+            for j, (i, _) in enumerate(own):
+                rows[j].copy_(self.far[pairs[i]], non_blocking=self._cuda)
+            self._time("h2d", rows.nbytes, t0)
+            slots, pages = self._index([loc for _, loc in own])
+            fill_kv_rows_pairs(state, slots, pages, rows)
         self.h2d_bytes += rows.nbytes
 
     def transfer_times(self) -> dict:
@@ -842,21 +937,41 @@ class DecodeStepSave:
     The tiered select step saves before its pass; a replay after a cold
     miss restores first, so that it runs on the state the first pass read.
     The indices are taken from the lengths at ``save`` and kept for
-    ``restore``. Fixed shapes: both are captured once on the card."""
+    ``restore``. Fixed shapes: both are captured once on the card.
 
-    def __init__(self, state, extra, *, sink: int, phys_shards: int = 1):
+    ``place`` (a ``Placement``): the state is one rank's block of a GSPMD
+    layout. Each per-slot leaf then saves its block's rows at the local
+    index of the slot's page (clamped into the block where another rank
+    holds the page: the step writes nothing there, so the restore writes
+    back what it found)."""
+
+    def __init__(self, state, extra, *, sink: int, phys_shards: int = 1, place=None):
         self.state = state
         self.extra = list(extra)
         self.sink = int(sink)
         self.phys_shards = int(phys_shards)
         b = state["length"].shape[0]
         dev = state["length"].device
-        self._bi = torch.arange(b, device=dev)
-        self._page = torch.zeros(b, dtype=torch.long, device=dev)
-        self._ring = torch.zeros(b, dtype=torch.long, device=dev)
+        pages = next(layer["paged"].k_pages for layer in state["layers"]
+                     if "paged" in layer)
+        self._pages = (place.shapes[("paged", "k_pages")][2] if place is not None
+                       else pages.shape[2])
+        self._page_size = place.page if place is not None else pages.shape[3]
+        whole = ((0, b), (0, self._pages))
+        # (rows, pages) of each kind of per-slot leaf in the rank's block
+        self._bounds = {"pages": whole, "tau": whole, "ring": whole}
+        if place is not None:
+            self._bounds = {kind: (place.bounds[leaf][0], place.bounds[leaf][2])
+                            for kind, leaf in (("pages", ("paged", "k_pages")),
+                                               ("tau", ("paged", "tau_min")),
+                                               ("ring", ("stream", "k")))}
+        self._bi = {k: torch.arange(r1 - r0, device=dev)
+                    for k, ((r0, r1), _) in self._bounds.items()}
+        self._idx = {k: torch.zeros(r1 - r0, dtype=torch.long, device=dev)
+                     for k, ((r0, r1), _) in self._bounds.items()}
         self._bufs = [torch.empty_like(t) for t in self._whole()]
-        self._rows = [torch.empty_like(t[self._bi, :, idx])
-                      for t, idx in self._per_slot()]
+        self._rows = [torch.empty_like(t[self._bi[k], :, self._idx[k]])
+                      for t, k in self._per_slot()]
         self.save()  # a restore before any step writes what the state holds
 
     def _whole(self):
@@ -874,37 +989,38 @@ class DecodeStepSave:
         for layer in self.state["layers"]:
             paged, stream = layer.get("paged"), layer.get("stream")
             if paged is not None:
-                for t in (paged.k_pages, paged.v_pages, paged.tau_min,
-                          paged.tau_max):
-                    yield t, self._page
+                yield from ((paged.k_pages, "pages"), (paged.v_pages, "pages"),
+                            (paged.tau_min, "tau"), (paged.tau_max, "tau"))
             if stream is not None:
-                for t in (stream.k, stream.v, stream.pos):
-                    yield t, self._ring
+                yield from ((stream.k, "ring"), (stream.v, "ring"), (stream.pos, "ring"))
 
     def _indices(self) -> None:
         length = self.state["length"].long()
-        pages = next(layer["paged"].k_pages for layer in self.state["layers"]
-                     if "paged" in layer)
-        c, p = pages.shape[2:4]
-        self._page.copy_(interleave_slot((length // p).clamp(0, c - 1), c,
-                                         self.phys_shards))
+        c = self._pages
+        page = interleave_slot((length // self._page_size).clamp(0, c - 1), c,
+                               self.phys_shards)
+        for kind in ("pages", "tau"):
+            (r0, r1), (c0, c1) = self._bounds[kind]
+            self._idx[kind].copy_((page[r0:r1] - c0).clamp(0, c1 - c0 - 1))
         stream = next((layer["stream"] for layer in self.state["layers"]
                        if "stream" in layer), None)
         if stream is not None:
+            (r0, r1), _ = self._bounds["ring"]
             local_cap = stream.k.shape[2] - self.sink
-            self._ring.copy_(torch.where(length < self.sink, length,
-                                         self.sink + (length - self.sink) % local_cap))
+            lr = length[r0:r1]
+            self._idx["ring"].copy_(torch.where(lr < self.sink, lr,
+                                                self.sink + (lr - self.sink) % local_cap))
 
     def save(self) -> None:
         self._indices()
         for buf, t in zip(self._bufs, self._whole()):
             buf.copy_(t)
-        for buf, (t, idx) in zip(self._rows, self._per_slot()):
-            buf.copy_(t[self._bi, :, idx])
+        for buf, (t, k) in zip(self._rows, self._per_slot()):
+            buf.copy_(t[self._bi[k], :, self._idx[k]])
 
     def restore(self) -> None:
-        for buf, (t, idx) in zip(self._rows, self._per_slot()):
-            t[self._bi, :, idx] = buf
+        for buf, (t, k) in zip(self._rows, self._per_slot()):
+            t[self._bi[k], :, self._idx[k]] = buf
         for buf, t in zip(self._bufs, self._whole()):
             t.copy_(buf)
 

@@ -28,7 +28,8 @@ Co-placed decode (``decode_attention_coplace``, paper §IV-B): the
           mesh's 'model' axis; each stripe scores, selects and attends the
           pages it owns and emits flash partials (m, l, o), which a
           log-sum-exp combine merges (a split-KV decode).
-GSPMD layouts (``decode_attention_placed``, ``chunk_prefill_attention_placed``):
+GSPMD layouts (``decode_attention_placed``, ``chunk_prefill_attention_placed``,
+          ``chunk_verify_attention_placed`` / ``chunk_verify_append_placed``):
           the steps above on one rank's blocks of the caches, gathering
           over the rank's mesh where GSPMD would (see their section).
 
@@ -502,7 +503,13 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
 #            | local] slots, the partials (m, l, o) gathered over the axes
 #            that cut the pages and merged by ``combine_partials``;
 #   ring     the streaming heads, over 'model' in every layout, attend their
-#            own ring.
+#            own ring;
+#   verify   the speculative chunk selects as the decode does, at query 0;
+#            the retrieval heads' [sink | selected | local] buffer of the
+#            rank's rows and heads is filled by the owners of its tokens and
+#            summed over the ranks that cut the pages (one collective, each
+#            token from its one owner), then attended with the chunk's keys;
+#            the accepted prefix is appended owner-only.
 #
 # The outputs of kv heads and batch rows cut over an axis are gathered, so
 # every rank ends the layer with the whole batch's attention output. The
@@ -591,7 +598,7 @@ def _placed_select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select, place,
     # computed and dropped
     prev = torch.zeros((t1 - t0, th1 - th0, top_k), dtype=torch.int32, device=q_r.device)
     prev[s0 - t0:s1 - t0] = paged.sel_idx[:, th0:th1]
-    if not place.axes("paged", "tau_min", 2):
+    if not place.cut("paged", "tau_min", 2):
         sel, imp = kops.page_select(
             q_t, paged.tau_min, paged.tau_max, paged.page_start, ctx_t, prev,
             paged.importance, need_t, sink=h2.sink, local=h2.local, page=h2.page_size,
@@ -606,7 +613,7 @@ def _placed_select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select, place,
         imp = paged.importance + torch.where(scores > kref.NEG_INF_HALF, scores, 0.0)
         k_eff = min(top_k, tc1 - tc0)
         v_loc, i_loc = kref.stable_top_k(scores, k_eff)
-        (axis,) = place.axes("paged", "tau_min", 2)
+        (axis,) = place.cut("paged", "tau_min", 2)
         cand_v = coll.stack(v_loc, place.mesh, axis)              # (M, Bt, Ht, k_eff)
         cand_i = coll.stack(i_loc + tc0, place.mesh, axis)
         m = cand_v.shape[0]
@@ -724,6 +731,126 @@ def chunk_prefill_attention_placed(spec: AttnSpec, q, k_new, v_new,
         outs.append(_gather_out(out, place, "stream", "k", 2))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
     return _permute_q(out, _inverse_perm(perm), g), paged, stream
+
+
+def _placed_verify_pages(paged: cachelib.PagedCache, slots, place: cachelib.Placement):
+    """The verify's [sink | selected | local] K and V buffers (Bl, Hl, N*P, D)
+    of the rank's rows and heads, ``slots`` (Bl, Hl, N) of the full cache.
+    Where pages (or token stripes) are cut, each rank fills the tokens it
+    owns (``paging.block_tokens``), zeros elsewhere, and one sum over the
+    ranks that cut them gives every token from its one owner, exactly; the
+    rank's own block is read in place otherwise."""
+    cut = place.cut("paged", "k_pages", 2) + place.cut("paged", "k_pages", 3)
+    if not cut:
+        return kref.gather_pages(paged.k_pages, paged.v_pages, slots)
+    (c0, c1), (p0, p1) = place.bounds[("paged", "k_pages")][2:4]
+    bl, hl, n = slots.shape
+    p, d = place.page, paged.k_pages.shape[-1]
+    gk, gv = kref.gather_pages(paged.k_pages, paged.v_pages,
+                               paging.block_slots(slots, c0, c1))  # (Bl, Hl, N*Pl, D)
+    buf = paged.k_pages.new_zeros((2, bl, hl, n, p, d))
+    buf[0, :, :, :, p0:p1] = gk.view(bl, hl, n, p1 - p0, d)
+    buf[1, :, :, :, p0:p1] = gv.view(bl, hl, n, p1 - p0, d)
+    own = paging.block_tokens(slots, c0, c1, p0, p1, p)[None, ..., None]
+    buf = coll.sum_tiles(torch.where(own, buf, 0), place.mesh, cut)
+    return buf[0].view(bl, hl, n * p, d), buf[1].view(bl, hl, n * p, d)
+
+
+def chunk_verify_attention_placed(spec: AttnSpec, q, k_new, v_new,
+                                  paged: cachelib.PagedCache,
+                                  stream: cachelib.StreamCache, start, active=None,
+                                  need_select=None, *, place: cachelib.Placement,
+                                  perm=None):
+    """``chunk_verify_attention`` on one rank's block of a GSPMD layout. q,
+    k_new, v_new (B, k, ...), start, active and need_select are the whole
+    batch's; ``paged`` and ``stream`` the rank's blocks. The select is the
+    placed decode's (``_placed_select``) at query 0 with context start+1;
+    the retrieval heads attend the [sink | selected | local] buffer of the
+    rank's rows and heads (``_placed_verify_pages``) followed by the
+    chunk's own keys under the causal triangle, the streaming heads the
+    rank's ring block followed by the chunk's keys, both through
+    ``kops.chunk_attention``. Neither the KV pages nor the ring change.
+    Returns (out (B, k, Hq, D), paged, stream), ``out`` the same on every
+    rank."""
+    h2 = spec.h2
+    g = spec.group
+    nr = spec.n_retrieval
+    qp = _permute_q(q, perm, g)
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    b, kch = q.shape[:2]
+    dev = q.device
+    act = cachelib._active(active, b, dev)
+    need = act if need_select is None else need_select & act
+    start = start.reshape(b).to(torch.int32)
+    pos_q = paging.chunk_positions(start, kch)
+    mesh = place.mesh
+    outs = []
+    if nr > 0:
+        q_r = qp[:, :, : nr * g]
+        _placed_select(h2, q_r[:, 0], paged, start + 1, need, place, g)
+        (b0, b1), (h0, h1) = place.bounds[("paged", "k_pages")][:2]
+        (m0, _), (mh0, _) = place.bounds[("paged", "page_start")][:2]
+        (s0, _) = place.bounds[("paged", "sel_idx")][0]
+        r = slice(b0, b1)
+        slots = paging.verify_attended_slots(paged.sel_idx[b0 - s0:b1 - s0, h0:h1],
+                                             start[r] + 1, sink=h2.sink, local=h2.local,
+                                             page=h2.page_size,
+                                             capacity=place.shapes[("paged", "k_pages")][2])
+        gk, gv = _placed_verify_pages(paged, slots, place)
+        page_start = _gather_dim(paged.page_start[b0 - m0:b1 - m0, h0 - mh0:h1 - mh0],
+                                 mesh, place.axes("paged", "page_start", 2), 2)
+        valid_p = paging.verify_token_validity(
+            slots, page_start, start[r], pos_q[r], sink=h2.sink, local=h2.local,
+            page=h2.page_size, top_k=h2.top_k_pages)
+        kr = torch.cat([gk, kp[r, :, h0:h1].transpose(1, 2).to(gk.dtype)], dim=2)
+        vr = torch.cat([gv, vp[r, :, h0:h1].transpose(1, 2).to(gv.dtype)], dim=2)
+        del gk, gv
+        tail = torch.ones(kch, kch, dtype=torch.bool, device=dev).tril()
+        valid = torch.cat([valid_p, tail.expand(b1 - b0, h1 - h0, kch, kch)], dim=3)
+        out = kops.chunk_attention(q_r[r, :, h0 * g:h1 * g].contiguous(), kr, vr, valid)
+        outs.append(_gather_out(out, place, "paged", "k_pages", 2))
+    if spec.n_streaming > 0:
+        (b0, b1), (h0, h1) = place.bounds[("stream", "k")][:2]
+        r = slice(b0, b1)
+        k_s, v_s = kp[r, :, nr + h0:nr + h1], vp[r, :, nr + h0:nr + h1]
+        kr = torch.cat([stream.k, k_s.transpose(1, 2).to(stream.k.dtype)], dim=2)
+        vr = torch.cat([stream.v, v_s.transpose(1, 2).to(stream.v.dtype)], dim=2)
+        kpos = torch.cat([stream.pos, pos_q[r][:, None, :].expand(b1 - b0, h1 - h0, kch)],
+                         dim=2)
+        valid_s = paging.chunk_stream_validity(kpos, pos_q[r], sink=h2.sink,
+                                               local=h2.local)
+        hs = nr * g
+        out = kops.chunk_attention(qp[r, :, hs + h0 * g:hs + h1 * g].contiguous(), kr, vr,
+                                   valid_s)
+        outs.append(_gather_out(out, place, "stream", "k", 2))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return _permute_q(out, _inverse_perm(perm), g), paged, stream
+
+
+def chunk_verify_append_placed(spec: AttnSpec, k_new, v_new, paged: cachelib.PagedCache,
+                               stream: cachelib.StreamCache, start, accepted,
+                               active=None, *, place: cachelib.Placement, perm=None):
+    """``chunk_verify_append`` into one rank's blocks: the owner-only chunk
+    appends of the accepted prefix (``cache.paged_block_append_chunk``, τ
+    min/max and page starts where the metadata's tile keeps them) and the
+    ring block's. k_new/v_new (B, k, Hkv, D) and accepted (B,) of the whole
+    batch. Returns (paged, stream)."""
+    h2 = spec.h2
+    nr = spec.n_retrieval
+    kp = _permute_kv(k_new, perm)
+    vp = _permute_kv(v_new, perm)
+    act = cachelib._active(active, k_new.shape[0], k_new.device)
+    if nr > 0:
+        cachelib.paged_block_append_chunk(paged, kp[:, :, :nr], vp[:, :, :nr], start,
+                                          accepted, active=act, place=place)
+    if spec.n_streaming > 0:
+        (b0, b1), (h0, h1) = place.bounds[("stream", "k")][:2]
+        r = slice(b0, b1)
+        stream = cachelib.stream_cache_append_chunk(
+            stream, kp[r, :, nr + h0:nr + h1], vp[r, :, nr + h0:nr + h1],
+            start.reshape(-1)[r], accepted.reshape(-1)[r], sink=h2.sink, active=act[r])
+    return paged, stream
 
 
 # ---------------------------------------------------------------------------

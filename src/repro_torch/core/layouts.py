@@ -25,10 +25,12 @@ whole pages per 'model' rank for the layouts that shard pages, the mesh
 validated, the balance shards), and ``cache_axes`` the reference's leaf
 axes, which ``runtime/sharding.py`` turns into each rank's block.
 ``placed(mesh, batch, capacity)`` binds a GSPMD layout to one rank: that
-object allocates the rank's blocks and runs the decode and chunk steps on
-them (``hybrid_attention.decode_attention_placed``), gathering where GSPMD
-would. Without a process group the mesh is the one-rank (1, 1) mesh of the
-caller's device, the reference's default mesh over its one device.
+object allocates the rank's blocks and runs the decode, chunk and
+speculative verify steps on them (``hybrid_attention.decode_attention_placed``
+and its siblings), gathering where GSPMD would; a rank that holds every
+page runs the default's kernels. Without a process group the mesh is the
+one-rank (1, 1) mesh of the caller's device, the reference's default mesh
+over its one device.
 """
 from __future__ import annotations
 
@@ -300,9 +302,9 @@ class InterleaveLayout(CoplaceLayout):
 
 class PlacedLayout(DefaultLayout):
     """A GSPMD layout bound to one rank of ``mesh``: the rank's blocks of a
-    batched state of ``batch`` slots and ``capacity`` tokens, and the decode
-    and chunk steps on them. Packed prefill builds the whole batch-1 state,
-    replicated; ``pack_slot`` writes the rank's block of it."""
+    batched state of ``batch`` slots and ``capacity`` tokens, and the
+    decode, chunk and verify steps on them. Packed prefill builds the whole
+    batch-1 state, replicated; ``pack_slot`` writes the rank's block of it."""
 
     gspmd = True
 
@@ -334,9 +336,12 @@ class PlacedLayout(DefaultLayout):
                     specs[(key, f.name)] = s
                     shapes[(key, f.name)] = shape
                     bounds[(key, f.name)] = sharding.block_bounds(shape, s, self.mesh)
-            self._places[spec] = cachelib.Placement(
-                mesh=self.mesh, specs=specs, shapes=shapes, bounds=bounds,
-                page=spec.h2.page_size, partials=self.shards_pages)
+            place = cachelib.Placement(mesh=self.mesh, specs=specs, shapes=shapes,
+                                       bounds=bounds, page=spec.h2.page_size,
+                                       partials=False)
+            split = any(place.cut("paged", "k_pages", d) for d in (2, 3))
+            self._places[spec] = dataclasses.replace(
+                place, partials=self.shards_pages and split)
         return self._places[spec]
 
     def empty_decode_state(self, spec, batch: int, capacity: int, *, dtype, device):
@@ -372,10 +377,30 @@ class PlacedLayout(DefaultLayout):
             need_select=need_select)
         return out, {"paged": paged, "stream": stream}
 
-    def verify_chunk(self, *args, **kwargs):
-        raise NotImplementedError(GSPMD_FAMILY_REFUSAL.format(what="spec_tokens"))
+    def verify_chunk(self, spec, state: Dict, q, k_new, v_new, start, *,
+                     active=None, need_select=None, perm=None):
+        out, paged, stream = hattn.chunk_verify_attention_placed(
+            spec, q, k_new, v_new, state["paged"], state["stream"], start, active,
+            need_select, place=self.place(spec), perm=perm)
+        return out, {"paged": paged, "stream": stream}
 
-    verify_append = verify_chunk
+    def verify_append(self, spec, state: Dict, k_new, v_new, start, accepted, *,
+                      active=None, perm=None):
+        paged, stream = hattn.chunk_verify_append_placed(
+            spec, k_new, v_new, state["paged"], state["stream"], start, accepted,
+            active, place=self.place(spec), perm=perm)
+        return {"paged": paged, "stream": stream}
+
+    def whole(self, spec, key: str, field: str, t, lead: int = 0):
+        """The full leaf ``(key, field)`` from the rank's block ``t`` (after
+        ``lead`` leading dims of its own, a stack of layers say), gathered
+        over every axis that cuts it; no collective on an axis of one rank.
+        The host reads the whole batch's selection so, the same on every
+        rank."""
+        place = self.place(spec)
+        for dim in range(len(place.shapes[(key, field)])):
+            t = hattn._gather_dim(t, self.mesh, place.axes(key, field, dim), dim + lead)
+        return t
 
 
 _REGISTRY: Dict[str, DefaultLayout] = {}

@@ -152,6 +152,18 @@ def block_slots(slots, first: int, stop: int):
     return torch.where(own, slots - first, -1).to(torch.int32)
 
 
+def block_tokens(slots, first: int, stop: int, tok_first: int, tok_stop: int,
+                 page: int):
+    """(B, H, N, P) bool: the tokens of a gathered [sink | selected | local]
+    buffer (``slots`` (B, H, N) of the full cache) that a rank's block holds,
+    its pages [first, stop) and, under token stripes, the offsets [tok_first,
+    tok_stop) of each page. Every token of the buffer has exactly one owner
+    among the ranks that cut the pages."""
+    own = (slots >= first) & (slots < stop)
+    off = torch.arange(page, device=slots.device)
+    return own[..., None] & ((off >= tok_first) & (off < tok_stop))
+
+
 def token_validity(slots, page_start, ctx, *, sink: int, local: int,
                    page: int, top_k: int):
     """Validity mask (B, H, N*P) of the gathered token buffer, enforcing

@@ -50,11 +50,16 @@ The GSPMD layouts ``head``, ``coplace`` and ``interleave`` serve the
 ragged workload over the ranks of ``torchrun``, one process a device
 (NCCL on cards, gloo on the CPU), ``--mesh-model M`` of them on the mesh's
 'model' axis and the rest on 'data'; every rank serves the same requests,
-rank 0 prints. Without torchrun they run on one rank:
+rank 0 prints. ``--rebalance`` migrates slots there too: where the batch
+lies over 'data', a move takes a slot's row to another rank. Without
+torchrun they run on one rank:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch llama3-8b \
       --workload ragged --requests 8 --max-batch 4 --prompt-buckets 2048,8192 \
       --prefill-chunk 512 --layout coplace --mesh-model 4
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch llama3-8b --reduced --workload ragged --requests 8 --max-batch 4 \
+      --prompt-buckets 8,16,24 --layout head --rebalance retire --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --reduced --workload ragged --requests 5 --max-batch 2 \
       --prompt-buckets 16,24 --layout interleave --device cpu

@@ -14,6 +14,16 @@ takes), so the same call serves the CPU tests, ranks that share one card
 over gloo, and NCCL ranks on their own cards. Everything travels as f32:
 exact for f32 and bf16 values and for integers below 2**24 (page slots,
 token ids); the result comes back in the input's dtype.
+
+Beside the gather, two collectives serve what a rank holds only a part of:
+
+  * ``sum_tiles``: an all_reduce of blocks that are zero outside the
+    elements the rank owns, each element owned by exactly one rank, so the
+    sum is every owner's value, exactly (x + 0 = x); the speculative
+    verify builds its [sink | selected | local] buffer so;
+  * ``owner_select``: every rank's block stacked and the one of the rank
+    ``owner`` (a card tensor, so that a captured step reads no host value)
+    taken: a slot's row moved between ranks by a migration.
 """
 from __future__ import annotations
 
@@ -42,6 +52,28 @@ def gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return x
     return torch.cat(stack(x, mesh, axis).unbind(0), dim=dim)
+
+
+def sum_tiles(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum over the ranks of ``axes`` of blocks ``x`` that are zero
+    outside the elements each rank owns: every owner's elements, exact;
+    ``x`` itself where every axis has one rank."""
+    groups = [mesh.group(a) for a in axes if mesh.shape[a] > 1]
+    if not groups:
+        return x
+    wire = x.to(WIRE).contiguous()
+    for g in groups:
+        dist.all_reduce(wire, group=g)
+    return wire.to(x.dtype)
+
+
+def owner_select(x: torch.Tensor, mesh, axis: str, owner: torch.Tensor) -> torch.Tensor:
+    """The block ``x`` of the rank at index ``owner`` ((1,) int64 on the
+    device) along ``axis``, on every rank of it; ``x`` for an axis of one
+    rank."""
+    if mesh.shape[axis] == 1:
+        return x
+    return stack(x, mesh, axis).index_select(0, owner.reshape(1))[0]
 
 
 def warm_up(mesh, device) -> None:

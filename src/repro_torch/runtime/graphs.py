@@ -30,9 +30,11 @@ the CPU, which has no graphs, always runs the steps eagerly. A capture or
 a replay that fails raises.
 
 Under a GSPMD layout the steps gather over the ranks of a mesh
-(``runtime/collectives``). NCCL collectives are captured inside the graphs;
-each axis group's communicator is made by a collective before the first
-capture. A gloo group cannot be captured: the steps of a mesh over gloo on
+(``runtime/collectives``): the decode, chunk and verify steps, the tiered
+select step's digest and the migration's row move. NCCL collectives are
+captured inside the graphs; each axis group's communicator is made by a
+collective before the first capture (the streaming draft's own graphs
+warm the same groups again). A gloo group cannot be captured: the steps of a mesh over gloo on
 the card refuse to capture, and the caller asks for ``eager=True``.
 """
 from __future__ import annotations

@@ -14,8 +14,8 @@ for any proposal, so a provider trades acceptance against its own cost:
   * ``StreamingDraft``: the model drafts with its own streaming skeleton.
     k-1 greedy reuse steps on a copy of the serve state whose retrieval
     selection is the -1 sentinel, so the retrieval heads attend their sink
-    and local pages only. The copy is a shadow state allocated once; the
-    real state is never written.
+    and local pages only. The copy is a shadow state allocated once (under
+    a GSPMD layout, the rank's block); the real state is never written.
   * ``ConstantDraft`` / ``ReplayDraft``: test doubles forcing all-reject
     (the one-token step) and all-accept (a replayed trace).
 
@@ -114,16 +114,19 @@ class StreamingDraft(DraftProvider):
         if self._graphs is not None:
             raise ValueError("a StreamingDraft serves one engine (its captured "
                              "steps read that engine's buffers); build a fresh one")
+        from repro_torch.core import layouts as layoutlib
         from repro_torch.models import model as M
         from repro_torch.runtime import graphs
         from repro_torch.runtime import serve as serve_rt
 
         k = engine.spec_tokens
         real = engine.batch.serve
+        # under a GSPMD layout the shadow is the rank's block, as the state is
         shadow = M.empty_serve_state(engine.cfg, engine.batch.max_batch,
                                      capacity=engine.cache_capacity,
                                      dtype=engine.params["final_norm"].dtype,
-                                     device=engine.device)
+                                     device=engine.device,
+                                     layout=engine._placed or layoutlib.DEFAULT)
         dec = serve_rt.make_ragged_decode_step(engine.cfg, engine.serve_config,
                                                do_select=False)
         pairs = list(zip(graphs.snapshot(real), graphs.snapshot(shadow)))
@@ -152,7 +155,8 @@ class StreamingDraft(DraftProvider):
             # the next mask step finds them
             graphs.commit(before, state)
 
-        self._graphs = graphs.StepGraphs(engine.device, eager=not engine._graphs.capture)
+        self._graphs = graphs.StepGraphs(engine.device, eager=not engine._graphs.capture,
+                                         mesh=engine.mesh)
         self._graphs.add("mask", mask)
         self._graphs.add("decode", decode)
 

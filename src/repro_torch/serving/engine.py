@@ -89,8 +89,11 @@ rank): ``default``, ``coplace_shmap``, and the GSPMD layouts ``head``,
 ``coplace`` and ``interleave``, where each rank of a ``launch/mesh.Mesh``
 runs this engine on its block of the serve state. FIFO and balanced
 admission, sampling, speculative decode, fused windows, tiered residency
-and rebalancing are ported; the last three are not served on a GSPMD
-layout yet.
+and rebalancing are ported, on every layout. On a GSPMD layout every rank
+takes the same host decisions: the tiered select step's digest is the
+whole batch's selection, gathered; the tier moves the pages of the rank's
+block, and a migration moves a slot's row between ranks where the batch is
+cut over 'data'.
 The engine runs on the card unless ``device`` names the CPU, where it runs
 the kernels' plain versions, eagerly.
 """
@@ -110,6 +113,7 @@ from repro_torch.core import cache as cachelib
 from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.runtime import collectives as coll
 from repro_torch.runtime import graphs
 from repro_torch.runtime import serve as serve_rt
 from repro_torch.sched import balance
@@ -363,25 +367,35 @@ def _pack_slot(big: dict, small: dict, slot: int) -> None:
             tb[slot].copy_(ts[0])
 
 
-def _migrate_rows(big: dict, extra, src: torch.Tensor, dst: torch.Tensor) -> None:
+def _migrate_rows(big: dict, extra, src: torch.Tensor, dst: torch.Tensor,
+                  place=None) -> None:
     """Copy row ``src`` of every tensor of the batched state and of ``extra``
     to row ``dst``, then clear ``src`` to the empty values (index tensors of
-    one element, so that the step has fixed shapes and is captured once)."""
+    one element, so that the step has fixed shapes and is captured once).
+    ``place`` (a ``cache.Placement``): the layers' caches are a rank's
+    blocks, moved by ``cache.move_block_rows``."""
     rows = [("length", big["length"])]
-    for layer in big["layers"]:
-        rows += list(_cache_fields(layer))
+    if place is None:
+        for layer in big["layers"]:
+            rows += list(_cache_fields(layer))
+    else:
+        cachelib.move_block_rows(big["layers"], place, src, dst)
     rows += [("", t) for t in extra]
     for name, t in rows:
         t.index_copy_(0, dst, t.index_select(0, src))
         t.index_fill_(0, src, cachelib.empty_fill_value(name))
 
 
-def _selection_digest(big: dict) -> torch.Tensor:
+def _selection_digest(big: dict, whole=None) -> torch.Tensor:
     """(L, B, Hr, K + C) int32: each paged layer's selection and, bit for
-    bit, its page importance, so that the host reads both at once."""
-    return torch.stack([torch.cat([layer["paged"].sel_idx,
-                                   layer["paged"].importance.view(torch.int32)], dim=-1)
-                        for layer in big["layers"] if "paged" in layer])
+    bit, its page importance, so that the host reads both at once.
+    ``whole(field, stacked)`` gathers a rank's blocks of a field, the
+    layers stacked, into the whole batch's (a GSPMD layout)."""
+    whole = whole or (lambda field, t: t)
+    paged = [layer["paged"] for layer in big["layers"] if "paged" in layer]
+    sel = whole("sel_idx", torch.stack([c.sel_idx for c in paged]))
+    imp = whole("importance", torch.stack([c.importance for c in paged]))
+    return torch.cat([sel, imp.view(torch.int32)], dim=-1)
 
 
 def _reset_slot(big: dict, slot: int) -> None:
@@ -412,11 +426,10 @@ class Engine:
                     one-rank mesh). Every rank builds the same engine with the
                     same parameters and requests and takes the same host
                     decisions; it holds only its block of the serve state, and
-                    every rank's steps give the same tokens. ``spec_tokens``,
-                    ``hot_pages`` and ``rebalance`` raise there (ROADMAP item
-                    9b), as does a family outside the dense attention one; the
-                    steps of a gloo mesh run eagerly, and a gloo mesh on the
-                    card refuses capture unless ``eager=True``.
+                    every rank's steps give the same tokens. A family outside
+                    the dense attention one raises there (ROADMAP item 9b);
+                    the steps of a gloo mesh run eagerly, and a gloo mesh on
+                    the card refuses capture unless ``eager=True``.
     admission       "fifo" or "balanced": scores the first
                     ``admit_lookahead`` queued requests by the per-stripe
                     page-load imbalance they would leave
@@ -482,12 +495,9 @@ class Engine:
                  decode_window: Optional[int] = None, eager: bool = False):
         lay = layoutlib.get_layout(layout, shards)
         if lay.gspmd:
-            # what the GSPMD layouts do not serve yet raises, never falls back
-            for what, on in (("spec_tokens", spec_tokens), ("hot_pages", hot_pages),
-                             ("rebalance", rebalance != "off")):
-                if on:
-                    raise NotImplementedError(
-                        layoutlib.GSPMD_FAMILY_REFUSAL.format(what=what))
+            # a family the GSPMD layouts do not serve yet raises before any
+            # option's own gate, and never falls back to another layout
+            layoutlib.check_gspmd_config(cfg)
         self.spec_tokens = int(spec_tokens) if spec_tokens else None
         self.draft = None
         if self.spec_tokens is not None:
@@ -593,6 +603,10 @@ class Engine:
             ready=np.zeros(b, bool), lengths=np.zeros(b, np.int64),
             phase=np.zeros(b, np.int64), uid=np.full(b, -1, np.int64),
             remaining=np.zeros(b, np.int64), prompt_left=np.zeros(b, np.int64))
+        # the placement of the attention layers' blocks (one spec: the GSPMD
+        # layouts serve the dense attention family alone)
+        self._place = (None if self._placed is None
+                       else self._placed.place(T.attn_spec(cfg)))
         # the token feed: each slot's next input token, and the generation
         # index of that slot's next sample, both updated in place
         self._tok = torch.zeros(b, dtype=torch.int32, device=self.device)
@@ -668,19 +682,21 @@ class Engine:
             # the tiered select step saves what it writes, then returns its
             # digest; a replay after a cold miss restores first
             save = cachelib.DecodeStepSave(serve, (tok, gen), sink=self.cfg.h2eal.sink,
-                                           phys_shards=self.plan.page_stripe_shards)
+                                           phys_shards=self.plan.page_stripe_shards,
+                                           place=self._place)
 
             def select():
                 save.save()
                 decode(me._dec_sel, need)
-                return _selection_digest(serve)
+                return me._digest()
             g.add("decode_select", select)
             g.add("tier_restore", save.restore)
         g.add("decode_reuse", lambda: decode(me._dec_reuse))
         if self.rebalance != "off":
             src = g.input("mig_src", (1,), torch.int64)
             dst = g.input("mig_dst", (1,), torch.int64)
-            g.add("migrate", lambda: _migrate_rows(serve, (tok, gen), src, dst))
+            g.add("migrate", lambda: _migrate_rows(serve, (tok, gen), src, dst,
+                                                   me._place))
         c, w = self.prefill_chunk, self._fused_len
         if c is not None:
             ctoks = g.input("ctoks", (b, c), torch.int32)
@@ -1251,12 +1267,46 @@ class Engine:
     # tiered residency (core/cache.TieredPagedCache)
     # ------------------------------------------------------------------
 
+    def _digest(self) -> torch.Tensor:
+        """The select step's digest (``_selection_digest``) of the whole
+        batch: under a GSPMD layout gathered from the ranks' blocks, so that
+        every rank reads the same selection and takes the same decisions,
+        and no rank spills a page that another rank's heads selected."""
+        if self._placed is None:
+            return _selection_digest(self.batch.serve)
+        spec = T.attn_spec(self.cfg)
+        return _selection_digest(self.batch.serve, lambda field, t: self._placed.whole(
+            spec, "paged", field, t, lead=1))
+
+    def _relay_far(self, src: int, dst: int, rows) -> list:
+        """``TieredPagedCache.move_slot``'s relay where the batch rows are cut
+        over 'data': the far rows of ``src``'s pages in this rank's page
+        block, sent by the rank holding ``src`` (``collectives.owner_select``)
+        and kept in pinned host memory by the rank holding ``dst``."""
+        if not rows:
+            return []
+        place = self._place
+        (b0, b1) = place.bounds[("paged", "k_pages")][0]
+        (axis,) = place.cut("paged", "k_pages", 0)
+        tiles = cachelib.kv_page_tensors(self.batch.serve)
+        shape = (len(tiles),) + tuple(tiles[0][0, :, 0].shape)
+        x = torch.stack([torch.zeros(shape, dtype=tiles[0].dtype) if r is None else r
+                         for r in rows]).to(self.device)
+        owner = torch.full((1,), src // (b1 - b0), dtype=torch.int64, device=self.device)
+        got = coll.owner_select(x, self.mesh, axis, owner)
+        if not b0 <= dst < b1:
+            return [None] * len(rows)
+        host = torch.empty(got.shape, dtype=got.dtype, pin_memory=self.device.type == "cuda")
+        host.copy_(got)
+        return list(host.unbind(0))
+
     def _init_tier(self):
         pages = cachelib.kv_page_tensors(self.batch.serve)
         if not pages:
             raise ValueError("hot_pages tiering requires a paged retrieval-head "
                              "cache; this config's serve state has none")
-        n_pages = pages[0].shape[2]
+        # the whole cache's pages (a GSPMD layout's block holds a part of them)
+        n_pages = -(-self.cache_capacity // self.cfg.h2eal.page_size)
         if not 1 <= self.hot_pages <= n_pages:
             raise ValueError(
                 f"hot_pages={self.hot_pages} must be in [1, {n_pages}] (cache "
@@ -1266,7 +1316,9 @@ class Engine:
         self._tier = cachelib.TieredPagedCache(
             n_slots=self.batch.max_batch, n_pages=n_pages, hot_pages=self.hot_pages,
             page_size=h2.page_size, sink=h2.sink, local=h2.local,
-            stripe_shards=self.plan.page_stripe_shards, device=self.device)
+            stripe_shards=self.plan.page_stripe_shards, device=self.device,
+            block=None if self._place is None else tuple(
+                self._place.bounds[("paged", "k_pages")][i] for i in (0, 2)))
 
     def _tier_digest(self, digest: torch.Tensor, need: np.ndarray):
         """The selected physical pages and the (n_pages,) importance summed
@@ -1490,7 +1542,8 @@ class Engine:
             self._spec_emitted[dst] = self._spec_emitted[src]
             self._spec_emitted[src] = 0
         if self._tier is not None:
-            self._tier.move_slot(src, dst)
+            cut = self._place is not None and self._place.cut("paged", "k_pages", 0)
+            self._tier.move_slot(src, dst, relay=self._relay_far if cut else None)
         comp = self._live.pop(src)
         comp._slot = dst
         self._live[dst] = comp

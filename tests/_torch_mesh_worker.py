@@ -11,8 +11,9 @@ every mesh in turn: as rank RANK of that mesh's own process group where
 RANK is below its world size, and sits it out otherwise. Each case names
 a config, the parameters (the JAX package's tree as numpy arrays, bridged
 by ``models/convert.params_from_numpy``), a layout, the engine's options
-and the requests, or a single-step check of the sharded attention bodies
-against the default body. The process writes its results, by mesh, to
+(speculative decode, tiered residency and rebalancing among them) and the
+requests, or a single-step check of the sharded attention bodies (decode,
+chunk, speculative verify and its commit) against the default body. The process writes its results, by mesh, to
 JOB.RANK. This module imports no JAX: the port's ranks run without it.
 """
 import dataclasses
@@ -37,22 +38,35 @@ from repro_torch.runtime import sharding  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 
 
-def config(name, overrides):
-    return tconfigs.reduced(tconfigs.get_arch(name), **overrides)
+def config(name, overrides, h2=()):
+    cfg = tconfigs.reduced(tconfigs.get_arch(name), **dict(overrides))
+    if h2:
+        cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal, **dict(h2)))
+    return cfg
 
 
 def run_engine(case, mesh):
-    """The case's engine on this rank: its tokens, and its step captures
-    before and after the run."""
-    cfg = config(case["arch"], case["overrides"])
+    """The case's engine on this rank: its tokens, its step captures before
+    and after the run, its stats and the (src, dst, far pages of src) of
+    each migration."""
+    cfg = config(case["arch"], case["overrides"], case.get("h2", ()))
     params = params_from_numpy(cfg, case["params"], "cpu")
     eng = Engine(cfg, params, layout=case["layout"], mesh=mesh, device="cpu",
                  **case["engine"])
+    moves, migrate = [], eng._migrate_slot
+
+    def logged(src, dst):
+        far = 0 if eng._tier is None else sum(k[0] == src for k in eng._tier.far)
+        moves.append((src, dst, far))
+        migrate(src, dst)
+    eng._migrate_slot = logged
     before = eng.jit_cache_sizes()
     comps = eng.run([Request(**r) for r in case["requests"]])
     return {"tokens": {u: c.tokens for u, c in comps.items()},
             "captures": (before, eng.jit_cache_sizes()),
-            "stats": dataclasses.asdict(eng.stats)}
+            "stats": dataclasses.asdict(eng.stats), "moves": moves,
+            "far_bytes": (0, 0) if eng._tier is None else (eng._tier.h2d_bytes,
+                                                           eng._tier.d2h_bytes)}
 
 
 def _fields(c):
@@ -88,8 +102,9 @@ def _state_diff(block, full, place, mesh):
 
 
 def run_steps(case, mesh):
-    """One layer's decode steps (select, then reuse) and a chunk step on the
-    rank's blocks, beside the default body on the whole state, from one
+    """One layer's decode steps (select, then reuse), a chunk step, a
+    speculative verify of 4 tokens and the commit of its accepted prefix on
+    the rank's blocks, beside the default body on the whole state, from one
     seeded state: each output's largest difference from the default's, and
     the blocks' from the tiles of the default's state."""
     cfg = config(case["arch"], case["overrides"])
@@ -130,6 +145,20 @@ def run_steps(case, mesh):
     got, block = placed.prefill_chunk(spec, block, q, k, v, length, clen, clen > 0)
     out["chunk"] = {"out": float((got - want).abs().max()),
                     "state": _state_diff(block, full, place, mesh)}
+    length = length + clen
+    kk = 4
+    q, k, v = rnd(b, kk, hq, d), rnd(b, kk, hkv, d), rnd(b, kk, hkv, d)
+    need = torch.tensor(case["need"])
+    want, full = layoutlib.DEFAULT.verify_chunk(spec, full, q, k, v, length, active=active,
+                                                need_select=need)
+    got, block = placed.verify_chunk(spec, block, q, k, v, length, active=active,
+                                     need_select=need)
+    out["verify"] = {"out": float((got - want).abs().max()),
+                     "state": _state_diff(block, full, place, mesh)}
+    accepted = torch.tensor([3, 1, 4][:b], dtype=torch.int32)
+    full = layoutlib.DEFAULT.verify_append(spec, full, k, v, length, accepted, active=active)
+    block = placed.verify_append(spec, block, k, v, length, accepted, active=active)
+    out["commit"] = {"out": 0.0, "state": _state_diff(block, full, place, mesh)}
     return out
 
 

@@ -315,16 +315,28 @@ def test_chunked_prefill_validation(smollm):
     (dict(rebalance="bogus"), ValueError, "valid triggers"),
     # the JAX engine's gate: verify steps move phases by variable counts
     (dict(decode_window=4, spec_tokens=2), ValueError, "decode_window > 1"),
-    # the GSPMD layouts build; what they do not serve yet raises
+    # the GSPMD layouts serve the options for the dense family; a family
+    # they do not serve yet raises with them
     (dict(layout="head", spec_tokens=2), NotImplementedError, "ROADMAP"),
     (dict(layout="interleave", hot_pages=4), NotImplementedError, "ROADMAP"),
 ])
 def test_unsupported_engine_options_raise(smollm, kw, error, what):
     """The options not served raise and name their ROADMAP item; the ported
     ``spec_tokens`` builds, and its gates, the tier budget's and the
-    rebalance trigger's raise the JAX engine's errors."""
+    rebalance trigger's raise the JAX engine's errors. On a GSPMD layout
+    ``spec_tokens`` and ``hot_pages`` build for smollm, and a zamba2 config
+    with them raises citing the layouts' ROADMAP item."""
     if error is None:
         assert smollm.port(**kw).spec_tokens == kw["spec_tokens"]
+        return
+    if error is NotImplementedError:
+        eng = smollm.port(**kw)
+        assert (eng.layout, eng.spec_tokens, eng.hot_pages) == (
+            kw["layout"], kw.get("spec_tokens"), kw.get("hot_pages"))
+        cfg = tconfigs.reduced(tconfigs.get_arch("zamba2-2.7b"))
+        with pytest.raises(error, match=what):
+            Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2,
+                   capacity=CAP, prompt_buckets=[16, 24], device="cpu", **kw)
         return
     with pytest.raises(error, match=what):
         smollm.port(**kw)

@@ -4,7 +4,14 @@ served over ``torch.distributed`` ranks, against the JAX package on the CPU.
 S = 1: in this process, a gloo group of one rank (a ``FileStore`` under the
 test's temporary directory, destroyed after the module), each layout's
 engine, packed and chunked, greedy and one sampled request, against the
-JAX engine of the same layout on its one-device mesh, token for token.
+JAX engine of the same layout on its one-device mesh, token for token; and
+each layout's engine with speculative decode (``spec_tokens=4``, packed and
+chunked) and with tiered residency (``hot_pages=4``), the reference's own
+conformance cases, and with retire-triggered rebalancing on 4 slots,
+against the JAX engine of the layout with the same options: tokens,
+``spec_steps``, the mean accepted length and every tier and rebalance
+counter. Those JAX engines compile in three subprocesses of their own (one
+a layout, ``jax_layout_runs``) while this process runs the first cases.
 
 S = 2 and 4: ranks spawned as processes (``tests/_torch_mesh_worker.py``,
 which imports no JAX): one spawn of 4 processes runs every mesh in turn,
@@ -20,15 +27,23 @@ layer steps of ``head`` and ``coplace`` at 2 slots (the batch over
 ``reduced(get_arch("llama3-8b"), num_heads=8, num_kv_heads=4)``, whose 2
 retrieval and 2 streaming kv heads divide 'model' at 2, and plain reduced
 smollm, whose single kv head of each kind does not: the reference's
-``_div`` rule replicates them. Every rank's tokens must equal each other's
-and the JAX default-layout engine's on the same workload and weights, up
-to a JAX near-tie (the rule of tests/test_torch_engine.py: the co-placed
-layouts reassociate the attention sum, as ``coplace_shmap`` does). Each
-mesh also holds one layer's select, reuse and chunk steps on the ranks'
-blocks against the port's default body on the whole state: outputs within
-2e-5, every cache field of each block equal to its tile of the default's
-state (the importance within 1e-6 of its magnitude: where the pages are
-cut its scores are summed in another order).
+``_div`` rule replicates them. The engine cases are served packed and
+chunked, speculative (the n-gram draft, and the streaming draft whose
+shadow is the rank's block), tiered on the llama config narrowed so that
+pages spill (local 8, select budget 16: ``LLAMA_NARROW``), and rebalanced
+on 4 slots: on (1, 2) the rows move within each rank's block, on (2, 2) the
+batch is cut over 'data' and a migration moves a slot's row to another
+rank (with tiering too, whose far rows follow it). Every rank's tokens must equal each other's and the JAX
+default-layout engine's on the same workload and weights, up to a JAX
+near-tie (the rule of tests/test_torch_engine.py: the co-placed layouts
+reassociate the attention sum, as ``coplace_shmap`` does); every rank's
+counters must equal each other's and the port's default engine's with the
+same options. Each mesh also holds one layer's select, reuse, chunk,
+verify and commit steps on the ranks' blocks against the port's default
+body on the whole state: outputs within 2e-5, every cache field of each
+block equal to its tile of the default's state (the importance within
+1e-6 of its magnitude: where the pages are cut its scores are summed in
+another order).
 """
 import dataclasses
 import os
@@ -60,48 +75,93 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(TESTS, "_torch_mesh_worker.py")
 GSPMD = ("head", "coplace", "interleave")
 LLAMA = ("llama3-8b", (("num_heads", 8), ("num_kv_heads", 4)))
+# the llama config with a small local window and select budget, so that
+# tiered residency spills (tests/test_torch_tiered.py's narrowing)
+LLAMA_NARROW = LLAMA + ((("local", 8), ("select_budget", 16)),)
 SMOLLM = ("smollm-360m", ())
 TOL, IMP_TOL = 2e-5, 1e-6
 ENGINE = dict(capacity=CAP, prompt_buckets=[16, 24])
+BUCKETS = [8, 16, 24]
+# each workload's prompt buckets (``_requests``)
+WORKLOADS = {"mixed": [16, 24], "deep": [40], "churn": BUCKETS, "long_short": [8, 40]}
+# engine modes: the options of each and its workload
+MODES = {
+    "packed": ({}, "mixed"),
+    "chunked": (dict(prefill_chunk=5), "mixed"),
+    "spec": (dict(spec_tokens=4), "mixed"),
+    "spec_streaming": (dict(spec_tokens=4, draft="streaming", prefill_chunk=5), "mixed"),
+    "tiered": (dict(hot_pages=4), "deep"),
+    "rebalanced": (dict(rebalance="retire", max_batch=4), "churn"),
+    "rebalanced_tiered": (dict(rebalance="retire", hot_pages=4, max_batch=4), "long_short"),
+}
 # (data, model) meshes of the spawned runs and their cases: (layout, arch,
 # max_batch, engine modes); every llama case also checks one layer's steps
 MESHES = {
-    (1, 2): [("head", LLAMA, 2, ("packed", "chunked")),
-             ("coplace", LLAMA, 2, ("packed", "chunked")),
-             ("head", SMOLLM, 2, ("chunked",))],
-    (1, 4): [("coplace", LLAMA, 2, ("packed", "chunked"))],
-    (2, 2): [("interleave", LLAMA, 3, ("packed", "chunked")),
-             ("head", LLAMA, 2, ()), ("coplace", LLAMA, 2, ())],
+    (1, 2): [("head", LLAMA, 2, ("packed", "chunked", "spec", "rebalanced")),
+             ("coplace", LLAMA, 2, ("packed", "chunked", "spec_streaming",
+                                    "rebalanced")),
+             ("head", SMOLLM, 2, ("chunked",)),
+             ("coplace", LLAMA_NARROW, 2, ("tiered",))],
+    (1, 4): [("coplace", LLAMA, 2, ("packed", "chunked", "spec")),
+             ("coplace", LLAMA_NARROW, 2, ("tiered",))],
+    (2, 2): [("interleave", LLAMA, 3, ("packed", "chunked", "spec_streaming",
+                                        "rebalanced")),
+             ("interleave", LLAMA_NARROW, 3, ("tiered",)),
+             ("head", LLAMA, 2, ()), ("coplace", LLAMA, 2, ("rebalanced",)),
+             ("head", LLAMA_NARROW, 2, ("rebalanced_tiered",))],
 }
-MODES = {"packed": None, "chunked": 5}
+# the S = 1 cases against the JAX engine of each layout with the same
+# options: (options, workload); the mixed one with its sampled request
+ONE_RANK_RUNS = {"spec_packed": (dict(spec_tokens=4), "mixed"),
+                 "spec_chunked": (dict(spec_tokens=4, prefill_chunk=5), "mixed"),
+                 "tiered": (dict(hot_pages=4), "mixed"),
+                 "rebalanced": (dict(rebalance="retire", max_batch=4,
+                                     prompt_buckets=BUCKETS), "churn")}
+# the counters held equal: speculation's and every tier and rebalance counter
+SPEC_STATS = ("spec_steps", "spec_slot_steps", "spec_drafted", "spec_accepted")
+TIER_STATS = ("tier_hits", "tier_misses", "tier_spills", "tier_fills", "tier_prefetch",
+              "tier_fill_batches", "tier_spill_batches", "tier_gather_batches",
+              "tier_batch_pages_max")
+REBALANCE_STATS = ("rebalance_checks", "rebalances", "rebalance_skipped", "migrations",
+                   "migrated_tokens")
 
 
 class Arch(Model):
-    """``test_torch_engine.Model`` of a reduced config with overrides."""
+    """``test_torch_engine.Model`` of a reduced config with overrides (and
+    H²EAL overrides ``h2``)."""
 
-    def __init__(self, name, overrides):
+    def __init__(self, name, overrides, h2=()):
         self.jcfg = jconfigs.reduced(jconfigs.get_arch(name), **dict(overrides))
         self.tcfg = tconfigs.reduced(tconfigs.get_arch(name), **dict(overrides))
+        if h2:
+            self.jcfg, self.tcfg = (dataclasses.replace(c, h2eal=dataclasses.replace(
+                c.h2eal, **dict(h2))) for c in (self.jcfg, self.tcfg))
         self.jparams = JM.init_params(self.jcfg, jax.random.PRNGKey(0))
         self.numpy_params = jax.tree.map(np.asarray, self.jparams)
         self.tparams = params_from_numpy(self.tcfg, self.numpy_params, "cpu")
         self._engines = {}
         self._steps = {}
 
-    def jax_engine_run(self, requests, *, layout="default", prefill_chunk=None):
-        """Tokens of a JAX engine of ``layout`` (its default one-device mesh),
-        built once per (layout, mode)."""
-        key = (layout, prefill_chunk)
+    def jax_engine_run(self, requests, *, layout="default", prefill_chunk=None, **kw):
+        """(tokens, stats) of a JAX engine of ``layout`` (its default
+        one-device mesh), built once per (layout, options)."""
+        kw = dict(dict(max_batch=2, prefill_chunk=prefill_chunk, **ENGINE), **kw)
+        key = (layout, tuple(sorted((k, str(v)) for k, v in kw.items())))
         eng = self._engines.get(key)
         if eng is None:
-            eng = self._engines[key] = JEngine(self.jcfg, self.jparams, max_batch=2,
-                                               layout=layout,
-                                               prefill_chunk=prefill_chunk, **ENGINE)
+            eng = self._engines[key] = JEngine(self.jcfg, self.jparams, layout=layout, **kw)
         eng.reset_metrics()
         comps = eng.run([JRequest(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
                                   temperature=r.temperature, top_p=r.top_p,
                                   seed=r.seed) for r in requests])
-        return {u: c.tokens for u, c in comps.items()}
+        return {u: c.tokens for u, c in comps.items()}, _counters(eng.stats)
+
+
+def _counters(stats) -> dict:
+    """The counters the engines are held to, and the mean accepted length."""
+    out = {f: getattr(stats, f) for f in SPEC_STATS + TIER_STATS + REBALANCE_STATS}
+    out["mean_accepted_len"] = stats.mean_accepted_len
+    return out
 
 
 def _workload(cfg, sampled=False):
@@ -119,25 +179,82 @@ def _workload(cfg, sampled=False):
     return reqs
 
 
-# the JAX default-layout engines the spawned ranks are held to: (arch, mode)
-JAX_DEFAULT = [(LLAMA, "packed"), (LLAMA, "chunked"), (SMOLLM, "chunked")]
+def _requests(cfg, workload):
+    """A mode's greedy workload: "mixed" (``_workload``); "deep", 3 prompts
+    of 40 tokens whose contexts reach 54, so that the narrowed config spills
+    pages; "churn", tests/test_torch_rebalance.py's ragged prompts and
+    budgets, so that retirements leave the slots skewed; "long_short",
+    prompts of 40 tokens with 14-21 new ones among prompts of 8 with 2-5,
+    whose seed has the narrowed config spill pages of a slot that a
+    migration then moves to another rank."""
+    if workload == "mixed":
+        return _workload(cfg)
+    rng = np.random.default_rng({"deep": 1, "churn": 0, "long_short": 5}[workload])
+    if workload == "deep":
+        return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=(40,))
+                        .astype(np.int32), max_new=6 + 4 * i) for i in range(3)]
+    reqs = []
+    for uid in range(10):
+        if workload == "churn":
+            s, g = int(rng.choice(BUCKETS)), int(rng.integers(3, 20))
+        else:
+            s = int(rng.choice([8, 40]))
+            g = int(rng.integers(14, 22)) if s == 40 else int(rng.integers(2, 6))
+        reqs.append(Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size, size=(s,))
+                            .astype(np.int32), max_new=g))
+    return reqs
+
+
+def _reference(arch, mode):
+    """The JAX default-layout run a mode's tokens are held to: (arch,
+    workload, its prefill mode); speculation, tiering and rebalancing emit
+    the plain engine's tokens."""
+    kw, workload = MODES[mode]
+    return arch, workload, "chunked" if kw.get("prefill_chunk") else "packed"
+
+
+def _engine_kw(mode, max_batch):
+    """A mode's engine options at ``max_batch`` slots (a mode may set its own)."""
+    kw, workload = MODES[mode]
+    return dict(dict(max_batch=max_batch, capacity=CAP, prompt_buckets=WORKLOADS[workload]),
+                **kw)
+
+
+# the JAX default-layout engines the spawned ranks are held to
+JAX_DEFAULT = sorted({_reference(arch, mode) for cases in MESHES.values()
+                      for _, arch, _, modes in cases for mode in modes}, key=str)
 JAX_SUBPROCESS = """
 import pickle, sys
 sys.path.insert(0, {tests!r})
 import test_torch_layouts as L
 with open(sys.argv[1], "wb") as f:
-    pickle.dump(L.jax_default_traces(), f)
+    pickle.dump(L.{func}(*sys.argv[2:]), f)
 """
 
 
 def jax_default_traces():
-    """{(arch, mode): tokens} of the JAX default-layout engines of
-    JAX_DEFAULT on the greedy workload."""
+    """{(arch, workload, prefill mode): tokens} of the JAX default-layout
+    engines of JAX_DEFAULT."""
     archs, out = {}, {}
-    for arch, mode in JAX_DEFAULT:
+    for arch, workload, mode in JAX_DEFAULT:
         a = archs.get(arch) or archs.setdefault(arch, Arch(*arch))
-        out[(arch, mode)] = a.jax_engine_run(_workload(a.tcfg), prefill_chunk=MODES[mode])
+        out[(arch, workload, mode)] = a.jax_engine_run(
+            _requests(a.tcfg, workload), prompt_buckets=WORKLOADS[workload],
+            **MODES[mode][0])[0]
     return out
+
+
+def _one_rank_requests(cfg, workload):
+    return _workload(cfg, sampled=True) if workload == "mixed" else _requests(cfg, workload)
+
+
+def jax_layout_runs(layout):
+    """{run: (tokens, counters)} of the JAX engine of ``layout`` with each
+    option set of ONE_RANK_RUNS, smollm on its workload."""
+    a = Arch(*SMOLLM)
+    return {run: a.jax_engine_run(_one_rank_requests(a.tcfg, workload), layout=layout,
+                                  **kw)
+            for run, (kw, workload) in ONE_RANK_RUNS.items()}
 
 
 def _req_dict(r):
@@ -147,7 +264,7 @@ def _req_dict(r):
 
 @pytest.fixture(scope="module")
 def archs():
-    return {LLAMA: Arch(*LLAMA), SMOLLM: Arch(*SMOLLM)}
+    return {arch: Arch(*arch) for arch in (LLAMA, LLAMA_NARROW, SMOLLM)}
 
 
 def _job(archs, tmp):
@@ -160,12 +277,12 @@ def _job(archs, tmp):
         for layout, arch, max_batch, modes in cases:
             a = archs[arch]
             for mode in modes:
-                chunk = MODES[mode]
                 job["cases"][(layout, arch, mode)] = {
                     "kind": "engine", "arch": arch[0], "overrides": dict(arch[1]),
+                    "h2": dict(arch[2]) if len(arch) > 2 else {},
                     "params": a.numpy_params, "layout": layout,
-                    "engine": dict(max_batch=max_batch, prefill_chunk=chunk, **ENGINE),
-                    "requests": [_req_dict(r) for r in _workload(a.tcfg)]}
+                    "engine": _engine_kw(mode, max_batch),
+                    "requests": [_req_dict(r) for r in _requests(a.tcfg, MODES[mode][1])]}
             if arch == LLAMA:
                 b = max_batch
                 job["cases"][(layout, "steps", b)] = {
@@ -225,31 +342,54 @@ def spawned(archs, tmp_path_factory):
     return result
 
 
-@pytest.fixture(scope="module")
-def jax_default(tmp_path_factory):
-    """JAX_DEFAULT's engines in a subprocess, started with the module's first
-    test, so that they compile while this process runs the S = 1 cases;
-    ``result()`` waits and reads them."""
-    tmp = tmp_path_factory.mktemp("jax_default")
+def _jax_subprocess(tmp, func, *args):
+    """``func(*args)`` of this module run by a JAX subprocess, started now;
+    the returned ``result()`` waits and reads its pickle; ``stop()`` ends it
+    if it still runs."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(os.path.dirname(TESTS), "src"), os.environ.get("PYTHONPATH", "")]))
     with open(tmp / "stderr.txt", "w") as err:
-        proc = subprocess.Popen([sys.executable, "-c", JAX_SUBPROCESS.format(tests=TESTS),
-                                 str(tmp / "traces.pkl")], stdout=subprocess.DEVNULL,
-                                stderr=err, env=env)
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 JAX_SUBPROCESS.format(tests=TESTS, func=func),
+                                 str(tmp / "out.pkl"), *args],
+                                stdout=subprocess.DEVNULL, stderr=err, env=env)
     done = []
 
     def result():
         if not done:
             proc.wait(timeout=600)
             assert proc.returncode == 0, (tmp / "stderr.txt").read_text()[-4000:]
-            with open(tmp / "traces.pkl", "rb") as f:
+            with open(tmp / "out.pkl", "rb") as f:
                 done.append(pickle.load(f))
         return done[0]
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return result, stop
+
+
+@pytest.fixture(scope="module")
+def jax_default(tmp_path_factory):
+    """JAX_DEFAULT's engines in a subprocess, started with the module's first
+    test, so that they compile while this process runs the S = 1 cases;
+    ``result()`` waits and reads them."""
+    result, stop = _jax_subprocess(tmp_path_factory.mktemp("jax_default"),
+                                   "jax_default_traces")
     yield result
-    if proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    stop()
+
+
+@pytest.fixture(scope="module")
+def jax_layout(tmp_path_factory):
+    """``jax_layout_runs`` of each GSPMD layout, one subprocess a layout,
+    started with the module's first test; ``result(layout)`` waits."""
+    runs = {layout: _jax_subprocess(tmp_path_factory.mktemp(f"jax_{layout}"),
+                                    "jax_layout_runs", layout) for layout in GSPMD}
+    yield lambda layout: runs[layout][0]()
+    for _, stop in runs.values():
+        stop()
 
 
 @pytest.fixture(scope="module")
@@ -268,24 +408,53 @@ def one_rank(tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("mode", ["packed", "chunked"])
 @pytest.mark.parametrize("layout", GSPMD)
-def test_one_rank_engine_matches_jax_layout(archs, spawned, jax_default, one_rank, layout,
-                                            mode):
+def test_one_rank_engine_matches_jax_layout(archs, spawned, jax_default, jax_layout,
+                                            one_rank, layout, mode):
     """smollm at S = 1 through each GSPMD layout's engine, the greedy
     workload and a sampled request, against the JAX engine of the layout:
     token for token (a greedy token up to a JAX near-tie)."""
     m = archs[SMOLLM]
     assert one_rank.shape == {"data": 1, "model": 1} and one_rank.backend == "gloo"
     reqs = _workload(m.tcfg, sampled=True)
+    chunk = MODES[mode][0].get("prefill_chunk")
     eng = Engine(m.tcfg, m.tparams, max_batch=2, layout=layout, mesh=one_rank,
-                 prefill_chunk=MODES[mode], device="cpu", **ENGINE)
+                 prefill_chunk=chunk, device="cpu", **ENGINE)
     assert eng.plan.shard_state and eng.plan.mesh is one_rank
     got = {u: c.tokens for u, c in eng.run(reqs).items()}
-    want = m.jax_engine_run(reqs, layout=layout, prefill_chunk=MODES[mode])
+    want, _ = m.jax_engine_run(reqs, layout=layout, prefill_chunk=chunk)
     assert got[5] == want[5]
     m.assert_same({u: t for u, t in got.items() if u != 5},
                   {u: t for u, t in want.items() if u != 5}, reqs[:5])
+
+
+@pytest.mark.parametrize("run", list(ONE_RANK_RUNS))
+@pytest.mark.parametrize("layout", GSPMD)
+def test_one_rank_features_match_jax_layout(archs, jax_layout, one_rank, layout, run):
+    """smollm at S = 1 through each GSPMD layout's engine with speculative
+    decode (k = 4, the n-gram draft, packed and chunked) and with tiered
+    residency (4 pages), the greedy workload and a sampled request, and
+    with retire-triggered rebalancing on 4 slots and a churning workload,
+    against the JAX engine of the layout with the same options: tokens (a
+    greedy token up to a JAX near-tie), spec_steps, the mean accepted
+    length and every tier and rebalance counter equal."""
+    m = archs[SMOLLM]
+    kw, workload = ONE_RANK_RUNS[run]
+    reqs = _one_rank_requests(m.tcfg, workload)
+    eng = Engine(m.tcfg, m.tparams, layout=layout, mesh=one_rank, device="cpu",
+                 **dict(dict(max_batch=2, **ENGINE), **kw))
+    got = {u: c.tokens for u, c in eng.run(reqs).items()}
+    want, stats = jax_layout(layout)[run]
+    sampled = {r.uid for r in reqs if r.temperature > 0}
+    assert all(got[u] == want[u] for u in sampled)
+    m.assert_same({u: t for u, t in got.items() if u not in sampled},
+                  {u: t for u, t in want.items() if u not in sampled},
+                  [r for r in reqs if r.uid not in sampled])
+    assert _counters(eng.stats) == stats
+    s = eng.stats
+    assert {"spec_packed": s.spec_steps, "spec_chunked": s.spec_steps,
+            "tiered": s.tier_hits, "rebalanced": s.rebalance_checks}[run] > 0
 
 
 def test_one_rank_fused_windows_and_balanced_admission(archs):
@@ -309,11 +478,18 @@ def test_one_rank_fused_windows_and_balanced_admission(archs):
 # ---------------------------------------------------------------------------
 
 
+def _held(stats) -> dict:
+    return {f: stats[f] for f in SPEC_STATS + TIER_STATS + REBALANCE_STATS}
+
+
 @pytest.mark.parametrize("mesh", list(MESHES), ids=lambda m: f"{m[0]}x{m[1]}")
 def test_ranks_match_each_other_and_jax(archs, spawned, jax_default, mesh):
-    """Every engine case on every rank of the mesh: the ranks' tokens equal,
-    equal to the JAX default-layout engine's (up to a JAX near-tie), and no
-    step captured anew after construction."""
+    """Every engine case on every rank of the mesh: the ranks' tokens and
+    counters equal, the tokens equal to the JAX default-layout engine's (up
+    to a JAX near-tie), the counters to the port's default engine's with the
+    same options, and no step captured anew after construction. The
+    rebalanced cases migrate a slot's row to another rank, the tiered ones
+    spill and fill."""
     ranks = spawned(mesh)
     assert [r["mesh"][0] for r in ranks] == [mesh] * len(ranks)
     for name, case in ranks[0]["results"].items():
@@ -322,23 +498,45 @@ def test_ranks_match_each_other_and_jax(archs, spawned, jax_default, mesh):
         layout, arch, mode = name
         for r in ranks[1:]:
             assert r["results"][name]["tokens"] == case["tokens"], name
+            assert _held(r["results"][name]["stats"]) == _held(case["stats"]), name
         before, after = case["captures"]
         assert before == after
         a = archs[arch]
-        reqs = _workload(a.tcfg)
-        a.assert_same(case["tokens"], jax_default()[(arch, mode)], reqs)
+        reqs = _requests(a.tcfg, MODES[mode][1])
+        a.assert_same(case["tokens"], jax_default()[_reference(arch, mode)], reqs)
+        if mode in ("packed", "chunked"):
+            continue
+        max_batch = next(b for lay, ar, b, modes in MESHES[mesh]
+                         if (lay, ar) == (layout, arch) and mode in modes)
+        kw = _engine_kw(mode, max_batch)
+        default = Engine(a.tcfg, a.tparams, device="cpu", **kw)
+        default.run(reqs)
+        assert _held(case["stats"]) == _held(dataclasses.asdict(default.stats)), name
+        s = case["stats"]
+        if "spec" in mode:
+            assert s["spec_steps"] > 0, name
+        if "tiered" in mode:
+            assert s["tier_spills"] > 0 and s["tier_fills"] > 0, name
+        if "rebalanced" in mode:
+            # where the batch lies over 'data', a move to another rank,
+            # which carries far rows where tiered
+            rows = kw["max_batch"] // mesh[0]
+            assert any(mesh[0] == 1 or src // rows != dst // rows
+                       and (far > 0 or "tiered" not in mode)
+                       for src, dst, far in case["moves"]), name
 
 
 @pytest.mark.parametrize("mesh", list(MESHES), ids=lambda m: f"{m[0]}x{m[1]}")
 def test_rank_blocks_match_the_default_body(spawned, mesh):
-    """One layer's select, reuse and chunk steps on every rank's blocks
-    against the default body on the whole state: outputs within 2e-5 and
-    each block equal to its tile of the default's state."""
+    """One layer's select, reuse, chunk, speculative verify and commit steps
+    on every rank's blocks against the default body on the whole state:
+    outputs within 2e-5 and each block equal to its tile of the default's
+    state."""
     for r in spawned(mesh):
         for name, res in r["results"].items():
             if name[1] != "steps":
                 continue
-            for step in res["steps"] + [res["chunk"]]:
+            for step in res["steps"] + [res["chunk"], res["verify"], res["commit"]]:
                 assert step["out"] <= TOL, (name, step)
                 for field, diff in step["state"].items():
                     tol = IMP_TOL if field.endswith("importance") else 0.0
@@ -350,17 +548,29 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
 # ---------------------------------------------------------------------------
 
 
+# each engine feature with a family the GSPMD layouts do not serve yet
+REFUSED_WITH = {"spec_tokens": "gemma3-1b", "hot_pages": "zamba2-2.7b",
+                "rebalance": "qwen3-moe-235b-a22b"}
+
+
 @pytest.mark.parametrize("kw,what", [
     (dict(spec_tokens=2), "spec_tokens"), (dict(hot_pages=4), "hot_pages"),
     (dict(rebalance="retire"), "rebalance"),
 ])
 def test_gspmd_engine_refusals(archs, kw, what):
-    """What the GSPMD layouts do not serve yet raises and cites item 9b; none
-    falls back to another layout."""
+    """Speculative decode, tiered residency and rebalancing build on a GSPMD
+    layout for the dense family, placed on this rank; with a family the
+    layouts do not serve yet the engine raises citing item 9b, whatever the
+    option, and none falls back to another layout."""
     m = archs[SMOLLM]
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 9b"):
-        Engine(m.tcfg, m.tparams, max_batch=2, layout="coplace", device="cpu",
-               **ENGINE, **kw)
+    eng = Engine(m.tcfg, m.tparams, max_batch=2, layout="coplace", device="cpu",
+                 **ENGINE, **kw)
+    assert eng.layout == "coplace" and eng._placed is not None
+    assert getattr(eng, what) == kw[what]
+    cfg = tconfigs.reduced(tconfigs.get_arch(REFUSED_WITH[what]))
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2,
+               layout="coplace", device="cpu", **ENGINE, **kw)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-moe-235b-a22b", "zamba2-2.7b",
