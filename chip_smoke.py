@@ -182,7 +182,18 @@ then, each phase failing the run with a nonzero exit:
      store's GB/s; ``coplace`` and ``interleave`` with retire-triggered
      rebalancing: tokens equal to rebalance off's, a migration counted;
      and chunk_attention at the verify's shapes on a rank's block timed
-     against its plain version and SDPA.
+     against its plain version and SDPA; (b) also serves the other families
+     on both ranks: zamba2-2.7b cut to one period on ``head`` (2, 1),
+     rebalanced, its recurrent rows cut over 'data' and a migration moving
+     a slot's row to the other rank; gemma3-1b cut to one period on
+     ``coplace`` (1, 2), tiered, its global layer's pages cut (partials at
+     head_dim 256); llama3-8b at the cut with H²EAL off on ``head`` (1, 2),
+     its full caches' kv heads cut; each against the one-rank default
+     engine with the same options; (d) in (a)'s NCCL group, the other
+     families through the captured chunked engine of the default layout
+     and of each GSPMD layout, one request sampled: zamba2-2.7b, xlstm-125m
+     and gemma3-1b whole, qwen3-moe cut to 8 layers, llama3-8b with H²EAL
+     off; tokens, counters and launch counts equal to the default's.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -2470,19 +2481,22 @@ def serve_tiered_and_rebalanced(dev, cfg, params, want, base_rate, card):
 # ---------------------------------------------------------------------------
 
 
-def check_window_decode(ops, ref, timer, dev, cfg, dtype, gen, prompt):
+def check_window_decode(ops, ref, timer, dev, cfg, dtype, gen, prompt, batch=BATCH,
+                        what="window layer"):
     """paged_attention as a sliding-window layer's decode step runs it
-    (``full_decode_attention``): BATCH slots at context prompt + 1, each
+    (``full_decode_attention``): ``batch`` slots at context prompt + 1, each
     kv head over its whole full cache (prompt + GEN + one page), the last
-    ``local_window`` positions valid."""
+    ``local_window`` positions valid (every position up to the context
+    where the config has no window: a layer with H²EAL off)."""
     hkv, d, w = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.local_window
     g = cfg.num_heads // hkv
     t, ctx = prompt + GEN + cfg.h2eal.page_size, prompt + 1
-    q = torch.randn(BATCH, hkv * g, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(BATCH, hkv, t, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(BATCH, hkv, t, d, generator=gen, device=dev).to(dtype)
+    q = torch.randn(batch, hkv * g, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(batch, hkv, t, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(batch, hkv, t, d, generator=gen, device=dev).to(dtype)
     pos = torch.arange(t, device=dev)
-    valid = ((pos < ctx) & (pos > ctx - 1 - w)).expand(BATCH, hkv, t).contiguous()
+    valid = ((pos < ctx) & ((pos > ctx - 1 - w) if w else True)).expand(
+        batch, hkv, t).contiguous()
     run = lambda: ops.paged_attention(q, k, v, valid)
     plain = lambda: ref.paged_attention_ref(q, k, v, valid)
     out, want = run(), ref.paged_attention_ref(*widened(q, k, v), valid)
@@ -2495,30 +2509,32 @@ def check_window_decode(ops, ref, timer, dev, cfg, dtype, gen, prompt):
     b_ms, b_by = bound(nbytes(q, valid, out) + 2 * n_valid * d * k.element_size(),
                        4 * d * g * n_valid, dtype)
     return dict(
-        case=f"window layer decode over its full cache B={BATCH} Hq={hkv * g} Hkv={hkv} "
-             f"T={t} D={d} window={w}",
+        case=f"{what} decode over its full cache B={batch} Hq={hkv * g} Hkv={hkv} "
+             f"T={t} D={d} window={w or 'none'}",
         dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol_text(dtype),
         ms=timer.ms(run, 20), plain_ms=timer.ms(plain, 20), library_ms=timer.ms(lib, 20),
         bound_ms=b_ms, bound_by=b_by)
 
 
-def check_window_chunk(ops, ref, timer, dev, cfg, dtype, gen, capacity):
+def check_window_chunk(ops, ref, timer, dev, cfg, dtype, gen, capacity,
+                       starts=CHUNK_STARTS, what="window layer"):
     """chunk_attention as a sliding-window layer's chunk step runs it (the
-    full-cache branch of ``block_prefill_chunk``): the 4 slots' chunks of
-    ENGINE_CHUNK tokens at CHUNK_STARTS, already appended, over the whole
-    full cache of ``capacity`` keys, each query's window valid."""
+    full-cache branch of ``block_prefill_chunk``, ``full_chunk_attention``):
+    the slots' chunks of ENGINE_CHUNK tokens at ``starts``, already
+    appended, over the whole full cache of ``capacity`` keys, each query's
+    window valid (every earlier key where the config has no window)."""
     from repro_torch.core import paging
 
     hkv, d, w = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.local_window
     g = cfg.num_heads // hkv
-    b, cq = ENGINE_BATCH, ENGINE_CHUNK
-    start = torch.tensor(CHUNK_STARTS, dtype=torch.int32, device=dev)
+    b, cq = len(starts), ENGINE_CHUNK
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
     q = torch.randn(b, cq, hkv * g, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, hkv, capacity, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(b, hkv, capacity, d, generator=gen, device=dev).to(dtype)
     pos_q = paging.chunk_positions(start, cq)[:, None, :, None]
     key_pos = torch.arange(capacity, device=dev)
-    valid = ((key_pos <= pos_q) & (key_pos > pos_q - w)).expand(
+    valid = ((key_pos <= pos_q) & ((key_pos > pos_q - w) if w else True)).expand(
         b, hkv, cq, capacity).contiguous()
     run = lambda: ops.chunk_attention(q, k, v, valid)
     plain = lambda: ref.chunk_attention_ref(q, k, v, valid)
@@ -2534,12 +2550,12 @@ def check_window_chunk(ops, ref, timer, dev, cfg, dtype, gen, capacity):
         q.transpose(1, 2), k, v, attn_mask=valid.repeat_interleave(g, dim=1),
         enable_gqa=True)
     n_valid = int(valid.sum().item())
-    touched = sum(min(st, w - 1) + cq for st in CHUNK_STARTS)  # keys some query attends
+    touched = sum(min(st, w - 1 if w else st) + cq for st in starts)  # keys a query attends
     b_ms, b_by = bound(nbytes(q, valid, out) + 2 * touched * hkv * d * k.element_size(),
                        4 * d * g * n_valid, dtype)
     return dict(
-        case=f"window layer chunk over its full cache B={b} Cq={cq} Hq={hkv * g} "
-             f"Hkv={hkv} T={capacity} D={d} window={w} starts={list(CHUNK_STARTS)}",
+        case=f"{what} chunk over its full cache B={b} Cq={cq} Hq={hkv * g} "
+             f"Hkv={hkv} T={capacity} D={d} window={w or 'none'} starts={list(starts)}",
         dtype=str(dtype).split(".")[-1], max_abs_err=e, excess=ex, tol=tol,
         ms=timer.ms(run, 10), plain_ms=timer.ms(plain, 3), library_ms=timer.ms(lib, 10),
         bound_ms=b_ms, bound_by=b_by)
@@ -3851,8 +3867,46 @@ GSPMD_B_FORCE_AFTER = 1
 GSPMD_B_EXTRA = (("spec", "coplace", 2, 2, dict(spec_tokens=SPEC_K, draft="ngram"), GSPMD_B),
                  ("tiered", "coplace", 2, 2, dict(hot_pages=GSPMD_B_HOT_PAGES), GSPMD_B_TIERED),
                  ("rebalanced", "head", 1, 4, dict(rebalance="retire"), GSPMD_B_REBALANCE))
+# 15b's other families, on both ranks, chunked and eager (name, arch, layers,
+# H²EAL on, layout, 'model' ranks, slots, options, workload): zamba2 cut to
+# one period of its pattern (5 mamba2 layers, an attention layer) on head
+# (2, 1), its recurrent rows cut over 'data', rebalanced (a CPU run of this
+# schedule at the cut moves slot 2, rank 1, to slot 0, rank 0); gemma3-1b cut
+# to one period (5 window layers, a global one) on coplace (1, 2), the
+# global layer's pages cut (partials at head_dim 256), tiered with a request
+# forced cold; llama3-8b at GSPMD_CUT with H²EAL off on head (1, 2), its full
+# caches' kv heads cut
+GSPMD_B_FAMILIES = (
+    ("zamba2_rebalanced", Z_ARCH, 6, True, "head", 1, 4, dict(rebalance="retire"),
+     GSPMD_B_REBALANCE),
+    ("gemma3_tiered", G3_ARCH, 6, True, "coplace", 2, 2, dict(hot_pages=GSPMD_B_HOT_PAGES),
+     GSPMD_B_TIERED),
+    ("h2eal_off", ARCH, GSPMD_CUT, False, "head", 2, 2, {}, GSPMD_B))
+# 15d: the other families in 15a's NCCL group of one rank, each served by the
+# captured chunked engine of the default layout and of each GSPMD layout:
+# (label, arch, layers (0: whole), H²EAL on, slots, chunk, workload); xlstm's
+# chunk step is a loop of time steps, so it takes X_CHUNK tokens a step
+GSPMD_D = dict(prompts=(512, 1024), n=3, new=8, seed=7)
+GSPMD_D_MODELS = (("zamba2", Z_ARCH, 0, True, 2, ENGINE_CHUNK, GSPMD_D),
+                  ("xlstm", X_ARCH, 0, True, 2, X_CHUNK, dict(GSPMD_D, prompts=(256, 512))),
+                  ("gemma3", G3_ARCH, 0, True, 2, ENGINE_CHUNK, GSPMD_D),
+                  ("moe", MOE_ARCH, MOE_LAYERS, True, 2, ENGINE_CHUNK, GSPMD_D),
+                  ("h2eal_off", ARCH, 0, False, 2, ENGINE_CHUNK, GSPMD_D))
 GSPMD_TIMEOUT = 600
 SMOKE_DIR = os.path.join(ROOT, ".smoke")
+
+
+def family_config(arch: str, layers: int, h2eal: bool):
+    """A registered config at full width, cut to ``layers`` layers (0: its
+    whole depth), H²EAL on or off."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if not h2eal:
+        cfg = dataclasses.replace(cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
+    return cfg
 
 
 def gspmd_workload(cfg, prompts, n, new, seed, sampled=False):
@@ -4071,6 +4125,15 @@ def gspmd_rank(rank: int, store: str, out: str) -> int:
     for name, layout, model, max_batch, kw, workload in GSPMD_B_EXTRA:
         res["cases"][name] = gspmd_extra_case(cfg, params, dev, name, layout,
                                               meshes[model], max_batch, kw, workload)
+    del params
+    for name, arch, layers, h2, layout, model, max_batch, kw, workload in GSPMD_B_FAMILIES:
+        f_cfg = family_config(arch, layers, h2)
+        f_params = M.init_params(f_cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                 device=dev, dtype=torch.bfloat16)
+        res["cases"][name] = gspmd_extra_case(f_cfg, f_params, dev, name, layout,
+                                              meshes[model], max_batch, kw, workload)
+        del f_params
+        torch.cuda.empty_cache()
     dist.destroy_process_group()
     with open(f"{out}.{rank}", "w") as f:
         json.dump(res, f)
@@ -4107,6 +4170,7 @@ def gspmd_extra_case(cfg, params, dev, name, layout, mesh, max_batch, kw, worklo
         expect = gspmd_tiered_launches(s, cfg, attends_by_partials(eng),
                                        calls.get("decode_select", 0) - s.select_steps)
     out = dict(tokens={str(u): c.tokens for u, c in eng.completions.items()},
+               block=block_shapes(eng.batch.serve),
                counters=counters(s, SPEC_COUNTERS + TIER_COUNTERS + REBALANCE_COUNTERS),
                mean_accepted_len=s.mean_accepted_len, moves=moves, forced=forced,
                launches=got, expect=expect, wall=wall, decode_steps=s.decode_steps,
@@ -4116,7 +4180,19 @@ def gspmd_extra_case(cfg, params, dev, name, layout, mesh, max_batch, kw, worklo
     return out
 
 
-def time_gspmd_kernels(ops, ref, timer, dev, cfg):
+def block_shapes(serve) -> dict:
+    """The rank's block shape of each kind of cache leaf of a serve state:
+    {"paged": ..., "full": ..., "ssm": ..., "xl": ...} of its first layer of
+    that kind (k_pages, k, ssm, C or c)."""
+    out = {}
+    for layer in serve["layers"]:
+        for key, c in layer.items():
+            if key not in out and key != "stream":
+                out[key] = list(getattr(c, dataclasses.fields(c)[0].name).shape)
+    return out
+
+
+def time_gspmd_kernels(ops, ref, timer, dev, cfg, tag=""):
     """paged_attention_partial and combine_partials at phase 15's shapes, bf16:
     the decode step of the layouts that shard pages, 4 slots at contexts
     STRIPE_CTX of the 15a capacity (a top-128 selection of each slot's
@@ -4172,7 +4248,7 @@ def time_gspmd_kernels(ops, ref, timer, dev, cfg):
                            4 * d * g * n_valid, torch.bfloat16)
         what = "every page on one rank" if n_ranks == 1 else "15b rank 0 of model 2"
         parts.append(dict(
-            case=f"gspmd block ({what}) B={b} Hq={nr * g} Hr={nr} C={c_l} of {c} N={n} "
+            case=f"{tag}gspmd block ({what}) B={b} Hq={nr * g} Hr={nr} C={c_l} of {c} N={n} "
                  f"P={p} D={d} ctx={list(STRIPE_CTX)} valid={n_valid}", dtype="bfloat16",
             max_abs_err=max(err(a, w) for a, w in zip(got, want)),
             excess=partial_excess(got, want),
@@ -4187,12 +4263,53 @@ def time_gspmd_kernels(ops, ref, timer, dev, cfg):
         rows = b * nr * g
         b_ms, b_by = bound(nbytes(m, l, o, out), n_ranks * rows * (2 * d + 4), torch.float32)
         combs.append(dict(
-            case=f"gspmd N={n_ranks} ({what}) B={b} Hq={nr * g} D={d}", dtype="bfloat16",
+            case=f"{tag}gspmd N={n_ranks} ({what}) B={b} Hq={nr * g} D={d}", dtype="bfloat16",
             max_abs_err=err(out, want_c), excess=excess(out, want_c, torch.float32),
             tol=tol_text(torch.float32), ms=timer.ms(run_c, 50),
             plain_ms=timer.ms(plain_c, 50), library_ms=None, bound_ms=b_ms, bound_by=b_by,
             main=False))
     return parts, combs
+
+
+def time_family_blocks(ops, ref, timer, dev):
+    """The kernels of the other families on a rank's blocks, bf16, each held
+    to its plain version and timed beside it, its bound and the PyTorch
+    call: paged_attention and chunk_attention on a full-cache block (a
+    gemma3-1b window layer at head_dim 256 on a 'data' rank of 2: one slot,
+    its one kv head whole; llama3-8b with H²EAL off on a ``head`` rank of a
+    'model' axis of 2: half its kv heads); paged_attention_partial and
+    combine_partials where a layout cuts the pages, at zamba2-2.7b's
+    attention layers (head_dim 80, 16 retrieval heads, GQA group 1) and
+    gemma3-1b's global layer (head_dim 256, one retrieval head, group 4).
+    Returns {kernel: cases}, not in the kernel totals."""
+    out = {"paged_attention": [], "chunk_attention": [], "paged_attention_partial": [],
+           "combine_partials": []}
+    gen = torch.Generator(device=dev).manual_seed(24)
+    g3 = family_config(G3_ARCH, 0, True)
+    half = family_config(ARCH, 0, False)
+    half = dataclasses.replace(half, num_kv_heads=half.num_kv_heads // 2,
+                               num_heads=half.num_heads // 2)
+    # (config, decode slots, chunk starts, what): a 'data' rank of 2 holds
+    # half the slots, a head rank of 2 every slot and half the kv heads
+    for cfg, batch, starts, what in (
+            (g3, BATCH // 2, CHUNK_STARTS[ENGINE_BATCH // 2:],
+             "gemma3-1b window layer, a 'data' rank of 2,"),
+            (half, BATCH, CHUNK_STARTS, "llama3-8b H2EAL off, a head rank of model 2,")):
+        cap = gspmd_workload(cfg, **GSPMD_A)[1]
+        out["paged_attention"].append(dict(check_window_decode(
+            ops, ref, timer, dev, cfg, torch.bfloat16, gen, PROMPT, batch=batch, what=what),
+            main=False))
+        out["chunk_attention"].append(dict(check_window_chunk(
+            ops, ref, timer, dev, cfg, torch.bfloat16, gen, cap, starts=starts, what=what),
+            main=False))
+        torch.cuda.empty_cache()
+    for arch in (Z_ARCH, G3_ARCH):
+        parts, combs = time_gspmd_kernels(ops, ref, timer, dev, family_config(arch, 0, True),
+                                          tag=f"{arch} ")
+        out["paged_attention_partial"] += parts
+        out["combine_partials"] += combs
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase15a(dev, cfg, params, mesh):
@@ -4525,58 +4642,134 @@ def phase15b(dev, card):
     by_path.update(check_gspmd_extra(cfg, params, dev, res))
     del params
     torch.cuda.empty_cache()
+    by_path.update(check_gspmd_families(dev, res))
+    return by_path
+
+
+def phase15d(dev, mesh, card):
+    """15d: in 15a's NCCL group of one rank, the other families served by the
+    captured chunked engine of the default layout and of each GSPMD layout
+    (GSPMD_D_MODELS: zamba2-2.7b, xlstm-125m and gemma3-1b whole, qwen3-moe
+    cut to MOE_LAYERS, llama3-8b with H²EAL off), one request sampled: no
+    capture after construction; one rank holds every page and row and runs
+    the default's kernels on the same inputs, so each layout's tokens, its
+    counters and its launch counts equal the default's exactly. Returns the
+    launch counts by path."""
+    from repro_torch.serving.engine import Engine
+
+    by_path = {}
+    for label, arch, layers, h2, max_batch, chunk, workload in GSPMD_D_MODELS:
+        t0 = time.perf_counter()
+        cfg = family_config(arch, layers, h2)
+        params = full_params(dev, cfg)
+        reqs, capacity = gspmd_workload(cfg, **workload, sampled=True)
+        runs, rates = {}, {}
+        for layout in ("default",) + GSPMD_LAYOUTS:
+            what = f"15d engine {cfg.name}{'' if h2 else ' (H2EAL off)'} {layout} (chunked)"
+            eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
+                         prompt_buckets=sorted({len(r.prompt) for r in reqs}),
+                         prefill_chunk=chunk, layout=layout,
+                         mesh=None if layout == "default" else mesh, device=dev)
+            sizes = eng.jit_cache_sizes()
+            got, wall, _ = serve_polled(eng, reqs, what)
+            s = eng.stats
+            if set(sizes.values()) != {1} or eng.jit_cache_sizes() != sizes:
+                fail(f"{what}: captures {sizes} -> {eng.jit_cache_sizes()}")
+            runs[layout] = ({u: c.tokens for u, c in eng.completions.items()},
+                            counters(s, TIER_COUNTERS + REBALANCE_COUNTERS), got)
+            toks, cnt, launched = runs[layout]
+            d_toks, d_cnt, d_launched = runs["default"]
+            if (toks, cnt, launched) != (d_toks, d_cnt, d_launched):
+                fail(f"{what}: one rank runs the default's kernels on the same inputs, yet "
+                     f"tokens ({first_divergence(toks, d_toks)}), counters ({cnt} vs "
+                     f"{d_cnt}) or launches ({launched} vs {d_launched}) differ")
+            by_path[f"gspmd_{label}_{layout}"] = got
+            rates[layout] = s.decode_steps / wall
+            log(f"{what} on {card}: {s.tokens_out} tokens, {s.decode_steps} decode steps in "
+                f"{wall:.3f}s = {rates[layout]:.2f} decode steps/s (default "
+                f"{rates['default']:.2f}); rank blocks {block_shapes(eng.batch.serve)}; "
+                f"captures {sizes}; launches {got}; tokens, counters and launches equal to "
+                f"the default's")
+            del eng
+            torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+        log(f"15d {label}: {time.perf_counter() - t0:.1f}s")
     return by_path
 
 
 def check_gspmd_extra(cfg, params, dev, res):
     """15b's further cases (GSPMD_B_EXTRA) of both ranks' results ``res``
     against each other and the one-rank default engine with the same
-    options, run here: launch counts exact, tokens and counters equal across
-    ranks, tokens equal to the default's up to a near-tie and counters equal
-    to its (where the tokens are), the forced request missed and filled, a
-    migration that crossed ranks. Returns rank 0's launch counts by path."""
+    options, run here (``check_gspmd_case``). Returns rank 0's launch counts
+    by path."""
+    return {f"gspmd2_{name}_{layout}": check_gspmd_case(
+        cfg, params, dev, res, name, layout, model, max_batch, kw, workload)
+        for name, layout, model, max_batch, kw, workload in GSPMD_B_EXTRA}
+
+
+def check_gspmd_families(dev, res):
+    """15b's other families (GSPMD_B_FAMILIES), each held as
+    ``check_gspmd_case`` holds a further case, on its own config and seeded
+    weights. Returns rank 0's launch counts by path."""
     by_path = {}
-    for name, layout, model, max_batch, kw, workload in GSPMD_B_EXTRA:
-        one = gspmd_extra_case(cfg, params, dev, name, layout, None, max_batch, kw, workload)
-        a, b = res[0]["cases"][name], res[1]["cases"][name]
-        what = f"15b engine {layout} ({name}, mesh (data, model) = {(2 // model, model)})"
-        for r, c in enumerate((a, b, one)):
-            if c["launches"] != c["expect"]:
-                fail(f"{what} {('rank 0', 'rank 1', 'one-rank default')[r]} did not launch "
-                     f"the kernels as expected: {c['launches']} vs {c['expect']}")
-        if a["tokens"] != b["tokens"] or a["counters"] != b["counters"]:
-            fail(f"{what}: the two ranks' tokens or counters differ")
-        w_reqs, w_cap = gspmd_workload(cfg, **workload)
-        ties = check_ties(cfg, params, w_reqs, {int(u): t for u, t in a["tokens"].items()},
-                          {int(u): t for u, t in one["tokens"].items()}, {}, w_cap, dev,
-                          BF16_LOGIT_BAND, what, relative=True)
-        if not ties and a["counters"] != one["counters"]:
-            fail(f"{what}: counters {a['counters']} differ from the one-rank default "
-                 f"engine's {one['counters']}")
-        if name == "tiered" and not (a["forced"] and a["forced"][1] > 0
-                                     and a["counters"]["tier_misses"]
-                                     == a["counters"]["tier_fills"] > 0):
-            fail(f"{what}: forced {a['forced']}, counters {a['counters']}: the forced "
-                 f"request must miss and be filled")
-        if name == "tiered" and [x + y for x, y in zip(a["far"], b["far"])] != one["far"]:
-            fail(f"{what}: the ranks' far stores moved {a['far']} + {b['far']} B, the "
-                 f"one-rank engine {one['far']}: each page's rows lie on one rank")
-        rows = max_batch // (2 // model)
-        if name == "rebalanced" and not any(s_ // rows != d_ // rows for s_, d_ in a["moves"]):
-            fail(f"{what}: no migration moved a slot's row to the other rank ({a['moves']})")
-        if name == "spec" and not a["counters"]["spec_steps"] > 0:
-            fail(f"{what}: no verify step ran")
-        log(f"{what}: tokens and counters equal across ranks; equal to the one-rank "
-            f"default engine's {a['tokens'] == one['tokens']} (near-tie divergences "
-            f"{ties}), counters equal {a['counters'] == one['counters']} "
-            f"{ {k: v for k, v in a['counters'].items() if v} }; mean accepted length "
-            f"{a['mean_accepted_len']:.3f} (default {one['mean_accepted_len']:.3f}); "
-            f"migrations {a['moves']}; forced cold {a['forced']}; far-store bytes rank 0 "
-            f"{a['far']} rank 1 {b['far']} (one rank {one['far']}); {a['decode_steps']} "
-            f"decode steps in {a['wall']:.3f}s (one-rank default {one['wall']:.3f}s); "
-            f"launches rank 0 {a['launches']}")
-        by_path[f"gspmd2_{name}_{layout}"] = a["launches"]
+    for name, arch, layers, h2, layout, model, max_batch, kw, workload in GSPMD_B_FAMILIES:
+        cfg = family_config(arch, layers, h2)
+        params = full_params(dev, cfg)
+        by_path[f"gspmd2_{name}_{layout}"] = check_gspmd_case(
+            cfg, params, dev, res, name, layout, model, max_batch, kw, workload)
+        del params
+        torch.cuda.empty_cache()
     return by_path
+
+
+def check_gspmd_case(cfg, params, dev, res, name, layout, model, max_batch, kw, workload):
+    """One 15b case of both ranks' results ``res`` against each other and the
+    one-rank default engine with the same options, run here: launch counts
+    exact, tokens and counters equal across ranks, tokens equal to the
+    default's up to a near-tie and counters equal to its (where the tokens
+    are), a forced request missed and filled, a migration that crossed
+    ranks. Returns rank 0's launch counts."""
+    one = gspmd_extra_case(cfg, params, dev, name, layout, None, max_batch, kw, workload)
+    a, b = res[0]["cases"][name], res[1]["cases"][name]
+    what = (f"15b engine {cfg.name} {layout} ({name}, mesh (data, model) = "
+            f"{(2 // model, model)})")
+    for r, c in enumerate((a, b, one)):
+        if c["launches"] != c["expect"]:
+            fail(f"{what} {('rank 0', 'rank 1', 'one-rank default')[r]} did not launch "
+                 f"the kernels as expected: {c['launches']} vs {c['expect']}")
+    if a["tokens"] != b["tokens"] or a["counters"] != b["counters"]:
+        fail(f"{what}: the two ranks' tokens or counters differ")
+    w_reqs, w_cap = gspmd_workload(cfg, **workload)
+    ties = check_ties(cfg, params, w_reqs, {int(u): t for u, t in a["tokens"].items()},
+                      {int(u): t for u, t in one["tokens"].items()}, {}, w_cap, dev,
+                      BF16_LOGIT_BAND, what, relative=True)
+    if not ties and a["counters"] != one["counters"]:
+        fail(f"{what}: counters {a['counters']} differ from the one-rank default "
+             f"engine's {one['counters']}")
+    if "tiered" in name and not (a["forced"] and a["forced"][1] > 0
+                                 and a["counters"]["tier_misses"]
+                                 == a["counters"]["tier_fills"] > 0):
+        fail(f"{what}: forced {a['forced']}, counters {a['counters']}: the forced "
+             f"request must miss and be filled")
+    if "tiered" in name and [x + y for x, y in zip(a["far"], b["far"])] != one["far"]:
+        fail(f"{what}: the ranks' far stores moved {a['far']} + {b['far']} B, the "
+             f"one-rank engine {one['far']}: each page's rows lie on one rank")
+    rows = max_batch // (2 // model)
+    if "rebalanced" in name and not any(s_ // rows != d_ // rows for s_, d_ in a["moves"]):
+        fail(f"{what}: no migration moved a slot's row to the other rank ({a['moves']})")
+    if "spec" in name and not a["counters"]["spec_steps"] > 0:
+        fail(f"{what}: no verify step ran")
+    log(f"{what}: tokens and counters equal across ranks; equal to the one-rank "
+        f"default engine's {a['tokens'] == one['tokens']} (near-tie divergences "
+        f"{ties}), counters equal {a['counters'] == one['counters']} "
+        f"{ {k: v for k, v in a['counters'].items() if v} }; mean accepted length "
+        f"{a['mean_accepted_len']:.3f} (default {one['mean_accepted_len']:.3f}); "
+        f"migrations {a['moves']}; forced cold {a['forced']}; far-store bytes rank 0 "
+        f"{a['far']} rank 1 {b['far']} (one rank {one['far']}); rank blocks {a['block']} "
+        f"(one rank {one['block']}); {a['decode_steps']} decode steps in {a['wall']:.3f}s "
+        f"(one-rank default {one['wall']:.3f}s); launches rank 0 {a['launches']}")
+    return a["launches"]
 
 
 def phase15(ops, ref, dev, card):
@@ -4592,8 +4785,9 @@ def phase15(ops, ref, dev, card):
     timer = Timer(dev)
     parts, combs = time_gspmd_kernels(ops, ref, timer, dev, cfg)
     verify = check_verify_blocks(ops, ref, timer, dev, cfg)
+    family = time_family_blocks(ops, ref, timer, dev)
     del timer
-    for c in parts + combs + verify:
+    for c in parts + combs + verify + [c for cases in family.values() for c in cases]:
         log(f"phase 15 kernel [{c['case']}] kernel_ms={c['ms']:.4f} "
             f"plain_ms={c['plain_ms']:.4f} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}) "
             + (f"library_ms={c['library_ms']:.4f} " if c["library_ms"] is not None else "")
@@ -4613,14 +4807,19 @@ def phase15(ops, ref, dev, card):
     by_path.update(phase15c(dev, cfg, params, mesh, traces, card))
     log(f"15c (speculative, tiered, rebalanced on the GSPMD layouts) "
         f"{time.perf_counter() - t15c:.1f}s")
-    dist.destroy_process_group()
     del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t15d = time.perf_counter()
+    by_path.update(phase15d(dev, mesh, card))
+    log(f"15d (the other families on the GSPMD layouts) {time.perf_counter() - t15d:.1f}s")
+    dist.destroy_process_group()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     by_path.update(phase15b(dev, card))
     log(f"phase 15 (the GSPMD layouts on torch.distributed ranks) "
         f"{time.perf_counter() - t15:.1f}s")
-    return by_path, parts, combs, verify
+    return by_path, parts, combs, verify, family
 
 
 # ---------------------------------------------------------------------------
@@ -4743,11 +4942,14 @@ def main() -> int:
     stub_paths = phase14(dev, card)
     train_paths.update({p: n for p, n in stub_paths.items() if p.endswith("_train")})
     by_path.update({p: n for p, n in stub_paths.items() if not p.endswith("_train")})
-    gspmd_paths, gspmd_parts, gspmd_combs, gspmd_verify = phase15(ops, ref, dev, card)
+    gspmd_paths, gspmd_parts, gspmd_combs, gspmd_verify, gspmd_family = phase15(
+        ops, ref, dev, card)
     by_path.update(gspmd_paths)
     results["paged_attention_partial"] += gspmd_parts
     results["combine_partials"] += gspmd_combs
     results["chunk_attention"] += gspmd_verify
+    for name, cases in gspmd_family.items():
+        results[name] += cases
     serving_paths = list(by_path)
     by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the
@@ -4811,6 +5013,20 @@ def main() -> int:
     main_paths["gspmd2_spec_coplace"] = main_paths["gspmd_spec_coplace_ngram"]
     main_paths["gspmd2_tiered_coplace"] = main_paths["gspmd2_coplace_chunked"]
     main_paths["gspmd2_rebalanced_head"] = main_paths["gspmd2_head_chunked"]
+    # 15d on the NCCL rank: the other families' chunked engines (xlstm-125m's
+    # run no kernel); 15b's other families on the two gloo ranks: zamba2's
+    # attention layers on head, gemma3's global pages cut (partials) and its
+    # window layers whole, H²EAL off's full caches cut over kv heads
+    full_only = ("paged_attention", "chunk_attention")
+    for label, *_ in GSPMD_D_MODELS:
+        for layout in ("default",) + GSPMD_LAYOUTS:
+            if label != "xlstm":
+                main_paths[f"gspmd_{label}_{layout}"] = (
+                    full_only if label == "h2eal_off" else engine)
+    main_paths["gspmd2_zamba2_rebalanced_head"] = engine
+    main_paths["gspmd2_gemma3_tiered_coplace"] = engine + ("paged_attention_partial",
+                                                           "combine_partials")
+    main_paths["gspmd2_h2eal_off_head"] = full_only
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

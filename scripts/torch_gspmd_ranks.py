@@ -18,14 +18,31 @@ prompt tokens an engine step:
     retire-triggered rebalancing: the migration moves a slot's row to
     another rank.
 
+Then the other families, whole (``--layers`` cuts llama3-8b alone), on 4
+requests of 1024-2048 prompt tokens (16 new each, the last sampled):
+
+  * zamba2-2.7b on ``head`` over (4, 1) on 4 slots, rebalanced: the
+    recurrent states' rows over 'data', one slot a rank (a CPU run of this
+    schedule with zamba2's cost model moves slot 3 to slot 0);
+  * gemma3-1b on ``coplace`` over (1, 4): its global layers' pages over
+    'model' (partials at head_dim 256), its window layers' full caches
+    whole on every rank (one kv head).
+
 Rank 0 checks that every rank's tokens and counters are the same, that the
 tokens equal the default engine's up to a near-tie (``chip_smoke.py``'s
 rule: the layouts that shard pages sum the attention in another order),
 the counters equal the default's where the tokens do, and that each case
 did what it is there for (verify steps, a forced miss filled, a migration
-across ranks); it prints a line a case (decode steps/s beside the
-default's, the verify step's median device ms, far-store bytes) and a JSON
-line of the results, and exits non-zero on a failure.
+across ranks; a family case's migrations are reported); it prints a line a
+case (decode steps/s beside the default's, the verify step's median device
+ms, far-store bytes) and a JSON line of the results, and exits non-zero on
+a failure.
+
+Every rank then releases what it holds, synchronises, and calls
+``destroy_process_group`` on a thread of its own, waiting for it at most
+TEARDOWN_S seconds; it reports whether the call returned, and exits
+through ``os._exit`` either way (the process hung in that teardown once,
+ROADMAP Queue 3).
 
     torchrun --standalone --nproc-per-node 4 scripts/torch_gspmd_ranks.py [--layers N]
 """
@@ -33,9 +50,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import sys
+import threading
 import time
 
 import torch
@@ -55,6 +74,13 @@ CASES = (("coplace_plain", "coplace", 4, cs.ENGINE_BATCH, {}),
           dict(hot_pages=cs.TIER_HOT_PAGES)),
          ("interleave_plain", "interleave", 2, cs.ENGINE_BATCH, {}),
          ("head_rebalanced", "head", 1, cs.ENGINE_BATCH, dict(rebalance="retire")))
+# the other families, whole: (name, arch, layout, 'model' ranks, slots,
+# options), on FAMILY_WORKLOAD
+FAMILY_CASES = (("zamba2_head_rebalanced", cs.Z_ARCH, "head", 1, cs.ENGINE_BATCH,
+                 dict(rebalance="retire")),
+                ("gemma3_coplace", cs.G3_ARCH, "coplace", 4, cs.ENGINE_BATCH, {}))
+FAMILY_WORKLOAD = dict(prompts=(1024, 2048), n=4, new=16, seed=5)
+TEARDOWN_S = 60
 
 
 def serve(cfg, params, dev, reqs, capacity, layout, mesh, max_batch, kw):
@@ -123,12 +149,23 @@ def main() -> int:
         one = serve(cfg, params, dev, reqs, capacity, layout, None, max_batch, kw)
         got = serve(cfg, params, dev, reqs, capacity, layout, meshes[model], max_batch, kw)
         res[name] = (one, got)
+    fam = {}  # name -> (cfg, params, reqs, capacity), for the near-tie check
+    for name, arch, layout, model, max_batch, kw in FAMILY_CASES:
+        f_cfg = get_arch(arch)
+        f_params = cs.full_params(dev, f_cfg)
+        f_reqs, f_cap = cs.gspmd_workload(f_cfg, **FAMILY_WORKLOAD, sampled=True)
+        one = serve(f_cfg, f_params, dev, f_reqs, f_cap, layout, None, max_batch, kw)
+        got = serve(f_cfg, f_params, dev, f_reqs, f_cap, layout, meshes[model], max_batch, kw)
+        res[name] = (one, got)
+        fam[name] = (f_cfg, f_params, f_reqs, f_cap)
     every = [None] * world
     dist.all_gather_object(every, res)
     bad = []
     if rank == 0:
         card = torch.cuda.get_device_name(0)
-        for name, layout, model, max_batch, kw in CASES:
+        for name, layout, model, max_batch, kw in CASES + tuple(
+                (n, lay, m, b, kw) for n, _, lay, m, b, kw in FAMILY_CASES):
+            c_cfg, c_params, c_reqs, c_cap = fam.get(name, (cfg, params, reqs, capacity))
             one, got = every[0][name]
             what = f"{name} on (data, model) = {(world // model, model)}, {world} NCCL ranks"
             if any(r[name][1]["tokens"] != got["tokens"]
@@ -137,10 +174,10 @@ def main() -> int:
             before, after = got["captures"]
             if set(before.values()) != {1} or after != before:
                 bad.append(f"{what}: captures {before} -> {after}")
-            ties = cs.check_ties_split(cfg, params, reqs,
+            ties = cs.check_ties_split(c_cfg, c_params, c_reqs,
                                        {int(u): t for u, t in got["tokens"].items()},
                                        {int(u): t for u, t in one["tokens"].items()},
-                                       capacity, dev, what)
+                                       c_cap, dev, what)
             same = got["tokens"] == one["tokens"]
             if same and got["counters"] != one["counters"]:
                 bad.append(f"{what}: counters {got['counters']} differ from the default's "
@@ -175,14 +212,37 @@ def main() -> int:
     dist.broadcast(flag, 0)
     code = 1 if int(flag.item()) else 0
     cs.log(f"rank {rank}: done, exit {code}")
+    del res, every, fam, params
+    probe_teardown(rank)
     return code
 
 
+def probe_teardown(rank: int) -> None:
+    """Release the engines' graphs and buffers, wait for the card, then call
+    ``destroy_process_group`` on a thread, waiting at most TEARDOWN_S
+    seconds; log whether it returned."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    done = threading.Event()
+
+    def destroy():
+        dist.destroy_process_group()
+        done.set()
+    t0 = time.perf_counter()
+    threading.Thread(target=destroy, daemon=True).start()
+    if done.wait(TEARDOWN_S):
+        cs.log(f"rank {rank}: destroy_process_group returned in "
+               f"{time.perf_counter() - t0:.2f}s")
+    else:
+        cs.log(f"rank {rank}: destroy_process_group had not returned after {TEARDOWN_S}s")
+
+
 if __name__ == "__main__":
-    # the process exits without destroy_process_group: on four H100s every
-    # rank printed its results and then hung in the teardown (the final
-    # broadcast or destroying the NCCL communicators that the captured
-    # graphs had used), until the command's time limit
+    # the process exits through os._exit whatever the teardown probe found:
+    # on four H100s every rank once printed its results and then hung in the
+    # teardown (the final broadcast, or destroying the NCCL communicators
+    # that the captured graphs had used) until the command's time limit
     rc = main()
     sys.stdout.flush()
     sys.stderr.flush()

@@ -393,24 +393,46 @@ def pool_append(cache: PagedCache, k_new, v_new, length: int, *, page: int,
 # Under a GSPMD layout every rank holds only its block of each serve-cache
 # leaf: the tile ``runtime/sharding.py`` cuts by the reference's placement
 # rules (kv heads, pages or within-page tokens over 'model' / 'data', the
-# batch over 'data'). A ``Placement`` records, for one attention layer,
-# each leaf's placement and this rank's tile of the full leaf. The appends
-# below take the whole batch's new tokens (every rank computes them, the
-# layer being replicated) and write only what falls in the rank's tile;
-# every other element of the block is left bit for bit as it was.
+# batch over 'data'; a full cache's rows over the batch axes and kv heads
+# over 'model'; a recurrent state's rows over the batch axes alone). A
+# ``Placement`` records, for one kind of layer (an H²EAL attention layer,
+# a full-cache layer, a recurrent mixer), each leaf's placement and this
+# rank's tile of the full leaf. The appends below take the whole batch's
+# new tokens (every rank computes them, the layer being replicated) and
+# write only what falls in the rank's tile; every other element of the
+# block is left bit for bit as it was.
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
+class RecurrentSpec:
+    """A recurrent layer's serve state, as the GSPMD layouts place it: its
+    cache key ("ssm" or "xl"), its state container, and each field's name
+    and shape a slot."""
+
+    key: str
+    state_cls: type
+    fields: tuple  # ((name, shape without the batch dim), ...)
+
+    def empty(self, batch: int, device) -> dict:
+        """The layer's cache of ``batch`` slots, uninitialised (the meta
+        device: shapes only)."""
+        return {self.key: self.state_cls(**{n: torch.empty((batch,) + tuple(s),
+                                                            device=device)
+                                            for n, s in self.fields})}
+
+
+@dataclasses.dataclass(frozen=True)
 class Placement:
-    """One attention layer's serve cache on one rank of ``mesh``.
+    """One kind of layer's serve cache on one rank of ``mesh``.
 
     specs     (cache key, field) -> the leaf's placement (a tuple of axis
               names per dimension, ``runtime/sharding``).
     shapes    (cache key, field) -> the full leaf's shape.
     bounds    (cache key, field) -> this rank's tile of the full leaf,
               (start, stop) per dimension.
-    page      tokens a page (the full page; a token stripe holds fewer).
+    page      tokens a page (the full page; a token stripe holds fewer; 0
+              for a layer without pages).
     partials  the retrieval heads attend by per-rank partials merged with
               ``combine_partials``: the layouts that shard pages, where more
               than one rank holds them (one rank holding every page takes
@@ -437,9 +459,10 @@ class Placement:
 
 
 def block_of(full, key: str, place: Placement, device):
-    """The rank's block of the empty cache ``full`` (a ``PagedCache`` or
-    ``StreamCache``, typically on the meta device): each field allocated at
-    its tile's shape and filled with its empty value."""
+    """The rank's block of the empty cache ``full`` (a ``PagedCache``,
+    ``StreamCache``, ``FullCache`` or recurrent state, typically on the meta
+    device): each field allocated at its tile's shape and filled with its
+    empty value."""
     out = {}
     for f in dataclasses.fields(full):
         t = getattr(full, f.name)
@@ -568,18 +591,19 @@ def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
     return cache
 
 
-def move_block_rows(layers, place: Placement, src, dst) -> None:
+def move_block_rows(layers, places, src, dst) -> None:
     """Move global slot ``src``'s row of every cache leaf of ``layers`` (the
-    rank's blocks of each layer, all placed by ``place``) to slot
-    ``dst`` and clear ``src`` to the empty values, in place (``src``, ``dst``
-    (1,) int64 card tensors: fixed shapes, so that the step is captured
-    once). A leaf whose batch rows are whole moves locally. Where rows are
-    cut (over 'data'), the owner of ``src`` along that axis sends its row
-    to the rest (``collectives.owner_select``, one collective for every cut
-    leaf), the owner of ``dst`` writes it, and every other row of the block
-    is written back as it was."""
-    cut, axis = [], None
-    for layer in layers:
+    rank's blocks of each layer, layer i placed by ``places[i]``: paged
+    pages, full caches and recurrent states alike) to slot ``dst`` and
+    clear ``src`` to the empty values, in place (``src``, ``dst`` (1,)
+    int64 card tensors: fixed shapes, so that the step is captured once).
+    A leaf whose batch rows are whole moves locally. Where rows are cut
+    (over 'data'), the owner of ``src`` along that axis sends its row to
+    the rest (``collectives.owner_select``, one collective for every cut
+    leaf of every layer), the owner of ``dst`` writes it, and every other
+    row of the block is written back as it was."""
+    cut, axis, mesh = [], None, None
+    for layer, place in zip(layers, places):
         for key, cache in layer.items():
             for f in dataclasses.fields(cache):
                 t = getattr(cache, f.name)
@@ -591,7 +615,7 @@ def move_block_rows(layers, place: Placement, src, dst) -> None:
                 if len(axes) != 1 or axis not in (None, axes[0]):
                     raise NotImplementedError(f"batch rows cut over {axes}: a migration "
                                               f"moves rows over one mesh axis")
-                axis = axes[0]
+                axis, mesh = axes[0], place.mesh
                 cut.append((t, f.name, place.bounds[(key, f.name)][0]))
     if not cut:
         return
@@ -601,7 +625,7 @@ def move_block_rows(layers, place: Placement, src, dst) -> None:
         locs.append((s_l, d_l))
         rows.append(t.index_select(0, s_l).float().reshape(-1))
     bl = cut[0][2][1] - cut[0][2][0]
-    moved = coll.owner_select(torch.cat(rows), place.mesh, axis, src // bl)
+    moved = coll.owner_select(torch.cat(rows), mesh, axis, src // bl)
     off = 0
     for (t, name, (b0, b1)), (s_l, d_l) in zip(cut, locs):
         n = t[0].numel()
@@ -939,11 +963,14 @@ class DecodeStepSave:
     The indices are taken from the lengths at ``save`` and kept for
     ``restore``. Fixed shapes: both are captured once on the card.
 
-    ``place`` (a ``Placement``): the state is one rank's block of a GSPMD
-    layout. Each per-slot leaf then saves its block's rows at the local
-    index of the slot's page (clamped into the block where another rank
-    holds the page: the step writes nothing there, so the restore writes
-    back what it found)."""
+    ``place`` (the paged layers' ``Placement``): the state is one rank's
+    block of a GSPMD layout. Each per-slot leaf then saves its block's rows
+    at the local index of the slot's page (clamped into the block where
+    another rank holds the page: the step writes nothing there, so the
+    restore writes back what it found), and each recurrent layer the rows
+    of its block, the slots the rank holds. A full cache (a window layer)
+    is not saved: its append rewrites the same key at the same position
+    when the step is replayed."""
 
     def __init__(self, state, extra, *, sink: int, phys_shards: int = 1, place=None):
         self.state = state

@@ -29,7 +29,8 @@ Co-placed decode (``decode_attention_coplace``, paper §IV-B): the
           pages it owns and emits flash partials (m, l, o), which a
           log-sum-exp combine merges (a split-KV decode).
 GSPMD layouts (``decode_attention_placed``, ``chunk_prefill_attention_placed``,
-          ``chunk_verify_attention_placed`` / ``chunk_verify_append_placed``):
+          ``chunk_verify_attention_placed`` / ``chunk_verify_append_placed``,
+          ``full_decode_attention_placed`` / ``full_chunk_attention_placed``):
           the steps above on one rank's blocks of the caches, gathering
           over the rank's mesh where GSPMD would (see their section).
 
@@ -68,6 +69,12 @@ class AttnSpec:
     @property
     def group(self) -> int:
         return self.n_q // self.n_kv
+
+    @property
+    def full_cache(self) -> bool:
+        """A window layer, or the full-attention baseline (H²EAL off), keeps
+        a ``FullCache`` instead of the paged and streaming caches."""
+        return not self.h2.enabled or self.window > 0
 
     @property
     def n_retrieval(self) -> int:
@@ -509,7 +516,11 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
 #            rank's rows and heads is filled by the owners of its tokens and
 #            summed over the ranks that cut the pages (one collective, each
 #            token from its one owner), then attended with the chunk's keys;
-#            the accepted prefix is appended owner-only.
+#            the accepted prefix is appended owner-only;
+#   full     a full cache (a window layer, H²EAL off), its rows over the
+#            batch axes and kv heads over 'model' where they divide: the
+#            default body on the rank's rows and heads
+#            (``full_decode_attention_placed`` / ``full_chunk_attention_placed``).
 #
 # The outputs of kv heads and batch rows cut over an axis are gathered, so
 # every rank ends the layer with the whole batch's attention output. The
@@ -969,3 +980,55 @@ def full_decode_attention(spec: AttnSpec, q, k_new, v_new,
         valid = valid & (pos > lb - spec.window)
     valid = valid.expand(b, h, s).contiguous()
     return kops.paged_attention(q.contiguous(), cache.k, cache.v, valid), cache
+
+
+def full_chunk_attention(spec: AttnSpec, q, k_new, v_new, cache: cachelib.FullCache,
+                         start, chunk_len, active=None):
+    """A prompt chunk a slot through a layer with a full cache: append, then
+    attend the whole cache causally (a window layer: the last
+    ``spec.window`` positions). q: (B, C, Hq, D), k_new/v_new (B, C, Hkv,
+    D); start/chunk_len/active (B,). Returns (out (B, C, Hq, D), cache)."""
+    full = cachelib.full_cache_append_chunk(cache, k_new, v_new, start, chunk_len,
+                                            active)
+    b, cch = q.shape[:2]
+    pos_q = paging.chunk_positions(start, cch)[:, None, :, None]
+    key_pos = torch.arange(full.k.shape[2], device=q.device)
+    valid = key_pos <= pos_q
+    if spec.window > 0:
+        valid = valid & (key_pos > pos_q - spec.window)
+    valid = valid.expand(b, full.k.shape[1], cch, full.k.shape[2])
+    return kops.chunk_attention(q.contiguous(), full.k, full.v, valid.contiguous()), full
+
+
+def _full_rows_heads(spec: AttnSpec, place: cachelib.Placement):
+    """(rows, q heads, kv heads) slices of a full-cache block."""
+    (b0, b1), (h0, h1) = place.bounds[("full", "k")][:2]
+    g = spec.group
+    return slice(b0, b1), slice(h0 * g, h1 * g), slice(h0, h1)
+
+
+def full_decode_attention_placed(spec: AttnSpec, q, k_new, v_new,
+                                 cache: cachelib.FullCache, length, active=None, *,
+                                 place: cachelib.Placement):
+    """``full_decode_attention`` on one rank's block of a full cache (its
+    rows over the batch axes, its kv heads over 'model'): the default body
+    on the rank's rows and heads, the output gathered over what cut them.
+    A rank holding the whole leaf runs the default's kernels on the same
+    inputs and gathers nothing. Returns (out (B, Hq, D), cache)."""
+    _require_ragged(length)
+    r, hq, hk = _full_rows_heads(spec, place)
+    out, cache = full_decode_attention(spec, q[r, hq], k_new[r, hk], v_new[r, hk], cache,
+                                       length[r], None if active is None else active[r])
+    return _gather_out(out, place, "full", "k", 1), cache
+
+
+def full_chunk_attention_placed(spec: AttnSpec, q, k_new, v_new,
+                                cache: cachelib.FullCache, start, chunk_len,
+                                active=None, *, place: cachelib.Placement):
+    """``full_chunk_attention`` on one rank's block of a full cache, as
+    ``full_decode_attention_placed``. Returns (out (B, C, Hq, D), cache)."""
+    r, hq, hk = _full_rows_heads(spec, place)
+    out, cache = full_chunk_attention(spec, q[r, :, hq], k_new[r, :, hk], v_new[r, :, hk],
+                                      cache, start[r], chunk_len[r],
+                                      None if active is None else active[r])
+    return _gather_out(out, place, "full", "k", 2), cache

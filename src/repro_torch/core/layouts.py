@@ -25,12 +25,15 @@ whole pages per 'model' rank for the layouts that shard pages, the mesh
 validated, the balance shards), and ``cache_axes`` the reference's leaf
 axes, which ``runtime/sharding.py`` turns into each rank's block.
 ``placed(mesh, batch, capacity)`` binds a GSPMD layout to one rank: that
-object allocates the rank's blocks and runs the decode, chunk and
-speculative verify steps on them (``hybrid_attention.decode_attention_placed``
-and its siblings), gathering where GSPMD would; a rank that holds every
-page runs the default's kernels. Without a process group the mesh is the
-one-rank (1, 1) mesh of the caller's device, the reference's default mesh
-over its one device.
+object places every kind of layer (``place``: H²EAL paged and streaming
+caches, full caches, recurrent states), allocates the rank's blocks and
+runs the decode, chunk and speculative verify steps on them
+(``hybrid_attention.decode_attention_placed`` and its siblings, the full
+caches' ``full_decode_attention_placed`` / ``full_chunk_attention_placed``,
+a recurrent layer on the rank's rows through ``rows``), gathering where
+GSPMD would; a rank that holds every page or row runs the default's
+kernels. Without a process group the mesh is the one-rank (1, 1) mesh of
+the caller's device, the reference's default mesh over its one device.
 """
 from __future__ import annotations
 
@@ -52,13 +55,6 @@ LAYOUT_COPLACE_SHMAP = "coplace_shmap"
 # pre-registry spellings, resolved with a one-shot DeprecationWarning each
 _ALIASES = {None: LAYOUT_DEFAULT, "auto": LAYOUT_DEFAULT}
 _warned_aliases: set = set()
-
-# the GSPMD layouts serve the dense attention family only; the rest waits
-GSPMD_FAMILY_REFUSAL = (
-    "the GSPMD layouts (head, coplace, interleave) serve the dense attention "
-    "family (llama, smollm, internlm2, qwen2) with H2EAL on; {what} on them is "
-    "not ported (ROADMAP Queue 1 item 9b)")
-
 
 @dataclasses.dataclass(frozen=True)
 class LayoutPlan:
@@ -111,6 +107,22 @@ class DefaultLayout:
         """The empty (PagedCache, StreamCache) of ``batch`` slots."""
         return hattn.empty_decode_state(spec, batch, capacity, dtype=dtype,
                                         device=device)
+
+    def full_decode(self, spec, cache, q, k_new, v_new, length, active=None):
+        """Decode step of a full-cache layer -> (out (B, Hq, D), cache)."""
+        return hattn.full_decode_attention(spec, q, k_new, v_new, cache, length, active)
+
+    def full_chunk(self, spec, cache, q, k_new, v_new, start, chunk_len, active):
+        """Chunk step of a full-cache layer -> (out (B, C, Hq, D), cache)."""
+        return hattn.full_chunk_attention(spec, q, k_new, v_new, cache, start, chunk_len,
+                                          active)
+
+    def rows(self, spec, fn, *xs):
+        """``fn(*xs)`` of a recurrent layer of ``spec`` over the batch rows
+        this layout's state holds, its output of the whole batch: here every
+        row. ``xs`` are (B, ...) tensors or None."""
+        del spec
+        return fn(*xs)
 
     def prefill(self, spec, k, v, length: int, capacity: int, perm=None) -> Dict:
         """Build the decode state {"paged", "stream"} from prefill K/V."""
@@ -318,41 +330,54 @@ class PlacedLayout(DefaultLayout):
         self._places: Dict = {}
 
     def place(self, spec) -> cachelib.Placement:
-        """The rank's block of every leaf of an attention layer of ``spec``."""
+        """The rank's block of every serve-cache leaf of a layer of ``spec``:
+        an H²EAL ``AttnSpec`` (paged and streaming caches), a full-cache one
+        (a window layer, or H²EAL off) or a recurrent layer's
+        ``cache.RecurrentSpec``. One placement a kind of layer, kept."""
         if spec not in self._places:
             from repro_torch.runtime import sharding
 
-            full = dict(zip(("paged", "stream"), hattn.empty_decode_state(
-                spec, self.batch, self.capacity, dtype=torch.float32, device="meta")))
             _, batch_ok = sharding.resolve_state_layout(self.mesh, self.name,
                                                         self.batch)
+            recurrent = isinstance(spec, cachelib.RecurrentSpec)
             specs, shapes, bounds = {}, {}, {}
-            for key, cache in full.items():
+            for key, cache in _meta_cache(spec, self.batch, self.capacity).items():
                 for f in dataclasses.fields(cache):
                     shape = tuple(getattr(cache, f.name).shape)
-                    s = sharding._cache_leaf_spec(f"['{key}'].{f.name}", shape,
-                                                  self.mesh, self.layout, batch_ok,
-                                                  False)
+                    if recurrent:
+                        s = sharding.recurrent_leaf_spec(shape, self.mesh, batch_ok)
+                    else:
+                        s = sharding._cache_leaf_spec(f"['{key}'].{f.name}", shape,
+                                                      self.mesh, self.layout, batch_ok,
+                                                      False)
                     specs[(key, f.name)] = s
                     shapes[(key, f.name)] = shape
                     bounds[(key, f.name)] = sharding.block_bounds(shape, s, self.mesh)
             place = cachelib.Placement(mesh=self.mesh, specs=specs, shapes=shapes,
-                                       bounds=bounds, page=spec.h2.page_size,
+                                       bounds=bounds,
+                                       page=0 if recurrent else spec.h2.page_size,
                                        partials=False)
-            split = any(place.cut("paged", "k_pages", d) for d in (2, 3))
-            self._places[spec] = dataclasses.replace(
-                place, partials=self.shards_pages and split)
+            if ("paged", "k_pages") in specs:
+                split = any(place.cut("paged", "k_pages", d) for d in (2, 3))
+                place = dataclasses.replace(place, partials=self.shards_pages and split)
+            self._places[spec] = place
         return self._places[spec]
+
+    def block(self, spec, whole: Dict, device) -> Dict:
+        """The rank's block of the empty layer cache ``whole`` (a dict of
+        cache containers of the whole batch, on the meta device) of a layer
+        of ``spec``, allocated on ``device``."""
+        place = self.place(spec)
+        return {key: cachelib.block_of(c, key, place, device) for key, c in whole.items()}
 
     def empty_decode_state(self, spec, batch: int, capacity: int, *, dtype, device):
         if (batch, capacity) != (self.batch, self.capacity):
             raise ValueError(f"layout {self.name!r} was placed for {self.batch} slots "
                              f"of {self.capacity} tokens, not {batch} of {capacity}")
-        place = self.place(spec)
         paged, stream = hattn.empty_decode_state(spec, batch, capacity, dtype=dtype,
                                                  device="meta")
-        return (cachelib.block_of(paged, "paged", place, device),
-                cachelib.block_of(stream, "stream", place, device))
+        got = self.block(spec, {"paged": paged, "stream": stream}, device)
+        return got["paged"], got["stream"]
 
     def pack_slot(self, spec, big: Dict, small: Dict, slot: int) -> None:
         """Write the rank's block of the batch-1 prefill cache ``small`` into
@@ -361,6 +386,26 @@ class PlacedLayout(DefaultLayout):
 
     def reset_slot(self, spec, big: Dict, slot: int) -> None:
         cachelib.reset_block_row(big, slot, self.place(spec))
+
+    def full_decode(self, spec, cache, q, k_new, v_new, length, active=None):
+        return hattn.full_decode_attention_placed(spec, q, k_new, v_new, cache, length,
+                                                  active, place=self.place(spec))
+
+    def full_chunk(self, spec, cache, q, k_new, v_new, start, chunk_len, active):
+        return hattn.full_chunk_attention_placed(spec, q, k_new, v_new, cache, start,
+                                                 chunk_len, active,
+                                                 place=self.place(spec))
+
+    def rows(self, spec, fn, *xs):
+        """``fn`` on the rank's rows of ``xs`` (the rows its block of the
+        recurrent layer ``spec`` holds), its output gathered over the axes
+        that cut them; a rank holding every row runs ``fn`` on the whole
+        batch and gathers nothing."""
+        place = self.place(spec)
+        leaf = next(iter(place.bounds))
+        b0, b1 = place.bounds[leaf][0]
+        y = fn(*(None if x is None else x[b0:b1] for x in xs))
+        return hattn._gather_dim(y, self.mesh, place.axes(*leaf, 0), 0)
 
     def prefill_chunk(self, spec, state: Dict, q, k_new, v_new, start,
                       chunk_len, active, perm=None):
@@ -457,12 +502,29 @@ def get_layout(name, shards: int = 1) -> DefaultLayout:
     return lay
 
 
+def _meta_cache(spec, batch: int, capacity: int) -> Dict:
+    """The empty cache of a layer of ``spec`` (see ``PlacedLayout.place``)
+    for ``batch`` slots of ``capacity`` tokens, on the meta device."""
+    if isinstance(spec, cachelib.RecurrentSpec):
+        return spec.empty(batch, "meta")
+    if spec.full_cache:
+        return {"full": cachelib.make_full_cache(batch, spec.n_kv, capacity,
+                                                 spec.head_dim, dtype=torch.float32,
+                                                 device="meta")}
+    return dict(zip(("paged", "stream"), hattn.empty_decode_state(
+        spec, batch, capacity, dtype=torch.float32, device="meta")))
+
+
 def check_gspmd_config(cfg) -> None:
-    """Raise for a config the GSPMD layouts do not serve: anything outside
-    the dense full-attention family with H²EAL on."""
-    if cfg.family != "dense" or cfg.attn_pattern != "full" or cfg.mixer_pattern \
-            or cfg.moe.enabled or cfg.embed_frontend_stub or not cfg.h2eal.enabled:
-        raise NotImplementedError(GSPMD_FAMILY_REFUSAL.format(what=cfg.name))
+    """Raise for a config the GSPMD layouts do not serve: a frontend-stub
+    arch, with the refusal of the default layout's engine
+    (``serving.engine.STUB_ENGINE_REFUSAL``). Every other family is served
+    on them: dense, gemma3's local:global stack, the MoE family, the
+    recurrent mixers, and H²EAL off."""
+    if cfg.embed_frontend_stub:
+        from repro_torch.models.model import STUB_ENGINE_REFUSAL
+
+        raise ValueError(STUB_ENGINE_REFUSAL)
 
 
 def dispatch_decode_window(layout, body, carry, xs, *, length: int):

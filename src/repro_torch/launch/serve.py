@@ -50,9 +50,14 @@ The GSPMD layouts ``head``, ``coplace`` and ``interleave`` serve the
 ragged workload over the ranks of ``torchrun``, one process a device
 (NCCL on cards, gloo on the CPU), ``--mesh-model M`` of them on the mesh's
 'model' axis and the rest on 'data'; every rank serves the same requests,
-rank 0 prints. ``--rebalance`` migrates slots there too: where the batch
-lies over 'data', a move takes a slot's row to another rank. Without
-torchrun they run on one rank:
+rank 0 prints. Every family the default layout serves is served there:
+the dense family (``--h2eal off`` too), gemma3's local:global stack, the
+MoE family and the recurrent mixers (zamba2, xLSTM), each layer's cache
+placed by its kind. ``--rebalance`` migrates slots there too: where the
+batch lies over 'data', a move takes a slot's row (pages, full caches,
+recurrent states) to another rank. ``--layers N`` cuts the model's depth.
+On NCCL the program ends without tearing its communicators down
+(``_leave_group``). Without torchrun they run on one rank:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch llama3-8b \
       --workload ragged --requests 8 --max-batch 4 --prompt-buckets 2048,8192 \
@@ -63,6 +68,10 @@ torchrun they run on one rank:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --reduced --workload ragged --requests 5 --max-batch 2 \
       --prompt-buckets 16,24 --layout interleave --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch zamba2-2.7b --reduced --workload ragged --requests 8 --max-batch 4 \
+      --prompt-buckets 8,16,24 --prefill-chunk 8 --layout head --rebalance retire \
+      --device cpu
 
 The frontend-stub archs (internvl2-1b, musicgen-large) take precomputed
 embeddings, not token ids: ``generate``, the engine and this CLI refuse
@@ -74,7 +83,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -272,6 +283,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to its first N layers (0: its whole depth)")
     ap.add_argument("--workload", choices=["uniform", "ragged"],
                     default="uniform")
     ap.add_argument("--batch", type=int, default=2)
@@ -343,7 +356,20 @@ def main(argv=None):
         return _serve(args, mesh)
     finally:
         if joined:
-            torch.distributed.destroy_process_group()
+            _leave_group()
+
+
+def _leave_group() -> None:
+    """Leave a torchrun rank's process group. A gloo group is destroyed. An
+    NCCL group is left to the process's exit, after the card's work is done:
+    run as a program, the CLI then ends through ``os._exit`` without tearing
+    the communicators down, the exit path of ``scripts/torch_gspmd_ranks.py``,
+    whose four NCCL ranks hung in the teardown once their captured steps had
+    run (ROADMAP Queue 3)."""
+    if torch.distributed.get_backend() == "nccl":
+        torch.cuda.synchronize()
+        return
+    torch.distributed.destroy_process_group()
 
 
 def _serve(args, mesh):
@@ -354,6 +380,8 @@ def _serve(args, mesh):
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if cfg.embed_frontend_stub:
         raise ValueError(STUB_ENGINE_REFUSAL)
     if args.h2eal == "off":
@@ -439,4 +467,16 @@ def _serve(args, mesh):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    if torch.distributed.is_initialized():  # an NCCL group left to the exit
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    sys.exit(code)

@@ -38,6 +38,16 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
 STUB_CHUNK_REFUSAL = ("chunked prefill feeds token chunks through the embedding; "
                       "frontend-stub archs use prefill-then-pack admission")
 
+# a frontend-stub arch (internvl2-1b, musicgen-large) takes precomputed
+# embeddings, which a Request's token-id prompt cannot carry; the reference's
+# engine constructs, then feeds the prompt's and the sampled token ids where
+# embeddings are due and fails (ROADMAP Queue 3)
+STUB_ENGINE_REFUSAL = (
+    "frontend-stub archs take precomputed embeddings, not token ids: the "
+    "reference's Engine.run and generate feed token ids where an embedding "
+    "is due and fail; serve them through models.model.prefill and "
+    "decode_step fed embeddings")
+
 
 def embed_input(cfg: ArchConfig, params, batch):
     """batch: (B, S) or (B,) int token ids; for a frontend-stub arch the

@@ -25,10 +25,15 @@ MLSTMState | SLSTMState}`` (``core/cache.py``): its chunk and decode steps
 compute the new state as the reference's functions do and write it into
 those tensors in place (the rows of slots not stepping left as they are,
 the reference's ``_keep_active``), so that a captured step advances the
-engine's own buffers. Layouts own only the attention caches.
+engine's own buffers. The default layouts own only the attention caches;
+a GSPMD layout placed on a rank (``core/layouts.PlacedLayout``) holds the
+rank's block of every layer's cache, ``layer_spec`` naming each layer's
+kind: H²EAL pages and ring, a full cache cut over rows and kv heads, a
+recurrent state cut over rows, stepped on the rank's rows (``rows``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -44,7 +49,6 @@ from repro_torch.core import cache as cachelib
 from repro_torch.core import gating as gatinglib
 from repro_torch.core import hybrid_attention as hattn
 from repro_torch.core import layouts as layoutlib
-from repro_torch.core import paging
 from repro_torch.kernels import ops as kops
 from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
@@ -79,7 +83,7 @@ _MIXERS = (MIXER_ATTENTION, MIXER_MAMBA2, MIXER_MLSTM, MIXER_SLSTM)
 def check_ported(cfg: ArchConfig, layout=None) -> None:
     """Raise for a mixer that is not one of the reference's (every family of
     the reference is ported: ROADMAP Queue 1 item 11), and, on a GSPMD
-    layout, for anything outside the dense attention family (item 9b)."""
+    layout, for a frontend-stub arch (``layouts.check_gspmd_config``)."""
     unknown = sorted(set(cfg.mixer_pattern) - set(_MIXERS))
     if unknown:
         raise NotImplementedError(
@@ -174,11 +178,6 @@ def _qkv(cfg: ArchConfig, p, h):
             v.reshape(*lead, cfg.num_kv_heads, hd))
 
 
-def _has_full_cache(spec: hattn.AttnSpec) -> bool:
-    """A window layer, or the full-attention baseline, keeps a FullCache."""
-    return not spec.h2.enabled or spec.window > 0
-
-
 def _mamba2_prefill_with_state(cfg: ArchConfig, p, h):
     """The chunked forward and the exact final SSM / conv state."""
     return ssmlib.mamba2_forward(cfg, p, h), ssmlib.mamba2_final_state(cfg, p, h)
@@ -218,6 +217,20 @@ _RECURRENT = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def layer_spec(cfg: ArchConfig, pos: int):
+    """The kind of serve cache of the layer at period position ``pos``, as
+    the GSPMD layouts place it: its ``AttnSpec`` (H²EAL's caches, or a full
+    cache) or, for a recurrent mixer, its ``cache.RecurrentSpec``."""
+    mixer = cfg.mixer_for_layer(pos)
+    if mixer == MIXER_ATTENTION:
+        return attn_spec(cfg, pos)
+    r = _RECURRENT[mixer]
+    st = r.init_state(cfg, 1, torch.float32, "meta")
+    return cachelib.RecurrentSpec(r.key, r.state_cls,
+                                  tuple((n, tuple(t.shape[1:])) for n, t in st.items()))
+
+
 def _recurrent_prefill(cfg: ArchConfig, mixer: str, p, h):
     """A recurrent layer over the prompt from a fresh state: (y, its cache)."""
     r = _RECURRENT[mixer]
@@ -225,20 +238,27 @@ def _recurrent_prefill(cfg: ArchConfig, mixer: str, p, h):
     return y, {r.key: r.state_cls(**st)}
 
 
-def _recurrent_step(cfg: ArchConfig, mixer: str, p, h, cache, keep, chunk=None):
+def _recurrent_step(cfg: ArchConfig, pos: int, p, h, cache, keep, chunk=None,
+                    layout=layoutlib.DEFAULT):
     """A recurrent layer's chunk (``chunk`` = (chunk_len, active)) or decode
     step: the reference's function on the layer's state, the new state
     written into the cache's tensors in place (decode: the rows where
     ``keep``, as the reference's ``_keep_active``; a chunk leaves the rows of
-    slots without tokens as they were by its own arithmetic). Returns y."""
-    r = _RECURRENT[mixer]
-    st = cachelib.state_fields(cache[r.key])
-    if chunk is not None:
-        y, new = r.chunk(cfg, p[r.pkey], st, h, chunk_len=chunk[0], active=chunk[1])
-    else:
-        y, new = r.step(cfg, p[r.pkey], st, h)
-    cachelib.write_state(cache[r.key], new, keep)
-    return y
+    slots without tokens as they were by its own arithmetic). Under a GSPMD
+    layout the state is the rank's rows, stepped on those rows of ``h``, and
+    y is gathered whole (``layout.rows``). Returns y."""
+    r = _RECURRENT[cfg.mixer_for_layer(pos)]
+    clen, act = chunk if chunk is not None else (None, None)
+
+    def run(h, keep, clen, act):
+        st = cachelib.state_fields(cache[r.key])
+        if chunk is not None:
+            y, new = r.chunk(cfg, p[r.pkey], st, h, chunk_len=clen, active=act)
+        else:
+            y, new = r.step(cfg, p[r.pkey], st, h)
+        cachelib.write_state(cache[r.key], new, keep)
+        return y
+    return layout.rows(layer_spec(cfg, pos), run, h, keep, clen, act)
 
 
 def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None):
@@ -280,7 +300,7 @@ def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
     k = apply_rope(k, cos, sin)
     b, s = q.shape[:2]
     o = hattn.prefill_attention(spec, q, k, v, perm)
-    if not _has_full_cache(spec):
+    if not spec.full_cache:
         cache = layout.prefill(spec, k, v, s, capacity, perm)
     else:  # full-attention baseline / sliding-window layer
         full = cachelib.make_full_cache(b, cfg.num_kv_heads, capacity,
@@ -297,12 +317,15 @@ def empty_block_cache(cfg: ArchConfig, pos: int, batch: int, capacity: int, *,
                       dtype, device, layout=layoutlib.DEFAULT):
     """The empty serve cache of ``batch`` slots of a block at period position
     ``pos`` (a GSPMD layout's: the rank's block of it)."""
+    if layout.gspmd:
+        whole = empty_block_cache(cfg, pos, batch, capacity, dtype=dtype, device="meta")
+        return layout.block(layer_spec(cfg, pos), whole, device)
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
         r = _RECURRENT[mixer]
         return {r.key: r.state_cls(**r.init_state(cfg, batch, dtype, device))}
     spec = attn_spec(cfg, pos)
-    if not _has_full_cache(spec):
+    if not spec.full_cache:
         paged, stream = layout.empty_decode_state(spec, batch, capacity,
                                                   dtype=dtype, device=device)
         return {"paged": paged, "stream": stream}
@@ -323,7 +346,8 @@ def block_prefill_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
-        y = _recurrent_step(cfg, mixer, p, h, cache, None, chunk=(chunk_len, active))
+        y = _recurrent_step(cfg, pos, p, h, cache, None, chunk=(chunk_len, active),
+                            layout=layout)
         return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
@@ -335,16 +359,8 @@ def block_prefill_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *,
         o, cache = layout.prefill_chunk(spec, cache, q, k, v, start, chunk_len,
                                         active, perm=perm)
     else:  # full-attention baseline / window layer: append, attend causally
-        full = cachelib.full_cache_append_chunk(cache["full"], k, v, start,
-                                                chunk_len, active)
-        pos_q = paging.chunk_positions(start, cch)[:, None, :, None]
-        key_pos = torch.arange(full.k.shape[2], device=x.device)
-        valid = key_pos <= pos_q
-        if spec.window > 0:
-            valid = valid & (key_pos > pos_q - spec.window)
-        valid = valid.expand(b, full.k.shape[1], cch, full.k.shape[2])
-        o = kops.chunk_attention(q.contiguous(), full.k, full.v,
-                                 valid.contiguous())
+        o, full = layout.full_chunk(spec, cache["full"], q, k, v, start, chunk_len,
+                                    active)
         cache = {"full": full}
     x = x + dense(o.reshape(b, cch, -1), p["wo"])
     return _ffn_apply(cfg, pos, p, x), cache
@@ -361,7 +377,7 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
-        y = _recurrent_step(cfg, mixer, p, h, cache, active)
+        y = _recurrent_step(cfg, pos, p, h, cache, active, layout=layout)
         return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h)
@@ -369,8 +385,7 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
     q = apply_rope(q[:, None], cos1, sin1)[:, 0]
     k = apply_rope(k[:, None], cos1, sin1)[:, 0]
     if "full" in cache:
-        o, full = hattn.full_decode_attention(spec, q, k, v, cache["full"],
-                                              length, active)
+        o, full = layout.full_decode(spec, cache["full"], q, k, v, length, active)
         cache = {"full": full}
     else:
         o, cache = layout.decode(spec, cache, q, k, v, length,

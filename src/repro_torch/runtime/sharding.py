@@ -18,6 +18,17 @@ placements, drops an axis that does not divide its dimension (``_div``:
 the leaf is then replicated along it), and places the layout-independent
 leaves (the streaming ring's heads over 'model' in every layout).
 
+The engine's full caches (gemma3's window layers, every layer with
+H²EAL off) take the reference's rule: rows over the batch axes, kv heads
+over 'model' where they divide. A recurrent layer's state departs from
+the reference's ``_cache_leaf_spec``, which also cuts its heads and
+channels over 'model': the port's engine places it by
+``recurrent_leaf_spec``, rows over the batch axes and whole over 'model',
+because every mamba2 head reads the whole ``conv_B`` / ``conv_C`` output
+of its token and the state is constant-size a slot, so cutting it saves
+little and would gather inside every recurrent step. ``_cache_leaf_spec``
+stays the reference's copy.
+
 ``local_block`` cuts a full leaf into this rank's tile, contiguous tiles
 in axis order as a ``NamedSharding`` tiles; ``block_bounds`` gives the
 tile's (start, stop) per dimension.
@@ -164,6 +175,14 @@ def _cache_leaf_spec(path: str, shape, mesh, layout_obj, batch_ok: bool,
     if any(path.endswith(k) for k in ("['n']", "['m']", "['h']", "['c']")):
         return build(b_ax, "model")
     return build(*([None] * nd))
+
+
+def recurrent_leaf_spec(shape, mesh, batch_ok: bool) -> tuple:
+    """Placement of a recurrent state leaf (B, ...) on the port's GSPMD
+    layouts: the rows over the batch axes where they divide, every other
+    dimension whole (see the module docstring for the departure)."""
+    b_ax = batch_axes(mesh) if batch_ok else None
+    return ((b_ax if _div(shape[0], mesh, b_ax) else None),) + (None,) * (len(shape) - 1)
 
 
 def resolve_state_layout(mesh, layout, batch_size):

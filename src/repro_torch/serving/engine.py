@@ -146,15 +146,8 @@ def _check_spec(cfg: ArchConfig, k: int, hot_pages) -> None:
                          f"[1, h2eal.local={cfg.h2eal.local}]")
 
 
-# a frontend-stub arch (internvl2-1b, musicgen-large) takes precomputed
-# embeddings, which a Request's token-id prompt cannot carry; the reference's
-# engine constructs, then feeds the prompt's and the sampled token ids where
-# embeddings are due and fails (ROADMAP Queue 3)
-STUB_ENGINE_REFUSAL = (
-    "frontend-stub archs take precomputed embeddings, not token ids: the "
-    "reference's Engine.run and generate feed token ids where an embedding "
-    "is due and fail; serve them through models.model.prefill and "
-    "decode_step fed embeddings")
+# the refusal of a frontend-stub arch's requests (``models/model.py``)
+STUB_ENGINE_REFUSAL = M.STUB_ENGINE_REFUSAL
 
 
 @dataclasses.dataclass
@@ -368,18 +361,18 @@ def _pack_slot(big: dict, small: dict, slot: int) -> None:
 
 
 def _migrate_rows(big: dict, extra, src: torch.Tensor, dst: torch.Tensor,
-                  place=None) -> None:
+                  places=None) -> None:
     """Copy row ``src`` of every tensor of the batched state and of ``extra``
     to row ``dst``, then clear ``src`` to the empty values (index tensors of
     one element, so that the step has fixed shapes and is captured once).
-    ``place`` (a ``cache.Placement``): the layers' caches are a rank's
-    blocks, moved by ``cache.move_block_rows``."""
+    ``places`` (a ``cache.Placement`` a layer): the layers' caches are a
+    rank's blocks, moved by ``cache.move_block_rows``."""
     rows = [("length", big["length"])]
-    if place is None:
+    if places is None:
         for layer in big["layers"]:
             rows += list(_cache_fields(layer))
     else:
-        cachelib.move_block_rows(big["layers"], place, src, dst)
+        cachelib.move_block_rows(big["layers"], places, src, dst)
     rows += [("", t) for t in extra]
     for name, t in rows:
         t.index_copy_(0, dst, t.index_select(0, src))
@@ -426,9 +419,11 @@ class Engine:
                     one-rank mesh). Every rank builds the same engine with the
                     same parameters and requests and takes the same host
                     decisions; it holds only its block of the serve state, and
-                    every rank's steps give the same tokens. A family outside
-                    the dense attention one raises there (ROADMAP item 9b);
-                    the steps of a gloo mesh run eagerly, and a gloo mesh on
+                    every rank's steps give the same tokens. Every family the
+                    default layout serves is served there, with the default's
+                    options and its refusals; a frontend-stub arch raises the
+                    default's ``STUB_ENGINE_REFUSAL`` at construction. The
+                    steps of a gloo mesh run eagerly, and a gloo mesh on
                     the card refuses capture unless ``eager=True``.
     admission       "fifo" or "balanced": scores the first
                     ``admit_lookahead`` queued requests by the per-stripe
@@ -494,10 +489,6 @@ class Engine:
                  rebalance_banks: Optional[int] = None,
                  decode_window: Optional[int] = None, eager: bool = False):
         lay = layoutlib.get_layout(layout, shards)
-        if lay.gspmd:
-            # a family the GSPMD layouts do not serve yet raises before any
-            # option's own gate, and never falls back to another layout
-            layoutlib.check_gspmd_config(cfg)
         self.spec_tokens = int(spec_tokens) if spec_tokens else None
         self.draft = None
         if self.spec_tokens is not None:
@@ -573,6 +564,11 @@ class Engine:
                                     layout=self.layout, shards=self.shards,
                                     mesh=self.mesh, max_batch=int(max_batch))
         self.serve_config = scfg
+        if lay.gspmd:
+            # after every option's own gate, so that an option refused for a
+            # family raises the default layout's error; a frontend-stub arch
+            # raises its refusal here, and nothing falls back to another layout
+            layoutlib.check_gspmd_config(cfg)
         # a GSPMD layout placed on this rank: the batched state is its blocks
         self._placed = serve_rt.serve_layout(scfg) if lay.gspmd else None
         self._prefill = serve_rt.make_prefill(cfg, scfg)
@@ -603,10 +599,18 @@ class Engine:
             ready=np.zeros(b, bool), lengths=np.zeros(b, np.int64),
             phase=np.zeros(b, np.int64), uid=np.full(b, -1, np.int64),
             remaining=np.zeros(b, np.int64), prompt_left=np.zeros(b, np.int64))
-        # the placement of the attention layers' blocks (one spec: the GSPMD
-        # layouts serve the dense attention family alone)
-        self._place = (None if self._placed is None
-                       else self._placed.place(T.attn_spec(cfg)))
+        # a GSPMD layout: each layer's placement, one a kind of layer (H²EAL
+        # pages and ring, a full cache, a recurrent state), and the paged
+        # layers' (the tier, the digest and the decode-step save read it)
+        self._specs = [T.layer_spec(cfg, pos) for pos in M.layer_positions(cfg)]
+        self._paged_spec = next((sp for sp in self._specs
+                                 if not isinstance(sp, cachelib.RecurrentSpec)
+                                 and not sp.full_cache), None)
+        self._places = self._place = None
+        if self._placed is not None:
+            self._places = [self._placed.place(sp) for sp in self._specs]
+            if self._paged_spec is not None:
+                self._place = self._placed.place(self._paged_spec)
         # the token feed: each slot's next input token, and the generation
         # index of that slot's next sample, both updated in place
         self._tok = torch.zeros(b, dtype=torch.int32, device=self.device)
@@ -696,7 +700,7 @@ class Engine:
             src = g.input("mig_src", (1,), torch.int64)
             dst = g.input("mig_dst", (1,), torch.int64)
             g.add("migrate", lambda: _migrate_rows(serve, (tok, gen), src, dst,
-                                                   me._place))
+                                                   me._places))
         c, w = self.prefill_chunk, self._fused_len
         if c is not None:
             ctoks = g.input("ctoks", (b, c), torch.int32)
@@ -761,9 +765,8 @@ class Engine:
             return _pack_slot(self.batch.serve, small, slot)
         big = self.batch.serve
         big["length"][slot].fill_(small["length"])
-        for pos, lb, ls in zip(M.layer_positions(self.cfg), big["layers"],
-                               small["layers"]):
-            self._placed.pack_slot(T.attn_spec(self.cfg, pos), lb, ls, slot)
+        for spec, lb, ls in zip(self._specs, big["layers"], small["layers"]):
+            self._placed.pack_slot(spec, lb, ls, slot)
 
     def _reset(self, slot: int) -> None:
         """Clear slot ``slot`` to the empty values (the rank's block of it)."""
@@ -771,8 +774,8 @@ class Engine:
             return _reset_slot(self.batch.serve, slot)
         big = self.batch.serve
         big["length"][slot].fill_(0)
-        for pos, lb in zip(M.layer_positions(self.cfg), big["layers"]):
-            self._placed.reset_slot(T.attn_spec(self.cfg, pos), lb, slot)
+        for spec, lb in zip(self._specs, big["layers"]):
+            self._placed.reset_slot(spec, lb, slot)
 
     def _takes_requests(self, *, refuse: bool = False) -> bool:
         """False for a frontend-stub arch, whose engine takes no request
@@ -1274,9 +1277,8 @@ class Engine:
         and no rank spills a page that another rank's heads selected."""
         if self._placed is None:
             return _selection_digest(self.batch.serve)
-        spec = T.attn_spec(self.cfg)
         return _selection_digest(self.batch.serve, lambda field, t: self._placed.whole(
-            spec, "paged", field, t, lead=1))
+            self._paged_spec, "paged", field, t, lead=1))
 
     def _relay_far(self, src: int, dst: int, rows) -> list:
         """``TieredPagedCache.move_slot``'s relay where the batch rows are cut

@@ -13,7 +13,11 @@ a config, the parameters (the JAX package's tree as numpy arrays, bridged
 by ``models/convert.params_from_numpy``), a layout, the engine's options
 (speculative decode, tiered residency and rebalancing among them) and the
 requests, or a single-step check of the sharded attention bodies (decode,
-chunk, speculative verify and its commit) against the default body. The process writes its results, by mesh, to
+chunk, speculative verify and its commit) against the default body, or of
+one layer of another kind on the rank's blocks: a full cache (a window
+layer, or H²EAL off: decode and chunk) or a recurrent mixer (a chunk
+resumed and a decode step, the whole block with its FFN) against the
+default's on the whole state. The process writes its results, by mesh, to
 JOB.RANK. This module imports no JAX: the port's ranks run without it.
 """
 import dataclasses
@@ -29,9 +33,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core import cache as cachelib  # noqa: E402
 from repro_torch.core import hybrid_attention as hattn  # noqa: E402
 from repro_torch.core import layouts as layoutlib  # noqa: E402
 from repro_torch.launch import mesh as meshlib  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.runtime import sharding  # noqa: E402
@@ -162,6 +168,92 @@ def run_steps(case, mesh):
     return out
 
 
+def _diff(got, want) -> float:
+    return float((got - want).abs().max())
+
+
+def run_full_steps(case, mesh):
+    """A full-cache layer (``case["pos"]``: a window layer, or any layer with
+    H²EAL off) on the rank's block: a decode step and a chunk step against
+    the default body on the whole seeded cache."""
+    cfg = config(case["arch"], case["overrides"], case.get("h2", ()))
+    spec = T.attn_spec(cfg, case["pos"])
+    assert spec.full_cache
+    b, cap, cch = case["batch"], case["capacity"], case["chunk"]
+    placed = layoutlib.get_layout(case["layout"]).placed(mesh, batch=b, capacity=cap)
+    place = placed.place(spec)
+    g = torch.Generator().manual_seed(case["seed"])
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    hkv, hq, d = spec.n_kv, spec.n_q, spec.head_dim
+    length = torch.tensor(case["lengths"], dtype=torch.int32)
+    full = {"full": cachelib.make_full_cache(b, hkv, cap, d, dtype=torch.float32,
+                                             device="cpu")}
+    keep = (torch.arange(cap) < length[:, None])[:, None, :, None]
+    full["full"].k.copy_(torch.where(keep, rnd(b, hkv, cap, d), 0.0))
+    full["full"].v.copy_(torch.where(keep, rnd(b, hkv, cap, d), 0.0))
+    block = _block(full, place, mesh)
+    active = torch.tensor(case["active"])
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
+    want, full["full"] = layoutlib.DEFAULT.full_decode(spec, full["full"], q, k, v, length,
+                                                       active)
+    got, block["full"] = placed.full_decode(spec, block["full"], q, k, v, length, active)
+    out = {"steps": [{"out": _diff(got, want), "state": _state_diff(block, full, place,
+                                                                    mesh)}]}
+    length = torch.where(active, length + 1, length)
+    q, k, v = rnd(b, cch, hq, d), rnd(b, cch, hkv, d), rnd(b, cch, hkv, d)
+    clen = torch.tensor(case["chunk_len"], dtype=torch.int32)
+    want, full["full"] = layoutlib.DEFAULT.full_chunk(spec, full["full"], q, k, v, length,
+                                                      clen, clen > 0)
+    got, block["full"] = placed.full_chunk(spec, block["full"], q, k, v, length, clen,
+                                           clen > 0)
+    out["chunk"] = {"out": _diff(got, want), "state": _state_diff(block, full, place, mesh)}
+    return out
+
+
+def run_recurrent_steps(case, mesh):
+    """A recurrent block (``case["pos"]``) on the rank's rows: a chunk resumed
+    from a seeded state and a decode step, against the default's on the
+    whole state; the outputs and the rank's rows of the state must equal the
+    default's."""
+    cfg = config(case["arch"], case["overrides"], case.get("h2", ()))
+    pos, b, cch = case["pos"], case["batch"], case["chunk"]
+    rspec = T.layer_spec(cfg, pos)
+    assert isinstance(rspec, cachelib.RecurrentSpec)
+    placed = layoutlib.get_layout(case["layout"]).placed(mesh, batch=b,
+                                                         capacity=case["capacity"])
+    place = placed.place(rspec)
+    g = torch.Generator().manual_seed(case["seed"])
+    p = M.init_params(cfg, generator=g, device="cpu")["layers"][pos]
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    full = T.empty_block_cache(cfg, pos, b, case["capacity"], dtype=torch.float32,
+                               device="cpu")
+    # a seeded state: one chunk of every slot from the empty state
+    start = torch.zeros(b, dtype=torch.int32)
+    clen0 = torch.full((b,), cch, dtype=torch.int32)
+    T.block_prefill_chunk(cfg, pos, p, None, rnd(b, cch, cfg.d_model), None, full,
+                          start=start, chunk_len=clen0, active=clen0 > 0)
+    block = _block(full, place, mesh)
+    x = rnd(b, cch, cfg.d_model)
+    clen = torch.tensor(case["chunk_len"], dtype=torch.int32)
+    kw = dict(start=start + cch, chunk_len=clen, active=clen > 0)
+    want, _ = T.block_prefill_chunk(cfg, pos, p, None, x, None, full, **kw)
+    got, _ = T.block_prefill_chunk(cfg, pos, p, None, x, None, block, layout=placed, **kw)
+    out = {"chunk": {"out": _diff(got, want), "state": _state_diff(block, full, place,
+                                                                   mesh)}}
+    x = rnd(b, cfg.d_model)
+    active = torch.tensor(case["active"])
+    kw = dict(length=start + cch + clen, do_select=False, active=active)
+    want, _ = T.block_decode(cfg, pos, p, None, x, None, full, **kw)
+    got, _ = T.block_decode(cfg, pos, p, None, x, None, block, layout=placed, **kw)
+    out["steps"] = [{"out": _diff(got, want), "state": _state_diff(block, full, place,
+                                                                   mesh)}]
+    return out
+
+
+RUNS = {"engine": run_engine, "steps": run_steps, "full_steps": run_full_steps,
+        "recurrent_steps": run_recurrent_steps}
+
+
 def run_mesh(job, rank: int) -> dict:
     """Every case of one mesh, as rank ``rank`` of its process group."""
     meshlib.init_distributed("gloo", store_path=job["store"], rank=rank,
@@ -170,8 +262,7 @@ def run_mesh(job, rank: int) -> dict:
         mesh = meshlib.make_local_mesh(model=job["model"])
         results = {}
         for name, case in job["cases"].items():
-            run = run_steps if case["kind"] == "steps" else run_engine
-            results[name] = run(case, mesh)
+            results[name] = RUNS[case["kind"]](case, mesh)
     finally:
         torch.distributed.destroy_process_group()
     return {"mesh": (mesh.sizes, mesh.coords), "results": results}

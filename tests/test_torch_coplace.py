@@ -3,10 +3,12 @@ and balanced admission against the JAX package (``impl="ref"``) on the CPU.
 
 The port's stripe count S stands for the size of the JAX mesh's 'model'
 axis, so each port run at S stripes is held against the JAX layout on S
-devices: S=1 in a subprocess of one device (a 1x1 mesh) and S=4 in one
-with four fake host devices, each computing every reference once per
-module (``jax_reference``) and handing it over as files. Both start when
-the module does, so they compute while its other tests run. The JAX
+devices: S=1 in subprocesses of one device (a 1x1 mesh) and S=4 in ones
+with four fake host devices, three at each count (the decode steps, the
+lockstep serving steps, the engines: ``REF_PARTS``), each computing its
+part of the references once per module (``jax_reference``) and handing it
+over as files. All start when the module does, so they compute side by
+side while its other tests run. The JAX
 side's own inputs come from ``_inputs``, made from numpy with fixed seeds
 on both sides; a JAX engine serves the FIFO and the balanced run of one
 configuration (admission is the host's pick alone).
@@ -57,6 +59,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.sched import balance as tbalance
 from repro_torch.serving.engine import Engine, Request
 from test_torch_engine import TIE_GAP, Model
+from test_torch_layouts import jax_cache_env
 import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -157,16 +160,33 @@ def _engine_requests(cfg):
              3 + 2 * i) for i in range(5)]
 
 
-def jax_reference():
-    """(arrays, meta) of every JAX reference of this file, on a (1, S) mesh
-    of this process's S devices: decode steps of ``decode_attention_coplace``
-    (lockstep and ragged), lockstep serving steps, and the coplace_shmap
-    engine in each admission mode; on one device also the default-layout
-    engine with balanced admission over 4 balance shards."""
+# the references in parts, each computed by a subprocess of its own (a part
+# a subprocess, at each device count), so that they compute side by side
+REF_PARTS = ("steps", "lockstep", "engines")
+
+
+def jax_reference(part):
+    """(arrays, meta) of the JAX references of ``part`` of this file, on a
+    (1, S) mesh of this process's S devices: "steps", decode steps of
+    ``decode_attention_coplace`` (lockstep and ragged); "lockstep", lockstep
+    serving steps; "engines", the coplace_shmap engine in each admission
+    mode, and on one device the default-layout engine with balanced
+    admission over 4 balance shards."""
     shards = len(jax.devices())
     mesh = make_mesh((1, shards), ("data", "model"))
     inp = _inputs()
     arrays, meta = {}, {"shards": shards}
+    if part == "steps":
+        _reference_steps(mesh, shards, inp, arrays)
+    cfg = jconfigs.reduced(jconfigs.get_arch("smollm-360m"))
+    if part == "lockstep":
+        _reference_lockstep(mesh, cfg, inp, arrays)
+    if part == "engines":
+        _reference_engines(shards, cfg, meta)
+    return arrays, meta
+
+
+def _reference_steps(mesh, shards, inp, arrays):
     for case, (cap, budget) in DECODE_CASES.items():
         jspec, _ = _specs(select_budget=budget)
         steps = [jax.jit(functools.partial(jhattn.decode_attention_coplace, jspec,
@@ -205,7 +225,8 @@ def jax_reference():
             for f in ("k", "v", "pos"):
                 arrays[f"{key}_stream_{f}"] = np.asarray(getattr(stream, f))
 
-    cfg = jconfigs.reduced(jconfigs.get_arch("smollm-360m"))
+
+def _reference_lockstep(mesh, cfg, inp, arrays):
     params = JM.init_params(cfg, jax.random.PRNGKey(0))
     w = cfg.h2eal.share_window
     for name, cap in LOCKSTEP_CAPS.items():
@@ -225,6 +246,9 @@ def jax_reference():
         arrays[f"lockstep_{name}_logits"] = np.stack(all_logits)
         arrays[f"lockstep_{name}_last"] = np.asarray(logits)
 
+
+def _reference_engines(shards, cfg, meta):
+    params = JM.init_params(cfg, jax.random.PRNGKey(0))
     reqs = [JRequest(uid=u, prompt=p, max_new=m) for u, p, m in _engine_requests(cfg)]
     runs = {f"coplace_{mode}": dict(kw, layout="coplace_shmap")
             for mode, kw in ENGINE_MODES.items()}
@@ -247,7 +271,6 @@ def jax_reference():
         eng.admission = admission
         comps = eng.run(reqs)
         meta[name] = _engine_record(eng, comps)
-    return arrays, meta
 
 
 def _engine_record(eng, comps):
@@ -267,7 +290,7 @@ if shards > 1:
 sys.path.insert(0, {tests!r})
 import numpy as np
 import test_torch_coplace as T
-arrays, meta = T.jax_reference()
+arrays, meta = T.jax_reference(sys.argv[3])
 assert meta["shards"] == shards, meta["shards"]
 np.savez(os.path.join(sys.argv[1], "ref.npz"), **arrays)
 with open(os.path.join(sys.argv[1], "ref.json"), "w") as f:
@@ -291,36 +314,40 @@ def _wants_ref(session, shards: int) -> bool:
 
 @pytest.fixture(scope="module", autouse=True)
 def ref_runs(request, tmp_path_factory):
-    """The JAX references' subprocesses, S = 1 and S = 4, started when the
-    module starts (each only if a selected test reads it), so they compute
-    while this module's other tests run; ``ref1`` / ``ref4`` read what they
-    wrote."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(REPO, "src"), os.environ.get("PYTHONPATH", "")]))
+    """The JAX references' subprocesses, S = 1 and S = 4, one a part of
+    REF_PARTS, started when the module starts (each device count only if a
+    selected test reads it), so they compute while this module's other
+    tests run; ``ref1`` / ``ref4`` read what they wrote."""
+    env = jax_cache_env(tmp_path_factory.getbasetemp() / "jax_cache_coplace")
     runs = {}
     for shards in (1, 4):
         if not _wants_ref(request.session, shards):
             continue
-        out = tmp_path_factory.mktemp(f"coplace_shmap_{shards}dev")
-        with open(out / "stderr.txt", "w") as err:
-            proc = subprocess.Popen([sys.executable, "-c", SUBPROCESS.format(tests=TESTS),
-                                     str(out), str(shards)], stdout=subprocess.DEVNULL,
-                                    stderr=err, env=env, cwd=REPO)
-        runs[shards] = (proc, out)
+        runs[shards] = []
+        for part in REF_PARTS:
+            out = tmp_path_factory.mktemp(f"coplace_shmap_{shards}dev_{part}")
+            with open(out / "stderr.txt", "w") as err:
+                proc = subprocess.Popen([sys.executable, "-c",
+                                         SUBPROCESS.format(tests=TESTS), str(out),
+                                         str(shards), part], stdout=subprocess.DEVNULL,
+                                        stderr=err, env=env, cwd=REPO)
+            runs[shards].append((proc, out))
     yield runs
-    for proc, _ in runs.values():
+    for proc, _ in (r for parts in runs.values() for r in parts):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
 
 
 def _read_ref(runs, shards):
-    proc, out = runs[shards]
-    proc.wait(timeout=600)
-    assert proc.returncode == 0, (out / "stderr.txt").read_text()[-4000:]
-    with open(out / "ref.json") as f:
-        meta = json.load(f)
-    return dict(np.load(out / "ref.npz")), meta
+    arrays, meta = {}, {}
+    for proc, out in runs[shards]:
+        proc.wait(timeout=600)
+        assert proc.returncode == 0, (out / "stderr.txt").read_text()[-4000:]
+        with open(out / "ref.json") as f:
+            meta.update(json.load(f))
+        arrays.update(np.load(out / "ref.npz"))
+    return arrays, meta
 
 
 @pytest.fixture(scope="module")

@@ -315,25 +315,32 @@ def test_chunked_prefill_validation(smollm):
     (dict(rebalance="bogus"), ValueError, "valid triggers"),
     # the JAX engine's gate: verify steps move phases by variable counts
     (dict(decode_window=4, spec_tokens=2), ValueError, "decode_window > 1"),
-    # the GSPMD layouts serve the options for the dense family; a family
-    # they do not serve yet raises with them
-    (dict(layout="head", spec_tokens=2), NotImplementedError, "ROADMAP"),
-    (dict(layout="interleave", hot_pages=4), NotImplementedError, "ROADMAP"),
+    # the GSPMD layouts serve the options for every family the default
+    # layout serves; with a frontend stub, still refused, they raise the
+    # default layout's errors: spec_tokens's own gate, and the refusal of
+    # the stub's requests (the ids are the cases' names before the other
+    # families were served)
+    pytest.param(dict(layout="head", spec_tokens=2), ValueError,
+                 "spec_tokens feeds token chunks", id="kw4-NotImplementedError-ROADMAP"),
+    pytest.param(dict(layout="interleave", hot_pages=4), ValueError,
+                 "frontend-stub archs take precomputed embeddings",
+                 id="kw5-NotImplementedError-ROADMAP"),
 ])
 def test_unsupported_engine_options_raise(smollm, kw, error, what):
-    """The options not served raise and name their ROADMAP item; the ported
-    ``spec_tokens`` builds, and its gates, the tier budget's and the
-    rebalance trigger's raise the JAX engine's errors. On a GSPMD layout
-    ``spec_tokens`` and ``hot_pages`` build for smollm, and a zamba2 config
-    with them raises citing the layouts' ROADMAP item."""
+    """The options not served raise; the ported ``spec_tokens`` builds, and
+    its gates, the tier budget's and the rebalance trigger's raise the JAX
+    engine's errors. On a GSPMD layout ``spec_tokens`` and ``hot_pages``
+    build for smollm, and an internvl2-1b config (a frontend stub) with them
+    raises what the default layout raises for it: the option's own gate,
+    else the refusal of the stub's requests."""
     if error is None:
         assert smollm.port(**kw).spec_tokens == kw["spec_tokens"]
         return
-    if error is NotImplementedError:
+    if "layout" in kw:
         eng = smollm.port(**kw)
         assert (eng.layout, eng.spec_tokens, eng.hot_pages) == (
             kw["layout"], kw.get("spec_tokens"), kw.get("hot_pages"))
-        cfg = tconfigs.reduced(tconfigs.get_arch("zamba2-2.7b"))
+        cfg = tconfigs.reduced(tconfigs.get_arch("internvl2-1b"))
         with pytest.raises(error, match=what):
             Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2,
                    capacity=CAP, prompt_buckets=[16, 24], device="cpu", **kw)

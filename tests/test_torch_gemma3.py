@@ -213,6 +213,26 @@ def test_engine_matches_jax(g3, mode):
         js.decode_steps, js.select_steps, js.prefill_chunks)
 
 
+_GSPMD_DEFAULT = {}
+
+
+@pytest.mark.parametrize("mode", ["packed", "chunked"])
+@pytest.mark.parametrize("layout", ["head", "coplace", "interleave"])
+def test_gspmd_layouts_match_jax_and_default(g3, layout, mode):
+    """The GSPMD layouts at one rank (the default one-rank mesh): the window
+    layers' full caches and the global layer's pages placed as the
+    reference places them, packed and chunked, on the first 3 requests of
+    the workload: the port's default engine's tokens exactly, and the JAX
+    engine's of the same mode."""
+    reqs = _workload(g3.tcfg)
+    want, _ = g3.jax_run(reqs, h2=ENGINE_H2, **ENGINE_MODES[mode])
+    if mode not in _GSPMD_DEFAULT:
+        _GSPMD_DEFAULT[mode] = _tokens(g3.port(h2=ENGINE_H2, **ENGINE_MODES[mode])
+                                       .run(reqs[:3]))
+    got = _tokens(g3.port(h2=ENGINE_H2, layout=layout, **ENGINE_MODES[mode]).run(reqs[:3]))
+    assert got == _GSPMD_DEFAULT[mode] == {u: want[u] for u in got}
+
+
 def test_fused_decode_windows_match_jax(g3):
     """decode_window=4, chunked: the JAX per-step chunked engine's tokens
     and decode steps, a fused window running the reuse steps between two

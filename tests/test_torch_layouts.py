@@ -10,20 +10,32 @@ chunked) and with tiered residency (``hot_pages=4``), the reference's own
 conformance cases, and with retire-triggered rebalancing on 4 slots,
 against the JAX engine of the layout with the same options: tokens,
 ``spec_steps``, the mean accepted length and every tier and rebalance
-counter. Those JAX engines compile in three subprocesses of their own (one
-a layout, ``jax_layout_runs``) while this process runs the first cases.
+counter. Those JAX engines compile in three subprocesses of their own
+(one a layout, ``jax_layout_runs``) while this process runs the first
+cases; every JAX subprocess of the module shares one compilation cache
+(``jax_cache_env``), so a program two engines compile is compiled once. Also at S = 1 (the default one-rank
+mesh): the llama config with H²EAL off (full caches on every layer) and
+kimi-k2's MoE with its shared expert on each layout, packed and chunked,
+against the port's default engine exactly and the JAX default engine;
+zamba2, xLSTM, gemma3 and qwen3-moe are held so in their own files.
 
 S = 2 and 4: ranks spawned as processes (``tests/_torch_mesh_worker.py``,
 which imports no JAX): one spawn of 4 processes runs every mesh in turn,
 each as its own process group of the ranks it needs, with every case of
 the mesh inside it, in the background while this process runs the S = 1
 cases; the JAX default-layout engines they are held to compile meanwhile
-in a subprocess of their own (``jax_default_traces``). Meshes
+in two subprocesses of their own (``jax_default_traces``). Meshes
 (data, model): (1, 2) for ``head`` and ``coplace``, (1, 4) for
 ``coplace``, (2, 2) for ``interleave`` at ``max_batch`` 3 (the batch
 cannot take 'data', so the tokens stripe within pages), and there the
 layer steps of ``head`` and ``coplace`` at 2 slots (the batch over
-'data'). The config is
+'data'); (2, 1) for xLSTM. The other families: zamba2's (mamba2, mamba2,
+attention) hybrid on ``head`` (2, 2) chunked and rebalanced (a slot's
+recurrent rows migrate across 'data'), gemma3's local:global stack on
+``coplace`` (1, 2) chunked and tiered (its global layer's pages cut, its
+window layers' one kv head whole), qwen3-moe on ``interleave`` (2, 2)
+packed, the llama config with H²EAL off on ``head`` (1, 2) chunked (its
+full caches' kv heads cut), xLSTM on ``head`` (2, 1) chunked. The config is
 ``reduced(get_arch("llama3-8b"), num_heads=8, num_kv_heads=4)``, whose 2
 retrieval and 2 streaming kv heads divide 'model' at 2, and plain reduced
 smollm, whose single kv head of each kind does not: the reference's
@@ -43,7 +55,8 @@ verify and commit steps on the ranks' blocks against the port's default
 body on the whole state: outputs within 2e-5, every cache field of each
 block equal to its tile of the default's state (the importance within
 1e-6 of its magnitude: where the pages are cut its scores are summed in
-another order).
+another order); so too a full-cache layer's decode and chunk steps and a
+recurrent block's chunk resume and decode step (``LAYER_STEPS``).
 """
 import dataclasses
 import os
@@ -65,9 +78,10 @@ from repro.serving import Request as JRequest
 from repro_torch import configs as tconfigs
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tlaunch
+from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import graphs
-from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.engine import STUB_ENGINE_REFUSAL, Engine, Request
 from test_torch_engine import CAP, Model
 import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
@@ -79,6 +93,18 @@ LLAMA = ("llama3-8b", (("num_heads", 8), ("num_kv_heads", 4)))
 # tiered residency spills (tests/test_torch_tiered.py's narrowing)
 LLAMA_NARROW = LLAMA + ((("local", 8), ("select_budget", 16)),)
 SMOLLM = ("smollm-360m", ())
+# the other families on the GSPMD layouts: the recurrent hybrid of
+# tests/test_layouts.py (mamba2, mamba2, attention), xLSTM, gemma3's
+# local:global stack (8 layers: 5 window layers of 64, a global one, 2
+# window layers) narrowed so that its global layer's pages spill, the MoE
+# family (kimi-k2's shared expert too), and the llama config with H²EAL off
+ZAMBA = ("zamba2-2.7b", (("mixer_pattern", ("mamba2", "mamba2", "attention")),
+                         ("num_layers", 3)))
+XLSTM = ("xlstm-125m", ())
+GEMMA3_NARROW = ("gemma3-1b", (("num_layers", 8),), (("local", 8), ("select_budget", 16)))
+QWEN = ("qwen3-moe-235b-a22b", ())
+KIMI = ("kimi-k2-1t-a32b", ())
+LLAMA_OFF = LLAMA + ((("enabled", False),),)
 TOL, IMP_TOL = 2e-5, 1e-6
 ENGINE = dict(capacity=CAP, prompt_buckets=[16, 24])
 BUCKETS = [8, 16, 24]
@@ -92,24 +118,39 @@ MODES = {
     "spec_streaming": (dict(spec_tokens=4, draft="streaming", prefill_chunk=5), "mixed"),
     "tiered": (dict(hot_pages=4), "deep"),
     "rebalanced": (dict(rebalance="retire", max_batch=4), "churn"),
+    "rebalanced_chunked": (dict(rebalance="retire", max_batch=4, prefill_chunk=5), "churn"),
+    "tiered_chunked": (dict(hot_pages=4, prefill_chunk=5), "deep"),
     "rebalanced_tiered": (dict(rebalance="retire", hot_pages=4, max_batch=4), "long_short"),
 }
 # (data, model) meshes of the spawned runs and their cases: (layout, arch,
-# max_batch, engine modes); every llama case also checks one layer's steps
+# max_batch, engine modes); every llama case also checks one layer's steps,
+# the H²EAL-off one a full-cache layer's, gemma3's a window layer's, and
+# the recurrent ones a recurrent block's
 MESHES = {
     (1, 2): [("head", LLAMA, 2, ("packed", "chunked", "spec", "rebalanced")),
              ("coplace", LLAMA, 2, ("packed", "chunked", "spec_streaming",
                                     "rebalanced")),
              ("head", SMOLLM, 2, ("chunked",)),
-             ("coplace", LLAMA_NARROW, 2, ("tiered",))],
+             ("coplace", LLAMA_NARROW, 2, ("tiered",)),
+             ("coplace", GEMMA3_NARROW, 2, ("tiered_chunked",)),
+             ("head", LLAMA_OFF, 2, ("chunked",))],
     (1, 4): [("coplace", LLAMA, 2, ("packed", "chunked", "spec")),
              ("coplace", LLAMA_NARROW, 2, ("tiered",))],
+    (2, 1): [("head", XLSTM, 2, ("chunked",))],
     (2, 2): [("interleave", LLAMA, 3, ("packed", "chunked", "spec_streaming",
                                         "rebalanced")),
              ("interleave", LLAMA_NARROW, 3, ("tiered",)),
              ("head", LLAMA, 2, ()), ("coplace", LLAMA, 2, ("rebalanced",)),
-             ("head", LLAMA_NARROW, 2, ("rebalanced_tiered",))],
+             ("head", LLAMA_NARROW, 2, ("rebalanced_tiered",)),
+             ("head", ZAMBA, 4, ("rebalanced_chunked",)),
+             ("interleave", QWEN, 3, ("packed",)),
+             ("head", LLAMA_OFF, 2, ())],
 }
+# the layer of another kind each such case checks on the rank's blocks:
+# (step kind, period position)
+# (step kind, period positions)
+LAYER_STEPS = {LLAMA_OFF: ("full_steps", (0,)), GEMMA3_NARROW: ("full_steps", (0,)),
+               ZAMBA: ("recurrent_steps", (0,)), XLSTM: ("recurrent_steps", (0, 1))}
 # the S = 1 cases against the JAX engine of each layout with the same
 # options: (options, workload); the mixed one with its sampled request
 ONE_RANK_RUNS = {"spec_packed": (dict(spec_tokens=4), "mixed"),
@@ -220,9 +261,16 @@ def _engine_kw(mode, max_batch):
                 **kw)
 
 
-# the JAX default-layout engines the spawned ranks are held to
+# the families whose one-rank GSPMD engines this file holds (zamba2, xLSTM,
+# gemma3 and qwen3-moe in their own files, against the JAX engines there):
+# (arch, its JAX default-layout reference)
+ONE_RANK_FAMILIES = {"h2eal_off": (LLAMA_OFF, (LLAMA_OFF, "mixed", "chunked")),
+                     "kimi": (KIMI, (KIMI, "mixed", "packed"))}
+# the JAX default-layout engines the spawned ranks and those families are
+# held to
 JAX_DEFAULT = sorted({_reference(arch, mode) for cases in MESHES.values()
-                      for _, arch, _, modes in cases for mode in modes}, key=str)
+                      for _, arch, _, modes in cases for mode in modes}
+                     | {ref for _, ref in ONE_RANK_FAMILIES.values()}, key=str)
 JAX_SUBPROCESS = """
 import pickle, sys
 sys.path.insert(0, {tests!r})
@@ -232,11 +280,18 @@ with open(sys.argv[1], "wb") as f:
 """
 
 
-def jax_default_traces():
+# JAX_DEFAULT in two parts of whole archs (each arch's weights made once),
+# each computed by a subprocess of its own: the older archs' engines, and
+# the other families'
+JAX_DEFAULT_PARTS = ([r for r in JAX_DEFAULT if r[0] in (LLAMA, LLAMA_NARROW, SMOLLM)],
+                     [r for r in JAX_DEFAULT if r[0] not in (LLAMA, LLAMA_NARROW, SMOLLM)])
+
+
+def jax_default_traces(part):
     """{(arch, workload, prefill mode): tokens} of the JAX default-layout
-    engines of JAX_DEFAULT."""
+    engines of JAX_DEFAULT_PARTS[part]."""
     archs, out = {}, {}
-    for arch, workload, mode in JAX_DEFAULT:
+    for arch, workload, mode in JAX_DEFAULT_PARTS[int(part)]:
         a = archs.get(arch) or archs.setdefault(arch, Arch(*arch))
         out[(arch, workload, mode)] = a.jax_engine_run(
             _requests(a.tcfg, workload), prompt_buckets=WORKLOADS[workload],
@@ -249,12 +304,15 @@ def _one_rank_requests(cfg, workload):
 
 
 def jax_layout_runs(layout):
-    """{run: (tokens, counters)} of the JAX engine of ``layout`` with each
-    option set of ONE_RANK_RUNS, smollm on its workload."""
+    """{run: (tokens, counters)} of the JAX engine of ``layout``, packed and
+    chunked, and with each option set of ONE_RANK_RUNS, smollm on its
+    workload."""
     a = Arch(*SMOLLM)
+    runs = dict({mode: (dict(prefill_chunk=MODES[mode][0].get("prefill_chunk")), "mixed")
+                 for mode in ("packed", "chunked")}, **ONE_RANK_RUNS)
     return {run: a.jax_engine_run(_one_rank_requests(a.tcfg, workload), layout=layout,
                                   **kw)
-            for run, (kw, workload) in ONE_RANK_RUNS.items()}
+            for run, (kw, workload) in runs.items()}
 
 
 def _req_dict(r):
@@ -264,7 +322,8 @@ def _req_dict(r):
 
 @pytest.fixture(scope="module")
 def archs():
-    return {arch: Arch(*arch) for arch in (LLAMA, LLAMA_NARROW, SMOLLM)}
+    used = {arch for cases in MESHES.values() for _, arch, _, _ in cases}
+    return {arch: Arch(*arch) for arch in sorted(used | {SMOLLM, KIMI}, key=str)}
 
 
 def _job(archs, tmp):
@@ -283,6 +342,16 @@ def _job(archs, tmp):
                     "params": a.numpy_params, "layout": layout,
                     "engine": _engine_kw(mode, max_batch),
                     "requests": [_req_dict(r) for r in _requests(a.tcfg, MODES[mode][1])]}
+            if arch in LAYER_STEPS:
+                kind, positions = LAYER_STEPS[arch]
+                for pos in positions:
+                    job["cases"][(layout, "steps", max_batch, arch[0], pos)] = {
+                        "kind": kind, "arch": arch[0], "overrides": dict(arch[1]),
+                        "h2": dict(arch[2]) if len(arch) > 2 else {}, "layout": layout,
+                        "pos": pos, "batch": max_batch, "capacity": CAP, "chunk": 5,
+                        "seed": 7, "lengths": [40, 9, 57, 20][:max_batch],
+                        "active": [True, False, True, True][:max_batch],
+                        "chunk_len": [5, 3, 0, 2][:max_batch]}
             if arch == LLAMA:
                 b = max_batch
                 job["cases"][(layout, "steps", b)] = {
@@ -342,12 +411,23 @@ def spawned(archs, tmp_path_factory):
     return result
 
 
+def jax_cache_env(cache) -> dict:
+    """The environment of a JAX subprocess whose compiled programs go to the
+    compilation cache ``cache`` (a directory the module's subprocesses
+    share), every program kept: an engine of another layout or mode that
+    compiles the same program reads it from there."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(TESTS), "src"), os.environ.get("PYTHONPATH", "")]),
+        JAX_COMPILATION_CACHE_DIR=str(cache), JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0",
+        JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="-1")
+
+
 def _jax_subprocess(tmp, func, *args):
-    """``func(*args)`` of this module run by a JAX subprocess, started now;
-    the returned ``result()`` waits and reads its pickle; ``stop()`` ends it
-    if it still runs."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(os.path.dirname(TESTS), "src"), os.environ.get("PYTHONPATH", "")]))
+    """``func(*args)`` of this module run by a JAX subprocess, started now,
+    with the module's compilation cache (``jax_cache_env``); the returned
+    ``result()`` waits and reads its pickle; ``stop()`` ends it if it still
+    runs."""
+    env = jax_cache_env(tmp.parent / "jax_cache_layouts")
     with open(tmp / "stderr.txt", "w") as err:
         proc = subprocess.Popen([sys.executable, "-c",
                                  JAX_SUBPROCESS.format(tests=TESTS, func=func),
@@ -372,13 +452,21 @@ def _jax_subprocess(tmp, func, *args):
 
 @pytest.fixture(scope="module")
 def jax_default(tmp_path_factory):
-    """JAX_DEFAULT's engines in a subprocess, started with the module's first
-    test, so that they compile while this process runs the S = 1 cases;
-    ``result()`` waits and reads them."""
-    result, stop = _jax_subprocess(tmp_path_factory.mktemp("jax_default"),
-                                   "jax_default_traces")
+    """JAX_DEFAULT's engines in two subprocesses (JAX_DEFAULT_PARTS),
+    started with the module's first test, so that they compile while this
+    process runs the S = 1 cases; ``result()`` waits and reads them."""
+    parts = [_jax_subprocess(tmp_path_factory.mktemp(f"jax_default{i}"),
+                             "jax_default_traces", str(i))
+             for i in range(len(JAX_DEFAULT_PARTS))]
+
+    def result():
+        out = {}
+        for read, _ in parts:
+            out.update(read())
+        return out
     yield result
-    stop()
+    for _, stop in parts:
+        stop()
 
 
 @pytest.fixture(scope="module")
@@ -413,8 +501,9 @@ def one_rank(tmp_path_factory):
 def test_one_rank_engine_matches_jax_layout(archs, spawned, jax_default, jax_layout,
                                             one_rank, layout, mode):
     """smollm at S = 1 through each GSPMD layout's engine, the greedy
-    workload and a sampled request, against the JAX engine of the layout:
-    token for token (a greedy token up to a JAX near-tie)."""
+    workload and a sampled request, against the JAX engine of the layout
+    (built in its layout's subprocess): token for token (a greedy token up
+    to a JAX near-tie)."""
     m = archs[SMOLLM]
     assert one_rank.shape == {"data": 1, "model": 1} and one_rank.backend == "gloo"
     reqs = _workload(m.tcfg, sampled=True)
@@ -423,7 +512,7 @@ def test_one_rank_engine_matches_jax_layout(archs, spawned, jax_default, jax_lay
                  prefill_chunk=chunk, device="cpu", **ENGINE)
     assert eng.plan.shard_state and eng.plan.mesh is one_rank
     got = {u: c.tokens for u, c in eng.run(reqs).items()}
-    want, _ = m.jax_engine_run(reqs, layout=layout, prefill_chunk=chunk)
+    want, _ = jax_layout(layout)[mode]
     assert got[5] == want[5]
     m.assert_same({u: t for u, t in got.items() if u != 5},
                   {u: t for u, t in want.items() if u != 5}, reqs[:5])
@@ -531,16 +620,47 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
     """One layer's select, reuse, chunk, speculative verify and commit steps
     on every rank's blocks against the default body on the whole state:
     outputs within 2e-5 and each block equal to its tile of the default's
-    state."""
+    state. So too a full-cache layer's decode and chunk steps (H²EAL off,
+    gemma3's window layer), the kv heads and rows cut; and a recurrent
+    block's chunk resume and decode step on the rank's rows: its state rows
+    equal to the default's, its outputs within 2e-5 (a projection over the
+    rank's rows may round otherwise than over the whole batch)."""
     for r in spawned(mesh):
         for name, res in r["results"].items():
             if name[1] != "steps":
                 continue
-            for step in res["steps"] + [res["chunk"], res["verify"], res["commit"]]:
+            for step in res["steps"] + [res[k] for k in ("chunk", "verify", "commit")
+                                        if k in res]:
                 assert step["out"] <= TOL, (name, step)
                 for field, diff in step["state"].items():
                     tol = IMP_TOL if field.endswith("importance") else 0.0
                     assert diff <= tol, (name, field, diff)
+
+
+_DEFAULT_RUNS = {}
+
+
+@pytest.mark.parametrize("mode", ["packed", "chunked"])
+@pytest.mark.parametrize("layout", GSPMD)
+@pytest.mark.parametrize("family", list(ONE_RANK_FAMILIES))
+def test_one_rank_family_matches_jax_and_default(archs, jax_default, family, layout, mode):
+    """The llama config with H²EAL off (full caches on every layer) and
+    kimi-k2's MoE with its shared expert at S = 1 (the default one-rank
+    mesh) through each GSPMD layout's engine, packed and chunked: the
+    tokens equal the port's default engine's exactly, and the JAX default
+    engine's (the reference holds every layout to it on one device)."""
+    arch, ref = ONE_RANK_FAMILIES[family]
+    a = archs[arch]
+    reqs = _workload(a.tcfg)
+    kw = dict(max_batch=2, prefill_chunk=MODES[mode][0].get("prefill_chunk"), device="cpu",
+              **ENGINE)
+    run = lambda layout: {u: c.tokens for u, c in Engine(
+        a.tcfg, a.tparams, layout=layout, **kw).run(reqs).items()}
+    if (family, mode) not in _DEFAULT_RUNS:
+        _DEFAULT_RUNS[(family, mode)] = run("default")
+    got = run(layout)
+    assert got == _DEFAULT_RUNS[(family, mode)]
+    assert got == jax_default()[ref]
 
 
 # ---------------------------------------------------------------------------
@@ -548,9 +668,19 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
 # ---------------------------------------------------------------------------
 
 
-# each engine feature with a family the GSPMD layouts do not serve yet
-REFUSED_WITH = {"spec_tokens": "gemma3-1b", "hot_pages": "zamba2-2.7b",
-                "rebalance": "qwen3-moe-235b-a22b"}
+# each engine feature with the family the GSPMD layouts still refuse: the
+# frontend stubs, as the default layout's engine refuses their requests
+REFUSED_WITH = {"spec_tokens": "internvl2-1b", "hot_pages": "musicgen-large",
+                "rebalance": "internvl2-1b"}
+
+
+def _error(fn):
+    """The message of the ValueError ``fn()`` raises, None if it raises none."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 @pytest.mark.parametrize("kw,what", [
@@ -559,27 +689,42 @@ REFUSED_WITH = {"spec_tokens": "gemma3-1b", "hot_pages": "zamba2-2.7b",
 ])
 def test_gspmd_engine_refusals(archs, kw, what):
     """Speculative decode, tiered residency and rebalancing build on a GSPMD
-    layout for the dense family, placed on this rank; with a family the
-    layouts do not serve yet the engine raises citing item 9b, whatever the
-    option, and none falls back to another layout."""
+    layout, placed on this rank; with a frontend-stub arch the engine raises
+    what the default layout's engine raises for the option, or else the
+    default's refusal of the stub's requests (``STUB_ENGINE_REFUSAL``), and
+    none falls back to another layout."""
     m = archs[SMOLLM]
     eng = Engine(m.tcfg, m.tparams, max_batch=2, layout="coplace", device="cpu",
                  **ENGINE, **kw)
     assert eng.layout == "coplace" and eng._placed is not None
     assert getattr(eng, what) == kw[what]
     cfg = tconfigs.reduced(tconfigs.get_arch(REFUSED_WITH[what]))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2,
-               layout="coplace", device="cpu", **ENGINE, **kw)
+    build = lambda layout: Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)},
+                                  max_batch=2, layout=layout, device="cpu", **ENGINE, **kw)
+    want = _error(lambda: build("default")) or STUB_ENGINE_REFUSAL
+    with pytest.raises(ValueError) as got:
+        build("coplace")
+    assert str(got.value) == want
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-moe-235b-a22b", "zamba2-2.7b",
                                   "internvl2-1b"])
 def test_gspmd_refuses_other_families(arch):
+    """The frontend stubs raise the default layout's refusal of their
+    requests on a GSPMD layout; gemma3's local:global stack, the MoE family
+    and the recurrent hybrid build on ``head`` and serve a request as the
+    default layout's engine does."""
     cfg = tconfigs.reduced(tconfigs.get_arch(arch))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2,
-               layout="head", device="cpu", **ENGINE)
+    if cfg.embed_frontend_stub:
+        with pytest.raises(ValueError, match="frontend-stub"):
+            Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2,
+                   layout="head", device="cpu", **ENGINE)
+        return
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    req = _workload(cfg)[:1]
+    got = [Engine(cfg, params, max_batch=2, layout=layout, device="cpu", **ENGINE)
+           .run(req)[0].tokens for layout in ("head", "default")]
+    assert got[0] == got[1] and len(got[0]) == req[0].max_new
 
 
 def test_gspmd_capture_lockstep_and_cli_refusals(archs, one_rank):

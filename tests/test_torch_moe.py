@@ -354,3 +354,23 @@ def test_chunked_engine_with_fused_windows_matches_jax_at_capacity(qwen):
     assert _tokens(eng, reqs) == want
     assert eng.stats.decode_steps == js.decode_steps and eng.stats.fused_windows > 0
     assert _tokens(qwen.port(0.25, **CHUNKED), reqs) != want
+
+
+_GSPMD_DEFAULT = {}
+
+
+@pytest.mark.parametrize("mode", ["packed", "chunked"])
+@pytest.mark.parametrize("layout", ["head", "coplace", "interleave"])
+def test_gspmd_layouts_match_jax_and_default(qwen, layout, mode):
+    """The GSPMD layouts at one rank (the default one-rank mesh), packed and
+    chunked (chunks of 16), dropless, on 3 requests of the packed workload:
+    the port's default engine's tokens exactly, and the JAX packed engine's
+    (a request's tokens depend neither on the others nor on the admission
+    mode, in the reference as here)."""
+    reqs = _packed_workload(qwen.tcfg)
+    want, _ = qwen.jax_run(reqs)
+    kw = {} if mode == "packed" else dict(prefill_chunk=16)
+    if mode not in _GSPMD_DEFAULT:
+        _GSPMD_DEFAULT[mode] = _tokens(qwen.port(**kw), reqs[:3])
+    got = _tokens(qwen.port(layout=layout, **kw), reqs[:3])
+    assert got == _GSPMD_DEFAULT[mode] == {u: want[u] for u in got}

@@ -469,6 +469,27 @@ def test_engine_matches_jax(hybrid, xl, case):
     assert eng.stats.prefill_chunks > 0 or "prefill_chunk" not in kw
 
 
+_GSPMD_DEFAULT = {}
+
+
+@pytest.mark.parametrize("mode", ["packed", "chunked"])
+@pytest.mark.parametrize("layout", ["head", "coplace", "interleave"])
+@pytest.mark.parametrize("name", [ZAMBA, XLSTM])
+def test_gspmd_layouts_match_jax_and_default(hybrid, xl, name, layout, mode):
+    """The GSPMD layouts at one rank (the default one-rank mesh): the
+    recurrent states placed by rows, the hybrid's attention layer by the
+    layout, packed and chunks of 8, on 3 requests on 2 slots: the port's
+    default engine's tokens exactly, and the JAX engine's (a request's
+    tokens depend neither on the others nor on the admission mode)."""
+    m = hybrid if name == ZAMBA else xl
+    want, _ = m.jax_run()
+    kw = dict(max_batch=2, n=3, prefill_chunk=8 if mode == "chunked" else None)
+    if (name, mode) not in _GSPMD_DEFAULT:
+        _GSPMD_DEFAULT[(name, mode)] = m.port_run(**kw)[0]
+    got, _ = m.port_run(layout=layout, **kw)
+    assert got == _GSPMD_DEFAULT[(name, mode)] == {u: want[u] for u in got}
+
+
 def test_tiered_and_rebalanced_hybrid_matches_jax(hybrid):
     """Tiered residency (3 hot pages a slot) and live migration on
     retirement, chunks of 8, on four slots: JAX's tokens, every tier counter

@@ -199,6 +199,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "examples/torch_head_identification.py",
             "src/repro_torch/launch/mesh.py", "src/repro_torch/runtime/sharding.py",
             "src/repro_torch/runtime/collectives.py",
+            "src/repro_torch/core/layouts.py", "src/repro_torch/core/cache.py",
+            "src/repro_torch/core/hybrid_attention.py",
+            "src/repro_torch/models/transformer.py", "src/repro_torch/models/model.py",
+            "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py",
+            "scripts/torch_gspmd_ranks.py", "chip_smoke.py",
             "tests/_torch_mesh_worker.py"} <= names
     for f in files:
         for mod in _imports(f):
