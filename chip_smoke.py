@@ -194,6 +194,17 @@ then, each phase failing the run with a nonzero exit:
      and of each GSPMD layout, one request sampled: zamba2-2.7b, xlstm-125m
      and gemma3-1b whole, qwen3-moe cut to 8 layers, llama3-8b with H²EAL
      off; tokens, counters and launch counts equal to the default's.
+     ``coplace_shmap`` over ranks (rank r of 'model' holding page stripe
+     r): paged_attention_partial and combine_partials timed at a rank's
+     stripe block (2 and 4 stripes) beside their plain versions and the
+     gather + SDPA of that block; in (a), its captured chunked engine on the
+     NCCL rank beside the default's (one rank holds every stripe and runs
+     the default's kernels: launches and counters equal, tokens up to a
+     near-tie, the layout selecting a masked page as -1); in (b), on (1, 2)
+     packed and chunked, speculative and tiered with a request forced
+     cold, each held to the one-card engine over 2 stripes and to the
+     one-rank default engine, and one decode step on each rank's striped
+     block against the one-card body.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -834,10 +845,11 @@ def partial_excess(got, want) -> float:
                ((o - wo).abs() - atol * scale[..., None]).max().item())
 
 
-def stripe_inputs(gen, dev, cfg, dtype):
+def stripe_inputs(gen, dev, cfg, dtype, shards=SHARDS):
     """The retrieval heads' decode inputs of the coplace_shmap path at its
     main shapes: 4 slots at contexts STRIPE_CTX in a cache of the engine
-    capacity rounded to whole pages of SHARDS stripes (264 pages of 32),
+    capacity rounded to whole pages of ``shards`` stripes (264 pages of 32
+    at SHARDS),
     the striped page order, a random top-128 selection of each slot's
     selectable pages (-1 padded where fewer), the unsplit [sink | selected
     | local] slot list (138 slots, 4416 tokens) and its validity, as the
@@ -847,12 +859,12 @@ def stripe_inputs(gen, dev, cfg, dtype):
     h2 = cfg.h2eal
     nr, _, g, d = head_split(cfg)
     p, top_k = h2.page_size, h2.top_k_pages
-    cap = layouts.get_layout("coplace_shmap", SHARDS).plan(cfg).round_capacity(
+    cap = layouts.get_layout("coplace_shmap", shards).plan(cfg).round_capacity(
         engine_workload(cfg)[1])
     c = cap // p
     b = len(STRIPE_CTX)
     ctx = torch.tensor(STRIPE_CTX, device=dev)
-    lop = paging.logical_pages(c, SHARDS, dev)                    # (C,)
+    lop = paging.logical_pages(c, shards, dev)                    # (C,)
     start = torch.where(lop[None] * p < ctx[:, None], lop[None] * p, -1)
     start = start[:, None, :].expand(b, nr, c).to(torch.int32).contiguous()
     rng = np.random.default_rng(3)
@@ -864,9 +876,9 @@ def stripe_inputs(gen, dev, cfg, dtype):
             pick = rng.permutation(pages)[:top_k]
             sel[bi, hi, :len(pick)] = pick
     sel = torch.from_numpy(sel).to(dev)
-    sel = torch.where(sel >= 0, paging.interleave_slot(sel, c, SHARDS), -1)
+    sel = torch.where(sel >= 0, paging.interleave_slot(sel, c, shards), -1)
     slots = paging.coplace_attended_slots(sel, ctx, sink=h2.sink, local=h2.local,
-                                          page=p, capacity=c, n_shards=SHARDS)
+                                          page=p, capacity=c, n_shards=shards)
     valid = paging.token_validity(slots, start, ctx, sink=h2.sink, local=h2.local,
                                   page=p, top_k=top_k)
     q = torch.randn(b, nr * g, d, generator=gen, device=dev).to(dtype)
@@ -3846,7 +3858,8 @@ GSPMD_A = dict(prompts=(2048, 8192), n=4, new=16, seed=5)
 # where the batch cannot take 'data' and the tokens stripe within pages
 GSPMD_CUT = 8
 GSPMD_B = dict(prompts=(1024, 2048), n=3, new=8, seed=6)
-GSPMD_B_CASES = (("head", 2, 2), ("coplace", 2, 2), ("interleave", 1, 3))
+GSPMD_B_CASES = (("head", 2, 2), ("coplace", 2, 2), ("interleave", 1, 3),
+                 ("coplace_shmap", 2, 2))
 # a decode step's attention output of a GSPMD layout against the default
 # layout's on the same state: both round their f32 result to bf16 once, from
 # sums taken in other orders, so they may sit a bf16 step apart
@@ -3866,7 +3879,11 @@ GSPMD_B_TIERED = dict(GSPMD_B, new=16)
 GSPMD_B_FORCE_AFTER = 1
 GSPMD_B_EXTRA = (("spec", "coplace", 2, 2, dict(spec_tokens=SPEC_K, draft="ngram"), GSPMD_B),
                  ("tiered", "coplace", 2, 2, dict(hot_pages=GSPMD_B_HOT_PAGES), GSPMD_B_TIERED),
-                 ("rebalanced", "head", 1, 4, dict(rebalance="retire"), GSPMD_B_REBALANCE))
+                 ("rebalanced", "head", 1, 4, dict(rebalance="retire"), GSPMD_B_REBALANCE),
+                 ("spec_shmap", "coplace_shmap", 2, 2,
+                  dict(spec_tokens=SPEC_K, draft="ngram"), GSPMD_B),
+                 ("tiered_shmap", "coplace_shmap", 2, 2, dict(hot_pages=GSPMD_B_HOT_PAGES),
+                  GSPMD_B_TIERED))
 # 15b's other families, on both ranks, chunked and eager (name, arch, layers,
 # H²EAL on, layout, 'model' ranks, slots, options, workload): zamba2 cut to
 # one period of its pattern (5 mamba2 layers, an attention layer) on head
@@ -4017,15 +4034,19 @@ def gspmd_launches(s, cfg, split, n_prefills):
 def gspmd_step_check(cfg, layout, mesh, b, capacity, dev):
     """One decode select step of one layer at ``cfg``'s full width on this
     rank's blocks of a seeded bf16 state (slots prefilled to 1500, 900, 2000
-    tokens), beside the default layout's step on the whole state: (largest
-    |diff|, excess over the band, attended tokens)."""
+    tokens), beside the default layout's step on the whole state (under
+    ``coplace_shmap``, the one-card body over the mesh's stripes on the
+    whole state striped alike): (largest |diff|, excess over the band,
+    attended tokens)."""
     from repro_torch.core import layouts
     from repro_torch.models import transformer as T
     from repro_torch.runtime import sharding
 
     spec = T.attn_spec(cfg)
-    placed = layouts.get_layout(layout).placed(mesh, batch=b, capacity=capacity)
+    placed = layouts.get_layout(layout, mesh=mesh).placed(mesh, batch=b, capacity=capacity)
     place = placed.place(spec)
+    one = (layouts.get_layout(layout, placed.shards) if layout == "coplace_shmap"
+           else layouts.DEFAULT)
     gen = torch.Generator(device=dev).manual_seed(21)
     rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
     hkv, hq, d = spec.n_kv, spec.n_q, spec.head_dim
@@ -4034,8 +4055,7 @@ def gspmd_step_check(cfg, layout, mesh, b, capacity, dev):
                                                        dtype=torch.bfloat16, device=dev)
     full = {"paged": paged, "stream": stream}
     for i, n in enumerate(lengths):
-        small = layouts.DEFAULT.prefill(spec, rnd(1, n, hkv, d), rnd(1, n, hkv, d), n,
-                                        capacity)
+        small = one.prefill(spec, rnd(1, n, hkv, d), rnd(1, n, hkv, d), n, capacity)
         for key, c in full.items():
             for f in dataclasses.fields(c):
                 getattr(c, f.name)[i].copy_(getattr(small[key], f.name)[0])
@@ -4045,8 +4065,8 @@ def gspmd_step_check(cfg, layout, mesh, b, capacity, dev):
     length = torch.tensor(lengths, dtype=torch.int32, device=dev)
     active = torch.ones(b, dtype=torch.bool, device=dev)
     q, k, v = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
-    want, _ = layouts.DEFAULT.decode(spec, full, q, k, v, length, do_select=True,
-                                     active=active, need_select=active)
+    want, _ = one.decode(spec, full, q, k, v, length, do_select=True, active=active,
+                         need_select=active)
     got, _ = placed.decode(spec, block, q, k, v, length, do_select=True, active=active,
                            need_select=active)
     torch.cuda.synchronize()
@@ -4140,18 +4160,22 @@ def gspmd_rank(rank: int, store: str, out: str) -> int:
     return 0
 
 
-def gspmd_extra_case(cfg, params, dev, name, layout, mesh, max_batch, kw, workload):
+def gspmd_extra_case(cfg, params, dev, name, layout, mesh, max_batch, kw, workload,
+                     shards=1):
     """One of GSPMD_B_EXTRA's engines (or, with ``mesh`` None, the one-rank
-    default engine of its options), chunked and eager, its tiered request
-    forced cold: tokens, counters, the migrations' (src, dst), the pages
-    forced, the launch counts and the wall time."""
+    default engine of its options, or with ``shards`` > 1 the one-card
+    ``coplace_shmap`` engine over that many stripes), chunked and eager, its
+    tiered request forced cold: tokens, counters, the migrations' (src,
+    dst), the pages forced, the launch counts and the wall time."""
     from repro_torch.serving.engine import Engine
 
     reqs, capacity = gspmd_workload(cfg, **workload)
+    one_card = mesh is None and shards > 1
     eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
                  prompt_buckets=sorted({len(r.prompt) for r in reqs}),
-                 prefill_chunk=ENGINE_CHUNK, layout=layout if mesh is not None else "default",
-                 mesh=mesh, device=dev, eager=True, **kw)
+                 prefill_chunk=ENGINE_CHUNK,
+                 layout=layout if mesh is not None or one_card else "default",
+                 shards=shards, mesh=mesh, device=dev, eager=True, **kw)
     moves, migrate, calls, run = [], eng._migrate_slot, {}, eng._graphs.run
 
     def logged(src, dst):
@@ -4167,8 +4191,10 @@ def gspmd_extra_case(cfg, params, dev, name, layout, mesh, max_batch, kw, worklo
     if eng.spec_tokens:
         expect = spec_launches(s, cfg.num_layers, SPEC_K, False)
     else:
-        expect = gspmd_tiered_launches(s, cfg, attends_by_partials(eng),
+        expect = gspmd_tiered_launches(s, cfg, attends_by_partials(eng) or one_card,
                                        calls.get("decode_select", 0) - s.select_steps)
+        if one_card:  # the co-placed launch merges its stripes itself
+            expect["combine_partials"] = 0
     out = dict(tokens={str(u): c.tokens for u, c in eng.completions.items()},
                block=block_shapes(eng.batch.serve),
                counters=counters(s, SPEC_COUNTERS + TIER_COUNTERS + REBALANCE_COUNTERS),
@@ -4271,6 +4297,69 @@ def time_gspmd_kernels(ops, ref, timer, dev, cfg, tag=""):
     return parts, combs
 
 
+def time_shmap_kernels(ops, ref, timer, dev, cfg):
+    """paged_attention_partial and combine_partials at a ``coplace_shmap``
+    rank's stripe block, bf16: the decode step of 4 slots at contexts
+    STRIPE_CTX (phase 6's striped inputs, ``stripe_inputs``) on rank 0 of a
+    'model' axis of 2 and of 4, which holds the physical slots of stripe 0
+    (the logical pages p % M == 0) and attends their part of the [sink |
+    selected | local] list; the partials of the M ranks merged. Each held to
+    its plain version and timed beside it, its bound, and the partial's
+    yardstick the gather of the rank's pages then SDPA on them. Returns
+    (partial cases, combine cases), not in the kernel totals."""
+    from repro_torch.core import paging
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    parts, combs = [], []
+    for m in (2, 4):
+        q, kp, vp, slots, valid = stripe_inputs(gen, dev, cfg, torch.bfloat16, shards=m)
+        b, hr, n = slots.shape
+        g, d, p, c = q.shape[1] // hr, q.shape[2], kp.shape[3], kp.shape[2]
+        c_l = c // m
+        local = paging.block_slots(slots, 0, c_l)
+        v_l = (valid.reshape(b, hr, n, p) & (local >= 0)[..., None]).reshape(1, b, hr, -1)
+        k_l, vv_l = kp[:, :, :c_l].contiguous(), vp[:, :, :c_l].contiguous()
+        args = (q, k_l, vv_l, local[None].contiguous(), v_l.contiguous())
+        run = lambda: ops.paged_attention_partial(*args)
+        plain = lambda: ref.paged_attention_partial_pages_ref(*args)
+        got = run()
+        want = ref.paged_attention_partial_pages_ref(*widened(q, k_l, vv_l), *args[3:])
+        torch.cuda.synchronize()
+        n_valid = int(v_l.sum().item())
+        mask = v_l[0].repeat_interleave(g, dim=1)[:, :, None, :]
+        gather_sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], *ref.gather_pages(k_l, vv_l, local), attn_mask=mask,
+            enable_gqa=True)
+        b_ms, b_by = bound(nbytes(q, *args[3:], *got) + 2 * n_valid * d * 2,
+                           4 * d * g * n_valid, torch.bfloat16)
+        what = f"coplace_shmap rank 0 of model {m}, stripe 0"
+        parts.append(dict(
+            case=f"{what} B={b} Hq={hr * g} Hr={hr} C={c_l} of {c} N={n} P={p} D={d} "
+                 f"ctx={list(STRIPE_CTX)} valid={n_valid}", dtype="bfloat16",
+            max_abs_err=max(err(a, w) for a, w in zip(got, want)),
+            excess=partial_excess(got, want),
+            tol="1e-4*max(l,1) (f32 outputs; m: 1e-4*max(|m|,1))", ms=timer.ms(run, 20),
+            plain_ms=timer.ms(plain, 5), library_ms=timer.ms(gather_sdpa, 20),
+            library="gather_pages + SDPA on the rank's stripe", bound_ms=b_ms,
+            bound_by=b_by, main=False))
+        mm, ll, oo = (torch.cat([x] * m) for x in got)
+        run_c = lambda: ops.combine_partials(mm, ll, oo)
+        plain_c = lambda: ref.combine_partials_ref(mm, ll, oo)
+        out, want_c = run_c(), plain_c()
+        torch.cuda.synchronize()
+        rows = b * hr * g
+        b_ms, b_by = bound(nbytes(mm, ll, oo, out), m * rows * (2 * d + 4), torch.float32)
+        combs.append(dict(
+            case=f"{what}: N={m} B={b} Hq={hr * g} D={d}", dtype="bfloat16",
+            max_abs_err=err(out, want_c), excess=excess(out, want_c, torch.float32),
+            tol=tol_text(torch.float32), ms=timer.ms(run_c, 50),
+            plain_ms=timer.ms(plain_c, 50), library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            main=False))
+        del q, kp, vp, k_l, vv_l, got, want
+        torch.cuda.empty_cache()
+    return parts, combs
+
+
 def time_family_blocks(ops, ref, timer, dev):
     """The kernels of the other families on a rank's blocks, bf16, each held
     to its plain version and timed beside it, its bound and the PyTorch
@@ -4328,7 +4417,7 @@ def phase15a(dev, cfg, params, mesh):
         f"{len(reqs)} requests on {ENGINE_BATCH} slots, prompts {buckets}, "
         f"{GSPMD_A['new']} new tokens each (uid {reqs[-1].uid} sampled: "
         f"{SPEC_SAMPLING}), capacity {capacity}, captured steps")
-    by_path, traces, rates = {}, {}, {}
+    by_path, traces, rates, steps = {}, {}, {}, {}
     for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
         for layout in ("default",) + GSPMD_LAYOUTS:
             t0 = time.perf_counter()
@@ -4349,6 +4438,8 @@ def phase15a(dev, cfg, params, mesh):
                 fail(f"{what} did not launch the kernels as expected: {got} vs {expect}")
             traces[(layout, mode)] = {u: c.tokens for u, c in eng.completions.items()}
             rates[(layout, mode)] = s.decode_steps / wall
+            if layout == "default":
+                steps = dict(launches=got, counts=step_counts(s), rate=rates[(layout, mode)])
             by_path[f"gspmd_{layout}_{mode}" if layout != "default"
                     else f"gspmd_default_{mode}"] = got
             blk = eng.batch.serve["layers"][0]["paged"].k_pages.shape
@@ -4368,7 +4459,54 @@ def phase15a(dev, cfg, params, mesh):
                 fail(f"15a engine {layout} ({mode}): one rank runs the default's kernels "
                      f"on the same inputs, yet its tokens differ at (uid, index) {bad}")
             log(f"15a engine {layout} ({mode}): tokens equal to the default engine's")
+        if chunk:
+            by_path.update(phase15a_shmap(dev, cfg, params, mesh, reqs, capacity,
+                                          traces, steps))
     return by_path, traces
+
+
+def phase15a_shmap(dev, cfg, params, mesh, reqs, capacity, traces, steps):
+    """15a's ``coplace_shmap`` engine over the NCCL rank, captured, chunked:
+    one rank holds every stripe and runs the default's kernels, so its
+    launch counts and step counts equal the default engine's; it selects a
+    masked page as -1 where the default keeps it as fill (the reference's
+    co-placed rule), so its tokens are held to the default's up to a
+    near-tie. Returns its launch counts by path."""
+    from repro_torch.serving.engine import Engine
+
+    what = "15a engine coplace_shmap (chunked)"
+    eng = Engine(cfg, params, max_batch=ENGINE_BATCH, capacity=capacity,
+                 prompt_buckets=sorted({len(r.prompt) for r in reqs}),
+                 prefill_chunk=ENGINE_CHUNK, layout="coplace_shmap", mesh=mesh, device=dev)
+    sizes = eng.jit_cache_sizes()
+    got, wall, _ = serve_polled(eng, reqs, what)
+    s = eng.stats
+    toks = {u: c.tokens for u, c in eng.completions.items()}
+    if set(sizes.values()) != {1} or eng.jit_cache_sizes() != sizes:
+        fail(f"{what}: captures {sizes} -> {eng.jit_cache_sizes()}")
+    if eng._placed is None or eng._place.partials or eng.plan.page_stripe_shards != 1:
+        fail(f"{what}: not placed on the one-rank mesh as one stripe")
+    if got != steps["launches"] or step_counts(s) != steps["counts"]:
+        fail(f"{what}: launches {got} or step counts {step_counts(s)} differ from the "
+             f"default engine's {steps['launches']}, {steps['counts']}")
+    ties = check_ties_split(cfg, params, reqs, toks, traces[("default", "chunked")],
+                            capacity, dev, what)
+    log(f"{what}: {s.tokens_out} tokens, {s.decode_steps} decode steps in {wall:.3f}s = "
+        f"{s.decode_steps / wall:.2f} decode steps/s (default {steps['rate']:.2f}); "
+        f"captures {sizes}; launches and step counts equal to the default's; tokens "
+        f"equal to the default's {toks == traces[('default', 'chunked')]} (near-tie "
+        f"divergences {ties})")
+    del eng
+    torch.cuda.empty_cache()
+    return {"gspmd_coplace_shmap_chunked": got}
+
+
+def step_counts(s) -> dict:
+    """An engine run's step and token counts and its option counters."""
+    return dict(counters(s, SPEC_COUNTERS + TIER_COUNTERS + REBALANCE_COUNTERS),
+                decode_steps=s.decode_steps, select_steps=s.select_steps,
+                reuse_steps=s.reuse_steps, prefill_chunks=s.prefill_chunks,
+                tokens_out=s.tokens_out)
 
 
 def check_verify_blocks(ops, ref, timer, dev, cfg):
@@ -4555,11 +4693,13 @@ def phase15c(dev, cfg, params, mesh, traces, card):
 def phase15b(dev, card):
     """15b: two ranks that share cuda:0 over gloo (spawned, each ``chip_smoke.py
     --gspmd-rank``), llama3-8b at full width cut to GSPMD_CUT layers, eager
-    steps: head and coplace on (1, 2), interleave on (2, 1) at 3 slots; both
-    ranks' tokens equal to each other's and to the one-rank default engine's
-    at the same cut (up to a near-tie), the launch counts exact on each rank,
-    one decode step's attention output within a bf16 step of the default's.
-    Returns the launch counts by path (rank 0's)."""
+    steps: head, coplace and coplace_shmap on (1, 2), interleave on (2, 1) at
+    3 slots; both ranks' tokens equal to each other's and to the one-rank
+    default engine's at the same cut (up to a near-tie; coplace_shmap's
+    first to the one-card engine over 2 stripes), the launch counts exact
+    on each rank, one decode step's attention output within a bf16 step of
+    the default's (coplace_shmap's: the one-card body's). Returns the launch
+    counts by path (rank 0's)."""
     from repro_torch.configs import get_arch
     from repro_torch.serving.engine import Engine
 
@@ -4569,15 +4709,17 @@ def phase15b(dev, card):
     params = full_params(dev, cfg)
     reqs, capacity = gspmd_workload(cfg, **GSPMD_B)
     buckets = sorted({len(r.prompt) for r in reqs})
-    want = {}
+    want, want_shmap = {}, {}
     for mode, chunk in (("chunked", ENGINE_CHUNK), ("packed", None)):
-        eng = Engine(cfg, params, max_batch=2, capacity=capacity, prompt_buckets=buckets,
-                     prefill_chunk=chunk, device=dev, eager=True)
-        t0 = time.perf_counter()
-        want[mode] = {str(u): c.tokens for u, c in eng.run(reqs).items()}
-        log(f"15b default engine at the cut ({mode}, one rank): {eng.stats.decode_steps} "
-            f"decode steps in {time.perf_counter() - t0:.3f}s")
-        del eng
+        for layout, shards, into in (("default", 1, want), ("coplace_shmap", 2, want_shmap)):
+            eng = Engine(cfg, params, max_batch=2, capacity=capacity,
+                         prompt_buckets=buckets, prefill_chunk=chunk, layout=layout,
+                         shards=shards, device=dev, eager=True)
+            t0 = time.perf_counter()
+            into[mode] = {str(u): c.tokens for u, c in eng.run(reqs).items()}
+            log(f"15b {layout} engine at the cut ({mode}, one card, {shards} stripes): "
+                f"{eng.stats.decode_steps} decode steps in {time.perf_counter() - t0:.3f}s")
+            del eng
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     os.makedirs(SMOKE_DIR, exist_ok=True)
@@ -4622,6 +4764,13 @@ def phase15b(dev, card):
             if a["tokens"] != b["tokens"]:
                 fail(f"{what}: the two ranks' tokens differ")
             got = {int(u): t for u, t in a["tokens"].items()}
+            if layout == "coplace_shmap":  # the one-card engine over 2 stripes first
+                shmap_ties = check_ties(cfg, params, reqs, got,
+                                        {int(u): t for u, t in want_shmap[mode].items()}, {},
+                                        capacity, dev, BF16_LOGIT_BAND,
+                                        f"{what} against the one-card engine", relative=True)
+                log(f"{what}: tokens equal to the one-card engine's over 2 stripes "
+                    f"{a['tokens'] == want_shmap[mode]} (near-tie divergences {shmap_ties})")
             ties = check_ties(cfg, params, reqs, got,
                               {int(u): t for u, t in want[mode].items()}, {}, capacity, dev,
                               BF16_LOGIT_BAND, what, relative=True)
@@ -4734,19 +4883,30 @@ def check_gspmd_case(cfg, params, dev, res, name, layout, model, max_batch, kw, 
     a, b = res[0]["cases"][name], res[1]["cases"][name]
     what = (f"15b engine {cfg.name} {layout} ({name}, mesh (data, model) = "
             f"{(2 // model, model)})")
-    for r, c in enumerate((a, b, one)):
+    held = [("one-rank default", one)]
+    if layout == "coplace_shmap":
+        # the one-card engine over as many stripes: the same select rule
+        held.insert(0, ("one-card engine over 2 stripes", gspmd_extra_case(
+            cfg, params, dev, name, layout, None, max_batch, kw, workload, shards=model)))
+    for r, c in [("rank 0", a), ("rank 1", b)] + held:
         if c["launches"] != c["expect"]:
-            fail(f"{what} {('rank 0', 'rank 1', 'one-rank default')[r]} did not launch "
-                 f"the kernels as expected: {c['launches']} vs {c['expect']}")
+            fail(f"{what} {r} did not launch the kernels as expected: {c['launches']} "
+                 f"vs {c['expect']}")
     if a["tokens"] != b["tokens"] or a["counters"] != b["counters"]:
         fail(f"{what}: the two ranks' tokens or counters differ")
     w_reqs, w_cap = gspmd_workload(cfg, **workload)
-    ties = check_ties(cfg, params, w_reqs, {int(u): t for u, t in a["tokens"].items()},
-                      {int(u): t for u, t in one["tokens"].items()}, {}, w_cap, dev,
-                      BF16_LOGIT_BAND, what, relative=True)
-    if not ties and a["counters"] != one["counters"]:
-        fail(f"{what}: counters {a['counters']} differ from the one-rank default "
-             f"engine's {one['counters']}")
+    ties = {label: check_ties(cfg, params, w_reqs,
+                              {int(u): t for u, t in a["tokens"].items()},
+                              {int(u): t for u, t in c["tokens"].items()}, {}, w_cap, dev,
+                              BF16_LOGIT_BAND, f"{what} against the {label}", relative=True)
+            for label, c in held}
+    # the counters are held to the engine of the same select rule (the
+    # default's tier hits count the masked pages it keeps as fill, which
+    # coplace_shmap selects as -1)
+    label, one = held[0]
+    if not ties[label] and a["counters"] != one["counters"]:
+        fail(f"{what}: counters {a['counters']} differ from the {label}'s "
+             f"{one['counters']}")
     if "tiered" in name and not (a["forced"] and a["forced"][1] > 0
                                  and a["counters"]["tier_misses"]
                                  == a["counters"]["tier_fills"] > 0):
@@ -4760,15 +4920,16 @@ def check_gspmd_case(cfg, params, dev, res, name, layout, model, max_batch, kw, 
         fail(f"{what}: no migration moved a slot's row to the other rank ({a['moves']})")
     if "spec" in name and not a["counters"]["spec_steps"] > 0:
         fail(f"{what}: no verify step ran")
-    log(f"{what}: tokens and counters equal across ranks; equal to the one-rank "
-        f"default engine's {a['tokens'] == one['tokens']} (near-tie divergences "
-        f"{ties}), counters equal {a['counters'] == one['counters']} "
+    log(f"{what}: tokens and counters equal across ranks; equal to the {label}'s "
+        f"{a['tokens'] == one['tokens']} (near-tie divergences {ties}), counters "
+        f"equal {a['counters'] == one['counters']} (the one-rank default's "
+        f"{a['counters'] == held[-1][1]['counters']}) "
         f"{ {k: v for k, v in a['counters'].items() if v} }; mean accepted length "
-        f"{a['mean_accepted_len']:.3f} (default {one['mean_accepted_len']:.3f}); "
+        f"{a['mean_accepted_len']:.3f} ({label} {one['mean_accepted_len']:.3f}); "
         f"migrations {a['moves']}; forced cold {a['forced']}; far-store bytes rank 0 "
-        f"{a['far']} rank 1 {b['far']} (one rank {one['far']}); rank blocks {a['block']} "
-        f"(one rank {one['block']}); {a['decode_steps']} decode steps in {a['wall']:.3f}s "
-        f"(one-rank default {one['wall']:.3f}s); launches rank 0 {a['launches']}")
+        f"{a['far']} rank 1 {b['far']} ({label} {one['far']}); rank blocks {a['block']} "
+        f"({label} {one['block']}); {a['decode_steps']} decode steps in {a['wall']:.3f}s "
+        f"({label} {one['wall']:.3f}s); launches rank 0 {a['launches']}")
     return a["launches"]
 
 
@@ -4784,6 +4945,8 @@ def phase15(ops, ref, dev, card):
     cfg = get_arch(ARCH)
     timer = Timer(dev)
     parts, combs = time_gspmd_kernels(ops, ref, timer, dev, cfg)
+    s_parts, s_combs = time_shmap_kernels(ops, ref, timer, dev, cfg)
+    parts, combs = parts + s_parts, combs + s_combs
     verify = check_verify_blocks(ops, ref, timer, dev, cfg)
     family = time_family_blocks(ops, ref, timer, dev)
     del timer
@@ -4825,6 +4988,16 @@ def phase15(ops, ref, dev, card):
 # ---------------------------------------------------------------------------
 
 
+def card_name_and_limit() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: nothing to run", file=sys.stderr)
@@ -4838,11 +5011,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name_and_limit()
     print(card, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4993,7 +5162,7 @@ def main() -> int:
     whole = ("page_score", "paged_attention")
     split = ("page_score", "paged_attention_partial", "combine_partials")
     for prefix, layouts_ in (("gspmd", ("default",) + GSPMD_LAYOUTS),
-                             ("gspmd2", GSPMD_LAYOUTS)):
+                             ("gspmd2", GSPMD_LAYOUTS + ("coplace_shmap",))):
         for layout in layouts_:
             base = split if prefix == "gspmd2" and layout != "head" else whole
             main_paths[f"{prefix}_{layout}_chunked"] = base + ("chunk_attention",
@@ -5013,6 +5182,12 @@ def main() -> int:
     main_paths["gspmd2_spec_coplace"] = main_paths["gspmd_spec_coplace_ngram"]
     main_paths["gspmd2_tiered_coplace"] = main_paths["gspmd2_coplace_chunked"]
     main_paths["gspmd2_rebalanced_head"] = main_paths["gspmd2_head_chunked"]
+    # coplace_shmap: 15a's NCCL rank holds every stripe (the default's
+    # kernels); 15b's two gloo ranks a stripe each (partials merged)
+    main_paths["gspmd_coplace_shmap_chunked"] = main_paths["gspmd_default_chunked"]
+    main_paths["gspmd2_spec_shmap_coplace_shmap"] = main_paths["gspmd_spec_coplace_ngram"]
+    main_paths["gspmd2_tiered_shmap_coplace_shmap"] = main_paths[
+        "gspmd2_coplace_shmap_chunked"]
     # 15d on the NCCL rank: the other families' chunked engines (xlstm-125m's
     # run no kernel); 15b's other families on the two gloo ranks: zamba2's
     # attention layers on head, gemma3's global pages cut (partials) and its

@@ -16,7 +16,14 @@ prompt tokens an engine step:
     pages over 'model';
   * ``head`` over (4, 1) on 4 slots, one slot a rank, with
     retire-triggered rebalancing: the migration moves a slot's row to
-    another rank.
+    another rank;
+  * ``coplace_shmap`` over (1, 4), rank r of 'model' holding page stripe r:
+    plain, speculative (k = 4, the n-gram draft) and tiered (a request
+    forced cold); and over (2, 2) on 4 slots, rebalanced (the batch over
+    'data', a stripe a rank of 'model'). Each is also held to the one-card
+    ``coplace_shmap`` engine over as many stripes as 'model' has ranks,
+    which every rank runs alone first (the same select rule: a masked
+    selected page -1, where the default keeps it as fill).
 
 Then the other families, whole (``--layers`` cuts llama3-8b alone), on 4
 requests of 1024-2048 prompt tokens (16 new each, the last sampled):
@@ -31,12 +38,15 @@ requests of 1024-2048 prompt tokens (16 new each, the last sampled):
 Rank 0 checks that every rank's tokens and counters are the same, that the
 tokens equal the default engine's up to a near-tie (``chip_smoke.py``'s
 rule: the layouts that shard pages sum the attention in another order),
-the counters equal the default's where the tokens do, and that each case
+the counters equal the default's where the tokens do (``coplace_shmap``'s
+tokens also the one-card engine's, its counters that one's alone), and
+that each case
 did what it is there for (verify steps, a forced miss filled, a migration
-across ranks; a family case's migrations are reported); it prints a line a
-case (decode steps/s beside the default's, the verify step's median device
-ms, far-store bytes) and a JSON line of the results, and exits non-zero on
-a failure.
+across ranks; a family case's migrations are reported); it prints the
+card's name and power limit (``nvidia-smi``), a line a case (decode
+steps/s beside the default's and the one-card engine's, the verify step's
+median device ms, far-store bytes) and a JSON line of the results, and
+exits non-zero on a failure.
 
 Every rank then releases what it holds, synchronises, and calls
 ``destroy_process_group`` on a thread of its own, waiting for it at most
@@ -73,7 +83,14 @@ CASES = (("coplace_plain", "coplace", 4, cs.ENGINE_BATCH, {}),
          ("coplace_tiered", "coplace", 4, cs.ENGINE_BATCH,
           dict(hot_pages=cs.TIER_HOT_PAGES)),
          ("interleave_plain", "interleave", 2, cs.ENGINE_BATCH, {}),
-         ("head_rebalanced", "head", 1, cs.ENGINE_BATCH, dict(rebalance="retire")))
+         ("head_rebalanced", "head", 1, cs.ENGINE_BATCH, dict(rebalance="retire")),
+         ("shmap_plain", "coplace_shmap", 4, cs.ENGINE_BATCH, {}),
+         ("shmap_spec", "coplace_shmap", 4, cs.ENGINE_BATCH,
+          dict(spec_tokens=cs.SPEC_K, draft="ngram")),
+         ("shmap_tiered", "coplace_shmap", 4, cs.ENGINE_BATCH,
+          dict(hot_pages=cs.TIER_HOT_PAGES)),
+         ("shmap_rebalanced", "coplace_shmap", 2, cs.ENGINE_BATCH,
+          dict(rebalance="retire")))
 # the other families, whole: (name, arch, layout, 'model' ranks, slots,
 # options), on FAMILY_WORKLOAD
 FAMILY_CASES = (("zamba2_head_rebalanced", cs.Z_ARCH, "head", 1, cs.ENGINE_BATCH,
@@ -83,15 +100,18 @@ FAMILY_WORKLOAD = dict(prompts=(1024, 2048), n=4, new=16, seed=5)
 TEARDOWN_S = 60
 
 
-def serve(cfg, params, dev, reqs, capacity, layout, mesh, max_batch, kw):
-    """One engine of ``kw`` (the default layout where ``mesh`` is None), its
-    tiered request forced cold: tokens, counters, moves, timings."""
+def serve(cfg, params, dev, reqs, capacity, layout, mesh, max_batch, kw, shards=1):
+    """One engine of ``kw`` (the default layout where ``mesh`` is None, or
+    with ``shards`` > 1 the one-card ``coplace_shmap`` engine over that many
+    stripes), its tiered request forced cold: tokens, counters, moves,
+    timings."""
     from repro_torch.serving.engine import Engine
 
     t0 = time.perf_counter()
     eng = Engine(cfg, params, max_batch=max_batch, capacity=capacity,
                  prompt_buckets=sorted({len(r.prompt) for r in reqs}),
-                 prefill_chunk=cs.ENGINE_CHUNK, layout=layout if mesh else "default",
+                 prefill_chunk=cs.ENGINE_CHUNK,
+                 layout=layout if mesh or shards > 1 else "default", shards=shards,
                  mesh=mesh, device=dev, **kw)
     t_build = time.perf_counter() - t0
     sizes = eng.jit_cache_sizes()
@@ -144,9 +164,12 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = cs.full_params(dev, cfg)
     reqs, capacity = cs.gspmd_workload(cfg, **cs.GSPMD_A, sampled=True)
-    res = {}
+    res, stripes = {}, {}
     for name, layout, model, max_batch, kw in CASES:
         one = serve(cfg, params, dev, reqs, capacity, layout, None, max_batch, kw)
+        if layout == "coplace_shmap" and model > 1:
+            stripes[name] = serve(cfg, params, dev, reqs, capacity, layout, None,
+                                  max_batch, kw, shards=model)
         got = serve(cfg, params, dev, reqs, capacity, layout, meshes[model], max_batch, kw)
         res[name] = (one, got)
     fam = {}  # name -> (cfg, params, reqs, capacity), for the near-tie check
@@ -162,7 +185,8 @@ def main() -> int:
     dist.all_gather_object(every, res)
     bad = []
     if rank == 0:
-        card = torch.cuda.get_device_name(0)
+        card = cs.card_name_and_limit()
+        print(card, flush=True)
         for name, layout, model, max_batch, kw in CASES + tuple(
                 (n, lay, m, b, kw) for n, _, lay, m, b, kw in FAMILY_CASES):
             c_cfg, c_params, c_reqs, c_cap = fam.get(name, (cfg, params, reqs, capacity))
@@ -179,9 +203,26 @@ def main() -> int:
                                        {int(u): t for u, t in one["tokens"].items()},
                                        c_cap, dev, what)
             same = got["tokens"] == one["tokens"]
-            if same and got["counters"] != one["counters"]:
+            st = stripes.get(name)
+            # coplace_shmap's counters are held to the one-card engine's (the
+            # default's tier hits count the masked pages it keeps as fill)
+            if st is None and same and got["counters"] != one["counters"]:
                 bad.append(f"{what}: counters {got['counters']} differ from the default's "
                            f"{one['counters']}")
+            if st is not None:
+                st_ties = cs.check_ties_split(c_cfg, c_params, c_reqs,
+                                              {int(u): t for u, t in got["tokens"].items()},
+                                              {int(u): t for u, t in st["tokens"].items()},
+                                              c_cap, dev, f"{what} against the one-card "
+                                              f"engine")
+                if not st_ties and got["counters"] != st["counters"]:
+                    bad.append(f"{what}: counters {got['counters']} differ from the "
+                               f"one-card engine's {st['counters']}")
+                cs.log(f"{what}: tokens equal to the one-card engine's over {model} "
+                       f"stripes {got['tokens'] == st['tokens']} (near-tie divergences "
+                       f"{st_ties}); its {st['decode_steps'] / st['wall']:.2f} decode "
+                       f"steps/s, verify median ms {st['verify_ms']}, far-store bytes "
+                       f"{st['far']}")
             c = got["counters"]
             if "spec" in name and not c["spec_steps"] > 0:
                 bad.append(f"{what}: no verify step ran")
@@ -203,8 +244,10 @@ def main() -> int:
                    f"construction {got['build']:.2f}s (default {one['build']:.2f}s); "
                    f"moves {got['moves']}; forced {got['forced']}; far-store bytes by rank "
                    f"{far} (default {one['far']}); captures {before}")
-        print(json.dumps({"gspmd_ranks": {n: {"one": o, "ranks": g} for n, (o, g) in
-                                          every[0].items()},
+        print(json.dumps({"card": card,
+                          "gspmd_ranks": {n: {"one": o, "ranks": g,
+                                              "one_card": stripes.get(n)}
+                                          for n, (o, g) in every[0].items()},
                           "failures": bad}), flush=True)
         for b in bad:
             cs.log(f"FAIL: {b}")
@@ -212,7 +255,7 @@ def main() -> int:
     dist.broadcast(flag, 0)
     code = 1 if int(flag.item()) else 0
     cs.log(f"rank {rank}: done, exit {code}")
-    del res, every, fam, params
+    del res, every, fam, params, stripes
     probe_teardown(rank)
     return code
 

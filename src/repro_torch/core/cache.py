@@ -388,13 +388,18 @@ def pool_append(cache: PagedCache, k_new, v_new, length: int, *, page: int,
 
 
 # ---------------------------------------------------------------------------
-# Blocks of the GSPMD layouts (``head``, ``coplace``, ``interleave``)
+# Blocks of the GSPMD layouts (``head``, ``coplace``, ``interleave``) and of
+# ``coplace_shmap`` on a mesh
 #
 # Under a GSPMD layout every rank holds only its block of each serve-cache
 # leaf: the tile ``runtime/sharding.py`` cuts by the reference's placement
 # rules (kv heads, pages or within-page tokens over 'model' / 'data', the
 # batch over 'data'; a full cache's rows over the batch axes and kv heads
-# over 'model'; a recurrent state's rows over the batch axes alone). A
+# over 'model'; a recurrent state's rows over the batch axes alone).
+# ``coplace_shmap`` on a mesh places its pages as ``coplace`` does, in the
+# striped physical page order (``paging.interleave_slot`` over the M ranks
+# of 'model'), so that rank r's block of the page slots is stripe r: the
+# logical pages p with p % M == r. A
 # ``Placement`` records, for one kind of layer (an H²EAL attention layer,
 # a full-cache layer, a recurrent mixer), each leaf's placement and this
 # rank's tile of the full leaf. The appends below take the whole batch's
@@ -437,6 +442,11 @@ class Placement:
               ``combine_partials``: the layouts that shard pages, where more
               than one rank holds them (one rank holding every page takes
               the default's kernels, and its numbers).
+    stripes   the physical page order is striped round-robin over this many
+              stripes (``paging.interleave_slot``; 1: the logical order):
+              ``coplace_shmap`` on a mesh, one stripe a rank of 'model'.
+    minus_one a selected page whose score is masked becomes -1, as the
+              co-placed decode selects (``coplace_shmap``).
     """
 
     mesh: object
@@ -445,6 +455,8 @@ class Placement:
     bounds: dict
     page: int
     partials: bool
+    stripes: int = 1
+    minus_one: bool = False
 
     def axes(self, key: str, field: str, dim: int) -> tuple:
         """The mesh axes that cut dimension ``dim`` of a leaf, most
@@ -456,6 +468,16 @@ class Placement:
     def cut(self, key: str, field: str, dim: int) -> tuple:
         """``axes`` of more than one rank: those that split the dimension."""
         return tuple(a for a in self.axes(key, field, dim) if self.mesh.shape[a] > 1)
+
+    def block_pages(self, key: str, field: str):
+        """(first, step): slot j of the rank's tile of a paged leaf's page
+        dimension holds the logical page first + j·step (the tile lies in
+        one stripe of the striped order)."""
+        c0, c1 = self.bounds[(key, field)][2]
+        per = self.shapes[(key, field)][2] // self.stripes
+        if c0 // per != (c1 - 1) // per:
+            raise ValueError(f"page slots [{c0}, {c1}) straddle the stripes of {per}")
+        return (c0 % per) * self.stripes + c0 // per, self.stripes
 
 
 def block_of(full, key: str, place: Placement, device):
@@ -505,17 +527,20 @@ def paged_block_append(cache: PagedCache, k_new, v_new, length, active,
     token stripes, its offset in the page; τ min/max and the page start to
     the rank that owns the page in the metadata's tile (every rank, where
     the metadata is replicated). The page is clamped to the cache's last,
-    as ``paged_cache_append`` clamps it."""
+    as ``paged_cache_append`` clamps it; under ``place.stripes`` its owner
+    is that of its striped physical slot."""
     p = place.page
     b = k_new.shape[0]
     lb, act = _rows(length, active, b, k_new.device)
     (b0, b1), (h0, h1), (c0, c1), (p0, p1), _ = place.bounds[("paged", "k_pages")]
-    page = (lb // p).clamp(0, place.shapes[("paged", "k_pages")][2] - 1)
+    cap = place.shapes[("paged", "k_pages")][2]
+    page = (lb // p).clamp(0, cap - 1)
+    phys = interleave_slot(page, cap, place.stripes)
     off = lb % p
-    own = act & (page >= c0) & (page < c1) & (off >= p0) & (off < p1)
+    own = act & (phys >= c0) & (phys < c1) & (off >= p0) & (off < p1)
     r = slice(b0, b1)
     bi = torch.arange(b1 - b0, device=k_new.device)
-    slot = (page[r] - c0).clamp(0, c1 - c0 - 1)
+    slot = (phys[r] - c0).clamp(0, c1 - c0 - 1)
     loff = (off[r] - p0).clamp(0, p1 - p0 - 1)
     a3 = own[r][:, None, None]
     for buf, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
@@ -524,8 +549,8 @@ def paged_block_append(cache: PagedCache, k_new, v_new, length, active,
     (t0, t1), (th0, th1), (tc0, tc1), _ = place.bounds[("paged", "tau_min")]
     r = slice(t0, t1)
     bi = torch.arange(t1 - t0, device=k_new.device)
-    own_t = (act & (page >= tc0) & (page < tc1))[r]
-    slot = (page[r] - tc0).clamp(0, tc1 - tc0 - 1)
+    own_t = (act & (phys >= tc0) & (phys < tc1))[r]
+    slot = (phys[r] - tc0).clamp(0, tc1 - tc0 - 1)
     a3 = own_t[:, None, None]
     kf = k_new[r, th0:th1].float()
     old_min, old_max = cache.tau_min[bi, :, slot], cache.tau_max[bi, :, slot]
@@ -545,7 +570,10 @@ def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
     owned, the values in place elsewhere): the window's slots are distinct,
     so no two writes meet. τ min/max merge by scatter-min/max of the
     owned tokens (a masked token adds the identity), and the page starts
-    of the opened pages in the metadata's tile are set."""
+    of the opened pages in the metadata's tile are set. Under
+    ``place.stripes`` the block's slots hold every stripes-th logical page
+    (``Placement.block_pages``), so the window is the block's slots of the
+    chunk's pages."""
     b, cch = k_new.shape[:2]
     p = place.page
     dev = k_new.device
@@ -553,12 +581,14 @@ def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
     n = chunk_len.reshape(b).long()
     act = _active(active, b, dev)
     (b0, b1), (h0, h1), (c0, c1), (p0, p1), _ = place.bounds[("paged", "k_pages")]
+    cap = place.shapes[("paged", "k_pages")][2]
+    fp, step = place.block_pages("paged", "k_pages")
     cl, pl, bl = c1 - c0, p1 - p0, b1 - b0
     w = min(-(-cch // p) + 1, cl)
     r = slice(b0, b1)
-    first = (st[r] // p - c0).clamp(0, cl - w)
-    lp = first[:, None] + torch.arange(w, device=dev)                    # (Bl, w)
-    pos = ((lp + c0) * p + p0)[:, :, None] + torch.arange(pl, device=dev)
+    first = torch.div(st[r] // p - fp + step - 1, step, rounding_mode="floor")
+    lp = first.clamp(0, cl - w)[:, None] + torch.arange(w, device=dev)   # (Bl, w)
+    pos = ((fp + lp * step) * p + p0)[:, :, None] + torch.arange(pl, device=dev)
     j = pos - st[r][:, None, None]                                       # (Bl, w, Pl)
     ok = act[r][:, None, None] & (j >= 0) & (j < n[r][:, None, None])
     jc = j.clamp(0, cch - 1)
@@ -573,17 +603,18 @@ def paged_block_append_chunk(cache: PagedCache, k_new, v_new, start, chunk_len,
     jj = torch.arange(cch, device=dev)
     pos_t = st[r][:, None] + jj                                          # (Bt, C)
     valid = (jj < n[r][:, None]) & act[r][:, None]
-    page = pos_t // p
-    own = valid & (page >= tc0) & (page < tc1)
+    phys = interleave_slot((pos_t // p).clamp(0, cap - 1), cap, place.stripes)
+    own = valid & (phys >= tc0) & (phys < tc1)
     ht, dd = th1 - th0, d[1] - d[0]
-    idx = (page - tc0).clamp(0, tc1 - tc0 - 1)[:, None, :, None].expand(t1 - t0, ht,
+    idx = (phys - tc0).clamp(0, tc1 - tc0 - 1)[:, None, :, None].expand(t1 - t0, ht,
                                                                         cch, dd)
     kf = k_new[r][:, :, th0:th1].float().transpose(1, 2)                 # (Bt, Ht, C, D)
     om = own[:, None, :, None]
     cache.tau_min.scatter_reduce_(2, idx, torch.where(om, kf, float("inf")), "amin")
     cache.tau_max.scatter_reduce_(2, idx, torch.where(om, kf, float("-inf")), "amax")
     last = pos_t.gather(1, (n[r][:, None] - 1).clamp(min=0))
-    pg = torch.arange(tc0, tc1, device=dev)
+    fp_t, step_t = place.block_pages("paged", "tau_min")
+    pg = fp_t + torch.arange(tc1 - tc0, device=dev) * step_t
     opened = (valid.any(dim=1, keepdim=True) & (pg >= pos_t[:, :1] // p)
               & (pg <= last // p))
     cache.page_start.copy_(torch.where(opened[:, None, :], (pg * p).int(),

@@ -32,7 +32,9 @@ GSPMD layouts (``decode_attention_placed``, ``chunk_prefill_attention_placed``,
           ``chunk_verify_attention_placed`` / ``chunk_verify_append_placed``,
           ``full_decode_attention_placed`` / ``full_chunk_attention_placed``):
           the steps above on one rank's blocks of the caches, gathering
-          over the rank's mesh where GSPMD would (see their section).
+          over the rank's mesh where GSPMD would (see their section); the
+          same steps serve ``coplace_shmap`` on a mesh, its stripes the
+          ranks of 'model'.
 
 The caches are updated in place (see ``repro_torch/core/cache.py``).
 """
@@ -522,6 +524,16 @@ def _paged_decode_coplace(spec: AttnSpec, q_r, k_r, v_r,
 #            default body on the rank's rows and heads
 #            (``full_decode_attention_placed`` / ``full_chunk_attention_placed``).
 #
+# ``coplace_shmap`` on a mesh is ``coplace``'s placement in the striped
+# physical page order (``Placement.stripes``): rank r of 'model' holds
+# stripe r, as each device of the reference's shard_map body does. The
+# appends go to the page's striped slot; the select keeps physical slots
+# and turns a masked selected page into -1 (``Placement.minus_one``); the
+# [sink | selected | local] slots are ``paging.coplace_attended_slots``.
+# The steps are otherwise the ones above: each rank attends its stripe's
+# pages by partials merged by ``combine_partials`` over 'model', the
+# reference's per-device partials and cross-device combine.
+#
 # The outputs of kv heads and batch rows cut over an axis are gathered, so
 # every rank ends the layer with the whole batch's attention output. The
 # batch is the engine's: lengths are (B,) tensors (no lockstep path).
@@ -613,7 +625,7 @@ def _placed_select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select, place,
         sel, imp = kops.page_select(
             q_t, paged.tau_min, paged.tau_max, paged.page_start, ctx_t, prev,
             paged.importance, need_t, sink=h2.sink, local=h2.local, page=h2.page_size,
-            top_k=top_k)
+            top_k=top_k, minus_one_masked=place.minus_one)
     else:
         # pages cut over 'model': each rank's top min(K, C/M), then one
         # stable top-K of the gathered candidates
@@ -630,8 +642,10 @@ def _placed_select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select, place,
         m = cand_v.shape[0]
         v_cat = cand_v.permute(1, 2, 0, 3).reshape(t1 - t0, th1 - th0, m * k_eff)
         i_cat = cand_i.permute(1, 2, 0, 3).reshape(t1 - t0, th1 - th0, m * k_eff)
-        _, pos = kref.stable_top_k(v_cat, min(top_k, m * k_eff))
+        v_sel, pos = kref.stable_top_k(v_cat, min(top_k, m * k_eff))
         sel = i_cat.gather(-1, pos).to(torch.int32)
+        if place.minus_one:
+            sel = torch.where(v_sel > kref.NEG_INF_HALF, sel, -1)
         if sel.shape[-1] < top_k:
             sel = torch.cat([sel, sel.new_full(sel.shape[:-1] + (top_k - sel.shape[-1],),
                                                -1)], dim=-1)
@@ -641,6 +655,16 @@ def _placed_select(h2, q_r, paged: cachelib.PagedCache, ctx, need_select, place,
     sel = _gather_dim(sel, place.mesh, place.axes("paged", "tau_min", 1), 1)
     paged.sel_idx = sel[s0 - t0:s1 - t0]
     paged.importance = imp
+
+
+def _placed_slots(h2, sel, ctx, place):
+    """The [sink | selected | local] slots (B, H, N) of the full cache in the
+    layout's physical page order (the striped order under
+    ``place.stripes``, its fixed sections clipped to the last page)."""
+    return paging.verify_attended_slots(sel, ctx, sink=h2.sink, local=h2.local,
+                                        page=h2.page_size,
+                                        capacity=place.shapes[("paged", "k_pages")][2],
+                                        n_shards=place.stripes)
 
 
 def _placed_retrieval_decode(spec: AttnSpec, q_r, k_r, v_r, paged, length, *,
@@ -658,8 +682,7 @@ def _placed_retrieval_decode(spec: AttnSpec, q_r, k_r, v_r, paged, length, *,
     (s0, _) = place.bounds[("paged", "sel_idx")][0]
     r = slice(b0, b1)
     ctx_b = ctx[r]
-    slots = paging.attended_page_slots(paged.sel_idx[b0 - s0:b1 - s0, h0:h1], ctx_b,
-                                       sink=h2.sink, local=h2.local, page=p_sz)
+    slots = _placed_slots(h2, paged.sel_idx[b0 - s0:b1 - s0, h0:h1], ctx_b, place)
     page_start = paged.page_start[b0 - m0:b1 - m0, h0 - mh0:h1 - mh0]
     valid = paging.token_validity(paging.block_slots(slots, mc0, mc1), page_start,
                                   ctx_b, sink=h2.sink, local=h2.local, page=p_sz,
@@ -804,10 +827,8 @@ def chunk_verify_attention_placed(spec: AttnSpec, q, k_new, v_new,
         (m0, _), (mh0, _) = place.bounds[("paged", "page_start")][:2]
         (s0, _) = place.bounds[("paged", "sel_idx")][0]
         r = slice(b0, b1)
-        slots = paging.verify_attended_slots(paged.sel_idx[b0 - s0:b1 - s0, h0:h1],
-                                             start[r] + 1, sink=h2.sink, local=h2.local,
-                                             page=h2.page_size,
-                                             capacity=place.shapes[("paged", "k_pages")][2])
+        slots = _placed_slots(h2, paged.sel_idx[b0 - s0:b1 - s0, h0:h1], start[r] + 1,
+                              place)
         gk, gv = _placed_verify_pages(paged, slots, place)
         page_start = _gather_dim(paged.page_start[b0 - m0:b1 - m0, h0 - mh0:h1 - mh0],
                                  mesh, place.axes("paged", "page_start", 2), 2)

@@ -12,12 +12,14 @@ data, not control flow); unknown names raise with the registered list.
   interleave     co-placement with interleaved storage: pages over 'model'
                  and, where the batch cannot take 'data', the within-page
                  tokens over 'data' (paper Fig 7b);
-  coplace_shmap  co-placement on one card: the JAX layout stripes the
-                 physical pages round-robin over the mesh's 'model' axis and
-                 runs one shard_map program per device; here that axis is a
-                 stripe axis of one tensor, of ``shards`` stripes, and decode
-                 is split-KV over the stripes
-                 (``hybrid_attention.decode_attention_coplace``).
+  coplace_shmap  co-placement with the pages striped: the JAX layout
+                 stripes the physical pages round-robin over the mesh's
+                 'model' axis and runs one shard_map program per device.
+                 Without a mesh that axis is a stripe axis of one tensor,
+                 of ``shards`` stripes, and decode is split-KV over the
+                 stripes (``hybrid_attention.decode_attention_coplace``); on
+                 a mesh each rank of 'model' holds its stripe, as each
+                 device does in the reference (``CoplaceShmapRanks``).
 
 The three GSPMD layouts run over the ranks of a ``launch/mesh.Mesh``, one
 process a device. Their ``plan`` is the reference's (capacity rounded to
@@ -34,6 +36,9 @@ a recurrent layer on the rank's rows through ``rows``), gathering where
 GSPMD would; a rank that holds every page or row runs the default's
 kernels. Without a process group the mesh is the one-rank (1, 1) mesh of
 the caller's device, the reference's default mesh over its one device.
+``coplace_shmap`` given a mesh (``get_layout(name, shards, mesh)``) is
+served the same way: ``coplace``'s plan and placement with the pages in
+the striped physical order, so that rank r of 'model' holds stripe r.
 """
 from __future__ import annotations
 
@@ -211,7 +216,12 @@ class CoplaceShmapLayout(DefaultLayout):
         self.shards = int(shards)
 
     def plan(self, cfg, mesh=None) -> LayoutPlan:
-        del mesh  # the stripes stand for the mesh's 'model' axis
+        # the stripes stand for the mesh's 'model' axis; a mesh of ranks
+        # takes ``CoplaceShmapRanks`` (``get_layout(name, shards, mesh)``)
+        if mesh is not None:
+            raise ValueError("coplace_shmap over S stripes of one card takes no mesh: "
+                             "get_layout('coplace_shmap', shards, mesh) places it on "
+                             "the mesh's ranks")
         return LayoutPlan(layout=self.name,
                           capacity_quantum=cfg.h2eal.page_size * self.shards,
                           balance_shards=self.shards,
@@ -265,6 +275,11 @@ class _GspmdLayout(DefaultLayout):
         ``batch`` slots and ``capacity`` tokens."""
         return PlacedLayout(self, mesh, batch=batch, capacity=capacity)
 
+    def page_stripes(self, mesh) -> int:
+        """The stripes of the physical page order on ``mesh`` (1: logical)."""
+        del mesh
+        return 1
+
 
 class HeadLayout(_GspmdLayout):
     """Baseline head parallelism (paper Fig 3a): kv heads over 'model', the
@@ -312,6 +327,34 @@ class InterleaveLayout(CoplaceLayout):
         return super().cache_axes(kind, batch_ok=batch_ok)
 
 
+class CoplaceShmapRanks(CoplaceLayout):
+    """``coplace_shmap`` over the ranks of a mesh, the reference's layout: the
+    plan and the placement of ``coplace`` (pages over 'model', the batch
+    over 'data' where it divides), the physical pages striped round-robin
+    over the M ranks of 'model' (``paging.interleave_slot``), so that the
+    rank at 'model' coordinate r holds stripe r, the logical pages p with p
+    % M == r; each rank appends, scores and attends its stripe, and the
+    partials merge across ranks. ``shards`` must be 1 or M."""
+
+    name = LAYOUT_COPLACE_SHMAP
+    minus_one_masked = True
+
+    def __init__(self, mesh, shards: int = 1):
+        m = int(self._validate_mesh(mesh).shape["model"])
+        if shards not in (1, m):
+            raise ValueError(f"coplace_shmap on a mesh stripes its pages over the "
+                             f"mesh's 'model' axis of {m} ranks: shards must be 1 "
+                             f"or {m}, got {shards}")
+        self.shards = m
+
+    def plan(self, cfg, mesh=None) -> LayoutPlan:
+        plan = super().plan(cfg, mesh)
+        return dataclasses.replace(plan, page_stripe_shards=self.page_stripes(plan.mesh))
+
+    def page_stripes(self, mesh) -> int:
+        return int(mesh.shape["model"])
+
+
 class PlacedLayout(DefaultLayout):
     """A GSPMD layout bound to one rank of ``mesh``: the rank's blocks of a
     batched state of ``batch`` slots and ``capacity`` tokens, and the
@@ -324,6 +367,9 @@ class PlacedLayout(DefaultLayout):
         self.layout = layout
         self.name = layout.name
         self.shards_pages = layout.shards_pages
+        self.minus_one_masked = layout.minus_one_masked
+        # the prefill stripes the pages as the placement orders them
+        self.shards = layout.page_stripes(mesh)
         self.mesh = mesh
         self.batch = int(batch)
         self.capacity = int(capacity)
@@ -356,7 +402,8 @@ class PlacedLayout(DefaultLayout):
             place = cachelib.Placement(mesh=self.mesh, specs=specs, shapes=shapes,
                                        bounds=bounds,
                                        page=0 if recurrent else spec.h2.page_size,
-                                       partials=False)
+                                       partials=False, stripes=self.shards,
+                                       minus_one=self.minus_one_masked)
             if ("paged", "k_pages") in specs:
                 split = any(place.cut("paged", "k_pages", d) for d in (2, 3))
                 place = dataclasses.replace(place, partials=self.shards_pages and split)
@@ -487,14 +534,18 @@ def resolve_layout(name) -> str:
     return _lookup(name).name
 
 
-def get_layout(name, shards: int = 1) -> DefaultLayout:
+def get_layout(name, shards: int = 1, mesh=None) -> DefaultLayout:
     """The layout ``name`` (aliases canonicalize silently); ``shards`` is the
     stripe count of ``coplace_shmap`` (the size of the JAX mesh's 'model'
-    axis) and must stay 1 for every other layout."""
+    axis) and must stay 1 for every other layout. ``coplace_shmap`` given a
+    ``mesh`` is served over its ranks (``CoplaceShmapRanks``; ``shards`` 1
+    or the size of 'model'); every other layout ignores ``mesh``."""
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
     lay = _lookup(name)
     if lay.name == LAYOUT_COPLACE_SHMAP:
+        if mesh is not None:
+            return CoplaceShmapRanks(mesh, shards)
         return CoplaceShmapLayout(shards)
     if shards != 1:
         raise ValueError("shards stripes the pages of the coplace_shmap layout "

@@ -57,11 +57,18 @@ placed by its kind. ``--rebalance`` migrates slots there too: where the
 batch lies over 'data', a move takes a slot's row (pages, full caches,
 recurrent states) to another rank. ``--layers N`` cuts the model's depth.
 On NCCL the program ends without tearing its communicators down
-(``_leave_group``). Without torchrun they run on one rank:
+(``_leave_group``). ``--layout coplace_shmap`` under torchrun (or with
+``--mesh-model``) is served the same way, rank r of 'model' holding page
+stripe r (``--shards`` then 1 or M); without either it stripes one card's
+pages. Without torchrun the GSPMD layouts run on one rank:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch llama3-8b \
       --workload ragged --requests 8 --max-batch 4 --prompt-buckets 2048,8192 \
       --prefill-chunk 512 --layout coplace --mesh-model 4
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch llama3-8b \
+      --workload ragged --requests 8 --max-batch 4 --prompt-buckets 2048,8192 \
+      --prefill-chunk 512 --layout coplace_shmap --mesh-model 4 \
+      --admission balanced
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch llama3-8b --reduced --workload ragged --requests 8 --max-batch 4 \
       --prompt-buckets 8,16,24 --layout head --rebalance retire --device cpu
@@ -106,11 +113,13 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(cfg, params, prompts, *, gen: int, capacity: int,
-             layout: str = "default", shards: int = 1, h2eal: bool = True,
+             layout: str = "default", shards: int = 1, mesh=None, h2eal: bool = True,
              greedy: bool = True, device=None):
-    """Lockstep generation. prompts: (B, S) int tokens. ``layout`` and
-    ``shards`` as in ``Engine``; the cache holds the layout plan's rounding
-    of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats dict).
+    """Lockstep generation. prompts: (B, S) int tokens. ``layout``, ``shards``
+    and ``mesh`` as in ``Engine``, a mesh layout refused (the lockstep path
+    on a mesh is ROADMAP Queue 1 item 9c); the cache holds the layout plan's
+    rounding of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats
+    dict).
 
     Every token is the argmax, whatever ``greedy`` says: the flag is
     accepted and ignored, as the JAX package's ``generate`` does. Sampling
@@ -120,9 +129,9 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     del greedy  # lockstep generation is greedy, as in the JAX package
     if cfg.embed_frontend_stub:
         raise ValueError(STUB_ENGINE_REFUSAL)
-    if layoutlib.get_layout(layout, shards).gspmd:
+    if layoutlib.get_layout(layout, shards, mesh).gspmd:
         raise NotImplementedError(
-            f"lockstep generate on the GSPMD layout {layout!r} (the reference's "
+            f"lockstep generate on the mesh layout {layout!r} (the reference's "
             f"tensor-parallel generate(mesh=...)) is not ported (ROADMAP Queue 1 "
             f"item 9c); serve it through the engine (--workload ragged)")
     dev = resolve_device(device)
@@ -310,12 +319,13 @@ def main(argv=None):
     ap.add_argument("--layout", choices=list(layoutlib.available_layouts()),
                     default=layoutlib.LAYOUT_DEFAULT,
                     help="serve-cache layout: coplace_shmap = co-placement "
-                         "over --shards page stripes, split-KV decode; head, "
-                         "coplace, interleave = GSPMD placements over the "
-                         "ranks of torchrun (one rank without it)")
+                         "over --shards page stripes, split-KV decode (over "
+                         "the ranks of torchrun or --mesh-model: a stripe a "
+                         "rank); head, coplace, interleave = GSPMD placements "
+                         "over the ranks of torchrun (one rank without it)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="ranks on the mesh's 'model' axis (the rest on "
-                         "'data'); GSPMD layouts only")
+                         "'data'); GSPMD layouts and coplace_shmap only")
     ap.add_argument("--shards", type=int, default=1,
                     help="page stripes of coplace_shmap (the size of the JAX "
                          "mesh's 'model' axis)")
@@ -340,9 +350,11 @@ def main(argv=None):
                          "the plain versions of the kernels)")
     args = ap.parse_args(argv)
 
-    if args.mesh_model != 1 and not layoutlib.get_layout(args.layout, args.shards).gspmd:
+    shmap = args.layout == layoutlib.LAYOUT_COPLACE_SHMAP
+    if args.mesh_model != 1 and not (shmap or
+                                     layoutlib.get_layout(args.layout, args.shards).gspmd):
         raise ValueError("--mesh-model places a GSPMD layout (head, coplace, "
-                         "interleave)")
+                         "interleave) or coplace_shmap over ranks")
     joined = "RANK" in os.environ  # under torchrun: one rank a device
     if joined:
         if args.device is None:
@@ -351,7 +363,10 @@ def main(argv=None):
         meshlib.init_distributed(backend)
     try:
         mesh = None
-        if layoutlib.get_layout(args.layout, args.shards).gspmd:
+        # coplace_shmap stripes one card's pages unless run over ranks
+        # (torchrun, or --mesh-model)
+        if layoutlib.get_layout(args.layout, args.shards).gspmd or (
+                shmap and (joined or args.mesh_model != 1)):
             mesh = meshlib.make_local_mesh(model=args.mesh_model)
         return _serve(args, mesh)
     finally:
@@ -457,7 +472,7 @@ def _serve(args, mesh):
     toks, stats = generate(
         cfg, params, prompts, gen=args.gen,
         capacity=args.prompt_len + args.gen + cfg.h2eal.page_size,
-        layout=args.layout, shards=args.shards, device=dev)
+        layout=args.layout, shards=args.shards, mesh=mesh, device=dev)
     print(f"[serve] arch={cfg.name} b={args.batch} device={dev} "
           f"prefill={stats['prefill_s']:.2f}s "
           f"decode={stats['decode_s']:.2f}s "

@@ -35,14 +35,15 @@ class ServeConfig:
     capacity: int             # most context tokens the cache holds
     layout: str = "default"   # a core/layouts registry name
     shards: int = 1           # coplace_shmap's page stripes
-    mesh: Any = None          # a GSPMD layout's mesh (launch/mesh.Mesh)
+    mesh: Any = None          # the ranks' mesh (launch/mesh.Mesh) of a GSPMD
+                              # layout, or of coplace_shmap over ranks
     max_batch: int = 0        # the batched state's slots (a GSPMD layout's blocks)
 
 
 def serve_layout(scfg: ServeConfig):
-    """The layout of ``scfg``; a GSPMD layout placed on this rank of its mesh
-    for ``max_batch`` slots."""
-    lay = layoutlib.get_layout(scfg.layout, scfg.shards)
+    """The layout of ``scfg``; a GSPMD layout (or coplace_shmap given a mesh)
+    placed on this rank of its mesh for ``max_batch`` slots."""
+    lay = layoutlib.get_layout(scfg.layout, scfg.shards, scfg.mesh)
     if lay.gspmd:
         if scfg.mesh is None or scfg.max_batch < 1:
             raise ValueError(f"layout {lay.name!r} serves the engine's batched state: "

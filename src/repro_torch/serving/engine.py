@@ -87,7 +87,8 @@ Every layout of the reference's registry is ported (``core/layouts.py``:
 the layout's plan rounds the cache capacity to whole pages per stripe or
 rank): ``default``, ``coplace_shmap``, and the GSPMD layouts ``head``,
 ``coplace`` and ``interleave``, where each rank of a ``launch/mesh.Mesh``
-runs this engine on its block of the serve state. FIFO and balanced
+runs this engine on its block of the serve state; so too ``coplace_shmap``
+given a mesh, each rank of 'model' holding one page stripe. FIFO and balanced
 admission, sampling, speculative decode, fused windows, tiered residency
 and rebalancing are ported, on every layout. On a GSPMD layout every rank
 takes the same host decisions: the tiered select step's digest is the
@@ -413,10 +414,14 @@ class Engine:
     layout          serve-cache layout, a ``core/layouts`` registry name:
                     "default", "coplace_shmap", or a GSPMD layout ("head",
                     "coplace", "interleave") over the ranks of ``mesh``.
-    shards          coplace_shmap's page stripes (the size of the JAX mesh's
-                    'model' axis; 1 as on one JAX device).
+    shards          coplace_shmap's page stripes on one card (the size of the
+                    JAX mesh's 'model' axis; 1 as on one JAX device); on a
+                    mesh 1 or the size of its 'model' axis.
     mesh            a GSPMD layout's ``launch/mesh.Mesh`` (default: the
-                    one-rank mesh). Every rank builds the same engine with the
+                    one-rank mesh); given with coplace_shmap, that layout is
+                    served over the mesh's ranks, rank r of 'model' holding
+                    page stripe r (without one, its stripes lie on one
+                    card). Every rank builds the same engine with the
                     same parameters and requests and takes the same host
                     decisions; it holds only its block of the serve state, and
                     every rank's steps give the same tokens. Every family the
@@ -488,7 +493,7 @@ class Engine:
                  rebalance_min_gain: float = 0.02, rebalance_cooldown: int = 8,
                  rebalance_banks: Optional[int] = None,
                  decode_window: Optional[int] = None, eager: bool = False):
-        lay = layoutlib.get_layout(layout, shards)
+        lay = layoutlib.get_layout(layout, shards, mesh)
         self.spec_tokens = int(spec_tokens) if spec_tokens else None
         self.draft = None
         if self.spec_tokens is not None:

@@ -12,8 +12,11 @@ RANK is below its world size, and sits it out otherwise. Each case names
 a config, the parameters (the JAX package's tree as numpy arrays, bridged
 by ``models/convert.params_from_numpy``), a layout, the engine's options
 (speculative decode, tiered residency and rebalancing among them) and the
-requests, or a single-step check of the sharded attention bodies (decode,
-chunk, speculative verify and its commit) against the default body, or of
+requests (a tiered one may force a request's pages cold at a selection
+boundary), or a single-step check of the sharded attention bodies (decode,
+chunk, speculative verify and its commit) against the default body (under
+``coplace_shmap``, the one-card body over as many page stripes as the
+mesh's 'model' axis has ranks), or of
 one layer of another kind on the rank's blocks: a full cache (a window
 layer, or H²EAL off: decode and chunk) or a recurrent mixer (a chunk
 resumed and a decode step, the whole block with its FFN) against the
@@ -51,10 +54,34 @@ def config(name, overrides, h2=()):
     return cfg
 
 
+def serve(eng, requests, force_after=None):
+    """Serve ``requests`` a poll at a time; with ``force_after``, every
+    spillable page of the first decoding slot with more than a share window
+    to go is forced cold at its selection boundary once that many decode
+    steps have run (``Engine.tier_force_spill``). Returns the completions
+    and the (uid, pages) forced, or None."""
+    for r in requests:
+        eng.submit(r)
+    forced, w = None, eng.share_window
+    while eng.busy():
+        b = eng.batch
+        if forced is None and force_after is not None and \
+                eng.stats.decode_steps >= force_after:
+            due = [i for i in range(b.max_batch)
+                   if b.active[i] and b.phase[i] % w == 0 and b.remaining[i] > w]
+            if due:
+                uid = int(b.uid[due[0]])
+                forced = (uid, eng.tier_force_spill(uid))
+        eng.poll()
+    eng.finalize()
+    return dict(eng.completions), forced
+
+
 def run_engine(case, mesh):
-    """The case's engine on this rank: its tokens, its step captures before
-    and after the run, its stats and the (src, dst, far pages of src) of
-    each migration."""
+    """The case's engine on this rank (``mesh`` None: the one-card engine of
+    the case's options): its tokens, its step captures before and after the
+    run, its stats, the (src, dst, far pages of src) of each migration and
+    the request forced cold."""
     cfg = config(case["arch"], case["overrides"], case.get("h2", ()))
     params = params_from_numpy(cfg, case["params"], "cpu")
     eng = Engine(cfg, params, layout=case["layout"], mesh=mesh, device="cpu",
@@ -67,10 +94,11 @@ def run_engine(case, mesh):
         migrate(src, dst)
     eng._migrate_slot = logged
     before = eng.jit_cache_sizes()
-    comps = eng.run([Request(**r) for r in case["requests"]])
+    comps, forced = serve(eng, [Request(**r) for r in case["requests"]],
+                          case.get("force_after"))
     return {"tokens": {u: c.tokens for u, c in comps.items()},
             "captures": (before, eng.jit_cache_sizes()),
-            "stats": dataclasses.asdict(eng.stats), "moves": moves,
+            "stats": dataclasses.asdict(eng.stats), "moves": moves, "forced": forced,
             "far_bytes": (0, 0) if eng._tier is None else (eng._tier.h2d_bytes,
                                                            eng._tier.d2h_bytes)}
 
@@ -110,14 +138,19 @@ def _state_diff(block, full, place, mesh):
 def run_steps(case, mesh):
     """One layer's decode steps (select, then reuse), a chunk step, a
     speculative verify of 4 tokens and the commit of its accepted prefix on
-    the rank's blocks, beside the default body on the whole state, from one
-    seeded state: each output's largest difference from the default's, and
-    the blocks' from the tiles of the default's state."""
+    the rank's blocks, beside the default body on the whole state (under
+    ``coplace_shmap`` the one-card body over the rank's stripe count, on
+    the whole state striped as it is), from one seeded state: each output's
+    largest difference from the reference's, and the blocks' from the tiles
+    of the reference's state."""
     cfg = config(case["arch"], case["overrides"])
     spec = T.attn_spec(cfg)
     b, cap, cch = case["batch"], case["capacity"], case["chunk"]
-    placed = layoutlib.get_layout(case["layout"]).placed(mesh, batch=b, capacity=cap)
+    placed = layoutlib.get_layout(case["layout"], mesh=mesh).placed(mesh, batch=b,
+                                                                    capacity=cap)
     place = placed.place(spec)
+    ref = (layoutlib.get_layout(case["layout"], placed.shards)
+           if case["layout"] == layoutlib.LAYOUT_COPLACE_SHMAP else layoutlib.DEFAULT)
     g = torch.Generator().manual_seed(case["seed"])
     rnd = lambda *s: torch.randn(*s, generator=g)
     hkv, hq, d = spec.n_kv, spec.n_q, spec.head_dim
@@ -126,7 +159,7 @@ def run_steps(case, mesh):
         spec, b, cap, dtype=torch.float32, device="cpu")))
     lengths = case["lengths"]
     for i, n in enumerate(lengths):
-        small = layoutlib.DEFAULT.prefill(spec, rnd(1, n, hkv, d), rnd(1, n, hkv, d), n, cap)
+        small = ref.prefill(spec, rnd(1, n, hkv, d), rnd(1, n, hkv, d), n, cap)
         for key in full:
             for f, t in _fields(full[key]).items():
                 t[i].copy_(getattr(small[key], f)[0])
@@ -136,9 +169,8 @@ def run_steps(case, mesh):
     out = {"steps": []}
     for do_select, need in ((True, torch.tensor(case["need"])), (False, None)):
         q, k, v = rnd(b, hq, d), rnd(b, hkv, d), rnd(b, hkv, d)
-        want, full = layoutlib.DEFAULT.decode(spec, full, q, k, v, length,
-                                              do_select=do_select, active=active,
-                                              need_select=need)
+        want, full = ref.decode(spec, full, q, k, v, length, do_select=do_select,
+                                active=active, need_select=need)
         got, block = placed.decode(spec, block, q, k, v, length, do_select=do_select,
                                    active=active, need_select=need)
         out["steps"].append({"out": float((got - want).abs().max()),
@@ -146,8 +178,7 @@ def run_steps(case, mesh):
         length = torch.where(active, length + 1, length)
     q, k, v = rnd(b, cch, hq, d), rnd(b, cch, hkv, d), rnd(b, cch, hkv, d)
     clen = torch.tensor(case["chunk_len"], dtype=torch.int32)
-    want, full = layoutlib.DEFAULT.prefill_chunk(spec, _clone(full), q, k, v, length,
-                                                 clen, clen > 0)
+    want, full = ref.prefill_chunk(spec, _clone(full), q, k, v, length, clen, clen > 0)
     got, block = placed.prefill_chunk(spec, block, q, k, v, length, clen, clen > 0)
     out["chunk"] = {"out": float((got - want).abs().max()),
                     "state": _state_diff(block, full, place, mesh)}
@@ -155,14 +186,14 @@ def run_steps(case, mesh):
     kk = 4
     q, k, v = rnd(b, kk, hq, d), rnd(b, kk, hkv, d), rnd(b, kk, hkv, d)
     need = torch.tensor(case["need"])
-    want, full = layoutlib.DEFAULT.verify_chunk(spec, full, q, k, v, length, active=active,
-                                                need_select=need)
+    want, full = ref.verify_chunk(spec, full, q, k, v, length, active=active,
+                                  need_select=need)
     got, block = placed.verify_chunk(spec, block, q, k, v, length, active=active,
                                      need_select=need)
     out["verify"] = {"out": float((got - want).abs().max()),
                      "state": _state_diff(block, full, place, mesh)}
     accepted = torch.tensor([3, 1, 4][:b], dtype=torch.int32)
-    full = layoutlib.DEFAULT.verify_append(spec, full, k, v, length, accepted, active=active)
+    full = ref.verify_append(spec, full, k, v, length, accepted, active=active)
     block = placed.verify_append(spec, block, k, v, length, accepted, active=active)
     out["commit"] = {"out": 0.0, "state": _state_diff(block, full, place, mesh)}
     return out
@@ -180,7 +211,8 @@ def run_full_steps(case, mesh):
     spec = T.attn_spec(cfg, case["pos"])
     assert spec.full_cache
     b, cap, cch = case["batch"], case["capacity"], case["chunk"]
-    placed = layoutlib.get_layout(case["layout"]).placed(mesh, batch=b, capacity=cap)
+    placed = layoutlib.get_layout(case["layout"], mesh=mesh).placed(mesh, batch=b,
+                                                                    capacity=cap)
     place = placed.place(spec)
     g = torch.Generator().manual_seed(case["seed"])
     rnd = lambda *s: torch.randn(*s, generator=g)
@@ -219,8 +251,8 @@ def run_recurrent_steps(case, mesh):
     pos, b, cch = case["pos"], case["batch"], case["chunk"]
     rspec = T.layer_spec(cfg, pos)
     assert isinstance(rspec, cachelib.RecurrentSpec)
-    placed = layoutlib.get_layout(case["layout"]).placed(mesh, batch=b,
-                                                         capacity=case["capacity"])
+    placed = layoutlib.get_layout(case["layout"], mesh=mesh).placed(
+        mesh, batch=b, capacity=case["capacity"])
     place = placed.place(rspec)
     g = torch.Generator().manual_seed(case["seed"])
     p = M.init_params(cfg, generator=g, device="cpu")["layers"][pos]

@@ -22,6 +22,7 @@ reassociates the attention sums (the partial casts the unnormalised p to
 v's dtype and divides at the end), so on random weights a flat pair of
 logits can flip against the default layout, and against JAX.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -55,6 +56,7 @@ from repro_torch.core import layouts as tlayouts
 from repro_torch.core import paging as tpaging
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tlaunch
 from repro_torch.sched import balance as tbalance
 from repro_torch.serving.engine import Engine, Request
@@ -697,6 +699,40 @@ def test_coplace_engine_matches_jax(request, smollm, shards, mode):
     assert [s.decode_steps, s.engine_steps, s.select_steps, s.reuse_steps,
             s.prefill_chunks, s.admission_reorders] == want["stats"]
     assert eng.cache_capacity == ENGINE_CAP
+
+
+@pytest.mark.parametrize("mode", ["packed", "chunked"])
+def test_one_rank_mesh_engine_matches_one_card_default_and_jax(ref1, smollm, mode):
+    """coplace_shmap on a mesh of one rank (``Engine(mesh=...)``, the
+    one-rank (1, 1) mesh): the rank holds every page and runs the default's
+    kernels (no partials) with the layout's select, a masked selected page
+    -1 as the reference's co-placed body makes it on any device count. Its
+    tokens equal the one-card engine's of one stripe exactly and the JAX
+    coplace_shmap engine's on one device up to a JAX near-tie (the rule of
+    the S = 1 case above); its stats equal the port's default engine's,
+    its step counts and admission schedule JAX's. Its tokens are not the
+    default engine's: the default keeps a masked selected page as fill,
+    which the local window's move makes attended at a later reuse step; on
+    this workload uid 3 parts there (token 8, a logit gap of 0.048)."""
+    want = ref1[1][f"coplace_{mode}"]
+    reqs = _port_requests(smollm.tcfg)
+    eng = smollm.port(capacity=ENGINE_CAP, layout="coplace_shmap", mesh=tmesh.Mesh(),
+                      **ENGINE_MODES[mode])
+    assert eng._placed is not None and eng.mesh.shape == {"data": 1, "model": 1}
+    assert not eng._place.partials and eng._place.minus_one
+    comps = eng.run(reqs)
+    one = smollm.port(capacity=ENGINE_CAP, layout="coplace_shmap", **ENGINE_MODES[mode])
+    d = smollm.port(capacity=ENGINE_CAP, **ENGINE_MODES[mode])
+    d.run(reqs)
+    got = {u: c.tokens for u, c in comps.items()}
+    assert got == {u: c.tokens for u, c in one.run(reqs).items()}
+    smollm.assert_same(got, {int(u): t for u, t in want["tokens"].items()}, reqs)
+    s = eng.stats
+    assert {k: v for k, v in dataclasses.asdict(s).items() if k != "wall_s"} == \
+        {k: v for k, v in dataclasses.asdict(d.stats).items() if k != "wall_s"}
+    assert [s.decode_steps, s.engine_steps, s.select_steps, s.reuse_steps,
+            s.prefill_chunks, s.admission_reorders] == want["stats"]
+    assert {str(u): c.admitted_engine_step for u, c in comps.items()} == want["admitted"]
 
 
 @pytest.mark.parametrize("mode", ["balanced_packed", "balanced_chunked"])

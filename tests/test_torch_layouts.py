@@ -57,6 +57,22 @@ block equal to its tile of the default's state (the importance within
 1e-6 of its magnitude: where the pages are cut its scores are summed in
 another order); so too a full-cache layer's decode and chunk steps and a
 recurrent block's chunk resume and decode step (``LAYER_STEPS``).
+
+``coplace_shmap`` over ranks, rank r of 'model' holding page stripe r
+(``SHMAP_MESHES``, in the same spawn): on (1, 2) packed, chunked,
+balanced, speculative (n-gram and streaming), fused windows, tiered with a
+request forced cold, and zamba2 (rebalanced), gemma3 (tiered), qwen3-moe
+and H²EAL off; on (1, 4) packed, chunked, speculative, tiered forced cold;
+on (2, 2) packed, chunked, and rebalanced + tiered on 4 slots, a slot with
+far rows moving to the other 'data' rank. Every rank's tokens and counters
+equal; tokens held to the port's one-card engine over M stripes and, for
+the llama configs, to the JAX coplace_shmap engine on 2 devices (one
+subprocess with 2 fake devices, ``jax_shmap``: the layout's tokens do not
+depend on M but for near-ties), each up to a JAX near-tie; counters to the
+one-card engine's. The layout selects a masked page as -1 where the
+default keeps it as fill, so its tokens are held to the default's only
+where the one-card engine's equal it. One layer's steps on each rank's
+striped block are held to the one-card body over M stripes.
 """
 import dataclasses
 import os
@@ -76,6 +92,7 @@ from repro.models import model as JM
 from repro.serving import Engine as JEngine
 from repro.serving import Request as JRequest
 from repro_torch import configs as tconfigs
+from repro_torch.core import layouts as tlayouts
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import model as TM
@@ -83,6 +100,7 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.runtime import graphs
 from repro_torch.serving.engine import STUB_ENGINE_REFUSAL, Engine, Request
 from test_torch_engine import CAP, Model
+import _torch_mesh_worker as W
 import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -109,7 +127,8 @@ TOL, IMP_TOL = 2e-5, 1e-6
 ENGINE = dict(capacity=CAP, prompt_buckets=[16, 24])
 BUCKETS = [8, 16, 24]
 # each workload's prompt buckets (``_requests``)
-WORKLOADS = {"mixed": [16, 24], "deep": [40], "churn": BUCKETS, "long_short": [8, 40]}
+WORKLOADS = {"mixed": [16, 24], "deep": [40], "churn": BUCKETS, "long_short": [8, 40],
+             "long_short_far": [8, 40]}
 # engine modes: the options of each and its workload
 MODES = {
     "packed": ({}, "mixed"),
@@ -121,7 +140,16 @@ MODES = {
     "rebalanced_chunked": (dict(rebalance="retire", max_batch=4, prefill_chunk=5), "churn"),
     "tiered_chunked": (dict(hot_pages=4, prefill_chunk=5), "deep"),
     "rebalanced_tiered": (dict(rebalance="retire", hot_pages=4, max_batch=4), "long_short"),
+    "balanced": (dict(admission="balanced", prefill_chunk=5), "mixed"),
+    "window": (dict(decode_window=4, prefill_chunk=5), "mixed"),
+    "tiered_forced": (dict(hot_pages=4), "deep"),
+    "rebalanced_tiered_far": (dict(rebalance="retire", hot_pages=4, max_batch=4),
+                              "long_short_far"),
 }
+# the modes whose first decoding request with more than a share window to go
+# is forced cold at a selection boundary once this many decode steps have run
+# (``_torch_mesh_worker.serve``)
+FORCE_AFTER = {"tiered_forced": 2}
 # (data, model) meshes of the spawned runs and their cases: (layout, arch,
 # max_batch, engine modes); every llama case also checks one layer's steps,
 # the H²EAL-off one a full-cache layer's, gemma3's a window layer's, and
@@ -146,6 +174,24 @@ MESHES = {
              ("interleave", QWEN, 3, ("packed",)),
              ("head", LLAMA_OFF, 2, ())],
 }
+# coplace_shmap over ranks (the module docstring's last paragraph): its
+# cases on the same meshes, in the same spawn
+SHMAP = "coplace_shmap"
+SHMAP_MESHES = {
+    (1, 2): [(SHMAP, LLAMA, 2, ("packed", "chunked", "balanced", "spec", "spec_streaming",
+                                "window")),
+             (SHMAP, LLAMA_NARROW, 2, ("tiered_forced",)),
+             (SHMAP, ZAMBA, 4, ("rebalanced_chunked",)),
+             (SHMAP, GEMMA3_NARROW, 2, ("tiered_chunked",)),
+             (SHMAP, QWEN, 2, ("packed",)),
+             (SHMAP, LLAMA_OFF, 2, ("chunked",))],
+    (1, 4): [(SHMAP, LLAMA, 2, ("packed", "chunked", "spec")),
+             (SHMAP, LLAMA_NARROW, 2, ("tiered_forced",))],
+    (2, 2): [(SHMAP, LLAMA, 2, ("packed", "chunked")),
+             (SHMAP, LLAMA_NARROW, 4, ("rebalanced_tiered_far",))],
+}
+for _mesh, _cases in SHMAP_MESHES.items():
+    MESHES[_mesh] = MESHES[_mesh] + _cases
 # the layer of another kind each such case checks on the rank's blocks:
 # (step kind, period position)
 # (step kind, period positions)
@@ -227,10 +273,13 @@ def _requests(cfg, workload):
     budgets, so that retirements leave the slots skewed; "long_short",
     prompts of 40 tokens with 14-21 new ones among prompts of 8 with 2-5,
     whose seed has the narrowed config spill pages of a slot that a
-    migration then moves to another rank."""
+    migration then moves to another rank; "long_short_far", the same draws
+    at the seed under which ``coplace_shmap``'s migration on 4 slots moves a
+    slot with far rows to the other half of the batch."""
     if workload == "mixed":
         return _workload(cfg)
-    rng = np.random.default_rng({"deep": 1, "churn": 0, "long_short": 5}[workload])
+    rng = np.random.default_rng({"deep": 1, "churn": 0, "long_short": 5,
+                                 "long_short_far": 11}[workload])
     if workload == "deep":
         return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=(40,))
                         .astype(np.int32), max_new=6 + 4 * i) for i in range(3)]
@@ -261,6 +310,10 @@ def _engine_kw(mode, max_batch):
                 **kw)
 
 
+# the archs whose coplace_shmap cases are held to the JAX coplace_shmap
+# engine on 2 devices (``jax_shmap_traces``); the other families' to the
+# JAX default engine where the layout's select rule leaves the tokens
+SHMAP_ARCHS = (LLAMA, LLAMA_NARROW)
 # the families whose one-rank GSPMD engines this file holds (zamba2, xLSTM,
 # gemma3 and qwen3-moe in their own files, against the JAX engines there):
 # (arch, its JAX default-layout reference)
@@ -269,7 +322,8 @@ ONE_RANK_FAMILIES = {"h2eal_off": (LLAMA_OFF, (LLAMA_OFF, "mixed", "chunked")),
 # the JAX default-layout engines the spawned ranks and those families are
 # held to
 JAX_DEFAULT = sorted({_reference(arch, mode) for cases in MESHES.values()
-                      for _, arch, _, modes in cases for mode in modes}
+                      for layout, arch, _, modes in cases for mode in modes
+                      if layout != SHMAP or arch not in SHMAP_ARCHS}
                      | {ref for _, ref in ONE_RANK_FAMILIES.values()}, key=str)
 JAX_SUBPROCESS = """
 import pickle, sys
@@ -295,6 +349,27 @@ def jax_default_traces(part):
         a = archs.get(arch) or archs.setdefault(arch, Arch(*arch))
         out[(arch, workload, mode)] = a.jax_engine_run(
             _requests(a.tcfg, workload), prompt_buckets=WORKLOADS[workload],
+            **MODES[mode][0])[0]
+    return out
+
+
+# the JAX coplace_shmap engines on 2 devices (a (1, 2) mesh): the runs the
+# coplace_shmap cases of SHMAP_ARCHS are held to
+JAX_SHMAP = sorted({_reference(arch, mode) for cases in SHMAP_MESHES.values()
+                    for _, arch, _, modes in cases for mode in modes
+                    if arch in SHMAP_ARCHS}, key=str)
+
+
+def jax_shmap_traces():
+    """{(arch, workload, prefill mode): tokens} of the JAX coplace_shmap
+    engines of JAX_SHMAP, on this process's devices (the layout's default
+    mesh, (1, devices))."""
+    assert len(jax.devices()) == 2, jax.devices()
+    archs, out = {}, {}
+    for arch, workload, mode in JAX_SHMAP:
+        a = archs.get(arch) or archs.setdefault(arch, Arch(*arch))
+        out[(arch, workload, mode)] = a.jax_engine_run(
+            _requests(a.tcfg, workload), layout=SHMAP, prompt_buckets=WORKLOADS[workload],
             **MODES[mode][0])[0]
     return out
 
@@ -341,8 +416,9 @@ def _job(archs, tmp):
                     "h2": dict(arch[2]) if len(arch) > 2 else {},
                     "params": a.numpy_params, "layout": layout,
                     "engine": _engine_kw(mode, max_batch),
-                    "requests": [_req_dict(r) for r in _requests(a.tcfg, MODES[mode][1])]}
-            if arch in LAYER_STEPS:
+                    "requests": [_req_dict(r) for r in _requests(a.tcfg, MODES[mode][1])],
+                    "force_after": FORCE_AFTER.get(mode)}
+            if arch in LAYER_STEPS and layout != SHMAP:
                 kind, positions = LAYER_STEPS[arch]
                 for pos in positions:
                     job["cases"][(layout, "steps", max_batch, arch[0], pos)] = {
@@ -422,12 +498,14 @@ def jax_cache_env(cache) -> dict:
         JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="-1")
 
 
-def _jax_subprocess(tmp, func, *args):
-    """``func(*args)`` of this module run by a JAX subprocess, started now,
-    with the module's compilation cache (``jax_cache_env``); the returned
-    ``result()`` waits and reads its pickle; ``stop()`` ends it if it still
-    runs."""
+def _jax_subprocess(tmp, func, *args, devices=1):
+    """``func(*args)`` of this module run by a JAX subprocess of ``devices``
+    CPU devices, started now, with the module's compilation cache
+    (``jax_cache_env``); the returned ``result()`` waits and reads its
+    pickle; ``stop()`` ends it if it still runs."""
     env = jax_cache_env(tmp.parent / "jax_cache_layouts")
+    if devices > 1:
+        env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     with open(tmp / "stderr.txt", "w") as err:
         proc = subprocess.Popen([sys.executable, "-c",
                                  JAX_SUBPROCESS.format(tests=TESTS, func=func),
@@ -470,6 +548,16 @@ def jax_default(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def jax_shmap(tmp_path_factory):
+    """``jax_shmap_traces`` in a subprocess of 2 CPU devices, started with the
+    module's first test; ``result()`` waits and reads it."""
+    read, stop = _jax_subprocess(tmp_path_factory.mktemp("jax_shmap"), "jax_shmap_traces",
+                                 devices=2)
+    yield read
+    stop()
+
+
+@pytest.fixture(scope="module")
 def jax_layout(tmp_path_factory):
     """``jax_layout_runs`` of each GSPMD layout, one subprocess a layout,
     started with the module's first test; ``result(layout)`` waits."""
@@ -499,7 +587,7 @@ def one_rank(tmp_path_factory):
 @pytest.mark.parametrize("mode", ["packed", "chunked"])
 @pytest.mark.parametrize("layout", GSPMD)
 def test_one_rank_engine_matches_jax_layout(archs, spawned, jax_default, jax_layout,
-                                            one_rank, layout, mode):
+                                            jax_shmap, one_rank, layout, mode):
     """smollm at S = 1 through each GSPMD layout's engine, the greedy
     workload and a sampled request, against the JAX engine of the layout
     (built in its layout's subprocess): token for token (a greedy token up
@@ -582,7 +670,7 @@ def test_ranks_match_each_other_and_jax(archs, spawned, jax_default, mesh):
     ranks = spawned(mesh)
     assert [r["mesh"][0] for r in ranks] == [mesh] * len(ranks)
     for name, case in ranks[0]["results"].items():
-        if name[1] == "steps":
+        if name[1] == "steps" or name[0] == SHMAP:
             continue
         layout, arch, mode = name
         for r in ranks[1:]:
@@ -627,7 +715,7 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
     rank's rows may round otherwise than over the whole batch)."""
     for r in spawned(mesh):
         for name, res in r["results"].items():
-            if name[1] != "steps":
+            if name[1] != "steps" or name[0] == SHMAP:
                 continue
             for step in res["steps"] + [res[k] for k in ("chunk", "verify", "commit")
                                         if k in res]:
@@ -635,6 +723,101 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
                 for field, diff in step["state"].items():
                     tol = IMP_TOL if field.endswith("importance") else 0.0
                     assert diff <= tol, (name, field, diff)
+
+
+def _serve(a, reqs, *, force_after=None, **kw):
+    """(tokens, held counters, the request forced cold) of a port engine on
+    the CPU, served as the ranks serve (``_torch_mesh_worker.serve``)."""
+    eng = Engine(a.tcfg, a.tparams, device="cpu", **kw)
+    comps, forced = W.serve(eng, reqs, force_after)
+    return {u: c.tokens for u, c in comps.items()}, _held(dataclasses.asdict(eng.stats)), \
+        forced
+
+
+def _same(a, got, want, reqs, what):
+    """``Model.assert_same`` naming the comparison that failed."""
+    try:
+        a.assert_same(got, want, reqs)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+
+
+@pytest.mark.parametrize("mesh", list(SHMAP_MESHES), ids=lambda m: f"{m[0]}x{m[1]}")
+def test_coplace_shmap_ranks_match_jax_and_one_card(archs, spawned, jax_default, jax_shmap,
+                                                    mesh):
+    """``coplace_shmap`` over the ranks of each mesh, rank r of 'model'
+    holding page stripe r, in every engine mode of SHMAP_MESHES: the ranks'
+    tokens and counters equal, no step captured anew; the tokens equal the
+    port's one-card engine over as many stripes as 'model' has ranks and,
+    for the llama configs, the JAX coplace_shmap engine on 2 devices, each
+    up to a JAX near-tie; the other families' tokens equal the JAX default
+    engine's wherever the one-card engine's equal the port's default
+    engine's (the layout selects a masked page as -1, the default keeps it
+    as fill: zamba2's uid 3 parts there, a logit gap of 0.049). The
+    counters equal the one-card engine's. The tiered case
+    forces a request cold, which misses and is filled; the rebalanced one on
+    (2, 2) moves a slot with far rows to the other 'data' rank."""
+    ranks = spawned(mesh)
+    m = mesh[1]
+    for name, case in ranks[0]["results"].items():
+        if name[0] != SHMAP or name[1] == "steps":
+            continue
+        _, arch, mode = name
+        for r in ranks[1:]:
+            assert r["results"][name]["tokens"] == case["tokens"], name
+            assert _held(r["results"][name]["stats"]) == _held(case["stats"]), name
+            assert r["results"][name]["forced"] == case["forced"], name
+        before, after = case["captures"]
+        assert before == after
+        a = archs[arch]
+        reqs = _requests(a.tcfg, MODES[mode][1])
+        kw = _engine_kw(mode, next(b for lay, ar, b, modes in SHMAP_MESHES[mesh]
+                                   if ar == arch and mode in modes))
+        toks, held, forced = _serve(a, reqs, layout=SHMAP, shards=m,
+                                    force_after=FORCE_AFTER.get(mode), **kw)
+        _same(a, case["tokens"], toks, reqs, (name, "one card"))
+        assert _held(case["stats"]) == held and case["forced"] == forced, name
+        if arch in SHMAP_ARCHS:
+            _same(a, case["tokens"], jax_shmap()[_reference(arch, mode)], reqs,
+                  (name, "JAX coplace_shmap"))
+        elif toks == _serve(a, reqs, **kw)[0]:
+            # where the layout's select rule leaves the default's tokens as
+            # they are, the JAX default engine's too
+            _same(a, case["tokens"], jax_default()[_reference(arch, mode)], reqs,
+                  (name, "JAX default"))
+        s = case["stats"]
+        if "spec" in mode:
+            assert s["spec_steps"] > 0, name
+        if mode == "window":
+            assert s["fused_windows"] > 0, name
+        if mode == "tiered_forced":
+            assert forced[1] > 0 and s["tier_misses"] == s["tier_fills"] > 0, name
+        if mode == "rebalanced_tiered_far":
+            rows = kw["max_batch"] // mesh[0]
+            assert any(src // rows != dst // rows and far > 0
+                       for src, dst, far in case["moves"]), (name, case["moves"])
+
+
+@pytest.mark.parametrize("mesh", list(SHMAP_MESHES), ids=lambda m: f"{m[0]}x{m[1]}")
+def test_coplace_shmap_rank_blocks_match_the_one_card_body(spawned, mesh):
+    """One layer's select, reuse, chunk, speculative verify and commit steps
+    of ``coplace_shmap`` on every rank's striped block against the one-card
+    body over as many stripes as 'model' has ranks, on the whole state
+    striped alike: outputs within 2e-5; the selection and every block field
+    equal to the one-card state's tiles, the importance within 1e-6 of its
+    magnitude (each rank scores its stripe's pages)."""
+    seen = 0
+    for r in spawned(mesh):
+        for name, res in r["results"].items():
+            if name[0] != SHMAP or name[1] != "steps":
+                continue
+            seen += 1
+            for step in res["steps"] + [res[k] for k in ("chunk", "verify", "commit")]:
+                assert step["out"] <= TOL, (name, step)
+                for field, diff in step["state"].items():
+                    tol = IMP_TOL if field.endswith("importance") else 0.0
+                    assert diff <= tol, (name, field, diff)
+    assert seen == mesh[0] * mesh[1]
 
 
 _DEFAULT_RUNS = {}
@@ -744,6 +927,40 @@ def test_gspmd_capture_lockstep_and_cli_refusals(archs, one_rank):
                            admission="balanced", device="cpu", **ENGINE)
     with pytest.raises(ValueError, match="GSPMD"):
         tlaunch.main(["--reduced", "--mesh-model", "2", "--device", "cpu"])
+
+
+def test_coplace_shmap_mesh_refusals_and_cli(archs, one_rank, capsys):
+    """``coplace_shmap`` on a mesh: ``shards`` other than 1 or the size of
+    'model' raises naming both; a frontend-stub arch raises the default's
+    refusal of its requests; lockstep ``generate`` on a mesh raises citing
+    item 9c; without a mesh the layout stays on one card. The CLI takes
+    ``--mesh-model`` for it (without torchrun, the one-rank mesh)."""
+    two = tmesh.Mesh(sizes=(1, 2), coords=(0, 1))
+    for shards in (3, 4):
+        with pytest.raises(ValueError, match=f"1 or 2, got {shards}"):
+            tlayouts.get_layout(SHMAP, shards, mesh=two)
+    lay = tlayouts.get_layout(SHMAP, 2, mesh=two)
+    assert lay.gspmd and lay.shards == 2 and tlayouts.get_layout(SHMAP, 1, mesh=two).shards == 2
+    assert not tlayouts.get_layout(SHMAP, 2).gspmd
+    m = archs[SMOLLM]
+    with pytest.raises(ValueError, match="1 or 1, got 2"):
+        Engine(m.tcfg, m.tparams, max_batch=2, layout=SHMAP, shards=2, mesh=one_rank,
+               device="cpu", **ENGINE)
+    cfg = tconfigs.reduced(tconfigs.get_arch("internvl2-1b"))
+    with pytest.raises(ValueError) as got:
+        Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2, layout=SHMAP,
+               mesh=one_rank, device="cpu", **ENGINE)
+    assert str(got.value) == STUB_ENGINE_REFUSAL
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        tlaunch.generate(m.tcfg, m.tparams, torch.zeros((1, 8), dtype=torch.long), gen=2,
+                         capacity=32, layout=SHMAP, mesh=one_rank, device="cpu")
+    stats = tlaunch.main(["--arch", "llama3-8b", "--reduced", "--workload", "ragged",
+                          "--requests", "3", "--max-batch", "2", "--prompt-buckets", "16,24",
+                          "--prefill-chunk", "8", "--layout", SHMAP, "--mesh-model", "2",
+                          "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "layout=coplace_shmap" in out and "mesh={'data': 1, 'model': 1}" in out
+    assert stats["tokens_out"] > 0
 
 
 def test_gspmd_cli_serves_on_one_rank(capsys):

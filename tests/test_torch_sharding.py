@@ -277,3 +277,55 @@ def test_placed_blocks_follow_the_placement():
         assert bool((paged.tau_min == float("inf")).all())
     with pytest.raises(ValueError, match="placed for"):
         placed.empty_decode_state(spec, 2, 64, dtype=torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=str)
+def test_coplace_shmap_on_a_mesh_equals_the_reference(shape):
+    """coplace_shmap given a mesh: its plan (capacity quantum, balance and
+    stripe counts, the mesh) and every serve-state leaf's placement of each
+    assigned arch at batch sizes 1-4 equal the reference's layout on the
+    same mesh; each rank's block of the pages is its stripe of the striped
+    order (slot j of rank r's block holds logical page j·M + r) and a
+    prefilled batch-1 state packed into it holds exactly those pages;
+    ``shards`` must be 1 or M."""
+    cfg_j = jconfigs.reduced(jconfigs.get_arch("llama3-8b"))
+    cfg_t = tconfigs.reduced(tconfigs.get_arch("llama3-8b"))
+    jm, tm = _meshes(shape)
+    m = shape[1]
+    jp = jlayouts.get_layout("coplace_shmap").plan(cfg_j, jm)
+    tp = tlayouts.get_layout("coplace_shmap", m, mesh=tm).plan(cfg_t, tm)
+    for f in ("layout", "capacity_quantum", "shard_state", "balance_shards",
+              "page_stripe_shards"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    assert tp.mesh is tm and tp.page_stripe_shards == m
+    for name in ("llama3-8b", "gemma3-1b", "zamba2-2.7b"):
+        cfg, _, states = _jax_states(name)
+        for b, st in states.items():
+            flat = jax.tree_util.tree_flatten_with_path(st)[0]
+            leaves = [(jax.tree_util.keystr(p), tuple(x.shape)) for p, x in flat]
+            want = jax.tree_util.tree_leaves(
+                jsharding.state_shardings(cfg, jm, st, layout="coplace_shmap", batch_size=b),
+                is_leaf=lambda x: hasattr(x, "spec"))
+            got = tsharding.leaf_shardings(tm, leaves, layout="coplace_shmap", batch_size=b)
+            for (path, _), g, w in zip(leaves, got, want):
+                assert _spec(g) == _spec(w.spec), (name, b, path)
+    cfg = tconfigs.reduced(tconfigs.get_arch("llama3-8b"), num_heads=8, num_kv_heads=4)
+    spec = TT.attn_spec(cfg)
+    k = torch.randn(1, 40, spec.n_kv, spec.head_dim, generator=torch.Generator().manual_seed(1))
+    for r in range(m):
+        mesh = tmesh.Mesh(sizes=shape, coords=(0, r))
+        placed = tlayouts.get_layout("coplace_shmap", mesh=mesh).placed(mesh, batch=2,
+                                                                        capacity=64)
+        place = placed.place(spec)
+        assert place.stripes == m and place.minus_one and place.partials == (m > 1)
+        assert place.block_pages("paged", "k_pages") == ((r, m) if m > 1 else (0, 1))
+        paged, stream = placed.empty_decode_state(spec, 2, 64, dtype=torch.float32,
+                                                  device="cpu")
+        big = {"paged": paged, "stream": stream}
+        placed.pack_slot(spec, big, placed.prefill(spec, k, k, 40, 64), 0)
+        starts = paged.page_start[0, 0]
+        pages = torch.arange(r, 64 // 8, m)
+        assert torch.equal(starts, torch.where(pages * 8 < 40, pages * 8, -1).int())
+    for shards in {2, m + 1} - {1, m}:
+        with pytest.raises(ValueError, match=f"1 or {m}, got {shards}"):
+            tlayouts.get_layout("coplace_shmap", shards, mesh=tm)
