@@ -162,7 +162,7 @@ then, each phase failing the run with a nonzero exit:
      holds every page, so every layout runs the default's kernels), tokens
      equal to the default engine's up to a near-tie, decode steps/s beside
      the default's; (b) two ranks spawned on cuda:0 over gloo (this script
-     with ``--gspmd-rank``), llama3-8b cut to 8 layers, eager: ``head`` and
+     with ``--gspmd-rank``), llama3-8b cut to 4 layers, eager: ``head`` and
      ``coplace`` on (1, 2), ``interleave`` on (2, 1) at 3 slots (tokens
      striped within pages), packed and chunked; both ranks' tokens equal
      and equal to the one-rank default engine's up to a near-tie, one decode
@@ -205,6 +205,24 @@ then, each phase failing the run with a nonzero exit:
      cold, each held to the one-card engine over 2 stripes and to the
      one-rank default engine, and one decode step on each rank's striped
      block against the one-card body.
+ 16. the reference's tensor-parallel ``generate(mesh=...)`` and its sharded
+     train step (ROADMAP item 9c): (a) in 15a's NCCL group of one rank,
+     llama3-8b at full width and depth, ``generate`` on the mesh for each
+     of the five layouts, 2 prompts of 8192 tokens: launch counts and
+     tokens equal to ``generate(mesh=None)`` (``coplace_shmap``'s up to a
+     near-tie: it selects a masked page as -1); (b) two ranks spawned on
+     cuda:0 over gloo (this script with ``--tp-rank``): ``generate`` at
+     llama3-8b cut to 8 layers, 2 prompts of 2048, on ``default`` and
+     ``interleave`` (2, 1) and ``head`` / ``coplace`` / ``coplace_shmap``
+     (1, 2), each rank's parameter bytes printed, tokens equal across
+     ranks and to the one-rank run's up to a near-tie; the sharded step,
+     f32, smollm-360m at full width and depth, B = 8 x S = 2048, 3 steps on
+     (2, 1), and B = 8 x S = 1024, 2 steps on (1, 2), and llama3-8b cut to 2 layers (FSDP on by the
+     reference's rule) on (2, 1), B = 2 x S = 2048, 2 steps: loss and grad
+     norm within TP_TRAIN_RTOL of the one-rank step's, each rank's
+     parameter and AdamW bytes printed; the training CLI (reduced) over both ranks,
+     crashed and resumed (its final loss equal to the uninterrupted run's),
+     and crashed and resumed on one rank (within TP_TRAIN_RTOL).
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -3855,8 +3873,9 @@ GSPMD_LAYOUTS = ("head", "coplace", "interleave")
 GSPMD_A = dict(prompts=(2048, 8192), n=4, new=16, seed=5)
 # 15b: the cut, and 3 requests of 1024-2048 tokens, 8 new tokens each; head
 # and coplace on the (1, 2) mesh at 2 slots, interleave on (2, 1) at 3 slots,
-# where the batch cannot take 'data' and the tokens stripe within pages
-GSPMD_CUT = 8
+# where the batch cannot take 'data' and the tokens stripe within pages. The
+# cut was 8 layers until phase 16 took its share of the smoke's time limit
+GSPMD_CUT = 4
 GSPMD_B = dict(prompts=(1024, 2048), n=3, new=8, seed=6)
 GSPMD_B_CASES = (("head", 2, 2), ("coplace", 2, 2), ("interleave", 1, 3),
                  ("coplace_shmap", 2, 2))
@@ -4970,6 +4989,9 @@ def phase15(ops, ref, dev, card):
     by_path.update(phase15c(dev, cfg, params, mesh, traces, card))
     log(f"15c (speculative, tiered, rebalanced on the GSPMD layouts) "
         f"{time.perf_counter() - t15c:.1f}s")
+    t16a = time.perf_counter()
+    by_path.update(phase16a(dev, cfg, params, mesh))
+    log(f"16a (tensor-parallel generate on one NCCL rank) {time.perf_counter() - t16a:.1f}s")
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4986,6 +5008,370 @@ def phase15(ops, ref, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: the reference's tensor-parallel generate(mesh=...) and its sharded
+# train step on torch.distributed ranks (ROADMAP item 9c)
+# ---------------------------------------------------------------------------
+
+TP_LAYOUTS = ("default", "head", "coplace", "interleave", "coplace_shmap")
+# 16a: BATCH prompts of TP_A_PROMPT tokens, TP_GEN tokens, at full depth
+TP_A_PROMPT, TP_GEN = 8192, 16
+# 16b: llama3-8b cut to TP_CUT layers, BATCH prompts of TP_B_PROMPT; each
+# layout on a (data, model) mesh of the two ranks: the batch over 'data' on
+# (2, 1), the weights over 'model' on (1, 2)
+TP_CUT, TP_B_PROMPT = 8, 2048
+TP_B_GENERATE = (("default", 1), ("head", 2), ("coplace", 2), ("coplace_shmap", 2),
+                 ("interleave", 1))
+# the sharded step, f32: (label, arch, layers (0: whole depth), B, S, {the
+# 'model' size of a mesh: its steps}); the one-card reference takes the most
+# steps. (1, 2) over gloo took 22-30 s a step at smollm-360m's B = 8 x S =
+# 2048 (the layers' gathers and sums and the logits' gather pass through the
+# host: ~24 GB a step), so it takes 2 steps at S = 1024 where (2, 1) takes 3
+# at 2048 (the whole smoke ran 1098 s of its 1200 with 2048). smollm-360m's rule keeps FSDP off,
+# llama3-8b's turns it on (12 bytes a parameter over 8e9). llama3-8b at 2
+# layers (1.49e9 params): the two ranks share one card, and at 4 layers
+# each rank's functional AdamW step (old and new parameters and moments,
+# the gradient: 2.1 GB of embedding whole on each, its rule cuts the
+# vocabulary over 'model' only) took 31 GiB a rank, 77.3 GiB of the card
+# with this process's, and ran out of memory
+TP_TRAIN = (("smollm", "smollm-360m", 0, 8, 2048, {1: 3}),
+            ("smollm_tp", "smollm-360m", 0, 8, 1024, {2: 2}),
+            ("llama", "llama3-8b", 2, 2, 2048, {1: 2}))
+# loss and grad norm of the sharded step against the one-rank step: f32
+# sums in other orders (a row product's partials, the 'data' halves of the
+# gradient) through every layer and its backward
+TP_TRAIN_RTOL = 1e-4
+# the training CLI over the two ranks: 4 steps, a checkpoint every 2, a
+# crash after 3 (resumed from the checkpoint of step 1); reduced smollm-360m
+# (the crash, the whole checkpoints and the restores are what it checks: at
+# full width its gradient sum over gloo took 44 s of the smoke)
+TP_CLI = ["--arch", "smollm-360m", "--reduced", "--steps", "4", "--batch", "4", "--seq",
+          "512", "--ckpt-every", "2", "--log-every", "1"]
+TP_CLI_CRASH = 3
+TP_TIMEOUT = 900
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _release(dev) -> None:
+    """Free what a finished run left: its cyclic garbage (a remat step's
+    graph can hold its activations), then the allocator's cache."""
+    import gc
+
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tp_requests(prompts, new):
+    """Requests of the lockstep prompts, for ``check_ties``."""
+    from repro_torch.serving.engine import Request
+
+    return [Request(uid=b, prompt=prompts[b].cpu().numpy(), max_new=new)
+            for b in range(prompts.shape[0])]
+
+
+def tp_prompts(cfg, prompt, dev):
+    gen = torch.Generator(device=dev).manual_seed(16)
+    return torch.randint(0, cfg.vocab_size, (BATCH, prompt), generator=gen, device=dev)
+
+
+def phase16a(dev, cfg, params, mesh):
+    """16a: in 15a's NCCL group of one rank, ``generate(mesh=...)`` of each
+    layout against ``generate(mesh=None)`` at full width and depth. Returns
+    the launch counts by path."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+
+    capacity = TP_A_PROMPT + TP_GEN + cfg.h2eal.page_size
+    prompts = tp_prompts(cfg, TP_A_PROMPT, dev)
+    reqs = tp_requests(prompts, TP_GEN)
+    ops.reset_launches()
+    want, ws = generate(cfg, params, prompts, gen=TP_GEN, capacity=capacity, device=dev)
+    want_l = dict(ops.LAUNCHES)
+    log(f"16a generate(mesh=None) {cfg.name} B={BATCH} S={TP_A_PROMPT}: prefill "
+        f"{ws['prefill_s']:.3f}s, decode {ws['decode_s']:.3f}s, launches {want_l}")
+    by_path = {}
+    for layout in TP_LAYOUTS:
+        ops.reset_launches()
+        got, gs = generate(cfg, params, prompts, gen=TP_GEN, capacity=capacity,
+                           layout=layout, mesh=mesh, device=dev)
+        launches = dict(ops.LAUNCHES)
+        what = f"16a generate(mesh=(1, 1)) {layout}"
+        if launches != want_l:
+            fail(f"{what} launched {launches}, generate(mesh=None) {want_l}")
+        same = torch.equal(got, want)
+        if layout != "coplace_shmap" and not same:
+            fail(f"{what}: tokens differ from generate(mesh=None) on one rank")
+        ties = check_ties(cfg, params, reqs, {b: got[b].tolist() for b in range(BATCH)},
+                          {b: want[b].tolist() for b in range(BATCH)}, {}, capacity, dev,
+                          BF16_LOGIT_BAND, what, relative=True)
+        err_ = (gs["last_logits"].float() - ws["last_logits"].float()).abs().max().item()
+        log(f"{what}: launches equal, tokens equal {same} (near-tie divergences {ties}), "
+            f"last logits max |diff| {err_:.3e}; prefill {gs['prefill_s']:.3f}s, decode "
+            f"{gs['decode_s']:.3f}s ({TP_GEN / gs['decode_s']:.2f} decode steps/s against "
+            f"{TP_GEN / ws['decode_s']:.2f}); parameter bytes {gs['param_bytes']}")
+        by_path[f"tp_{layout}"] = launches
+    return by_path
+
+
+def tp_train_config(arch: str, layers: int):
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def tp_train_run(cfg, mesh, batch: int, seq: int, steps: int, dev) -> dict:
+    """``steps`` f32 train steps from the seeded weights on the global
+    batches of ``lm_batch``: the sharded step on the rank's blocks over
+    ``mesh``, or ``make_train_step`` on one card (``mesh`` None). Returns
+    each step's loss and grad norm, step times, launch counts, the rank's
+    parameter and AdamW bytes and the peak memory."""
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime import train as train_rt
+
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    tcfg = train_rt.TrainConfig(warmup=1, total_steps=10)
+    if mesh is None:
+        step = train_rt.make_train_step(cfg, tcfg)
+    else:
+        step = train_rt.jit_train_step(cfg, tcfg, mesh, params, None, batch)
+        params, _ = sharding.place_params(cfg, mesh, params, "train")
+    # the dense family's optimizer placement is the parameters' (mode "opt")
+    opt = adamw.init_state(params)
+    _sync(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = {"metrics": [], "step_s": []}
+    for i in range(steps):
+        b = {k: v.to(dev) for k, v in lm_batch(i, batch=batch, seq=seq,
+                                                 vocab=cfg.vocab_size).items()}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b, i)
+        _sync(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["metrics"].append([float(m["loss"]), float(m["grad_norm"])])
+    out["launches"] = dict(ops.LAUNCHES)
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out["opt_bytes"] = sum(t.numel() * t.element_size()
+                           for t in _leaves({"mu": opt["mu"], "nu": opt["nu"]}))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if torch.device(dev).type == "cuda" else 0.0)
+    return out
+
+
+def tp_cli_runs(ckpt_dir: str) -> dict:
+    """The training CLI on this process's group: uninterrupted, and twice
+    crashed after TP_CLI_CRASH steps, one of them resumed here (the other
+    is resumed on one rank by the caller). Returns the final losses and the
+    uninterrupted run's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    ops.reset_launches()
+    out = {"full": train_cli.main(TP_CLI + ["--ckpt-dir", os.path.join(ckpt_dir, "full")])}
+    out["launches"] = dict(ops.LAUNCHES)
+    for name in ("resumed", "elastic"):
+        try:
+            train_cli.main(TP_CLI + ["--ckpt-dir", os.path.join(ckpt_dir, name),
+                                     "--crash-at", str(TP_CLI_CRASH)])
+            fail("the training CLI did not crash at --crash-at")
+        except RuntimeError as exc:
+            if "injected crash" not in str(exc):
+                raise
+    out["resumed"] = train_cli.main(TP_CLI + ["--ckpt-dir", os.path.join(ckpt_dir,
+                                                                         "resumed")])
+    return out
+
+
+def tp_rank(rank: int, store: str, out: str, dev=None) -> int:
+    """One of 16b's two ranks (``chip_smoke.py --tp-rank R STORE OUT``):
+    gloo on cuda:0, both meshes made; ``generate`` of each TP_B_GENERATE
+    case, the sharded steps of TP_TRAIN and the training CLI; its results
+    written to OUT.R. A failure raises and exits non-zero."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    meshlib.init_distributed("gloo", store_path=store, rank=rank, world_size=2)
+    meshes = {m: meshlib.make_local_mesh(model=m) for m in (2, 1)}
+    res = {"generate": {}, "train": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(ARCH), num_layers=TP_CUT)
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    whole = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompts = tp_prompts(cfg, TP_B_PROMPT, dev)
+    capacity = TP_B_PROMPT + TP_GEN + cfg.h2eal.page_size
+    for layout, model in TP_B_GENERATE:
+        ops.reset_launches()
+        toks, st = generate(cfg, params, prompts, gen=TP_GEN, capacity=capacity,
+                            layout=layout, mesh=meshes[model], device=dev)
+        res["generate"][layout] = dict(
+            mesh=meshes[model].shape, tokens=toks.tolist(), launches=dict(ops.LAUNCHES),
+            param_bytes=st["param_bytes"], whole_bytes=whole, prefill_s=st["prefill_s"],
+            decode_s=st["decode_s"],
+            logits_finite=bool(torch.isfinite(st["last_logits"]).all()))
+    del params
+    _release(dev)
+    res["seconds"]["generate"] = time.perf_counter() - t0
+    for label, arch, layers, b, s, steps in TP_TRAIN:
+        t_cfg = tp_train_config(arch, layers)
+        for model, n in steps.items():
+            t0 = time.perf_counter()
+            res["train"][f"{label}_{model}"] = dict(
+                tp_train_run(t_cfg, meshes[model], b, s, n, dev),
+                mesh=meshes[model].shape)
+            res["seconds"][f"train {label} {model}"] = time.perf_counter() - t0
+            _release(dev)
+    t0 = time.perf_counter()
+    res["cli"] = tp_cli_runs(os.path.join(SMOKE_DIR, "tp_cli"))
+    res["seconds"]["cli"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase16b(dev, card):
+    """16b: the one-rank references (``generate`` at TP_CUT layers, the
+    one-card train steps), then two ranks spawned on cuda:0 over gloo
+    (``tp_rank``), then the CLI's second crashed run resumed on one rank.
+    Returns (serving launch counts by path, training launch counts by
+    path)."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    t16 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(ARCH), num_layers=TP_CUT)
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    prompts = tp_prompts(cfg, TP_B_PROMPT, dev)
+    capacity = TP_B_PROMPT + TP_GEN + cfg.h2eal.page_size
+    want, ws = generate(cfg, params, prompts, gen=TP_GEN, capacity=capacity, device=dev)
+    log(f"16b generate(mesh=None) at {TP_CUT} layers, B={BATCH} S={TP_B_PROMPT}: prefill "
+        f"{ws['prefill_s']:.3f}s, decode {ws['decode_s']:.3f}s")
+    del params  # made again for the near-tie replays: the ranks need the card
+    _release(dev)
+    refs = {}
+    for label, arch, layers, b, s, steps in TP_TRAIN:
+        refs[label] = tp_train_run(tp_train_config(arch, layers), None, b, s,
+                                   max(steps.values()), dev)
+        r = refs[label]
+        log(f"16b one-card train step {label} ({arch}, {layers or 'all'} layers, B={b} "
+            f"S={s}): losses {[m[0] for m in r['metrics']]}, grad norms "
+            f"{[m[1] for m in r['metrics']]}, step s {[round(x, 3) for x in r['step_s']]}, "
+            f"parameter bytes {r['param_bytes']}, AdamW bytes {r['opt_bytes']}, peak "
+            f"{r['peak_gib']:.2f} GiB")
+        _release(dev)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    store, out = os.path.join(SMOKE_DIR, "tp2.store"), os.path.join(SMOKE_DIR, "tp2")
+    shutil.rmtree(os.path.join(SMOKE_DIR, "tp_cli"), ignore_errors=True)
+    for path in [store] + [f"{out}.{r}" for r in range(2)]:
+        if os.path.exists(path):
+            os.remove(path)
+    torch.cuda.synchronize()
+    _release(dev)
+    log(f"16b: card memory before the spawn {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank",
+                               str(r), store, out], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env) for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=TP_TIMEOUT)[0].decode(errors="replace"))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    for r, pr in enumerate(procs):
+        if pr.returncode != 0:
+            fail(f"16b rank {r} exited {pr.returncode}:\n{logs[r][-4000:]}")
+    res = []
+    for r in range(2):
+        with open(f"{out}.{r}") as f:
+            res.append(json.load(f))
+    log(f"16b: two ranks in {time.perf_counter() - t0:.1f}s; rank 0's sections "
+        f"{ {k: round(v, 1) for k, v in res[0]['seconds'].items()} }")
+    params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev, dtype=torch.bfloat16)
+    reqs = tp_requests(prompts, TP_GEN)
+    serving, training = {}, {}
+    for layout, model in TP_B_GENERATE:
+        a, b = (res[r]["generate"][layout] for r in range(2))
+        what = f"16b generate {layout} on {a['mesh']}"
+        if a["tokens"] != b["tokens"] or not (a["logits_finite"] and b["logits_finite"]):
+            fail(f"{what}: the ranks' tokens differ or a logit is not finite")
+        ties = check_ties(cfg, params, reqs, dict(enumerate(a["tokens"])),
+                          dict(enumerate(want.tolist())), {}, capacity, dev,
+                          BF16_LOGIT_BAND, what, relative=True)
+        log(f"{what}: tokens equal across ranks, equal to one rank's "
+            f"{a['tokens'] == want.tolist()} (near-tie divergences {ties}); parameter bytes "
+            f"rank 0 {a['param_bytes']}, rank 1 {b['param_bytes']} of {a['whole_bytes']} "
+            f"whole; prefill {a['prefill_s']:.3f}s, decode {a['decode_s']:.3f}s "
+            f"({TP_GEN / a['decode_s']:.2f} decode steps/s); launches rank 0 {a['launches']}")
+        serving[f"tp2_{layout}"] = a["launches"]
+    del params
+    torch.cuda.empty_cache()
+    for label, arch, layers, b, s, steps in TP_TRAIN:
+        want_m = refs[label]["metrics"]
+        for model in steps:
+            key = f"{label}_{model}"
+            got = [res[r]["train"][key] for r in range(2)]
+            what = f"16b sharded train step {label} on {got[0]['mesh']}"
+            if got[0]["metrics"] != got[1]["metrics"]:
+                fail(f"{what}: the ranks' metrics differ")
+            rel = max(abs(g - w) / abs(w) for gm, wm in zip(got[0]["metrics"], want_m)
+                      for g, w in zip(gm, wm))
+            log(f"{what}: losses {[m[0] for m in got[0]['metrics']]}, grad norms "
+                f"{[m[1] for m in got[0]['metrics']]}, largest relative difference from "
+                f"one card {rel:.3e} (tol {TP_TRAIN_RTOL:g}); step s rank 0 "
+                f"{[round(x, 3) for x in got[0]['step_s']]}; parameter bytes "
+                f"{[g['param_bytes'] for g in got]}, AdamW bytes "
+                f"{[g['opt_bytes'] for g in got]} (one card {refs[label]['param_bytes']}, "
+                f"{refs[label]['opt_bytes']}); peak GiB {[round(g['peak_gib'], 2) for g in got]}")
+            if not rel <= TP_TRAIN_RTOL:
+                fail(f"{what}: loss or grad norm leaves the band of the one-card step")
+            training[f"tp2_train_{key}"] = got[0]["launches"]
+    cli = [res[r]["cli"] for r in range(2)]
+    if cli[0]["full"] != cli[1]["full"] or cli[0]["resumed"] != cli[1]["resumed"]:
+        fail("16b training CLI: the ranks' losses differ")
+    elastic = train_cli.main(TP_CLI + ["--ckpt-dir", os.path.join(SMOKE_DIR, "tp_cli",
+                                                                  "elastic")])
+    rel = abs(elastic - cli[0]["full"]) / abs(cli[0]["full"])
+    log(f"16b training CLI on (2, 1): final loss {cli[0]['full']!r}, crashed after "
+        f"{TP_CLI_CRASH} and resumed {cli[0]['resumed']!r}, crashed and resumed on one card "
+        f"{elastic!r} (relative difference {rel:.3e})")
+    if cli[0]["resumed"] != cli[0]["full"] or not rel <= TP_TRAIN_RTOL:
+        fail("16b training CLI: a resumed run does not repeat the uninterrupted one")
+    training["tp2_train_cli"] = cli[0]["launches"]
+    log(f"phase 16b {time.perf_counter() - t16:.1f}s")
+    return serving, training
 
 
 def card_name_and_limit() -> str:
@@ -5119,6 +5505,9 @@ def main() -> int:
     results["chunk_attention"] += gspmd_verify
     for name, cases in gspmd_family.items():
         results[name] += cases
+    tp_serving, tp_training = phase16b(dev, card)
+    by_path.update(tp_serving)
+    train_paths.update(tp_training)
     serving_paths = list(by_path)
     by_path.update(train_paths)
     # the main paths: sparse lockstep generate, the chunked engine and the
@@ -5202,6 +5591,18 @@ def main() -> int:
     main_paths["gspmd2_gemma3_tiered_coplace"] = engine + ("paged_attention_partial",
                                                            "combine_partials")
     main_paths["gspmd2_h2eal_off_head"] = full_only
+    # phase 16: generate(mesh=...) on one NCCL rank (tp_, the default's
+    # kernels) and on two gloo ranks (tp2_, rank 0's counts: coplace and
+    # coplace_shmap on (1, 2) attend by partials); the sharded step and the
+    # training CLI over the two ranks
+    for layout in TP_LAYOUTS:
+        main_paths[f"tp_{layout}"] = main_paths["generate"]
+    for layout, model in TP_B_GENERATE:
+        main_paths[f"tp2_{layout}"] = main_paths["generate"] + (
+            ("paged_attention_partial", "combine_partials")
+            if model > 1 and layout in ("coplace", "coplace_shmap") else ())
+    for path in tp_training:
+        main_paths[path] = main_paths["train"]
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:
@@ -5266,4 +5667,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--gspmd-rank":  # a phase 15b rank
         sys.exit(gspmd_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-rank":  # a phase 16b rank
+        sys.exit(tp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -558,8 +558,9 @@ def _gather_out(out, place: cachelib.Placement, key: str, field: str, head_dim: 
 def _require_ragged(length):
     if not isinstance(length, torch.Tensor):
         raise NotImplementedError(
-            "the GSPMD layouts serve the engine's ragged steps only; lockstep "
-            "generate on a mesh is not ported (ROADMAP Queue 1 item 9c)")
+            "the GSPMD layouts step (B,) lengths, an int is refused: lockstep "
+            "generate on a mesh (ROADMAP Queue 1 item 9c) makes its state so "
+            "(runtime/serve.make_lockstep_prefill)")
 
 
 def decode_attention_placed(spec: AttnSpec, q, k_new, v_new,

@@ -39,6 +39,13 @@ the caller's device, the reference's default mesh over its one device.
 ``coplace_shmap`` given a mesh (``get_layout(name, shards, mesh)``) is
 served the same way: ``coplace``'s plan and placement with the pages in
 the striped physical order, so that rank r of 'model' holds stripe r.
+
+Lockstep ``generate(mesh=...)`` (the reference's ``jit_serve_steps``)
+serves a batch as the engine's batched state with every row active at
+equal lengths: ``mesh_layout`` places each layout on the mesh, ``default``
+too (``DefaultRanks``: the default's leaf axes, so the batch rows lie over
+'data'), and the whole prefill cache is cut into each rank's block
+(``PlacedLayout.cut``).
 """
 from __future__ import annotations
 
@@ -281,6 +288,21 @@ class _GspmdLayout(DefaultLayout):
         return 1
 
 
+class DefaultRanks(_GspmdLayout):
+    """The default layout placed on the ranks of a mesh, for lockstep
+    ``generate(mesh=...)``: the default's leaf axes, the batch over 'data'
+    where it divides (the reference's ``state_shardings`` under
+    ``layout="default"``; its streaming ring and full caches cut their kv
+    heads over 'model', as every layout's do). The engine serves ``default``
+    unplaced, whatever mesh it is given."""
+
+    name = LAYOUT_DEFAULT
+    shards_pages = False
+
+    def cache_axes(self, kind: str, *, batch_ok: bool) -> Tuple:
+        return DefaultLayout.cache_axes(self, kind, batch_ok=batch_ok)
+
+
 class HeadLayout(_GspmdLayout):
     """Baseline head parallelism (paper Fig 3a): kv heads over 'model', the
     batch over 'data'. No page distribution, so balanced admission is a
@@ -434,6 +456,23 @@ class PlacedLayout(DefaultLayout):
     def reset_slot(self, spec, big: Dict, slot: int) -> None:
         cachelib.reset_block_row(big, slot, self.place(spec))
 
+    def cut(self, spec, whole: Dict) -> Dict:
+        """The rank's block of the whole layer cache ``whole`` of the placed
+        batch (a lockstep prefill's), each field a tensor of its own."""
+        place = self.place(spec)
+        out = {}
+        for key, c in whole.items():
+            fields = {}
+            for f in dataclasses.fields(c):
+                t = getattr(c, f.name)
+                if tuple(t.shape) != place.shapes[(key, f.name)]:
+                    raise ValueError(f"{key}.{f.name} of shape {tuple(t.shape)}; layout "
+                                     f"{self.name!r} was placed for "
+                                     f"{place.shapes[(key, f.name)]}")
+                fields[f.name] = cachelib._tile(t, place.bounds[(key, f.name)]).clone()
+            out[key] = type(c)(**fields)
+        return out
+
     def full_decode(self, spec, cache, q, k_new, v_new, length, active=None):
         return hattn.full_decode_attention_placed(spec, q, k_new, v_new, cache, length,
                                                   active, place=self.place(spec))
@@ -539,7 +578,10 @@ def get_layout(name, shards: int = 1, mesh=None) -> DefaultLayout:
     stripe count of ``coplace_shmap`` (the size of the JAX mesh's 'model'
     axis) and must stay 1 for every other layout. ``coplace_shmap`` given a
     ``mesh`` is served over its ranks (``CoplaceShmapRanks``; ``shards`` 1
-    or the size of 'model'); every other layout ignores ``mesh``."""
+    or the size of 'model'); every other layout ignores ``mesh`` here: the
+    GSPMD layouts take theirs in ``plan`` and ``placed``, and the engine
+    serves ``default`` unplaced. Lockstep ``generate(mesh=...)`` places
+    ``default`` on the mesh through ``mesh_layout``."""
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
     lay = _lookup(name)
@@ -550,6 +592,15 @@ def get_layout(name, shards: int = 1, mesh=None) -> DefaultLayout:
     if shards != 1:
         raise ValueError("shards stripes the pages of the coplace_shmap layout "
                          "only")
+    return lay
+
+
+def mesh_layout(name, shards: int = 1, mesh=None) -> DefaultLayout:
+    """``get_layout``'s layout, but ``default`` given a mesh placed on its
+    ranks (``DefaultRanks``): the layout lockstep ``generate`` runs."""
+    lay = get_layout(name, shards, mesh)
+    if mesh is not None and lay.name == LAYOUT_DEFAULT:
+        return DefaultRanks()
     return lay
 
 

@@ -101,7 +101,10 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.core import layouts as layoutlib
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import model as M
+from repro_torch.core.tree import leaves as tree_leaves
 from repro_torch.runtime import serve as serve_rt
+from repro_torch.runtime import sharding
+from repro_torch.runtime import tensor_parallel as tplib
 from repro_torch.runtime.serve import resolve_device
 from repro_torch.sched import balance, grid_coords, map_slots, solve_tiling
 from repro_torch.serving.engine import STUB_ENGINE_REFUSAL, Engine, Request
@@ -115,11 +118,21 @@ def _sync(dev: torch.device) -> None:
 def generate(cfg, params, prompts, *, gen: int, capacity: int,
              layout: str = "default", shards: int = 1, mesh=None, h2eal: bool = True,
              greedy: bool = True, device=None):
-    """Lockstep generation. prompts: (B, S) int tokens. ``layout``, ``shards``
-    and ``mesh`` as in ``Engine``, a mesh layout refused (the lockstep path
-    on a mesh is ROADMAP Queue 1 item 9c); the cache holds the layout plan's
-    rounding of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats
-    dict).
+    """Lockstep generation. prompts: (B, S) int tokens. ``layout`` and
+    ``shards`` as in ``Engine``; the cache holds the layout plan's rounding
+    of ``capacity``. Returns (tokens (B, gen) int32 tensor, stats dict).
+
+    With ``mesh`` (a ``launch/mesh.Mesh``; every rank calls this with the
+    same whole ``params`` and prompts) it is the reference's tensor-parallel
+    ``generate(mesh=...)``, its ``jit_serve_steps``: each rank keeps its
+    blocks of the parameters by ``param_shardings(mode="serve")`` (TP over
+    'model', the embedding over the vocabulary) and of the serve state by
+    the layout (``default``, ``head``, ``coplace``, ``interleave`` or
+    ``coplace_shmap``, the batch over 'data' where it divides); every rank
+    returns the same tokens. A GSPMD layout without a mesh runs on the
+    one-rank mesh, as the engine's does. The dense family only: MoE, recurrent and
+    local:global stacks on a mesh are refused (ROADMAP Queue 1 item 9d).
+    ``stats["param_bytes"]`` is the rank's parameter bytes.
 
     Every token is the argmax, whatever ``greedy`` says: the flag is
     accepted and ignored, as the JAX package's ``generate`` does. Sampling
@@ -129,11 +142,10 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     del greedy  # lockstep generation is greedy, as in the JAX package
     if cfg.embed_frontend_stub:
         raise ValueError(STUB_ENGINE_REFUSAL)
-    if layoutlib.get_layout(layout, shards, mesh).gspmd:
-        raise NotImplementedError(
-            f"lockstep generate on the mesh layout {layout!r} (the reference's "
-            f"tensor-parallel generate(mesh=...)) is not ported (ROADMAP Queue 1 "
-            f"item 9c); serve it through the engine (--workload ragged)")
+    if mesh is None and layoutlib.get_layout(layout, shards).gspmd:
+        mesh = meshlib.Mesh()  # a GSPMD layout's default: the one-rank mesh
+    if mesh is not None:
+        tplib.check_config(cfg)
     dev = resolve_device(device)
     if params["final_norm"].device.type != dev.type:
         raise ValueError(f"params lie on {params['final_norm'].device}, generate "
@@ -141,14 +153,20 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     if not h2eal:
         cfg = dataclasses.replace(
             cfg, h2eal=dataclasses.replace(cfg.h2eal, enabled=False))
-    plan = layoutlib.get_layout(layout, shards).plan(cfg)
-    scfg = serve_rt.ServeConfig(capacity=plan.round_capacity(capacity),
-                                layout=layout, shards=shards)
-    prefill = serve_rt.make_prefill(cfg, scfg)
-    dec_sel = serve_rt.make_decode_step(cfg, scfg, do_select=True)
-    dec_reuse = serve_rt.make_decode_step(cfg, scfg, do_select=False)
     prompts = torch.as_tensor(prompts, device=dev)
     b = prompts.shape[0]
+    plan = layoutlib.mesh_layout(layout, shards, mesh).plan(cfg, mesh)
+    scfg = serve_rt.ServeConfig(capacity=plan.round_capacity(capacity),
+                                layout=layout, shards=shards, mesh=mesh, max_batch=b)
+    tp = None
+    if mesh is not None:
+        params, specs = sharding.place_params(cfg, mesh, params, "serve")
+        tp = tplib.TensorParallel(mesh, specs)
+        prefill = serve_rt.make_lockstep_prefill(cfg, scfg, tp)
+    else:
+        prefill = serve_rt.make_prefill(cfg, scfg)
+    dec_sel = serve_rt.make_decode_step(cfg, scfg, do_select=True, tp=tp)
+    dec_reuse = serve_rt.make_decode_step(cfg, scfg, do_select=False, tp=tp)
 
     with torch.inference_mode():
         _sync(dev)
@@ -173,6 +191,7 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
         "decode_s": t_decode,
         "tokens_per_s": b * gen / t_decode if t_decode > 0 else float("inf"),
         "last_logits": logits,
+        "param_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
     }
     return torch.stack(outs, dim=1), stats
 

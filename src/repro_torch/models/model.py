@@ -17,6 +17,11 @@ token ids: ``forward``, ``lm_loss`` and ``prefill`` (B, S, d_model),
 embeddings over bf16 weights promote the whole stack, caches included, to
 f32. Chunked prefill and the speculative verify feed token ids through the
 embedding and refuse such an arch, as the reference does.
+
+``forward``, ``lm_loss``, ``prefill`` and ``decode_step`` take ``tp``, a
+``runtime/tensor_parallel.TensorParallel`` of the parameters where they
+are cut over a mesh (lockstep ``generate(mesh=...)``, the sharded train
+step); None is the whole-weight path.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.core import layouts as layoutlib
 from repro_torch.core.paging import chunk_positions
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import rms_norm, rope_cos_sin
+from repro_torch.runtime import tensor_parallel as tplib
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator, device,
@@ -49,19 +55,27 @@ STUB_ENGINE_REFUSAL = (
     "decode_step fed embeddings")
 
 
-def embed_input(cfg: ArchConfig, params, batch):
+def embed_input(cfg: ArchConfig, params, batch, tp=None):
     """batch: (B, S) or (B,) int token ids; for a frontend-stub arch the
-    (B, S, d_model) or (B, d_model) embeddings themselves, passed through."""
+    (B, S, d_model) or (B, d_model) embeddings themselves, passed through.
+    Over a mesh (``tp``) the vocabulary may be cut: each rank looks up the
+    ids it owns and the rows are summed."""
     if cfg.embed_frontend_stub:
         return batch
+    if tp is not None:
+        return tplib.embed(tp, params, batch)
     return params["embed"][batch.long()]
 
 
-def unembed(cfg: ArchConfig, params, x):
+def unembed(cfg: ArchConfig, params, x, tp=None):
     """The final norm and the vocabulary projection, in the promoted dtype of
     x and the weight, as the reference's einsum (head identification's
-    gated mix gives f32 activations over bf16 weights)."""
+    gated mix gives f32 activations over bf16 weights). Over a vocabulary
+    cut (``tp``) each rank computes its block of the logits and the blocks
+    are gathered: every rank holds the whole logits."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if tp is not None:
+        return tplib.logits(tp, params, x, cfg.tie_embeddings)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
@@ -79,7 +93,12 @@ def layer_positions(cfg: ArchConfig):
 
 
 
-def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
+def _layer_tp(tp, i: int):
+    return None if tp is None else tp.at("layers", i)
+
+
+def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False,
+            tp=None):
     """The full-sequence training forward: tokens (B, S) (a frontend stub's
     embeddings (B, S, d_model)) -> logits (B, S, V).
 
@@ -87,9 +106,11 @@ def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
     head identification (``core/gating.py``); None is plain attention.
     With ``remat`` each period of ``period_len(cfg)`` layers is recomputed
     in the backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` of
-    the reference's period); the remainder layers are not, as there."""
+    the reference's period); the remainder layers are not, as there. A
+    period recomputed in the backward repeats its collectives there, in the
+    same order on every rank."""
     T.check_ported(cfg)
-    x = embed_input(cfg, params, batch)
+    x = embed_input(cfg, params, batch, tp)
     rope = _rope(cfg, torch.arange(x.shape[1], device=x.device))
     period = T.period_len(cfg)
     n_per = cfg.num_layers // period
@@ -97,7 +118,8 @@ def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
     def run(x, first: int, count: int):
         for i in range(first, first + count):
             x = T.block_train(cfg, i % period, params["layers"][i], x, rope,
-                              alpha=None if alpha is None else alpha[i])
+                              alpha=None if alpha is None else alpha[i],
+                              tp=_layer_tp(tp, i))
         return x
 
     for per in range(n_per):
@@ -106,37 +128,48 @@ def forward(cfg: ArchConfig, params, batch, *, alpha=None, remat: bool = False):
         else:
             x = run(x, per * period, period)
     x = run(x, n_per * period, cfg.num_layers - n_per * period)
-    return unembed(cfg, params, x)
+    return unembed(cfg, params, x, tp)
 
 
 def lm_loss(cfg: ArchConfig, params, batch, labels, *, alpha=None,
-            remat: bool = True):
+            remat: bool = True, tp=None, count=None):
     """Mean next-token cross-entropy over the labels >= 0 (-100 pads), from
-    the f32 log-softmax of the logits."""
-    logits = forward(cfg, params, batch, alpha=alpha, remat=remat).float()
+    the f32 log-softmax of the logits. ``count`` divides the sum in place of
+    this batch's own count of labels (the sharded step passes the global
+    batch's, so that the ranks' losses sum to its mean).
+
+    Over a vocabulary cut (``tp``) the logits are gathered whole before the
+    log-softmax (``unembed``), not reduced in a distributed log-softmax:
+    each rank receives (M-1)/M of B·S·V f32 logits of its rows (M ranks on
+    'model'), 2.1 GB a rank at llama3-8b's V = 128256 for 2 x 2048 tokens,
+    and its backward sends nothing more (the gather's backward is the
+    rank's slice)."""
+    logits = forward(cfg, params, batch, alpha=alpha, remat=remat, tp=tp).float()
     mask = labels >= 0
     lab = torch.clamp(labels, min=0).long()
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, lab[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return (nll * mask).sum() / (torch.clamp(mask.sum(), min=1) if count is None else count)
 
 
 def prefill(cfg: ArchConfig, params, batch, *, capacity: int, plan=None,
-            layout=layoutlib.DEFAULT):
+            layout=layoutlib.DEFAULT, tp=None):
     """Process the prompt (B, S) (a frontend stub's embeddings (B, S,
     d_model)); returns (last-token logits (B, V), state).
     ``layout`` (a ``core/layouts`` layout) builds the caches in its page
-    order, as it does in every step below."""
+    order, as it does in every step below; the caches are the whole
+    batch's (lockstep ``generate`` on a mesh cuts each rank's block of them,
+    ``runtime/serve.make_prefill``)."""
     T.check_ported(cfg, layout)
     plan = plan if plan is not None else T.default_plan(cfg)
-    x = embed_input(cfg, params, batch)
+    x = embed_input(cfg, params, batch, tp)
     s = x.shape[1]
     rope = _rope(cfg, torch.arange(s, device=x.device))
     caches = []
-    for pos, p, perm in zip(layer_positions(cfg), params["layers"], plan):
+    for i, (pos, p, perm) in enumerate(zip(layer_positions(cfg), params["layers"], plan)):
         x, c = T.block_prefill(cfg, pos, p, perm, x, rope, capacity=capacity,
-                               layout=layout)
+                               layout=layout, tp=_layer_tp(tp, i))
         caches.append(c)
-    return unembed(cfg, params, x[:, -1]), {"length": s, "layers": caches}
+    return unembed(cfg, params, x[:, -1], tp), {"length": s, "layers": caches}
 
 
 def empty_serve_state(cfg: ArchConfig, batch: int, *, capacity: int, dtype,
@@ -244,7 +277,7 @@ def verify_commit(cfg: ArchConfig, state, stash, *, accepted, active, plan=None,
 
 def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
                 do_select: bool = True, layout=layoutlib.DEFAULT, active=None,
-                need_select=None):
+                need_select=None, tp=None):
     """One decode step. token: (B,) int (a frontend stub's embeddings (B,
     d_model)). Returns (logits (B, V), state advanced by one token).
 
@@ -256,7 +289,7 @@ def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
     """
     plan = plan if plan is not None else T.default_plan(cfg)
     length = state["length"]
-    x = embed_input(cfg, params, token)
+    x = embed_input(cfg, params, token, tp)
     if isinstance(length, torch.Tensor):
         cos, sin = _rope(cfg, length)                # (B, half), on the card
     else:
@@ -265,13 +298,14 @@ def decode_step(cfg: ArchConfig, params, state, token, *, plan=None,
         cos, sin = _rope(cfg, torch.arange(length, length + 1, device=x.device))
     rope1 = (cos[:, None], sin[:, None])  # (1 or B, 1, half)
     caches = []
-    for pos, p, perm, c in zip(layer_positions(cfg), params["layers"], plan,
-                               state["layers"]):
+    for i, (pos, p, perm, c) in enumerate(zip(layer_positions(cfg), params["layers"],
+                                              plan, state["layers"])):
         x, c = T.block_decode(cfg, pos, p, perm, x, rope1, c, length=length,
                               do_select=do_select, layout=layout,
-                              active=active, need_select=need_select)
+                              active=active, need_select=need_select,
+                              tp=_layer_tp(tp, i))
         caches.append(c)
     new_len = length + 1
     if active is not None:
         new_len = torch.where(active, new_len, length).to(length.dtype)
-    return unembed(cfg, params, x), {"length": new_len, "layers": caches}
+    return unembed(cfg, params, x, tp), {"length": new_len, "layers": caches}

@@ -30,6 +30,12 @@ a GSPMD layout placed on a rank (``core/layouts.PlacedLayout``) holds the
 rank's block of every layer's cache, ``layer_spec`` naming each layer's
 kind: H²EAL pages and ring, a full cache cut over rows and kv heads, a
 recurrent state cut over rows, stepped on the rank's rows (``rows``).
+
+The training forward, the lockstep prefill and the decode step take
+``tp``, a ``runtime/tensor_parallel.TensorParallel`` of the block's
+parameters where they are cut over a mesh (None: whole weights, the path
+as it always was): q, k and v column-cut and gathered, the attention on
+whole heads, ``wo`` row-cut; the FFN Megatron's column / row pair.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
+from repro_torch.runtime import tensor_parallel as tplib
 
 
 def period_len(cfg: ArchConfig) -> int:
@@ -154,28 +161,43 @@ def default_plan(cfg: ArchConfig):
     return [None] * cfg.num_layers
 
 
-def _ffn_apply(cfg: ArchConfig, pos: int, p, x):
+def _ffn_apply(cfg: ArchConfig, pos: int, p, x, tp=None):
     """The FFN half of a block over every row of x, idle and padded rows
     too: an MoE layer's capacity counts them, as the reference's does. A
-    layer without an FFN (mamba2 at zamba2, every xLSTM layer) passes x on."""
+    layer without an FFN (mamba2 at zamba2, every xLSTM layer) passes x on.
+    ``tp``: the block's ``TensorParallel`` (None: whole weights)."""
     if not cfg.layer_has_ffn(pos):
         return x
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         return x + moelib.moe_ffn(cfg, p["moe"], h)
     f = p["ffn"]
+    if tp is not None:
+        return x + tplib.swiglu(tp.at("ffn"), h, f)
     return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 
 
-def _qkv(cfg: ArchConfig, p, h):
+def _qkv(cfg: ArchConfig, p, h, tp=None):
+    """q, k, v (..., heads, head_dim); over a mesh (``tp``) their columns
+    are cut and gathered whole, wherever the cut falls in a head."""
     hd = cfg.resolved_head_dim
-    q = dense(h, p["wq"], p.get("bq"))
-    k = dense(h, p["wk"], p.get("bk"))
-    v = dense(h, p["wv"], p.get("bv"))
+    if tp is None:
+        q = dense(h, p["wq"], p.get("bq"))
+        k = dense(h, p["wk"], p.get("bk"))
+        v = dense(h, p["wv"], p.get("bv"))
+    else:
+        (q, k, v), _ = tplib.columns(tp, h, p, ("wq", "wk", "wv"), ("bq", "bk", "bv"),
+                                     gather=True)
     lead = h.shape[:-1]
     return (q.reshape(*lead, cfg.num_heads, hd),
             k.reshape(*lead, cfg.num_kv_heads, hd),
             v.reshape(*lead, cfg.num_kv_heads, hd))
+
+
+def _out(p, o, tp=None):
+    """The attention output's ``wo`` product, row-cut over a mesh: the rank's
+    feature block of the whole-head output, summed over 'model'."""
+    return dense(o, p["wo"]) if tp is None else tplib.row(tp, o, p, "wo")
 
 
 def _mamba2_prefill_with_state(cfg: ArchConfig, p, h):
@@ -261,7 +283,7 @@ def _recurrent_step(cfg: ArchConfig, pos: int, p, h, cache, keep, chunk=None,
     return layout.rows(layer_spec(cfg, pos), run, h, keep, clen, act)
 
 
-def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None):
+def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None, tp=None):
     """The training forward of one block, differentiable. x: (B, S, d).
     Attention is full causal, or the layer's window (a ``local_global``
     window layer); with ``alpha`` ((Hkv,), head identification) the α-gated
@@ -272,7 +294,7 @@ def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None):
     if mixer != MIXER_ATTENTION:
         r = _RECURRENT[mixer]
         return _ffn_apply(cfg, pos, p, x + r.forward(cfg, p[r.pkey], h))
-    q, k, v = _qkv(cfg, p, h)
+    q, k, v = _qkv(cfg, p, h, tp)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -282,19 +304,20 @@ def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None):
     else:
         o = kops.flash_attention(q, k, v, causal=True, window=attn_spec(cfg, pos).window)
     b, s = o.shape[:2]
-    return _ffn_apply(cfg, pos, p, x + dense(o.reshape(b, s, -1), p["wo"]))
+    return _ffn_apply(cfg, pos, p, x + _out(p, o.reshape(b, s, -1), tp), tp)
 
 
 def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
-                  layout=layoutlib.DEFAULT):
-    """One block over the prompt. x: (B, S, d) -> (x, the layer's cache)."""
+                  layout=layoutlib.DEFAULT, tp=None):
+    """One block over the prompt. x: (B, S, d) -> (x, the layer's cache): the
+    whole batch's cache (a GSPMD layout cuts its block afterwards)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
         y, cache = _recurrent_prefill(cfg, mixer, p, h)
         return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
-    q, k, v = _qkv(cfg, p, h)
+    q, k, v = _qkv(cfg, p, h, tp)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -309,8 +332,8 @@ def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
         full.k[:, :, :s] = k.transpose(1, 2)
         full.v[:, :, :s] = v.transpose(1, 2)
         cache = {"full": full}
-    x = x + dense(o.reshape(b, s, -1), p["wo"])
-    return _ffn_apply(cfg, pos, p, x), cache
+    x = x + _out(p, o.reshape(b, s, -1), tp)
+    return _ffn_apply(cfg, pos, p, x, tp), cache
 
 
 def empty_block_cache(cfg: ArchConfig, pos: int, batch: int, capacity: int, *,
@@ -362,13 +385,13 @@ def block_prefill_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *,
         o, full = layout.full_chunk(spec, cache["full"], q, k, v, start, chunk_len,
                                     active)
         cache = {"full": full}
-    x = x + dense(o.reshape(b, cch, -1), p["wo"])
+    x = x + _out(p, o.reshape(b, cch, -1))
     return _ffn_apply(cfg, pos, p, x), cache
 
 
 def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
                  do_select: bool, layout=layoutlib.DEFAULT, active=None,
-                 need_select=None):
+                 need_select=None, tp=None):
     """Decode one token through one block. x: (B, d). ``length`` is an int
     (lockstep) or (B,) tensor (continuous batching, with the per-slot
     ``active`` and ``need_select`` masks of ``decode_attention``). A
@@ -380,7 +403,7 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
         y = _recurrent_step(cfg, pos, p, h, cache, active, layout=layout)
         return _ffn_apply(cfg, pos, p, x + y), cache
     spec = attn_spec(cfg, pos)
-    q, k, v = _qkv(cfg, p, h)
+    q, k, v = _qkv(cfg, p, h, tp)
     cos1, sin1 = rope1  # (1 or B, 1, half) at each slot's position
     q = apply_rope(q[:, None], cos1, sin1)[:, 0]
     k = apply_rope(k[:, None], cos1, sin1)[:, 0]
@@ -391,8 +414,8 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
         o, cache = layout.decode(spec, cache, q, k, v, length,
                                  do_select=do_select, perm=perm, active=active,
                                  need_select=need_select)
-    x = x + dense(o.reshape(o.shape[0], -1), p["wo"])
-    return _ffn_apply(cfg, pos, p, x), cache
+    x = x + _out(p, o.reshape(o.shape[0], -1), tp)
+    return _ffn_apply(cfg, pos, p, x, tp), cache
 
 
 def block_verify_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *, start,
@@ -415,7 +438,7 @@ def block_verify_chunk(cfg: ArchConfig, pos: int, p, perm, x, rope, cache, *, st
     o, cache = layoutlib.dispatch_verify_chunk(
         layout, spec, cache, q, k, v, start, active=active,
         need_select=need_select, perm=perm)
-    x = x + dense(o.reshape(b, kch, -1), p["wo"])
+    x = x + _out(p, o.reshape(b, kch, -1))
     return _ffn_apply(cfg, pos, p, x), cache, (k, v)
 
 

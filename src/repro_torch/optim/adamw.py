@@ -3,7 +3,12 @@ port's parameter trees (counterpart of ``repro/optim/adamw.py``).
 
 μ and ν are f32 whatever a leaf's dtype; the update is computed in f32
 and cast back to the leaf's dtype. Functions return new trees and leave
-their inputs as they were, as the reference's do."""
+their inputs as they were, as the reference's do.
+
+On a mesh (the sharded train step) every tree holds the rank's blocks,
+placed by ``specs``: the update is elementwise, so it runs on the blocks
+as they are, and only the clip's global norm, the norm of the logical
+(whole) gradient, sums across ranks (``global_norm``)."""
 from __future__ import annotations
 
 import math
@@ -31,20 +36,39 @@ def init_state(params):
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The norm of the whole tree. With ``mesh`` and ``specs`` (a tree of
+    blocks placed by ``specs``): each block's sum of squares, summed over the
+    axes that cut its leaf, so a leaf whole on a rank counts once; the
+    leaves cut alike are summed first, then those sums in a fixed order of
+    their axes, the same value on every rank."""
+    if mesh is None:
+        return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime.sharding import _cut_axes, spec_leaves
+
+    groups: dict = {}
+    for x, s in zip(leaves(tree), spec_leaves(tree, specs)):
+        groups.setdefault(_cut_axes(s, mesh), []).append(x.float().square().sum())
+    total = 0
+    for axes in sorted(groups):
+        part = sum(groups[axes])
+        total = total + coll.sum_tiles(part, mesh, axes)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, mesh=None, specs=None):
+    norm = global_norm(grads, mesh, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
-def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, mesh=None,
+                  specs=None):
     """Returns (new_params, new_state, grad_norm). ``lr_scale`` is a float
-    or a 0-d f32 tensor (``cosine_schedule``)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    or a 0-d f32 tensor (``cosine_schedule``). With ``mesh`` the trees are
+    the rank's blocks placed by ``specs`` (``global_norm``)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, specs)
     count = state["count"] + 1
     c = count.float()
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=c.device), c)

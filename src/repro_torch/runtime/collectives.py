@@ -24,6 +24,28 @@ Beside the gather, two collectives serve what a rank holds only a part of:
   * ``owner_select``: every rank's block stacked and the one of the rank
     ``owner`` (a card tensor, so that a captured step reads no host value)
     taken: a slot's row moved between ranks by a migration.
+
+Tensor parallelism and FSDP (``runtime/tensor_parallel.py``) need
+collectives that autograd differentiates, each a ``torch.autograd.Function``
+(Megatron-LM's pairs):
+
+  * ``copy_to``: identity forward, the gradient summed over the axis
+    backward (the input of a product whose weight is cut over 'model');
+  * ``reduce_from``: the sum over the axis forward, identity backward (the
+    partial outputs of a product whose input dim is cut);
+  * ``gather_cols``: the blocks gathered on a dim forward, the rank's block
+    of the gradient backward (the gradient arrives whole and the same on
+    every rank);
+  * ``split``: the rank's block of a dim forward, the gradient's blocks
+    gathered backward (the inverse pair);
+  * ``fsdp_gather``: a weight stored cut over 'data' gathered forward; the
+    gradient summed over 'data' backward, then the rank's block (each
+    'data' rank's gradient is its own rows' part).
+
+Gloo has no reduce-scatter, so every sum is an ``all_reduce`` (then a
+slice where a block is due), one path on both backends. Nothing is sent on
+an axis of one rank: each returns its input there, so a one-rank mesh
+computes what no mesh does, bit for bit.
 """
 from __future__ import annotations
 
@@ -86,3 +108,98 @@ def warm_up(mesh, device) -> None:
                             group=mesh.group(axis))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The rank's contiguous block of ``x`` along ``dim`` over ``axis``."""
+    n = mesh.shape[axis]
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.coord(axis) * size, size)
+
+
+def _sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, f32 on the wire."""
+    wire = x.to(WIRE).contiguous()
+    dist.all_reduce(wire, group=mesh.group(axis))
+    return wire.to(x.dtype)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _block(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather(w, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _sum(g, ctx.mesh, ctx.axis)
+        return _block(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """``x``, its gradient summed over ``axis``."""
+    return x if mesh.shape[axis] == 1 else _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, its gradient passed through."""
+    return x if mesh.shape[axis] == 1 else _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_cols(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The blocks ``x`` gathered on ``dim``; backward, the rank's block."""
+    return x if mesh.shape[axis] == 1 else _GatherCols.apply(x, mesh, axis, dim)
+
+
+def split(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The rank's block of ``x`` on ``dim``; backward, the blocks gathered."""
+    return x if mesh.shape[axis] == 1 else _Split.apply(x, mesh, axis, dim)
+
+
+def fsdp_gather(w: torch.Tensor, mesh, dim: int, axis: str = "data") -> torch.Tensor:
+    """A weight's blocks gathered on ``dim``; backward, the gradient summed
+    over ``axis`` and the rank's block of it."""
+    return w if mesh.shape[axis] == 1 else _FsdpGather.apply(w, mesh, axis, dim)

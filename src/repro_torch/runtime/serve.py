@@ -6,6 +6,11 @@ scoring and top-k) and the cheaper reuse variant in between. The
 continuous-batching engine uses the ragged decode steps, the per-slot
 sampler, the chunked-prefill step, the fused decode window and the
 speculative verify step.
+
+Lockstep generation on a mesh (the reference's ``jit_serve_steps``) runs
+``make_lockstep_prefill`` and ``make_decode_step`` on the rank's parameter
+blocks (``tp``, cut by ``param_shardings(mode="serve")``) and the rank's
+blocks of the serve state, placed by the layout for the whole batch.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import layouts as layoutlib
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.serving import sampling
 
 
@@ -41,9 +47,11 @@ class ServeConfig:
 
 
 def serve_layout(scfg: ServeConfig):
-    """The layout of ``scfg``; a GSPMD layout (or coplace_shmap given a mesh)
-    placed on this rank of its mesh for ``max_batch`` slots."""
-    lay = layoutlib.get_layout(scfg.layout, scfg.shards, scfg.mesh)
+    """The layout of ``scfg``; a GSPMD layout (or coplace_shmap, or default,
+    given a mesh: ``layouts.mesh_layout``) placed on this rank of its mesh
+    for ``max_batch`` slots. The engine gives a mesh to the GSPMD layouts
+    only."""
+    lay = layoutlib.mesh_layout(scfg.layout, scfg.shards, scfg.mesh)
     if lay.gspmd:
         if scfg.mesh is None or scfg.max_batch < 1:
             raise ValueError(f"layout {lay.name!r} serves the engine's batched state: "
@@ -64,12 +72,39 @@ def make_prefill(cfg: ArchConfig, scfg: ServeConfig):
     return prefill
 
 
-def make_decode_step(cfg: ArchConfig, scfg: ServeConfig, *, do_select: bool):
+def make_lockstep_prefill(cfg: ArchConfig, scfg: ServeConfig, tp):
+    """prefill(params, batch) of lockstep generation on ``scfg.mesh`` for a
+    batch of ``scfg.max_batch``: the whole batch's prefill on the rank's
+    parameter blocks (``tp``), then each layer's cache cut into the rank's
+    block (``PlacedLayout.cut``, as the engine's packed prefill packs the
+    rank's block of a row) and the length made (B,): the engine's batched
+    state with every row active at one length, which ``make_decode_step``
+    steps."""
+    layout = serve_layout(scfg)
+    if not layout.gspmd:
+        raise ValueError("make_lockstep_prefill places the state on a mesh: give the "
+                         "ServeConfig its mesh")
+
+    def prefill(params, batch):
+        logits, state = M.prefill(cfg, params, batch, capacity=scfg.capacity,
+                                  layout=layout, tp=tp)
+        layers = [layout.cut(T.layer_spec(cfg, pos), c)
+                  for pos, c in zip(M.layer_positions(cfg), state["layers"])]
+        length = torch.full((batch.shape[0],), state["length"], dtype=torch.int32,
+                            device=logits.device)
+        return logits, {"length": length, "layers": layers}
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig, scfg: ServeConfig, *, do_select: bool, tp=None):
+    """decode(params, state, token) of lockstep generation; on a mesh the
+    rank's parameter blocks (``tp``) and state blocks
+    (``make_lockstep_prefill``)."""
     layout = serve_layout(scfg)
 
     def decode(params, state, token):
         return M.decode_step(cfg, params, state, token, do_select=do_select,
-                             layout=layout)
+                             layout=layout, tp=tp)
     return decode
 
 

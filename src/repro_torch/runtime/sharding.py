@@ -31,7 +31,10 @@ stays the reference's copy.
 
 ``local_block`` cuts a full leaf into this rank's tile, contiguous tiles
 in axis order as a ``NamedSharding`` tiles; ``block_bounds`` gives the
-tile's (start, stop) per dimension.
+tile's (start, stop) per dimension. ``place_params`` applies
+``param_shardings`` to a parameter tree (each rank keeps its blocks, as
+the reference's ``jit_serve_steps`` / ``jit_train_step`` place theirs), and
+``gather_tree`` puts the whole leaves back together (checkpoints, tests).
 """
 from __future__ import annotations
 
@@ -72,7 +75,8 @@ def _spec_for_param(path: str, shape, mesh, stacked: bool, mode: str = "train",
     """Placement of a parameter leaf. train/opt: weights 2D, FSDP 'data' x
     TP 'model'; serve: TP-only over 'model', MoE experts 2D (E over 'data',
     d over 'model'). The port's engine keeps its parameters replicated, as
-    the reference's does; these are the reference's rules as data."""
+    the reference's does; lockstep ``generate(mesh=...)`` and the sharded
+    train step cut them by these rules (``place_params``)."""
     inner = shape[1:] if stacked else shape
     fsdp = "data" if (mode in ("train", "opt") and fsdp_on) else None
 
@@ -286,3 +290,41 @@ def local_tree(tree, specs, mesh):
     """``local_block`` over a tree of tensors and the matching tree of
     placements."""
     return treelib.tree_map(lambda x, s: local_block(x, s, mesh), tree, specs)
+
+
+def place_params(cfg, mesh, params, mode: str):
+    """(the rank's blocks of ``params``, the spec tree): each leaf cut by
+    ``param_shardings(cfg, mesh, params, mode)``, its block a tensor of its
+    own (the whole leaves can be freed)."""
+    specs = param_shardings(cfg, mesh, params, mode)
+    blocks = treelib.tree_map(lambda x, s: local_block(x, s, mesh).contiguous().clone()
+                              if _cut_axes(s, mesh) else x, params, specs)
+    return blocks, specs
+
+
+def spec_leaves(tree, specs) -> list:
+    """The placements of ``leaves(tree)``, in that order (a placement is a
+    tuple, which the tree functions would walk into)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in spec_leaves(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for t, sp in zip(tree, specs) for s in spec_leaves(t, sp)]
+    return [specs]
+
+
+def _cut_axes(spec: tuple, mesh) -> tuple:
+    """The axes of more than one rank that cut a leaf placed by ``spec``."""
+    return tuple(a for entry in spec for a in _axes(entry) if mesh.shape[a] > 1)
+
+
+def gather_tree(tree, specs, mesh):
+    """The whole leaves of a tree of blocks placed by ``specs``, on every
+    rank; a leaf that nothing cuts is returned as it is."""
+    from repro_torch.runtime import collectives as coll
+
+    def whole(x, spec):
+        for dim, entry in enumerate(spec):
+            for a in reversed(_axes(entry)):
+                x = coll.gather(x, mesh, a, dim)
+        return x
+    return treelib.tree_map(whole, tree, specs)

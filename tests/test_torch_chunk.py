@@ -173,6 +173,16 @@ def test_chunk_attention_paged_casts_the_chunk_to_the_cache_dtype():
 # ---------------------------------------------------------------------------
 
 
+# the JAX appends, jitted: one compile a shape of the whole function, where
+# eager dispatch compiles each of its operations a shape
+j_paged_append = jax.jit(jcache.paged_cache_append)
+j_stream_append = jax.jit(jcache.stream_cache_append, static_argnames=("sink",))
+j_full_append = jax.jit(jcache.full_cache_append)
+j_paged_append_chunk = jax.jit(jcache.paged_cache_append_chunk)
+j_stream_append_chunk = jax.jit(jcache.stream_cache_append_chunk, static_argnames=("sink",))
+j_full_append_chunk = jax.jit(jcache.full_cache_append_chunk)
+
+
 def test_ragged_single_token_appends_match_jax():
     rng = np.random.default_rng(11)
     b, h, d, sink, cap = 3, 2, 16, 2, 24
@@ -180,8 +190,8 @@ def test_ragged_single_token_appends_match_jax():
     active = np.asarray([True, False, True])
     jp, tp = _paged_pair(rng, b, h, 7, 8, d, length)
     kn, vn = _np(rng, b, h, d), _np(rng, b, h, d)
-    jp = jcache.paged_cache_append(jp, jnp.asarray(kn), jnp.asarray(vn),
-                                   jnp.asarray(length), active=jnp.asarray(active))
+    jp = j_paged_append(jp, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(length),
+                        active=jnp.asarray(active))
     tp = tcache.paged_cache_append(tp, _t(kn), _t(vn), _t(length), _t(active))
     _same_paged(tp, jp)
 
@@ -192,18 +202,16 @@ def test_ragged_single_token_appends_match_jax():
                                           length=40)
     for step in range(3):
         ln = np.asarray([40 + step, 41 + 2 * step, 40], np.int32)
-        js = jcache.stream_cache_append(js, jnp.asarray(kn), jnp.asarray(vn),
-                                        jnp.asarray(ln), sink=sink,
-                                        active=jnp.asarray(active))
+        js = j_stream_append(js, jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(ln),
+                             sink=sink, active=jnp.asarray(active))
         ts = tcache.stream_cache_append(ts, _t(kn), _t(vn), _t(ln), sink=sink,
                                         active=_t(active))
     _same_stream(ts, js)
 
     full = _np(rng, b, h, 12, d)
-    jf = jcache.full_cache_append(jcache.FullCache(jnp.asarray(full), jnp.asarray(full)),
-                                  jnp.asarray(kn), jnp.asarray(vn),
-                                  jnp.asarray([3, 11, 0], np.int32),
-                                  active=jnp.asarray(active))
+    jf = j_full_append(jcache.FullCache(jnp.asarray(full), jnp.asarray(full)),
+                       jnp.asarray(kn), jnp.asarray(vn), jnp.asarray([3, 11, 0], np.int32),
+                       active=jnp.asarray(active))
     tf = tcache.full_cache_append(tcache.FullCache(_t(full), _t(full)), _t(kn), _t(vn),
                                   _t(np.asarray([3, 11, 0], np.int32)), _t(active))
     _close(tf.k, jf.k)
@@ -229,15 +237,15 @@ def test_chunk_appends_match_jax(chunk):
         kn, vn = _np(rng, b, chunk, h, d), _np(rng, b, chunk, h, d)
         ja = (jnp.asarray(start), jnp.asarray(clen))
         ta = (_t(start), _t(clen))
-        jp = jcache.paged_cache_append_chunk(jp, jnp.asarray(kn), jnp.asarray(vn), *ja,
-                                             active=jnp.asarray(active))
+        jp = j_paged_append_chunk(jp, jnp.asarray(kn), jnp.asarray(vn), *ja,
+                                  active=jnp.asarray(active))
         tp = tcache.paged_cache_append_chunk(tp, _t(kn), _t(vn), *ta, active=_t(active))
-        js = jcache.stream_cache_append_chunk(js, jnp.asarray(kn), jnp.asarray(vn), *ja,
-                                              sink=sink, active=jnp.asarray(active))
+        js = j_stream_append_chunk(js, jnp.asarray(kn), jnp.asarray(vn), *ja, sink=sink,
+                                   active=jnp.asarray(active))
         ts = tcache.stream_cache_append_chunk(ts, _t(kn), _t(vn), *ta, sink=sink,
                                               active=_t(active))
-        jf = jcache.full_cache_append_chunk(jf, jnp.asarray(kn), jnp.asarray(vn), *ja,
-                                            active=jnp.asarray(active))
+        jf = j_full_append_chunk(jf, jnp.asarray(kn), jnp.asarray(vn), *ja,
+                                 active=jnp.asarray(active))
         tf = tcache.full_cache_append_chunk(tf, _t(kn), _t(vn), *ta, _t(active))
         start = np.where(active, start + clen, start).astype(np.int32)
     _same_paged(tp, jp)

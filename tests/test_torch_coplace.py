@@ -535,6 +535,12 @@ def _jax_owner_append(jp, kn, vn, length, nsh, active=None):
                              page_start=new[4], sel_idx=jp.sel_idx)
 
 
+# jitted for the (B,) lengths: one compile of the loop over the shards,
+# where eager dispatch compiles each operation (the lockstep int length
+# stays eager: a static one would compile a step)
+_jax_owner_append_ragged = jax.jit(_jax_owner_append, static_argnums=(4,))
+
+
 @pytest.mark.parametrize("ragged", [False, True])
 def test_owner_stripe_append_matches_jax(ragged):
     """The port writes each token at its page's striped slot of one tensor;
@@ -553,8 +559,8 @@ def test_owner_stripe_append_matches_jax(ragged):
     for step in range(12):
         kn, vn = _np(rng, 3, 2, 16), _np(rng, 3, 2, 16)
         if ragged:
-            jp = _jax_owner_append(jp, kn, vn, jnp.asarray(lengths), nsh,
-                                   jnp.asarray(active))
+            jp = _jax_owner_append_ragged(jp, kn, vn, jnp.asarray(lengths), nsh,
+                                          jnp.asarray(active))
             tp = tcache.paged_cache_append(tp, _t(kn), _t(vn), _t(lengths), _t(active),
                                            phys_shards=nsh)
             lengths = np.where(active, lengths + 1, lengths).astype(np.int32)

@@ -43,6 +43,13 @@ from repro_torch.kernels import ops, ref as tref
 import _torch_threads  # noqa: F401,E402  (one torch thread a process)
 
 TOL = 2e-5
+# the JAX references, jitted: one compile a shape of the whole function,
+# where eager dispatch compiles each of its operations a shape
+j_paged = jax.jit(jref.paged_attention_ref)
+j_flash = jax.jit(jref.flash_attention_ref, static_argnames=("causal", "window", "sink",
+                                                             "q_offset"))
+j_chunk = jax.jit(jref.chunk_attention_ref)
+j_chunk_paged = jax.jit(jref.chunk_attention_paged_ref)
 SPLIT_BLOCKS = 132  # one block on each of the H100's SMs
 UNIT = 32           # paged_attention's unit of keys
 NW = 4              # its consumer warps
@@ -158,8 +165,7 @@ def test_split_and_merge_equals_paged_attention(case):
     want = tref.paged_attention_ref(tq, tk, tv, tvl)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
     assert got[-1, -group:].abs().max().item() == 0.0
-    jwant = jref.paged_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                     jnp.asarray(valid))
+    jwant = j_paged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
 
 
@@ -279,8 +285,7 @@ def test_flash_bf16_numerics_within_the_derived_tolerance(case, seed):
     got = flash_emulated(q, k, v, **kw)
     assert flash_excess(got, q, k, v, **kw) <= 0.0
     # the emulation is the JAX reference's attention up to that rounding
-    jwant = jref.flash_attention_ref(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
-                                     **kw)
+    jwant = j_flash(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)), **kw)
     want = tref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
     np.testing.assert_allclose(want.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
 
@@ -421,8 +426,7 @@ def test_chunk_bf16_numerics_within_the_derived_tolerance(case):
     want = tref.chunk_attention_ref(q.float(), k.float(), v.float(), tvalid)
     p_term = tref.chunk_attention_ref(q.float(), k.float(), v.float().abs(), tvalid)
     assert p_excess(got, want, p_term) <= 0.0
-    jwant = jref.chunk_attention_ref(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
-                                     jnp.asarray(valid))
+    jwant = j_chunk(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), jnp.asarray(valid))
     np.testing.assert_allclose(want.numpy(), np.asarray(jwant), atol=TOL, rtol=0)
 
 
@@ -449,7 +453,7 @@ def test_chunk_paged_bf16_numerics_within_the_derived_tolerance(g, cq, written, 
     want = tref.chunk_attention_paged_ref(*f(q, kp, vp), tps, tst, *f(kn, vn))
     p_term = tref.chunk_attention_paged_ref(*f(q, kp, vp.abs()), tps, tst, *f(kn, vn.abs()))
     assert p_excess(got, want, p_term) <= 0.0
-    jwant = jref.chunk_attention_paged_ref(
+    jwant = j_chunk_paged(
         *(jnp.asarray(x.float().numpy()) for x in (q, kp, vp)), jnp.asarray(ps),
         jnp.asarray([start], jnp.int32), *(jnp.asarray(x.float().numpy()) for x in (kn, vn)))
     np.testing.assert_allclose(want.numpy(), np.asarray(jwant), atol=TOL, rtol=0)

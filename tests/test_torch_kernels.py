@@ -50,13 +50,20 @@ FLASH_CASES = [
 ]
 
 
+# the JAX references, jitted: one compile a shape of the whole function,
+# where eager dispatch compiles each of its operations a shape
+j_flash = jax.jit(jref.flash_attention_ref, static_argnames=("causal", "window", "sink",
+                                                             "q_offset"))
+j_paged = jax.jit(jref.paged_attention_ref)
+
+
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_plain_matches_jax(case):
     b, sq, sk, hq, hkv, d, causal, window, sink, off = case
     rng = np.random.default_rng(sum(case[:6]))
     q, k, v = _np(rng, b, sq, hq, d), _np(rng, b, sk, hkv, d), _np(rng, b, sk, hkv, d)
     kw = dict(causal=causal, window=window, sink=sink, q_offset=off)
-    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
     got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), **kw)
     assert got.shape == (b, sq, hq, d) and got.dtype == torch.float32
@@ -71,7 +78,7 @@ def test_paged_attention_plain_matches_jax(group):
     k, v = _np(rng, b, hkv, t, d), _np(rng, b, hkv, t, d)
     valid = rng.random((b, hkv, t)) < 0.6
     valid[1, 0] = False  # an all-invalid row gives 0
-    want = jref.paged_attention_ref(*(jnp.asarray(x) for x in (q, k, v, valid)))
+    want = j_paged(*(jnp.asarray(x) for x in (q, k, v, valid)))
     got = ops.paged_attention(*(torch.from_numpy(x) for x in (q, k, v, valid)))
     _close(got, want)
     assert float(got[1, :group].abs().max()) == 0.0

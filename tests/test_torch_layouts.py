@@ -912,16 +912,18 @@ def test_gspmd_refuses_other_families(arch):
 
 def test_gspmd_capture_lockstep_and_cli_refusals(archs, one_rank):
     """A gloo mesh refuses CUDA-graph capture unless eager; lockstep
-    ``generate`` on a GSPMD layout raises citing item 9c; the CLI refuses
-    balanced admission for ``head``, which shards no pages, and a
-    ``--mesh-model`` without a GSPMD layout."""
+    ``generate`` on a GSPMD layout without a mesh runs on the one-rank mesh
+    (item 9c, ``tests/test_torch_tensor_parallel.py``), its tokens the
+    default's; the CLI refuses balanced admission for ``head``, which
+    shards no pages, and a ``--mesh-model`` without a GSPMD layout."""
     with pytest.raises(ValueError, match="eager=True"):
         graphs.StepGraphs("cuda", mesh=one_rank)
     assert not graphs.StepGraphs("cuda", eager=True, mesh=one_rank).capture
     m = archs[SMOLLM]
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        tlaunch.generate(m.tcfg, m.tparams, torch.zeros((1, 8), dtype=torch.long),
-                         gen=2, capacity=32, layout="coplace", device="cpu")
+    got, want = (tlaunch.generate(m.tcfg, m.tparams, torch.zeros((1, 8), dtype=torch.long),
+                                  gen=2, capacity=32, layout=layout, device="cpu")[0]
+                 for layout in ("coplace", "default"))
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="shard pages"):
         tlaunch.run_ragged(m.tcfg, m.tparams, [], max_batch=2, layout="head",
                            admission="balanced", device="cpu", **ENGINE)
@@ -932,9 +934,11 @@ def test_gspmd_capture_lockstep_and_cli_refusals(archs, one_rank):
 def test_coplace_shmap_mesh_refusals_and_cli(archs, one_rank, capsys):
     """``coplace_shmap`` on a mesh: ``shards`` other than 1 or the size of
     'model' raises naming both; a frontend-stub arch raises the default's
-    refusal of its requests; lockstep ``generate`` on a mesh raises citing
-    item 9c; without a mesh the layout stays on one card. The CLI takes
-    ``--mesh-model`` for it (without torchrun, the one-rank mesh)."""
+    refusal of its requests; lockstep ``generate`` on a mesh (item 9c) runs,
+    on the one-rank mesh equal to the one-card layout (tokens, and logits
+    within 2e-5: the one-card layout merges split-KV partials); without a mesh the
+    layout stays on one card. The CLI takes ``--mesh-model`` for it
+    (without torchrun, the one-rank mesh)."""
     two = tmesh.Mesh(sizes=(1, 2), coords=(0, 1))
     for shards in (3, 4):
         with pytest.raises(ValueError, match=f"1 or 2, got {shards}"):
@@ -951,9 +955,13 @@ def test_coplace_shmap_mesh_refusals_and_cli(archs, one_rank, capsys):
         Engine(cfg, {"final_norm": torch.zeros(cfg.d_model)}, max_batch=2, layout=SHMAP,
                mesh=one_rank, device="cpu", **ENGINE)
     assert str(got.value) == STUB_ENGINE_REFUSAL
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        tlaunch.generate(m.tcfg, m.tparams, torch.zeros((1, 8), dtype=torch.long), gen=2,
-                         capacity=32, layout=SHMAP, mesh=one_rank, device="cpu")
+    got, want = (tlaunch.generate(m.tcfg, m.tparams, torch.zeros((1, 8), dtype=torch.long),
+                                  gen=2, capacity=32, layout=SHMAP, mesh=mesh, device="cpu")
+                 for mesh in (one_rank, None))
+    # the one-card layout attends by split-KV partials: sums in another order
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1]["last_logits"], want[1]["last_logits"], atol=2e-5,
+                               rtol=0)
     stats = tlaunch.main(["--arch", "llama3-8b", "--reduced", "--workload", "ragged",
                           "--requests", "3", "--max-batch", "2", "--prompt-buckets", "16,24",
                           "--prefill-chunk", "8", "--layout", SHMAP, "--mesh-model", "2",

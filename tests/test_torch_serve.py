@@ -181,7 +181,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "scripts").glob("torch_*.py"))
              + sorted((ROOT / "examples").glob("torch_*.py"))
-             + [ROOT / "tests" / "_torch_mesh_worker.py"])
+             + [ROOT / "tests" / "_torch_mesh_worker.py", ROOT / "tests" / "_torch_tp_worker.py"])
     assert len(files) > 15
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/serving/sampling.py",
@@ -204,7 +204,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "src/repro_torch/models/transformer.py", "src/repro_torch/models/model.py",
             "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py",
             "scripts/torch_gspmd_ranks.py", "chip_smoke.py",
-            "tests/_torch_mesh_worker.py"} <= names
+            "tests/_torch_mesh_worker.py", "src/repro_torch/runtime/tensor_parallel.py",
+            "scripts/torch_tp_ranks.py", "tests/_torch_tp_worker.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

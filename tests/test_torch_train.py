@@ -111,6 +111,18 @@ def _close_tree(port_tree, jax_tree, tol, what):
                                    atol=tol, rtol=0, err_msg=f"{what} {path}")
 
 
+# the JAX optimizer and compression, jitted: one compile a shape of the
+# whole function, where eager dispatch compiles each of its operations a shape
+j_apply = jax.jit(jadamw.apply_updates, static_argnums=(3,))
+j_clip = jax.jit(jadamw.clip_by_global_norm, static_argnums=(1,))
+j_schedule = jax.jit(jadamw.cosine_schedule, static_argnames=("warmup", "total"))
+j_to_bf16 = jax.jit(jgc.to_bf16)
+j_quantize = jax.jit(jgc.quantize_int8)
+j_init_feedback = jax.jit(jgc.init_error_feedback)
+j_feedback = jax.jit(jgc.compress_with_feedback)
+j_dequantize = jax.jit(jgc.dequantize_int8)
+
+
 def test_adamw_matches_jax():
     """apply_updates over 3 steps (the gradients' norm far above the clip),
     global_norm, clip_by_global_norm and cosine_schedule, to 1e-6."""
@@ -121,11 +133,11 @@ def test_adamw_matches_jax():
     sj, st = jadamw.init_state(pj), adamw.init_state(pt)
     assert st["mu"]["layers"][0]["w"].dtype == torch.float32
     for i, g in enumerate(grads):
-        scale = float(jadamw.cosine_schedule(jnp.int32(i + 3), warmup=2, total=10))
+        scale = float(j_schedule(jnp.int32(i + 3), warmup=2, total=10))
         scale_t = adamw.cosine_schedule(i + 3, warmup=2, total=10)
         np.testing.assert_allclose(scale_t.item(), scale, rtol=0, atol=OPT_TOL)
-        pj, sj, nj = jadamw.apply_updates(pj, jax.tree.map(jnp.asarray, g), sj, cfg_j,
-                                          lr_scale=jnp.float32(scale))
+        pj, sj, nj = j_apply(pj, jax.tree.map(jnp.asarray, g), sj, cfg_j,
+                             lr_scale=jnp.float32(scale))
         pt, st, nt = adamw.apply_updates(pt, jax.tree.map(_t, g), st, cfg_t,
                                          lr_scale=scale_t)
         assert float(nj) > cfg_j.clip_norm  # the clip acts
@@ -135,14 +147,14 @@ def test_adamw_matches_jax():
         _close_tree(st["nu"], sj["nu"], OPT_TOL, "nu")
     assert int(st["count"]) == int(sj["count"]) == 3
     clipped_t, n_t = adamw.clip_by_global_norm(jax.tree.map(_t, grads[0]), 0.5)
-    clipped_j, n_j = jadamw.clip_by_global_norm(jax.tree.map(jnp.asarray, grads[0]), 0.5)
+    clipped_j, n_j = j_clip(jax.tree.map(jnp.asarray, grads[0]), 0.5)
     np.testing.assert_allclose(n_t.item(), float(n_j), rtol=OPT_TOL)
     _close_tree(clipped_t, clipped_j, OPT_TOL, "clipped")
     np.testing.assert_allclose(adamw.global_norm(clipped_t).item(), 0.5, rtol=OPT_TOL)
     for s in (0, 1, 5, 60, 100, 150):
         np.testing.assert_allclose(
             adamw.cosine_schedule(s, warmup=10, total=100).item(),
-            float(jadamw.cosine_schedule(jnp.int32(s), warmup=10, total=100)),
+            float(j_schedule(jnp.int32(s), warmup=10, total=100)),
             rtol=0, atol=OPT_TOL)
 
 
@@ -152,17 +164,17 @@ def test_grad_compress_matches_jax():
     _, grads = _trees(1)
     g = grads[0]
     bf_t = grad_compress.to_bf16(jax.tree.map(_t, g))
-    bf_j = jgc.to_bf16(jax.tree.map(jnp.asarray, g))
+    bf_j = j_to_bf16(jax.tree.map(jnp.asarray, g))
     _close_tree(bf_t, jax.tree.map(lambda x: x.astype(jnp.float32), bf_j), 0.0, "bf16")
     half = np.array([0.5, 1.5, -2.5, 127.0], np.float32)  # scale 1: rounds to even
     qt, _ = grad_compress.quantize_int8(_t(half))
-    qj, _ = jgc.quantize_int8(jnp.asarray(half))
+    qj, _ = j_quantize(jnp.asarray(half))
     assert qt.tolist() == np.asarray(qj).tolist() == [0, 2, -2, 127]
     et = grad_compress.init_error_feedback(jax.tree.map(_t, g))
-    ej = jgc.init_error_feedback(jax.tree.map(jnp.asarray, g))
+    ej = j_init_feedback(jax.tree.map(jnp.asarray, g))
     for gr in grads[:2]:
         q_t, et = grad_compress.compress_with_feedback(jax.tree.map(_t, gr), et)
-        q_j, ej = jgc.compress_with_feedback(jax.tree.map(jnp.asarray, gr), ej)
+        q_j, ej = j_feedback(jax.tree.map(jnp.asarray, gr), ej)
         flat_j = jax.tree.leaves(q_j, is_leaf=lambda x: isinstance(x, tuple))
         flat_t = jax.tree.leaves(q_t, is_leaf=lambda x: isinstance(x, tuple))
         assert len(flat_t) == len(flat_j) == 5
@@ -172,7 +184,7 @@ def test_grad_compress_matches_jax():
             np.testing.assert_allclose(scale.item(), float(scale_j), rtol=OPT_TOL)
         _close_tree(et, ej, OPT_TOL, "error feedback")
         deq = grad_compress.dequantize_int8(*q_t["embed"])
-        np.testing.assert_allclose(deq.numpy(), np.asarray(jgc.dequantize_int8(*q_j["embed"])),
+        np.testing.assert_allclose(deq.numpy(), np.asarray(j_dequantize(*q_j["embed"])),
                                    atol=OPT_TOL)
 
 
@@ -311,8 +323,11 @@ def test_flash_attention_bwd_ref_matches_autograd_and_jax(case):
     auto = torch.autograd.grad(out, (tq, tk, tv), _t(do))
     got = tref.flash_attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(), out.detach(),
                                        _t(do), **case)
-    o_j, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(a, b_, c, **case), q, k, v)
-    want = vjp(jnp.asarray(do))
+    # jitted: one compile of the whole vjp, where eager dispatch compiles
+    # each of its operations
+    want = jax.jit(lambda a, b_, c, g: jax.vjp(
+        lambda x, y, z: jref.flash_attention_ref(x, y, z, **case), a, b_, c)[1](g))(
+            q, k, v, jnp.asarray(do))
     for name, g, a, w in zip("qkv", got, auto, want):
         np.testing.assert_allclose(g.numpy(), a.numpy(), atol=1e-5, rtol=0, err_msg=name)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0, err_msg=name)
