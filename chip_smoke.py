@@ -109,8 +109,8 @@ then, each phase failing the run with a nonzero exit:
      (f32 generate at head_dim 32 token for token, bf16 at head_dim 80
      within the band, the chunked engine captured with fused windows, the
      coplace_shmap engine over 2 stripes) and the reduced xlstm-125m (f32
-     generate token for token); zamba2-2.7b at full width and depth (45
-     mamba2 and 9 attention layers) through lockstep ``generate`` and the
+     generate token for token); zamba2-2.7b at full width, 18 of its 54
+     layers (15 mamba2, 3 attention), through lockstep ``generate`` and the
      chunked engine with fused windows, eager and captured (launch counts
      exact over its attention layers, captured tokens equal to eager);
      xlstm-125m at full width and depth through ``generate`` and a chunked
@@ -156,7 +156,7 @@ then, each phase failing the run with a nonzero exit:
  15. the GSPMD layouts ``head``, ``coplace`` and ``interleave`` on
      ``torch.distributed`` ranks: paged_attention_partial and combine_partials
      timed at the rank blocks' shapes; (a) an NCCL group of one rank,
-     llama3-8b at full width and depth, the default engine and each
+     llama3-8b at full width cut to GSPMD_A_LAYERS, the default engine and each
      layout's, packed and chunked, captured, on 4 requests of 2048-8192
      tokens (16 new each, one sampled): launch counts exact (one rank
      holds every page, so every layout runs the default's kernels), tokens
@@ -207,22 +207,30 @@ then, each phase failing the run with a nonzero exit:
      block against the one-card body.
  16. the reference's tensor-parallel ``generate(mesh=...)`` and its sharded
      train step (ROADMAP item 9c): (a) in 15a's NCCL group of one rank,
-     llama3-8b at full width and depth, ``generate`` on the mesh for each
+     llama3-8b at 15a's cut, ``generate`` on the mesh for each
      of the five layouts, 2 prompts of 8192 tokens: launch counts and
      tokens equal to ``generate(mesh=None)`` (``coplace_shmap``'s up to a
      near-tie: it selects a masked page as -1); (b) two ranks spawned on
      cuda:0 over gloo (this script with ``--tp-rank``): ``generate`` at
-     llama3-8b cut to 8 layers, 2 prompts of 2048, on ``default`` and
+     llama3-8b cut to TP_CUT layers, 2 prompts of 2048, on ``default`` and
      ``interleave`` (2, 1) and ``head`` / ``coplace`` / ``coplace_shmap``
      (1, 2), each rank's parameter bytes printed, tokens equal across
      ranks and to the one-rank run's up to a near-tie; the sharded step,
-     f32, smollm-360m at full width and depth, B = 8 x S = 2048, 3 steps on
-     (2, 1), and B = 8 x S = 1024, 2 steps on (1, 2), and llama3-8b cut to 2 layers (FSDP on by the
-     reference's rule) on (2, 1), B = 2 x S = 2048, 2 steps: loss and grad
+     f32, smollm-360m at full width and depth, B = 8 x S = 1024, 3 steps on
+     (2, 1) and one on (1, 2), and llama3-8b cut to 2 layers (FSDP on by
+     the reference's rule) on (2, 1), B = 2 x S = 2048, one step: loss and grad
      norm within TP_TRAIN_RTOL of the one-rank step's, each rank's
      parameter and AdamW bytes printed; the training CLI (reduced) over both ranks,
      crashed and resumed (its final loss equal to the uninterrupted run's),
-     and crashed and resumed on one rank (within TP_TRAIN_RTOL).
+     and crashed and resumed on one rank (within TP_TRAIN_RTOL); (c) on the
+     same two ranks, the MoE, recurrent and local:global families (ROADMAP
+     item 9d, TP_C_SERVE / TP_C_TRAIN): ``generate`` of qwen3-moe (all 128
+     experts, 2 layers), zamba2 (one period), xlstm-125m and gemma3-1b
+     whole on ``default`` and ``head``, (1, 2) and (2, 1), tokens equal
+     across ranks and to the one-card run's up to a near-tie, a rank's
+     parameter bytes its blocks'; their f32 sharded steps (qwen3-moe one
+     layer of 32 experts on (1, 2), the others on (2, 1)) within
+     TP_TRAIN_RTOL of the one-card step's.
 
 Prints a ``{"kernels": [...]}`` line and, last, the device line. Exits
 nonzero without a result when no CUDA device is available or the port's
@@ -315,15 +323,19 @@ POOL_PAGES, POOL_CTX, POOL_STEPS = 160, 8190, 72
 # KIMI_LAYERS of 61 (~39 GB)
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
-# the recurrent mixers (phases 2 and 12): zamba2-2.7b at full width and
-# depth (54 layers: 45 mamba2, 9 attention at head_dim 80 with 32 kv heads,
-# 16 retrieval and 16 streaming, GQA group 1); xlstm-125m at full width and
-# depth (12 mLSTM / sLSTM layers, no attention), its lockstep prompts, and
-# its engine's chunk, workload and slots: a chunk step is a loop of X_CHUNK
-# time steps of eager ops a layer, so the captured graphs hold that many
+# the recurrent mixers (phases 2 and 12): zamba2-2.7b at full width (54
+# layers: 45 mamba2, 9 attention at head_dim 80 with 32 kv heads, 16
+# retrieval and 16 streaming, GQA group 1), phase 12b cut to Z_LAYERS (3 of
+# its 9 periods: its eager engine took 28 s at full depth); xlstm-125m at
+# full width and depth (12 mLSTM / sLSTM layers, no attention), its
+# lockstep prompts, and its engine's chunk, workload and slots: a chunk step
+# is a loop of X_CHUNK time steps of eager ops a layer, so the captured
+# graphs hold that many (the prompts were 2048 and 256-640 tokens, 11.6 s
+# of prefill and 20.5 s of eager engine on an H100 at 700 W)
 X_ARCH, Z_ARCH = "xlstm-125m", "zamba2-2.7b"
-X_PROMPT, X_CHUNK = 2048, 128
-X_ENGINE = [(512, 12), (384, 9), (640, 16), (256, 10)]
+Z_LAYERS = 18
+X_PROMPT, X_CHUNK = 1024, 128
+X_ENGINE = [(256, 12), (192, 9), (320, 16), (128, 10)]
 # the frontend-stub families (phases 2, 13a and 14), fed seeded embeddings:
 # internvl2-1b (24 layers, 14 query heads over 2 kv heads: GQA group 7,
 # head_dim 64) and musicgen-large (48 layers, 32 MHA heads, head_dim 64);
@@ -2935,8 +2947,8 @@ def check_reduced_recurrent_against_cpu(dev):
 
 
 def serve_zamba2(dev):
-    """Phase 12b: zamba2-2.7b at full width and depth (bf16, seeded random
-    weights, H²EAL defaults on its 9 attention layers): lockstep
+    """Phase 12b: zamba2-2.7b at full width cut to Z_LAYERS (bf16, seeded
+    random weights, H²EAL defaults on its attention layers): lockstep
     ``generate`` over BATCH prompts of PROMPT tokens (sparse, then full
     attention), then the chunked engine of phase 5 with fused windows
     (decode_window=4), eager and captured: launch counts exact over the
@@ -2945,8 +2957,8 @@ def serve_zamba2(dev):
     each path."""
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(Z_ARCH)
-    log(f"{cfg.name}: full width and depth, {cfg.num_layers} layers "
+    cfg = dataclasses.replace(get_arch(Z_ARCH), num_layers=Z_LAYERS)
+    log(f"{cfg.name}: full width, {cfg.num_layers} of 54 layers "
         f"({len(cfg.attention_layers)} attention, head_dim {cfg.resolved_head_dim})")
     params = full_params(dev, cfg)
     by_path = {"zamba2_generate": serve_full(dev, cfg, params)}
@@ -3862,7 +3874,8 @@ def phase14(dev, card):
 
 # ---------------------------------------------------------------------------
 # phase 15: the GSPMD layouts (head, coplace, interleave) on torch.distributed
-# ranks: (a) one NCCL rank, llama3-8b at full width and depth, captured steps;
+# ranks: (a) one NCCL rank, llama3-8b at full width cut to GSPMD_A_LAYERS,
+# captured steps;
 # (b) two ranks that share cuda:0 over gloo, llama3-8b at full width cut to
 # GSPMD_CUT layers, eager steps
 # ---------------------------------------------------------------------------
@@ -3871,6 +3884,9 @@ GSPMD_LAYOUTS = ("head", "coplace", "interleave")
 # 15a: 4 ragged requests, prompts of 2048-8192 tokens, 16 new tokens each, on
 # 4 slots, fed ENGINE_CHUNK prompt tokens a step (share window 4: llama3-8b's)
 GSPMD_A = dict(prompts=(2048, 8192), n=4, new=16, seed=5)
+# 15a, 15c and 16a's depth: 16 of llama3-8b's 32 layers (at 32, 15c took
+# 90.0-93.6 s and the whole smoke 1057-1104 s of its 1200 on two H100s)
+GSPMD_A_LAYERS = 16
 # 15b: the cut, and 3 requests of 1024-2048 tokens, 8 new tokens each; head
 # and coplace on the (1, 2) mesh at 2 slots, interleave on (2, 1) at 3 slots,
 # where the batch cannot take 'data' and the tokens stripe within pages. The
@@ -4422,9 +4438,10 @@ def time_family_blocks(ops, ref, timer, dev):
 
 def phase15a(dev, cfg, params, mesh):
     """15a: an NCCL group of one rank on the card (``mesh``), llama3-8b at
-    full width and depth (``params``), captured steps: the default engine and
-    each GSPMD layout's, packed and chunked, on GSPMD_A's workload (its last
-    request sampled); launch counts exact, no capture after construction, no
+    full width cut to GSPMD_A_LAYERS (``params``), captured steps: the
+    default engine and each GSPMD layout's, packed and chunked, on
+    GSPMD_A's workload (its last request sampled); launch counts exact, no
+    capture after construction, no
     read from the card in a chunked step, tokens equal to the default
     engine's (one rank holds every page, and runs the default's kernels).
     Returns (launch counts by path, the traces by (layout, mode))."""
@@ -4976,6 +4993,7 @@ def phase15(ops, ref, dev, card):
             + f"max_err={c['max_abs_err']:.3e} excess={c['excess']:.3e} (tol {c['tol']})")
         if not c["excess"] <= 0.0:
             fail(f"phase 15 kernel case disagrees with its plain version: {c['case']}")
+    cfg = dataclasses.replace(cfg, num_layers=GSPMD_A_LAYERS)
     params = full_params(dev, cfg)
     os.makedirs(SMOKE_DIR, exist_ok=True)
     store = os.path.join(SMOKE_DIR, "nccl1.store")
@@ -5015,27 +5033,31 @@ def phase15(ops, ref, dev, card):
 TP_LAYOUTS = ("default", "head", "coplace", "interleave", "coplace_shmap")
 # 16a: BATCH prompts of TP_A_PROMPT tokens, TP_GEN tokens, at full depth
 TP_A_PROMPT, TP_GEN = 8192, 16
-# 16b: llama3-8b cut to TP_CUT layers, BATCH prompts of TP_B_PROMPT; each
-# layout on a (data, model) mesh of the two ranks: the batch over 'data' on
-# (2, 1), the weights over 'model' on (1, 2)
-TP_CUT, TP_B_PROMPT = 8, 2048
+# 16b: llama3-8b cut to TP_CUT layers (8 took 15-26 s over gloo on an H100),
+# BATCH prompts of TP_B_PROMPT; each layout on a (data, model) mesh of the
+# two ranks: the batch over 'data' on (2, 1), the weights over 'model' on
+# (1, 2)
+TP_CUT, TP_B_PROMPT = 4, 2048
 TP_B_GENERATE = (("default", 1), ("head", 2), ("coplace", 2), ("coplace_shmap", 2),
                  ("interleave", 1))
 # the sharded step, f32: (label, arch, layers (0: whole depth), B, S, {the
 # 'model' size of a mesh: its steps}); the one-card reference takes the most
 # steps. (1, 2) over gloo took 22-30 s a step at smollm-360m's B = 8 x S =
 # 2048 (the layers' gathers and sums and the logits' gather pass through the
-# host: ~24 GB a step), so it takes 2 steps at S = 1024 where (2, 1) takes 3
-# at 2048 (the whole smoke ran 1098 s of its 1200 with 2048). smollm-360m's rule keeps FSDP off,
+# host: ~24 GB a step), so it takes one step at S = 1024 (two took 14.9-17.7
+# s each), and (2, 1) 3 at 1024 (18-25 s at 2048; its third step shows the
+# second's AdamW update, which a step after the lr-0 warm-up step alone
+# would not). smollm-360m's rule keeps FSDP off,
 # llama3-8b's turns it on (12 bytes a parameter over 8e9). llama3-8b at 2
 # layers (1.49e9 params): the two ranks share one card, and at 4 layers
 # each rank's functional AdamW step (old and new parameters and moments,
 # the gradient: 2.1 GB of embedding whole on each, its rule cuts the
 # vocabulary over 'model' only) took 31 GiB a rank, 77.3 GiB of the card
-# with this process's, and ran out of memory
-TP_TRAIN = (("smollm", "smollm-360m", 0, 8, 2048, {1: 3}),
-            ("smollm_tp", "smollm-360m", 0, 8, 1024, {2: 2}),
-            ("llama", "llama3-8b", 2, 2, 2048, {1: 2}))
+# with this process's, and ran out of memory; one step (its second, the
+# first after warm-up, checked no update and took 10-15 s)
+TP_TRAIN = (("smollm", "smollm-360m", 0, 8, 1024, {1: 3}),
+            ("smollm_tp", "smollm-360m", 0, 8, 1024, {2: 1}),
+            ("llama", "llama3-8b", 2, 2, 2048, {1: 1}))
 # loss and grad norm of the sharded step against the one-rank step: f32
 # sums in other orders (a row product's partials, the 'data' halves of the
 # gradient) through every layer and its backward
@@ -5048,6 +5070,46 @@ TP_CLI = ["--arch", "smollm-360m", "--reduced", "--steps", "4", "--batch", "4", 
           "512", "--ckpt-every", "2", "--log-every", "1"]
 TP_CLI_CRASH = 3
 TP_TIMEOUT = 900
+# 16c (ROADMAP item 9d): the MoE, recurrent and local:global families on the
+# same two ranks, ``generate`` on each TP_C_LAYOUTS layout on (1, 2) and (2,
+# 1): (label, arch, layers (0: all), prompt). qwen3-moe at full width, all
+# 128 experts (4.83 GB a layer in bf16; (2, 1) puts 64 on a rank), cut to 2
+# of 94 layers; zamba2 to one period (5 mamba2 layers and its attention
+# layer) of 9; xlstm-125m and gemma3-1b whole (xlstm's prompt is shorter:
+# its recurrences are per-token loops on the host)
+TP_C_LAYOUTS = ("default", "head")
+TP_C_SERVE = (("qwen3_moe", "qwen3-moe-235b-a22b", 2, 1024),
+              ("zamba2", "zamba2-2.7b", 6, 1024),
+              ("xlstm", "xlstm-125m", 0, 256),
+              ("gemma3", "gemma3-1b", 0, 1024))
+# 16c's new tokens: the (1, 2) meshes step each layer's gathers through the
+# host (2.7-11.2 decode steps/s on an H100 at 700 W)
+TP_C_GEN = 8
+# the sharded step, f32, at full width with the fewest layers that fit:
+# (label, arch, layers, experts (0: all), B, S, {the 'model' size of a mesh:
+# steps}). qwen3-moe's one layer with 128 experts holds 3.8e9 parameters:
+# its f32 parameters, gradient and AdamW moments alone are ~60 GB, and the
+# functional AdamW step holds the old and the new of each, so the experts
+# are cut to 32 (top-8, d_model and the expert d_ff kept); even so a (2, 1)
+# rank holds the 2.5 GB embedding whole (its rule cuts the vocabulary over
+# 'model' only) and would peak near 41 GB, two of them beyond the card, so
+# it trains on (1, 2), its experts over 'model' (31.0 GiB a rank, the one-card
+# step 62.9 GiB, on an H100). xlstm-125m at S = 64: its recurrences are
+# per-token loops (11-25 s a step at 256, 11-14 s at 128)
+TP_C_TRAIN = (("qwen3_moe", "qwen3-moe-235b-a22b", 1, 32, 2, 1024, {2: 1}),
+              ("zamba2", "zamba2-2.7b", 6, 0, 2, 2048, {1: 1}),
+              ("xlstm", "xlstm-125m", 0, 0, 2, 64, {1: 1}),
+              ("gemma3", "gemma3-1b", 6, 0, 2, 1024, {1: 1}))
+# one step each: the first step (lr 0 under the one-step warm-up) gives the
+# loss and the gradient's norm, the quantities compared; a second step took
+# 2.5-13.0 s more on the ranks. The families whose one-card step runs a
+# 'data' rank's rows at a time (microbatches = the 'data' ranks):
+# xlstm-125m's first step, at random init, put the whole batch's grad norm
+# 7.4e-4 (relative) from the two ranks' at S = 256 on an H100 while the
+# loss agreed to 1e-8: its exponential gates amplify the rounding of a
+# product over another row count. The split step computes the ranks'
+# products, so it is the one held to TP_TRAIN_RTOL
+TP_C_SPLIT = ("xlstm",)
 
 
 def _sync(dev) -> None:
@@ -5080,8 +5142,8 @@ def tp_prompts(cfg, prompt, dev):
 
 def phase16a(dev, cfg, params, mesh):
     """16a: in 15a's NCCL group of one rank, ``generate(mesh=...)`` of each
-    layout against ``generate(mesh=None)`` at full width and depth. Returns
-    the launch counts by path."""
+    layout against ``generate(mesh=None)`` at 15a's cut. Returns the launch
+    counts by path."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
 
@@ -5117,14 +5179,21 @@ def phase16a(dev, cfg, params, mesh):
     return by_path
 
 
-def tp_train_config(arch: str, layers: int):
+def tp_train_config(arch: str, layers: int, experts: int = 0):
+    """A registered config at full width, cut to ``layers`` layers (0: all)
+    and a MoE's experts to ``experts`` (0: all)."""
     from repro_torch.configs import get_arch
 
     cfg = get_arch(arch)
-    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=experts))
+    return cfg
 
 
-def tp_train_run(cfg, mesh, batch: int, seq: int, steps: int, dev) -> dict:
+def tp_train_run(cfg, mesh, batch: int, seq: int, steps: int, dev,
+                 microbatches: int = 1) -> dict:
     """``steps`` f32 train steps from the seeded weights on the global
     batches of ``lm_batch``: the sharded step on the rank's blocks over
     ``mesh``, or ``make_train_step`` on one card (``mesh`` None). Returns
@@ -5139,7 +5208,7 @@ def tp_train_run(cfg, mesh, batch: int, seq: int, steps: int, dev) -> dict:
 
     params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                            device=dev)
-    tcfg = train_rt.TrainConfig(warmup=1, total_steps=10)
+    tcfg = train_rt.TrainConfig(warmup=1, total_steps=10, microbatches=microbatches)
     if mesh is None:
         step = train_rt.make_train_step(cfg, tcfg)
     else:
@@ -5244,10 +5313,186 @@ def tp_rank(rank: int, store: str, out: str, dev=None) -> int:
     t0 = time.perf_counter()
     res["cli"] = tp_cli_runs(os.path.join(SMOKE_DIR, "tp_cli"))
     res["seconds"]["cli"] = time.perf_counter() - t0
+    res["c"] = tp_c_rank(meshes, dev, res["seconds"])
     dist.destroy_process_group()
     with open(f"{out}.{rank}", "w") as f:
         json.dump(res, f)
     return 0
+
+
+def tp_c_rank(meshes, dev, seconds) -> dict:
+    """16c on one of the two ranks: ``generate`` of each TP_C_SERVE family on
+    each TP_C_LAYOUTS layout and mesh, then the sharded steps of
+    TP_C_TRAIN."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    out = {"generate": {}, "train": {}}
+    for label, arch, layers, prompt in TP_C_SERVE:
+        t0 = time.perf_counter()
+        cfg = tp_train_config(arch, layers)
+        params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                               device=dev, dtype=torch.bfloat16)
+        whole = sum(t.numel() * t.element_size() for t in _leaves(params))
+        prompts = tp_prompts(cfg, prompt, dev)
+        for model in (2, 1):
+            for layout in TP_C_LAYOUTS:
+                ops.reset_launches()
+                toks, st = generate(cfg, params, prompts, gen=TP_C_GEN,
+                                    capacity=prompt + TP_C_GEN + cfg.h2eal.page_size,
+                                    layout=layout, mesh=meshes[model], device=dev)
+                out["generate"][f"{label}_{layout}_{model}"] = dict(
+                    mesh=meshes[model].shape, tokens=toks.tolist(),
+                    launches=dict(ops.LAUNCHES), param_bytes=st["param_bytes"],
+                    whole_bytes=whole, prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                    logits_finite=bool(torch.isfinite(st["last_logits"]).all()))
+                _release(dev)
+        del params
+        _release(dev)
+        seconds[f"16c generate {label}"] = time.perf_counter() - t0
+    for label, arch, layers, experts, b, s, steps in TP_C_TRAIN:
+        cfg = tp_train_config(arch, layers, experts)
+        for model, n in steps.items():
+            t0 = time.perf_counter()
+            out["train"][f"{label}_{model}"] = dict(
+                tp_train_run(cfg, meshes[model], b, s, n, dev), mesh=meshes[model].shape)
+            seconds[f"16c train {label} {model}"] = time.perf_counter() - t0
+            _release(dev)
+    return out
+
+
+def phase16c_refs(dev) -> dict:
+    """16c's one-card references, before the spawn: ``generate(mesh=None)``
+    of each TP_C_SERVE family (its tokens and decode time) and the one-card
+    train steps of TP_C_TRAIN."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    refs = {"generate": {}, "train": {}}
+    for label, arch, layers, prompt in TP_C_SERVE:
+        cfg = tp_train_config(arch, layers)
+        params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                               device=dev, dtype=torch.bfloat16)
+        prompts = tp_prompts(cfg, prompt, dev)
+        want, ws = generate(cfg, params, prompts, gen=TP_C_GEN,
+                            capacity=prompt + TP_C_GEN + cfg.h2eal.page_size, device=dev)
+        refs["generate"][label] = dict(tokens=want.tolist(), prefill_s=ws["prefill_s"],
+                                       decode_s=ws["decode_s"])
+        log(f"16c generate(mesh=None) {cfg.name} at {cfg.num_layers} layers, B={BATCH} "
+            f"S={prompt}: prefill {ws['prefill_s']:.3f}s, decode {ws['decode_s']:.3f}s "
+            f"({TP_C_GEN / ws['decode_s']:.2f} decode steps/s)")
+        del params
+        _release(dev)
+    for label, arch, layers, experts, b, s, steps in TP_C_TRAIN:
+        cfg = tp_train_config(arch, layers, experts)
+        # a split family's step a 'data' rank's rows at a time (2 ranks)
+        mb = 2 // next(iter(steps)) if label in TP_C_SPLIT else 1
+        r = refs["train"][label] = tp_train_run(cfg, None, b, s, max(steps.values()), dev,
+                                                microbatches=mb)
+        log(f"16c one-card train step {label} ({arch}, {cfg.num_layers} layers"
+            f"{f', {experts} experts' if experts else ''}, B={b} S={s}"
+            f"{f', {mb} microbatches' if mb > 1 else ''}): losses "
+            f"{[m[0] for m in r['metrics']]}, grad norms {[m[1] for m in r['metrics']]}, "
+            f"step s {[round(x, 3) for x in r['step_s']]}, parameter bytes "
+            f"{r['param_bytes']}, AdamW bytes {r['opt_bytes']}, peak {r['peak_gib']:.2f} GiB")
+        _release(dev)
+    return refs
+
+
+def phase16c_check(dev, card, res, refs):
+    """16c's checks on the two ranks' results: ``generate``'s tokens equal
+    across the ranks and to the one-card run's up to a near-tie (the
+    parameters made again only to replay a divergence), a rank's parameter
+    bytes its blocks'; the sharded steps within TP_TRAIN_RTOL of the
+    one-card step. Returns (serving, training) launch counts by path."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import model as M
+    from repro_torch.runtime import sharding
+
+    serving, training = {}, {}
+    for label, arch, layers, prompt in TP_C_SERVE:
+        cfg = tp_train_config(arch, layers)
+        want = refs["generate"][label]
+        params = None
+        shapes = M.init_params(cfg, generator=None, device="meta", dtype=torch.bfloat16)
+        for model in (2, 1):
+            for layout in TP_C_LAYOUTS:
+                key = f"{label}_{layout}_{model}"
+                a, b = (res[r]["c"]["generate"][key] for r in range(2))
+                what = f"16c generate {cfg.name} {layout} on {a['mesh']}"
+                if a["tokens"] != b["tokens"] or not (a["logits_finite"] and b["logits_finite"]):
+                    fail(f"{what}: the ranks' tokens differ or a logit is not finite")
+                ties = 0
+                if a["tokens"] != want["tokens"]:
+                    if params is None:
+                        params = M.init_params(
+                            cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                            device=dev, dtype=torch.bfloat16)
+                    prompts = tp_prompts(cfg, prompt, dev)
+                    ties = check_ties(cfg, params, tp_requests(prompts, TP_C_GEN),
+                                      dict(enumerate(a["tokens"])),
+                                      dict(enumerate(want["tokens"])), {},
+                                      prompt + TP_C_GEN + cfg.h2eal.page_size, dev,
+                                      BF16_LOGIT_BAND, what, relative=True)
+                for r, g in enumerate((a, b)):
+                    mesh = sharding_mesh(g["mesh"], r)
+                    specs = sharding.spec_leaves(shapes, sharding.param_shardings(
+                        cfg, mesh, shapes, "serve"))
+                    blocks = sum(x.element_size() * math.prod(
+                        hi - lo for lo, hi in sharding.block_bounds(x.shape, sp, mesh))
+                        for x, sp in zip(leaves(shapes), specs))
+                    if g["param_bytes"] != blocks:
+                        fail(f"{what}: rank {r} holds {g['param_bytes']} parameter bytes, "
+                             f"its blocks {blocks}")
+                log(f"{what} ({card}): tokens equal across ranks, equal to one card's "
+                    f"{a['tokens'] == want['tokens']} (near-tie divergences {ties}); "
+                    f"parameter bytes rank 0 {a['param_bytes']}, rank 1 {b['param_bytes']} "
+                    f"of {a['whole_bytes']} whole; prefill {a['prefill_s']:.3f}s, decode "
+                    f"{a['decode_s']:.3f}s ({TP_C_GEN / a['decode_s']:.2f} decode steps/s "
+                    f"against one card's {TP_C_GEN / want['decode_s']:.2f}); launches rank 0 "
+                    f"{a['launches']}")
+                serving[f"tp2c_{key}"] = a["launches"]
+        del params
+        _release(dev)
+    def rel_diff(got, want):
+        return max(abs(g - w) / abs(w) for gm, wm in zip(got, want) for g, w in zip(gm, wm))
+
+    for label, arch, layers, experts, b, s, steps in TP_C_TRAIN:
+        for model in steps:
+            key = f"{label}_{model}"
+            got = [res[r]["c"]["train"][key] for r in range(2)]
+            what = f"16c sharded train step {label} on {got[0]['mesh']}"
+            if got[0]["metrics"] != got[1]["metrics"]:
+                fail(f"{what}: the ranks' metrics differ")
+            ref = refs["train"][label]
+            if not all(math.isfinite(x) for m in got[0]["metrics"] + ref["metrics"] for x in m):
+                fail(f"{what}: a loss or grad norm is not finite")
+            rel = rel_diff(got[0]["metrics"], ref["metrics"])
+            against = ("one card a 'data' rank's rows at a time" if label in TP_C_SPLIT
+                       else "one card")
+            log(f"{what} ({card}): losses {[m[0] for m in got[0]['metrics']]}, grad norms "
+                f"{[m[1] for m in got[0]['metrics']]}, largest relative difference from "
+                f"{against} {rel:.3e} (tol {TP_TRAIN_RTOL:g}); step s rank 0 "
+                f"{[round(x, 3) for x in got[0]['step_s']]} (one card "
+                f"{[round(x, 3) for x in ref['step_s']]}); parameter bytes "
+                f"{[g['param_bytes'] for g in got]}, AdamW bytes "
+                f"{[g['opt_bytes'] for g in got]} (one card {ref['param_bytes']}, "
+                f"{ref['opt_bytes']}); peak GiB {[round(g['peak_gib'], 2) for g in got]}")
+            if not rel <= TP_TRAIN_RTOL:
+                fail(f"{what}: loss or grad norm leaves the band of the one-card step")
+            training[f"tp2c_train_{key}"] = got[0]["launches"]
+    return serving, training
+
+
+def sharding_mesh(shape: dict, rank: int):
+    """The ``launch/mesh.Mesh`` of rank ``rank`` of a two-rank mesh of
+    ``shape`` ({axis: size}), without a process group (placements only)."""
+    from repro_torch.launch import mesh as meshlib
+
+    sizes = (shape["data"], shape["model"])
+    coords = (rank // sizes[1], rank % sizes[1])
+    return meshlib.Mesh(sizes=sizes, coords=coords)
 
 
 def phase16b(dev, card):
@@ -5285,6 +5530,9 @@ def phase16b(dev, card):
             f"parameter bytes {r['param_bytes']}, AdamW bytes {r['opt_bytes']}, peak "
             f"{r['peak_gib']:.2f} GiB")
         _release(dev)
+    t16c = time.perf_counter()
+    c_refs = phase16c_refs(dev)
+    log(f"16c one-card references {time.perf_counter() - t16c:.1f}s")
     os.makedirs(SMOKE_DIR, exist_ok=True)
     store, out = os.path.join(SMOKE_DIR, "tp2.store"), os.path.join(SMOKE_DIR, "tp2")
     shutil.rmtree(os.path.join(SMOKE_DIR, "tp_cli"), ignore_errors=True)
@@ -5370,7 +5618,10 @@ def phase16b(dev, card):
     if cli[0]["resumed"] != cli[0]["full"] or not rel <= TP_TRAIN_RTOL:
         fail("16b training CLI: a resumed run does not repeat the uninterrupted one")
     training["tp2_train_cli"] = cli[0]["launches"]
-    log(f"phase 16b {time.perf_counter() - t16:.1f}s")
+    c_serving, c_training = phase16c_check(dev, card, res, c_refs)
+    serving.update(c_serving)
+    training.update(c_training)
+    log(f"phase 16b and 16c {time.perf_counter() - t16:.1f}s")
     return serving, training
 
 
@@ -5411,6 +5662,7 @@ def main() -> int:
     engine_capacity = engine_workload(cfg)[1]
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    t2 = time.perf_counter()
     results = {"flash_attention": [], "page_score": [], "paged_attention": [],
                "chunk_attention": [], "chunk_attention_paged": [],
                "paged_attention_partial": [], "combine_partials": []}
@@ -5460,7 +5712,9 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
     del timer
     torch.cuda.empty_cache()
+    log(f"phase 2 (every kernel against its plain version) {time.perf_counter() - t2:.1f}s")
 
+    t3 = time.perf_counter()
     check_reduced_against_cpu(dev)
     check_reduced_bf16_against_cpu(dev)
     check_reduced_engine_against_cpu(dev)
@@ -5468,14 +5722,21 @@ def main() -> int:
     check_reduced_coplace_engine_against_cpu(dev)
     check_reduced_window_engines(dev)
     check_reduced_spec_engines(dev)
+    log(f"reduced models card against CPU {time.perf_counter() - t3:.1f}s")
+    t4 = time.perf_counter()
     params = full_params(dev, cfg)
     by_path = {"generate": serve_full(dev, cfg, params)}
     check_coplace_layer(dev, cfg, params)
     launches, greedy, captured_rate = serve_engine(dev, cfg, params)
+    log(f"llama3-8b generate and engines {time.perf_counter() - t4:.1f}s")
+    t8 = time.perf_counter()
     by_path.update({f"engine_{k}": v for k, v in launches.items()})
     by_path.update(serve_spec_engines(dev, cfg, params, greedy))
+    log(f"phase 8 (speculative engines) {time.perf_counter() - t8:.1f}s")
+    t9 = time.perf_counter()
     by_path.update({f"engine_{k}": v for k, v in serve_tiered_and_rebalanced(
         dev, cfg, params, greedy, captured_rate, card).items()})
+    log(f"phase 9 (tiered and rebalanced) {time.perf_counter() - t9:.1f}s")
     del params
     torch.cuda.empty_cache()
     t10 = time.perf_counter()
@@ -5495,6 +5756,7 @@ def main() -> int:
     results["flash_attention_bwd"], fwd32, train_paths = phase13(ops, ref, dev)
     results["flash_attention"] += fwd32  # f32, not the serving path's bf16: not in its totals
     stub_paths = phase14(dev, card)
+    t15 = time.perf_counter()
     train_paths.update({p: n for p, n in stub_paths.items() if p.endswith("_train")})
     by_path.update({p: n for p, n in stub_paths.items() if not p.endswith("_train")})
     gspmd_paths, gspmd_parts, gspmd_combs, gspmd_verify, gspmd_family = phase15(
@@ -5505,6 +5767,7 @@ def main() -> int:
     results["chunk_attention"] += gspmd_verify
     for name, cases in gspmd_family.items():
         results[name] += cases
+    log(f"phase 15 and 16a {time.perf_counter() - t15:.1f}s")
     tp_serving, tp_training = phase16b(dev, card)
     by_path.update(tp_serving)
     train_paths.update(tp_training)
@@ -5601,8 +5864,15 @@ def main() -> int:
         main_paths[f"tp2_{layout}"] = main_paths["generate"] + (
             ("paged_attention_partial", "combine_partials")
             if model > 1 and layout in ("coplace", "coplace_shmap") else ())
+    # 16c: rank 0's counts; xlstm-125m's paths run no kernel
+    for label, *_ in TP_C_SERVE:
+        for model in (2, 1):
+            for layout in TP_C_LAYOUTS:
+                if label != "xlstm":
+                    main_paths[f"tp2c_{label}_{layout}_{model}"] = main_paths["generate"]
     for path in tp_training:
-        main_paths[path] = main_paths["train"]
+        if not path.startswith("tp2c_train_xlstm"):
+            main_paths[path] = main_paths["train"]
     for path, names in main_paths.items():
         idle = [n for n in names if by_path[path][n] == 0]
         if idle:

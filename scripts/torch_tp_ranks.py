@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Tensor-parallel ``generate(mesh=...)`` and the sharded train step over NCCL
-ranks, one a card (ROADMAP item 9c): llama3-8b's weights cut by the
-reference's ``param_shardings``.
+ranks, one a card (ROADMAP items 9c, 9d): llama3-8b's weights cut by the
+reference's ``param_shardings``; with ``--families``, the MoE, recurrent
+and local:global families instead.
 
 Each process of ``torchrun`` is one rank on its own card.
 
@@ -22,11 +23,21 @@ Each process of ``torchrun`` is one rank on its own card.
     runs if the projection leaves HEADROOM_GIB of the card free, else the
     deepest multiple of 4 layers that does, and the projection is printed.
 
+With ``--families``, ``chip_smoke.py``'s phase 16c families at its sizes
+(TP_C_SERVE: qwen3-moe at 2 layers with all 128 experts, zamba2 at one
+period, xlstm-125m and gemma3-1b whole): ``generate`` of each on (4, 1),
+the experts' dim E over the four 'data' ranks (32 experts a card), and on
+(1, 4), beside ``generate(mesh=None)``, with the same checks and figures;
+then the sharded steps of TP_C_TRAIN's families on (2, 2), each step's loss
+and grad norm beside the one-rank step's (rank 0 runs it after the mesh's,
+its card alone), within ``chip_smoke.TP_TRAIN_RTOL``.
+
 Every rank then releases what it holds and calls ``destroy_process_group``
 on a thread, waiting a bounded time (``torch_gspmd_ranks.probe_teardown``),
 and exits through ``os._exit``.
 
     torchrun --standalone --nproc-per-node 4 scripts/torch_tp_ranks.py
+    torchrun --standalone --nproc-per-node 4 scripts/torch_tp_ranks.py --families
 """
 from __future__ import annotations
 
@@ -94,6 +105,83 @@ def generate_cases(dev, mesh, card) -> tuple:
     return out, bad
 
 
+def family_generate(dev, meshes, card) -> tuple:
+    """``generate`` of each TP_C_SERVE family on each mesh of ``meshes``
+    beside ``generate(mesh=None)``: (results, failures), rank 0's checks."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    out, bad = {}, []
+    for label, arch, layers, prompt in cs.TP_C_SERVE:
+        cfg = cs.tp_train_config(arch, layers)
+        params = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                               device=dev, dtype=torch.bfloat16)
+        capacity = prompt + cs.TP_GEN + cfg.h2eal.page_size
+        prompts = cs.tp_prompts(cfg, prompt, dev)
+        want, ws = generate(cfg, params, prompts, gen=cs.TP_GEN, capacity=capacity,
+                            device=dev)
+        for mesh in meshes:
+            got, gs = generate(cfg, params, prompts, gen=cs.TP_GEN, capacity=capacity,
+                               mesh=mesh, device=dev)
+            toks = [torch.zeros_like(got) for _ in range(dist.get_world_size())]
+            dist.all_gather(toks, got)
+            what = f"generate {cfg.name} at {cfg.num_layers} layers on {mesh.shape}"
+            r = out[f"{label} {tuple(mesh.sizes)}"] = dict(
+                same_across=all(torch.equal(t, got) for t in toks),
+                param_bytes=gs["param_bytes"], one_param_bytes=ws["param_bytes"],
+                prefill_s=gs["prefill_s"], decode_s=gs["decode_s"],
+                one_prefill_s=ws["prefill_s"], one_decode_s=ws["decode_s"])
+            if dist.get_rank() == 0:
+                if not r["same_across"]:
+                    bad.append(f"{what}: the ranks' tokens differ")
+                ties = cs.check_ties(cfg, params, cs.tp_requests(prompts, cs.TP_GEN),
+                                     dict(enumerate(got.tolist())),
+                                     dict(enumerate(want.tolist())), {}, capacity, dev,
+                                     cs.BF16_LOGIT_BAND, what, relative=True)
+                cs.log(f"{what} on {card}: tokens equal across ranks {r['same_across']}, "
+                       f"equal to one rank's {got.tolist() == want.tolist()} (near-tie "
+                       f"divergences {ties}); prefill {r['prefill_s']:.3f}s (one rank "
+                       f"{r['one_prefill_s']:.3f}s), {cs.TP_GEN / r['decode_s']:.2f} decode "
+                       f"steps/s (one rank {cs.TP_GEN / r['one_decode_s']:.2f}); parameter "
+                       f"bytes a rank {r['param_bytes']} of {r['one_param_bytes']}")
+            cs._release(dev)
+        del params
+        cs._release(dev)
+    return out, bad
+
+
+def family_train(dev, mesh, card) -> tuple:
+    """The sharded steps of TP_C_TRAIN's families on ``mesh``, then rank 0's
+    one-rank step (the others wait): (results, failures)."""
+    out, bad = {}, []
+    for label, arch, layers, experts, b, s, steps in cs.TP_C_TRAIN:
+        cfg = cs.tp_train_config(arch, layers, experts)
+        n = max(steps.values())
+        r = cs.tp_train_run(cfg, mesh, b, s, n, dev)
+        peak = torch.tensor([r["peak_gib"]], device=dev)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+        cs._release(dev)
+        if dist.get_rank() == 0:
+            one = cs.tp_train_run(cfg, None, b, s, n, dev)
+            cs._release(dev)
+            rel = max(abs(g - w) / abs(w) for gm, wm in zip(r["metrics"], one["metrics"])
+                      for g, w in zip(gm, wm))
+            out[label] = dict(r, peak_max_gib=float(peak), one=one, rel=rel)
+            cs.log(f"train {label} ({arch}, {cfg.num_layers} layers"
+                   f"{f', {experts} experts' if experts else ''}) on {mesh.shape}, f32, "
+                   f"B={b} S={s} on {card}: losses {[m[0] for m in r['metrics']]}, grad "
+                   f"norms {[m[1] for m in r['metrics']]}, largest relative difference "
+                   f"from one rank {rel:.3e}; step s {[round(x, 3) for x in r['step_s']]} "
+                   f"(one rank {[round(x, 3) for x in one['step_s']]}); peak "
+                   f"{float(peak):.2f} GiB a card (one rank {one['peak_gib']:.2f}); "
+                   f"parameter bytes a rank {r['param_bytes']} of {one['param_bytes']}, "
+                   f"AdamW {r['opt_bytes']} of {one['opt_bytes']}")
+            if not rel <= cs.TP_TRAIN_RTOL:
+                bad.append(f"train {label}: leaves the band of the one-rank step")
+        dist.barrier()
+    return out, bad
+
+
 def train_case(dev, mesh, layers: int) -> dict:
     """``cs.tp_train_run`` of llama3-8b at ``layers`` on ``mesh``, with the
     largest peak memory over the ranks."""
@@ -125,7 +213,19 @@ def main() -> int:
         _build.build()
         cs.log(f"kernels built in {time.perf_counter() - t0:.1f}s")
     dist.barrier()
-    meshes = {m: meshlib.make_local_mesh(model=m) for m in (4, 2)}
+    meshes = {m: meshlib.make_local_mesh(model=m) for m in (4, 2, 1)}
+    if "--families" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        gen, bad = family_generate(dev, (meshes[1], meshes[4]), card)
+        train, bad_t = family_train(dev, meshes[2], card)
+        bad += bad_t
+        if rank == 0:
+            cs.log(f"families {time.perf_counter() - t0:.1f}s")
+            print(json.dumps({"card": card, "generate": gen, "train": train,
+                              "failures": bad}), flush=True)
+            for b in bad:
+                cs.log(f"FAIL: {b}")
+        return finish(rank, dev, bad)
     t0 = time.perf_counter()
     gen, bad = generate_cases(dev, meshes[4], card)
     if rank == 0:
@@ -159,6 +259,12 @@ def main() -> int:
               flush=True)
         for b in bad:
             cs.log(f"FAIL: {b}")
+    return finish(rank, dev, bad)
+
+
+def finish(rank: int, dev, bad) -> int:
+    """Rank 0's failures to every rank, then the bounded teardown: the exit
+    code."""
     flag = torch.tensor([len(bad)], device=dev)
     dist.broadcast(flag, 0)
     code = 1 if int(flag.item()) else 0

@@ -130,9 +130,11 @@ def generate(cfg, params, prompts, *, gen: int, capacity: int,
     the layout (``default``, ``head``, ``coplace``, ``interleave`` or
     ``coplace_shmap``, the batch over 'data' where it divides); every rank
     returns the same tokens. A GSPMD layout without a mesh runs on the
-    one-rank mesh, as the engine's does. The dense family only: MoE, recurrent and
-    local:global stacks on a mesh are refused (ROADMAP Queue 1 item 9d).
-    ``stats["param_bytes"]`` is the rank's parameter bytes.
+    one-rank mesh, as the engine's does. Every family runs so: dense, MoE
+    (the experts' dim E over 'data', never gathered), the recurrent mixers
+    (their states' rows over 'data') and local:global (the window layers'
+    full caches placed by their rule). ``stats["param_bytes"]`` is the
+    rank's parameter bytes.
 
     Every token is the argmax, whatever ``greedy`` says: the flag is
     accepted and ignored, as the JAX package's ``generate`` does. Sampling

@@ -15,8 +15,10 @@
     tree, gathered, written by rank 0, and a restore cuts it onto whatever
     mesh runs, one rank too: the reference's elastic restore. Without a
     group it is one device, as it always was (a one-rank mesh equals no
-    mesh). Tensor-parallel training ('model' > 1) is reached through the
-    Python API, as in the reference, whose CLI has no such flag.
+    mesh). Every family but the frontend stubs trains so (a MoE layer
+    gathers its tokens over 'data' before its router).
+    Tensor-parallel training ('model' > 1) is reached through the Python
+    API, as in the reference, whose CLI has no such flag.
 
 Runs on the card unless ``--device cpu``. On the card the attention and
 its gradient are the port's kernels, and PyTorch's deterministic

@@ -21,6 +21,15 @@ reference are kept on purpose:
     buffer is built by a gather that writes that rule out;
   * capacity follows from every token of the call (padded and idle rows
     too), so callers pass the same token set the JAX blocks pass.
+
+Over a mesh (``tp``, ``runtime/tensor_parallel.py``) the experts are cut
+over their dim E and each rank fills and runs its experts' rows of the
+buffer (``tensor_parallel.experts``); the buffer's outputs are gathered
+over E before the return path, so the K-sum runs in the unsharded order.
+Where the activations are the rank's rows (the train step), the tokens are
+gathered over 'data' before the router, so that capacity and the chunking
+are decided over the whole token set as the reference's unsharded function
+decides them, and the rank's rows are taken back after.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense, init_dense, swiglu
+from repro_torch.runtime import tensor_parallel as tplib
 
 CAPACITY_FACTOR = 1.25
 # prefill at 32k x 32 pushes 1M tokens through the router at once; the
@@ -82,38 +92,42 @@ def _capacity(tokens: int, num_experts: int, top_k: int, factor: float) -> int:
     return max(8, -(-cap // 8) * 8)  # 8-aligned
 
 
-def _route(cfg: ArchConfig, params, xf):
+def _route(cfg: ArchConfig, params, xf, tp=None):
     """Router probabilities (T, E) f32 and the top-k (weights, ids), the
-    lower id first among equal probabilities, as ``lax.top_k``."""
-    probs = torch.softmax(dense(xf.float(), params["router"]), dim=-1)
+    lower id first among equal probabilities, as ``lax.top_k``. The router
+    is whole on every rank of a mesh (FSDP-gathered in training)."""
+    router = params["router"] if tp is None else tp.whole(params, "router")
+    probs = torch.softmax(dense(xf.float(), router), dim=-1)
     w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.moe.top_k
     return probs, w[:, :k], ids[:, :k]
 
 
-def moe_ffn(cfg: ArchConfig, params, x):
+def moe_ffn(cfg: ArchConfig, params, x, tp=None):
     """x: (B, S, d) or (B, d) -> same shape. Above MOE_CHUNK_TOKENS tokens
     (and a multiple of it) the tokens go through in chunks of that size,
-    each with its own capacity, as the reference's scan does."""
+    each with its own capacity, as the reference's scan does. ``tp``: the
+    layer's ``moe`` view over a mesh (None: whole weights)."""
+    rows, mine = tplib.gather_rows(tp, x)
     d = x.shape[-1]
-    t = math.prod(x.shape[:-1])
-    xf = x.reshape(t, d)
+    t = math.prod(rows.shape[:-1])
+    xf = rows.reshape(t, d)
     if t > MOE_CHUNK_TOKENS and t % MOE_CHUNK_TOKENS == 0:
-        out = torch.cat([_moe_ffn_flat(cfg, params, xc)
+        out = torch.cat([_moe_ffn_flat(cfg, params, xc, tp)
                          for xc in xf.split(MOE_CHUNK_TOKENS)])
     else:
-        out = _moe_ffn_flat(cfg, params, xf)
-    return out.reshape(x.shape)
+        out = _moe_ffn_flat(cfg, params, xf, tp)
+    return mine(out.reshape(rows.shape))
 
 
-def _moe_ffn_flat(cfg: ArchConfig, params, xf):
+def _moe_ffn_flat(cfg: ArchConfig, params, xf, tp=None):
     """xf: (T, d) -> (T, d)."""
     m = cfg.moe
     t, d = xf.shape
     e, k = m.num_experts, m.top_k
     dev, dtype = xf.device, xf.dtype
 
-    _, w, ids = _route(cfg, params, xf)
+    _, w, ids = _route(cfg, params, xf, tp)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # each token's choices by ascending expert id, the order in which the
     # reference's scatter-add sums them; a token takes an expert once, so
@@ -138,12 +152,14 @@ def _moe_ffn_flat(cfg: ArchConfig, params, xf):
     n = counts[:, None]
     fill = (c_idx < n) & ((c_idx < cap - 1) | (n <= cap))          # (E, cap)
     pos = (starts[:, None] + c_idx).clamp(max=t * k - 1)
-    buf = xf.index_select(0, src_tok[pos].reshape(-1)).view(e, cap, d)
-    buf = torch.where(fill[..., None], buf, 0.0)
-
-    g = torch.bmm(buf, params["w_gate"].to(dtype))
-    u = torch.bmm(buf, params["w_up"].to(dtype))
-    y_buf = torch.bmm(F.silu(g) * u, params["w_down"].to(dtype))   # (E, cap, d)
+    if tp is not None:
+        y_buf = tplib.experts(tp, xf, src_tok[pos], fill, params)
+    else:
+        buf = xf.index_select(0, src_tok[pos].reshape(-1)).view(e, cap, d)
+        buf = torch.where(fill[..., None], buf, 0.0)
+        g = torch.bmm(buf, params["w_gate"].to(dtype))
+        u = torch.bmm(buf, params["w_up"].to(dtype))
+        y_buf = torch.bmm(F.silu(g) * u, params["w_down"].to(dtype))   # (E, cap, d)
 
     slots = torch.arange(t * k, device=dev) - starts[sorted_ids]
     y_sorted = y_buf.view(e * cap, d).index_select(
@@ -160,7 +176,10 @@ def _moe_ffn_flat(cfg: ArchConfig, params, xf):
 
     if "shared" in params:
         sp = params["shared"]
-        out = out + swiglu(xf, sp["w_gate"], sp["w_up"], sp["w_down"])
+        if tp is None:
+            out = out + swiglu(xf, sp["w_gate"], sp["w_up"], sp["w_down"])
+        else:
+            out = out + tplib.swiglu(tp.at("shared"), xf, sp)
     return out
 
 

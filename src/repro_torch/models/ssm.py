@@ -21,6 +21,13 @@ and return the state as a dict of the reference's keys (``ssm``,
 ``conv_x``, ``conv_B``, ``conv_C``); the serving blocks write it into the
 engine's tensors in place (``models/transformer.py``). Nothing here reads
 a value back from the card, so each step can be captured.
+
+Every function takes ``tp``, the mixer's ``runtime/tensor_parallel
+.TensorParallel`` view over a mesh (None: whole weights, the path as it
+always was): the five projections are column products gathered whole, the
+convs' weights (cut over channels) gathered once a call, the SSD chunk and
+step run whole (the gated RMSNorm spans the whole inner dim), and
+``out_proj`` is a row product.
 """
 from __future__ import annotations
 
@@ -28,7 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense, init_dense, rms_norm
+from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.runtime import tensor_parallel as tplib
+
+# the projections (column-cut over a mesh) and the leaves read whole
+_PROJ = ("w_z", "w_x", "w_B", "w_C", "w_dt")
+_CONV = ("conv_x", "conv_B", "conv_C")
 
 
 def _dims(cfg: ArchConfig):
@@ -80,13 +92,15 @@ def _causal_conv(x, w, b):
     return F.silu(_conv_sum(pad, w, x.shape[1]) + b)
 
 
-def _project(params, x):
-    """x: (B, L, d) -> (z, xs, B, C, dt_raw) with per-stream causal convs."""
-    z = dense(x, params["w_z"])
-    xs = _causal_conv(dense(x, params["w_x"]), params["conv_x"], params["conv_bx"])
-    b = _causal_conv(dense(x, params["w_B"]), params["conv_B"], params["conv_bB"])
-    c = _causal_conv(dense(x, params["w_C"]), params["conv_C"], params["conv_bC"])
-    return z, xs, b, c, dense(x, params["w_dt"])
+def _project(params, x, tp=None):
+    """x: (B, L, d) -> (z, xs, B, C, dt_raw) with per-stream causal convs,
+    and the pre-conv (x, B, C) projections."""
+    z, px, pb, pc, dt_raw = tplib.project(tp, x, params, _PROJ)
+    params = tplib.whole_leaves(tp, params, _CONV)
+    xs = _causal_conv(px, params["conv_x"], params["conv_bx"])
+    b = _causal_conv(pb, params["conv_B"], params["conv_bB"])
+    c = _causal_conv(pc, params["conv_C"], params["conv_bC"])
+    return (z, xs, b, c, dt_raw), (px, pb, pc)
 
 
 def _dt(params, dt_raw):
@@ -118,13 +132,13 @@ def _carry(sc, chunk_decay, s0):
     return torch.stack(entering, dim=1), s_prev
 
 
-def _chunked(cfg: ArchConfig, params, x):
-    """(z, the chunked SSD inputs) of the prefill forms: xs, B, C, dt padded
-    to whole chunks of min(chunk, L) and split into them, and the cumulative
-    log decay G within each chunk."""
+def _chunked(cfg: ArchConfig, params, x, tp=None):
+    """(z, the chunked SSD inputs, the pre-conv projections) of the prefill
+    forms: xs, B, C, dt padded to whole chunks of min(chunk, L) and split
+    into them, and the cumulative log decay G within each chunk."""
     s, inner, n_heads = _dims(cfg)
     bsz, L, _ = x.shape
-    z, xs, b, c, dt_raw = _project(params, x)
+    (z, xs, b, c, dt_raw), pre = _project(params, x, tp)
     dt, log_da = _dt(params, dt_raw)
     q = min(s.chunk, L)
     pad = (-L) % q
@@ -134,19 +148,19 @@ def _chunked(cfg: ArchConfig, params, x):
     cc = _pad_time(c, pad).reshape(bsz, nc, q, s.state_dim)
     dtc = _pad_time(dt, pad).reshape(bsz, nc, q, n_heads)
     g = torch.cumsum(_pad_time(log_da, pad).reshape(bsz, nc, q, n_heads), dim=2)
-    return z, (xh, bc, cc, dtc, g)
+    return z, (xh, bc, cc, dtc, g), pre
 
 
-def _gate_out(cfg: ArchConfig, params, y, z):
+def _gate_out(cfg: ArchConfig, params, y, z, tp=None):
     y = rms_norm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    return dense(y, params["out_proj"])
+    return tplib.out_row(tp, y, params, "out_proj")
 
 
-def mamba2_forward(cfg: ArchConfig, params, x):
+def mamba2_forward(cfg: ArchConfig, params, x, tp=None):
     """x: (B, L, d) -> (B, L, d). Chunked SSD."""
     s, inner, n_heads = _dims(cfg)
     bsz, L, _ = x.shape
-    z, (xh, bc, cc, dtc, g) = _chunked(cfg, params, x)
+    z, (xh, bc, cc, dtc, g), _ = _chunked(cfg, params, x, tp)
     nc, q = xh.shape[1], xh.shape[2]
     xf, bf, cf = xh.float(), bc.float(), cc.float()
     # intra-chunk: y_i += sum_{j<=i} (G_i/G_j) dt_j (C_i·B_j) x_j
@@ -154,7 +168,10 @@ def mamba2_forward(cfg: ArchConfig, params, x):
     causal = (torch.arange(q, device=x.device)[None, :]
               <= torch.arange(q, device=x.device)[:, None])[None, None, :, :, None]
     logw = g[:, :, :, None, :] - g[:, :, None, :, :]               # (B,nc,i,j,H)
-    w = torch.where(causal, torch.exp(logw), 0.0)
+    # masked before the exp: above the diagonal logw > 0 may overflow to
+    # inf, whose masked gradient 0 * inf is NaN (the reference's form,
+    # ROADMAP Queue 3); the values are the same bits
+    w = torch.exp(torch.where(causal, logw, float("-inf")))
     w = w * cb[..., None] * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xf)
     sc, chunk_decay = _chunk_states(dtc, bf, xf, g)
@@ -166,24 +183,22 @@ def mamba2_forward(cfg: ArchConfig, params, x):
     y = (y_intra + y_inter).reshape(bsz, nc * q, n_heads, s.head_dim)
     y = y + xh.reshape(bsz, nc * q, n_heads, s.head_dim) * params["D"][None, None, :, None]
     y = y[:, :L].reshape(bsz, L, inner).to(x.dtype)
-    return _gate_out(cfg, params, y, z)
+    return _gate_out(cfg, params, y, z, tp)
 
 
-def mamba2_final_state(cfg: ArchConfig, params, x):
+def mamba2_final_state(cfg: ArchConfig, params, x, tp=None):
     """The state after consuming x: (B, L, d): the SSD state and the
     pre-conv inputs of the last K-1 positions."""
     s, inner, n_heads = _dims(cfg)
     bsz, L, _ = x.shape
-    _, (xh, bc, _, dtc, g) = _chunked(cfg, params, x)
+    _, (xh, bc, _, dtc, g), (px, pb, pc) = _chunked(cfg, params, x, tp)
     sc, chunk_decay = _chunk_states(dtc, bc.float(), xh.float(), g)
     s0 = torch.zeros((bsz, n_heads, s.state_dim, s.head_dim), dtype=torch.float32,
                      device=x.device)
     _, s_fin = _carry(sc, chunk_decay, s0)
     k = s.conv_dim - 1
-    return {"ssm": s_fin,
-            "conv_x": dense(x, params["w_x"])[:, L - k:, :],
-            "conv_B": dense(x, params["w_B"])[:, L - k:, :],
-            "conv_C": dense(x, params["w_C"])[:, L - k:, :]}
+    return {"ssm": s_fin, "conv_x": px[:, L - k:, :], "conv_B": pb[:, L - k:, :],
+            "conv_C": pc[:, L - k:, :]}
 
 
 # ---------------------------------------------------------------------------
@@ -207,17 +222,15 @@ def _conv_step(hist, new, w, b):
     return F.silu(out).to(new.dtype), window[:, 1:, :]
 
 
-def mamba2_step(cfg: ArchConfig, params, state, x):
+def mamba2_step(cfg: ArchConfig, params, state, x, tp=None):
     """x: (B, d) one token -> (y (B, d), new state)."""
     s, inner, n_heads = _dims(cfg)
-    z = dense(x, params["w_z"])
-    xs, cx = _conv_step(state["conv_x"], dense(x, params["w_x"]), params["conv_x"],
-                        params["conv_bx"])
-    b, cb = _conv_step(state["conv_B"], dense(x, params["w_B"]), params["conv_B"],
-                       params["conv_bB"])
-    c, cc = _conv_step(state["conv_C"], dense(x, params["w_C"]), params["conv_C"],
-                       params["conv_bC"])
-    dt, log_da = _dt(params, dense(x, params["w_dt"]))
+    z, px, pb, pc, dt_raw = tplib.project(tp, x, params, _PROJ)
+    params = tplib.whole_leaves(tp, params, _CONV)
+    xs, cx = _conv_step(state["conv_x"], px, params["conv_x"], params["conv_bx"])
+    b, cb = _conv_step(state["conv_B"], pb, params["conv_B"], params["conv_bB"])
+    c, cc = _conv_step(state["conv_C"], pc, params["conv_C"], params["conv_bC"])
+    dt, log_da = _dt(params, dt_raw)
     da = torch.exp(log_da)                                           # (B,H)
     xhead = xs.reshape(-1, n_heads, s.head_dim).float()
     outer = torch.einsum("bn,bhp->bhnp", b.float(), xhead)
@@ -226,10 +239,11 @@ def mamba2_step(cfg: ArchConfig, params, state, x):
     y = y + xhead * params["D"][None, :, None]
     y = y.reshape(-1, inner).to(x.dtype)
     new_state = {"ssm": ssm, "conv_x": cx, "conv_B": cb, "conv_C": cc}
-    return _gate_out(cfg, params, y, z), new_state
+    return _gate_out(cfg, params, y, z, tp), new_state
 
 
-def mamba2_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active=None):
+def mamba2_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active=None,
+                         tp=None):
     """One prefill chunk resuming from each slot's saved state.
 
     x: (B, C, d), the chunk's block inputs; state: as ``init_mamba2_state``
@@ -250,8 +264,8 @@ def mamba2_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active
     eff = torch.broadcast_to(torch.as_tensor(chunk_len, device=x.device), (bsz,)).long()
     if active is not None:
         eff = torch.where(active.reshape(bsz), eff, 0)
-    z = dense(x, params["w_z"])
-    dt_raw = dense(x, params["w_dt"])
+    z, px, pb, pc, dt_raw = tplib.project(tp, x, params, _PROJ)
+    params = tplib.whole_leaves(tp, params, _CONV)
     hist_idx = eff[:, None] + torch.arange(k - 1, device=x.device)   # (B, K-1)
 
     def conv_resume(hist, pre, w, b):
@@ -262,12 +276,9 @@ def mamba2_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active
         new_hist = torch.gather(buf, 1, hist_idx[:, :, None].expand(-1, -1, buf.shape[2]))
         return out, new_hist.to(hist.dtype)
 
-    xs, hx = conv_resume(state["conv_x"], dense(x, params["w_x"]), params["conv_x"],
-                         params["conv_bx"])
-    b, hb = conv_resume(state["conv_B"], dense(x, params["w_B"]), params["conv_B"],
-                        params["conv_bB"])
-    cm, hc = conv_resume(state["conv_C"], dense(x, params["w_C"]), params["conv_C"],
-                         params["conv_bC"])
+    xs, hx = conv_resume(state["conv_x"], px, params["conv_x"], params["conv_bx"])
+    b, hb = conv_resume(state["conv_B"], pb, params["conv_B"], params["conv_bB"])
+    cm, hc = conv_resume(state["conv_C"], pc, params["conv_C"], params["conv_bC"])
     dt = F.softplus(dt_raw.float() + params["dt_bias"])             # (B,C,H)
     valid = torch.arange(c, device=x.device)[None, :] < eff[:, None]
     dt = torch.where(valid[..., None], dt, 0.0)
@@ -279,7 +290,7 @@ def mamba2_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active
     causal = (torch.arange(c, device=x.device)[:, None]
               >= torch.arange(c, device=x.device)[None, :])[None, :, :, None]
     logw = g[:, :, None, :] - g[:, None, :, :]                      # (B,i,j,H)
-    w = torch.where(causal, torch.exp(logw), 0.0) * cb[..., None] * dt[:, None, :, :]
+    w = torch.exp(torch.where(causal, logw, float("-inf"))) * cb[..., None] * dt[:, None, :, :]
     y = torch.einsum("bijh,bjhp->bihp", w, xh)
     # inter-chunk: the resumed state seen through each position's decay
     y = y + torch.einsum("bin,bhnp->bihp", cf, state["ssm"]) * torch.exp(g)[..., None]
@@ -291,4 +302,4 @@ def mamba2_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active
     y = y + xh * params["D"][None, None, :, None]
     y = y.reshape(bsz, c, inner).to(x.dtype)
     new_state = {"ssm": ssm, "conv_x": hx, "conv_B": hb, "conv_C": hc}
-    return _gate_out(cfg, params, y, z), new_state
+    return _gate_out(cfg, params, y, z, tp), new_state

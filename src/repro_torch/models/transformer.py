@@ -35,7 +35,9 @@ The training forward, the lockstep prefill and the decode step take
 ``tp``, a ``runtime/tensor_parallel.TensorParallel`` of the block's
 parameters where they are cut over a mesh (None: whole weights, the path
 as it always was): q, k and v column-cut and gathered, the attention on
-whole heads, ``wo`` row-cut; the FFN Megatron's column / row pair.
+whole heads, ``wo`` row-cut; the FFN Megatron's column / row pair; a MoE
+layer expert parallel (``moe.moe_ffn``); a recurrent mixer its projections
+gathered, run whole, ``out_proj`` row-cut (``ssm.py``, ``xlstm.py``).
 """
 from __future__ import annotations
 
@@ -170,7 +172,7 @@ def _ffn_apply(cfg: ArchConfig, pos: int, p, x, tp=None):
         return x
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        return x + moelib.moe_ffn(cfg, p["moe"], h)
+        return x + moelib.moe_ffn(cfg, p["moe"], h, None if tp is None else tp.at("moe"))
     f = p["ffn"]
     if tp is not None:
         return x + tplib.swiglu(tp.at("ffn"), h, f)
@@ -200,14 +202,16 @@ def _out(p, o, tp=None):
     return dense(o, p["wo"]) if tp is None else tplib.row(tp, o, p, "wo")
 
 
-def _mamba2_prefill_with_state(cfg: ArchConfig, p, h):
+def _mamba2_prefill_with_state(cfg: ArchConfig, p, h, tp=None):
     """The chunked forward and the exact final SSM / conv state."""
-    return ssmlib.mamba2_forward(cfg, p, h), ssmlib.mamba2_final_state(cfg, p, h)
+    return (ssmlib.mamba2_forward(cfg, p, h, tp),
+            ssmlib.mamba2_final_state(cfg, p, h, tp))
 
 
 class _Recurrent(NamedTuple):
     """A recurrent mixer: its cache key, parameter key and state container,
-    and the reference's functions over it."""
+    and the reference's functions over it (each takes ``tp``, the mixer's
+    view over a mesh, last)."""
     key: str
     pkey: str
     state_cls: type
@@ -253,15 +257,19 @@ def layer_spec(cfg: ArchConfig, pos: int):
                                   tuple((n, tuple(t.shape[1:])) for n, t in st.items()))
 
 
-def _recurrent_prefill(cfg: ArchConfig, mixer: str, p, h):
+def _mixer_tp(tp, r: _Recurrent):
+    return None if tp is None else tp.at(r.pkey)
+
+
+def _recurrent_prefill(cfg: ArchConfig, mixer: str, p, h, tp=None):
     """A recurrent layer over the prompt from a fresh state: (y, its cache)."""
     r = _RECURRENT[mixer]
-    y, st = r.prefill(cfg, p[r.pkey], h)
+    y, st = r.prefill(cfg, p[r.pkey], h, tp=_mixer_tp(tp, r))
     return y, {r.key: r.state_cls(**st)}
 
 
 def _recurrent_step(cfg: ArchConfig, pos: int, p, h, cache, keep, chunk=None,
-                    layout=layoutlib.DEFAULT):
+                    layout=layoutlib.DEFAULT, tp=None):
     """A recurrent layer's chunk (``chunk`` = (chunk_len, active)) or decode
     step: the reference's function on the layer's state, the new state
     written into the cache's tensors in place (decode: the rows where
@@ -271,13 +279,14 @@ def _recurrent_step(cfg: ArchConfig, pos: int, p, h, cache, keep, chunk=None,
     y is gathered whole (``layout.rows``). Returns y."""
     r = _RECURRENT[cfg.mixer_for_layer(pos)]
     clen, act = chunk if chunk is not None else (None, None)
+    mtp = _mixer_tp(tp, r)
 
     def run(h, keep, clen, act):
         st = cachelib.state_fields(cache[r.key])
         if chunk is not None:
-            y, new = r.chunk(cfg, p[r.pkey], st, h, chunk_len=clen, active=act)
+            y, new = r.chunk(cfg, p[r.pkey], st, h, chunk_len=clen, active=act, tp=mtp)
         else:
-            y, new = r.step(cfg, p[r.pkey], st, h)
+            y, new = r.step(cfg, p[r.pkey], st, h, tp=mtp)
         cachelib.write_state(cache[r.key], new, keep)
         return y
     return layout.rows(layer_spec(cfg, pos), run, h, keep, clen, act)
@@ -293,7 +302,8 @@ def block_train(cfg: ArchConfig, pos: int, p, x, rope, *, alpha=None, tp=None):
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
         r = _RECURRENT[mixer]
-        return _ffn_apply(cfg, pos, p, x + r.forward(cfg, p[r.pkey], h))
+        return _ffn_apply(cfg, pos, p, x + r.forward(cfg, p[r.pkey], h, tp=_mixer_tp(tp, r)),
+                          tp)
     q, k, v = _qkv(cfg, p, h, tp)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
@@ -314,8 +324,8 @@ def block_prefill(cfg: ArchConfig, pos: int, p, perm, x, rope, *, capacity: int,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
-        y, cache = _recurrent_prefill(cfg, mixer, p, h)
-        return _ffn_apply(cfg, pos, p, x + y), cache
+        y, cache = _recurrent_prefill(cfg, mixer, p, h, tp)
+        return _ffn_apply(cfg, pos, p, x + y, tp), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h, tp)
     cos, sin = rope
@@ -400,8 +410,8 @@ def block_decode(cfg: ArchConfig, pos: int, p, perm, x, rope1, cache, *, length,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     mixer = cfg.mixer_for_layer(pos)
     if mixer != MIXER_ATTENTION:
-        y = _recurrent_step(cfg, pos, p, h, cache, active, layout=layout)
-        return _ffn_apply(cfg, pos, p, x + y), cache
+        y = _recurrent_step(cfg, pos, p, h, cache, active, layout=layout, tp=tp)
+        return _ffn_apply(cfg, pos, p, x + y, tp), cache
     spec = attn_spec(cfg, pos)
     q, k, v = _qkv(cfg, p, h, tp)
     cos1, sin1 = rope1  # (1 or B, 1, half) at each slot's position

@@ -22,6 +22,13 @@ reference's keys; the serving blocks write it into the engine's tensors in
 place (``models/transformer.py``). The time loop is eager torch ops (a
 hand-written recurrence kernel would be later work): a chunk of C tokens
 is C steps of a few small kernels a layer.
+
+Every function takes ``tp``, the mixer's ``runtime/tensor_parallel
+.TensorParallel`` view over a mesh (None: whole weights): ``w_qkv``,
+``w_if`` (its [i | f] columns), ``w_o`` and the sLSTM's ``['w']`` (its four
+gates) are column products gathered whole, ``b_if`` and the sLSTM's
+recurrent ``['r']`` (heads over 'model') are gathered once a call, outside
+the loop over time, and ``out_proj`` is a row product.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense, init_dense, rms_norm
+from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.runtime import tensor_parallel as tplib
 
 
 # ---------------------------------------------------------------------------
@@ -53,9 +61,10 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig, *, dtype, device):
     }
 
 
-def _mlstm_gates(params, x):
-    """x: (..., d) -> (i_tilde, f_tilde), each (..., H) in f32."""
-    g = dense(x, params["w_if"]).float() + params["b_if"]
+def _mlstm_gates(params, wif):
+    """The gate projection (..., 2H) -> (i_tilde, f_tilde), each (..., H) in
+    f32."""
+    g = wif.float() + params["b_if"]
     h = g.shape[-1] // 2
     return g[..., :h], g[..., h:]
 
@@ -84,21 +93,21 @@ def _mlstm_update(state, q, k, v, it, ft):
     return {"C": c, "n": n, "m": m_new}, hq / denom[..., None]
 
 
-def _mlstm_inputs(cfg: ArchConfig, params, x):
+def _mlstm_inputs(cfg: ArchConfig, params, x, tp=None):
     """q, k, v (B, L, H, P), the gates (B, L, H) and o (B, L, d), all f32."""
     b, L, d = x.shape
     h = cfg.num_heads
-    qkv = dense(x, params["w_qkv"]).float()
-    q, k, v = (t.reshape(b, L, h, d // h) for t in torch.split(qkv, d, dim=-1))
-    it, ft = _mlstm_gates(params, x)
-    o = torch.sigmoid(dense(x, params["w_o"]).float())
+    qkv, wif, wo = tplib.project(tp, x, params, ("w_qkv", "w_if", "w_o"))
+    q, k, v = (t.reshape(b, L, h, d // h) for t in torch.split(qkv.float(), d, dim=-1))
+    it, ft = _mlstm_gates(tplib.whole_leaves(tp, params, ("b_if",)), wif)
+    o = torch.sigmoid(wo.float())
     return (q, k, v, it, ft), o
 
 
-def _mlstm_out(cfg: ArchConfig, params, o, hs, dtype):
+def _mlstm_out(cfg: ArchConfig, params, o, hs, dtype, tp=None):
     y = (o * hs).to(dtype)
     y = rms_norm(y, params["norm_w"], cfg.norm_eps)
-    return dense(y, params["out_proj"])
+    return tplib.out_row(tp, y, params, "out_proj")
 
 
 def _scan(step_fn, state, xs, valid=None):
@@ -130,34 +139,36 @@ def _mlstm_step_fn(state, inp):
     return _mlstm_update(state, *inp)
 
 
-def mlstm_forward_with_state(cfg: ArchConfig, params, x, state=None, valid=None):
+def mlstm_forward_with_state(cfg: ArchConfig, params, x, state=None, valid=None,
+                             tp=None):
     """x: (B, L, d) -> (y (B, L, d), final state), from ``state`` (a fresh
     one if None), steps masked where ``valid`` (B, L) is False."""
     b, L, d = x.shape
-    xs, o = _mlstm_inputs(cfg, params, x)
+    xs, o = _mlstm_inputs(cfg, params, x, tp)
     if state is None:
         state = init_mlstm_state(cfg, b, device=x.device)
     state, hs = _scan(_mlstm_step_fn, state, xs, valid)
-    return _mlstm_out(cfg, params, o, hs.reshape(b, L, d), x.dtype), state
+    return _mlstm_out(cfg, params, o, hs.reshape(b, L, d), x.dtype, tp), state
 
 
-def mlstm_forward(cfg: ArchConfig, params, x):
+def mlstm_forward(cfg: ArchConfig, params, x, tp=None):
     """x: (B, L, d) -> (B, L, d)."""
-    return mlstm_forward_with_state(cfg, params, x)[0]
+    return mlstm_forward_with_state(cfg, params, x, tp=tp)[0]
 
 
-def mlstm_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active=None):
+def mlstm_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active=None,
+                        tp=None):
     """One prefill chunk resuming from each slot's saved (C, n, m). x: (B, C,
     d); chunk_len: (B,) valid tokens; active: (B,) bool. Returns (y (B, C,
     d), state'). Steps past chunk_len leave the state as it was."""
     b, c, _ = x.shape
     return mlstm_forward_with_state(cfg, params, x, state,
-                                    _valid(chunk_len, active, b, c, x.device))
+                                    _valid(chunk_len, active, b, c, x.device), tp)
 
 
-def mlstm_step(cfg: ArchConfig, params, state, x):
+def mlstm_step(cfg: ArchConfig, params, state, x, tp=None):
     """x: (B, d) -> (y (B, d), state')."""
-    y, state = mlstm_forward_with_state(cfg, params, x[:, None], state)
+    y, state = mlstm_forward_with_state(cfg, params, x[:, None], state, tp=tp)
     return y[:, 0], state
 
 
@@ -209,29 +220,32 @@ def _slstm_step_inner(cfg: ArchConfig, params, state, wx):
     return {"c": c, "n": n, "m": m_new, "h": h_t}, h_t
 
 
-def slstm_forward_with_state(cfg: ArchConfig, params, x, state=None, valid=None):
+def slstm_forward_with_state(cfg: ArchConfig, params, x, state=None, valid=None,
+                             tp=None):
     """x: (B, L, d) -> (y (B, L, d), final state), as the mLSTM form."""
     b, L, d = x.shape
-    wx = dense(x, params["w"])
+    (wx,) = tplib.project(tp, x, params, ("w",))
+    params = tplib.whole_leaves(tp, params, ("r",))
     if state is None:
         state = init_slstm_state(cfg, b, device=x.device)
     state, hs = _scan(lambda st, inp: _slstm_step_inner(cfg, params, st, inp[0]),
                       state, [wx], valid)
     y = rms_norm(hs.reshape(b, L, d).to(x.dtype), params["norm_w"], cfg.norm_eps)
-    return dense(y, params["out_proj"]), state
+    return tplib.out_row(tp, y, params, "out_proj"), state
 
 
-def slstm_forward(cfg: ArchConfig, params, x):
-    return slstm_forward_with_state(cfg, params, x)[0]
+def slstm_forward(cfg: ArchConfig, params, x, tp=None):
+    return slstm_forward_with_state(cfg, params, x, tp=tp)[0]
 
 
-def slstm_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active=None):
+def slstm_prefill_chunk(cfg: ArchConfig, params, state, x, *, chunk_len, active=None,
+                        tp=None):
     """As ``mlstm_prefill_chunk``, for the sLSTM state (c, n, m, h)."""
     b, c, _ = x.shape
     return slstm_forward_with_state(cfg, params, x, state,
-                                    _valid(chunk_len, active, b, c, x.device))
+                                    _valid(chunk_len, active, b, c, x.device), tp)
 
 
-def slstm_step(cfg: ArchConfig, params, state, x):
-    y, state = slstm_forward_with_state(cfg, params, x[:, None], state)
+def slstm_step(cfg: ArchConfig, params, state, x, tp=None):
+    y, state = slstm_forward_with_state(cfg, params, x[:, None], state, tp=tp)
     return y[:, 0], state

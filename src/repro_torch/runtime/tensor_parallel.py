@@ -35,8 +35,29 @@ attention on whole heads as the layout does, and splits its output for the
 row-cut ``wo``. SwiGLU is Megatron's pair: ``w_gate`` / ``w_up`` column-cut,
 ``w_down`` row-cut, one sum and no gather.
 
-The dense family only: MoE experts, mamba2 / xLSTM mixers and local:global
-stacks on a mesh wait for ROADMAP Queue 1 item 9d (``check_config``).
+The recurrent mixers take the same route (``project``, ``whole_leaves``,
+``out_row``): mamba2's ``w_z`` / ``w_x`` / ``w_B`` / ``w_C`` / ``w_dt`` and
+xLSTM's ``w_qkv`` / ``w_if`` / ``w_o`` / ``['w']`` are column-cut, and a
+column cut of a concatenated projection does not fall on its parts'
+boundaries (``w_if`` is [i | f]: at 'model' = 2 one rank holds every i
+gate, the other every f gate), so their outputs are gathered whole; the
+small leaves cut over 'model' (the convs' channels, ``b_if``, the sLSTM's
+recurrent ``['r']``) are gathered once a call, never inside a per-token
+loop; the mixer runs whole (mamba2's gated RMSNorm spans the whole inner
+dim) and ``out_proj`` is row-cut.
+
+A MoE layer (``experts``) is expert parallel: the expert dim E of
+``w_gate`` / ``w_up`` / ``w_down`` is cut over 'data' at serve (the
+reference keeps kimi-k2's experts resident so) and over 'model' in
+training, where their inner dims are FSDP over 'data' and gathered at use;
+E is never gathered. Each rank fills and runs only its experts' rows of
+the (E, cap, d) buffer, the serve rule's d over 'model' as a row product
+(``w_gate`` / ``w_up``) and a column product (``w_down``), and the buffer's
+outputs are gathered over E, so the combine runs in the unsharded order.
+Routing and capacity need the whole token set: where the activations are
+the rank's rows of the batch (``batch_cut``, the train step), the tokens
+are gathered over 'data' first and the rank's rows taken back after.
+
 """
 from __future__ import annotations
 
@@ -46,7 +67,6 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ATTN_LOCAL_GLOBAL, MIXER_ATTENTION
 from repro_torch.models.layers import dense
 from repro_torch.runtime import collectives as coll
 from repro_torch.runtime.sharding import _axes
@@ -56,40 +76,30 @@ MODEL, DATA = "model", "data"
 
 def check_config(cfg) -> None:
     """Raise for a config that the tensor-parallel paths do not serve or
-    train: a frontend stub (the GSPMD layouts' refusal), and the MoE,
-    recurrent and local:global families (item 9d)."""
+    train: a frontend stub (the GSPMD layouts' refusal). Every other family
+    runs on a mesh: dense, MoE, the recurrent mixers, local:global."""
     from repro_torch.core import layouts as layoutlib
 
     layoutlib.check_gspmd_config(cfg)
-    why = []
-    if cfg.moe.enabled:
-        why.append("a MoE stack (the experts' rules: E over 'data' at serve, over "
-                   "'model' in training)")
-    if any(m != MIXER_ATTENTION for m in cfg.mixer_pattern):
-        why.append(f"the recurrent mixers {sorted(set(cfg.mixer_pattern) - {MIXER_ATTENTION})} "
-                   f"(the mamba2 / xLSTM TP rules)")
-    if cfg.attn_pattern == ATTN_LOCAL_GLOBAL:
-        why.append("a local:global stack")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name} on a mesh: {'; '.join(why)} is not ported (ROADMAP Queue 1 "
-            f"item 9d); the dense family runs on a mesh, this one with mesh=None")
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """One rank's view of a placed parameter (sub)tree: ``specs`` is the
-    matching subtree of ``param_shardings``."""
+    matching subtree of ``param_shardings``. ``batch_cut``: the activations
+    are the rank's rows of the batch over 'data' (the sharded train step);
+    False where every rank holds the whole batch (lockstep serving)."""
 
     mesh: Any
     specs: Any
+    batch_cut: bool = False
 
     def at(self, *keys) -> "TensorParallel":
         """The view of a subtree (``tp.at("layers", i)``)."""
         s = self.specs
         for k in keys:
             s = s[k]
-        return TensorParallel(self.mesh, s)
+        return TensorParallel(self.mesh, s, self.batch_cut)
 
     def model_dim(self, key: str):
         """The dim of leaf ``key`` cut over 'model' (None: whole over it)."""
@@ -110,6 +120,13 @@ class TensorParallel:
                                      f"a dim cut over 'data' alone")
                 w = coll.fsdp_gather(w, self.mesh, d)
         return w, self.model_dim(key)
+
+    def whole(self, p, key: str):
+        """Leaf ``key`` whole on every rank: its 'data' cuts gathered (FSDP),
+        its 'model' cut gathered (backward, the rank's block of a gradient
+        that is the same on every 'model' rank)."""
+        w, d = self.use(p, key)
+        return w if d is None else coll.gather_cols(w, self.mesh, MODEL, d)
 
 
 def columns(tp, x, p, keys, biases=None, *, gather: bool):
@@ -152,6 +169,25 @@ def row(tp, x, p, key: str, *, x_block: bool = False):
     return coll.reduce_from(dense(x, w), tp.mesh)
 
 
+def project(tp, x, p, keys):
+    """``[dense(x, p[k]) for k in keys]``, whole; over a mesh (``tp``) each
+    a column product gathered."""
+    if tp is None:
+        return [dense(x, p[k]) for k in keys]
+    return columns(tp, x, p, keys, gather=True)[0]
+
+
+def whole_leaves(tp, p, keys):
+    """``p`` with the leaves ``keys`` whole (``TensorParallel.whole``): the
+    small leaves a mixer reads whole, gathered once a call."""
+    return p if tp is None else dict(p, **{k: tp.whole(p, k) for k in keys})
+
+
+def out_row(tp, y, p, key: str):
+    """``dense(y, p[key])`` of a whole ``y``; over a mesh the row product."""
+    return dense(y, p[key]) if tp is None else row(tp, y, p, key)
+
+
 def swiglu(tp, x, f):
     """The SwiGLU FFN ``f`` ({w_gate, w_up, w_down}): gate and up column-cut,
     down row-cut, one sum over 'model' and no gather."""
@@ -191,3 +227,85 @@ def logits(tp, params, x, tied: bool):
         raise ValueError(f"{key} cut over 'model' on the model dim; expected the vocabulary")
     y = coll.copy_to(x, tp.mesh).to(dt) @ w.to(dt)
     return coll.gather_cols(y, tp.mesh, MODEL, -1)
+
+
+def gather_rows(tp, x):
+    """The whole batch's rows of ``x`` (the rank's rows over 'data' where
+    ``tp.batch_cut``; backward, the rank's rows of the gradient), and the
+    function that takes the rank's rows back of a whole-batch result
+    (backward, zero elsewhere): the whole token set routes as one."""
+    if tp is None or not tp.batch_cut or tp.mesh.shape[DATA] == 1:
+        return x, lambda y: y
+    n = x.shape[0]
+    first = tp.mesh.coord(DATA) * n
+    return coll.gather_cols(x, tp.mesh, DATA, 0), lambda y: y.narrow(0, first, n)
+
+
+def _expert_axis(tp, keys) -> Any:
+    """The axis cutting the expert dim E of the leaves ``keys`` (one for
+    all of them), or None."""
+    axes = set()
+    for k in keys:
+        a = _axes(tp.specs[k][0])
+        if len(a) > 1:
+            raise ValueError(f"{k}: E cut over {a}; expected one axis")
+        axes.add(a[0] if a and tp.mesh.shape[a[0]] > 1 else None)
+    if len(axes) != 1:
+        raise ValueError(f"the experts' leaves {keys} cut E over {axes}")
+    return axes.pop()
+
+
+def _expert_leaf(tp, p, key):
+    """An expert leaf (E, d_in, d_out) as the product uses it: the rank's
+    experts, its 'data' cuts of d_in / d_out gathered (FSDP), and the dim
+    still cut over 'model' (1, 2 or None)."""
+    w = p[key]
+    model = None
+    for d, entry in enumerate(tp.specs[key]):
+        axes = _axes(entry)
+        if d == 0 or not axes:
+            continue
+        if len(axes) > 1:
+            raise ValueError(f"{key}: dim {d} is cut over {axes}")
+        if axes[0] == DATA:
+            w = coll.fsdp_gather(w, tp.mesh, d)
+        elif tp.mesh.shape[axes[0]] > 1:
+            model = d
+    return w, model
+
+
+def _expert_bmm(tp, x, p, key, dtype):
+    """``bmm(x, W)`` over the rank's experts: W's input dim cut over 'model'
+    as a row product (the rank's feature block of x, summed over 'model'),
+    its output dim as a column product (gathered)."""
+    w, d = _expert_leaf(tp, p, key)
+    w = w.to(dtype)
+    if d is None:
+        return torch.bmm(x, w)
+    if d == 1:
+        return coll.reduce_from(torch.bmm(coll.split(x, tp.mesh, MODEL, -1), w), tp.mesh)
+    return coll.gather_cols(torch.bmm(coll.copy_to(x, tp.mesh), w), tp.mesh, MODEL, -1)
+
+
+def experts(tp, x, src, fill, p):
+    """The experts' SwiGLU over the (E, cap, d) dispatch buffer of the
+    tokens ``x`` (T, d): slot (e, c) holds row ``src[e, c]`` of x where
+    ``fill[e, c]``, zeros elsewhere. Each rank builds and runs only its
+    experts' rows of the buffer (E cut over 'data' at serve, over 'model'
+    in training); the outputs are gathered over E: (E, cap, d), the same on
+    every rank. The tokens enter by ``copy_to`` over the expert axis (their
+    gradient summed over it: each rank's experts see their own entries)."""
+    keys = ("w_gate", "w_up", "w_down")
+    ax = _expert_axis(tp, keys)
+    e, cap = src.shape
+    if ax is not None:
+        n = tp.mesh.shape[ax]
+        lo = tp.mesh.coord(ax) * (e // n)
+        src, fill = src[lo:lo + e // n], fill[lo:lo + e // n]
+        x = coll.copy_to(x, tp.mesh, ax)
+    buf = x.index_select(0, src.reshape(-1)).view(src.shape[0], cap, x.shape[-1])
+    buf = torch.where(fill[..., None], buf, 0.0)
+    g = _expert_bmm(tp, buf, p, "w_gate", x.dtype)
+    u = _expert_bmm(tp, buf, p, "w_up", x.dtype)
+    y = _expert_bmm(tp, F.silu(g) * u, p, "w_down", x.dtype)
+    return y if ax is None else coll.gather_cols(y, tp.mesh, ax, 0)

@@ -138,16 +138,18 @@ def jit_train_step(cfg: ArchConfig, tcfg: TrainConfig, mesh, params, opt_state=N
     batch the global one ((B, S) tokens and labels, every rank the same; B
     = ``batch_size``), the metrics the whole step's, the same on every rank.
     ``params`` gives the whole leaves' shapes (the placements are read from
-    it); ``opt_state`` is not read. The dense family only (``tensor_parallel
-    .check_config``: item 9d); ``batch_size`` must divide by microbatches x
-    'data'."""
+    it); ``opt_state`` is not read. Every family but the frontend stubs
+    (``tensor_parallel.check_config``); ``batch_size`` must divide by
+    microbatches x 'data'. The activations are each rank's rows of the
+    batch (``TensorParallel.batch_cut``): a MoE layer gathers its tokens over
+    'data' to route them as one set."""
     del opt_state
     tplib.check_config(cfg)
     specs = train_shardings(cfg, mesh, params)
     if specs["opt"]["mu"] != specs["params"]:
         raise ValueError("the optimizer state and the parameters are placed apart")
     pspecs = specs["params"]
-    tp = tplib.TensorParallel(mesh, pspecs)
+    tp = tplib.TensorParallel(mesh, pspecs, batch_cut=True)
     n_data, mb = mesh.shape["data"], tcfg.microbatches
     if batch_size % (mb * n_data):
         raise ValueError(f"batch {batch_size} does not divide into {mb} microbatches "

@@ -15,6 +15,7 @@ the mesh's ranks. The parameters are the JAX package's tree as numpy
 arrays, bridged by ``models/convert.params_from_numpy``. The process
 writes its results, by mesh, to JOB.RANK. This module imports no JAX.
 """
+import dataclasses
 import os
 import pickle
 import sys
@@ -39,7 +40,12 @@ from repro_torch.runtime import train as train_rt  # noqa: E402
 
 
 def config(case):
+    """The case's reduced config; ``factor``, where given, the MoE's
+    capacity factor."""
     cfg = tconfigs.reduced(tconfigs.get_arch(case["arch"]), **dict(case["overrides"]))
+    if case.get("factor") is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=case["factor"]))
     return cfg
 
 

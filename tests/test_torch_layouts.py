@@ -710,9 +710,15 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
     outputs within 2e-5 and each block equal to its tile of the default's
     state. So too a full-cache layer's decode and chunk steps (H²EAL off,
     gemma3's window layer), the kv heads and rows cut; and a recurrent
-    block's chunk resume and decode step on the rank's rows: its state rows
-    equal to the default's, its outputs within 2e-5 (a projection over the
-    rank's rows may round otherwise than over the whole batch)."""
+    block's chunk resume and decode step on the rank's rows: its outputs
+    within 2e-5, its state rows equal bit for bit to the default body's
+    stepping the rank's rows alone, and within a bound derived from f32
+    rounding of the whole batch's (``_torch_mesh_worker._rows_bound``): a
+    projection over the rank's rows may round otherwise than over the whole
+    batch, on one CPU and not on another (one 8-core machine put a rank's
+    mamba2 state 2.98e-08 from the whole batch's after a decode step). The
+    pages, rings and full caches are copies of their inputs, so those hold
+    exactly."""
     for r in spawned(mesh):
         for name, res in r["results"].items():
             if name[1] != "steps" or name[0] == SHMAP:
@@ -720,9 +726,14 @@ def test_rank_blocks_match_the_default_body(spawned, mesh):
             for step in res["steps"] + [res[k] for k in ("chunk", "verify", "commit")
                                         if k in res]:
                 assert step["out"] <= TOL, (name, step)
+                bound = step.get("state_bound", {})
                 for field, diff in step["state"].items():
-                    tol = IMP_TOL if field.endswith("importance") else 0.0
-                    assert diff <= tol, (name, field, diff)
+                    tol = IMP_TOL if field.endswith("importance") else bound.get(field, 0.0)
+                    assert diff <= tol, (name, field, diff, tol)
+                for field, diff in step.get("state_rows", {}).items():
+                    assert diff == 0.0, (name, field, diff)
+                assert ("state_rows" in step) == (name[-2] in ("zamba2-2.7b", "xlstm-125m")
+                                                  and len(name) == 5), name
 
 
 def _serve(a, reqs, *, force_after=None, **kw):

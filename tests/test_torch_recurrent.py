@@ -249,6 +249,37 @@ def test_mamba2_matches_jax(hybrid):
         assert torch.equal(tst2[k][2], tst[k][2]), k
 
 
+def test_mamba2_gradient_finite_where_the_masked_decay_overflows():
+    """One SSD chunk of 256 tokens (zamba2-2.7b's own chunk is 256): above
+    the diagonal the log decay G_i - G_j reaches past f32's exp range, and
+    the reference's ``where(causal, exp(logw), 0)`` passes 0 * inf = NaN
+    to dt's leaves in the backward (ROADMAP Queue 3); the port masks the
+    exponent first. The forward equals the reference's within 1e-5 and
+    every gradient leaf of the port is finite, the reference's NaN on
+    ``w_dt``, ``A_log`` and ``dt_bias`` and within 1e-4 relative of the
+    port's on every other leaf."""
+    jcfg = jconfigs.reduced(jconfigs.get_arch("zamba2-2.7b"))
+    jcfg = dataclasses.replace(jcfg, ssm=dataclasses.replace(jcfg.ssm, chunk=256))
+    tcfg = tconfigs.reduced(tconfigs.get_arch("zamba2-2.7b"))
+    tcfg = dataclasses.replace(tcfg, ssm=dataclasses.replace(tcfg.ssm, chunk=256))
+    jp = jssm.init_mamba2(jax.random.PRNGKey(0), jcfg)
+    tp = {k: _t(v).requires_grad_(True) for k, v in jp.items()}
+    x = _x(jcfg, 1, 256, seed=4)
+    loss = lambda y: (y ** 2).sum()
+    jg = jax.grad(lambda p: loss(jssm.mamba2_forward(jcfg, p, jnp.asarray(x))))(jp)
+    ty = tssm.mamba2_forward(tcfg, tp, _t(x))
+    _close(ty, jssm.mamba2_forward(jcfg, jp, jnp.asarray(x)))
+    loss(ty).backward()
+    nan = {k for k, v in jg.items() if bool(jnp.isnan(v).any())}
+    assert nan == {"w_dt", "A_log", "dt_bias"}
+    for k, v in tp.items():
+        assert bool(torch.isfinite(v.grad).all()), k
+        if k not in nan:
+            np.testing.assert_allclose(v.grad.numpy(), np.asarray(jg[k]), rtol=1e-4,
+                                       atol=1e-4 * float(np.abs(np.asarray(jg[k])).max()),
+                                       err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM and sLSTM
 # ---------------------------------------------------------------------------

@@ -38,8 +38,9 @@ a module). The cases:
     the uninterrupted run's loss exactly; one crashed twice and resumed on
     one rank (the elastic restore) within 1e-5 relative.
 
-In this process: a one-rank mesh computes what no mesh does, bit for bit;
-the refusals citing item 9d; a batch that does not divide into
+In this process: a one-rank mesh computes what no mesh does, bit for bit,
+for the dense family and for the MoE, recurrent and local:global stacks;
+the frontend stub's refusal; a batch that does not divide into
 microbatches x 'data'.
 """
 import os
@@ -456,20 +457,44 @@ def test_one_rank_mesh_equals_no_mesh(spawned):
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "zamba2-2.7b", "xlstm-125m",
                                   "gemma3-1b", "internvl2-1b"])
 def test_mesh_refusals(arch):
-    """On a mesh, generate and the sharded step refuse the MoE, recurrent and
-    local:global stacks citing item 9d, and a frontend stub with the GSPMD
-    layouts' refusal; nothing is sent before the refusal."""
+    """On a mesh, generate and the sharded step refuse a frontend stub with
+    the GSPMD layouts' refusal, nothing sent before the refusal. The MoE,
+    recurrent and local:global stacks run on a mesh (ROADMAP item 9d): on a
+    one-rank mesh generate (default and head) and two sharded steps compute
+    what they do without a mesh, bit for bit (their meshes of 2 and 4 ranks:
+    ``tests/test_torch_tp_families.py``)."""
     cfg = tconfigs.reduced(tconfigs.get_arch(arch))
-    mesh = tmesh.Mesh(sizes=(1, 2), coords=(0, 1))
-    params = TM.init_params(cfg, generator=None, device="meta")
-    stub = cfg.embed_frontend_stub
-    err = ValueError if stub else NotImplementedError
-    match = STUB_ENGINE_REFUSAL[:40] if stub else "item 9d"
-    with pytest.raises(err, match=match):
-        tlaunch.generate(cfg, params, torch.zeros((2, 8), dtype=torch.long), gen=2,
-                         capacity=32, layout="head", mesh=mesh, device="cpu")
-    with pytest.raises(err, match=match):
-        ttrain.jit_train_step(cfg, ttrain.TrainConfig(), mesh, params, None, 4)
+    if cfg.embed_frontend_stub:
+        mesh = tmesh.Mesh(sizes=(1, 2), coords=(0, 1))
+        params = TM.init_params(cfg, generator=None, device="meta")
+        with pytest.raises(ValueError, match=STUB_ENGINE_REFUSAL[:40]):
+            tlaunch.generate(cfg, params, torch.zeros((2, 8), dtype=torch.long), gen=2,
+                             capacity=32, layout="head", mesh=mesh, device="cpu")
+        with pytest.raises(ValueError, match=STUB_ENGINE_REFUSAL[:40]):
+            ttrain.jit_train_step(cfg, ttrain.TrainConfig(), mesh, params, None, 4)
+        return
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(0, 512, (2, 24)))
+    want, ws = tlaunch.generate(cfg, params, prompts, gen=4, capacity=32, device="cpu")
+    tc = ttrain.TrainConfig(**TRAIN_KW["f32"])
+
+    def run(mesh):
+        for layout in ("default", "head"):
+            got, gs = tlaunch.generate(cfg, params, prompts, gen=4, capacity=32,
+                                       layout=layout, mesh=mesh, device="cpu")
+            assert torch.equal(got, want) and torch.equal(gs["last_logits"],
+                                                          ws["last_logits"]), layout
+        a = ttrain.make_train_step(cfg, tc)
+        b = ttrain.jit_train_step(cfg, tc, mesh, params, None, BATCH)
+        pa, oa = params, adamw.init_state(params)
+        pb, ob = ttrain.place_train_state(cfg, mesh, params, adamw.init_state(params))
+        for i in range(STEPS):
+            batch = lm_batch(i, batch=BATCH, seq=SEQ, vocab=cfg.vocab_size)
+            pa, oa, ma = a(pa, oa, batch, i)
+            pb, ob, mb = b(pb, ob, batch, i)
+            assert all(torch.equal(ma[k], mb[k]) for k in ma)
+            assert all(torch.equal(x, y) for x, y in zip(leaves(pa), leaves(pb)))
+    _one_rank(run)
 
 
 def test_batch_must_divide_microbatches_times_data():
